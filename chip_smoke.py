@@ -4,31 +4,46 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the CUDA
-   kernels from ``paddle_tpu_torch/kernels/csrc`` with nvcc.
-2. Kernel phases, at the serving path's shapes in bf16 (Hq 32, Hk 8,
-   D 128): each kernel's wrapper against its plain PyTorch version on the
-   same inputs, within a stated tolerance; its time (CUDA events, median of
-   30 launches), the plain version's time, one PyTorch library call's time
-   as a yardstick, and its bound (bytes at 3.35 TB/s or flops at
-   989 TFLOP/s, whichever is larger, from this run's inputs).
-3. Slice phase: Llama-3-8B at full width and depth, bf16, random weights
+   kernels from ``paddle_tpu_torch/kernels/csrc`` with nvcc, one process
+   per source, all at once.
+2. Kernel phases, in bf16: each kernel's wrapper against its plain PyTorch
+   version on the same inputs, within a stated tolerance; its time (CUDA
+   events, median of 30 launches), the plain version's time, one PyTorch
+   library call's time as a yardstick, and its bound (bytes at 3.35 TB/s
+   or flops at 989 TFLOP/s, whichever is larger, from this run's inputs).
+   The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
+   D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64); the flash
+   backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's and at Llama-3-8B's
+   (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels (B4, B6) at
+   the serving path's.
+3. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
    from a fixed generator, served by ``ContinuousBatchingEngine``:
    engine A (max_seq_len 2048: the split-KV decode route) and engine B
    (max_seq_len 240: the per-page route). Each engine's kernel launch
    counts are zeroed before it runs and must move by the expected amounts;
    a teacher-forced dense forward must agree with every generated token
    whose top-2 logit gap exceeds the bf16 tolerance.
-4. Prints one ``{"kernels": [...]}`` line and, last, the
+4. Training phase: GPT-2 medium at full width and depth (24 layers, hidden
+   1024, batch 8 x 1024), bf16 parameters with fp32 masters, AdamW 3e-4,
+   global-norm clip 1.0, driven by ``TrainStep`` on one fixed batch. A
+   gate holds one forward + backward on the kernel route against the plain
+   route (``FLAGS_flash_kernel=plain``); then 2 warm-up and 10 timed steps
+   (counts zeroed before, read after: B1, B2 and B3 must move by 24 per
+   step; the loss must stay finite and fall), and a profile of 2 steps.
+5. Prints one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
 Before the ``kernels`` line it prints the run's full record (every phase,
-both engines, the profile) as one ``record {...}`` JSON line.
+both engines, the training run, the profiles) as one ``record {...}`` JSON
+line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,6 +63,17 @@ DEVICE = "cuda"
 # (normalized), which moves O by a few ulps at most.
 O_ATOL = 3e-2
 LSE_ATOL = 2e-3
+# backward kernels: max |kernel - plain| / max |plain| (dK and dV sum over
+# the sequence; P and dS round to bf16 at slightly different points)
+BWD_RTOL = 2e-2
+# GPT-2 medium, the training phase's shapes
+GPT_B, GPT_S, GPT_H, GPT_D, GPT_LAYERS = 8, 1024, 16, 64, 24
+WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 2
+# kernel route vs plain route, one forward + backward of GPT-2 medium in
+# bf16: the two differ only in rounding inside attention
+GATE_LOSS_RTOL = 1e-2
+GATE_NORM_RTOL = 2e-2
+GATE_MIN_COSINE = 0.99
 # teacher-forced check: positions whose top-2 logit gap is below this are
 # too close to call in bf16 and are skipped
 GAP_TOL = 0.25
@@ -119,13 +145,13 @@ def sdpa_library(torch, q, k, v, **kw):
 # kernel phases
 # ---------------------------------------------------------------------------
 
-def flash_phase(torch, timer, S):
+def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_plain, flash_fwd_cuda)
-    g = torch.Generator(device=DEVICE).manual_seed(1000 + S)
-    mk = lambda h: torch.randn(1, S, h, D, generator=g, device=DEVICE,
+    g = torch.Generator(device=DEVICE).manual_seed(1000 + S + dh)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
                                dtype=torch.bfloat16)
-    q, k, v = mk(HQ), mk(HK), mk(HK)
+    q, k, v = mk(hq), mk(hk), mk(hk)
     o, lse = flash_fwd_cuda(q, k, v, causal=True)
     o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
                                            return_lse=True)
@@ -143,17 +169,99 @@ def flash_phase(torch, timer, S):
     pairs = S * (S + 1) // 2
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
         + lse.numel() * 4
-    bms, by = bound(nbytes, 4 * HQ * D * pairs)
-    rec = dict(S=S, max_abs_err=err_o, lse_err=err_l, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-               bound_by=by, ok=ok)
-    print(f"flash_fwd S={S}: err O {err_o:.3e} LSE {err_l:.3e} | "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-          f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    bms, by = bound(nbytes, 4 * B * hq * dh * pairs)
+    rec = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, max_abs_err=err_o,
+               lse_err=err_l, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bms, bound_by=by, ok=ok)
+    print(f"flash_fwd B={B} S={S} Hq={hq} Hk={hk} D={dh}: err O "
+          f"{err_o:.3e} LSE {err_l:.3e} | kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bms:.4f} ms "
+          f"({by})", flush=True)
     if not ok:
         fail(f"flash_fwd disagrees with its plain version at S={S}: "
              f"O {err_o} (atol {O_ATOL}), LSE {err_l} (atol {LSE_ATOL})")
     return rec
+
+
+def sdpa_backward_library(torch, q, k, v, do):
+    """The backward of one PyTorch SDPA call (causal) on [B, H, S, D]
+    views, through ``torch.autograd.grad``: the yardstick for B2 + B3
+    together (the port never calls it). KV is expanded for GQA where this
+    torch has no ``enable_gqa``."""
+    F = torch.nn.functional
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+    except TypeError:
+        g = q.shape[1] // k.shape[1]
+        out = F.scaled_dot_product_attention(
+            q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1),
+            is_causal=True)
+    return lambda: torch.autograd.grad(out, (q, k, v), do,
+                                       retain_graph=True)
+
+
+def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
+    """B2 and B3 against ``flash_attention_bwd_plain`` (causal), with the
+    forward's O and LSE from B1. Returns one record per kernel."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        flash_delta, flash_fwd_cuda)
+    g = torch.Generator(device=DEVICE).manual_seed(2000 + S + dh)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
+                               dtype=torch.bfloat16)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    o, lse = flash_fwd_cuda(q, k, v, causal=True)
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        diff = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        errs[name] = (diff, diff / max(scale, 1e-6),
+                      bool(torch.isfinite(out.float()).all()))
+    del refs
+    dq_ms = timer(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                            causal=True))
+    dkv_ms = timer(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                              causal=True))
+    plain_ms = timer(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                       causal=True),
+                     iters=20)
+    lib = sdpa_backward_library(torch, q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), do.transpose(1, 2))
+    library_ms = timer(lib, iters=20)
+    pairs = S * (S + 1) // 2
+    flop = 2 * B * hq * dh * pairs
+    qb = q.numel() * 2
+    kvb = k.numel() * 2
+    rows = lse.numel() * 4 * 2  # LSE and Delta
+    shape = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh)
+    recs = {}
+    for name, ms, n_products, nbytes, keys in (
+            ("flash_bwd_dq", dq_ms, 3, 3 * qb + 2 * kvb + rows, ("dq",)),
+            ("flash_bwd_dkv", dkv_ms, 4, 2 * qb + 4 * kvb + rows,
+             ("dk", "dv"))):
+        bms, by = bound(nbytes, n_products * flop)
+        abs_err = max(errs[k][0] for k in keys)
+        rel_err = max(errs[k][1] for k in keys)
+        ok = rel_err <= BWD_RTOL and all(errs[k][2] for k in keys)
+        recs[name] = dict(shape, max_abs_err=abs_err, rel_err=rel_err,
+                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bms, bound_by=by, ok=ok)
+        print(f"{name} B={B} S={S} Hq={hq} Hk={hk} D={dh}: err "
+              f"{abs_err:.3e} (rel {rel_err:.3e}) | kernel {ms:.4f} ms "
+              f"plain (whole backward) {plain_ms:.4f} ms sdpa backward "
+              f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with flash_attention_bwd_plain at "
+                 f"S={S} D={dh}: relative error {rel_err} (limit "
+                 f"{BWD_RTOL})")
+    return recs
 
 
 def decode_inputs(torch, B, mbps, lens, seed, bs=16):
@@ -214,7 +322,11 @@ def kernel_phases(torch):
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel)
     timer = Timer(torch)
-    flash = [flash_phase(torch, timer, S) for S in (1024, 304, 300)]
+    gpt_shape = dict(B=GPT_B, hq=GPT_H, hk=GPT_H, dh=GPT_D)
+    flash = [flash_phase(torch, timer, GPT_S, **gpt_shape)] + \
+        [flash_phase(torch, timer, S) for S in (1024, 304, 300)]
+    bwd = [flash_bwd_phase(torch, timer, GPT_B, GPT_S, GPT_H, GPT_H, GPT_D),
+           flash_bwd_phase(torch, timer, 1, 2048, HQ, HK, D)]
     page = decode_phase(torch, timer, "paged_decode",
                         paged_decode_attention_kernel, 8, 15,
                         [0, 1, 16, 17, 100, 161, 239, 240], seed=1)
@@ -222,8 +334,12 @@ def kernel_phases(torch):
     split = decode_phase(torch, timer, "paged_decode_split",
                          paged_decode_attention_chunked, 8, 128, lens,
                          seed=2)
-    return {"flash_fwd": flash, "paged_decode": [page],
-            "paged_decode_split": [split]}
+    del timer
+    torch.cuda.empty_cache()
+    return {"flash_fwd": flash,
+            "flash_bwd_dq": [r["flash_bwd_dq"] for r in bwd],
+            "flash_bwd_dkv": [r["flash_bwd_dkv"] for r in bwd],
+            "paged_decode": [page], "paged_decode_split": [split]}
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +348,13 @@ def kernel_phases(torch):
 
 def _counters():
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
-    from paddle_tpu_torch.kernels.flash_attention import flash_fwd_cuda
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel)
     return {"flash_fwd": flash_fwd_cuda,
+            "flash_bwd_dq": flash_bwd_dq_cuda,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda,
             "paged_decode": paged_decode_attention_kernel,
             "paged_decode_split": paged_decode_attention_chunked}, \
         ROUTE_COUNTS
@@ -367,12 +486,13 @@ def teacher_forced(torch, model, engine):
     return dict(checked=checked, total=total, gap_tol=GAP_TOL)
 
 
+# cuBLAS kernel-name fragments
+_MATMUL_GROUPS = tuple((key, "matmul") for key in
+                       ("nvjet", "gemm", "gemv", "cutlass", "xmma"))
 _KERNEL_GROUPS = (
     ("paged_decode", "decode attention (port)"),
     ("flash_fwd", "flash forward (port)"),
-    ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),
-    ("cutlass", "matmul"), ("xmma", "matmul"),
-)
+) + _MATMUL_GROUPS
 
 
 def profile_decode(torch, model, prompts, new_tokens, steps=4):
@@ -469,14 +589,19 @@ def slice_phase(torch):
     inst.restore()
     results["A"]["profile"] = profile_decode(torch, model, asked["A"], 8)
 
+    del inst, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
     a, b = results["A"], results["B"]
+    no_bwd = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     want = {
         "A": {"flash_fwd": a["prefills"] * LAYERS,
               "paged_decode_split": a["decode_steps"] * LAYERS,
-              "paged_decode": 0},
+              "paged_decode": 0, **no_bwd},
         "B": {"flash_fwd": b["prefills"] * LAYERS,
               "paged_decode": b["decode_steps"] * LAYERS,
-              "paged_decode_split": 0},
+              "paged_decode_split": 0, **no_bwd},
     }
     for name, exp in want.items():
         got = results[name]["launches"]
@@ -489,9 +614,192 @@ def slice_phase(torch):
     return results
 
 
+# ---------------------------------------------------------------------------
+# training phase: GPT-2 medium trained by TrainStep
+# ---------------------------------------------------------------------------
+
+def route_gate(torch, model, ids):
+    """One forward + backward on the kernel route and one on the plain
+    route (FLAGS_flash_kernel=plain), from the same weights and batch."""
+    from paddle_tpu_torch.core import set_flags
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    runs = {}
+    for mode in ("auto", "plain"):
+        set_flags({"FLAGS_flash_kernel": mode})
+        try:
+            model.zero_grad(set_to_none=True)
+            loss = model.loss(ids, ids)
+            loss.backward()
+            norm = ClipGradByGlobalNorm.global_norm(
+                [p.grad for p in model.parameters()]).item()
+            qkv = [blk.attn.qkv_proj.weight.grad.float().flatten()
+                   for blk in model.h]
+            runs[mode] = (loss.item(), norm, qkv)
+        finally:
+            set_flags({"FLAGS_flash_kernel": "auto"})
+            model.zero_grad(set_to_none=True)
+    (lk, nk, gk), (lp, np_, gp) = runs["auto"], runs["plain"]
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+           for a, b in zip(gk, gp)]
+    rec = dict(loss_kernel=lk, loss_plain=lp,
+               loss_rel_diff=abs(lk - lp) / abs(lp), grad_norm_kernel=nk,
+               grad_norm_plain=np_, grad_norm_rel_diff=abs(nk - np_) / np_,
+               qkv_grad_min_cosine=min(cos),
+               tolerances=dict(loss_rtol=GATE_LOSS_RTOL,
+                               norm_rtol=GATE_NORM_RTOL,
+                               min_cosine=GATE_MIN_COSINE))
+    print(f"route gate (kernel vs plain, one fwd+bwd): {json.dumps(rec)}",
+          flush=True)
+    if not (math.isfinite(lk) and math.isfinite(nk)):
+        fail("route gate: non-finite loss or grad norm on the kernel route")
+    if rec["loss_rel_diff"] > GATE_LOSS_RTOL or \
+            rec["grad_norm_rel_diff"] > GATE_NORM_RTOL or \
+            rec["qkv_grad_min_cosine"] < GATE_MIN_COSINE:
+        fail(f"route gate: the kernel route disagrees with the plain "
+             f"route: {rec}")
+    return rec
+
+
+_TRAIN_GROUPS = (
+    ("flash_fwd", "attention forward (port)"),
+    ("flash_bwd", "attention backward (port)"),
+) + _MATMUL_GROUPS
+_OTHER = "elementwise, norms, reductions, copies (fwd/bwd)"
+
+
+def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
+    """torch.profiler over ``steps`` train steps: device busy time per step
+    by kernel group, the optimizer's share (kernels launched inside its
+    ``record_function`` range: clip + update + write-back), kernel
+    launches per step and the idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    update = opt._update_all
+
+    def traced_update():
+        with record_function("optimizer"):
+            update()
+
+    opt._update_all = traced_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                step(ids)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        del opt._update_all
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    busy_us, n_kernels, groups, by_name = 0.0, 0, {}, {}
+    for e in events:
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.end - e.time_range.start
+        busy_us += us
+        n_kernels += 1
+        g = next((lab for key, lab in _TRAIN_GROUPS if key in e.name),
+                 _OTHER)
+        groups[g] = groups.get(g, 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    opt_us = sum(getattr(e, "device_time_total", 0.0) for e in events
+                 if e.device_type != cuda and e.name == "optimizer")
+    per_step = {g: us / 1e3 / steps for g, us in groups.items()}
+    if opt_us > 0:
+        per_step["optimizer (clip + AdamW + write-back)"] = \
+            opt_us / 1e3 / steps
+        per_step[_OTHER] = per_step.get(_OTHER, 0.0) - opt_us / 1e3 / steps
+    busy_ms = busy_us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    rec = dict(steps=steps, step_ms=wall_ms / steps,
+               device_busy_ms_per_step=busy_ms / steps,
+               idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
+               kernels_per_step=n_kernels / steps,
+               by_group_ms_per_step=per_step,
+               optimizer_measured=opt_us > 0,
+               top=[dict(name=n[:90], ms_per_step=us / 1e3 / steps)
+                    for n, us in top])
+    print(f"profile (GPT-2 medium, {steps} train steps): {json.dumps(rec)}",
+          flush=True)
+    if busy_ms == 0.0:
+        print("profile: the profiler saw no device time; busy share not "
+              "measured", flush=True)
+    return rec
+
+
+def train_phase(torch):
+    from paddle_tpu_torch import AdamW, GPT, GPTConfig, TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2_medium()
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads) != \
+            (GPT_LAYERS, GPT_H * GPT_D, GPT_H):
+        fail(f"GPTConfig.gpt2_medium() is not the shape this script "
+             f"times its kernels at: {cfg}")
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = GPT(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_S), device=DEVICE,
+                        generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"GPT-2 medium: {n_params / 1e6:.1f}M params bf16, built in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    gate = route_gate(torch, model, ids)
+
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, opt, lambda m, x: m.loss(x, x))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [step(ids) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches, _ = read_counts()
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    tok_s = GPT_B * GPT_S * TIMED_STEPS / secs
+    flops_tok = model.flops_per_token(GPT_S)
+    rec = dict(config="gpt2_medium", batch=GPT_B, seq=GPT_S, steps=steps,
+               losses=losses, step_ms=secs / TIMED_STEPS * 1e3,
+               tokens_per_s=tok_s, flops_per_token=flops_tok,
+               mfu=flops_tok * tok_s / BF16_FLOPS_PER_S,
+               peak_mem_gib=peak / 2**30, launches=launches, gate=gate)
+    shown = {k: v for k, v in rec.items() if k != "gate"}
+    print(f"train: {json.dumps(shown)}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall on a repeated batch: {losses}")
+    want = {"flash_fwd": GPT_LAYERS * steps,
+            "flash_bwd_dq": GPT_LAYERS * steps,
+            "flash_bwd_dkv": GPT_LAYERS * steps,
+            "paged_decode": 0, "paged_decode_split": 0}
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"train: {k} launched {launches[k]} times, expected {n}")
+    rec["profile"] = profile_train(torch, step, opt, ids)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 KERNELS = (
     ("flash_fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_bwd_dq", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
+    ("flash_bwd_dkv", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:408"),
     ("paged_decode", "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
      "paddle_tpu/kernels/pallas/paged_attention.py:133"),
     ("paged_decode_split",
@@ -529,11 +837,14 @@ def main():
 
     phases = kernel_phases(torch)
     served = slice_phase(torch)
+    trained = train_phase(torch)
 
     records = []
     for name, source, replaces in KERNELS:
+        # the first record of each kernel is at its main path's shape
         main_rec = phases[name][0]
-        launches = sum(served[e]["launches"][name] for e in served)
+        launches = sum(served[e]["launches"][name] for e in ("A", "B")) \
+            + trained["launches"][name]
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
@@ -544,7 +855,8 @@ def main():
             library_ms=main_rec["library_ms"]))
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
-        "phases": phases, "served": served}), flush=True)
+        "phases": phases, "served": served, "trained": trained}),
+        flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

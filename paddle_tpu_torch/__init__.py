@@ -1,18 +1,24 @@
 """PyTorch/CUDA port of paddle_tpu, slice by slice.
 
-This package holds the Llama serving path: continuous batching over a
-paged KV cache, with hand-written Hopper (sm_90a) CUDA kernels for the
-flash-attention forward and the paged-decode attention. Its layout follows
-``paddle_tpu`` (``core/``, ``nn/``, ``models/``, ``inference/``,
-``kernels/``) so each module's counterpart is found under the same path.
+This package holds the Llama serving path (continuous batching over a
+paged KV cache) and the GPT training path (``GPT`` trained by
+``jit.TrainStep`` with ``optimizer.AdamW`` and fp32 master weights), with
+hand-written Hopper (sm_90a) CUDA kernels for the flash-attention forward
+and backward and the paged-decode attention. Its layout follows
+``paddle_tpu`` (``core/``, ``nn/``, ``models/``, ``optimizer/``, ``jit/``,
+``inference/``, ``kernels/``) so each module's counterpart is found under
+the same path.
 
 It imports torch, numpy and the standard library only. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without an explicit device they raise.
 """
 
-from .models.llama import Llama, LlamaConfig
 from .inference.paged import ContinuousBatchingEngine, PagedKVCache
+from .jit import TrainStep
+from .models.gpt import GPT, GPTConfig
+from .models.llama import Llama, LlamaConfig
+from .optimizer import AdamW
 
-__all__ = ["Llama", "LlamaConfig", "ContinuousBatchingEngine",
-           "PagedKVCache"]
+__all__ = ["AdamW", "ContinuousBatchingEngine", "GPT", "GPTConfig", "Llama",
+           "LlamaConfig", "PagedKVCache", "TrainStep"]

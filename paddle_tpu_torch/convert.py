@@ -1,15 +1,16 @@
-"""Parameter conversion from the JAX package's Llama.
+"""Parameter conversion from the JAX package's Llama and GPT.
 
-``llama_params_from_numpy`` takes the JAX model's parameters as numpy
-arrays under their own names, e.g.
+``llama_params_from_numpy`` and ``gpt_params_from_numpy`` take the JAX
+model's parameters as numpy arrays under their own names, e.g.
 
     named = {n: np.asarray(p._data) for n, p in jax_llama.named_parameters()}
 
 and returns the port's ``state_dict``. Names are kept as they are. The one
 layout change: ``paddle_tpu``'s ``Linear.weight`` is [in, out], the port's
-is PyTorch's [out, in], so every Linear weight (``*_proj.weight`` and
-``lm_head.weight``) is transposed. Embedding and RMSNorm weights are copied
-as they are. A missing, extra or mis-shaped name raises.
+is PyTorch's [out, in], so every Linear weight (Llama's ``*_proj.weight``;
+GPT's ``qkv_proj``, ``out_proj``, ``fc_in``, ``fc_out``; ``lm_head``) is
+transposed. Biases, embeddings and norm weights are copied as they are. A
+missing, extra or mis-shaped name raises.
 """
 
 from __future__ import annotations
@@ -45,19 +46,15 @@ def expected_shapes(config):
     return shapes
 
 
-def llama_params_from_numpy(named, config, dtype=None):
-    """JAX-package Llama parameters (numpy, [in, out] Linear weights) ->
-    the port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
-    want = expected_shapes(config)
+def _convert(what, named, want, is_linear, dtype):
     missing = sorted(set(want) - set(named))
     extra = sorted(set(named) - set(want))
     if missing or extra:
-        raise ValueError(f"llama_params_from_numpy: missing {missing}, "
-                         f"unexpected {extra}")
+        raise ValueError(f"{what}: missing {missing}, unexpected {extra}")
     out = {}
     for name, arr in named.items():
         a = np.asarray(arr)
-        if _is_linear(name):
+        if is_linear(name):
             a = a.T
         if tuple(a.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(a.shape)} after "
@@ -65,3 +62,48 @@ def llama_params_from_numpy(named, config, dtype=None):
         t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
         out[name] = t.to(dtype) if dtype is not None else t
     return out
+
+
+def llama_params_from_numpy(named, config, dtype=None):
+    """JAX-package Llama parameters (numpy, [in, out] Linear weights) ->
+    the port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
+    return _convert("llama_params_from_numpy", named,
+                    expected_shapes(config), _is_linear, dtype)
+
+
+_GPT_LINEARS = ("qkv_proj", "out_proj", "fc_in", "fc_out")
+
+
+def _is_gpt_linear(name):
+    return name == "lm_head.weight" or (
+        name.endswith(".weight") and name.split(".")[-2] in _GPT_LINEARS)
+
+
+def gpt_expected_shapes(config):
+    """The port's GPT parameter names and shapes for ``config``."""
+    d, f, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    shapes = {"wte.weight": (v, d),
+              "wpe.weight": (config.max_position_embeddings, d),
+              "ln_f.weight": (d,), "ln_f.bias": (d,)}
+    if not config.tie_word_embeddings:
+        shapes["lm_head.weight"] = (v, d)
+    for n in range(config.num_layers):
+        p = f"h.{n}."
+        shapes.update({
+            p + "ln_1.weight": (d,), p + "ln_1.bias": (d,),
+            p + "attn.qkv_proj.weight": (3 * d, d),
+            p + "attn.qkv_proj.bias": (3 * d,),
+            p + "attn.out_proj.weight": (d, d),
+            p + "attn.out_proj.bias": (d,),
+            p + "ln_2.weight": (d,), p + "ln_2.bias": (d,),
+            p + "mlp.fc_in.weight": (f, d), p + "mlp.fc_in.bias": (f,),
+            p + "mlp.fc_out.weight": (d, f), p + "mlp.fc_out.bias": (d,),
+        })
+    return shapes
+
+
+def gpt_params_from_numpy(named, config, dtype=None):
+    """JAX-package GPT parameters (numpy, [in, out] Linear weights) -> the
+    port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
+    return _convert("gpt_params_from_numpy", named,
+                    gpt_expected_shapes(config), _is_gpt_linear, dtype)

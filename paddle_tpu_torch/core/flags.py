@@ -2,12 +2,19 @@
 
 Each flag has a default, may be overridden by an environment variable of
 the same name at import, and by ``set_flags`` at run time. Engines read
-them once, at construction.
+them once, at construction; attention reads ``FLAGS_flash_kernel`` at each
+call.
 
 - ``FLAGS_paged_kernel``: ``auto`` (default) launches the paged-decode
   CUDA kernels for CUDA tensors (their plain PyTorch version for CPU
   tensors); ``kernel`` is the same route named explicitly; ``dense`` forces
   the plain gather-then-attend version everywhere.
+- ``FLAGS_flash_kernel``: ``auto`` (default) sends CUDA tensors through the
+  flash forward/backward CUDA kernels and CPU tensors through their plain
+  PyTorch versions; ``plain`` sends CUDA tensors to the plain pair too.
+  The A/B switch of the JAX package's ``PADDLE_FLASH_FORCE``;
+  ``chip_smoke.py`` uses it to hold the whole model's kernel route against
+  the plain one.
 - ``FLAGS_kv_cache_dtype``: KV pool storage. Only ``""`` (pools in the
   compute dtype) exists in the port so far; the int8 tier is not ported.
 """
@@ -18,6 +25,7 @@ import os
 
 _DEFAULTS = {
     "FLAGS_paged_kernel": "auto",
+    "FLAGS_flash_kernel": "auto",
     "FLAGS_kv_cache_dtype": "",
 }
 

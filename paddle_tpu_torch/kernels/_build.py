@@ -23,17 +23,27 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("flash_fwd", "paged_decode", "paged_decode_split")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_split")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C entry points: every pointer and the stream as c_void_p, ints as c_int;
 # each returns its cudaError_t as an int
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, o, lse, B, Sq, Sk, Hq, Hk, D, causal, scale, stream
-        "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
+        # q, k, v, o, lse, B, Sq, Sk, Hq, Hk, D, causal, scale,
+        # (batch, seq, head) strides of q, k, v, stream
+        "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
+    },
+    "flash_bwd": {
+        # q, k, v, do, lse, delta, dq, B, Sq, Sk, Hq, Hk, D, causal, scale,
+        # (batch, seq, head) strides of q, k, v, do, stream
+        "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 7 + [_F] + [_L] * 12 + [_P],
+        # q, k, v, do, lse, delta, dk, dv, then as above
+        "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_F] + [_L] * 12
+        + [_P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lens, out, B, Hq, Hk, D, bs, mbps,

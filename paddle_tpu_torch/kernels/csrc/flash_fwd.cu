@@ -1,14 +1,15 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, f32 softmax.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
-// (paddle_tpu/kernels/pallas/flash_attention.py:281), forward only: serving
-// needs no gradient.
+// (paddle_tpu/kernels/pallas/flash_attention.py:281). Its LSE output is what
+// the backward kernels (flash_bwd.cu) recompute P from.
 //
 // Computes O = softmax(Q K^T * scale + mask) V on the Paddle layout
-// q [B, Sq, Hq, D], k/v [B, Sk, Hk, D] (bf16, contiguous), writing
-// O [B, Sq, Hq, D] bf16 and LSE [B, Hq, Sq] f32. Causal masking is
-// bottom-right aligned (query i sees keys j <= i + Sk - Sq); a fully masked
-// row gives O = 0 and LSE = +1e30. D is 64 or 128.
+// q [B, Sq, Hq, D], k/v [B, Sk, Hk, D] (bf16, read through their batch,
+// sequence and head strides; the head dim is contiguous), writing
+// O [B, Sq, Hq, D] bf16 and LSE [B, Hq, Sq] f32, both contiguous. Causal
+// masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq); a
+// fully masked row gives O = 0 and LSE = +1e30. D is 64 or 128.
 //
 // What bounds it on this card: at prefill lengths (S in the hundreds to
 // thousands) the work is the two matrix products, 4 * S^2/2 * D flops per
@@ -32,40 +33,11 @@
 //   on the host.
 // - Simple first: no cp.async pipelining, no wgmma/TMA yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;     // folded (position, head) rows per CTA
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128; // 4 warps x 16 rows
-constexpr float kNeg = -1e30f;
-constexpr float kBig = 1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+using namespace flash;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -74,7 +46,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hk, int causal,
-                 float scale_log2) {
+                 float scale_log2, Strides qs, Strides ks, Strides vs) {
   constexpr int kStride = D + 8;  // padded smem row: conflict-free reads
   constexpr int kKC = D / 16;     // k-chunks of the QK^T product
   constexpr int kDT = D / 8;      // n-tiles of the PV product
@@ -114,9 +86,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int col = kc * 16 + tig * 2 + ((reg >> 1) << 3);
       uint32_t val = 0;
       if (live[i]) {
-        const size_t idx =
-            ((static_cast<size_t>(b) * Sq + pos[i]) * Hq + head[i]) * D + col;
-        val = *reinterpret_cast<const uint32_t*>(q + idx);
+        val = *reinterpret_cast<const uint32_t*>(
+            q + qs.at(b, pos[i], head[i]) + col);
       }
       qf[kc][reg] = val;
     }
@@ -143,10 +114,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int key = t0 + row;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (key < Sk) {
-        const size_t g =
-            ((static_cast<size_t>(b) * Sk + key) * Hk + kvh) * D + c;
-        kv4 = *reinterpret_cast<const uint4*>(k + g);
-        vv4 = *reinterpret_cast<const uint4*>(v + g);
+        kv4 = *reinterpret_cast<const uint4*>(k + ks.at(b, key, kvh) + c);
+        vv4 = *reinterpret_cast<const uint4*>(v + vs.at(b, key, kvh) + c);
       }
       *reinterpret_cast<uint4*>(sK + row * kStride + c) = kv4;
       *reinterpret_cast<uint4*>(sV + row * kStride + c) = vv4;
@@ -256,6 +225,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int Sq, int Sk,
                               int Hq, int Hk, int D, int causal, float scale,
+                              long long qsb, long long qss, long long qsh,
+                              long long ksb, long long kss, long long ksh,
+                              long long vsb, long long vss, long long vsh,
                               void* stream) {
   if (Hk <= 0 || Hq % Hk != 0 || kRows % (Hq / Hk) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -268,13 +240,14 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   const auto* vv = static_cast<const __nv_bfloat16*>(v);
   auto* oo = static_cast<__nv_bfloat16*>(o);
   auto* ll = static_cast<float*>(lse);
+  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   if (D == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, s>>>(qq, kk, vv, oo, ll, Sq,
-                                                   Sk, Hq, Hk, causal, sl2);
+    flash_fwd_kernel<128><<<grid, kThreads, 0, s>>>(
+        qq, kk, vv, oo, ll, Sq, Sk, Hq, Hk, causal, sl2, qs, ks, vs);
   } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, s>>>(qq, kk, vv, oo, ll, Sq,
-                                                  Sk, Hq, Hk, causal, sl2);
+    flash_fwd_kernel<64><<<grid, kThreads, 0, s>>>(
+        qq, kk, vv, oo, ll, Sq, Sk, Hq, Hk, causal, sl2, qs, ks, vs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

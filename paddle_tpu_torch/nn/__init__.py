@@ -1,4 +1,7 @@
 from . import functional
-from .layers import Embedding, Linear, RMSNorm
+from .clip import ClipGradByGlobalNorm
+from .fused_ce import fused_linear_cross_entropy
+from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "Embedding", "Linear", "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
+           "LayerNorm", "Linear", "RMSNorm", "fused_linear_cross_entropy"]

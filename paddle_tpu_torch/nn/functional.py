@@ -25,7 +25,53 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out.to(x.dtype)
 
 
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` dims: mean and
+    biased variance in float32, output cast back to ``x.dtype``
+    (``paddle_tpu/nn/functional/common.py:113``)."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    xf = x.float()
+    mean = xf.mean(dims, keepdim=True)
+    var = (xf - mean).square().mean(dims, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
 def swiglu(gate, up):
     """silu(gate) * up (``paddle_tpu/nn/functional/activation.py:178``)."""
     return F.silu(gate) * up
 
+
+def gelu(x, approximate=False):
+    """GELU; ``approximate=True`` is the tanh form of ``jax.nn.gelu``,
+    the one GPT uses (``paddle_tpu/nn/functional/activation.py:28``)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Dropout in ``upscale_in_train`` mode, its mask drawn from
+    ``generator`` (``paddle_tpu/nn/functional/common.py:66``): kept
+    entries are scaled by 1/(1-p) in training; the identity in eval."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, device=x.device, generator=generator) \
+        < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x)).to(x.dtype)
+
+
+def cross_entropy(logits, label, ignore_index=-100):
+    """Hard-label softmax cross entropy over the last axis, in float32,
+    averaged over the labels != ``ignore_index`` (at least 1)
+    (``paddle_tpu/nn/functional/loss.py:34``)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = label != ignore_index
+    safe = torch.where(valid, label, torch.zeros_like(label)).long()
+    nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp_min(1).float()

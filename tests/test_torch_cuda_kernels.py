@@ -9,21 +9,28 @@ without them. On the card, run them with
 serving the port need not have.)
 
 bf16 inputs; atol 3e-2 (a few bf16 ulps at |O| < 4: the kernels round the
-unnormalized P to bf16, the plain versions the normalized P).
+unnormalized P to bf16, the plain versions the normalized P). The backward
+kernels are compared relatively, max |kernel - plain| / max |plain| <=
+2e-2: dK and dV sum over the whole sequence, and where P or dS sits at a
+bf16 rounding boundary the two round differently.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels.flash_attention import (flash_attention_plain,
-                                                      flash_fwd_cuda)
+from paddle_tpu_torch.core import set_flags
+from paddle_tpu_torch.kernels.flash_attention import (
+    flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
+    scaled_dot_product_attention)
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
     paged_decode_attention_kernel)
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-2
+BWD_RTOL = 2e-2
 
 
 @pytest.fixture
@@ -91,3 +98,60 @@ def test_paged_decode_matches_plain(dev, wrapper, B, Hq, Hk, D, mbps, lens):
     for i, n in enumerate(lens):
         if n == 0:
             assert out[i].abs().max().item() == 0.0
+
+
+def _rel_err(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() /
+            ref.abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal", [
+    (1, 64, 64, 4, 4, 64, True),
+    (2, 100, 100, 8, 2, 128, True),
+    (1, 37, 200, 8, 2, 128, True),     # Sq < Sk: bottom-right causal
+    (1, 37, 200, 8, 2, 64, False),
+    (2, 200, 37, 4, 1, 64, True),      # Sq > Sk: fully masked rows
+    (1, 130, 130, 64, 1, 64, True),    # G = 64: one position per CTA
+])
+def test_flash_bwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
+    q = _randn(dev, B, Sq, Hq, D, seed=1)
+    k = _randn(dev, B, Sk, Hk, D, seed=2)
+    v = _randn(dev, B, Sk, Hk, D, seed=3)
+    do = _randn(dev, B, Sq, Hq, D, seed=4)
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    delta = flash_delta(o, do)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert bool(torch.isfinite(out.float()).all()), name
+        assert _rel_err(out, ref) <= BWD_RTOL, name
+    if causal and Sq > Sk:  # rows that see no key get exactly zero
+        assert dq[:, :Sq - Sk].abs().max().item() == 0.0
+
+
+def test_flash_autograd_on_strided_views_matches_plain_route(dev):
+    """GPT's layout: q/k/v are views of one [b, s, 3, H, D] projection,
+    read in place by the kernels; the kernel route's gradient of the fused
+    projection agrees with the plain route's (FLAGS_flash_kernel=plain)."""
+    b, s, h, d = 2, 300, 4, 64
+    qkv = _randn(dev, b, s, 3, h, d, seed=7)
+    do = _randn(dev, b, s, h, d, seed=8)
+    grads = {}
+    for mode in ("auto", "plain"):
+        set_flags({"FLAGS_flash_kernel": mode})
+        try:
+            t = qkv.clone().requires_grad_()
+            q, k, v = t.unbind(2)
+            scaled_dot_product_attention(q, k, v, is_causal=True).backward(
+                do)
+            grads[mode] = t.grad
+        finally:
+            set_flags({"FLAGS_flash_kernel": "auto"})
+    torch.cuda.synchronize()
+    assert _rel_err(grads["auto"], grads["plain"]) <= BWD_RTOL

@@ -10,7 +10,7 @@ import textwrap
 import pytest
 import torch
 
-from paddle_tpu_torch import Llama, LlamaConfig
+from paddle_tpu_torch import GPT, GPTConfig, Llama, LlamaConfig
 from paddle_tpu_torch.core import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,19 +32,24 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                   if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
+        for sub in ("optimizer", "jit", "models.gpt", "nn.fused_ce",
+                    "nn.clip"):
+            assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 12
+    assert int(r.stdout.strip()) >= 20
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Llama(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPT(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
