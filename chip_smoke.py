@@ -14,15 +14,24 @@
    The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
    D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64); the flash
    backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's and at Llama-3-8B's
-   (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels (B4, B6) at
-   the serving path's.
+   (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels at the
+   serving path's, over bf16 pools (B4, B6) and int8 pools (B5, B6q); the
+   int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
+   projection shapes and at the longest prefill (M 1008), with its sum
+   over one decode step's 225 launches against the weight-read bound.
 3. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
    from a fixed generator, served by ``ContinuousBatchingEngine``:
    engine A (max_seq_len 2048: the split-KV decode route) and engine B
-   (max_seq_len 240: the per-page route). Each engine's kernel launch
-   counts are zeroed before it runs and must move by the expected amounts;
-   a teacher-forced dense forward must agree with every generated token
-   whose top-2 logit gap exceeds the bf16 tolerance.
+   (max_seq_len 240: the per-page route), then a profile of A's decode.
+   Then the same model is converted in place to int8 weights by the port's
+   ``QAT`` and served with an int8 KV cache by engines A8 and B8 (A's and
+   B's prompts, routes and token counts), and A8's decode is profiled.
+   Each engine's kernel launch counts are zeroed before it runs and must
+   move by exactly the expected amounts; a teacher-forced dense forward of
+   the model as served (bf16, or int8 weights through B7's plain version
+   and attention over int8-rounded K/V for the decoded positions) must
+   agree with every generated token whose top-2 logit gap exceeds the bf16
+   tolerance.
 4. Training phase: GPT-2 medium at full width and depth (24 layers, hidden
    1024, batch 8 x 1024), bf16 parameters with fp32 masters, AdamW 3e-4,
    global-norm clip 1.0, driven by ``TrainStep`` on one fixed batch. A
@@ -35,7 +44,7 @@
    it. Without a GPU, or without the package beside this file, it exits 2.
 
 Before the ``kernels`` line it prints the run's full record (every phase,
-both engines, the training run, the profiles) as one ``record {...}`` JSON
+every engine, the training run, the profiles) as one ``record {...}`` JSON
 line.
 """
 
@@ -63,6 +72,14 @@ DEVICE = "cuda"
 # (normalized), which moves O by a few ulps at most.
 O_ATOL = 3e-2
 LSE_ATOL = 2e-3
+# paged decode (B4-B6q): within O_ATOL, and per slot max |kernel - plain|
+# / max |plain| within DECODE_RTOL. A slot's |O| falls as its length grows
+# (~0.15 at 2048 tokens against ~3 at 1), so the absolute limit is loose
+# for long slots. One bf16 ulp is at most 2^-7 of the value it rounds, so
+# 2e-2 allows two and a half ulps at the slot's largest value; a slot
+# missing one staged chunk of keys moves by ~0.3 of it, and the phase
+# checks that on every run.
+DECODE_RTOL = 2e-2
 # backward kernels: max |kernel - plain| / max |plain| (dK and dV sum over
 # the sequence; P and dS round to bf16 at slightly different points)
 BWD_RTOL = 2e-2
@@ -78,6 +95,19 @@ GATE_MIN_COSINE = 0.99
 # too close to call in bf16 and are skipped
 GAP_TOL = 0.25
 MIN_CHECKED_SHARE = 0.10
+# int8 weight matmul (B7): max |kernel - plain| / max |plain|. The kernel
+# multiplies the channel scale after the f32 sum, the plain version before
+# it; the two differ by f32 rounding, then by one bf16 rounding of y.
+QMM_RTOL = 1e-2
+# Llama-3-8B's converted layers at decode (M = 8 slot rows): (N, K) and
+# launches per decode step. The first is the kernel's record shape.
+QMM_DECODE = (((14336, 4096), 64),   # gate_proj, up_proj x 32 layers
+              ((4096, 4096), 64),    # q_proj, o_proj
+              ((1024, 4096), 64),    # k_proj, v_proj
+              ((4096, 14336), 32),   # down_proj
+              ((128256, 4096), 1))   # lm_head
+QMM_PREFILL_M = 1008                 # the longest padded prompt
+QMM_PER_FORWARD = 7 * LAYERS + 1     # B7 launches per prefill or decode step
 
 
 def fail(msg, code=1):
@@ -102,11 +132,13 @@ def bound(nbytes, flops):
 
 class Timer:
     """Median per-launch time with CUDA events; optionally evicts the
-    50 MB L2 before each launch (decode reads a cold cache per layer)."""
+    50 MB L2 before each launch (decode reads a cold cache per layer) by
+    reading a 64 MB buffer, which leaves the L2 full of clean lines, as the
+    serving path does (it reads weights and writes little)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+        self.flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
 
     def __call__(self, fn, iters=30, warmup=3, cold=False):
         torch = self.torch
@@ -117,7 +149,7 @@ class Timer:
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for s, e in ev:
             if cold:
-                self.flush.zero_()
+                self.flush.sum()
             s.record()
             fn()
             e.record()
@@ -281,65 +313,178 @@ def decode_inputs(torch, B, mbps, lens, seed, bs=16):
             torch.as_tensor(np.asarray(lens, np.int32), device=DEVICE))
 
 
-def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed):
+def slot_rel_err(out, ref):
+    """Per slot: max |out - ref| / max |ref|. A slot with no keys has
+    ref == 0: a zero output there reads 0, any other output a huge error
+    (non-finite outputs are checked apart)."""
+    diff = (out.float() - ref.float()).flatten(1).abs().amax(1)
+    scale = ref.float().flatten(1).abs().amax(1)
+    return (diff / scale).nan_to_num(nan=0.0).max().item()
+
+
+def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
+                 quantized=False, drop_pages=1):
+    """One paged-decode kernel against ``paged_decode_attention_dense``;
+    with ``quantized`` the pools are int8 rows with float32 scales
+    (``quantize_rows`` of the same bf16 pools), and the library yardstick
+    is SDPA over the gathered KV dequantized outside the timed call. The
+    check must see ``drop_pages`` pages (one staged chunk of the split
+    kernel) go missing: the plain version over the longest slot cut short
+    by that many pages has to fail it."""
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_dense)
+    from paddle_tpu_torch.quantization import quantize_rows
     q, kp, vp, tbl, sl = decode_inputs(torch, B, mbps, lens, seed)
-    out = wrapper(q, kp, vp, tbl, sl)
-    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    out = wrapper(q, kp, vp, tbl, sl, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    cut = sl.clone()
+    cut[int(np.argmax(lens))] -= drop_pages * kp.shape[1]
+    missing = slot_rel_err(
+        paged_decode_attention_dense(q, kp, vp, tbl, cut, **scales), ref)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    zero_ok = all(out[i].abs().max().item() == 0.0
-                  for i in range(B) if lens[i] == 0)
-    ok = err <= O_ATOL and zero_ok and bool(torch.isfinite(out.float()).all())
-    ms = timer(lambda: wrapper(q, kp, vp, tbl, sl), cold=True)
-    plain_ms = timer(lambda: paged_decode_attention_dense(q, kp, vp, tbl, sl),
-                     cold=True)
+    rel = slot_rel_err(out, ref)
+    ok = rel <= DECODE_RTOL and err <= O_ATOL and \
+        bool(torch.isfinite(out.float()).all())
+    if missing <= DECODE_RTOL:
+        fail(f"{name}: the check cannot see {drop_pages} missing pages "
+             f"({missing} <= {DECODE_RTOL})")
+    ms = timer(lambda: wrapper(q, kp, vp, tbl, sl, **scales), cold=True)
+    plain_ms = timer(lambda: paged_decode_attention_dense(
+        q, kp, vp, tbl, sl, **scales), cold=True)
     bs = kp.shape[1]
-    kg = kp[tbl.long()].reshape(B, mbps * bs, HK, D).transpose(1, 2)
-    vg = vp[tbl.long()].reshape(B, mbps * bs, HK, D).transpose(1, 2)
+    idx = tbl.long()
+
+    def gathered(pool, scale):
+        g = pool[idx]
+        if scale is not None:
+            g = (g.float() * scale[idx][..., None]).to(torch.bfloat16)
+        return g.reshape(B, mbps * bs, HK, D).transpose(1, 2)
+
+    kg = gathered(kp, scales.get("k_scale"))
+    vg = gathered(vp, scales.get("v_scale"))
     mask = (torch.arange(mbps * bs, device=DEVICE)[None, :]
             < sl[:, None])[:, None, None, :]
     lib = sdpa_library(torch, q[:, :, None, :], kg, vg, attn_mask=mask)
     library_ms = timer(lib, cold=True)
     total = int(np.sum(lens))
-    nbytes = 2 * q.numel() * 2 + total * HK * D * 2 * 2 \
+    row_bytes = D + 4 if quantized else D * 2  # int8 row + its f32 scale
+    nbytes = 2 * q.numel() * 2 + total * HK * row_bytes * 2 \
         + tbl.numel() * 4 + sl.numel() * 4
     bms, by = bound(nbytes, 4 * HQ * D * total)
-    rec = dict(B=B, mbps=mbps, lens=[int(x) for x in lens], max_abs_err=err,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bms, bound_by=by, ok=ok)
-    print(f"{name} B={B} pages={mbps} lens={list(map(int, lens))}: err "
-          f"{err:.3e} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-          f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    rec = dict(B=B, mbps=mbps, lens=[int(x) for x in lens],
+               pools="int8" if quantized else "bf16", max_abs_err=err,
+               slot_rel_err=rel, missing_pages=drop_pages,
+               missing_pages_rel_err=missing, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bms, bound_by=by, ok=ok)
+    print(f"{name} B={B} pages={mbps} lens={list(map(int, lens))} "
+          f"pools={rec['pools']}: err {err:.3e} (slot rel {rel:.3e}; "
+          f"{drop_pages} pages missing: {missing:.3e}) | kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
+          f"{bms:.4f} ms ({by})", flush=True)
     if not ok:
-        fail(f"{name} disagrees with its plain version: {err} (atol "
-             f"{O_ATOL}), empty slots zero: {zero_ok}")
+        fail(f"{name} disagrees with its plain version: slot relative "
+             f"error {rel} (limit {DECODE_RTOL}), absolute {err} (limit "
+             f"{O_ATOL})")
+    return rec
+
+
+def qmm_phase(torch, timer, M, N, K, seed):
+    """B7 against ``quant_matmul_plain`` on x [M, K] bf16 and a weight
+    [N, K] quantized by the port's own ``_quantize_weight`` (bf16 scales,
+    handed to the kernel in float32, as ``ConvertedInt8Linear`` does).
+    Error: max |kernel - plain| / max |plain|. Library yardstick:
+    ``F.linear`` on a bf16 copy of w * s made outside the timed call -- the
+    same product, reading twice the weight bytes. Cold L2: at decode every
+    weight is read once per step, far more than the 50 MB L2 holds."""
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_plain)
+    from paddle_tpu_torch.quantization import _quantize_weight
+    F = torch.nn.functional
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=DEVICE, dtype=torch.bfloat16)
+    w, s = _quantize_weight(
+        torch.randn(N, K, generator=g, device=DEVICE,
+                    dtype=torch.bfloat16) * 0.02, 0)
+    s = s.float()
+    out = quant_matmul(x, w, s)
+    ref = quant_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs().max().item()
+    rel = diff / max(ref.float().abs().max().item(), 1e-6)
+    ok = rel <= QMM_RTOL and bool(torch.isfinite(out.float()).all()) and \
+        out.shape == (M, N)
+    del out, ref
+    ms = timer(lambda: quant_matmul(x, w, s), cold=True)
+    plain_ms = timer(lambda: quant_matmul_plain(x, w, s), cold=True,
+                     iters=10)
+    wb = (w.float() * s[:, None]).to(torch.bfloat16)
+    library_ms = timer(lambda: F.linear(x, wb), cold=True)
+    del wb
+    nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
+    bms, by = bound(nbytes, 2 * M * N * K)
+    rec = dict(M=M, N=N, K=K, max_abs_err=diff, rel_err=rel, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="F.linear on a bf16 copy of w*s (2x the weight bytes)",
+               bound_ms=bms, bound_by=by, ok=ok)
+    print(f"quant_matmul M={M} N={N} K={K}: err {diff:.3e} (rel "
+          f"{rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"F.linear bf16 {library_ms:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
+    if not ok:
+        fail(f"quant_matmul disagrees with quant_matmul_plain at M={M} "
+             f"N={N} K={K}: relative error {rel} (limit {QMM_RTOL})")
     return rec
 
 
 def kernel_phases(torch):
     from paddle_tpu_torch.kernels.paged_attention import (
-        paged_decode_attention_chunked, paged_decode_attention_kernel)
+        paged_decode_attention_chunked, paged_decode_attention_kernel,
+        pick_chunk_pages)
     timer = Timer(torch)
     gpt_shape = dict(B=GPT_B, hq=GPT_H, hk=GPT_H, dh=GPT_D)
     flash = [flash_phase(torch, timer, GPT_S, **gpt_shape)] + \
         [flash_phase(torch, timer, S) for S in (1024, 304, 300)]
     bwd = [flash_bwd_phase(torch, timer, GPT_B, GPT_S, GPT_H, GPT_H, GPT_D),
            flash_bwd_phase(torch, timer, 1, 2048, HQ, HK, D)]
-    page = decode_phase(torch, timer, "paged_decode",
-                        paged_decode_attention_kernel, 8, 15,
-                        [0, 1, 16, 17, 100, 161, 239, 240], seed=1)
+    short = [0, 1, 16, 17, 100, 161, 239, 240]
     lens = np.linspace(1, 2048, 8).astype(np.int64)
-    split = decode_phase(torch, timer, "paged_decode_split",
-                         paged_decode_attention_chunked, 8, 128, lens,
-                         seed=2)
+    decode = {}
+    for quantized, suffix in ((False, ""), (True, "_q")):
+        decode["paged_decode" + suffix] = [decode_phase(
+            torch, timer, "paged_decode" + suffix,
+            paged_decode_attention_kernel, 8, 15, short, seed=1,
+            quantized=quantized)]
+        decode["paged_decode_split" + suffix] = [decode_phase(
+            torch, timer, "paged_decode_split" + suffix,
+            paged_decode_attention_chunked, 8, 128, lens, seed=2,
+            quantized=quantized, drop_pages=pick_chunk_pages(
+                128, 16, D, 1 if quantized else 2, quantized))]
+    qmm = [qmm_phase(torch, timer, 8, n, k, seed=3000 + i)
+           for i, ((n, k), _) in enumerate(QMM_DECODE)]
+    step_ms = sum(r["ms"] * per for r, (_, per) in zip(qmm, QMM_DECODE))
+    step_bound = sum(r["bound_ms"] * per
+                     for r, (_, per) in zip(qmm, QMM_DECODE))
+    step_lib = sum(r["library_ms"] * per
+                   for r, (_, per) in zip(qmm, QMM_DECODE))
+    print(f"quant_matmul per decode step (M 8, 225 launches): kernel "
+          f"{step_ms:.4f} ms, weight-read bound {step_bound:.4f} ms, "
+          f"F.linear on bf16 copies {step_lib:.4f} ms", flush=True)
+    qmm.append(qmm_phase(torch, timer, QMM_PREFILL_M, 14336, 4096,
+                         seed=3100))
     del timer
     torch.cuda.empty_cache()
     return {"flash_fwd": flash,
             "flash_bwd_dq": [r["flash_bwd_dq"] for r in bwd],
             "flash_bwd_dkv": [r["flash_bwd_dkv"] for r in bwd],
-            "paged_decode": [page], "paged_decode_split": [split]}
+            **decode, "quant_matmul": qmm,
+            "quant_matmul_decode_step": dict(
+                ms=step_ms, bound_ms=step_bound, library_ms=step_lib)}
 
 
 # ---------------------------------------------------------------------------
@@ -347,30 +492,38 @@ def kernel_phases(torch):
 # ---------------------------------------------------------------------------
 
 def _counters():
+    """Kernel name -> (wrapper, attribute holding its launch count), and
+    the decode routing counters."""
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel)
-    return {"flash_fwd": flash_fwd_cuda,
-            "flash_bwd_dq": flash_bwd_dq_cuda,
-            "flash_bwd_dkv": flash_bwd_dkv_cuda,
-            "paged_decode": paged_decode_attention_kernel,
-            "paged_decode_split": paged_decode_attention_chunked}, \
-        ROUTE_COUNTS
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+    return {"flash_fwd": (flash_fwd_cuda, "launches"),
+            "flash_bwd_dq": (flash_bwd_dq_cuda, "launches"),
+            "flash_bwd_dkv": (flash_bwd_dkv_cuda, "launches"),
+            "paged_decode": (paged_decode_attention_kernel, "launches"),
+            "paged_decode_split": (paged_decode_attention_chunked,
+                                   "launches"),
+            "paged_decode_q": (paged_decode_attention_kernel, "launches_q"),
+            "paged_decode_split_q": (paged_decode_attention_chunked,
+                                     "launches_q"),
+            "quant_matmul": (quant_matmul, "launches")}, ROUTE_COUNTS
 
 
 def zero_counts():
     fns, routes = _counters()
-    for f in fns.values():
-        f.launches = 0
+    for f, attr in fns.values():
+        setattr(f, attr, 0)
     for r in routes:
         routes[r] = 0
 
 
 def read_counts():
     fns, routes = _counters()
-    return {n: f.launches for n, f in fns.items()}, dict(routes)
+    return {n: getattr(f, attr) for n, (f, attr) in fns.items()}, \
+        dict(routes)
 
 
 class Instrumented:
@@ -445,25 +598,71 @@ def serve(torch, inst, engine, prompts, new_tokens, per_step=2):
                 routes=routes)
 
 
-def teacher_forced(torch, model, engine):
+def kv8_attention(n):
+    """The model's attention as an int8-cache engine computes it, for a
+    dense forward over prompt + generated (prompt length ``n``): query
+    positions before ``n`` attend the exact KV (prefill); later ones attend
+    every K/V row rounded through int8 (``quantize_rows``, dequantized to
+    bf16), as the decode steps read the int8 pools. Causal masks are
+    bottom-right aligned, so the later queries keep their own positions."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        scaled_dot_product_attention)
+    from paddle_tpu_torch.quantization import dequantize_rows, quantize_rows
+
+    def attn(q, k, v, is_causal=False, **kw):
+        out = scaled_dot_product_attention(q, k, v, is_causal=is_causal, **kw)
+        if q.shape[1] > n:
+            kq = dequantize_rows(*quantize_rows(k), dtype=k.dtype)
+            vq = dequantize_rows(*quantize_rows(v), dtype=v.dtype)
+            out[:, n:] = scaled_dot_product_attention(
+                q[:, n:], kq, vq, is_causal=is_causal, **kw)
+        return out
+    return attn
+
+
+def _dense_logits(torch, model, ids, attention=None):
+    """The model's dense forward; its int8 layers (if any) run B7's plain
+    version, ``quant_matmul_plain``, so the engine's B7 launches are held
+    against it."""
+    import paddle_tpu_torch.models.llama as llama_mod
+    from paddle_tpu_torch.quantization import ConvertedInt8Linear
+    orig = llama_mod.scaled_dot_product_attention
+    int8 = [(m, m.kernel_mode) for m in model.modules()
+            if isinstance(m, ConvertedInt8Linear)]
+    if attention is not None:
+        llama_mod.scaled_dot_product_attention = attention
+    for m, _ in int8:
+        m.kernel_mode = "dense"
+    try:
+        logits = model(torch.as_tensor(ids[None], device=DEVICE))[0].float()
+    finally:
+        llama_mod.scaled_dot_product_attention = orig
+        for m, mode in int8:
+            m.kernel_mode = mode
+    if not bool(torch.isfinite(logits).all()):
+        fail("non-finite logits in the teacher-forced forward")
+    return logits
+
+
+def teacher_forced(torch, model, engine, kv8=False):
     """Dense forward over prompt + generated for every finished request;
     where the top-2 gap exceeds GAP_TOL the argmax must be the engine's
-    token. Holds the paged-decode kernels against the flash kernel."""
+    token. Holds the paged-decode kernels against the flash kernel, and
+    B7 against its plain version. With ``kv8`` (an int8-cache engine) the
+    forward attends as the engine does (``kv8_attention``)."""
     checked = total = 0
     min_gap_checked = float("inf")
     with torch.inference_mode():
         for req in engine.finished.values():
             ids = np.concatenate([req.prompt, np.asarray(req.generated)])
-            logits = model(torch.as_tensor(ids[None], device=DEVICE))[0]
-            logits = logits.float()
-            if not bool(torch.isfinite(logits).all()):
-                fail(f"request {req.rid}: non-finite logits")
             n = len(req.prompt)
-            pred = logits[n - 1:n - 1 + len(req.generated)]
-            top = pred.topk(2, dim=-1)
+            gen = torch.as_tensor(req.generated)
+            span = slice(n - 1, n - 1 + len(req.generated))
+            logits = _dense_logits(torch, model, ids,
+                                   kv8_attention(n) if kv8 else None)
+            top = logits[span].topk(2, dim=-1)
             gap = (top.values[:, 0] - top.values[:, 1]).cpu()
             arg = top.indices[:, 0].cpu()
-            gen = torch.as_tensor(req.generated)
             sure = gap > GAP_TOL
             bad = sure & (arg != gen)
             if bool(bad.any()):
@@ -477,32 +676,39 @@ def teacher_forced(torch, model, engine):
                 min_gap_checked = min(min_gap_checked,
                                       float(gap[sure].min()))
     share = checked / max(total, 1)
+    rec = dict(checked=checked, total=total, gap_tol=GAP_TOL,
+               min_gap_checked=min_gap_checked,
+               reference="int8-KV dense forward" if kv8 else "dense forward")
     print(f"teacher-forced: {checked}/{total} positions above gap "
-          f"{GAP_TOL} agree (smallest checked gap {min_gap_checked:.3f})",
-          flush=True)
+          f"{GAP_TOL} agree (smallest checked gap {min_gap_checked:.3f}): "
+          f"{json.dumps(rec)}", flush=True)
     if share < MIN_CHECKED_SHARE:
         fail(f"teacher-forced check covered only {checked}/{total} "
              f"positions")
-    return dict(checked=checked, total=total, gap_tol=GAP_TOL)
+    return rec
 
 
 # cuBLAS kernel-name fragments
 _MATMUL_GROUPS = tuple((key, "matmul") for key in
                        ("nvjet", "gemm", "gemv", "cutlass", "xmma"))
 _KERNEL_GROUPS = (
+    ("quant_matmul", "int8 weight matmul (port)"),
     ("paged_decode", "decode attention (port)"),
     ("flash_fwd", "flash forward (port)"),
 ) + _MATMUL_GROUPS
 
 
-def profile_decode(torch, model, prompts, new_tokens, steps=4):
+def profile_decode(torch, model, prompts, new_tokens, steps=4, label="A",
+                   **engine_kw):
     """torch.profiler over ``steps`` decode-only steps of engine A's
-    configuration with every slot live: the device's busy share of the
-    window, kernels per step, and device time per step by kernel group."""
+    configuration (``engine_kw``: A8's int8 cache) with every slot live:
+    the device's busy share of the window, kernels per step, and device
+    time per step by kernel group."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
-                                      max_seq_len=2048, temperature=0.0)
+                                      max_seq_len=2048, temperature=0.0,
+                                      **engine_kw)
     for p in prompts:
         engine.add_request(p, new_tokens)
     engine.step()  # admits (prefills) every request and decodes once
@@ -537,7 +743,7 @@ def profile_decode(torch, model, prompts, new_tokens, steps=4):
                by_group_ms_per_step=groups,
                top=[dict(name=n[:80], ms_per_step=ms / steps,
                          launches_per_step=c / steps) for n, ms, c in top])
-    print(f"profile (engine A config, {len(prompts)} live slots, {steps} "
+    print(f"profile (engine {label}, {len(prompts)} live slots, {steps} "
           f"decode steps): {json.dumps(rec)}", flush=True)
     if busy_ms == 0.0:
         print("profile: the profiler saw no device time; busy share not "
@@ -546,8 +752,61 @@ def profile_decode(torch, model, prompts, new_tokens, steps=4):
     return rec
 
 
+def run_engine(torch, inst, model, name, prompts, new_tokens, **kw):
+    """Serve ``prompts`` on a fresh engine (counts zeroed just before,
+    read just after), then the teacher-forced check."""
+    from paddle_tpu_torch import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
+                                      temperature=0.0, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    r = serve(torch, inst, engine, prompts, new_tokens)
+    r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["teacher_forced"] = teacher_forced(torch, model, engine,
+                                         kv8=engine.cache.quantized)
+    r["max_blocks_per_seq"] = engine.cache.max_blocks_per_seq
+    r["num_blocks"] = engine.cache.num_blocks
+    for req in engine.finished.values():
+        if len(req.generated) != new_tokens:
+            fail(f"engine {name}: request {req.rid} produced "
+                 f"{len(req.generated)} tokens, wanted {new_tokens}")
+    if len(engine.finished) != len(prompts):
+        fail(f"engine {name}: {len(engine.finished)} of {len(prompts)} "
+             f"requests finished")
+    print(f"engine {name}: {json.dumps(r)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return r
+
+
+def convert_int8(torch, model):
+    """The port's QAT, in place: every projection and the LM head become
+    ConvertedInt8Linear (int8 [out, in] + bf16 per-channel scales)."""
+    from paddle_tpu_torch.quantization import (
+        QAT, ConvertedInt8Linear, FakeQuanterWithAbsMaxObserver, QuantConfig)
+    t = time.perf_counter()
+    qat = QAT(QuantConfig(activation=None,
+                          weight=FakeQuanterWithAbsMaxObserver))
+    qat.convert(qat.quantize(model, inplace=True), inplace=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    conv = [m for m in model.modules() if isinstance(m, ConvertedInt8Linear)]
+    want = 7 * model.config.num_layers + 1
+    if len(conv) != want:
+        fail(f"QAT.convert made {len(conv)} int8 layers, expected {want}")
+    rec = dict(int8_layers=len(conv), secs=time.perf_counter() - t,
+               int8_weight_bytes=sum(m.w_int8.numel() for m in conv),
+               scale_bytes=sum(m.w_scales.numel() * m.w_scales.element_size()
+                               + m.w_scales_f32.numel() * 4 for m in conv),
+               bf16_param_bytes=sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+               allocated_gib=torch.cuda.memory_allocated() / 2**30)
+    print(f"Llama-3-8B converted in place: {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def slice_phase(torch):
-    from paddle_tpu_torch import ContinuousBatchingEngine, Llama, LlamaConfig
+    from paddle_tpu_torch import Llama, LlamaConfig
     cfg = LlamaConfig.llama3_8b()
     t = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -556,7 +815,6 @@ def slice_phase(torch):
     print(f"Llama-3-8B: {model.num_params() / 1e9:.3f}B params bf16, built "
           f"in {time.perf_counter() - t:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
-    inst = Instrumented(torch, model)
     rng = np.random.default_rng(0)
 
     def prompts(n, lo, hi):
@@ -568,49 +826,59 @@ def slice_phase(torch):
                     np.int64))
         return out
 
+    # name, engine kwargs, requests, prompt lengths, new tokens; the int8
+    # engines (A8, B8) take A's and B's prompts and token counts
+    bf16_engines = (("A", dict(max_seq_len=2048), 8, 100, 1000, 32),
+                    ("B", dict(max_seq_len=240), 4, 20, 180, 24))
     results, asked = {}, {}
-    for name, kw, n, lo, hi, new in (
-            ("A", dict(max_seq_len=2048), 8, 100, 1000, 32),
-            ("B", dict(max_seq_len=240), 4, 20, 180, 24)):
-        engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
-                                          temperature=0.0, **kw)
-        asked[name] = prompts(n, lo, hi)
-        r = serve(torch, inst, engine, asked[name], new)
-        r["teacher_forced"] = teacher_forced(torch, model, engine)
-        r["max_blocks_per_seq"] = engine.cache.max_blocks_per_seq
-        for req in engine.finished.values():
-            if len(req.generated) != new:
-                fail(f"engine {name}: request {req.rid} produced "
-                     f"{len(req.generated)} tokens, wanted {new}")
-        print(f"engine {name}: {json.dumps(r)}", flush=True)
-        results[name] = r
-        del engine
-        torch.cuda.empty_cache()
+    inst = Instrumented(torch, model)
+    for name, kw, n, lo, hi, new in bf16_engines:
+        asked[name] = (prompts(n, lo, hi), new)
+        results[name] = run_engine(torch, inst, model, name, *asked[name],
+                                   **kw)
     inst.restore()
-    results["A"]["profile"] = profile_decode(torch, model, asked["A"], 8)
+    results["A"]["profile"] = profile_decode(torch, model, asked["A"][0], 8)
+
+    results["int8_model"] = convert_int8(torch, model)
+    inst = Instrumented(torch, model)
+    for name, kw, *_ in bf16_engines:
+        results[name + "8"] = run_engine(torch, inst, model, name + "8",
+                                         *asked[name], kv_cache_dtype="int8",
+                                         **kw)
+    inst.restore()
+    prof8 = profile_decode(torch, model, asked["A"][0], 8, label="A8",
+                           kv_cache_dtype="int8")
+    results["A8"]["profile"] = prof8
+    b7 = prof8["by_group_ms_per_step"].get("int8 weight matmul (port)")
+    mm = results["A"]["profile"]["by_group_ms_per_step"].get("matmul")
+    print(f"decode step device time, 8 live slots: B7 (engine A8) {b7} ms "
+          f"vs bf16 cuBLAS matmuls (engine A) {mm} ms", flush=True)
 
     del inst, model
     gc.collect()
     torch.cuda.empty_cache()
 
-    a, b = results["A"], results["B"]
-    no_bwd = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    want = {
-        "A": {"flash_fwd": a["prefills"] * LAYERS,
-              "paged_decode_split": a["decode_steps"] * LAYERS,
-              "paged_decode": 0, **no_bwd},
-        "B": {"flash_fwd": b["prefills"] * LAYERS,
-              "paged_decode": b["decode_steps"] * LAYERS,
-              "paged_decode_split": 0, **no_bwd},
-    }
+    none = {k: 0 for k in ("flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+                           "paged_decode_split", "paged_decode_q",
+                           "paged_decode_split_q", "quant_matmul")}
+    want = {}
+    for name, route in (("A", "paged_decode_split"), ("B", "paged_decode"),
+                        ("A8", "paged_decode_split_q"),
+                        ("B8", "paged_decode_q")):
+        r = results[name]
+        want[name] = dict(none, flash_fwd=r["prefills"] * LAYERS,
+                          **{route: r["decode_steps"] * LAYERS})
+        if name.endswith("8"):
+            want[name]["quant_matmul"] = \
+                (r["prefills"] + r["decode_steps"]) * QMM_PER_FORWARD
     for name, exp in want.items():
         got = results[name]["launches"]
         for k, n in exp.items():
             if got[k] != n:
                 fail(f"engine {name}: {k} launched {got[k]} times, "
                      f"expected {n}")
-    if a["decode_steps"] == 0 or b["decode_steps"] == 0:
-        fail("an engine ran no decode step")
+        if results[name]["decode_steps"] == 0:
+            fail(f"engine {name} ran no decode step")
     return results
 
 
@@ -779,10 +1047,10 @@ def train_phase(torch):
         fail(f"train: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"train: the loss did not fall on a repeated batch: {losses}")
-    want = {"flash_fwd": GPT_LAYERS * steps,
-            "flash_bwd_dq": GPT_LAYERS * steps,
-            "flash_bwd_dkv": GPT_LAYERS * steps,
-            "paged_decode": 0, "paged_decode_split": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=GPT_LAYERS * steps,
+                flash_bwd_dq=GPT_LAYERS * steps,
+                flash_bwd_dkv=GPT_LAYERS * steps)
     for k, n in want.items():
         if launches[k] != n:
             fail(f"train: {k} launched {launches[k]} times, expected {n}")
@@ -805,6 +1073,13 @@ KERNELS = (
     ("paged_decode_split",
      "paddle_tpu_torch/kernels/csrc/paged_decode_split.cu",
      "paddle_tpu/kernels/pallas/paged_attention.py:186"),
+    ("paged_decode_q", "paddle_tpu_torch/kernels/csrc/paged_decode.cu",
+     "paddle_tpu/kernels/pallas/paged_attention.py:156"),
+    ("paged_decode_split_q",
+     "paddle_tpu_torch/kernels/csrc/paged_decode_split.cu",
+     "paddle_tpu/kernels/pallas/paged_attention.py:186"),
+    ("quant_matmul", "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
 )
 
 
@@ -843,7 +1118,8 @@ def main():
     for name, source, replaces in KERNELS:
         # the first record of each kernel is at its main path's shape
         main_rec = phases[name][0]
-        launches = sum(served[e]["launches"][name] for e in ("A", "B")) \
+        launches = sum(served[e]["launches"][name]
+                       for e in ("A", "B", "A8", "B8")) \
             + trained["launches"][name]
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -1,13 +1,15 @@
 """PyTorch/CUDA port of paddle_tpu, slice by slice.
 
 This package holds the Llama serving path (continuous batching over a
-paged KV cache) and the GPT training path (``GPT`` trained by
+paged KV cache, bf16 or int8, with bf16 or int8 weights through
+``quantization.QAT``) and the GPT training path (``GPT`` trained by
 ``jit.TrainStep`` with ``optimizer.AdamW`` and fp32 master weights), with
 hand-written Hopper (sm_90a) CUDA kernels for the flash-attention forward
-and backward and the paged-decode attention. Its layout follows
-``paddle_tpu`` (``core/``, ``nn/``, ``models/``, ``optimizer/``, ``jit/``,
-``inference/``, ``kernels/``) so each module's counterpart is found under
-the same path.
+and backward, the paged-decode attention over bf16 and int8 pools and the
+int8 weight matmul. Its layout follows ``paddle_tpu`` (``core/``,
+``nn/``, ``models/``, ``optimizer/``, ``jit/``, ``inference/``,
+``quantization/``, ``kernels/``) so each module's counterpart is found
+under the same path.
 
 It imports torch, numpy and the standard library only. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and

@@ -11,6 +11,16 @@ is PyTorch's [out, in], so every Linear weight (Llama's ``*_proj.weight``;
 GPT's ``qkv_proj``, ``out_proj``, ``fc_in``, ``fc_out``; ``lm_head``) is
 transposed. Biases, embeddings and norm weights are copied as they are. A
 missing, extra or mis-shaped name raises.
+
+``llama_int8_params_from_numpy`` takes a Llama converted to int8 by the
+JAX package's ``QAT(...).convert``: its parameters and its buffers, e.g.
+
+    named = {n: np.asarray(t._data) for n, t in
+             [*jax_llama.named_parameters(), *jax_llama.named_buffers()]}
+
+Each converted layer's ``w_int8`` [in, out] becomes the port's
+``ConvertedInt8Linear.w_int8`` [out, in]; ``w_scales`` [out] is copied.
+Load the result into a port Llama converted by the port's ``QAT``.
 """
 
 from __future__ import annotations
@@ -62,6 +72,30 @@ def _convert(what, named, want, is_linear, dtype):
         t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
         out[name] = t.to(dtype) if dtype is not None else t
     return out
+
+
+def _int8_shapes(shapes):
+    """Each Linear weight (out, in) -> ``w_int8`` (out, in) and
+    ``w_scales`` (out,)."""
+    out = {}
+    for name, shape in shapes.items():
+        if _is_linear(name):
+            layer = name[:-len("weight")]
+            out[layer + "w_int8"] = shape
+            out[layer + "w_scales"] = shape[:1]
+        else:
+            out[name] = shape
+    return out
+
+
+def llama_int8_params_from_numpy(named, config):
+    """A JAX-package Llama converted to int8 (numpy parameters and
+    buffers, [in, out] ``w_int8``) -> the port's ``state_dict`` for a
+    converted Llama (torch CPU tensors, [out, in] ``w_int8``);
+    ``load_state_dict`` casts the floating ones to the model's dtype."""
+    return _convert("llama_int8_params_from_numpy", named,
+                    _int8_shapes(expected_shapes(config)),
+                    lambda n: n.endswith(".w_int8"), None)
 
 
 def llama_params_from_numpy(named, config, dtype=None):

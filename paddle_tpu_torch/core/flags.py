@@ -8,15 +8,18 @@ call.
 - ``FLAGS_paged_kernel``: ``auto`` (default) launches the paged-decode
   CUDA kernels for CUDA tensors (their plain PyTorch version for CPU
   tensors); ``kernel`` is the same route named explicitly; ``dense`` forces
-  the plain gather-then-attend version everywhere.
+  the plain gather-then-attend version everywhere. It routes the int8
+  weight matmul of ``quantization.ConvertedInt8Linear`` the same way, read
+  when a layer is converted.
 - ``FLAGS_flash_kernel``: ``auto`` (default) sends CUDA tensors through the
   flash forward/backward CUDA kernels and CPU tensors through their plain
   PyTorch versions; ``plain`` sends CUDA tensors to the plain pair too.
   The A/B switch of the JAX package's ``PADDLE_FLASH_FORCE``;
   ``chip_smoke.py`` uses it to hold the whole model's kernel route against
   the plain one.
-- ``FLAGS_kv_cache_dtype``: KV pool storage. Only ``""`` (pools in the
-  compute dtype) exists in the port so far; the int8 tier is not ported.
+- ``FLAGS_kv_cache_dtype``: KV pool storage, read when an engine is
+  built: ``""`` (default) keeps the pools in the compute dtype; ``int8``
+  stores int8 rows with a float32 scale per (token, kv head) row.
 """
 
 from __future__ import annotations

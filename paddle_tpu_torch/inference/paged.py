@@ -5,9 +5,15 @@
   on the device; a per-slot block table ``[max_batch, max_blocks_per_seq]``
   int32 maps token positions to pool blocks. Block 0 is the null block:
   fresh table entries point at it and the length mask hides it.
-- **The pools are updated in place** (``paged_prefill_write``,
-  ``paged_decode_write``), where the JAX package returns new arrays from
-  functional ``.at[].set`` updates.
+- ``kv_cache_dtype="int8"`` (``FLAGS_kv_cache_dtype``, read once by the
+  engine) stores the pools as int8 with float32 scales
+  ``[num_blocks, block_size, Hk]`` beside them, one per (token, kv head)
+  row (``quantization.quantize_rows``); the attention dequantizes into
+  the compute dtype. Default pool sizing grows by the byte ratio
+  (``quant_block_ratio``), as the JAX package's does.
+- **The pools are updated in place** (``paged_prefill_write[_q]``,
+  ``paged_decode_write[_q]``), where the JAX package returns new arrays
+  from functional ``.at[].set`` updates.
 - Block tables, sequence lengths, the free list and the refcounts are host
   numpy state; they are uploaded as small tensors each step.
 - ``paged_decode_attention`` is the routing point of the decode attention
@@ -17,8 +23,8 @@
   plain version for CPU tensors; ``dense`` forces the plain version.
   ``ROUTE_COUNTS`` records each routing decision.
 
-Not ported yet: the prefix index, copy-on-write, LRU parking, mesh
-capacity slices and the int8 KV tier.
+Not ported yet: the prefix index, copy-on-write, LRU parking and mesh
+capacity slices.
 """
 
 from __future__ import annotations
@@ -31,15 +37,17 @@ import torch
 
 from ..core import flags as _flags
 from ..core.device import resolve_device
+from ..quantization import quantize_rows
 from ..kernels.paged_attention import (paged_decode_attention_chunked,
                                        paged_decode_attention_dense,
                                        paged_decode_attention_kernel)
 
 __all__ = ["PagedKVCache", "CapacityError", "ContinuousBatchingEngine",
-           "paged_prefill_write", "paged_decode_write",
+           "paged_prefill_write", "paged_prefill_write_q",
+           "paged_decode_write", "paged_decode_write_q",
            "paged_decode_attention", "paged_decode_attention_dense",
            "validate_request", "sized_num_blocks", "resolve_paged_kernel",
-           "resolve_kv_dtype", "ROUTE_COUNTS"]
+           "resolve_kv_dtype", "quant_block_ratio", "ROUTE_COUNTS"]
 
 _KERNEL_MODES = ("auto", "kernel", "dense")
 # tables at least this many pages long route to the split-KV kernel
@@ -67,13 +75,24 @@ def resolve_paged_kernel(mode=None):
 
 
 def resolve_kv_dtype(kv_cache_dtype):
-    """``FLAGS_kv_cache_dtype``: only ``""`` (pools in the compute dtype)
-    is ported; the int8 tier raises."""
+    """Normalize ``kv_cache_dtype`` (a ctor kwarg or
+    ``FLAGS_kv_cache_dtype``): ``None`` for pools in the compute dtype,
+    ``"int8"`` for quantized pools; anything else raises."""
     v = str(kv_cache_dtype or "").strip().lower()
     if v in ("", "none", "auto", "0", "off", "false"):
         return None
-    raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r} is not supported "
-                     f"by the port (only '')")
+    if v == "int8":
+        return "int8"
+    raise ValueError(f"kv_cache_dtype: unsupported value {kv_cache_dtype!r} "
+                     f"(expected '' or 'int8')")
+
+
+def quant_block_ratio(head_dim, dtype):
+    """Bytes per block of a ``dtype`` pool over an int8 pool with its
+    float32 scales: each head-row costs ``head_dim * itemsize`` bytes
+    against ``head_dim + 4``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return head_dim * itemsize / (head_dim + 4)
 
 
 class CapacityError:
@@ -103,7 +122,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_kv_heads, head_dim, *, num_blocks,
                  block_size=16, max_blocks_per_seq, max_batch,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, kv_dtype=None, device=None):
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -111,13 +130,24 @@ class PagedKVCache:
         self.block_size = block_size
         self.max_blocks_per_seq = max_blocks_per_seq
         self.max_batch = max_batch
-        self.dtype = dtype
+        self.dtype = dtype  # the compute dtype int8 rows dequantize into
         self.device = resolve_device(device)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self.quantized = self.kv_dtype == "int8"
+        store = torch.int8 if self.quantized else dtype
+
+        def pools(shape, dt):
+            return [torch.zeros(shape, dtype=dt, device=self.device)
+                    for _ in range(num_layers)]
+
         shape = (num_blocks, block_size, num_kv_heads, head_dim)
-        self.k_pools = [torch.zeros(shape, dtype=dtype, device=self.device)
-                        for _ in range(num_layers)]
-        self.v_pools = [torch.zeros(shape, dtype=dtype, device=self.device)
-                        for _ in range(num_layers)]
+        self.k_pools = pools(shape, store)
+        self.v_pools = pools(shape, store)
+        if self.quantized:
+            self.k_scales = pools(shape[:3], torch.float32)
+            self.v_scales = pools(shape[:3], torch.float32)
+        else:
+            self.k_scales = self.v_scales = None
         # block 0 is the null block; pop() hands out block 1 first
         self._free = list(range(num_blocks - 1, 0, -1))
         self.block_tables = np.zeros((max_batch, max_blocks_per_seq),
@@ -209,17 +239,39 @@ def paged_prefill_write(k_pool, v_pool, block_row, k_new, v_new):
     v_pool[blocks] = v_new.reshape(nb, bs, *v_new.shape[1:]).to(v_pool.dtype)
 
 
+def paged_prefill_write_q(k_pool, v_pool, k_scale, v_scale, block_row,
+                          k_new, v_new):
+    """Quantized :func:`paged_prefill_write`: rows quantize per (position,
+    kv head) (``quantize_rows``) before landing; their scales land in the
+    scale pools. In place."""
+    s = k_new.shape[0]
+    bs = k_pool.shape[1]
+    nb = s // bs
+    blocks = block_row[:nb].long()
+    for pool, scales, new in ((k_pool, k_scale, k_new),
+                              (v_pool, v_scale, v_new)):
+        q, sc = quantize_rows(new)
+        pool[blocks] = q.reshape(nb, bs, *q.shape[1:])
+        scales[blocks] = sc.reshape(nb, bs, -1)
+
+
+def _decode_rows(block_tables, positions, active, bs):
+    """(block, offset) of each slot's new row; inactive slots get null
+    block 0, row 0."""
+    pos = positions.long()
+    rows = torch.arange(block_tables.shape[0], device=pos.device)
+    zero = torch.zeros_like(pos)
+    blocks = torch.where(active, block_tables[rows, pos // bs].long(), zero)
+    return blocks, torch.where(active, pos % bs, zero)
+
+
 def paged_decode_write(k_pool, v_pool, block_tables, positions, k_new,
                        v_new, active):
     """Scatter one new token's KV per slot, in place: k_new/v_new
     [B, Hk, D] at ``positions`` [B]. Inactive slots write their old value
     back into null block 0, row 0."""
-    bs = k_pool.shape[1]
-    pos = positions.long()
-    rows = torch.arange(block_tables.shape[0], device=pos.device)
-    zero = torch.zeros_like(pos)
-    blocks = torch.where(active, block_tables[rows, pos // bs].long(), zero)
-    offs = torch.where(active, pos % bs, zero)
+    blocks, offs = _decode_rows(block_tables, positions, active,
+                                k_pool.shape[1])
     keep = active[:, None, None]
     k_pool[blocks, offs] = torch.where(keep, k_new.to(k_pool.dtype),
                                        k_pool[blocks, offs])
@@ -227,24 +279,39 @@ def paged_decode_write(k_pool, v_pool, block_tables, positions, k_new,
                                        v_pool[blocks, offs])
 
 
+def paged_decode_write_q(k_pool, v_pool, k_scale, v_scale, block_tables,
+                         positions, k_new, v_new, active):
+    """Quantized :func:`paged_decode_write`: one int8 row and one scale per
+    (slot, kv head); inactive slots write their old row and scales back
+    into null block 0, row 0. In place."""
+    blocks, offs = _decode_rows(block_tables, positions, active,
+                                k_pool.shape[1])
+    for pool, scales, new in ((k_pool, k_scale, k_new),
+                              (v_pool, v_scale, v_new)):
+        q, sc = quantize_rows(new)
+        pool[blocks, offs] = torch.where(active[:, None, None], q,
+                                         pool[blocks, offs])
+        scales[blocks, offs] = torch.where(active[:, None], sc,
+                                           scales[blocks, offs])
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
-                           kernel_mode=None):
+                           kernel_mode=None, k_scale=None, v_scale=None):
     """Masked decode attention over the paged cache; q [B, Hq, D] ->
-    [B, Hq, D]. See the module docstring for the routes."""
+    [B, Hq, D]. Int8 pools pass their ``k_scale``/``v_scale``. See the
+    module docstring for the routes."""
     mode = resolve_paged_kernel(kernel_mode)
+    args = (q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
     if mode == "dense":
         ROUTE_COUNTS["dense"] += 1
-        return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
-                                            seq_lens)
+        return paged_decode_attention_dense(*args)
     if q.device.type == "cpu":
         ROUTE_COUNTS["plain"] += 1
     if block_tables.shape[1] >= _CHUNK_MIN_PAGES:
         ROUTE_COUNTS["split"] += 1
-        return paged_decode_attention_chunked(q, k_pool, v_pool,
-                                              block_tables, seq_lens)
+        return paged_decode_attention_chunked(*args)
     ROUTE_COUNTS["kernel"] += 1
-    return paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
-                                         seq_lens)
+    return paged_decode_attention_kernel(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -279,12 +346,18 @@ def validate_request(prompt_ids, max_new_tokens, max_seq_len, cache,
     return prompt
 
 
-def sized_num_blocks(num_blocks, max_batch, max_blocks_per_seq):
-    """``max_batch * max_blocks_per_seq`` blocks plus the null block,
-    unless ``num_blocks`` is given."""
+def sized_num_blocks(num_blocks, max_batch, max_blocks_per_seq, kv_dtype,
+                     head_dim, dtype):
+    """``max_batch * max_blocks_per_seq`` blocks plus the null block, or
+    :func:`quant_block_ratio` times as many for int8 pools (the same
+    bytes), unless ``num_blocks`` is given. Equal to the JAX package's
+    sizing, so that both engines preempt at the same step."""
     if num_blocks is not None:
         return num_blocks
-    return max_batch * max_blocks_per_seq + 1
+    base = max_batch * max_blocks_per_seq
+    if kv_dtype == "int8":
+        base = int(base * quant_block_ratio(head_dim, dtype))
+    return base + 1
 
 
 @dataclass
@@ -319,14 +392,16 @@ class ContinuousBatchingEngine:
         self.generator = generator
         if kv_cache_dtype is None:
             kv_cache_dtype = _flags.flag("FLAGS_kv_cache_dtype")
-        resolve_kv_dtype(kv_cache_dtype)
+        kv_dtype = resolve_kv_dtype(kv_cache_dtype)
         self.kernel_mode = resolve_paged_kernel(None)
         mbps = math.ceil(max_seq_len / block_size)
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-            num_blocks=sized_num_blocks(num_blocks, max_batch, mbps),
+            num_blocks=sized_num_blocks(num_blocks, max_batch, mbps,
+                                        kv_dtype, cfg.head_dim, dtype),
             block_size=block_size, max_blocks_per_seq=mbps,
-            max_batch=max_batch, dtype=dtype, device=model.device)
+            max_batch=max_batch, dtype=dtype, kv_dtype=kv_dtype,
+            device=model.device)
         self.waiting: list[_Request] = []
         self.running: dict[int, _Request] = {}  # slot -> request
         self.finished: dict[int, _Request] = {}

@@ -23,7 +23,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_split")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_split",
+           "quant_matmul")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,14 +50,24 @@ SIGNATURES = {
         # q, k_pool, v_pool, tables, lens, out, B, Hq, Hk, D, bs, mbps,
         # scale, stream
         "paged_decode_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, then as
+        # paged_decode_bf16
+        "paged_decode_i8": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
     "paged_decode_split": {
         # q, k_pool, v_pool, tables, lens, acc, m, l, B, Hq, Hk, D, bs,
         # mbps, chunk_pages, chunks_per_split, nsplit, scale, stream
         "paged_decode_split_bf16": [_P] * 8 + [_I] * 9 + [_F, _P],
+        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, acc, m, l,
+        # then as paged_decode_split_bf16
+        "paged_decode_split_i8": [_P] * 10 + [_I] * 9 + [_F, _P],
         # acc, m, l, lens, out, B, Hq, Hk, D, nsplit, keys_per_split,
         # stream
         "paged_decode_merge_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "quant_matmul": {
+        # x, w_int8, w_scales, y, M, N, K, stream
+        "quant_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

@@ -1,14 +1,16 @@
 // Shared pieces of the paged-decode kernels (paged_decode.cu,
-// paged_decode_split.cu).
+// paged_decode_split.cu), for bf16 pools and for int8 pools with float32
+// per-row scales.
 //
 // Thread layout: a CTA of 128 threads is cut into row groups of
 // kLanes = D/8 threads; each thread of a group owns 8 consecutive elements
-// of the head dim, so one group reads one KV row ([D] bf16, one head of a
-// page row) as 16-byte vectors. The kRowsInFlight groups of a CTA take
-// interleaved key rows, and each group keeps its own online-softmax state
-// (m, l, acc) for the G query heads of its kv head. At the end the groups'
-// states are merged through shared memory by their max -- the same merge
-// the split kernel's second pass does across CTAs.
+// of the head dim, so one group reads one KV row (one head of a page row:
+// [D] bf16 as 16-byte vectors, or [D] int8 as 8-byte vectors). The
+// kRowsInFlight groups of a CTA take interleaved key rows, and each group
+// keeps its own online-softmax state (m, l, acc) for the G query heads of
+// its kv head. At the end the groups' states are merged through shared
+// memory by their max -- the same merge the split kernel's second pass
+// does across CTAs.
 
 #pragma once
 
@@ -30,6 +32,18 @@ __device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+
+// 8 int8 values of one row -> q * scale rounded to bf16, as the JAX
+// package dequantizes (int8 -> f32 * scale -> the compute dtype) before
+// the dot products
+__device__ __forceinline__ void dequant8(const uint2& u, float scale,
+                                         float f[8]) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+  #pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = __bfloat162float(
+        __float2bfloat16(static_cast<float>(b[i]) * scale));
 }
 
 template <int D, int G>
@@ -62,13 +76,10 @@ struct DecodeState {
     }
   }
 
-  // One key row: every thread of the warp must call this (the dot
-  // products reduce with warp shuffles); `ok` false leaves the state as
-  // it is.
-  __device__ void update(const uint4& kr, const uint4& vr, bool ok) {
-    float kf[8], vf[8];
-    unpack8(kr, kf);
-    unpack8(vr, vf);
+  // One key row, this thread's 8 elements of K and V as floats: every
+  // thread of the warp must call this (the dot products reduce with warp
+  // shuffles); `ok` false leaves the state as it is.
+  __device__ void update(const float kf[8], const float vf[8], bool ok) {
     #pragma unroll
     for (int g = 0; g < G; ++g) {
       float s = 0.f;

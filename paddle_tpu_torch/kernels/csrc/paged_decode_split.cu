@@ -1,10 +1,13 @@
 // Split-KV paged-decode attention for long tables, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_decode_kernel_chunked`
-// (paddle_tpu/kernels/pallas/paged_attention.py:186) on full-precision
-// pools. Same function as paged_decode.cu: q [B, Hq, D] bf16 attends its
-// slot's pages of k_pool/v_pool [NB, bs, Hk, D] bf16 through block_tables
-// [B, MBPS] int32, masked at seq_lens [B] int32; out [B, Hq, D] bf16.
+// (paddle_tpu/kernels/pallas/paged_attention.py:186), on bf16 pools
+// (`quantized=False`) and on int8 pools with per-row scales
+// (`quantized=True`). Same function as paged_decode.cu: q [B, Hq, D] bf16
+// attends its slot's pages of k_pool/v_pool [NB, bs, Hk, D] (bf16, or int8
+// with k_scale/v_scale [NB, bs, Hk] f32) through block_tables [B, MBPS]
+// int32, masked at seq_lens [B] int32; out [B, Hq, D] bf16. An int8 row is
+// dequantized as bf16(f32(q8) * scale) before the dot products.
 //
 // What bounds it on this card: bytes, as for every decode attention (each
 // live KV row is read once for G dot products). The per-(slot, kv head)
@@ -19,18 +22,22 @@
 //   of `chunks_per_split` chunks of `chunk_pages` pages. The wrapper picks
 //   nsplit so that B * Hk * nsplit >= 2 * 132 where the pages allow it.
 //   Splits that start past seq_len exit at once. A chunk's live pages
-//   (that head's rows of them) are staged into shared memory with
-//   cp.async, double-buffered: the next chunk's loads are in flight while
-//   the current one is consumed. `chunk_pages` is picked on the host from
-//   the 227 KB shared-memory budget so that two CTAs share an SM; above
-//   48 KB the kernel is opened up with cudaFuncSetAttribute.
-// - Within a CTA, row groups of D/8 threads read 16-byte vectors of a KV
-//   row and keep an f32 online softmax each; they merge in shared memory
-//   and the CTA writes its partial result in f32: acc [B, Hk, nsplit, G, D]
-//   (unnormalized, relative to m) and m, l [B, Hk, nsplit, G].
-// - Merge kernel, grid (B, Hk): combines the live splits by their max,
-//   O = sum(acc_s * 2^(m_s - M)) / sum(l_s * 2^(m_s - M)); an empty slot
-//   gives zeros.
+//   (that head's rows of them, and for int8 pools the rows' scales, which
+//   are strided by Hk and copied 4 bytes at a time) are staged into shared
+//   memory with cp.async, double-buffered: the next chunk's loads are in
+//   flight while the current one is consumed. `chunk_pages` is picked on
+//   the host from the 227 KB shared-memory budget so that two CTAs share
+//   an SM (an int8 page is about half a bf16 one, so int8 chunks hold
+//   twice the pages); above 48 KB the kernel is opened up with
+//   cudaFuncSetAttribute.
+// - Within a CTA, row groups of D/8 threads read one KV row's 8-element
+//   slices and keep an f32 online softmax each; they merge in shared
+//   memory and the CTA writes its partial result in f32: acc
+//   [B, Hk, nsplit, G, D] (unnormalized, relative to m) and m, l
+//   [B, Hk, nsplit, G].
+// - Merge kernel, grid (B, Hk), the same for both pool types: combines the
+//   live splits by their max, O = sum(acc_s * 2^(m_s - M)) /
+//   sum(l_s * 2^(m_s - M)); an empty slot gives zeros.
 
 #include "paged_common.cuh"
 
@@ -46,6 +53,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -55,11 +68,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int D, int G>
+// Bytes of one staging buffer: chunk_rows rows of K then of V (D elements
+// of the pool's type each), then for int8 pools the rows' K scales and V
+// scales (f32); rounded up to 16 so the second buffer stays aligned.
+template <int D, bool Q>
+__host__ __device__ constexpr size_t stage_bytes(int chunk_rows) {
+  const size_t row = static_cast<size_t>(D) * (Q ? 1 : 2) + (Q ? 4 : 0);
+  return (2 * static_cast<size_t>(chunk_rows) * row + 15) & ~size_t(15);
+}
+
+// Q: int8 pools with scales (k_scale/v_scale), else bf16 pools
+template <int D, int G, bool Q>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k_pool,
-                          const __nv_bfloat16* __restrict__ v_pool,
+                          const void* __restrict__ k_pool,
+                          const void* __restrict__ v_pool,
+                          const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale,
                           const int* __restrict__ tables,
                           const int* __restrict__ lens,
                           float* __restrict__ acc_out,
@@ -67,6 +92,8 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           float* __restrict__ l_out, int Hk, int bs, int mbps,
                           int cpp, int per, int nsplit, float scale_log2) {
   using St = DecodeState<D, G>;
+  constexpr int kRowBytes = D * (Q ? 1 : 2);  // one head's row of a pool
+  constexpr int kVecs = kRowBytes / 16;       // 16-byte copies per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -81,27 +108,44 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int c_end = min(c_begin + per, live_chunks);
   if (c_begin >= c_end) return;  // past seq_len: the merge skips it
 
-  __nv_bfloat16* sbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // stage s: K at sbuf + (2 s) * chunk_rows * D, V right after it
+  const size_t buf_bytes = stage_bytes<D, Q>(chunk_rows);
+  // stage s at smem_raw + s * buf_bytes: K rows, V rows, (Q) K and V scales
+  const unsigned char* kp = static_cast<const unsigned char*>(k_pool);
+  const unsigned char* vp = static_cast<const unsigned char*>(v_pool);
   const int row = threadIdx.x / St::kLanes;
   const int lane_c = threadIdx.x % St::kLanes;
   const int* trow = tables + static_cast<size_t>(b) * mbps;
 
   auto stage = [&](int chunk, int buf) {
-    __nv_bfloat16* sK = sbuf + static_cast<size_t>(2 * buf) * chunk_rows * D;
-    __nv_bfloat16* sV = sK + static_cast<size_t>(chunk_rows) * D;
+    unsigned char* sK = smem_raw + buf * buf_bytes;
+    unsigned char* sV = sK + static_cast<size_t>(chunk_rows) * kRowBytes;
     const int p0 = chunk * cpp;
-    for (int idx = threadIdx.x; idx < chunk_rows * (D / 8);
-         idx += kThreads) {
-      const int r = idx / (D / 8);
-      const int c8 = (idx % (D / 8)) * 8;
+    for (int idx = threadIdx.x; idx < chunk_rows * kVecs; idx += kThreads) {
+      const int r = idx / kVecs;
+      const int c16 = (idx % kVecs) * 16;
       const int page = p0 + r / bs;
       if (page < live_pages) {
         const int blk = __ldg(trow + page);
         const size_t src =
-            ((static_cast<size_t>(blk) * bs + r % bs) * Hk + kvh) * D + c8;
-        cp_async16(sK + r * D + c8, k_pool + src);
-        cp_async16(sV + r * D + c8, v_pool + src);
+            ((static_cast<size_t>(blk) * bs + r % bs) * Hk + kvh) *
+                kRowBytes + c16;
+        cp_async16(sK + r * kRowBytes + c16, kp + src);
+        cp_async16(sV + r * kRowBytes + c16, vp + src);
+      }
+    }
+    if constexpr (Q) {
+      float* sKs = reinterpret_cast<float*>(
+          sV + static_cast<size_t>(chunk_rows) * kRowBytes);
+      float* sVs = sKs + chunk_rows;
+      for (int r = threadIdx.x; r < chunk_rows; r += kThreads) {
+        const int page = p0 + r / bs;
+        if (page < live_pages) {
+          const int blk = __ldg(trow + page);
+          const size_t src =
+              (static_cast<size_t>(blk) * bs + r % bs) * Hk + kvh;
+          cp_async4(sKs + r, k_scale + src);
+          cp_async4(sVs + r, v_scale + src);
+        }
       }
     }
     cp_async_commit();
@@ -119,19 +163,29 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* sK =
-        sbuf + static_cast<size_t>(2 * buf) * chunk_rows * D;
-    const __nv_bfloat16* sV = sK + static_cast<size_t>(chunk_rows) * D;
+    const unsigned char* sK = smem_raw + buf * buf_bytes;
+    const unsigned char* sV = sK + static_cast<size_t>(chunk_rows) * kRowBytes;
     const int key0 = c * chunk_rows;
     for (int r0 = 0; r0 < chunk_rows; r0 += St::kRowsInFlight) {
       const int r = r0 + row;
       const bool ok = r < chunk_rows && key0 + r < len;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+      float kf[8] = {}, vf[8] = {};
       if (ok) {
-        kr = *reinterpret_cast<const uint4*>(sK + r * D + lane_c * 8);
-        vr = *reinterpret_cast<const uint4*>(sV + r * D + lane_c * 8);
+        const int off = r * kRowBytes + lane_c * 8 * (Q ? 1 : 2);
+        if constexpr (Q) {
+          const float* sKs = reinterpret_cast<const float*>(
+              sV + static_cast<size_t>(chunk_rows) * kRowBytes);
+          const float* sVs = sKs + chunk_rows;
+          paged::dequant8(*reinterpret_cast<const uint2*>(sK + off), sKs[r],
+                          kf);
+          paged::dequant8(*reinterpret_cast<const uint2*>(sV + off), sVs[r],
+                          vf);
+        } else {
+          paged::unpack8(*reinterpret_cast<const uint4*>(sK + off), kf);
+          paged::unpack8(*reinterpret_cast<const uint4*>(sV + off), vf);
+        }
       }
-      st.update(kr, vr, ok);
+      st.update(kf, vf, ok);
     }
     __syncthreads();  // this buffer is refilled two chunks later
   }
@@ -181,21 +235,20 @@ paged_decode_merge_kernel(const float* __restrict__ acc,
 }
 
 struct SplitArgs {
-  const void *q, *k, *v, *t, *lens;
+  const void *q, *k, *v, *ks, *vs, *t, *lens;
   void *acc, *m, *l;
   int B, Hk, bs, mbps, cpp, per, nsplit;
   float sl2;
   cudaStream_t s;
 };
 
-template <int D, int G>
+template <int D, int G, bool Q>
 int launch_split(const SplitArgs& a) {
   using St = DecodeState<D, G>;
-  const size_t staging = static_cast<size_t>(2) * 2 * a.cpp * a.bs * D *
-                         sizeof(__nv_bfloat16);
+  const size_t staging = 2 * stage_bytes<D, Q>(a.cpp * a.bs);
   const size_t merge = static_cast<size_t>(St::kSmemFloats) * sizeof(float);
   const size_t smem = staging > merge ? staging : merge;
-  auto kern = paged_decode_split_kernel<D, G>;
+  auto kern = paged_decode_split_kernel<D, G, Q>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -203,12 +256,12 @@ int launch_split(const SplitArgs& a) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kern<<<dim3(a.B, a.Hk, a.nsplit), kThreads, smem, a.s>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.t),
-      static_cast<const int*>(a.lens), static_cast<float*>(a.acc),
-      static_cast<float*>(a.m), static_cast<float*>(a.l), a.Hk, a.bs, a.mbps,
-      a.cpp, a.per, a.nsplit, a.sl2);
+      static_cast<const __nv_bfloat16*>(a.q), a.k, a.v,
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const int*>(a.t), static_cast<const int*>(a.lens),
+      static_cast<float*>(a.acc), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), a.Hk, a.bs, a.mbps, a.cpp, a.per, a.nsplit,
+      a.sl2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,6 +299,15 @@ int launch_merge(const void* acc, const void* m, const void* l,
     return static_cast<int>(cudaErrorInvalidValue);        \
   } while (0)
 
+template <bool Q>
+int split_entry(int Hq, int D, const SplitArgs& a) {
+  if (a.Hk <= 0 || Hq % a.Hk != 0 || a.cpp <= 0 || a.per <= 0 ||
+      a.nsplit <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.B <= 0) return static_cast<int>(cudaSuccess);
+  PAGED_DISPATCH(D, Hq / a.Hk, (launch_split<kD, kG, Q>(a)));
+}
+
 }  // namespace
 
 extern "C" int paged_decode_split_bf16(
@@ -253,15 +315,26 @@ extern "C" int paged_decode_split_bf16(
     const void* tables, const void* lens, void* acc, void* m, void* l, int B,
     int Hq, int Hk, int D, int bs, int mbps, int chunk_pages,
     int chunks_per_split, int nsplit, float scale, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0 || chunk_pages <= 0 || chunks_per_split <= 0 ||
-      nsplit <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return static_cast<int>(cudaSuccess);
-  const SplitArgs a{q,      k_pool, v_pool, tables,      lens,
-                    acc,    m,      l,      B,           Hk,
-                    bs,     mbps,   chunk_pages, chunks_per_split, nsplit,
-                    scale * paged::kLog2e, static_cast<cudaStream_t>(stream)};
-  PAGED_DISPATCH(D, Hq / Hk, (launch_split<kD, kG>(a)));
+  const SplitArgs a{q,     k_pool, v_pool, nullptr, nullptr, tables,
+                    lens,  acc,    m,      l,       B,       Hk,
+                    bs,    mbps,   chunk_pages,     chunks_per_split,
+                    nsplit, scale * paged::kLog2e,
+                    static_cast<cudaStream_t>(stream)};
+  return split_entry<false>(Hq, D, a);
+}
+
+extern "C" int paged_decode_split_i8(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lens, void* acc, void* m, void* l, int B, int Hq, int Hk,
+    int D, int bs, int mbps, int chunk_pages, int chunks_per_split,
+    int nsplit, float scale, void* stream) {
+  const SplitArgs a{q,     k_pool, v_pool, k_scale, v_scale, tables,
+                    lens,  acc,    m,      l,       B,       Hk,
+                    bs,    mbps,   chunk_pages,     chunks_per_split,
+                    nsplit, scale * paged::kLog2e,
+                    static_cast<cudaStream_t>(stream)};
+  return split_entry<true>(Hq, D, a);
 }
 
 extern "C" int paged_decode_merge_bf16(const void* acc, const void* m,

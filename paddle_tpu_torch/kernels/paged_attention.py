@@ -6,20 +6,26 @@ q [B, Hq, D]; k_pool/v_pool [NB, bs, Hk, D]; block_tables [B, MBPS] int32;
 seq_lens [B] int32; returns [B, Hq, D], with scale 1/sqrt(D). Positions
 >= seq_len are masked
 and a slot with seq_len 0 gives zeros. GQA is folded: query head h reads
-kv head h // G.
+kv head h // G. Int8 pools come with ``k_scale``/``v_scale`` [NB, bs, Hk]
+float32, one scale per (row, kv head): a row is dequantized as
+``(pool.float() * scale).to(q.dtype)`` before the dot products.
 
 - ``paged_decode_attention_kernel`` launches ``csrc/paged_decode.cu``
-  (Hopper counterpart of the Pallas ``_decode_kernel``, :133 there): one
-  CTA per (slot, kv head) walks the slot's live pages.
+  (Hopper counterpart of the Pallas ``_decode_kernel``, :133 there, and of
+  ``_decode_kernel_q``, :156, for int8 pools): one CTA per (slot, kv
+  head) walks the slot's live pages.
 - ``paged_decode_attention_chunked`` launches ``csrc/paged_decode_split.cu``
-  (counterpart of ``_decode_kernel_chunked``, :186 there): the KV sequence
-  is split across CTAs in ``chunk_pages``-page chunks staged through shared
-  memory, then a merge kernel combines the splits by their LSE.
+  (counterpart of ``_decode_kernel_chunked``, :186 there, both pool
+  types): the KV sequence is split across CTAs in ``chunk_pages``-page
+  chunks staged through shared memory, then a merge kernel combines the
+  splits by their LSE.
 - ``paged_decode_attention_dense`` is the plain version, a copy of
-  ``paddle_tpu/inference/paged.py:1059``.
+  ``paddle_tpu/inference/paged.py:1059`` (int8 pools dequantized in the
+  gather, as its ``_gather_kv`` does).
 
 Both wrappers take the plain version for CPU tensors; for CUDA tensors
-they launch their kernel or raise.
+they launch their kernel or raise. Each counts its bf16-pool launches in
+``launches`` and its int8-pool launches in ``launches_q``.
 """
 
 from __future__ import annotations
@@ -36,17 +42,28 @@ SMEM_PER_BLOCK = 227 * 1024
 _CHUNK_CANDIDATES = (1, 2, 4, 8, 16)
 
 
-def paged_decode_attention_dense(q, k_pool, v_pool, block_tables, seq_lens):
-    """Gather each slot's blocks ([B, S_max, Hk, D]), mask positions >=
-    seq_len, group-folded GQA attention with float32 logits; probabilities
-    are cast to V's dtype before P @ V, which accumulates in float32."""
+def _gather_kv(pool, idx, scale, dtype):
+    """A pool's rows at block ids ``idx``; an int8 pool's dequantized
+    into ``dtype``."""
+    g = pool[idx]
+    if scale is None:
+        return g
+    return (g.float() * scale[idx][..., None]).to(dtype)
+
+
+def paged_decode_attention_dense(q, k_pool, v_pool, block_tables, seq_lens,
+                                 k_scale=None, v_scale=None):
+    """Gather each slot's blocks ([B, S_max, Hk, D], dequantized for int8
+    pools), mask positions >= seq_len, group-folded GQA attention with
+    float32 logits; probabilities are cast to V's dtype before P @ V,
+    which accumulates in float32."""
     b, hq, d = q.shape
     _, bs, hk, _ = k_pool.shape
     g = hq // hk
     s_max = block_tables.shape[1] * bs
     idx = block_tables.long()
-    k = k_pool[idx].reshape(b, s_max, hk, d)
-    v = v_pool[idx].reshape(b, s_max, hk, d)
+    k = _gather_kv(k_pool, idx, k_scale, q.dtype).reshape(b, s_max, hk, d)
+    v = _gather_kv(v_pool, idx, v_scale, q.dtype).reshape(b, s_max, hk, d)
     sm_scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, hk, g, d)
     logits = torch.einsum("bngd,btnd->bngt", qg.float(), k.float()) \
@@ -63,15 +80,34 @@ def paged_decode_attention_dense(q, k_pool, v_pool, block_tables, seq_lens):
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens):
+def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens,
+                     k_scale, v_scale):
+    """Validate a CUDA launch; returns (quantized, B, Hq, Hk, D, bs,
+    MBPS)."""
     b, hq, d = q.shape
-    _, bs, hk, dk = k_pool.shape
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or \
+    nb, bs, hk, dk = k_pool.shape
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: give both k_scale and v_scale or "
+                         f"neither")
+    quantized = k_scale is not None
+    pool_dtype = torch.int8 if quantized else torch.bfloat16
+    for name, t, dt in (("q", q, torch.bfloat16),
+                        ("k_pool", k_pool, pool_dtype),
+                        ("v_pool", v_pool, pool_dtype)):
+        if not t.is_cuda or t.dtype != dt or \
                 not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
-                             f"aligned bfloat16 CUDA tensor, got {t.dtype} "
+                             f"aligned {dt} CUDA tensor, got {t.dtype} "
                              f"on {t.device}")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if not t.is_cuda or t.dtype != torch.float32 or \
+                    not t.is_contiguous() or \
+                    tuple(t.shape) != (nb, bs, hk):
+                raise ValueError(f"{what}: {name} must be a contiguous "
+                                 f"float32 CUDA tensor of shape "
+                                 f"{(nb, bs, hk)}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
     for name, t in (("block_tables", block_tables),
                     ("seq_lens", seq_lens)):
         if not t.is_cuda or t.dtype != torch.int32 or \
@@ -87,40 +123,53 @@ def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens):
     if block_tables.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / "
                          f"lens {tuple(seq_lens.shape)} vs batch {b}")
-    return b, hq, hk, d, bs, block_tables.shape[1]
+    return quantized, b, hq, hk, d, bs, block_tables.shape[1]
+
+
+def _scale_ptrs(k_scale, v_scale):
+    return ([] if k_scale is None
+            else [k_scale.data_ptr(), v_scale.data_ptr()])
 
 
 def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
-                                  seq_lens):
+                                  seq_lens, k_scale=None, v_scale=None):
     """Per-page decode: grid (B, Hk), one CTA walks one slot's live pages
     for one kv head and its G query heads."""
     if q.device.type == "cpu":
         return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
-                                            seq_lens)
-    b, hq, hk, d, bs, mbps = _check_cuda_args(
-        "paged_decode", q, k_pool, v_pool, block_tables, seq_lens)
+                                            seq_lens, k_scale, v_scale)
+    quantized, b, hq, hk, d, bs, mbps = _check_cuda_args(
+        "paged_decode", q, k_pool, v_pool, block_tables, seq_lens, k_scale,
+        v_scale)
     sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_decode_bf16(
+    fn = "paged_decode_i8" if quantized else "paged_decode_bf16"
+    err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        b, hq, hk, d, bs, mbps, float(sm_scale), stream)
-    _build.check(err, "paged_decode_bf16")
-    paged_decode_attention_kernel.launches += 1
+        *_scale_ptrs(k_scale, v_scale), block_tables.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), b, hq, hk, d, bs, mbps,
+        float(sm_scale), stream)
+    _build.check(err, fn)
+    if quantized:
+        paged_decode_attention_kernel.launches_q += 1
+    else:
+        paged_decode_attention_kernel.launches += 1
     return out
 
 
 paged_decode_attention_kernel.launches = 0
+paged_decode_attention_kernel.launches_q = 0
 
 
-def pick_chunk_pages(npages, bs, d, itemsize):
+def pick_chunk_pages(npages, bs, d, itemsize, quantized=False):
     """Pages per staged chunk for the split kernel: the largest candidate
-    whose double-buffered K+V chunk (2 stages x 2 pools x pages x bs x D x
-    itemsize) lets two CTAs share one SM's shared memory, never more than
-    the table holds."""
-    page_bytes = 2 * bs * d * itemsize
+    whose double-buffered K+V chunk (2 stages x 2 pools x pages x bs rows
+    of D x itemsize bytes, plus a 4-byte scale per row for int8 pools)
+    lets two CTAs share one SM's shared memory, never more than the table
+    holds."""
+    page_bytes = 2 * bs * (d * itemsize + (4 if quantized else 0))
     best = 1
     for cpp in _CHUNK_CANDIDATES:
         if cpp > max(int(npages), 1):
@@ -141,17 +190,18 @@ def split_plan(b, hk, npages, chunk_pages, num_sms):
 
 
 def paged_decode_attention_chunked(q, k_pool, v_pool, block_tables,
-                                   seq_lens):
+                                   seq_lens, k_scale=None, v_scale=None):
     """Split-KV decode for long tables: grid (B, Hk, nsplit) writes float32
     partials (acc, m, l) per split, then a (B, Hk) merge combines them."""
     if q.device.type == "cpu":
         return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
-                                            seq_lens)
-    b, hq, hk, d, bs, mbps = _check_cuda_args(
-        "paged_decode_split", q, k_pool, v_pool, block_tables, seq_lens)
+                                            seq_lens, k_scale, v_scale)
+    quantized, b, hq, hk, d, bs, mbps = _check_cuda_args(
+        "paged_decode_split", q, k_pool, v_pool, block_tables, seq_lens,
+        k_scale, v_scale)
     g = hq // hk
     sm_scale = 1.0 / math.sqrt(d)
-    cpp = pick_chunk_pages(mbps, bs, d, q.element_size())
+    cpp = pick_chunk_pages(mbps, bs, d, k_pool.element_size(), quantized)
     num_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     nsplit, per = split_plan(b, hk, mbps, cpp, num_sms)
     acc = torch.empty((b, hk, nsplit, g, d), device=q.device,
@@ -161,18 +211,23 @@ def paged_decode_attention_chunked(q, k_pool, v_pool, block_tables,
     out = torch.empty_like(q)
     lib = _build.load("paged_decode_split")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.paged_decode_split_bf16(
+    fn = "paged_decode_split_i8" if quantized else "paged_decode_split_bf16"
+    err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, hq, hk, d, bs, mbps, cpp, per,
-        nsplit, float(sm_scale), stream)
-    _build.check(err, "paged_decode_split_bf16")
+        *_scale_ptrs(k_scale, v_scale), block_tables.data_ptr(),
+        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
+        hq, hk, d, bs, mbps, cpp, per, nsplit, float(sm_scale), stream)
+    _build.check(err, fn)
     err = lib.paged_decode_merge_bf16(
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), b, hq, hk, d, nsplit, per * cpp * bs, stream)
     _build.check(err, "paged_decode_merge_bf16")
-    paged_decode_attention_chunked.launches += 1
+    if quantized:
+        paged_decode_attention_chunked.launches_q += 1
+    else:
+        paged_decode_attention_chunked.launches += 1
     return out
 
 
 paged_decode_attention_chunked.launches = 0
+paged_decode_attention_chunked.launches_q = 0

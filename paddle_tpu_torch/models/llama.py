@@ -10,7 +10,13 @@ Serving: ``paged_prefill`` runs the dense causal forward over the prompt
 padded with token 0 to a block multiple, writes every padded position's
 KV into the slot's pool blocks and samples at ``true_len - 1``;
 ``paged_decode_step`` writes each live slot's new KV at ``seq_len`` and
-attends the paged cache with ``seq_len + 1``.
+attends the paged cache with ``seq_len + 1``. With an int8 cache the KV
+is quantized on its way into the pools and dequantized by the decode
+attention; the prompt's own attention in prefill uses the exact KV.
+
+``QAT(...).convert`` (``paddle_tpu_torch.quantization``) turns every
+projection and the LM head into a ``ConvertedInt8Linear``: the model runs
+unchanged, its linear layers through the int8 weight matmul.
 """
 
 from __future__ import annotations
@@ -191,9 +197,11 @@ class Llama(nn.Module):
         return self.embed_tokens.weight.device
 
     def head(self, x):
-        w = self.embed_tokens.weight if self.lm_head is None \
-            else self.lm_head.weight
-        return F.linear(x, w)
+        """Logits: the ``lm_head`` module (a converted head runs the int8
+        matmul), or the embedding when the weights are tied."""
+        if self.lm_head is None:
+            return F.linear(x, self.embed_tokens.weight)
+        return self.lm_head(x)
 
     def forward_hidden(self, input_ids, kv_sink=None):
         """Decoder stack output (post final RMSNorm), before the head."""
@@ -221,7 +229,8 @@ class Llama(nn.Module):
         the dense causal forward; write its post-rope KV (padding included)
         into the slot's pool blocks; set seq_len to the true length; return
         the token sampled from the logits at ``true_len - 1``."""
-        from ..inference.paged import paged_prefill_write
+        from ..inference.paged import (paged_prefill_write,
+                                       paged_prefill_write_q)
 
         prompt = np.asarray(prompt_ids).reshape(-1)
         s = prompt.shape[0]
@@ -236,8 +245,13 @@ class Llama(nn.Module):
         tok = self._pick(last, temperature, generator)
         row = torch.as_tensor(cache.block_tables[slot], device=self.device)
         for i, (k, v) in enumerate(sink):
-            paged_prefill_write(cache.k_pools[i], cache.v_pools[i], row,
-                                k[0], v[0])
+            if cache.quantized:
+                paged_prefill_write_q(cache.k_pools[i], cache.v_pools[i],
+                                      cache.k_scales[i], cache.v_scales[i],
+                                      row, k[0], v[0])
+            else:
+                paged_prefill_write(cache.k_pools[i], cache.v_pools[i], row,
+                                    k[0], v[0])
         cache.seq_lens[slot] = s
         return int(tok[0])
 
@@ -251,6 +265,7 @@ class Llama(nn.Module):
         the host. Returns [max_batch] int64 numpy tokens."""
         from ..inference.paged import (paged_decode_attention,
                                        paged_decode_write,
+                                       paged_decode_write_q,
                                        resolve_paged_kernel)
 
         mode = resolve_paged_kernel(kernel_mode)
@@ -267,11 +282,19 @@ class Llama(nn.Module):
         for i, blk in enumerate(self.layers):
             attn = blk.self_attn
             q, k, v = attn.qkv(blk.input_layernorm(x), position_offset=lens)
-            paged_decode_write(cache.k_pools[i], cache.v_pools[i], tables,
-                               lens, k[:, 0], v[:, 0], act)
+            if cache.quantized:
+                ks, vs = cache.k_scales[i], cache.v_scales[i]
+                paged_decode_write_q(cache.k_pools[i], cache.v_pools[i],
+                                     ks, vs, tables, lens, k[:, 0], v[:, 0],
+                                     act)
+            else:
+                ks = vs = None
+                paged_decode_write(cache.k_pools[i], cache.v_pools[i],
+                                   tables, lens, k[:, 0], v[:, 0], act)
             out = paged_decode_attention(q[:, 0], cache.k_pools[i],
                                          cache.v_pools[i], tables,
-                                         attend_lens, kernel_mode=mode)
+                                         attend_lens, kernel_mode=mode,
+                                         k_scale=ks, v_scale=vs)
             x = x + attn.o_proj(out.reshape(b, 1, hq * hd))
             x = x + blk.mlp(blk.post_attention_layernorm(x))
         logits = self.head(self.norm(x))[:, 0]

@@ -8,11 +8,17 @@ without them. On the card, run them with
 (``--noconftest``: the suite's conftest imports JAX, which a GPU host
 serving the port need not have.)
 
-bf16 inputs; atol 3e-2 (a few bf16 ulps at |O| < 4: the kernels round the
-unnormalized P to bf16, the plain versions the normalized P). The backward
-kernels are compared relatively, max |kernel - plain| / max |plain| <=
-2e-2: dK and dV sum over the whole sequence, and where P or dS sits at a
-bf16 rounding boundary the two round differently.
+bf16 inputs. Flash forward: atol 3e-2 (a few bf16 ulps at |O| < 4: the
+kernels round the unnormalized P to bf16, the plain versions the
+normalized P). Paged decode, int8 pools included (both sides dequantize a
+row to the same bf16 values): atol 3e-2 and, per slot, max |kernel -
+plain| / max |plain| <= 2e-2 (two and a half ulps at the slot's largest
+value; |O| shrinks as a slot grows). The backward kernels are compared
+relatively, max |kernel - plain| / max |plain| <= 2e-2: dK and dV sum
+over the whole sequence, and where P or dS sits at a bf16 rounding
+boundary the two round differently. The int8
+weight matmul too, at 1e-2: it multiplies the scale after the f32 sum,
+the plain version before, which moves the bf16 output by an ulp at most.
 """
 
 import numpy as np
@@ -27,10 +33,15 @@ from paddle_tpu_torch.kernels.flash_attention import (
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
     paged_decode_attention_kernel)
+from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                   quant_matmul_plain)
+from paddle_tpu_torch.quantization import _quantize_weight, quantize_rows
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-2
+DECODE_RTOL = 2e-2
 BWD_RTOL = 2e-2
+QMM_RTOL = 1e-2
 
 
 @pytest.fixture
@@ -68,6 +79,7 @@ def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
     assert (lse - lse_ref).abs().max().item() <= 2e-3
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("wrapper", [paged_decode_attention_kernel,
                                      paged_decode_attention_chunked])
 @pytest.mark.parametrize("B,Hq,Hk,D,mbps,lens", [
@@ -76,12 +88,18 @@ def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
     (2, 4, 4, 64, 4, [30, 0]),
     (2, 32, 8, 128, 20, [320, 33]),
 ])
-def test_paged_decode_matches_plain(dev, wrapper, B, Hq, Hk, D, mbps, lens):
+def test_paged_decode_matches_plain(dev, wrapper, quantized, B, Hq, Hk, D,
+                                    mbps, lens):
     bs = 16
     rng = np.random.RandomState(0)
     kp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=4)
     vp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=5)
     q = _randn(dev, B, Hq, D, seed=6)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
     tbl = np.zeros((B, mbps), np.int32)
     for i in range(B):
         need = min(-(-lens[i] // bs), mbps)
@@ -89,15 +107,61 @@ def test_paged_decode_matches_plain(dev, wrapper, B, Hq, Hk, D, mbps, lens):
             1 + i * mbps, 1 + (i + 1) * mbps))[:need]
     tbl = torch.as_tensor(tbl, device=dev)
     sl = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
-    before = wrapper.launches
-    out = wrapper(q, kp, vp, tbl, sl)
-    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl)
+    count = "launches_q" if quantized else "launches"
+    before = getattr(wrapper, count)
+    out = wrapper(q, kp, vp, tbl, sl, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    assert getattr(wrapper, count) == before + 1
+    assert bool(torch.isfinite(out.float()).all())
     for i, n in enumerate(lens):
         if n == 0:
             assert out[i].abs().max().item() == 0.0
+        else:
+            assert _rel_err(out[i], ref[i]) <= DECODE_RTOL, i
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_paged_decode_rejects_an_int8_pool_without_scales(dev):
+    kp = torch.zeros(3, 16, 2, 64, dtype=torch.int8, device=dev)
+    q = _randn(dev, 1, 2, 64)
+    tbl = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    sl = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        paged_decode_attention_kernel(q, kp, kp, tbl, sl)
+    with pytest.raises(ValueError, match="both"):
+        paged_decode_attention_chunked(q, kp, kp, tbl, sl,
+                                       k_scale=torch.ones(3, 16, 2,
+                                                          device=dev))
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (8, 4096, 4096), (1, 1024, 4096), (5, 200, 96), (3, 8, 32),
+    (8, 4096, 14336), (1008, 14336, 4096), (32, 1024, 4096), (130, 128, 64),
+    (17, 72, 48),
+])
+def test_quant_matmul_matches_plain(dev, M, N, K):
+    x = _randn(dev, M, K, seed=9)
+    w, s = _quantize_weight(_randn(dev, N, K, seed=10) * 0.02, 0)
+    s = s.float()
+    before = quant_matmul.launches
+    out = quant_matmul(x, w, s)
+    ref = quant_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert _rel_err(out, ref) <= QMM_RTOL
+
+
+def test_quant_matmul_rejects_bad_inputs(dev):
+    x = _randn(dev, 4, 40)
+    w = torch.zeros(16, 40, dtype=torch.int8, device=dev)
+    s = torch.ones(16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant_matmul(x, w, s)
+    with pytest.raises(ValueError, match="float32"):
+        quant_matmul(x[:, :32].contiguous(), w[:, :32].contiguous(),
+                     s.bfloat16())
 
 
 def _rel_err(out, ref):

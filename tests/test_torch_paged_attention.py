@@ -4,7 +4,11 @@ kernels (interpret mode), and the port's decode routing on CPU tensors.
 The plain version ``paged_decode_attention_dense`` is what the CUDA kernels
 (``paged_decode.cu``, ``paged_decode_split.cu``) are held against on the
 card. Tables hold scattered blocks; lens include 0, 1, an exact block
-multiple and a full table. Float32, atol 1e-5.
+multiple and a full table. Float32, atol 1e-5. With int8 pools (K and V
+quantized by the JAX package's ``quantize_rows``) against the Pallas
+``_decode_kernel_q`` and the chunked kernel with ``quantized=True``, on
+part of the JAX package's own parity matrix: atol 5e-5 (both dequantize
+to the same float32 rows; the sums run in another order).
 """
 
 import numpy as np
@@ -13,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+from paddle_tpu import quantization as JQ
 from paddle_tpu.kernels.pallas.paged_attention import (
     paged_decode_attention_chunked as pallas_chunked,
     paged_decode_attention_kernel as pallas_kernel)
@@ -23,6 +28,7 @@ from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_kernel, pick_chunk_pages, split_plan)
 
 ATOL = 1e-5
+INT8_ATOL = 5e-5
 
 
 def _case(B, HQ, HK, D, BS, MBPS, lens, seed=0):
@@ -116,3 +122,51 @@ def test_split_plan_fills_the_card():
     assert nsplit * per * cpp >= 128 and (nsplit - 1) * per * cpp < 128
     # a table too short to split stays one CTA per (slot, kv head)
     assert split_plan(8, 8, 1, 1, 132) == (1, 1)
+
+
+def _int8_case(B, HQ, HK, D, BS, MBPS, lens, seed=0):
+    """The JAX parity matrix's scattered-pool case, K and V quantized."""
+    rng = np.random.default_rng(seed)
+    NB = 1 + B * MBPS
+    q = rng.standard_normal((B, HQ, D)).astype(np.float32)
+    k = rng.standard_normal((NB, BS, HK, D)).astype(np.float32)
+    v = rng.standard_normal((NB, BS, HK, D)).astype(np.float32)
+    tables = np.zeros((B, MBPS), np.int32)
+    perm = rng.permutation(np.arange(1, NB))
+    for b in range(B):
+        tables[b] = perm[b * MBPS:(b + 1) * MBPS]
+    kq, ks = (np.asarray(a) for a in JQ.quantize_rows(jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in JQ.quantize_rows(jnp.asarray(v)))
+    return q, kq, vq, tables, np.asarray(lens, np.int32), ks, vs
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("B,HQ,HK,D,BS,MBPS,lens", [
+    (3, 8, 2, 32, 8, 6, [0, 16, 47]),       # GQA 4, empty slot, boundary
+    (2, 8, 1, 32, 8, 6, [8, 48]),           # MQA, boundary and full
+])
+def test_quantized_plain_decode_matches_pallas(B, HQ, HK, D, BS, MBPS, lens,
+                                               chunked):
+    q, kq, vq, tbl, sl, ks, vs = _int8_case(B, HQ, HK, D, BS, MBPS, lens)
+    j = [jnp.asarray(a) for a in (q, kq, vq, tbl, sl)]
+    if chunked:
+        ref = pallas_chunked(*j, interpret=True, chunk_pages=2,
+                             k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    else:
+        ref = pallas_kernel(*j, interpret=True, k_scale=jnp.asarray(ks),
+                            v_scale=jnp.asarray(vs))
+    out = paged_decode_attention_dense(
+        *(torch.from_numpy(np.array(a)) for a in (q, kq, vq, tbl, sl)),
+        k_scale=torch.from_numpy(np.array(ks)),
+        v_scale=torch.from_numpy(np.array(vs)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=INT8_ATOL)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(out[i] == 0)
+
+
+def test_int8_chunks_hold_twice_the_pages():
+    # Llama-3-8B decode, 16-token pages of 128-wide heads: the int8 page
+    # (with its scale rows) is about half a bf16 one
+    assert pick_chunk_pages(128, 16, 128, 2) == 4
+    assert pick_chunk_pages(128, 16, 128, 1, quantized=True) == 8

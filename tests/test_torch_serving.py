@@ -109,7 +109,7 @@ def test_engine_validates_requests(models):
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.add_request(np.arange(10), 8)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
-        ContinuousBatchingEngine(tm, kv_cache_dtype="int8",
+        ContinuousBatchingEngine(tm, kv_cache_dtype="int4",
                                  dtype=torch.float32)
 
 
