@@ -11,14 +11,19 @@
    events, median of 30 launches), the plain version's time, one PyTorch
    library call's time as a yardstick, and its bound (bytes at 3.35 TB/s
    or flops at 989 TFLOP/s, whichever is larger, from this run's inputs).
+   B1 and B7's prefill path are also timed as CUDA-graph replays, kernel
+   and library alike (no host launch overhead).
    The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
-   D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64); the flash
+   D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64), held per query
+   row too and shown to fail without its last key tile; the flash
    backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's and at Llama-3-8B's
    (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels at the
    serving path's, over bf16 pools (B4, B6) and int8 pools (B5, B6q); the
    int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
-   projection shapes and at the longest prefill (M 1008), with its sum
-   over one decode step's 225 launches against the weight-read bound.
+   projection shapes and at the longest prefill (M 1008) for each of the
+   four layer shapes (and gate/up at the shortest, M 112), with its sums
+   over one decode step's 225 launches and one prefill's 224 layer
+   launches against their bounds.
 3. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
    from a fixed generator, served by ``ContinuousBatchingEngine``:
    engine A (max_seq_len 2048: the split-KV decode route) and engine B
@@ -26,6 +31,8 @@
    Then the same model is converted in place to int8 weights by the port's
    ``QAT`` and served with an int8 KV cache by engines A8 and B8 (A's and
    B's prompts, routes and token counts), and A8's decode is profiled.
+   One 1000-token prefill (padded to 1008) of A's and of A8's model is
+   timed and profiled by kernel group.
    Each engine's kernel launch counts are zeroed before it runs and must
    move by exactly the expected amounts; a teacher-forced dense forward of
    the model as served (bf16, or int8 weights through B7's plain version
@@ -72,6 +79,16 @@ DEVICE = "cuda"
 # (normalized), which moves O by a few ulps at most.
 O_ATOL = 3e-2
 LSE_ATOL = 2e-3
+# flash forward (B1): also per (batch, position, head) row, max |kernel -
+# plain| / max |plain| of the row within ROW_RTOL. A late row's |O| at
+# S 1024 is ~0.03-0.1, as small as O_ATOL; 2e-2 is two and a half bf16
+# ulps at the row's largest value (DECODE_RTOL's reasoning). Each flash
+# phase proves that the check sees a fault: the plain version with the
+# last 64-key tile of the last query block left out must fail it, and the
+# LSE check too.
+ROW_RTOL = 2e-2
+FLASH_ROWS = 64               # folded (position, head) rows per B1 CTA
+FLASH_KEYS = 64               # keys per B1 tile
 # paged decode (B4-B6q): within O_ATOL, and per slot max |kernel - plain|
 # / max |plain| within DECODE_RTOL. A slot's |O| falls as its length grows
 # (~0.15 at 2048 tokens against ~3 at 1), so the absolute limit is loose
@@ -107,7 +124,13 @@ QMM_DECODE = (((14336, 4096), 64),   # gate_proj, up_proj x 32 layers
               ((4096, 14336), 32),   # down_proj
               ((128256, 4096), 1))   # lm_head
 QMM_PREFILL_M = 1008                 # the longest padded prompt
+QMM_SHORT_M = 112                    # the shortest padded prompt of A8
+# the converted layers at prefill (M = the padded prompt) and launches
+# per prefill; the LM head runs on the last position only (M 1, decode's
+# kernel). Gate/up first: the kernel's prefill record shape.
+QMM_PREFILL = QMM_DECODE[:4]
 QMM_PER_FORWARD = 7 * LAYERS + 1     # B7 launches per prefill or decode step
+PREFILL_PROFILE_LEN = 1000           # one prompt, padded to 1008
 
 
 def fail(msg, code=1):
@@ -139,6 +162,21 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.zeros(64 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def graph(self, fn, iters=30, cold=False):
+        """Median time of one replay of ``fn`` captured in a CUDA graph:
+        the device's time for the call without the host's launch overhead
+        (a Python wrapper's checks and ctypes call can outlast a short
+        kernel, and the event timer then measures the host)."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        ms = self(g.replay, iters=iters, cold=cold)
+        del g
+        return ms
 
     def __call__(self, fn, iters=30, warmup=3, cold=False):
         torch = self.torch
@@ -177,6 +215,32 @@ def sdpa_library(torch, q, k, v, **kw):
 # kernel phases
 # ---------------------------------------------------------------------------
 
+def row_rel_err(out, ref):
+    """Per (batch, position, head) row: max |out - ref| / max |ref|. A
+    row with no visible key has ref == 0: a zero output there reads 0, any
+    other output a huge error (non-finite outputs are checked apart)."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    return (diff / scale).nan_to_num(nan=0.0).max().item()
+
+
+def dropped_tile(q, k, v, o_ref, lse_ref):
+    """The plain version (causal, Sq == Sk) with the last 64-key tile of
+    the last query block left out: the block's positions at or past that
+    tile's first key see only the keys before it."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_plain)
+    S = q.shape[1]
+    bq = FLASH_ROWS // (q.shape[2] // k.shape[2])
+    t_last = (S - 1) // FLASH_KEYS * FLASH_KEYS
+    p0 = max((S - 1) // bq * bq, t_last)
+    o, lse = o_ref.clone(), lse_ref.clone()
+    o[:, p0:], lse[:, :, p0:] = flash_attention_plain(
+        q[:, p0:], k[:, :t_last], v[:, :t_last], causal=False,
+        return_lse=True)
+    return o, lse
+
+
 def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_plain, flash_fwd_cuda)
@@ -187,31 +251,47 @@ def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
     o, lse = flash_fwd_cuda(q, k, v, causal=True)
     o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
                                            return_lse=True)
+    o_cut, lse_cut = dropped_tile(q, k, v, o_ref, lse_ref)
     torch.cuda.synchronize()
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_l = (lse - lse_ref).abs().max().item()
-    ok = err_o <= O_ATOL and err_l <= LSE_ATOL and \
-        bool(torch.isfinite(o.float()).all())
+    err_row = row_rel_err(o, o_ref)
+    cut_row = row_rel_err(o_cut, o_ref)
+    cut_l = (lse_cut - lse_ref).abs().max().item()
+    del o_cut, lse_cut
+    ok = err_o <= O_ATOL and err_l <= LSE_ATOL and err_row <= ROW_RTOL \
+        and bool(torch.isfinite(o.float()).all())
+    if cut_row <= ROW_RTOL or cut_l <= LSE_ATOL:
+        fail(f"flash_fwd S={S}: the check cannot see a missing key tile "
+             f"(row {cut_row} <= {ROW_RTOL} or LSE {cut_l} <= {LSE_ATOL})")
     ms = timer(lambda: flash_fwd_cuda(q, k, v, causal=True))
+    graph_ms = timer.graph(lambda: flash_fwd_cuda(q, k, v, causal=True))
     plain_ms = timer(lambda: flash_attention_plain(q, k, v, causal=True,
                                                    return_lse=True))
     lib = sdpa_library(torch, q.transpose(1, 2), k.transpose(1, 2),
                        v.transpose(1, 2), is_causal=True)
     library_ms = timer(lib)
+    library_graph_ms = timer.graph(lib)
     pairs = S * (S + 1) // 2
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
         + lse.numel() * 4
     bms, by = bound(nbytes, 4 * B * hq * dh * pairs)
     rec = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, max_abs_err=err_o,
-               lse_err=err_l, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bms, bound_by=by, ok=ok)
+               lse_err=err_l, row_rel_err=err_row,
+               missing_tile_row_rel_err=cut_row, missing_tile_lse_err=cut_l,
+               ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_graph_ms=library_graph_ms,
+               bound_ms=bms, bound_by=by, ok=ok)
     print(f"flash_fwd B={B} S={S} Hq={hq} Hk={hk} D={dh}: err O "
-          f"{err_o:.3e} LSE {err_l:.3e} | kernel {ms:.4f} ms plain "
-          f"{plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound {bms:.4f} ms "
-          f"({by})", flush=True)
+          f"{err_o:.3e} LSE {err_l:.3e} row {err_row:.3e} (a key tile "
+          f"missing: row {cut_row:.3e} LSE {cut_l:.3e}) | kernel {ms:.4f} "
+          f"ms (graph {graph_ms:.4f}) plain {plain_ms:.4f} ms sdpa "
+          f"{library_ms:.4f} ms (graph {library_graph_ms:.4f}) bound "
+          f"{bms:.4f} ms ({by})", flush=True)
     if not ok:
         fail(f"flash_fwd disagrees with its plain version at S={S}: "
-             f"O {err_o} (atol {O_ATOL}), LSE {err_l} (atol {LSE_ATOL})")
+             f"O {err_o} (atol {O_ATOL}), LSE {err_l} (atol {LSE_ATOL}), "
+             f"row {err_row} (rtol {ROW_RTOL})")
     return rec
 
 
@@ -425,17 +505,24 @@ def qmm_phase(torch, timer, M, N, K, seed):
                      iters=10)
     wb = (w.float() * s[:, None]).to(torch.bfloat16)
     library_ms = timer(lambda: F.linear(x, wb), cold=True)
+    graphs = {}
+    if M > 8:  # the prefill kernel; decode's records stay as they were
+        graphs = dict(
+            graph_ms=timer.graph(lambda: quant_matmul(x, w, s), cold=True),
+            library_graph_ms=timer.graph(lambda: F.linear(x, wb),
+                                         cold=True))
     del wb
     nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
     bms, by = bound(nbytes, 2 * M * N * K)
     rec = dict(M=M, N=N, K=K, max_abs_err=diff, rel_err=rel, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               plain_ms=plain_ms, library_ms=library_ms, **graphs,
                library="F.linear on a bf16 copy of w*s (2x the weight bytes)",
                bound_ms=bms, bound_by=by, ok=ok)
+    shown = "".join(f" {k} {v:.4f}" for k, v in graphs.items())
     print(f"quant_matmul M={M} N={N} K={K}: err {diff:.3e} (rel "
           f"{rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"F.linear bf16 {library_ms:.4f} ms bound {bms:.4f} ms ({by})",
-          flush=True)
+          f"F.linear bf16 {library_ms:.4f} ms bound {bms:.4f} ms ({by})"
+          f"{shown}", flush=True)
     if not ok:
         fail(f"quant_matmul disagrees with quant_matmul_plain at M={M} "
              f"N={N} K={K}: relative error {rel} (limit {QMM_RTOL})")
@@ -475,8 +562,22 @@ def kernel_phases(torch):
     print(f"quant_matmul per decode step (M 8, 225 launches): kernel "
           f"{step_ms:.4f} ms, weight-read bound {step_bound:.4f} ms, "
           f"F.linear on bf16 copies {step_lib:.4f} ms", flush=True)
-    qmm.append(qmm_phase(torch, timer, QMM_PREFILL_M, 14336, 4096,
-                         seed=3100))
+    prefill = [qmm_phase(torch, timer, QMM_PREFILL_M, n, k, seed=3100 + i)
+               for i, ((n, k), _) in enumerate(QMM_PREFILL)]
+    sums = {key: sum(r[key] * per for r, (_, per) in zip(prefill,
+                                                         QMM_PREFILL))
+            for key in ("ms", "graph_ms", "bound_ms", "library_ms",
+                        "library_graph_ms")}
+    launches = sum(per for _, per in QMM_PREFILL)
+    print(f"quant_matmul per {QMM_PREFILL_M}-token prefill (M "
+          f"{QMM_PREFILL_M}, {launches} layer launches): kernel "
+          f"{sums['ms']:.4f} ms (graph {sums['graph_ms']:.4f}), bound "
+          f"{sums['bound_ms']:.4f} ms, F.linear on bf16 copies "
+          f"{sums['library_ms']:.4f} ms (graph "
+          f"{sums['library_graph_ms']:.4f})", flush=True)
+    qmm += prefill
+    qmm.append(qmm_phase(torch, timer, QMM_SHORT_M, *QMM_PREFILL[0][0],
+                         seed=3200))
     del timer
     torch.cuda.empty_cache()
     return {"flash_fwd": flash,
@@ -484,7 +585,9 @@ def kernel_phases(torch):
             "flash_bwd_dkv": [r["flash_bwd_dkv"] for r in bwd],
             **decode, "quant_matmul": qmm,
             "quant_matmul_decode_step": dict(
-                ms=step_ms, bound_ms=step_bound, library_ms=step_lib)}
+                ms=step_ms, bound_ms=step_bound, library_ms=step_lib),
+            "quant_matmul_prefill": dict(M=QMM_PREFILL_M, launches=launches,
+                                         **sums)}
 
 
 # ---------------------------------------------------------------------------
@@ -693,6 +796,7 @@ _MATMUL_GROUPS = tuple((key, "matmul") for key in
                        ("nvjet", "gemm", "gemv", "cutlass", "xmma"))
 _KERNEL_GROUPS = (
     ("quant_matmul", "int8 weight matmul (port)"),
+    ("qmm_", "int8 weight matmul (port)"),
     ("paged_decode", "decode attention (port)"),
     ("flash_fwd", "flash forward (port)"),
 ) + _MATMUL_GROUPS
@@ -749,6 +853,92 @@ def profile_decode(torch, model, prompts, new_tokens, steps=4, label="A",
         print("profile: the profiler saw no device time; busy share not "
               "measured", flush=True)
     del engine
+    return rec
+
+
+_PREFILL_GROUPS = (
+    ("quant_matmul", "B7 int8 weight matmul (port)"),
+    ("qmm_", "B7 int8 weight matmul (port)"),
+    ("flash_fwd", "B1 flash forward (port)"),
+) + tuple((key, "cuBLAS bf16 matmul") for key, _ in _MATMUL_GROUPS)
+_CACHE_WRITE = "cache writes (paged_prefill_write[_q])"
+_PREFILL_OTHER = "elementwise, norms, rope, embedding, copies"
+
+
+def profile_prefill(torch, model, prompt, label, **engine_kw):
+    """One prefill of ``prompt`` (padded to a block multiple) into a fresh
+    engine's cache: its host-clock time (median of 3, synchronized), then
+    torch.profiler over one more: device time by kernel group, the cache
+    writes read from a ``record_function`` range around them."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import paddle_tpu_torch.inference.paged as paged_mod
+    from paddle_tpu_torch import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
+                                      max_seq_len=2048, temperature=0.0,
+                                      **engine_kw)
+    cache = engine.cache
+
+    def prefill():
+        slot = cache.alloc_slot(len(prompt))
+        try:
+            model.paged_prefill(cache, slot, prompt)
+        finally:
+            cache.free_slot(slot)
+
+    secs = []
+    for _ in range(4):  # the first warms up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    names = ("paged_prefill_write", "paged_prefill_write_q")
+    orig = {n: getattr(paged_mod, n) for n in names}
+
+    def traced(fn):
+        def run(*a, **kw):
+            with record_function("cache_write"):
+                return fn(*a, **kw)
+        return run
+
+    for n, fn in orig.items():
+        setattr(paged_mod, n, traced(fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for n, fn in orig.items():
+            setattr(paged_mod, n, fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    groups, busy_us, n_kernels = {}, 0.0, 0
+    for e in events:
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.end - e.time_range.start
+        busy_us += us
+        n_kernels += 1
+        grp = next((lab for key, lab in _PREFILL_GROUPS if key in e.name),
+                   _PREFILL_OTHER)
+        groups[grp] = groups.get(grp, 0.0) + us / 1e3
+    write_ms = sum(getattr(e, "device_time_total", 0.0) for e in events
+                   if e.device_type != cuda and e.name == "cache_write") / 1e3
+    groups[_CACHE_WRITE] = write_ms
+    groups[_PREFILL_OTHER] = groups.get(_PREFILL_OTHER, 0.0) - write_ms
+    rec = dict(tokens=len(prompt), padded=-(-len(prompt) // 16) * 16,
+               prefill_ms=float(np.median(secs[1:])) * 1e3,
+               profiled_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+               kernels=n_kernels, by_group_ms=groups)
+    print(f"prefill profile (engine {label}): {json.dumps(rec)}", flush=True)
+    if busy_us == 0.0:
+        print("profile: the profiler saw no device time; prefill breakdown "
+              "not measured", flush=True)
+    del engine
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -838,6 +1028,9 @@ def slice_phase(torch):
                                    **kw)
     inst.restore()
     results["A"]["profile"] = profile_decode(torch, model, asked["A"][0], 8)
+    long_prompt = prompts(1, PREFILL_PROFILE_LEN, PREFILL_PROFILE_LEN)[0]
+    results["A"]["prefill_profile"] = profile_prefill(torch, model,
+                                                      long_prompt, "A")
 
     results["int8_model"] = convert_int8(torch, model)
     inst = Instrumented(torch, model)
@@ -849,6 +1042,15 @@ def slice_phase(torch):
     prof8 = profile_decode(torch, model, asked["A"][0], 8, label="A8",
                            kv_cache_dtype="int8")
     results["A8"]["profile"] = prof8
+    results["A8"]["prefill_profile"] = profile_prefill(
+        torch, model, long_prompt, "A8", kv_cache_dtype="int8")
+    pa, p8 = results["A"]["prefill_profile"], results["A8"]["prefill_profile"]
+    print(f"prefill of {pa['tokens']} tokens: A {pa['prefill_ms']:.2f} ms, "
+          f"A8 {p8['prefill_ms']:.2f} ms (host clock); TTFT medians: A "
+          f"{results['A']['ttft_median_s']:.4f} s, A8 "
+          f"{results['A8']['ttft_median_s']:.4f} s, B "
+          f"{results['B']['ttft_median_s']:.4f} s, B8 "
+          f"{results['B8']['ttft_median_s']:.4f} s", flush=True)
     b7 = prof8["by_group_ms_per_step"].get("int8 weight matmul (port)")
     mm = results["A"]["profile"]["by_group_ms_per_step"].get("matmul")
     print(f"decode step device time, 8 live slots: B7 (engine A8) {b7} ms "
@@ -1121,7 +1323,15 @@ def main():
         launches = sum(served[e]["launches"][name]
                        for e in ("A", "B", "A8", "B8")) \
             + trained["launches"][name]
-        records.append(dict(
+        paths = {}
+        if name == "quant_matmul":  # decode (above) and prefill
+            pre = next(r for r in phases[name] if r["M"] > 8)
+            paths["prefill"] = dict(
+                {k: pre[k] for k in ("M", "N", "K", "ms", "graph_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_graph_ms")},
+                per_prefill=phases["quant_matmul_prefill"])
+        records.append(dict(**paths,
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in phases[name]),

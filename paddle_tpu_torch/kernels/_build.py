@@ -66,8 +66,9 @@ SIGNATURES = {
         "paged_decode_merge_bf16": [_P] * 5 + [_I] * 6 + [_P],
     },
     "quant_matmul": {
-        # x, w_int8, w_scales, y, M, N, K, stream
-        "quant_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
+        # x, w_int8, w_scales, y, workspace, M, N, K, k chunks per split,
+        # stream
+        "quant_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
     },
 }
 

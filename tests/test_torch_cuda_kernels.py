@@ -10,10 +10,12 @@ serving the port need not have.)
 
 bf16 inputs. Flash forward: atol 3e-2 (a few bf16 ulps at |O| < 4: the
 kernels round the unnormalized P to bf16, the plain versions the
-normalized P). Paged decode, int8 pools included (both sides dequantize a
-row to the same bf16 values): atol 3e-2 and, per slot, max |kernel -
-plain| / max |plain| <= 2e-2 (two and a half ulps at the slot's largest
-value; |O| shrinks as a slot grows). The backward kernels are compared
+normalized P) and, per (batch, position, head) row, max |kernel - plain|
+/ max |plain| <= 2e-2 (two and a half ulps at the row's largest value;
+|O| shrinks as the keys a row sees grow). Paged decode, int8 pools
+included (both sides dequantize a row to the same bf16 values): atol
+3e-2 and, per slot, max |kernel - plain| / max |plain| <= 2e-2 (the same
+reasoning per slot). The backward kernels are compared
 relatively, max |kernel - plain| / max |plain| <= 2e-2: dK and dV sum
 over the whole sequence, and where P or dS sits at a bf16 rounding
 boundary the two round differently. The int8
@@ -39,6 +41,7 @@ from paddle_tpu_torch.quantization import _quantize_weight, quantize_rows
 
 pytestmark = pytest.mark.cuda
 ATOL = 3e-2
+ROW_RTOL = 2e-2
 DECODE_RTOL = 2e-2
 BWD_RTOL = 2e-2
 QMM_RTOL = 1e-2
@@ -59,24 +62,54 @@ def _randn(dev, *shape, seed=0):
     return torch.randn(*shape, generator=g, device=dev, dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal", [
-    (1, 64, 64, 4, 4, 64, True),
-    (2, 100, 100, 8, 2, 128, True),
-    (1, 37, 200, 8, 2, 128, True),
-    (1, 37, 200, 8, 2, 128, False),
-    (2, 200, 37, 4, 1, 64, True),
-    (1, 1, 77, 32, 8, 128, True),
+def _row_rel_err(out, ref):
+    """Per (batch, position, head) row: max |out - ref| / max |ref|; a row
+    that sees no key (ref == 0) reads 0 only if out is 0 there too."""
+    diff = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    return (diff / scale).nan_to_num(nan=0.0).max().item()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal,fused", [
+    (1, 64, 64, 4, 4, 64, True, False),
+    (2, 100, 100, 8, 2, 128, True, False),
+    (1, 37, 200, 8, 2, 128, True, False),
+    (1, 37, 200, 8, 2, 128, False, False),
+    (2, 200, 37, 4, 1, 64, True, False),
+    (1, 1, 77, 32, 8, 128, True, False),
+    # the kernel's tile edges: 64 folded rows (64/G positions), 64 keys
+    (2, 1, 1, 8, 8, 64, True, False),
+    (1, 127, 127, 8, 1, 128, True, False),
+    (1, 128, 128, 32, 8, 128, True, False),
+    (2, 129, 129, 16, 2, 64, True, False),
+    (1, 1000, 1000, 32, 8, 128, True, False),
+    (1, 1000, 1000, 16, 16, 64, False, False),
+    (1, 129, 1000, 16, 2, 64, True, False),     # Sq < Sk, causal
+    (1, 1000, 129, 8, 8, 128, True, False),     # Sq > Sk: fully masked rows
+    (1, 128, 127, 32, 8, 128, False, False),
+    (2, 127, 129, 8, 1, 64, True, False),
+    # q/k/v as strided views of one [B, S, 3, H, D] projection
+    (2, 300, 300, 4, 4, 64, True, True),
+    (2, 129, 129, 2, 2, 128, True, True),
 ])
-def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
-    q = _randn(dev, B, Sq, Hq, D, seed=1)
-    k = _randn(dev, B, Sk, Hk, D, seed=2)
-    v = _randn(dev, B, Sk, Hk, D, seed=3)
+def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal, fused):
+    if fused:
+        q, k, v = _randn(dev, B, Sq, 3, Hq, D, seed=7).unbind(2)
+    else:
+        q = _randn(dev, B, Sq, Hq, D, seed=1)
+        k = _randn(dev, B, Sk, Hk, D, seed=2)
+        v = _randn(dev, B, Sk, Hk, D, seed=3)
     o, lse = flash_fwd_cuda(q, k, v, causal=causal)
     o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
                                            return_lse=True)
     torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
     assert (o.float() - o_ref.float()).abs().max().item() <= ATOL
     assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL
+    if causal and Sq > Sk:  # rows that see no key: O 0, LSE +1e30
+        assert o[:, :Sq - Sk].abs().max().item() == 0.0
+        assert bool((lse[:, :, :Sq - Sk] == 1e30).all())
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -135,11 +168,20 @@ def test_paged_decode_rejects_an_int8_pool_without_scales(dev):
                                                           device=dev))
 
 
+# the prefill kernel's tile edges (128 tokens x 256 channels, 64-wide k
+# chunks, K split where the tiles alone leave SMs idle): N 72 and K 48 are
+# tails of one partial tile and chunk; K 4144 ends in a partial chunk
+_QMM_EDGES = [(M, N, K) for M in (9, 16, 112, 127, 128, 129, 1008)
+              for N, K in ((72, 48), (72, 4096), (4096, 48), (4096, 4096),
+                           (72, 14336), (4096, 14336))] + \
+    [(200, 200, 4144), (257, 4100, 4144)]
+
+
 @pytest.mark.parametrize("M,N,K", [
     (8, 4096, 4096), (1, 1024, 4096), (5, 200, 96), (3, 8, 32),
     (8, 4096, 14336), (1008, 14336, 4096), (32, 1024, 4096), (130, 128, 64),
     (17, 72, 48),
-])
+] + _QMM_EDGES)
 def test_quant_matmul_matches_plain(dev, M, N, K):
     x = _randn(dev, M, K, seed=9)
     w, s = _quantize_weight(_randn(dev, N, K, seed=10) * 0.02, 0)

@@ -24,8 +24,9 @@ from paddle_tpu_torch import Llama, LlamaConfig
 from paddle_tpu_torch import quantization as TQ
 from paddle_tpu_torch.convert import llama_int8_params_from_numpy
 from paddle_tpu_torch.core.flags import set_flags
-from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                   quant_matmul_plain)
+from paddle_tpu_torch.kernels.quant_matmul import (
+    CH_TILE, K_CHUNK, MIN_CHUNKS, SMS, TOK_TILE, prefill_plan, quant_matmul,
+    quant_matmul_plain)
 from paddle_tpu_torch.nn import Linear
 
 _DT = {"float32": (jnp.float32, torch.float32),
@@ -104,6 +105,22 @@ def test_quant_matmul_wrapper_takes_plain_version_on_cpu():
     before = quant_matmul.launches
     assert torch.equal(quant_matmul(x, w, s), quant_matmul_plain(x, w, s))
     assert quant_matmul.launches == before
+
+
+@pytest.mark.parametrize("n,k", [(14336, 4096), (4096, 4096), (1024, 4096),
+                                 (4096, 14336)])
+def test_prefill_plan_covers_k_and_fills_the_card(n, k):
+    """Llama-3-8B's layer shapes at every padded prompt length: every
+    split of K holds at least one chunk and all of them together cover K
+    once; the CTAs come to about one wave of the card's SMs."""
+    chunks = -(-k // K_CHUNK)
+    for m in range(16, 1025, 16):
+        cps, splits = prefill_plan(m, n, k)
+        assert cps >= min(chunks, MIN_CHUNKS)
+        assert (splits - 1) * cps < chunks <= splits * cps
+        ctas = -(-m // TOK_TILE) * -(-n // CH_TILE) * splits
+        assert ctas >= 0.7 * SMS, (m, cps, splits)
+        assert splits == 1 or ctas < 1.5 * SMS, (m, cps, splits)
 
 
 def _jax_converted_linear(seed):
