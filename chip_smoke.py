@@ -11,8 +11,9 @@
    events, median of 30 launches), the plain version's time, one PyTorch
    library call's time as a yardstick, and its bound (bytes at 3.35 TB/s
    or flops at 989 TFLOP/s, whichever is larger, from this run's inputs).
-   B1 and B7's prefill path are also timed as CUDA-graph replays, kernel
-   and library alike (no host launch overhead).
+   B1, B7's prefill path and the paged-decode kernels are also timed as
+   CUDA-graph replays, kernel and library alike (no host launch
+   overhead).
    The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
    D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64), held per query
    row too and shown to fail without its last key tile; the flash
@@ -30,7 +31,8 @@
    (max_seq_len 240: the per-page route), then a profile of A's decode.
    Then the same model is converted in place to int8 weights by the port's
    ``QAT`` and served with an int8 KV cache by engines A8 and B8 (A's and
-   B's prompts, routes and token counts), and A8's decode is profiled.
+   B's prompts, routes and token counts), and A8's and B8's decode are
+   profiled.
    One 1000-token prefill (padded to 1008) of A's and of A8's model is
    timed and profiled by kernel group.
    Each engine's kernel launch counts are zeroed before it runs and must
@@ -177,6 +179,20 @@ class Timer:
         ms = self(g.replay, iters=iters, cold=cold)
         del g
         return ms
+
+    def host(self, fn, iters=100):
+        """Mean host time of one call of ``fn`` (ms), enqueued back to back
+        with no synchronize between calls: a wrapper's own cost on the
+        host (checks, allocation, ctypes, launch)."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        secs = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return secs / iters * 1e3
 
     def __call__(self, fn, iters=30, warmup=3, cold=False):
         torch = self.torch
@@ -435,6 +451,9 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
         fail(f"{name}: the check cannot see {drop_pages} missing pages "
              f"({missing} <= {DECODE_RTOL})")
     ms = timer(lambda: wrapper(q, kp, vp, tbl, sl, **scales), cold=True)
+    graph_ms = timer.graph(lambda: wrapper(q, kp, vp, tbl, sl, **scales),
+                           cold=True)
+    host_ms = timer.host(lambda: wrapper(q, kp, vp, tbl, sl, **scales))
     plain_ms = timer(lambda: paged_decode_attention_dense(
         q, kp, vp, tbl, sl, **scales), cold=True)
     bs = kp.shape[1]
@@ -452,6 +471,7 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
             < sl[:, None])[:, None, None, :]
     lib = sdpa_library(torch, q[:, :, None, :], kg, vg, attn_mask=mask)
     library_ms = timer(lib, cold=True)
+    library_graph_ms = timer.graph(lib, cold=True)
     total = int(np.sum(lens))
     row_bytes = D + 4 if quantized else D * 2  # int8 row + its f32 scale
     nbytes = 2 * q.numel() * 2 + total * HK * row_bytes * 2 \
@@ -460,13 +480,16 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
     rec = dict(B=B, mbps=mbps, lens=[int(x) for x in lens],
                pools="int8" if quantized else "bf16", max_abs_err=err,
                slot_rel_err=rel, missing_pages=drop_pages,
-               missing_pages_rel_err=missing, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bms, bound_by=by, ok=ok)
+               missing_pages_rel_err=missing, ms=ms, graph_ms=graph_ms,
+               host_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_graph_ms=library_graph_ms, bound_ms=bms, bound_by=by,
+               ok=ok)
     print(f"{name} B={B} pages={mbps} lens={list(map(int, lens))} "
           f"pools={rec['pools']}: err {err:.3e} (slot rel {rel:.3e}; "
           f"{drop_pages} pages missing: {missing:.3e}) | kernel {ms:.4f} ms "
-          f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
-          f"{bms:.4f} ms ({by})", flush=True)
+          f"(graph {graph_ms:.4f}, host {host_ms:.4f}) plain {plain_ms:.4f} "
+          f"ms sdpa {library_ms:.4f} ms (graph {library_graph_ms:.4f}) "
+          f"bound {bms:.4f} ms ({by})", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version: slot relative "
              f"error {rel} (limit {DECODE_RTOL}), absolute {err} (limit "
@@ -803,16 +826,17 @@ _KERNEL_GROUPS = (
 
 
 def profile_decode(torch, model, prompts, new_tokens, steps=4, label="A",
-                   **engine_kw):
-    """torch.profiler over ``steps`` decode-only steps of engine A's
-    configuration (``engine_kw``: A8's int8 cache) with every slot live:
-    the device's busy share of the window, kernels per step, and device
-    time per step by kernel group."""
+                   max_seq_len=2048, **engine_kw):
+    """torch.profiler over ``steps`` decode-only steps of an engine with
+    every slot live (``max_seq_len`` 2048: engine A's split route; 240:
+    engine B's per-page route; ``engine_kw``: the int8 cache of A8 and
+    B8): the device's busy share of the window, kernels per step, and
+    device time per step by kernel group."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
-                                      max_seq_len=2048, temperature=0.0,
-                                      **engine_kw)
+                                      max_seq_len=max_seq_len,
+                                      temperature=0.0, **engine_kw)
     for p in prompts:
         engine.add_request(p, new_tokens)
     engine.step()  # admits (prefills) every request and decodes once
@@ -1042,6 +1066,9 @@ def slice_phase(torch):
     prof8 = profile_decode(torch, model, asked["A"][0], 8, label="A8",
                            kv_cache_dtype="int8")
     results["A8"]["profile"] = prof8
+    results["B8"]["profile"] = profile_decode(
+        torch, model, asked["B"][0], 8, label="B8", max_seq_len=240,
+        kv_cache_dtype="int8")
     results["A8"]["prefill_profile"] = profile_prefill(
         torch, model, long_prompt, "A8", kv_cache_dtype="int8")
     pa, p8 = results["A"]["prefill_profile"], results["A8"]["prefill_profile"]
@@ -1331,7 +1358,10 @@ def main():
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "library_graph_ms")},
                 per_prefill=phases["quant_matmul_prefill"])
-        records.append(dict(**paths,
+        # device-only times (CUDA-graph replays) where the phase took them
+        graphs = {k: main_rec[k] for k in ("graph_ms", "library_graph_ms")
+                  if k in main_rec}
+        records.append(dict(**paths, **graphs,
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in phases[name]),

@@ -48,11 +48,11 @@ SIGNATURES = {
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lens, out, B, Hq, Hk, D, bs, mbps,
-        # scale, stream
-        "paged_decode_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # chunk_pages, cluster, scale, stream
+        "paged_decode_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
         # q, k_pool, v_pool, k_scale, v_scale, tables, lens, out, then as
         # paged_decode_bf16
-        "paged_decode_i8": [_P] * 8 + [_I] * 6 + [_F, _P],
+        "paged_decode_i8": [_P] * 8 + [_I] * 8 + [_F, _P],
     },
     "paged_decode_split": {
         # q, k_pool, v_pool, tables, lens, acc, m, l, B, Hq, Hk, D, bs,

@@ -1,6 +1,5 @@
-// Shared pieces of the paged-decode kernels (paged_decode.cu,
-// paged_decode_split.cu), for bf16 pools and for int8 pools with float32
-// per-row scales.
+// Shared pieces of the split-KV paged-decode kernel (paged_decode_split.cu),
+// for bf16 pools and for int8 pools with float32 per-row scales.
 //
 // Thread layout: a CTA of 128 threads is cut into row groups of
 // kLanes = D/8 threads; each thread of a group owns 8 consecutive elements

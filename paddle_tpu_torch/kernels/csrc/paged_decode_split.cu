@@ -10,10 +10,10 @@
 // dequantized as bf16(f32(q8) * scale) before the dot products.
 //
 // What bounds it on this card: bytes, as for every decode attention (each
-// live KV row is read once for G dot products). The per-(slot, kv head)
-// grid of the per-page kernel has B * Hk CTAs -- 64 at B = 8, Hk = 8,
-// fewer than the 132 SMs -- so a long context leaves most of the card's
-// memory bandwidth unused. The TPU kernel's chunking (several pages per
+// live KV row is read once for G dot products). A grid of one CTA per
+// (slot, kv head) has B * Hk CTAs -- 64 at B = 8, Hk = 8, fewer than the
+// 132 SMs -- so a long context leaves most of the card's memory bandwidth
+// unused. The TPU kernel's chunking (several pages per
 // sequential grid step) answers a different problem, per-step overhead on
 // one core, and is not copied.
 //

@@ -12,8 +12,10 @@ float32, one scale per (row, kv head): a row is dequantized as
 
 - ``paged_decode_attention_kernel`` launches ``csrc/paged_decode.cu``
   (Hopper counterpart of the Pallas ``_decode_kernel``, :133 there, and of
-  ``_decode_kernel_q``, :156, for int8 pools): one CTA per (slot, kv
-  head) walks the slot's live pages.
+  ``_decode_kernel_q``, :156, for int8 pools): one cluster of C CTAs per
+  (slot, kv head) splits the slot's live pages, stages them in shared
+  memory with ``cp.async`` and merges its partials through distributed
+  shared memory (``decode_cluster_plan`` picks C and the staged chunk).
 - ``paged_decode_attention_chunked`` launches ``csrc/paged_decode_split.cu``
   (counterpart of ``_decode_kernel_chunked``, :186 there, both pool
   types): the KV sequence is split across CTAs in ``chunk_pages``-page
@@ -30,6 +32,7 @@ they launch their kernel or raise. Each counts its bf16-pool launches in
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,6 +43,10 @@ _NEG = -1e30
 # shared memory a block may use on Hopper (227 KB of the SM's 256 KB)
 SMEM_PER_BLOCK = 227 * 1024
 _CHUNK_CANDIDATES = (1, 2, 4, 8, 16)
+# cluster sizes of the per-page kernel (8 is the portable maximum) and its
+# warps per CTA
+_CLUSTER_SIZES = (1, 2, 4, 8)
+_DECODE_WARPS = 4
 
 
 def _gather_kv(pool, idx, scale, dtype):
@@ -131,10 +138,78 @@ def _scale_ptrs(k_scale, v_scale):
             else [k_scale.data_ptr(), v_scale.data_ptr()])
 
 
+def decode_smem_bytes(rows, npages, d, g, quantized, stages, cluster):
+    """Dynamic shared memory of the per-page kernel (``smem_bytes`` in
+    ``csrc/paged_decode.cu``): the table row's block ids, then per stage
+    the padded bf16 K and V tiles ([rows][D + 8]); for int8 pools one
+    dequantized pair of tiles plus, per stage, the raw int8 rows and their
+    f32 scales. The warps' f32 partials reuse the bytes afterwards; past
+    them lie the cluster's f32 slots (m, l, O of each rank)."""
+    tile = 2 * rows * (d + 8) * 2
+    raw = rows * (2 * d + 8) if quantized else 0
+    staging = -(-npages * 4 // 16) * 16 + (
+        tile + stages * raw if quantized else stages * tile)
+    return max(staging, _DECODE_WARPS * g * (d + 2) * 4) + \
+        cluster * (2 * g + g * d) * 4
+
+
+def decode_cluster_shares(length, bs, npages, cluster):
+    """Each cluster rank's live pages ``(begin, end)`` for a slot of
+    ``length`` keys: the kernel's share formula, ceil(live / C) pages each
+    in rank order (lengths past the table attend the whole table)."""
+    live = -(-min(int(length), npages * bs) // bs)
+    share = -(-live // cluster)
+    out = []
+    for rank in range(cluster):
+        begin = min(rank * share, live)
+        out.append((begin, min(begin + share, live)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def decode_cluster_plan(b, hk, g, npages, bs, d, quantized, num_sms):
+    """``(cluster, chunk_pages, stages)`` for the per-page kernel.
+
+    The cluster size C is the smallest of 1, 2, 4, 8 that gives every SM a
+    CTA (B * Hk * C >= ``num_sms``), never more than the table's pages. A
+    rank's share is at most ceil(npages / C) pages; it is staged at once
+    when it fits half of a block's shared memory (two CTAs an SM), else
+    in chunks through a two-stage ring. Raises ``ValueError`` when not one
+    page can be staged."""
+    cluster = 1
+    for c in _CLUSTER_SIZES:
+        if c > max(npages, 1):
+            break
+        cluster = c
+        if b * hk * c >= num_sms:
+            break
+    share = max(-(-npages // cluster), 1)
+    budget = SMEM_PER_BLOCK // 2
+
+    def fits(pages, stages):
+        rows = -(-pages * bs // 16) * 16
+        return decode_smem_bytes(rows, npages, d, g, quantized, stages,
+                                 cluster) <= budget
+
+    if fits(share, 1):
+        return cluster, share, 1
+    if not fits(1, 2):
+        raise ValueError(
+            f"paged_decode: a {bs}-row page of head_dim {d} "
+            f"({'int8' if quantized else 'bf16'} pools) and a {npages}-page "
+            f"table do not fit two stages in {budget} bytes of shared "
+            f"memory")
+    pages = 1
+    while pages + 1 < share and fits(pages + 1, 2):
+        pages += 1
+    return cluster, pages, 2
+
+
 def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
                                   seq_lens, k_scale=None, v_scale=None):
-    """Per-page decode: grid (B, Hk), one CTA walks one slot's live pages
-    for one kv head and its G query heads."""
+    """Per-page decode: grid (B, Hk, C) in clusters of C CTAs, one cluster
+    per slot and kv head (with its G query heads), the slot's live pages
+    split over the cluster (``decode_cluster_plan``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
                                             seq_lens, k_scale, v_scale)
@@ -142,6 +217,9 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
         "paged_decode", q, k_pool, v_pool, block_tables, seq_lens, k_scale,
         v_scale)
     sm_scale = 1.0 / math.sqrt(d)
+    num_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    cluster, cpp, _ = decode_cluster_plan(b, hk, hq // hk, mbps, bs, d,
+                                          quantized, num_sms)
     out = torch.empty_like(q)
     lib = _build.load("paged_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -149,8 +227,8 @@ def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
     err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *_scale_ptrs(k_scale, v_scale), block_tables.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, hq, hk, d, bs, mbps,
-        float(sm_scale), stream)
+        seq_lens.data_ptr(), out.data_ptr(), b, hq, hk, d, bs, mbps, cpp,
+        cluster, float(sm_scale), stream)
     _build.check(err, fn)
     if quantized:
         paged_decode_attention_kernel.launches_q += 1

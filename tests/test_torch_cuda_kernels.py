@@ -112,18 +112,34 @@ def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal, fused):
         assert bool((lse[:, :, :Sq - Sk] == 1e30).all())
 
 
+_SERVING_LENS = [0, 1, 16, 17, 100, 161, 239, 240]
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("wrapper", [paged_decode_attention_kernel,
                                      paged_decode_attention_chunked])
-@pytest.mark.parametrize("B,Hq,Hk,D,mbps,lens", [
-    (3, 8, 2, 128, 8, [1, 100, 128]),
-    (3, 8, 2, 128, 8, [0, 17, 200]),   # a length past the table
-    (2, 4, 4, 64, 4, [30, 0]),
-    (2, 32, 8, 128, 20, [320, 33]),
+@pytest.mark.parametrize("B,Hq,Hk,D,bs,mbps,lens", [
+    (3, 8, 2, 128, 16, 8, [1, 100, 128]),
+    (3, 8, 2, 128, 16, 8, [0, 17, 200]),   # a length past the table
+    (2, 4, 4, 64, 16, 4, [30, 0]),
+    (2, 32, 8, 128, 16, 20, [320, 33]),
+    # the per-page kernel's cluster split (C = 4 at the serving shape):
+    # 15 pages (not a multiple of C), empty beside full slots, slots with
+    # fewer pages than C
+    (8, 32, 8, 128, 16, 15, _SERVING_LENS),
+    (3, 8, 2, 128, 8, 8, [1, 37, 64]),      # 8-row pages
+    (3, 8, 2, 128, 8, 5, [0, 9, 77]),       # 8-row pages, past the table
+    (3, 8, 2, 128, 32, 6, [31, 0, 192]),    # 32-row pages
+    (2, 8, 8, 128, 16, 6, [50, 96]),        # G 1
+    (2, 32, 4, 128, 16, 7, [100, 5]),       # G 8
+    (3, 16, 2, 64, 16, 5, [70, 3, 80]),     # D 64
+    (1, 8, 1, 64, 16, 3, [40]),             # one slot, C 2, G 8
+    # a 128-page table: the per-page kernel's share streams through its
+    # two-stage ring of chunks
+    (8, 32, 8, 128, 16, 128, [1, 293, 585, 878, 1170, 1463, 1755, 2048]),
 ])
 def test_paged_decode_matches_plain(dev, wrapper, quantized, B, Hq, Hk, D,
-                                    mbps, lens):
-    bs = 16
+                                    bs, mbps, lens):
     rng = np.random.RandomState(0)
     kp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=4)
     vp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=5)
@@ -152,6 +168,50 @@ def test_paged_decode_matches_plain(dev, wrapper, quantized, B, Hq, Hk, D,
             assert out[i].abs().max().item() == 0.0
         else:
             assert _rel_err(out[i], ref[i]) <= DECODE_RTOL, i
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_replays_in_a_cuda_graph(dev, quantized):
+    """The cluster launch captured in a CUDA graph: the capture counts one
+    launch, and a replay after the query changes in place gives the plain
+    version's answer for the new query."""
+    B, Hq, Hk, D, bs, mbps = 8, 32, 8, 128, 16, 15
+    rng = np.random.RandomState(1)
+    kp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=11)
+    vp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=12)
+    q = _randn(dev, B, Hq, D, seed=13)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tbl = np.zeros((B, mbps), np.int32)
+    for i, n in enumerate(_SERVING_LENS):
+        tbl[i, :-(-n // bs)] = rng.permutation(np.arange(
+            1 + i * mbps, 1 + (i + 1) * mbps))[:-(-n // bs)]
+    tbl = torch.as_tensor(tbl, device=dev)
+    sl = torch.as_tensor(np.asarray(_SERVING_LENS, np.int32), device=dev)
+    wrapper = paged_decode_attention_kernel
+    count = "launches_q" if quantized else "launches"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        wrapper(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = getattr(wrapper, count)
+    with torch.cuda.graph(graph):
+        out = wrapper(q, kp, vp, tbl, sl, **scales)
+    assert getattr(wrapper, count) == before + 1
+    q.copy_(_randn(dev, B, Hq, D, seed=14))
+    graph.replay()
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, count) == before + 1
+    assert out[0].abs().max().item() == 0.0
+    for i in range(1, B):
+        assert _rel_err(out[i], ref[i]) <= DECODE_RTOL, i
     assert (out.float() - ref.float()).abs().max().item() <= ATOL
 
 

@@ -24,11 +24,17 @@ from paddle_tpu.kernels.pallas.paged_attention import (
 from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS,
                                               paged_decode_attention)
 from paddle_tpu_torch.kernels.paged_attention import (
-    paged_decode_attention_chunked, paged_decode_attention_dense,
-    paged_decode_attention_kernel, pick_chunk_pages, split_plan)
+    SMEM_PER_BLOCK, _gather_kv, decode_cluster_plan, decode_cluster_shares,
+    decode_smem_bytes, paged_decode_attention_chunked,
+    paged_decode_attention_dense, paged_decode_attention_kernel,
+    pick_chunk_pages, split_plan)
 
 ATOL = 1e-5
 INT8_ATOL = 5e-5
+# per slot, max |split - dense| / max |dense| in bf16 (the GPU kernels'
+# limit: P rounded to bf16 against each split's own max moves a slot by
+# a few ulps)
+DECODE_RTOL = 2e-2
 
 
 def _case(B, HQ, HK, D, BS, MBPS, lens, seed=0):
@@ -170,3 +176,118 @@ def test_int8_chunks_hold_twice_the_pages():
     # (with its scale rows) is about half a bf16 one
     assert pick_chunk_pages(128, 16, 128, 2) == 4
     assert pick_chunk_pages(128, 16, 128, 1, quantized=True) == 8
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_cluster_plan_covers_every_live_page(quantized, d, bs):
+    """The per-page kernel's plan: C <= 8 and never more than the pages;
+    the staged chunk (one stage, or each of two ring stages) fits in a
+    block's shared memory; every live page of every length, from 0 to
+    past the table, goes to exactly one rank, in order."""
+    for b, hk, g in ((8, 8, 4), (1, 1, 8), (3, 2, 1), (64, 8, 4)):
+        for npages in (1, 2, 3, 5, 7, 15, 16, 33, 128):
+            cluster, cpp, stages = decode_cluster_plan(
+                b, hk, g, npages, bs, d, quantized, num_sms=132)
+            assert cluster in (1, 2, 4, 8) and cluster <= npages
+            assert cpp >= 1 and stages in (1, 2)
+            share = -(-npages // cluster)
+            assert (stages == 1) == (cpp >= share)
+            rows = -(-cpp * bs // 16) * 16
+            assert decode_smem_bytes(rows, npages, d, g, quantized,
+                                     stages, cluster) <= SMEM_PER_BLOCK // 2
+            for length in range(0, npages * bs + 2 * bs + 1):
+                live = -(-min(length, npages * bs) // bs)
+                shares = decode_cluster_shares(length, bs, npages, cluster)
+                assert len(shares) == cluster
+                pages = [p for p0, p1 in shares for p in range(p0, p1)]
+                assert pages == list(range(live))
+                assert all(p1 - p0 <= share for p0, p1 in shares)
+
+
+def test_decode_cluster_plan_at_the_serving_shape():
+    # Llama-3-8B decode on engine B: B 8, Hk 8, G 4, 15 16-token pages;
+    # C 4 puts 256 CTAs on 132 SMs, each share staged at once
+    for quantized in (False, True):
+        assert decode_cluster_plan(8, 8, 4, 15, 16, 128, quantized,
+                                   132) == (4, 4, 1)
+    # a 128-page table passed straight to the wrapper goes through the ring
+    cluster, cpp, stages = decode_cluster_plan(8, 8, 4, 128, 16, 128, False,
+                                               132)
+    assert (cluster, stages) == (4, 2) and cpp < 32
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_cluster_plan(1, 1, 4, 4, 1024, 128, False, 132)
+
+
+def _split_merge(q, kp, vp, tbl, sl, cluster, k_scale=None, v_scale=None):
+    """The plain version split along the kernel's cluster shares: each
+    rank's (m, l, O) in f32 from its own pages, P cast to V's dtype
+    against the rank's own max, then the ranks merged by their max."""
+    b, hq, d = q.shape
+    _, bs, hk, _ = kp.shape
+    g = hq // hk
+    npages = tbl.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros(b, hk, g, d)
+    for i in range(b):
+        length = min(int(sl[i]), npages * bs)
+        qi = q[i].reshape(hk, g, d).float()
+        parts = []
+        for p0, p1 in decode_cluster_shares(length, bs, npages, cluster):
+            n = min(length, p1 * bs) - p0 * bs
+            if n <= 0:
+                continue
+            idx = tbl[i, p0:p1].long()
+            k = _gather_kv(kp, idx, k_scale, q.dtype).reshape(-1, hk, d)[:n]
+            v = _gather_kv(vp, idx, v_scale, q.dtype).reshape(-1, hk, d)[:n]
+            s = torch.einsum("ngd,tnd->ngt", qi, k.float()) * scale
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            o = torch.einsum("ngt,tnd->ngd", p.to(v.dtype).float(),
+                             v.float())
+            parts.append((m, p.sum(-1), o))
+        if not parts:
+            continue  # an empty slot gives zeros
+        big = torch.stack([m for m, _, _ in parts]).amax(0)
+        l = sum(l * torch.exp(m - big) for m, l, _ in parts)
+        o = sum(o * torch.exp(m - big)[..., None] for m, _, o in parts)
+        out[i] = o / l[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("pools", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,HQ,HK,D,BS,MBPS,lens", [
+    # the serving shape's lengths on 15 pages (not a multiple of C): empty
+    # and full slots side by side, slots with fewer pages than C
+    (8, 8, 2, 32, 16, 15, [0, 1, 16, 17, 100, 161, 239, 240]),
+    (3, 4, 1, 32, 8, 7, [0, 56, 90]),    # a length past the table
+    (2, 8, 8, 64, 32, 3, [5, 96]),       # G 1, 32-row pages
+])
+def test_cluster_split_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
+                                           cluster, pools):
+    q, kp, vp, tbl, sl = _torch(*_case(B, HQ, HK, D, BS, MBPS, lens))
+    scales = {}
+    if pools == "int8":
+        kq, ks = (torch.from_numpy(np.array(a)) for a in
+                  JQ.quantize_rows(jnp.asarray(kp.numpy())))
+        vq, vs = (torch.from_numpy(np.array(a)) for a in
+                  JQ.quantize_rows(jnp.asarray(vp.numpy())))
+        kp, vp, scales = kq, vq, dict(k_scale=ks, v_scale=vs)
+    if pools != "f32":
+        q = q.bfloat16()
+        if pools == "bf16":
+            kp, vp = kp.bfloat16(), vp.bfloat16()
+    out = _split_merge(q, kp, vp, tbl, sl, cluster, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(out[i] == 0) and torch.all(ref[i] == 0)
+            continue
+        diff = (out[i].float() - ref[i].float()).abs().max()
+        if pools == "f32":
+            assert diff.item() <= ATOL, i
+        else:
+            assert (diff / ref[i].float().abs().max()).item() <= \
+                DECODE_RTOL, i
