@@ -25,7 +25,26 @@
    four layer shapes (and gate/up at the shortest, M 112), with its sums
    over one decode step's 225 launches and one prefill's 224 layer
    launches against their bounds.
-3. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
+3. Varlen phase: packed sequences through the segment branch of B1-B3,
+   bf16, ``requires_grad`` inputs, through the public entry points: V1
+   ``nn.functional.flash_attn_unpadded`` at Llama-3-8B width (Hq 32, Hk 8,
+   D 128, causal) over one row of 8192 tokens of seeded random lengths
+   1..2048 (a 1-token sequence first); V2 the same at GPT-2 medium width
+   (H 16, D 64) with each sequence's last min(L, 64) tokens as queries
+   over a 4096-token kv row, one sequence with none (the bottom-right
+   shift); V3 ``kernels.flash_attention.flash_attention`` with segment ids
+   at B 2, S 2048, GPT-2 medium width, ids (pos // 96) % 3 and one query
+   id no key has. Counts are zeroed before each public call and read
+   after it: B1-seg, B2-seg and B3-seg once each, no dense launch. The
+   forward is held per query row and dQ/dK/dV relatively against the
+   plain pair (which takes its query rows in chunks), the check is shown
+   to fail when one run of 64 keys of a sequence goes missing, and the
+   kernels, their chain and the public forward + backward are timed
+   (events and graph replays) beside the plain pair, the bound (over the
+   visible pairs this run's ids and positions let through) and one
+   PyTorch call (``varlen_attn``, or masked SDPA where it cannot say the
+   case).
+4. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
    from a fixed generator, served by ``ContinuousBatchingEngine``:
    engine A (max_seq_len 2048: the split-KV decode route) and engine B
    (max_seq_len 240: the per-page route), then a profile of A's decode.
@@ -41,14 +60,15 @@
    and attention over int8-rounded K/V for the decoded positions) must
    agree with every generated token whose top-2 logit gap exceeds the bf16
    tolerance.
-4. Training phase: GPT-2 medium at full width and depth (24 layers, hidden
+5. Training phase: GPT-2 medium at full width and depth (24 layers, hidden
    1024, batch 8 x 1024), bf16 parameters with fp32 masters, AdamW 3e-4,
    global-norm clip 1.0, driven by ``TrainStep`` on one fixed batch. A
    gate holds one forward + backward on the kernel route against the plain
    route (``FLAGS_flash_kernel=plain``); then 2 warm-up and 10 timed steps
    (counts zeroed before, read after: B1, B2 and B3 must move by 24 per
    step; the loss must stay finite and fall), and a profile of 2 steps.
-5. Prints one ``{"kernels": [...]}`` line and, last, the
+6. Prints one ``{"kernels": [...]}`` line (B1-B7 and the segment entries
+   B1-seg, B2-seg, B3-seg at V1, every case beside) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -133,6 +153,11 @@ QMM_SHORT_M = 112                    # the shortest padded prompt of A8
 QMM_PREFILL = QMM_DECODE[:4]
 QMM_PER_FORWARD = 7 * LAYERS + 1     # B7 launches per prefill or decode step
 PREFILL_PROFILE_LEN = 1000           # one prompt, padded to 1008
+# varlen phase (segment branch of B1-B3): V1's packed row and longest
+# sequence, V2's packed kv row and longest sequence, V3's sequence length
+V1_TOKENS, V1_LONGEST = 8192, 2048
+V2_TOKENS, V2_LONGEST = 4096, 1024
+V3_SEQ = 2048
 
 
 def fail(msg, code=1):
@@ -392,6 +417,313 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# varlen phase: packed sequences through the segment branch of B1-B3
+# ---------------------------------------------------------------------------
+
+def varlen_lengths(seed, total, longest, ones=1):
+    """Sequence lengths drawn uniform in 1..``longest`` from a seeded numpy
+    generator until they fill ``total`` tokens, the last one cut to fit;
+    ``ones`` 1-token sequences are put first."""
+    rng = np.random.default_rng(seed)
+    lens = [1] * ones
+    while sum(lens) < total:
+        lens.append(int(rng.integers(1, longest + 1)))
+    lens[-1] -= sum(lens) - total
+    return [n for n in lens if n > 0]
+
+
+def visible_pairs(torch, seg, causal):
+    """The (query, key) pairs the segment mask lets through, counted
+    exactly from this run's ids and positions: per query, the keys of its
+    segment (at a position not after its own, if causal), found by binary
+    search over the keys sorted by (id, position)."""
+    qseg, kseg, qpos, kpos = (t.long() for t in seg)
+    off = 1 << 31   # positions may be negative (the bottom-right shift)
+    total = 0
+    for b in range(qseg.shape[0]):
+        keys = torch.sort((kseg[b] << 32) + kpos[b] + off).values
+        lo = torch.searchsorted(keys, qseg[b] << 32)
+        hi = torch.searchsorted(
+            keys, (qseg[b] << 32) + (qpos[b] + off if causal else
+                                     (1 << 32) - 1), right=True)
+        total += int((hi - lo).sum().item())
+    return total
+
+
+def varlen_library(torch, case, q, k, v, do):
+    """One PyTorch call computing the case's function, and its backward:
+    ``torch.nn.attention.varlen.varlen_attn`` on the packed row where this
+    torch has it and can say the case (causal through ``window_size`` or
+    ``is_causal``; KV expanded to Hq heads once, outside the timed call,
+    where it has no ``enable_gqa``), else SDPA over the batch with a
+    boolean mask built from the ids and positions. The port never calls
+    either. Returns (what was timed, forward, backward) callables."""
+    import inspect
+    F = torch.nn.functional
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    why = "the case has no cu_seqlens"
+    if case.get("cu_q") is not None:
+        try:
+            from torch.nn.attention.varlen import varlen_attn
+            params = inspect.signature(varlen_attn).parameters
+            kw, what = {}, "torch.nn.attention.varlen.varlen_attn"
+            if "scale" in params:
+                kw["scale"] = case["scale"]
+            elif case["scale"] != 1.0 / math.sqrt(q.shape[-1]):
+                raise TypeError("no scale argument")
+            if "window_size" in params:
+                kw["window_size"] = (-1, 0) if case["causal"] else (-1, -1)
+            elif "is_causal" in params:
+                kw["is_causal"] = case["causal"]
+            elif case["causal"]:
+                raise TypeError("no way to ask for causal masking")
+            g = q.shape[2] // k.shape[2]
+            kx, vx = ks[0], vs[0]
+            if "enable_gqa" in params:
+                kw["enable_gqa"] = True
+            elif g > 1:
+                kx = ks[0].repeat_interleave(g, dim=1)
+                vx = vs[0].repeat_interleave(g, dim=1)
+                what += f" (KV expanded {g}x outside the timed call)"
+            args = (case["cu_q"], case["cu_k"], case["max_q"],
+                    case["max_k"])
+            fwd = lambda: varlen_attn(qs[0], kx, vx, *args, **kw)
+            out = fwd()
+            torch.autograd.grad(out, (qs, ks, vs), do[0], retain_graph=True)
+            torch.cuda.synchronize()
+            return (what, fwd,
+                    lambda: torch.autograd.grad(out, (qs, ks, vs), do[0],
+                                                retain_graph=True))
+        except Exception as e:  # the yardstick only: record and go on
+            why = f"varlen_attn refused it: {type(e).__name__}: {e}"[:300]
+    print(f"varlen library: masked SDPA ({why})", flush=True)
+    qseg, kseg, qpos, kpos = case["seg"]
+    mask = qseg[:, :, None] == kseg[:, None, :]
+    if case["causal"]:
+        mask &= qpos[:, :, None] >= kpos[:, None, :]
+    mask = mask[:, None]
+    tr = lambda t: t.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(
+        tr(qs), tr(ks), tr(vs), attn_mask=mask, scale=case["scale"],
+        enable_gqa=True)
+    out = fwd()
+    return ("F.scaled_dot_product_attention with a boolean segment mask",
+            fwd, lambda: torch.autograd.grad(out, (qs, ks, vs), tr(do),
+                                             retain_graph=True))
+
+
+def varlen_case(torch, timer, name, case):
+    """One varlen case: the public entry point with ``requires_grad``
+    inputs (counts zeroed just before, read just after: B1-seg, B2-seg and
+    B3-seg once each, no dense launch), then the kernels held against the
+    plain pair (forward per query row, dQ/dK/dV relative), the proof that
+    the check sees one missing 64-key run, times and bounds."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain, flash_bwd_cuda,
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda)
+    q, k, v, do = case["q"], case["k"], case["v"], case["do"]
+    causal, scale, seg = case["causal"], case["scale"], case["seg"]
+    kw = dict(scale=scale, q_segment_ids=seg[0], kv_segment_ids=seg[1],
+              q_positions=seg[2], kv_positions=seg[3])
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    zero_counts()
+    out = case["call"](*leaves)
+    out.backward(do[0] if case.get("cu_q") is not None else do)
+    torch.cuda.synchronize()
+    launches, _ = read_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update({"B1-seg": 1, "B2-seg": 1, "B3-seg": 1})
+    for kname, n in want.items():
+        if launches[kname] != n:
+            fail(f"varlen {name}: {kname} launched {launches[kname]} times "
+                 f"on the public path, expected {n}")
+    if case.get("cu_q") is not None:
+        out = out[None]
+    grads = [t.grad for t in leaves]
+
+    o_k, lse_k = flash_fwd_cuda(q, k, v, causal, **kw)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal,
+                                           return_lse=True, **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o_k, lse_k, do, causal, **kw)
+    torch.cuda.synchronize()
+    err_o = (out.float() - o_ref.float()).abs().max().item()
+    err_row = row_rel_err(out, o_ref)
+    err_l = (lse_k - lse_ref).abs().max().item()
+    same = bool(torch.equal(out, o_k))
+    finite = bool(torch.isfinite(out.float()).all())
+    errs = {}
+    for gname, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        diff = (g.float() - r.float()).abs().max().item()
+        errs[gname] = (diff, diff / max(r.float().abs().max().item(), 1e-6),
+                       bool(torch.isfinite(g.float()).all()))
+    del refs, grads
+    # the check must see one 64-key run of the longest sequence go missing
+    cut = seg[1].clone()
+    a, n = case["longest"]
+    a += max(0, n - 64) // 2
+    cut[:, a:a + 64] = -7
+    o_cut = flash_attention_plain(q, k, v, causal, scale=scale,
+                                  q_segment_ids=seg[0], kv_segment_ids=cut,
+                                  q_positions=seg[2], kv_positions=seg[3])
+    cut_row = row_rel_err(o_cut, o_ref)
+    del o_cut, cut
+    ok = err_row <= ROW_RTOL and err_o <= O_ATOL and err_l <= LSE_ATOL \
+        and finite and same and all(
+            e[1] <= BWD_RTOL and e[2] for e in errs.values())
+    if cut_row <= ROW_RTOL:
+        fail(f"varlen {name}: the check cannot see a missing run of 64 "
+             f"keys ({cut_row} <= {ROW_RTOL})")
+
+    delta = flash_delta(o_k, do)
+    fwd = lambda: flash_fwd_cuda(q, k, v, causal, **kw)
+    dq_call = lambda: flash_bwd_dq_cuda(q, k, v, do, lse_k, delta, causal,
+                                        **kw)
+    dkv_call = lambda: flash_bwd_dkv_cuda(q, k, v, do, lse_k, delta, causal,
+                                          **kw)
+
+    def fwd_bwd():
+        o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+        flash_bwd_cuda(q, k, v, o, lse, do, causal, **kw)
+
+    def public():
+        ls = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = case["call"](*ls)
+        torch.autograd.grad(o, ls, do[0] if case.get("cu_q") is not None
+                            else do)
+
+    t = {}
+    for key, fn in (("fwd", fwd), ("dq", dq_call), ("dkv", dkv_call),
+                    ("fwd_bwd", fwd_bwd)):
+        t[key] = timer(fn, iters=20)
+        t[key + "_graph"] = timer.graph(fn, iters=20)
+    t["public_fwd_bwd"] = timer(public, iters=10)
+    t["plain_fwd"] = timer(lambda: flash_attention_plain(
+        q, k, v, causal, return_lse=True, **kw), iters=3, warmup=1)
+    t["plain_bwd"] = timer(lambda: flash_attention_bwd_plain(
+        q, k, v, o_k, lse_k, do, causal, **kw), iters=3, warmup=1)
+    lib_name, lib_fwd, lib_bwd = varlen_library(torch, case, q, k, v, do)
+    t["library_fwd"] = timer(lib_fwd, iters=10)
+    t["library_bwd"] = timer(lib_bwd, iters=10)
+    t["library_fwd_bwd"] = t["library_fwd"] + t["library_bwd"]
+
+    B, Sq, Hq, dh = q.shape
+    pairs = visible_pairs(torch, seg, causal)
+    fl = 2 * dh * Hq * pairs           # one product over the visible pairs
+    qb, kvb = q.numel() * 2, k.numel() * 2
+    idb = sum(x.numel() for x in seg) * 4
+    rows = lse_k.numel() * 4 * 2       # LSE and Delta
+    bounds = {"fwd": bound(2 * qb + 2 * kvb + idb, 2 * fl),
+              "dq": bound(3 * qb + 2 * kvb + rows + idb, 3 * fl),
+              "dkv": bound(2 * qb + 4 * kvb + rows + idb, 4 * fl),
+              "fwd_bwd": bound(2 * qb + 2 * kvb + idb, 7 * fl)}
+    dense_pairs = B * Sq * k.shape[1]
+    if causal and Sq == k.shape[1]:
+        dense_pairs = B * Sq * (Sq + 1) // 2
+    rec = dict(B=B, Tq=Sq, Tk=k.shape[1], Hq=Hq, Hk=k.shape[2], D=dh,
+               causal=causal, scale=scale, lens_q=case.get("lens_q"),
+               lens_k=case.get("lens_k"), visible_pairs=pairs,
+               dense_pairs=dense_pairs, max_abs_err=err_o, lse_err=err_l,
+               row_rel_err=err_row, missing_run_row_rel_err=cut_row,
+               grad_errs={n: dict(abs=e[0], rel=e[1])
+                          for n, e in errs.items()},
+               public_equals_kernel=same, launches=launches, times_ms=t,
+               library=lib_name,
+               bounds_ms={n: dict(ms=b[0], by=b[1])
+                          for n, b in bounds.items()}, ok=ok)
+    print(f"varlen {name}: Tq {Sq} Tk {k.shape[1]} Hq {Hq} Hk "
+          f"{k.shape[2]} D {dh} causal {causal}: {pairs} visible pairs "
+          f"(dense {dense_pairs}) | err O {err_o:.3e} row {err_row:.3e} "
+          f"LSE {err_l:.3e} dq/dk/dv rel "
+          f"{'/'.join(f'{e[1]:.2e}' for e in errs.values())} (64 keys "
+          f"missing: row {cut_row:.3e}) | ms {json.dumps(t)} | bound "
+          f"{json.dumps({n: round(b[0], 5) for n, b in bounds.items()})} "
+          f"| library: {lib_name}", flush=True)
+    if not ok:
+        fail(f"varlen {name}: the kernels disagree with the plain pair: O "
+             f"row {err_row} (limit {ROW_RTOL}), abs {err_o} ({O_ATOL}), "
+             f"LSE {err_l} ({LSE_ATOL}), grads {errs} ({BWD_RTOL}), public "
+             f"path equals the kernel: {same}")
+    return rec
+
+
+def varlen_phase(torch):
+    """V1: Llama-3-8B width (Hq 32, Hk 8, D 128), causal, one packed row of
+    8192 tokens of random lengths 1..2048 (a 1-token sequence first);
+    V2: GPT-2 medium width (H 16, D 64), causal, a packed kv row of 4096
+    tokens whose queries are each sequence's last min(L, 64) tokens, one
+    sequence with none (the bottom-right shift); V3: ``flash_attention``
+    with segment ids at B 2, S 2048, GPT-2 medium width, causal, ids
+    (pos // 96) % 3 on both sides and one query id no key has. V1 and V2
+    go through ``nn.functional.flash_attn_unpadded``, V3 through
+    ``kernels.flash_attention.flash_attention``, bf16."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _segments, flash_attention, varlen_segments)
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    timer = Timer(torch)
+    g = torch.Generator(device=DEVICE).manual_seed(4000)
+    mk = lambda *s: torch.randn(*s, generator=g, device=DEVICE,
+                                dtype=torch.bfloat16)
+    recs = {}
+
+    def packed(name, lens_q, lens_k, hq, hk, dh):
+        cu = lambda ls: torch.tensor(np.concatenate([[0], np.cumsum(ls)]),
+                                     device=DEVICE, dtype=torch.int32)
+        cu_q, cu_k = cu(lens_q), cu(lens_k)
+        tq, tk = int(sum(lens_q)), int(sum(lens_k))
+        scale = 1.0 / math.sqrt(dh)
+        q, k, v, do = mk(1, tq, hq, dh), mk(1, tk, hk, dh), \
+            mk(1, tk, hk, dh), mk(1, tq, hq, dh)
+        seg = tuple(t[None] for t in varlen_segments(cu_q, cu_k, tq, tk,
+                                                     q.device))
+        # the longest kv sequence that has queries
+        i = int(np.argmax(np.asarray(lens_k) * (np.asarray(lens_q) > 0)))
+        mq, mk_ = int(max(lens_q)), int(max(lens_k))
+        call = lambda a, b, c: flash_attn_unpadded(
+            a[0], b[0], c[0], cu_q, cu_k, mq, mk_, scale, causal=True)[0]
+        print(f"varlen {name} lengths: q {list(map(int, lens_q))} kv "
+              f"{list(map(int, lens_k))}", flush=True)
+        return dict(q=q, k=k, v=v, do=do, seg=seg, causal=True, scale=scale,
+                    cu_q=cu_q, cu_k=cu_k, max_q=mq, max_k=mk_, call=call,
+                    lens_q=list(map(int, lens_q)),
+                    lens_k=list(map(int, lens_k)),
+                    longest=(int(sum(lens_k[:i])), int(lens_k[i])))
+
+    lens = varlen_lengths(6, V1_TOKENS, V1_LONGEST)
+    if not any(n % 64 for n in lens[1:]) or lens[0] != 1:
+        fail(f"V1 lengths lack a 1-token sequence or a length that is not "
+             f"a multiple of 64: {lens}")
+    recs["V1"] = varlen_case(torch, timer, "V1", packed(
+        "V1", lens, lens, HQ, HK, D))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lens_k = varlen_lengths(7, V2_TOKENS, V2_LONGEST)
+    lens_q = [min(n, 64) for n in lens_k]
+    lens_q[1] = 0  # a kv sequence with no queries
+    recs["V2"] = varlen_case(torch, timer, "V2", packed(
+        "V2", lens_q, lens_k, GPT_H, GPT_H, GPT_D))
+
+    B, S = 2, V3_SEQ
+    pos = torch.arange(S, device=DEVICE, dtype=torch.int32)
+    kv_ids = ((pos // 96) % 3).expand(B, S).contiguous()
+    q_ids = kv_ids.clone()
+    q_ids[:, S // 2:S // 2 + 40] = 3  # a query id no key has
+    q_pos = pos.expand(B, S).contiguous()
+    q, k, v, do = (mk(B, S, GPT_H, GPT_D) for _ in range(4))
+    call = lambda a, b, c: flash_attention(
+        a, b, c, causal=True, q_segment_ids=q_ids, kv_segment_ids=kv_ids,
+        q_positions=q_pos)
+    recs["V3"] = varlen_case(torch, timer, "V3", dict(
+        q=q, k=k, v=v, do=do, causal=True, scale=1.0 / math.sqrt(GPT_D),
+        seg=_segments(q, k, q_ids, kv_ids, q_pos, None), call=call,
+        longest=(0, 96)))
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
 def decode_inputs(torch, B, mbps, lens, seed, bs=16):
     rng = np.random.RandomState(seed)
     nb = B * mbps + 1
@@ -629,6 +961,9 @@ def _counters():
     return {"flash_fwd": (flash_fwd_cuda, "launches"),
             "flash_bwd_dq": (flash_bwd_dq_cuda, "launches"),
             "flash_bwd_dkv": (flash_bwd_dkv_cuda, "launches"),
+            "B1-seg": (flash_fwd_cuda, "seg_launches"),
+            "B2-seg": (flash_bwd_dq_cuda, "seg_launches"),
+            "B3-seg": (flash_bwd_dkv_cuda, "seg_launches"),
             "paged_decode": (paged_decode_attention_kernel, "launches"),
             "paged_decode_split": (paged_decode_attention_chunked,
                                    "launches"),
@@ -1312,6 +1647,49 @@ KERNELS = (
 )
 
 
+# the segment branch of B1-B3: (name, key of its time in the varlen
+# records, source, the Pallas branch it replaces)
+SEG_KERNELS = (
+    ("B1-seg", "fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:305"),
+    ("B2-seg", "dq", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:382"),
+    ("B3-seg", "dkv", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:435"),
+)
+
+
+def seg_records(varlen):
+    """The ``kernels`` entries of B1-seg, B2-seg and B3-seg: times, bound,
+    plain and library time at V1 (the main shape), every case beside."""
+    records = []
+    for name, key, source, replaces in SEG_KERNELS:
+        errs = {"fwd": lambda r: r["max_abs_err"],
+                "dq": lambda r: r["grad_errs"]["dq"]["abs"],
+                "dkv": lambda r: max(r["grad_errs"]["dk"]["abs"],
+                                     r["grad_errs"]["dv"]["abs"])}[key]
+        plain = "plain_fwd" if key == "fwd" else "plain_bwd"
+        lib = "library_fwd" if key == "fwd" else "library_bwd"
+        cases = {c: dict(ms=r["times_ms"][key],
+                         graph_ms=r["times_ms"][key + "_graph"],
+                         plain_ms=r["times_ms"][plain],
+                         bound_ms=r["bounds_ms"][key]["ms"],
+                         bound_by=r["bounds_ms"][key]["by"],
+                         library_ms=r["times_ms"][lib],
+                         library=r["library"])
+                 for c, r in varlen.items()}
+        v1 = cases["V1"]
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r["launches"][name] for r in varlen.values()),
+            max_abs_err=max(errs(r) for r in varlen.values()),
+            ms=v1["ms"], kernel_ms=v1["ms"], graph_ms=v1["graph_ms"],
+            plain_ms=v1["plain_ms"], bound_ms=v1["bound_ms"],
+            bound_by=v1["bound_by"], library_ms=v1["library_ms"],
+            cases=cases))
+    return records
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1340,6 +1718,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     phases = kernel_phases(torch)
+    varlen = varlen_phase(torch)
     served = slice_phase(torch)
     trained = train_phase(torch)
 
@@ -1369,10 +1748,11 @@ def main():
             plain_ms=main_rec["plain_ms"], bound_ms=main_rec["bound_ms"],
             bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"]))
+    records += seg_records(varlen)
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
-        "phases": phases, "served": served, "trained": trained}),
-        flush=True)
+        "phases": phases, "varlen": varlen, "served": served,
+        "trained": trained}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,16 +34,20 @@ _L = ctypes.c_int64
 # each returns its cudaError_t as an int
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, o, lse, B, Sq, Sk, Hq, Hk, D, causal, scale,
-        # (batch, seq, head) strides of q, k, v, stream
-        "flash_fwd_bf16": [_P] * 5 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
+        # q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos, kv tile ranges
+        # (the five NULL on the dense branch), B, Sq, Sk, Hq, Hk, D,
+        # causal, scale, (batch, seq, head) strides of q, k, v, stream
+        "flash_fwd_bf16": [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
     },
     "flash_bwd": {
-        # q, k, v, do, lse, delta, dq, B, Sq, Sk, Hq, Hk, D, causal, scale,
-        # (batch, seq, head) strides of q, k, v, do, stream
-        "flash_bwd_dq_bf16": [_P] * 7 + [_I] * 7 + [_F] + [_L] * 12 + [_P],
-        # q, k, v, do, lse, delta, dk, dv, then as above
-        "flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 7 + [_F] + [_L] * 12
+        # q, k, v, do, lse, delta, dq, q_seg, kv_seg, q_pos, kv_pos, kv
+        # tile ranges, B, Sq, Sk, Hq, Hk, D, causal, scale, (batch, seq,
+        # head) strides of q, k, v, do, stream
+        "flash_bwd_dq_bf16": [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
+        + [_P],
+        # q, k, v, do, lse, delta, dk, dv, q_seg, kv_seg, q_pos, kv_pos, q
+        # tile ranges, kv tile ranges, then as above
+        "flash_bwd_dkv_bf16": [_P] * 14 + [_I] * 7 + [_F] + [_L] * 12
         + [_P],
     },
     "paged_decode": {

@@ -15,7 +15,11 @@
 // masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq);
 // a fully masked row (LSE = +1e30) gets P = 0 and zero gradients. Ragged
 // Sq and Sk are masked in the kernels: tiles are zero-filled past the end
-// and nothing is padded on the host.
+// and nothing is padded on the host. With segment ids (the Pallas bodies'
+// `has_seg` branch, :382 and :435) a query sees a key of its own segment
+// and, if causal, of a position not after its own (flash_common.cuh); P is
+// 0 wherever that mask is false, so a row no key is visible to gets dQ = 0
+// and a key no row sees gets dK = dV = 0.
 //
 // What bounds it on this card: at training lengths (S ~ 1024) the work is
 // the recomputed products -- 3 (dQ) and 4 (dK/dV) of 2 * Sq * Sk * D flops
@@ -42,6 +46,12 @@
 //   KV is never expanded. Shared memory is 4 tiles of 64 x (D + 8) bf16
 //   (37 KB at D 64, 69 KB at D 128, above the 48 KB default, so the
 //   kernel is opened up with cudaFuncSetAttribute).
+// - The segment branch (kSeg) in both: each staged tile carries its ids
+//   and positions in shared memory beside it (64 keys for dQ, 64 query
+//   rows for dK/dV), and the rows (dQ) or keys (dK/dV) a thread owns keep
+//   theirs in registers. The global diagonal does not apply (no `kend`, no
+//   `qstart`); the tiles walked are those whose id range overlaps the
+//   CTA's, compacted into a list in shared memory (`live_tiles`).
 // - Simple first: no cp.async pipelining, no wgmma/TMA, no fused
 //   single-pass backward yet.
 
@@ -53,7 +63,11 @@ using namespace flash;
 
 constexpr int kBQ = 64;  // query rows per tile of the dK/dV kernel
 
-template <int D>
+// the dQ kernel's dynamic shared memory on the segment branch: the tile's
+// kv ids and positions, scratch, then the live key tiles' list
+constexpr int kDqSegInts = 2 * kBK + kScratchInts;
+
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -63,13 +77,19 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
                     int Hk, int causal, float scale, float scale_log2,
-                    Strides qs, Strides ks, Strides vs, Strides dos) {
+                    Strides qs, Strides ks, Strides vs, Strides dos,
+                    Seg seg) {
   constexpr int kStride = D + 8;  // padded smem row: conflict-free reads
   constexpr int kKC = D / 16;     // k-chunks over the head dim
   constexpr int kDT = D / 8;      // n-tiles over the head dim
   constexpr int kNT = kBK / 8;    // n-tiles over a key tile
   __shared__ __align__(16) __nv_bfloat16 sK[kBK * kStride];
   __shared__ __align__(16) __nv_bfloat16 sV[kBK * kStride];
+  extern __shared__ int seg_smem[];  // segment branch only
+  int* sKseg = seg_smem;
+  int* sKpos = sKseg + kBK;
+  int* sScratch = sKpos + kBK;
+  int* sList = sScratch + kScratchInts;
 
   const int G = Hq / Hk;
   const int bq = kRows / G;  // query positions per CTA
@@ -82,8 +102,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int tig = lane & 3;
   const int off = Sk - Sq;
 
-  // the two rows this thread owns in the mma layout: gid and gid + 8
-  int pos[2], head[2];
+  // the two rows this thread owns in the mma layout: gid and gid + 8,
+  // with their query's segment id and position (segment branch)
+  int pos[2], head[2], qid[2], qp[2];
   bool live[2];
   float lse2[2], dlt[2];
   #pragma unroll
@@ -95,6 +116,14 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     const size_t row = (static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i];
     lse2[i] = live[i] ? lse[row] * kLog2e : kBig;
     dlt[i] = live[i] ? delta[row] : 0.f;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (live[i]) {
+        qid[i] = seg.qseg[static_cast<size_t>(b) * Sq + pos[i]];
+        qp[i] = seg.qpos[static_cast<size_t>(b) * Sq + pos[i]];
+      }
+    }
   }
 
   // Q and dO fragments for the whole head dim, straight from global memory
@@ -123,13 +152,33 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     #pragma unroll
     for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
 
-  // keys this CTA can see: up to the diagonal of its last live row
+  // keys this CTA can see: up to the diagonal of its last live row; with
+  // segments, the tiles whose id range overlaps the rows' (sList)
   const int q_hi = min(q0 + bq, Sq) - 1;
-  int kend = causal ? min(Sk, q_hi + off + 1) : Sk;
-  if (kend < 0) kend = 0;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const int2 r = id_range(seg.qseg + static_cast<size_t>(b) * Sq + q0,
+                            q_hi + 1 - q0, sScratch);
+    ntiles = live_tiles(seg.krange + static_cast<size_t>(b) * nkt, nkt, r.x,
+                        r.y, sList, sScratch);
+  } else {
+    int kend = causal ? min(Sk, q_hi + off + 1) : Sk;
+    if (kend < 0) kend = 0;
+    ntiles = (kend + kBK - 1) / kBK;
+  }
 
-  for (int t0 = 0; t0 < kend; t0 += kBK) {
+  for (int n = 0; n < ntiles; ++n) {
+    int t0 = n * kBK;
+    if constexpr (kSeg) t0 = sList[n] * kBK;
     __syncthreads();  // the previous tile is consumed
+    if constexpr (kSeg) {  // threads 0-63 stage the ids, 64-127 positions
+      const int i = threadIdx.x % kBK;
+      const int key = t0 + i;
+      const int* src = threadIdx.x < kBK ? seg.kseg : seg.kpos;
+      (threadIdx.x < kBK ? sKseg : sKpos)[i] =
+          key < Sk ? src[static_cast<size_t>(b) * Sk + key] : 0;
+    }
     for (int idx = threadIdx.x; idx < kBK * (D / 8); idx += kThreads) {
       const int row = idx / (D / 8);
       const int c = (idx % (D / 8)) * 8;
@@ -166,9 +215,14 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int i = c >> 1;
-        const int key = t0 + nt * 8 + tig * 2 + (c & 1);
-        const bool ok = live[i] && key < Sk &&
-                        (!causal || key <= pos[i] + off);
+        const int kl = nt * 8 + tig * 2 + (c & 1);
+        const int key = t0 + kl;
+        bool ok;
+        if constexpr (kSeg)
+          ok = live[i] && key < Sk && sKseg[kl] == qid[i] &&
+               (!causal || qp[i] >= sKpos[kl]);
+        else
+          ok = live[i] && key < Sk && (!causal || key <= pos[i] + off);
         const float p = ok ? exp2f(s[nt][c] * scale_log2 - lse2[i]) : 0.f;
         s[nt][c] = p * (dp[nt][c] - dlt[i]) * scale;
       }
@@ -206,7 +260,11 @@ constexpr size_t dkv_smem_bytes() {
          2 * kBQ * sizeof(float);
 }
 
-template <int D>
+// the dK/dV kernel's ints after those on the segment branch: the query
+// tile's ids and positions, scratch, then the live query tiles' list
+constexpr int kDkvSegInts = 2 * kBQ + kScratchInts;
+
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -217,7 +275,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int Hq,
                      int Hk, int causal, float scale, float scale_log2,
-                     Strides qs, Strides ks, Strides vs, Strides dos) {
+                     Strides qs, Strides ks, Strides vs, Strides dos,
+                     Seg seg) {
   constexpr int kStride = D + 8;
   constexpr int kKC = D / 16;
   constexpr int kDT = D / 8;
@@ -229,6 +288,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* sD = sQ + kBQ * kStride;  // dO
   float* sL = reinterpret_cast<float*>(sD + kBQ * kStride);  // LSE * log2e
   float* sDelta = sL + kBQ;
+  int* sQseg = reinterpret_cast<int*>(sDelta + kBQ);  // segment branch
+  int* sQpos = sQseg + kBQ;
+  int* sScratch = sQpos + kBQ;
+  int* sList = sScratch + kScratchInts;
 
   const int G = Hq / Hk;
   const int b = blockIdx.z;
@@ -253,10 +316,21 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(sV + row * kStride + c) = vv4;
   }
 
-  // the two keys this thread owns in the mma layout
-  int key[2];
+  // the two keys this thread owns in the mma layout, with their segment
+  // ids and positions (segment branch)
+  int key[2], kid[2], kp[2];
   #pragma unroll
-  for (int i = 0; i < 2; ++i) key[i] = k0 + warp * 16 + gid + 8 * i;
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + warp * 16 + gid + 8 * i;
+    kid[i] = -1;
+    kp[i] = 0;
+    if constexpr (kSeg) {
+      if (key[i] < Sk) {
+        kid[i] = seg.kseg[static_cast<size_t>(b) * Sk + key[i]];
+        kp[i] = seg.kpos[static_cast<size_t>(b) * Sk + key[i]];
+      }
+    }
+  }
   const __nv_bfloat16* kRows16 = sK + warp * 16 * kStride;
   const __nv_bfloat16* vRows16 = sV + warp * 16 * kStride;
 
@@ -269,11 +343,24 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       dva[dt][c] = 0.f;
     }
 
-  // the first query position that sees key k0, rounded down to a tile
-  int qstart = causal ? max(0, k0 - off) : 0;
-  qstart = (qstart / kBQ) * kBQ;
+  // the query tiles to walk: from the first that sees key k0 (its
+  // position rounded down to a tile) to the end; with segments, those
+  // whose id range overlaps the tile's (sList)
+  int qt0 = 0, ntiles;
+  if constexpr (kSeg) {
+    const int nqt = (Sq + kBQ - 1) / kBQ;
+    const int2 r = seg.krange[static_cast<size_t>(b) * gridDim.x +
+                              blockIdx.x];
+    ntiles = live_tiles(seg.qrange + static_cast<size_t>(b) * nqt, nqt, r.x,
+                        r.y, sList, sScratch);
+  } else {
+    qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
+    ntiles = max(0, (Sq + kBQ - 1) / kBQ - qt0);
+  }
 
-  for (int q0 = qstart; q0 < Sq; q0 += kBQ) {
+  for (int n = 0; n < ntiles; ++n) {
+    int q0 = (qt0 + n) * kBQ;
+    if constexpr (kSeg) q0 = sList[n] * kBQ;
     for (int g = 0; g < G; ++g) {
       const int head = kvh * G + g;
       __syncthreads();  // K/V staged; the previous Q/dO tile is consumed
@@ -295,6 +382,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
         const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
         sL[threadIdx.x] = pos < Sq ? lse[row] * kLog2e : kBig;
         sDelta[threadIdx.x] = pos < Sq ? delta[row] : 0.f;
+      } else if (kSeg && threadIdx.x < 2 * kBQ) {
+        const int r = threadIdx.x - kBQ;
+        const int pos = q0 + r;
+        const size_t at = static_cast<size_t>(b) * Sq + pos;
+        sQseg[r] = pos < Sq ? seg.qseg[at] : -2;
+        sQpos[r] = pos < Sq ? seg.qpos[at] : 0;
       }
       __syncthreads();
 
@@ -327,8 +420,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
           const int kj = key[c >> 1];
           const int r = nt * 8 + tig * 2 + (c & 1);
           const int pos = q0 + r;
-          const bool ok = pos < Sq && kj < Sk &&
-                          (!causal || kj <= pos + off);
+          bool ok;
+          if constexpr (kSeg)
+            ok = pos < Sq && kj < Sk && sQseg[r] == kid[c >> 1] &&
+                 (!causal || sQpos[r] >= kp[c >> 1]);
+          else
+            ok = pos < Sq && kj < Sk && (!causal || kj <= pos + off);
           const float p = ok ? exp2f(s[nt][c] * scale_log2 - sL[r]) : 0.f;
           s[nt][c] = p;
           dp[nt][c] = p * (dp[nt][c] - sDelta[r]) * scale;
@@ -366,24 +463,45 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
+cudaError_t launch_dq(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
+                      const __nv_bfloat16* k, const __nv_bfloat16* v,
+                      const __nv_bfloat16* dout, const float* lse,
+                      const float* delta, __nv_bfloat16* dq, int Sq, int Sk,
+                      int Hq, int Hk, int causal, float scale, float sl2,
+                      Strides qs, Strides ks, Strides vs, Strides dos,
+                      const Seg& seg) {
+  static int allowed = 0;
+  const int smem = kSeg ? (kDqSegInts + (Sk + kBK - 1) / kBK) * 4 : 0;
+  if (kSeg) {
+    const cudaError_t e =
+        allow_dynamic_smem(flash_bwd_dq_kernel<D, kSeg>, smem, allowed);
+    if (e != cudaSuccess) return e;
+  }
+  flash_bwd_dq_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hk, causal, scale, sl2, qs,
+      ks, vs, dos, seg);
+  return cudaGetLastError();
+}
+
+template <int D, bool kSeg>
 cudaError_t launch_dkv(dim3 grid, cudaStream_t s,
                        const __nv_bfloat16* q, const __nv_bfloat16* k,
                        const __nv_bfloat16* v, const __nv_bfloat16* dout,
                        const float* lse, const float* delta,
                        __nv_bfloat16* dk, __nv_bfloat16* dv, int Sq, int Sk,
                        int Hq, int Hk, int causal, float scale, float sl2,
-                       Strides qs, Strides ks, Strides vs, Strides dos) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, s>>>(
+                       Strides qs, Strides ks, Strides vs, Strides dos,
+                       const Seg& seg) {
+  static int allowed = 48 * 1024;  // the default needs no opt-in
+  const int smem = static_cast<int>(dkv_smem_bytes<D>()) +
+                   (kSeg ? (kDkvSegInts + (Sq + kBQ - 1) / kBQ) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dkv_kernel<D, kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkv_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Sk, Hq, Hk, causal, scale, sl2,
-      qs, ks, vs, dos);
+      qs, ks, vs, dos, seg);
   return cudaGetLastError();
 }
 
@@ -391,16 +509,34 @@ bool bad_group(int Hq, int Hk) {
   return Hk <= 0 || Hq % Hk != 0 || kRows % (Hq / Hk) != 0;
 }
 
+// the segment pointers of the C entry points: all NULL (dense) or all
+// given, with the range arrays the kernel reads
+bool bad_seg(const Seg& seg, bool need_qrange) {
+  if (!seg.qseg) return false;
+  return !(seg.kseg && seg.qpos && seg.kpos && seg.krange &&
+           (seg.qrange || !need_qrange));
+}
+
 }  // namespace
 
+// q_seg, kv_seg, q_pos, kv_pos and kv_range are NULL on the dense branch;
+// otherwise all five are given (flash_common.cuh: Seg)
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
-    int Hq, int Hk, int D, int causal, float scale, long long qsb,
-    long long qss, long long qsh, long long ksb, long long kss,
-    long long ksh, long long vsb, long long vss, long long vsh,
-    long long dsb, long long dss, long long dsh, void* stream) {
-  if (bad_group(Hq, Hk)) return static_cast<int>(cudaErrorInvalidValue);
+    const void* lse, const void* delta, void* dq, const void* q_seg,
+    const void* kv_seg, const void* q_pos, const void* kv_pos,
+    const void* kv_range, int B, int Sq, int Sk, int Hq, int Hk, int D,
+    int causal, float scale, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb,
+    long long vss, long long vsh, long long dsb, long long dss,
+    long long dsh, void* stream) {
+  const Seg seg{static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg),
+                static_cast<const int*>(q_pos),
+                static_cast<const int*>(kv_pos), nullptr,
+                static_cast<const int2*>(kv_range)};
+  if (bad_group(Hq, Hk) || bad_seg(seg, false))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   const int bq = kRows / (Hq / Hk);
   dim3 grid((Sq + bq - 1) / bq, Hk, B);
@@ -415,28 +551,47 @@ extern "C" int flash_bwd_dq_bf16(
   const auto* de = static_cast<const float*>(delta);
   auto* out = static_cast<__nv_bfloat16*>(dq);
   const float sl2 = scale * kLog2e;
-  if (D == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kThreads, 0, s>>>(
-        qq, kk, vv, dd, ll, de, out, Sq, Sk, Hq, Hk, causal, scale, sl2, qs,
-        ks, vs, dos);
-  } else if (D == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kThreads, 0, s>>>(
-        qq, kk, vv, dd, ll, de, out, Sq, Sk, Hq, Hk, causal, scale, sl2, qs,
-        ks, vs, dos);
-  } else {
+  cudaError_t e;
+  if (D == 128 && seg.qseg)
+    e = launch_dq<128, true>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
+                             Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
+                             seg);
+  else if (D == 128)
+    e = launch_dq<128, false>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
+                              Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
+                              seg);
+  else if (D == 64 && seg.qseg)
+    e = launch_dq<64, true>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
+                            Hq, Hk, causal, scale, sl2, qs, ks, vs, dos, seg);
+  else if (D == 64)
+    e = launch_dq<64, false>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
+                             Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
+                             seg);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
+// as flash_bwd_dq_bf16, with q_range (NULL on the dense branch) before
+// kv_range
 extern "C" int flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
-    int Sk, int Hq, int Hk, int D, int causal, float scale, long long qsb,
-    long long qss, long long qsh, long long ksb, long long kss,
-    long long ksh, long long vsb, long long vss, long long vsh,
-    long long dsb, long long dss, long long dsh, void* stream) {
-  if (bad_group(Hq, Hk)) return static_cast<int>(cudaErrorInvalidValue);
+    const void* lse, const void* delta, void* dk, void* dv,
+    const void* q_seg, const void* kv_seg, const void* q_pos,
+    const void* kv_pos, const void* q_range, const void* kv_range, int B,
+    int Sq, int Sk, int Hq, int Hk, int D, int causal, float scale,
+    long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, long long dsb, long long dss, long long dsh,
+    void* stream) {
+  const Seg seg{static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg),
+                static_cast<const int*>(q_pos),
+                static_cast<const int*>(kv_pos),
+                static_cast<const int2*>(q_range),
+                static_cast<const int2*>(kv_range)};
+  if (bad_group(Hq, Hk) || bad_seg(seg, true))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (Sk <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   dim3 grid((Sk + kBK - 1) / kBK, Hk, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -452,14 +607,23 @@ extern "C" int flash_bwd_dkv_bf16(
   auto* gv = static_cast<__nv_bfloat16*>(dv);
   const float sl2 = scale * kLog2e;
   cudaError_t e;
-  if (D == 128) {
-    e = launch_dkv<128>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq, Sk, Hq,
-                        Hk, causal, scale, sl2, qs, ks, vs, dos);
-  } else if (D == 64) {
-    e = launch_dkv<64>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq, Sk, Hq,
-                       Hk, causal, scale, sl2, qs, ks, vs, dos);
-  } else {
+  if (D == 128 && seg.qseg)
+    e = launch_dkv<128, true>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
+                              Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
+                              dos, seg);
+  else if (D == 128)
+    e = launch_dkv<128, false>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
+                               Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
+                               dos, seg);
+  else if (D == 64 && seg.qseg)
+    e = launch_dkv<64, true>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
+                             Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
+                             dos, seg);
+  else if (D == 64)
+    e = launch_dkv<64, false>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
+                              Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
+                              dos, seg);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  }
   return static_cast<int>(e);
 }

@@ -11,10 +11,22 @@
 // k-chunk kc: a product's f32 result feeds the next product from
 // registers, rounded to bf16 (pack_f32).
 
+//
+// The segment branch (the Pallas bodies' `has_seg`, varlen attention):
+// query i sees key j when their segment ids are equal and, if causal, when
+// q_pos[i] >= kv_pos[j]; the global causal diagonal plays no part. Each
+// kernel is a template on kSeg; kSeg = false compiles the dense kernel as
+// it was. Ids and positions are int32 [B, S], contiguous. A (query block,
+// key tile) pair whose [min, max] id ranges do not overlap holds no equal
+// ids, whatever the ids are, so the segment branch skips it: the wrapper
+// hands the ranges of every 64-key (and, for dK/dV, 64-query) tile, and
+// `live_tiles` compacts the tiles a CTA must visit into shared memory.
+
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace flash {
@@ -26,6 +38,87 @@ constexpr float kNeg = -1e30f;
 constexpr float kBig = 1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// the segment branch's inputs; all NULL on the dense branch
+struct Seg {
+  const int* qseg;     // [B, Sq]
+  const int* kseg;     // [B, Sk]
+  const int* qpos;     // [B, Sq]
+  const int* kpos;     // [B, Sk]
+  const int2* qrange;  // [B, ceil(Sq / 64)] (min, max) of q ids (dK/dV)
+  const int2* krange;  // [B, ceil(Sk / 64)] (min, max) of kv ids
+};
+
+// shared ints `live_tiles` and `id_range` use as scratch
+constexpr int kScratchInts = 2 * (kThreads / 32);
+
+// [min, max] of ids[0, n) (1 <= n <= kThreads) to every thread of the CTA
+__device__ __forceinline__ int2 id_range(const int* __restrict__ ids, int n,
+                                         int* scratch) {
+  const int warp = threadIdx.x >> 5;
+  int lo = INT_MAX, hi = INT_MIN;
+  if (threadIdx.x < n) lo = hi = ids[threadIdx.x];
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((threadIdx.x & 31) == 0) {
+    scratch[warp] = lo;
+    scratch[kThreads / 32 + warp] = hi;
+  }
+  __syncthreads();
+  int2 r = make_int2(INT_MAX, INT_MIN);
+  #pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    r.x = min(r.x, scratch[w]);
+    r.y = max(r.y, scratch[kThreads / 32 + w]);
+  }
+  __syncthreads();  // scratch is free again
+  return r;
+}
+
+// The tiles t in [0, n) whose id range overlaps [lo, hi], in order, into
+// `list`; returns their count to every thread. Called by all kThreads
+// threads; the list is complete and visible when it returns.
+__device__ __forceinline__ int live_tiles(const int2* __restrict__ ranges,
+                                          int n, int lo, int hi, int* list,
+                                          int* scratch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int t = base + threadIdx.x;
+    bool live = false;
+    if (t < n) {
+      const int2 r = ranges[t];
+      live = r.x <= hi && lo <= r.y;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) scratch[warp] = __popc(m);
+    __syncthreads();
+    int at = count, total = 0;
+    #pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      at += w < warp ? scratch[w] : 0;
+      total += scratch[w];
+    }
+    if (live) list[at + __popc(m & ((1u << lane) - 1u))] = t;
+    __syncthreads();  // the list's writes land; scratch is reused
+    count += total;
+  }
+  return count;
+}
+
+// raise a kernel's dynamic shared memory opt-in to `bytes` when a launch
+// needs more than allowed before (`allowed` keeps the kernel's level): the
+// segment branch's tile lists grow with the sequence
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes,
+                                      int& allowed) {
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
 
 // element strides of a [B, S, H, D] operand whose D axis is contiguous
 struct Strides {

@@ -12,6 +12,10 @@
 // masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq); a
 // fully masked row gives O = 0 and LSE = +1e30. D is 64 or 128.
 //
+// With segment ids (the Pallas body's `has_seg` branch, :305, the mask of
+// `_block_mask` at :257) a query sees a key of its own segment and, if
+// causal, of a position not after its own (flash_common.cuh).
+//
 // What bounds it on this card: the two products, 4 D flops per visible
 // (query, key) pair and head, against q/k/v/o bytes read or written once.
 // At Llama-3-8B's prefill (S up to 1024, 32 query heads over 8 kv heads of
@@ -47,6 +51,14 @@
 //   the end of the keys; tiles above the diagonal are never loaded.
 // - The grid walks query blocks from the last (most keys under causal
 //   masking) to the first, so the longest CTAs start first.
+// - The segment branch (kSeg): each 64-key tile stages its 64 kv ids and
+//   positions beside K/V, by 4-byte cp.async in the same commit group, and
+//   each row keeps its query's id and position in registers. The global
+//   diagonal does not apply: no `kend`, and the mask runs on every tile.
+//   Before the first load the CTA reduces its rows' [min, max] id and
+//   compacts the key tiles whose range overlaps it into a list in shared
+//   memory (`live_tiles`); the ring walks that list. A packed row of T
+//   tokens then costs about sum L_i^2 of tile pairs, not T^2.
 // - Not yet: wgmma and TMA; the products stay on mma.sync.
 
 #include "async_tiles.cuh"
@@ -71,15 +83,21 @@ struct FwdSmem {
   static constexpr int kQ = kFRows * kStride;
   static constexpr int kKV = kBK * kStride;  // one K or V tile
   static constexpr int kBytes = (kQ + 2 * kStages * kKV) * 2;
+  // the segment branch's ints after the ring: each stage's kv ids and
+  // positions, scratch, then the list of live key tiles (one per tile)
+  static constexpr int kSegInts = 2 * kStages * kBK + kScratchInts;
 };
 
 // mask (when kMask), scale and online softmax of one 64-key tile; s holds P
-// (unnormalized, f32) afterwards, acc and the running max/sum are rescaled
-template <bool kMask, int kDT>
+// (unnormalized, f32) afterwards, acc and the running max/sum are rescaled.
+// kSeg masks by the tile's staged ids and positions (tseg, tpos) against
+// the rows' (qid, qp); otherwise by the bottom-right causal diagonal.
+template <bool kMask, bool kSeg, int kDT>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kBK / 8][4], float (&acc)[kDT][4], float (&m_run)[2],
     float (&l_run)[2], const int (&pos)[2], int t0, int Sk, int causal,
-    int off, float scale_log2, int tig) {
+    int off, float scale_log2, int tig, const int* tseg, const int* tpos,
+    const int (&qid)[2], const int (&qp)[2]) {
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx = m_run[i];
@@ -89,8 +107,15 @@ __device__ __forceinline__ void softmax_tile(
       for (int j = 0; j < 2; ++j) {
         float x = s[nt][i * 2 + j] * scale_log2;
         if (kMask) {
-          const int key = t0 + nt * 8 + tig * 2 + j;
-          if (key >= Sk || (causal && key > pos[i] + off)) x = kNeg;
+          const int kl = nt * 8 + tig * 2 + j;
+          const int key = t0 + kl;
+          bool hide;
+          if constexpr (kSeg)
+            hide = key >= Sk || tseg[kl] != qid[i] ||
+                   (causal && tpos[kl] > qp[i]);
+          else
+            hide = key >= Sk || (causal && key > pos[i] + off);
+          if (hide) x = kNeg;
         }
         s[nt][i * 2 + j] = x;
         mx = fmaxf(mx, x);
@@ -122,14 +147,15 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kFThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hk, int causal,
-                 float scale_log2, Strides qs, Strides ks, Strides vs) {
+                 float scale_log2, Strides qs, Strides ks, Strides vs,
+                 Seg seg) {
   using L = FwdSmem<D>;
   constexpr int kStride = L::kStride;
   constexpr int kKC = D / 16;     // k-chunks of the QK^T product
@@ -140,6 +166,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + L::kQ;             // [stage][kBK][kStride]
   __nv_bfloat16* sV = sK + kStages * L::kKV;  // [stage][kBK][kStride]
+  // segment branch only: [stage][kBK] kv ids, then positions, scratch and
+  // the live tile list
+  int* sKseg = reinterpret_cast<int*>(sV + kStages * L::kKV);
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kScratchInts;
 
   const int G = Hq / Hk;
   const int bq = kFRows / G;  // query positions per CTA
@@ -164,14 +196,39 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  // keys this CTA can see: up to the diagonal of its last live row
+  // keys this CTA can see: up to the diagonal of its last live row; with
+  // segments, the tiles whose id range overlaps the rows' (sList)
   const int q_hi = min(q0 + bq, Sq) - 1;
-  const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
-  const int ntiles = (kend + kBK - 1) / kBK;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const int2 r = id_range(seg.qseg + static_cast<size_t>(b) * Sq + q0,
+                            q_hi + 1 - q0, sScratch);
+    ntiles = live_tiles(seg.krange + static_cast<size_t>(b) * nkt, nkt, r.x,
+                        r.y, sList, sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    ntiles = (kend + kBK - 1) / kBK;
+  }
+  // the key tile of the n-th step
+  auto tile_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
 
-  auto load_kv = [&](int t, int st) {
+  auto load_kv = [&](int n, int st) {
+    const int t = tile_of(n);
     __nv_bfloat16* dk = sK + st * L::kKV;
     __nv_bfloat16* dv = sV + st * L::kKV;
+    if constexpr (kSeg) {  // threads 0-63 copy the ids, 64-127 positions
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      tiles::cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key
+                                   : src, ok);
+    }
     for (int i = tid; i < kBK * kPieces; i += kFThreads) {
       const int r = i / kPieces;
       const int c = (i % kPieces) * 8;
@@ -189,13 +246,23 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // the two rows this thread owns in the mma layout: gid and gid + 8
-  int pos[2], head[2];
+  // the two rows this thread owns in the mma layout: gid and gid + 8,
+  // with their query's segment id and position (segment branch)
+  int pos[2], head[2], qid[2], qp[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + gid + 8 * i;
     head[i] = kvh * G + r / bq;
     pos[i] = q0 + r % bq;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (pos[i] < Sq) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
   }
 
   cp_async_wait<kStages - 1>();  // Q has landed (tiles may be in flight)
@@ -215,13 +282,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float l_run[2] = {0.f, 0.f};  // per-thread partial sums
 
   for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<kStages - 2>();  // tile t has landed
-    __syncthreads();  // ... for every thread, and tile t - 1 is consumed
+    cp_async_wait<kStages - 2>();  // step t's tile has landed
+    __syncthreads();  // ... for every thread, and step t - 1's is consumed
     if (t + kStages - 1 < ntiles)
       load_kv(t + kStages - 1, (t + kStages - 1) % kStages);
     cp_async_commit();
-    const __nv_bfloat16* tK = sK + (t % kStages) * L::kKV;
-    const __nv_bfloat16* tV = sV + (t % kStages) * L::kKV;
+    const int st = t % kStages;
+    const __nv_bfloat16* tK = sK + st * L::kKV;
+    const __nv_bfloat16* tV = sV + st * L::kKV;
 
     // S = Q K^T for this warp's 16 rows x 64 keys; one ldmatrix.x4 gives
     // the B fragments of two 8-key n-tiles
@@ -243,14 +311,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // only tiles that reach past Sk or above the first row's diagonal need
-    // the mask
-    const int t0 = t * kBK;
-    if (t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off))
-      softmax_tile<true>(s, acc, m_run, l_run, pos, t0, Sk, causal, off,
-                         scale_log2, tig);
+    // the mask; with segments, every tile
+    const int t0 = tile_of(t) * kBK;
+    if constexpr (kSeg)
+      softmax_tile<true, true>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                               off, scale_log2, tig, sKseg + st * kBK,
+                               sKpos + st * kBK, qid, qp);
+    else if (t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off))
+      softmax_tile<true, false>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                                off, scale_log2, tig, nullptr, nullptr, qid,
+                                qp);
     else
-      softmax_tile<false>(s, acc, m_run, l_run, pos, t0, Sk, causal, off,
-                          scale_log2, tig);
+      softmax_tile<false, false>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                                 off, scale_log2, tig, nullptr, nullptr, qid,
+                                 qp);
 
     // O += P V: the S accumulator layout of n-tiles 2kc and 2kc+1 is the
     // A-operand layout of k-chunk kc; ldmatrix.trans gives the B fragments
@@ -304,31 +378,52 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <int D, bool kSeg>
+int launch_branch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                  const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                  int B, int Sq, int Sk, int Hq, int Hk, int causal,
+                  float scale_log2, Strides qs, Strides ks, Strides vs,
+                  const Seg& seg, cudaStream_t st) {
+  static int smem_allowed = 0;
+  const int bytes =
+      FwdSmem<D>::kBytes +
+      (kSeg ? (FwdSmem<D>::kSegInts + (Sk + kBK - 1) / kBK) * 4 : 0);
+  const cudaError_t err =
+      allow_dynamic_smem(flash_fwd_kernel<D, kSeg>, bytes, smem_allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bq = kFRows / (Hq / Hk);
+  const dim3 grid((Sq + bq - 1) / bq, Hk, B);
+  flash_fwd_kernel<D, kSeg><<<grid, kFThreads, bytes, st>>>(
+      q, k, v, o, lse, Sq, Sk, Hq, Hk, causal, scale_log2, qs, ks, vs, seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
            const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B,
            int Sq, int Sk, int Hq, int Hk, int causal, float scale_log2,
-           Strides qs, Strides ks, Strides vs, cudaStream_t st) {
-  static bool smem_ok = false;
-  const cudaError_t err = tiles::allow_smem(flash_fwd_kernel<D>,
-                                            FwdSmem<D>::kBytes, smem_ok);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int bq = kFRows / (Hq / Hk);
-  const dim3 grid((Sq + bq - 1) / bq, Hk, B);
-  flash_fwd_kernel<D><<<grid, kFThreads, FwdSmem<D>::kBytes, st>>>(
-      q, k, v, o, lse, Sq, Sk, Hq, Hk, causal, scale_log2, qs, ks, vs);
-  return static_cast<int>(cudaGetLastError());
+           Strides qs, Strides ks, Strides vs, const Seg& seg,
+           cudaStream_t st) {
+  if (seg.qseg)
+    return launch_branch<D, true>(q, k, v, o, lse, B, Sq, Sk, Hq, Hk,
+                                  causal, scale_log2, qs, ks, vs, seg, st);
+  return launch_branch<D, false>(q, k, v, o, lse, B, Sq, Sk, Hq, Hk, causal,
+                                 scale_log2, qs, ks, vs, seg, st);
 }
 
 }  // namespace
 
+// q_seg, kv_seg, q_pos, kv_pos and kv_range are NULL on the dense branch;
+// otherwise all five are given (flash_common.cuh: Seg)
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Sq, int Sk,
-                              int Hq, int Hk, int D, int causal, float scale,
-                              long long qsb, long long qss, long long qsh,
-                              long long ksb, long long kss, long long ksh,
-                              long long vsb, long long vss, long long vsh,
-                              void* stream) {
+                              void* o, void* lse, const void* q_seg,
+                              const void* kv_seg, const void* q_pos,
+                              const void* kv_pos, const void* kv_range,
+                              int B, int Sq, int Sk, int Hq, int Hk, int D,
+                              int causal, float scale, long long qsb,
+                              long long qss, long long qsh, long long ksb,
+                              long long kss, long long ksh, long long vsb,
+                              long long vss, long long vsh, void* stream) {
   if (Hk <= 0 || Hq % Hk != 0 || kFRows % (Hq / Hk) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
@@ -340,11 +435,18 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   auto* oo = static_cast<__nv_bfloat16*>(o);
   auto* ll = static_cast<float*>(lse);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
+  const Seg seg{static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg),
+                static_cast<const int*>(q_pos),
+                static_cast<const int*>(kv_pos), nullptr,
+                static_cast<const int2*>(kv_range)};
+  if (seg.qseg && !(seg.kseg && seg.qpos && seg.kpos && seg.krange))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128)
     return launch<128>(qq, kk, vv, oo, ll, B, Sq, Sk, Hq, Hk, causal, sl2,
-                       qs, ks, vs, s);
+                       qs, ks, vs, seg, s);
   if (D == 64)
     return launch<64>(qq, kk, vv, oo, ll, B, Sq, Sk, Hq, Hk, causal, sl2,
-                      qs, ks, vs, s);
+                      qs, ks, vs, seg, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

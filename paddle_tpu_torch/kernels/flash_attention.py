@@ -1,28 +1,38 @@
-"""Scaled-dot-product attention on the Paddle layout [B, S, H, D]
-(mirrors ``paddle_tpu/kernels/flash_attention.py:93`` and the custom VJP of
-``paddle_tpu/kernels/pallas/flash_attention.py:646-745``).
+"""Flash attention on the Paddle layout [B, S, H, D] (mirrors
+``paddle_tpu/kernels/flash_attention.py`` and the Pallas kernels with their
+custom VJP, ``paddle_tpu/kernels/pallas/flash_attention.py:581-850``).
 
-``scaled_dot_product_attention`` has native GQA (Hq = G * Hk; KV heads are
-never expanded). Its forward is ``flash_fwd.cu``, the Hopper counterpart of
-the Pallas ``_fwd_kernel`` (:281 there); when an input requires grad it goes
-through ``FlashAttention``, whose backward computes Delta = rowsum(dO * O)
-in PyTorch and then launches ``flash_bwd.cu``: ``flash_bwd_dq`` (the
-counterpart of ``_dq_kernel``, :358) and ``flash_bwd_dkv`` (of
-``_dkv_kernel``, :408). CPU tensors take the plain pair,
-``flash_attention_plain`` and ``flash_attention_bwd_plain``: the same math
-in plain PyTorch. ``FLAGS_flash_kernel=plain`` (read at each call) sends
-CUDA tensors to the plain pair too. There is no fallback: a CUDA tensor the
-kernels do not take raises.
+Entry points: ``scaled_dot_product_attention`` (the dense route of GPT and
+Llama), ``flash_attention`` (Pallas :753: a caller's scale, segment ids
+and positions, LSE), ``flash_attn_varlen`` (Pallas :836: packed sequences
+from ``cu_seqlens``) and ``flash_attn_unpadded`` (the kernels module's
+:69: output dropout and the cast to q's dtype). All have native GQA
+(Hq = G * Hk; KV heads are never expanded) and go through
+``FlashAttention``. Its forward is ``flash_fwd.cu``, the Hopper
+counterpart of the Pallas ``_fwd_kernel`` (:281 there); its backward
+computes Delta = rowsum(dO * O) in PyTorch and then launches
+``flash_bwd.cu``: ``flash_bwd_dq`` (the counterpart of ``_dq_kernel``,
+:358) and ``flash_bwd_dkv`` (of ``_dkv_kernel``, :408). With segment ids
+each kernel takes its segment branch (the Pallas bodies' ``has_seg``).
+CPU tensors take the plain pair, ``flash_attention_plain`` and
+``flash_attention_bwd_plain``: the same math in plain PyTorch.
+``FLAGS_flash_kernel=plain`` (read at each call) sends CUDA tensors to the
+plain pair too. There is no fallback: a CUDA tensor the kernels do not
+take raises.
 
 The kernels read q/k/v/dO through their strides (the innermost one must be
 1 and the others multiples of 8 elements), so the non-contiguous q/k/v
 views that GPT's fused qkv projection yields are read in place; O, LSE,
-dQ, dK and dV are written contiguous.
+dQ, dK and dV are written contiguous. Segment ids and positions are int32
+[B, S], contiguous.
 
-Semantics shared by all: scale 1/sqrt(D), logits in float32, masked
-entries at -1e30, causal masking bottom-right aligned (query i sees keys
-j <= i + Sk - Sq), a fully masked row gives O = 0, LSE = +1e30 and zero
-gradients.
+Semantics shared by all: scale 1/sqrt(D) unless the caller gives one,
+logits in float32, masked entries at -1e30, a fully masked row gives
+O = 0, LSE = +1e30 and zero gradients. Without segments, causal masking
+is bottom-right aligned (query i sees keys j <= i + Sk - Sq). With
+segments (Pallas ``_block_mask``, :245) query i sees key j when their ids
+are equal and, if causal, when q_pos[i] >= kv_pos[j]; the kv ids default
+to q's and the positions to ``arange``.
 """
 
 from __future__ import annotations
@@ -32,12 +42,16 @@ import math
 import torch
 
 from ..core import flags as _flags
-from ..nn.functional import dropout
+from ..nn.functional import dropout as _dropout
 from . import _build
 
 _NEG = -1e30
 _BIG = 1e30
 _MODES = ("auto", "plain")
+# the plain pair takes its query rows in chunks so that one float32
+# [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
+# packed lengths of thousands the whole logits tensor would not fit
+_PLAIN_ELEMS = 1 << 28
 
 
 def _valid_mask(Sq, Sk, causal, device):
@@ -48,8 +62,64 @@ def _valid_mask(Sq, Sk, causal, device):
     return kj <= qi
 
 
-def flash_attention_plain(q, k, v, causal=False, return_lse=False):
-    """Plain PyTorch flash forward: q [B, Sq, Hq, D], k/v [B, Sk, Hk, D].
+def _scale(scale, D):
+    return float(scale if scale is not None else 1.0 / math.sqrt(D))
+
+
+def _segments(q, k, q_segment_ids, kv_segment_ids, q_positions,
+              kv_positions):
+    """None without ``q_segment_ids`` (as Pallas :760, the other three are
+    then ignored); else (qseg, kseg, qpos, kpos), int32 [B, S] on q's
+    device, contiguous, with the defaults of Pallas :803-817: kv ids are
+    q's, positions ``arange``."""
+    if q_segment_ids is None:
+        return None
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    if kv_segment_ids is None:
+        kv_segment_ids = q_segment_ids
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=q.device).expand(B, Sq)
+    if kv_positions is None:
+        kv_positions = torch.arange(Sk, device=q.device).expand(B, Sk)
+    out = tuple(torch.as_tensor(t, device=q.device).to(torch.int32)
+                .contiguous() for t in (q_segment_ids, kv_segment_ids,
+                                        q_positions, kv_positions))
+    for name, t, S in zip(("q_segment_ids", "kv_segment_ids",
+                           "q_positions", "kv_positions"), out,
+                          (Sq, Sk, Sq, Sk)):
+        if tuple(t.shape) != (B, S):
+            raise ValueError(f"{name} must be [{B}, {S}], got "
+                             f"{tuple(t.shape)}")
+    return out
+
+
+def _row_mask(Sq, Sk, causal, device, seg, r0, r1):
+    """Which keys query rows r0..r1-1 see, broadcastable against logits
+    [B, Hk, G, rows, Sk] (``_block_mask``)."""
+    if seg is None:
+        return _valid_mask(Sq, Sk, causal, device)[r0:r1]
+    qseg, kseg, qpos, kpos = seg
+    valid = qseg[:, r0:r1, None] == kseg[:, None, :]
+    if causal:
+        valid &= qpos[:, r0:r1, None] >= kpos[:, None, :]
+    return valid[:, None, None]
+
+
+def _row_chunks(B, Sq, Hq, Sk):
+    """(r0, r1) row ranges of the plain pair's chunks; one (0, 0) chunk
+    when Sq is 0, so the outputs keep their shapes."""
+    step = max(1, _PLAIN_ELEMS // max(1, B * Hq * Sk))
+    return [(r0, min(Sq, r0 + step)) for r0 in range(0, Sq, step)] or \
+        [(0, 0)]
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=None,
+                          q_segment_ids=None, kv_segment_ids=None,
+                          q_positions=None, kv_positions=None,
+                          return_lse=False):
+    """Plain PyTorch flash forward: q [B, Sq, Hq, D], k/v [B, Sk, Hk, D],
+    optional segment ids and positions as ``flash_attention`` takes them.
     Returns O [B, Sq, Hq, D] in q's dtype and, with ``return_lse``, LSE
     float32 [B, Hq, Sq]. Normalized probabilities are cast to V's dtype
     before P @ V, which accumulates in float32."""
@@ -59,60 +129,87 @@ def flash_attention_plain(q, k, v, causal=False, return_lse=False):
         raise ValueError(f"query heads {Hq} not a multiple of kv heads "
                          f"{Hk}")
     G = Hq // Hk
-    sm_scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Sq, Hk, G, D).float()
-    logits = torch.einsum("bsngd,btnd->bngst", qg, k.float()) * sm_scale
-    valid = _valid_mask(Sq, Sk, causal, q.device)
-    logits = logits.masked_fill(~valid, _NEG)
-    m = logits.amax(-1, keepdim=True)
-    p = torch.exp(logits - m) * valid
-    l = p.sum(-1, keepdim=True)
-    row_live = l > 0
-    probs = p / torch.where(row_live, l, torch.ones_like(l))
-    out = torch.einsum("bngst,btnd->bsngd", probs.to(v.dtype).float(),
-                       v.float())
-    out = out.reshape(B, Sq, Hq, D).to(q.dtype)
+    sm_scale = _scale(scale, D)
+    seg = _segments(q, k, q_segment_ids, kv_segment_ids, q_positions,
+                    kv_positions)
+    kf, vf = k.float(), v.float()
+    outs, lses = [], []
+    for r0, r1 in _row_chunks(B, Sq, Hq, Sk):
+        qg = q[:, r0:r1].reshape(B, r1 - r0, Hk, G, D).float()
+        logits = torch.einsum("bsngd,btnd->bngst", qg, kf) * sm_scale
+        valid = _row_mask(Sq, Sk, causal, q.device, seg, r0, r1)
+        logits = logits.masked_fill(~valid, _NEG)
+        m = logits.amax(-1, keepdim=True)
+        p = torch.exp(logits - m) * valid
+        del logits
+        l = p.sum(-1, keepdim=True)
+        row_live = l > 0
+        probs = p / torch.where(row_live, l, torch.ones_like(l))
+        del p
+        out = torch.einsum("bngst,btnd->bsngd", probs.to(v.dtype).float(),
+                           vf)
+        outs.append(out.reshape(B, r1 - r0, Hq, D).to(q.dtype))
+        if return_lse:
+            lse = torch.where(row_live, m + torch.log(torch.where(
+                row_live, l, torch.ones_like(l))), torch.full_like(l, _BIG))
+            lses.append(lse[..., 0].reshape(B, Hq, r1 - r0))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 1)
     if not return_lse:
         return out
-    lse = torch.where(row_live, m + torch.log(torch.where(
-        row_live, l, torch.ones_like(l))), torch.full_like(l, _BIG))
-    return out, lse[..., 0].reshape(B, Hq, Sq)
+    return out, lses[0] if len(lses) == 1 else torch.cat(lses, -1)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
+                              scale=None, q_segment_ids=None,
+                              kv_segment_ids=None, q_positions=None,
+                              kv_positions=None, dlse=None):
     """Plain PyTorch flash backward (``flash_bwd`` with ``_recompute_p``,
     ``_dq_kernel`` and ``_dkv_kernel``): returns (dQ, dK, dV) in the dtypes
     of q, k, v. P = exp(S * scale - LSE) is recomputed and masked to 0;
-    Delta = rowsum(dO * O) in float32; dS = P * (dO V^T - Delta) * scale.
-    The kernels' casts are kept: dO is cast to q's dtype, and to V's before
-    dO V^T; dS to K's dtype for dS K and to Q's for dS^T Q; P to dO's dtype
-    for P^T dO; every product accumulates in float32. dK/dV sum over the G
-    query heads of a group inside the products; KV is never expanded."""
+    Delta = rowsum(dO * O) in float32, less ``dlse`` (the cotangent of
+    LSE, [B, Hq, Sq], where the caller used it); dS = P * (dO V^T - Delta)
+    * scale. The kernels' casts are kept: dO is cast to q's dtype, and to
+    V's before dO V^T; dS to K's dtype for dS K and to Q's for dS^T Q; P to
+    dO's dtype for P^T dO; every product accumulates in float32. dK/dV sum
+    over the G query heads of a group inside the products; KV is never
+    expanded."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
-    sm_scale = 1.0 / math.sqrt(D)
+    sm_scale = _scale(scale, D)
+    seg = _segments(q, k, q_segment_ids, kv_segment_ids, q_positions,
+                    kv_positions)
     do = do.to(q.dtype)
-    qg = q.reshape(B, Sq, Hk, G, D)
-    dog = do.reshape(B, Sq, Hk, G, D)
     delta = (do.float() * o.float()).sum(-1)                 # [B, Sq, Hq]
     delta = delta.reshape(B, Sq, Hk, G).permute(0, 2, 3, 1)[..., None]
+    if dlse is not None:
+        delta = delta - dlse.float().reshape(B, Hk, G, Sq)[..., None]
     lse5 = lse.reshape(B, Hk, G, Sq)[..., None]
-    valid = _valid_mask(Sq, Sk, causal, q.device)
-    s = torch.einsum("bsngd,btnd->bngst", qg.float(), k.float()) * sm_scale
-    s = s.masked_fill(~valid, _NEG)
-    p = torch.where(valid, torch.exp(s - lse5), torch.zeros_like(s))
-    dp = torch.einsum("bsngd,btnd->bngst", dog.to(v.dtype).float(),
-                      v.float())
-    ds = p * (dp - delta) * sm_scale
-    dq = torch.einsum("bngst,btnd->bsngd", ds.to(k.dtype).float(),
-                      k.float())
-    dk = torch.einsum("bngst,bsngd->btnd", ds.to(q.dtype).float(),
-                      qg.float())
-    dv = torch.einsum("bngst,bsngd->btnd", p.to(do.dtype).float(),
-                      dog.float())
-    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    kf, vf = k.float(), v.float()
+    dqs, dk, dv = [], None, None
+    for r0, r1 in _row_chunks(B, Sq, Hq, Sk):
+        qg = q[:, r0:r1].reshape(B, r1 - r0, Hk, G, D)
+        dog = do[:, r0:r1].reshape(B, r1 - r0, Hk, G, D)
+        valid = _row_mask(Sq, Sk, causal, q.device, seg, r0, r1)
+        s = torch.einsum("bsngd,btnd->bngst", qg.float(), kf) * sm_scale
+        s = s.masked_fill(~valid, _NEG)
+        p = torch.where(valid, torch.exp(s - lse5[:, :, :, r0:r1]),
+                        torch.zeros_like(s))
+        del s
+        dp = torch.einsum("bsngd,btnd->bngst", dog.to(v.dtype).float(), vf)
+        ds = p * (dp - delta[:, :, :, r0:r1]) * sm_scale
+        del dp
+        dqs.append(torch.einsum("bngst,btnd->bsngd",
+                                ds.to(k.dtype).float(), kf)
+                   .reshape(B, r1 - r0, Hq, D).to(q.dtype))
+        dk_c = torch.einsum("bngst,bsngd->btnd", ds.to(q.dtype).float(),
+                            qg.float())
+        dv_c = torch.einsum("bngst,bsngd->btnd", p.to(do.dtype).float(),
+                            dog.float())
+        dk = dk_c if dk is None else dk + dk_c
+        dv = dv_c if dv is None else dv + dv_c
+    dq = dqs[0] if len(dqs) == 1 else torch.cat(dqs, 1)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 # -- CUDA wrappers ----------------------------------------------------------
@@ -150,33 +247,98 @@ def _strides(*ts):
     return [s for t in ts for s in t.stride()[:3]]
 
 
-def flash_fwd_cuda(q, k, v, causal=False):
+_SEG_NAMES = ("q_segment_ids", "kv_segment_ids", "q_positions",
+              "kv_positions")
+
+
+def _check_seg(what, q, k, seg):
+    """None when no segment tensor is given; else the four tensors the
+    segment branch takes, each int32 [B, S] (Sq for q's, Sk for kv's),
+    contiguous, on q's device. Raises on anything else, and when only some
+    of the four are given (``flash_attention`` fills in the defaults)."""
+    given = [t is not None for t in seg]
+    if not any(given):
+        return None
+    if not all(given):
+        raise ValueError(f"{what}: the segment branch takes all of "
+                         f"{_SEG_NAMES}, got "
+                         f"{[n for n, g in zip(_SEG_NAMES, given) if g]}")
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    for name, t, S in zip(_SEG_NAMES, seg, (Sq, Sk, Sq, Sk)):
+        if t.device != q.device or t.dtype != torch.int32 or \
+                tuple(t.shape) != (B, S) or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous int32 "
+                             f"tensor of shape {(B, S)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return tuple(seg)
+
+
+def tile_ranges(ids, block=64):
+    """[min, max] of the ids in each ``block`` consecutive positions,
+    int32 [B, ceil(S / block), 2]: the segment kernels skip a (query
+    block, key tile) pair whose two ranges do not overlap, since no entry
+    of it can be visible whatever the ids are. The ragged last block is
+    padded with its own last id."""
+    B, S = ids.shape
+    n = -(-S // block)
+    if n * block > S:
+        ids = torch.cat([ids, ids[:, -1:].expand(B, n * block - S)], 1)
+    t = ids.view(B, n, block)
+    return torch.stack([t.amin(-1), t.amax(-1)], -1).contiguous()
+
+
+def _seg_ptrs(seg, *ranges):
+    """The C entry points' segment pointers: the four tensors and the tile
+    ranges, NULL where absent (the dense branch)."""
+    return [None if t is None else t.data_ptr()
+            for t in (seg or (None,) * 4) + ranges]
+
+
+def _count(fn, seg):
+    if seg is None:
+        fn.launches += 1
+    else:
+        fn.seg_launches += 1
+
+
+def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
+                   kv_segment_ids=None, q_positions=None,
+                   kv_positions=None):
     """Launch ``flash_fwd_bf16``. Returns (O, LSE), both contiguous.
     Takes bf16 [B, S, H, D] tensors (strided as ``_check_qkv`` says) with
-    D in {64, 128} and a GQA group G dividing 64; raises on anything
-    else."""
+    D in {64, 128} and a GQA group G dividing 64, and for the segment
+    branch all four id and position tensors (``_check_seg``); raises on
+    anything else. Counts ``launches`` (dense) and ``seg_launches``
+    apart."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v)
+    seg = _check_seg("flash_fwd", q, k, (q_segment_ids, kv_segment_ids,
+                                        q_positions, kv_positions))
+    ranges = (None if seg is None else tile_ranges(seg[1]),)
     out = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
     lib = _build.load("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), lse.data_ptr(), B, Sq, Sk, Hq,
-                             Hk, D, int(bool(causal)),
-                             float(1.0 / math.sqrt(D)), *_strides(q, k, v),
-                             stream)
+                             out.data_ptr(), lse.data_ptr(),
+                             *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D,
+                             int(bool(causal)), _scale(scale, D),
+                             *_strides(q, k, v), stream)
     _build.check(err, "flash_fwd_bf16")
-    flash_fwd_cuda.launches += 1
+    _count(flash_fwd_cuda, seg)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.seg_launches = 0
 
 
-def flash_delta(o, do):
-    """Delta = rowsum(dO * O) in float32, [B, Hq, Sq] (LSE's layout).
-    Plain PyTorch, as the JAX package computes it outside its kernels."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+def flash_delta(o, do, dlse=None):
+    """Delta = rowsum(dO * O) in float32, [B, Hq, Sq] (LSE's layout), less
+    the cotangent of LSE where the caller used it (Pallas :726-733). Plain
+    PyTorch, as the JAX package computes it outside its kernels."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return delta if dlse is None else delta - dlse.float()
 
 
 def _check_rowstats(what, B, Hq, Sq, *ts):
@@ -188,59 +350,78 @@ def _check_rowstats(what, B, Hq, Sq, *ts):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False):
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                      q_segment_ids=None, kv_segment_ids=None,
+                      q_positions=None, kv_positions=None):
     """Launch ``flash_bwd_dq_bf16`` (B2): dQ [B, Sq, Hq, D] in bf16,
-    contiguous. ``lse`` and ``delta`` are float32 [B, Hq, Sq]."""
+    contiguous. ``lse`` and ``delta`` are float32 [B, Hq, Sq]; segments
+    as ``flash_fwd_cuda`` takes them."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_bwd_dq", q, k, v,
                                       (("do", do),))
     _check_rowstats("flash_bwd_dq", B, Hq, Sq, ("lse", lse),
                     ("delta", delta))
+    seg = _check_seg("flash_bwd_dq", q, k, (q_segment_ids, kv_segment_ids,
+                                           q_positions, kv_positions))
+    ranges = (None if seg is None else tile_ranges(seg[1]),)
     dq = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
     lib = _build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Sq, Sk, Hq, Hk,
-        D, int(bool(causal)), float(1.0 / math.sqrt(D)),
-        *_strides(q, k, v, do), stream)
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        _scale(scale, D), *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dq_bf16")
-    flash_bwd_dq_cuda.launches += 1
+    _count(flash_bwd_dq_cuda, seg)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.seg_launches = 0
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False):
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                       q_segment_ids=None, kv_segment_ids=None,
+                       q_positions=None, kv_positions=None):
     """Launch ``flash_bwd_dkv_bf16`` (B3): (dK, dV) [B, Sk, Hk, D] in bf16,
     contiguous, each summed over the G query heads of its group."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_bwd_dkv", q, k, v,
                                       (("do", do),))
     _check_rowstats("flash_bwd_dkv", B, Hq, Sq, ("lse", lse),
                     ("delta", delta))
+    seg = _check_seg("flash_bwd_dkv", q, k, (q_segment_ids, kv_segment_ids,
+                                            q_positions, kv_positions))
+    ranges = (None, None) if seg is None else (tile_ranges(seg[0]),
+                                               tile_ranges(seg[1]))
     dk = torch.empty((B, Sk, Hk, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, Sk, Hk, D), device=q.device, dtype=v.dtype)
     lib = _build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
-        Sq, Sk, Hq, Hk, D, int(bool(causal)), float(1.0 / math.sqrt(D)),
-        *_strides(q, k, v, do), stream)
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        _scale(scale, D), *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dkv_bf16")
-    flash_bwd_dkv_cuda.launches += 1
+    _count(flash_bwd_dkv_cuda, seg)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.seg_launches = 0
 
 
-def flash_bwd_cuda(q, k, v, o, lse, do, causal=False):
+def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
+                   q_segment_ids=None, kv_segment_ids=None, q_positions=None,
+                   kv_positions=None, dlse=None):
     """The kernel route of the backward: Delta, then B2 and B3."""
     do = do.to(q.dtype)
-    delta = flash_delta(o, do)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    delta = flash_delta(o, do, dlse)
+    kw = dict(scale=scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+              kv_positions=kv_positions)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, **kw)
     return dq, dk, dv
 
 
@@ -267,36 +448,49 @@ def _kernel_layout(t):
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward (the custom VJP of the Pallas
-    kernels). The forward runs B1 and saves (q, k, v, O, LSE); the
-    backward computes Delta and runs B2 and B3. The route is chosen once,
-    in the forward, by ``use_kernel``; on the plain route the forward runs
-    ``flash_attention_plain`` (with autograd off, as inside every
-    ``Function.forward``) and the backward ``flash_attention_bwd_plain``."""
+    kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
+    segment tensors; the backward computes Delta (less the LSE cotangent,
+    when ``return_lse`` handed LSE out and it was used) and runs B2 and
+    B3. The route is chosen once, in the forward, by ``use_kernel``; on
+    the plain route the forward runs ``flash_attention_plain`` (with
+    autograd off, as inside every ``Function.forward``) and the backward
+    ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, scale=None, q_segment_ids=None,
+                kv_segment_ids=None, q_positions=None, kv_positions=None,
+                return_lse=False):
         kernel = use_kernel(q)
+        kw = dict(scale=scale, q_segment_ids=q_segment_ids,
+                  kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+                  kv_positions=kv_positions)
         if kernel:
-            o, lse = flash_fwd_cuda(q, k, v, causal)
+            o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
-                                           return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+                                           return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, q_segment_ids,
+                              kv_segment_ids, q_positions, kv_positions)
         ctx.causal = bool(causal)
+        ctx.scale = scale
         ctx.kernel = kernel
-        return o
+        ctx.set_materialize_grads(False)
+        return (o, lse) if return_lse else o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+    def backward(ctx, do, dlse=None):
+        q, k, v, o, lse, *seg = ctx.saved_tensors
+        if do is None:  # only LSE was used
+            do = torch.zeros_like(o)
+        kw = dict(zip(_SEG_NAMES, seg), scale=ctx.scale, dlse=dlse)
         if ctx.kernel:
             dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, _kernel_layout(do),
-                                        ctx.causal)
+                                        ctx.causal, **kw)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                   ctx.causal)
-        return dq, dk, dv, None
+                                                   ctx.causal, **kw)
+        return (dq, dk, dv) + (None,) * 7
 
 
 def scaled_dot_product_attention(query, key, value, is_causal=False,
@@ -310,5 +504,85 @@ def scaled_dot_product_attention(query, key, value, is_causal=False,
     (upscaled by 1/(1-p)), so the kernels stay on the path when p > 0."""
     out = FlashAttention.apply(query, key, value, bool(is_causal))
     if training and dropout_p > 0.0:
-        out = dropout(out, dropout_p, training=True, generator=generator)
+        out = _dropout(out, dropout_p, training=True, generator=generator)
     return out
+
+
+def flash_attention(q, k, v, causal=False, scale=None, q_segment_ids=None,
+                    kv_segment_ids=None, q_positions=None,
+                    kv_positions=None, return_lse=False):
+    """Flash attention on q [B, Sq, Hq, D], k/v [B, Sk, Hk, D] (Pallas
+    :753): a caller's ``scale`` (default 1/sqrt(D)); with
+    ``q_segment_ids`` (kv ids default to q's, positions to ``arange``) a
+    query sees only keys of its own segment and, if causal, of a position
+    not after its own. Differentiable in q, k, v (``FlashAttention``).
+    Returns O [B, Sq, Hq, D] and, with ``return_lse``, LSE float32
+    [B, Hq, Sq] (differentiable too)."""
+    seg = _segments(q, k, q_segment_ids, kv_segment_ids, q_positions,
+                    kv_positions) or (None,) * 4
+    return FlashAttention.apply(q, k, v, bool(causal), scale, *seg,
+                                bool(return_lse))
+
+
+def _take(a, idx):
+    """``a[idx]`` for a 1-d ``a`` as JAX gathers it: a negative index
+    counts from the end, then an index out of range is clamped."""
+    n = a.shape[0]
+    return a[torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)]
+
+
+def varlen_segments(cu_seqlens_q, cu_seqlens_k, tq, tk, device):
+    """Segment ids and positions of packed sequences, exactly as Pallas
+    :852-868 derives them: (seg_q, seg_k, rel_q, rel_k), int32 [tq] and
+    [tk]. Token t of a side lies in sequence ``searchsorted(cu, t,
+    side="right") - 1``; query positions are shifted by len_k - len_q so
+    that a sequence's last query lines up with its last key (bottom-right
+    causal), with len_k looked up at the query's sequence index clamped to
+    the kv side's count."""
+    cu_q = torch.as_tensor(cu_seqlens_q, device=device).to(torch.int64)
+    cu_k = torch.as_tensor(cu_seqlens_k, device=device).to(torch.int64)
+    pos_q = torch.arange(tq, device=device)
+    pos_k = torch.arange(tk, device=device)
+    seg_q = torch.searchsorted(cu_q, pos_q, right=True) - 1
+    seg_k = torch.searchsorted(cu_k, pos_k, right=True) - 1
+    len_q = _take(cu_q, seg_q + 1) - _take(cu_q, seg_q)
+    last_k = cu_k.shape[0] - 1
+    len_k_q = _take(cu_k, (seg_q + 1).clamp(max=last_k)) - \
+        _take(cu_k, seg_q.clamp(max=last_k))
+    rel_q = pos_q - _take(cu_q, seg_q) + (len_k_q - len_q)
+    rel_k = pos_k - _take(cu_k, seg_k)
+    return tuple(t.to(torch.int32) for t in (seg_q, seg_k, rel_q, rel_k))
+
+
+def flash_attn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, causal=False,
+                      scale=None):
+    """Packed varlen attention (Pallas :836): q [Tq, Hq, D], k/v
+    [Tk, Hk, D] with ``cu_seqlens_*`` [n + 1] prefix sums. Sequences attend
+    only within themselves; causal masking uses positions inside the
+    sequence, bottom-right aligned. Returns [Tq, Hq, D]."""
+    seg_q, seg_k, rel_q, rel_k = varlen_segments(
+        cu_seqlens_q, cu_seqlens_k, q.shape[0], k.shape[0], q.device)
+    out = flash_attention(q[None], k[None], v[None], causal=causal,
+                          scale=scale, q_segment_ids=seg_q[None],
+                          kv_segment_ids=seg_k[None],
+                          q_positions=rel_q[None], kv_positions=rel_k[None])
+    return out[0]
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, generator=None):
+    """Varlen flash attention on packed [total_tokens, heads, dim] inputs
+    (``paddle_tpu/kernels/flash_attention.py:69``): ``flash_attn_varlen``,
+    then, in training with ``dropout`` > 0, entries of the output dropped
+    and the rest scaled by 1/(1 - dropout), the mask drawn from
+    ``generator``; cast to q's dtype. Returns (out, None). ``max_seqlen_*``,
+    ``return_softmax``, ``fixed_seed_offset`` and ``rng_name`` are
+    accepted and unused, as there."""
+    out = flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                            causal=causal, scale=scale)
+    if training and dropout > 0.0:
+        out = _dropout(out, dropout, training=True, generator=generator)
+    return out.to(query.dtype), None

@@ -27,7 +27,11 @@ def sample_token(logits, temperature=1.0, top_k=0, top_p=1.0,
     if top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         cum = torch.softmax(sorted_logits, dim=-1).cumsum(-1)
-        cutoff_idx = (cum < top_p).sum(-1, keepdim=True)
+        # clamped: where the float32 sum never reaches top_p the count is
+        # V, which the reference's take_along_axis reads as NaN (every
+        # token kept); the last (smallest) logit keeps every token too
+        cutoff_idx = (cum < top_p).sum(-1, keepdim=True).clamp_max(
+            logits.shape[-1] - 1)
         cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     probs = torch.softmax(logits, dim=-1)

@@ -1,7 +1,9 @@
 """Functional layer math (mirrors ``paddle_tpu/nn/functional``).
 
 Weights of ``linear`` are in PyTorch's [out, in] layout; ``convert.py``
-transposes the JAX package's [in, out] weights on the way in.
+transposes the JAX package's [in, out] weights on the way in. The flash
+attention functions import ``kernels.flash_attention`` inside their
+bodies: that module imports ``dropout`` from here.
 """
 
 from __future__ import annotations
@@ -75,3 +77,48 @@ def cross_entropy(logits, label, ignore_index=-100):
     nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp_min(1).float()
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, training=True, name=None,
+                    generator=None):
+    """Flash attention on [batch, seq, heads, head_dim] with dropout on the
+    output (``paddle_tpu/nn/functional/common.py:292``). Returns (out,
+    None)."""
+    from ..kernels.flash_attention import scaled_dot_product_attention
+    out = scaled_dot_product_attention(query, key, value, is_causal=causal,
+                                       dropout_p=dropout, training=training,
+                                       generator=generator)
+    return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, generator=None):
+    """Varlen flash attention on packed [total_tokens, heads, head_dim]
+    inputs with ``cu_seqlens`` prefix sums
+    (``paddle_tpu/nn/functional/common.py:301``). Returns (out, None)."""
+    from ..kernels.flash_attention import flash_attn_unpadded as fa
+    return fa(query, key, value, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+              max_seqlen_k, scale, dropout=dropout, causal=causal,
+              return_softmax=return_softmax, training=training,
+              generator=generator)
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                max_seqlen_q, max_seqlen_k, scale,
+                                dropout=0.0, causal=False,
+                                return_softmax=False,
+                                fixed_seed_offset=None, rng_name="",
+                                varlen_padded=True, training=True,
+                                name=None, generator=None):
+    """``flash_attn_unpadded`` on qkv [total, 3, heads, head_dim]
+    (``paddle_tpu/nn/functional/extra.py:608``); q, k and v are read in
+    place as views. Returns (out, None)."""
+    return flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                               cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                               max_seqlen_k, scale, dropout=dropout,
+                               causal=causal, training=training,
+                               generator=generator)

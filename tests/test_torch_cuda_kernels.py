@@ -18,7 +18,9 @@ included (both sides dequantize a row to the same bf16 values): atol
 reasoning per slot). The backward kernels are compared
 relatively, max |kernel - plain| / max |plain| <= 2e-2: dK and dV sum
 over the whole sequence, and where P or dS sits at a bf16 rounding
-boundary the two round differently. The int8
+boundary the two round differently. The segment branch of all three
+(packed varlen sequences, segment ids) at the same tolerances, with exact
+zeros where nothing is visible. The int8
 weight matmul too, at 1e-2: it multiplies the scale after the f32 sum,
 the plain version before, which moves the bf16 output by an ulp at most.
 """
@@ -29,9 +31,9 @@ import torch
 
 from paddle_tpu_torch.core import set_flags
 from paddle_tpu_torch.kernels.flash_attention import (
-    flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv_cuda,
-    flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
-    scaled_dot_product_attention)
+    flash_attention_bwd_plain, flash_attention_plain, flash_bwd_cuda,
+    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
+    scaled_dot_product_attention, varlen_segments)
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
     paged_decode_attention_kernel)
@@ -321,3 +323,162 @@ def test_flash_autograd_on_strided_views_matches_plain_route(dev):
             set_flags({"FLAGS_flash_kernel": "auto"})
     torch.cuda.synchronize()
     assert _rel_err(grads["auto"], grads["plain"]) <= BWD_RTOL
+
+
+def _packed_seg(dev, cu_q, cu_k):
+    """Segment ids and positions of packed sequences, [1, T] each."""
+    cu = lambda c: torch.tensor(c, device=dev, dtype=torch.int32)
+    return tuple(t[None] for t in varlen_segments(
+        cu(cu_q), cu(cu_k), cu_q[-1], cu_k[-1], dev))
+
+
+def _dense_seg(dev, B, S, orphan):
+    """Non-monotone ids (pos // 24) % 3 on both sides; with ``orphan``,
+    query rows S//2 .. S//2+9 carry an id no key has."""
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    kseg = ((pos // 24) % 3).expand(B, S).contiguous()
+    qseg = kseg.clone()
+    if orphan:
+        qseg[:, S // 2:S // 2 + 10] = 7
+    p = pos.expand(B, S).contiguous()
+    return qseg, kseg, p, p.clone()
+
+
+# name: (B, Hq, Hk, D, causal, segments); "cu" cases are packed rows
+_SEG_CASES = {
+    # T 333, not a multiple of 64; 1-token sequences; boundaries in tiles
+    "ragged-g4-d128": (1, 32, 8, 128, True, ("cu", [0, 1, 70, 71, 200, 333],
+                                             None)),
+    "ones-g1-d64": (1, 4, 4, 64, True, ("cu", [0, 1, 2, 3, 67, 131], None)),
+    "g8-d128-full": (1, 16, 2, 128, False, ("cu", [0, 100, 130, 250], None)),
+    # each sequence's last queries only: the bottom-right shift
+    "cross-g4-d64": (1, 16, 4, 64, True, ("cu", [0, 10, 40, 41, 105],
+                                          [0, 70, 100, 150, 214])),
+    # sequence 1 has 30 queries and no key: rows with nothing to see
+    "nokeys-g2-d64": (1, 8, 4, 64, True, ("cu", [0, 30, 60, 90],
+                                          [0, 40, 40, 120])),
+    "nonmono-g4-d128": (2, 16, 4, 128, True, ("dense", 200, True)),
+    "nonmono-g1-d64": (2, 4, 4, 64, False, ("dense", 150, False)),
+}
+
+
+def _seg_inputs(dev, name):
+    B, Hq, Hk, D, causal, (kind, a, c) = _SEG_CASES[name]
+    if kind == "cu":
+        seg = _packed_seg(dev, a, c or a)
+    else:
+        seg = _dense_seg(dev, B, a, c)
+    Sq, Sk = seg[0].shape[1], seg[1].shape[1]
+    q = _randn(dev, B, Sq, Hq, D, seed=11)
+    k = _randn(dev, B, Sk, Hk, D, seed=12)
+    v = _randn(dev, B, Sk, Hk, D, seed=13)
+    do = _randn(dev, B, Sq, Hq, D, seed=14)
+    kw = dict(zip(("q_segment_ids", "kv_segment_ids", "q_positions",
+                   "kv_positions"), seg))
+    return q, k, v, do, causal, kw
+
+
+def _unseen(kw, causal):
+    """Masks of query rows that see no key and keys no row sees."""
+    qs, ks, qp, kp = (kw[n] for n in ("q_segment_ids", "kv_segment_ids",
+                                      "q_positions", "kv_positions"))
+    vis = qs[:, :, None] == ks[:, None, :]
+    if causal:
+        vis &= qp[:, :, None] >= kp[:, None, :]
+    return ~vis.any(2), ~vis.any(1)
+
+
+@pytest.mark.parametrize("name", sorted(_SEG_CASES))
+def test_flash_segment_kernels_match_plain(dev, name):
+    q, k, v, do, causal, kw = _seg_inputs(dev, name)
+    before = (flash_fwd_cuda.seg_launches, flash_bwd_dq_cuda.seg_launches,
+              flash_bwd_dkv_cuda.seg_launches, flash_fwd_cuda.launches)
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale=0.1, **kw)
+    dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, do, causal, scale=0.1,
+                                **kw)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale=0.1,
+                                           return_lse=True, **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale=0.1,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.seg_launches, flash_bwd_dq_cuda.seg_launches,
+            flash_bwd_dkv_cuda.seg_launches, flash_fwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert bool(torch.isfinite(o.float()).all())
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATOL
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL
+    for gname, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert bool(torch.isfinite(out.float()).all()), gname
+        assert _rel_err(out, ref) <= BWD_RTOL, gname
+    rows, keys = _unseen(kw, causal)
+    if rows.any():  # O 0, LSE +1e30, dQ 0
+        r = rows[..., None, None].expand_as(o)
+        assert o[r].abs().max().item() == 0.0
+        assert dq[r].abs().max().item() == 0.0
+        assert bool((lse.transpose(1, 2)[rows] == 1e30).all())
+    if keys.any():  # dK = dV = 0
+        c = keys[..., None, None].expand_as(dk)
+        assert dk[c].abs().max().item() == 0.0
+        assert dv[c].abs().max().item() == 0.0
+
+
+def test_flash_segment_forward_replays_in_a_cuda_graph(dev):
+    """The segment forward (its tile ranges included) captured in a CUDA
+    graph and replayed on new inputs gives the eager result."""
+    q, k, v, _, causal, kw = _seg_inputs(dev, "ragged-g4-d128")
+    flash_fwd_cuda(q, k, v, causal, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+    q.copy_(_randn(dev, *q.shape, seed=21))
+    g.replay()
+    o_eager, lse_eager = flash_fwd_cuda(q, k, v, causal, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_eager) and torch.equal(lse, lse_eager)
+
+
+def test_flash_segment_wrappers_reject_bad_ids(dev):
+    q = _randn(dev, 1, 64, 4, 64)
+    ids = torch.zeros(1, 64, device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        flash_fwd_cuda(q, q, q, q_segment_ids=ids.long(), kv_segment_ids=ids,
+                       q_positions=ids, kv_positions=ids)
+    with pytest.raises(ValueError, match="segment branch takes all"):
+        flash_fwd_cuda(q, q, q, q_segment_ids=ids)
+
+
+# digests of the dense B1-B3 outputs from PR 5's kernels
+# (``tools/torch_flash_digest.py`` on that tree, NVIDIA H100 80GB HBM3)
+_DENSE_DIGESTS = {
+    "B2_S300_Hq16_Hk16_D64": dict(
+        flash_fwd="40838b7b7627c8b74d6b1118a8ca1544"
+                  "ce10b930def3ee9da1a84445a976af54",
+        flash_bwd_dq="39ae3c3fe76dfa272aeb9ca5606572f8"
+                     "c21827bd73c24a2c677b940d3e790428",
+        flash_bwd_dkv="766c9c1c33f4700d36ecaa65da1030cf"
+                      "4a3ddd35ec000b0171dcce769384df12"),
+    "B1_S200_Hq32_Hk8_D128": dict(
+        flash_fwd="c01a0bf9752c84876b37b714d6ba8ef4"
+                  "8535bb82dd31192fb731e9697fef9628",
+        flash_bwd_dq="0ab54553205a9947bb0bde94ea7f5b5a"
+                     "4739a9ce0c8771a8c2837ff7cae7553c",
+        flash_bwd_dkv="4c931a2d22bb0723b71a056367438be3"
+                      "0449c8c1898b403775a6ee3cac8580f3"),
+}
+
+
+def test_dense_flash_outputs_are_bit_identical_to_the_recorded_ones(dev):
+    """The segment branch left the dense one as it was: B1-B3 give, bit
+    for bit, the outputs recorded from the kernels before it existed."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).parents[1] / "tools" / \
+        "torch_flash_digest.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_digest",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    assert tool.digests(fa) == _DENSE_DIGESTS

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
+from paddle_tpu.models import generation as jgen
 from paddle_tpu.models import llama as jllama
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch.convert import (expected_shapes,
@@ -155,3 +157,25 @@ def test_sample_token_greedy_and_filtered():
         # package does): {1, 3} in row 0, {0} in row 1
         tok = sample_token(logits, temperature=1.0, top_p=0.5, generator=g)
         assert tok[0].item() in (1, 3) and tok[1].item() == 0
+
+
+def test_sample_token_top_p_near_one_keeps_every_token():
+    """At Llama-3's vocabulary (128256) with near-uniform logits the
+    float32 cumulative sum never reaches top_p 0.9999999, so the cutoff
+    index is V. The JAX package's ``take_along_axis`` reads it as NaN and
+    keeps every token; the port clamps it to V - 1 (the smallest logit),
+    which keeps every token too, where the gather used to raise."""
+    V = 128256
+    logits = np.random.default_rng(5).normal(0.0, 0.01, (2, V)).astype(
+        np.float32)
+    t = torch.from_numpy(logits)
+    cum = torch.softmax(torch.sort(t, -1, descending=True).values,
+                        -1).cumsum(-1)
+    assert ((cum < 0.9999999).sum(-1) == V).any()  # the case at issue
+    g = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        tok = sample_token(t, temperature=1.0, top_p=0.9999999, generator=g)
+        assert tok.shape == (2,) and bool(((tok >= 0) & (tok < V)).all())
+    jtok = np.asarray(jgen.sample_token(jnp.asarray(logits), top_p=0.9999999,
+                                        key=jax.random.PRNGKey(0)))
+    assert jtok.shape == (2,) and ((jtok >= 0) & (jtok < V)).all()
