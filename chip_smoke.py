@@ -11,9 +11,10 @@
    events, median of 30 launches), the plain version's time, one PyTorch
    library call's time as a yardstick, and its bound (bytes at 3.35 TB/s
    or flops at 989 TFLOP/s, whichever is larger, from this run's inputs).
-   B1, B7's prefill path and the paged-decode kernels are also timed as
-   CUDA-graph replays, kernel and library alike (no host launch
-   overhead).
+   B1, B2, B3, B7's prefill path and the paged-decode kernels are also
+   timed as CUDA-graph replays (no host launch overhead; B1, B7 and the
+   decode kernels' library calls too), and B2 and B3 report the share of
+   their bound that the graph replay reaches.
    The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
    D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64), held per query
    row too and shown to fail without its last key tile; the flash
@@ -41,9 +42,11 @@
    to fail when one run of 64 keys of a sequence goes missing, and the
    kernels, their chain and the public forward + backward are timed
    (events and graph replays) beside the plain pair, the bound (over the
-   visible pairs this run's ids and positions let through) and one
-   PyTorch call (``varlen_attn``, or masked SDPA where it cannot say the
-   case).
+   visible pairs this run's ids and positions let through; B2's and B3's
+   graph replays as a share of it) and one PyTorch call (``varlen_attn``,
+   or masked SDPA where it cannot say the case); how B2 and B3 classify
+   the case's (query block, key tile) pairs (skip, masked, full) is
+   counted beside.
 4. Serving phase: Llama-3-8B at full width and depth, bf16, random weights
    from a fixed generator, served by ``ContinuousBatchingEngine``:
    engine A (max_seq_len 2048: the split-KV decode route) and engine B
@@ -66,7 +69,8 @@
    gate holds one forward + backward on the kernel route against the plain
    route (``FLAGS_flash_kernel=plain``); then 2 warm-up and 10 timed steps
    (counts zeroed before, read after: B1, B2 and B3 must move by 24 per
-   step; the loss must stay finite and fall), and a profile of 2 steps.
+   step; the loss must stay finite and fall), and a profile of 2 steps
+   (device time by kernel group, attention backward per step among them).
 6. Prints one ``{"kernels": [...]}`` line (B1-B7 and the segment entries
    B1-seg, B2-seg, B3-seg at V1, every case beside) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
@@ -355,6 +359,19 @@ def sdpa_backward_library(torch, q, k, v, do):
                                        retain_graph=True)
 
 
+def bwd_bounds(q, k, lse, pairs, idb=0):
+    """Bounds of B2 and B3 from this run's inputs: ``pairs`` visible
+    (query, key) pairs per query head, ``idb`` bytes of segment ids and
+    positions. B2 makes 3 products over the pairs (S, dP, dQ) and moves
+    q, dO, dQ, k, v, LSE and Delta; B3 makes 4 (S, dP, dV, dK) and moves
+    q, dO, k, v, dK, dV, LSE and Delta."""
+    fl = 2 * q.shape[-1] * q.shape[2] * pairs  # one product
+    qb, kvb = q.numel() * 2, k.numel() * 2
+    rows = lse.numel() * 4 * 2                 # LSE and Delta
+    return {"flash_bwd_dq": bound(3 * qb + 2 * kvb + rows + idb, 3 * fl),
+            "flash_bwd_dkv": bound(2 * qb + 4 * kvb + rows + idb, 4 * fl)}
+
+
 def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
     """B2 and B3 against ``flash_attention_bwd_plain`` (causal), with the
     forward's O and LSE from B1. Returns one record per kernel."""
@@ -378,38 +395,40 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
         errs[name] = (diff, diff / max(scale, 1e-6),
                       bool(torch.isfinite(out.float()).all()))
     del refs
-    dq_ms = timer(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                            causal=True))
-    dkv_ms = timer(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                              causal=True))
+    dq_call = lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                        causal=True)
+    dkv_call = lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                          causal=True)
+    times = {name: (timer(fn), timer.graph(fn))
+             for name, fn in (("flash_bwd_dq", dq_call),
+                              ("flash_bwd_dkv", dkv_call))}
     plain_ms = timer(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                        causal=True),
                      iters=20)
     lib = sdpa_backward_library(torch, q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), do.transpose(1, 2))
     library_ms = timer(lib, iters=20)
-    pairs = S * (S + 1) // 2
-    flop = 2 * B * hq * dh * pairs
-    qb = q.numel() * 2
-    kvb = k.numel() * 2
-    rows = lse.numel() * 4 * 2  # LSE and Delta
+    bounds = bwd_bounds(q, k, lse, B * S * (S + 1) // 2)
     shape = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh)
     recs = {}
-    for name, ms, n_products, nbytes, keys in (
-            ("flash_bwd_dq", dq_ms, 3, 3 * qb + 2 * kvb + rows, ("dq",)),
-            ("flash_bwd_dkv", dkv_ms, 4, 2 * qb + 4 * kvb + rows,
-             ("dk", "dv"))):
-        bms, by = bound(nbytes, n_products * flop)
+    for name, keys in (("flash_bwd_dq", ("dq",)),
+                       ("flash_bwd_dkv", ("dk", "dv"))):
+        ms, graph_ms = times[name]
+        bms, by = bounds[name]
         abs_err = max(errs[k][0] for k in keys)
         rel_err = max(errs[k][1] for k in keys)
         ok = rel_err <= BWD_RTOL and all(errs[k][2] for k in keys)
         recs[name] = dict(shape, max_abs_err=abs_err, rel_err=rel_err,
-                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bms, bound_by=by, ok=ok)
+                          ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bms, bound_by=by,
+                          share_of_bound=bms / ms,
+                          graph_share_of_bound=bms / graph_ms, ok=ok)
         print(f"{name} B={B} S={S} Hq={hq} Hk={hk} D={dh}: err "
               f"{abs_err:.3e} (rel {rel_err:.3e}) | kernel {ms:.4f} ms "
-              f"plain (whole backward) {plain_ms:.4f} ms sdpa backward "
-              f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+              f"(graph {graph_ms:.4f}) plain (whole backward) "
+              f"{plain_ms:.4f} ms sdpa backward {library_ms:.4f} ms bound "
+              f"{bms:.4f} ms ({by}; {bms / graph_ms:.1%} of it in the "
+              f"graph)", flush=True)
         if not ok:
             fail(f"{name} disagrees with flash_attention_bwd_plain at "
                  f"S={S} D={dh}: relative error {rel_err} (limit "
@@ -513,6 +532,23 @@ def varlen_library(torch, case, q, k, v, do):
                                              retain_graph=True))
 
 
+def tile_pair_counts(torch, seg, causal, hq, hk):
+    """How B2 and B3 classify this run's (query block, key tile) pairs
+    (``pair_classes``): skip, masked and full counts over the batch, for
+    B2's blocks of 64 / G positions and B3's 64-row query tiles."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        FULL, MASKED, SKIP, pair_classes, tile_bounds)
+    qseg, kseg, qpos, kpos = seg
+    kb = tile_bounds(kseg, kpos)
+    out = {}
+    for name, block in (("dq", 64 * hk // hq), ("dkv", 64)):
+        cls = pair_classes(tile_bounds(qseg, qpos, block), kb, causal)
+        out[name] = {lab: int((cls == c).sum().item())
+                     for lab, c in (("skip", SKIP), ("masked", MASKED),
+                                    ("full", FULL))}
+    return out
+
+
 def varlen_case(torch, timer, name, case):
     """One varlen case: the public entry point with ``requires_grad``
     inputs (counts zeroed just before, read just after: B1-seg, B2-seg and
@@ -612,11 +648,11 @@ def varlen_case(torch, timer, name, case):
     fl = 2 * dh * Hq * pairs           # one product over the visible pairs
     qb, kvb = q.numel() * 2, k.numel() * 2
     idb = sum(x.numel() for x in seg) * 4
-    rows = lse_k.numel() * 4 * 2       # LSE and Delta
+    bb = bwd_bounds(q, k, lse_k, pairs, idb)
     bounds = {"fwd": bound(2 * qb + 2 * kvb + idb, 2 * fl),
-              "dq": bound(3 * qb + 2 * kvb + rows + idb, 3 * fl),
-              "dkv": bound(2 * qb + 4 * kvb + rows + idb, 4 * fl),
+              "dq": bb["flash_bwd_dq"], "dkv": bb["flash_bwd_dkv"],
               "fwd_bwd": bound(2 * qb + 2 * kvb + idb, 7 * fl)}
+    shares = {n: bounds[n][0] / t[n + "_graph"] for n in ("dq", "dkv")}
     dense_pairs = B * Sq * k.shape[1]
     if causal and Sq == k.shape[1]:
         dense_pairs = B * Sq * (Sq + 1) // 2
@@ -630,7 +666,10 @@ def varlen_case(torch, timer, name, case):
                public_equals_kernel=same, launches=launches, times_ms=t,
                library=lib_name,
                bounds_ms={n: dict(ms=b[0], by=b[1])
-                          for n, b in bounds.items()}, ok=ok)
+                          for n, b in bounds.items()},
+               graph_share_of_bound=shares,
+               tile_pairs=tile_pair_counts(torch, seg, causal, Hq, k.shape[2]),
+               ok=ok)
     print(f"varlen {name}: Tq {Sq} Tk {k.shape[1]} Hq {Hq} Hk "
           f"{k.shape[2]} D {dh} causal {causal}: {pairs} visible pairs "
           f"(dense {dense_pairs}) | err O {err_o:.3e} row {err_row:.3e} "
@@ -638,7 +677,9 @@ def varlen_case(torch, timer, name, case):
           f"{'/'.join(f'{e[1]:.2e}' for e in errs.values())} (64 keys "
           f"missing: row {cut_row:.3e}) | ms {json.dumps(t)} | bound "
           f"{json.dumps({n: round(b[0], 5) for n, b in bounds.items()})} "
-          f"| library: {lib_name}", flush=True)
+          f"(B2, B3 graphs at {shares['dq']:.1%}, {shares['dkv']:.1%} of "
+          f"it) | tile pairs {json.dumps(rec['tile_pairs'])} | library: "
+          f"{lib_name}", flush=True)
     if not ok:
         fail(f"varlen {name}: the kernels disagree with the plain pair: O "
              f"row {err_row} (limit {ROW_RTOL}), abs {err_o} ({O_ATOL}), "
@@ -647,8 +688,9 @@ def varlen_case(torch, timer, name, case):
     return rec
 
 
-def varlen_phase(torch):
-    """V1: Llama-3-8B width (Hq 32, Hk 8, D 128), causal, one packed row of
+def varlen_cases(torch):
+    """The varlen phase's cases, in order, as ``varlen_case`` takes them.
+    V1: Llama-3-8B width (Hq 32, Hk 8, D 128), causal, one packed row of
     8192 tokens of random lengths 1..2048 (a 1-token sequence first);
     V2: GPT-2 medium width (H 16, D 64), causal, a packed kv row of 4096
     tokens whose queries are each sequence's last min(L, 64) tokens, one
@@ -660,11 +702,9 @@ def varlen_phase(torch):
     from paddle_tpu_torch.kernels.flash_attention import (
         _segments, flash_attention, varlen_segments)
     from paddle_tpu_torch.nn.functional import flash_attn_unpadded
-    timer = Timer(torch)
     g = torch.Generator(device=DEVICE).manual_seed(4000)
     mk = lambda *s: torch.randn(*s, generator=g, device=DEVICE,
                                 dtype=torch.bfloat16)
-    recs = {}
 
     def packed(name, lens_q, lens_k, hq, hk, dh):
         cu = lambda ls: torch.tensor(np.concatenate([[0], np.cumsum(ls)]),
@@ -693,16 +733,12 @@ def varlen_phase(torch):
     if not any(n % 64 for n in lens[1:]) or lens[0] != 1:
         fail(f"V1 lengths lack a 1-token sequence or a length that is not "
              f"a multiple of 64: {lens}")
-    recs["V1"] = varlen_case(torch, timer, "V1", packed(
-        "V1", lens, lens, HQ, HK, D))
-    gc.collect()
-    torch.cuda.empty_cache()
+    yield "V1", packed("V1", lens, lens, HQ, HK, D)
 
     lens_k = varlen_lengths(7, V2_TOKENS, V2_LONGEST)
     lens_q = [min(n, 64) for n in lens_k]
     lens_q[1] = 0  # a kv sequence with no queries
-    recs["V2"] = varlen_case(torch, timer, "V2", packed(
-        "V2", lens_q, lens_k, GPT_H, GPT_H, GPT_D))
+    yield "V2", packed("V2", lens_q, lens_k, GPT_H, GPT_H, GPT_D)
 
     B, S = 2, V3_SEQ
     pos = torch.arange(S, device=DEVICE, dtype=torch.int32)
@@ -714,13 +750,22 @@ def varlen_phase(torch):
     call = lambda a, b, c: flash_attention(
         a, b, c, causal=True, q_segment_ids=q_ids, kv_segment_ids=kv_ids,
         q_positions=q_pos)
-    recs["V3"] = varlen_case(torch, timer, "V3", dict(
+    yield "V3", dict(
         q=q, k=k, v=v, do=do, causal=True, scale=1.0 / math.sqrt(GPT_D),
         seg=_segments(q, k, q_ids, kv_ids, q_pos, None), call=call,
-        longest=(0, 96)))
+        longest=(0, 96))
+
+
+def varlen_phase(torch):
+    """Each of ``varlen_cases`` through ``varlen_case``."""
+    timer = Timer(torch)
+    recs = {}
+    for name, case in varlen_cases(torch):
+        recs[name] = varlen_case(torch, timer, name, case)
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
     del timer
-    gc.collect()
-    torch.cuda.empty_cache()
     return recs
 
 
@@ -1547,6 +1592,8 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     rec = dict(steps=steps, step_ms=wall_ms / steps,
                device_busy_ms_per_step=busy_ms / steps,
+               attention_bwd_ms_per_step=per_step.get(
+                   "attention backward (port)", 0.0),
                idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
                kernels_per_step=n_kernels / steps,
                by_group_ms_per_step=per_step,
@@ -1676,7 +1723,9 @@ def seg_records(varlen):
                          bound_ms=r["bounds_ms"][key]["ms"],
                          bound_by=r["bounds_ms"][key]["by"],
                          library_ms=r["times_ms"][lib],
-                         library=r["library"])
+                         library=r["library"],
+                         graph_share_of_bound=r["bounds_ms"][key]["ms"] /
+                         r["times_ms"][key + "_graph"])
                  for c, r in varlen.items()}
         v1 = cases["V1"]
         records.append(dict(
@@ -1686,7 +1735,7 @@ def seg_records(varlen):
             ms=v1["ms"], kernel_ms=v1["ms"], graph_ms=v1["graph_ms"],
             plain_ms=v1["plain_ms"], bound_ms=v1["bound_ms"],
             bound_by=v1["bound_by"], library_ms=v1["library_ms"],
-            cases=cases))
+            graph_share_of_bound=v1["graph_share_of_bound"], cases=cases))
     return records
 
 
@@ -1738,7 +1787,8 @@ def main():
                                      "library_ms", "library_graph_ms")},
                 per_prefill=phases["quant_matmul_prefill"])
         # device-only times (CUDA-graph replays) where the phase took them
-        graphs = {k: main_rec[k] for k in ("graph_ms", "library_graph_ms")
+        graphs = {k: main_rec[k] for k in ("graph_ms", "library_graph_ms",
+                                           "graph_share_of_bound")
                   if k in main_rec}
         records.append(dict(**paths, **graphs,
             name=name, route="cuda", source=source, replaces=replaces,

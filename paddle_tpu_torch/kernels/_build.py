@@ -41,13 +41,14 @@ SIGNATURES = {
     },
     "flash_bwd": {
         # q, k, v, do, lse, delta, dq, q_seg, kv_seg, q_pos, kv_pos, kv
-        # tile ranges, B, Sq, Sk, Hq, Hk, D, causal, scale, (batch, seq,
+        # tile bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, (batch, seq,
         # head) strides of q, k, v, do, stream
         "flash_bwd_dq_bf16": [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
         + [_P],
         # q, k, v, do, lse, delta, dk, dv, q_seg, kv_seg, q_pos, kv_pos, q
-        # tile ranges, kv tile ranges, then as above
-        "flash_bwd_dkv_bf16": [_P] * 14 + [_I] * 7 + [_F] + [_L] * 12
+        # tile bounds, kv tile bounds, B, Sq, Sk, Hq, Hk, D, causal,
+        # cluster size, then as above
+        "flash_bwd_dkv_bf16": [_P] * 14 + [_I] * 8 + [_F] + [_L] * 12
         + [_P],
     },
     "paged_decode": {

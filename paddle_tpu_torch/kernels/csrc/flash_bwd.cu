@@ -7,265 +7,835 @@
 // P = exp(S * scale - LSE) from the forward's LSE, masked to 0, and use
 // Delta = rowsum(dO * O), which the wrapper computes before the launch:
 //   dP = dO V^T,  dS = P * (dP - Delta) * scale,
-//   dQ = dS K,    dK = dS^T Q,    dV = P^T dO.
+//   dQ = dS K,    dK = dS^T Q,    dV = P^T dO,
+// with P and dS rounded to bf16 before the products that take them.
 // Inputs: q/dO [B, Sq, Hq, D], k/v [B, Sk, Hk, D] bf16, read through their
-// batch, sequence and head strides (the head dim contiguous); LSE and Delta
-// f32 [B, Hq, Sq]. Outputs dQ [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16,
-// contiguous. D is 64 or 128; Hq = G * Hk with G dividing 64. Causal
-// masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq);
-// a fully masked row (LSE = +1e30) gets P = 0 and zero gradients. Ragged
-// Sq and Sk are masked in the kernels: tiles are zero-filled past the end
-// and nothing is padded on the host. With segment ids (the Pallas bodies'
+// batch, sequence and head strides (the head dim contiguous, the others
+// multiples of 8 elements); LSE and Delta f32 [B, Hq, Sq]. Outputs dQ
+// [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16, contiguous. D is 64 or 128;
+// Hq = G * Hk with G dividing 64. Causal masking is bottom-right aligned
+// (query i sees keys j <= i + Sk - Sq); a fully masked row (LSE = +1e30)
+// gets P = 0 and zero gradients. With segment ids (the Pallas bodies'
 // `has_seg` branch, :382 and :435) a query sees a key of its own segment
-// and, if causal, of a position not after its own (flash_common.cuh); P is
-// 0 wherever that mask is false, so a row no key is visible to gets dQ = 0
-// and a key no row sees gets dK = dV = 0.
+// and, if causal, of a position not after its own (flash_common.cuh); a
+// row no key is visible to gets dQ = 0 and a key no row sees dK = dV = 0.
 //
 // What bounds it on this card: at training lengths (S ~ 1024) the work is
 // the recomputed products -- 3 (dQ) and 4 (dK/dV) of 2 * Sq * Sk * D flops
 // per head, halved for causal -- against a few MB of inputs read once, so
-// tensor-core throughput bounds both kernels, not bytes.
+// tensor-core throughput bounds both kernels, not bytes. The tensor cores
+// stay fed only if the tile loads, the operand reads and the softmax
+// recompute hide behind the products.
 //
-// Design (the TPU's two-kernel split, kept on purpose: no atomics, so the
-// result is deterministic):
-// - flash_bwd_dq: one CTA of 4 warps owns 64 folded rows (the G query
-//   heads of one kv head x 64/G positions, as the forward). A loop inside
-//   the CTA walks 64-key tiles of K and V staged in shared memory, and
-//   stops at the causal diagonal. Each warp keeps its 16 rows' Q and dO
-//   fragments and its dQ accumulator in registers; S and dP come from
-//   mma.sync, dS is rounded to bf16 and fed from registers into dQ += dS K.
-//   dQ is written once.
-// - flash_bwd_dkv: one CTA owns one (batch, kv head, 64-key tile); K and V
-//   of the tile stay in shared memory. A loop walks the query tiles from
-//   the causal diagonal to the end and, inside, the G heads of the group:
-//   each (tile, head) stages 64 rows of Q and dO (and their LSE, Delta) in
-//   shared memory. Each warp owns 16 keys and computes S^T = K Q^T and
-//   dP^T = V dO^T, so P^T and dS^T come out as A fragments in registers
-//   for dV += P^T dO and dK += dS^T Q, accumulated in f32 and written
-//   once. The sum over the group's heads happens in these accumulators;
-//   KV is never expanded. Shared memory is 4 tiles of 64 x (D + 8) bf16
-//   (37 KB at D 64, 69 KB at D 128, above the 48 KB default, so the
-//   kernel is opened up with cudaFuncSetAttribute).
-// - The segment branch (kSeg) in both: each staged tile carries its ids
-//   and positions in shared memory beside it (64 keys for dQ, 64 query
-//   rows for dK/dV), and the rows (dQ) or keys (dK/dV) a thread owns keep
-//   theirs in registers. The global diagonal does not apply (no `kend`, no
-//   `qstart`); the tiles walked are those whose id range overlaps the
-//   CTA's, compacted into a list in shared memory (`live_tiles`).
-// - Simple first: no cp.async pipelining, no wgmma/TMA, no fused
-//   single-pass backward yet.
+// Design (the TPU's two-kernel split, kept on purpose: no atomics, so two
+// launches on the same inputs give the same bits):
+// - Tiles stream through a two-stage cp.async ring with one barrier a
+//   step, as in the forward (async_tiles.cuh): once step n's tile is
+//   visible to every thread (so step n - 1's is consumed), step n + 1's
+//   copies go out and overlap step n's products.
+// - Every product is one warpgroup's wgmma (sm_90a): the CTA's 4 warps
+//   are the 64 rows of its m64 tiles, and every tile that wgmma reads is
+//   stored with the 128-byte swizzle (`swz`), so wgmma reads it straight
+//   from shared memory. S and dP read the staged tile K-major (the head
+//   dim along k); dQ += dS K, dV += P^T dO and dK += dS^T Q read the same
+//   tiles MN-major (the head dim along n: `desc_mn_sw128`), so no tile is
+//   stored twice or transposed. The f32 accumulators of S and dP come back
+//   in mma.sync's C layout, where P and dS are computed, rounded to bf16
+//   and turned into the next product's A fragments in registers (as the
+//   forward feeds P V). Each product is retired before its sub-step ends.
+// - flash_bwd_dq: one CTA owns 64 folded rows (the G query heads of one kv
+//   head x 64/G positions, as the forward). Q and dO are staged once, and
+//   each warp keeps its 16 rows' fragments in registers: the A operands
+//   of S and dP. K/V tiles of 64 keys stream through the ring, up to the
+//   causal diagonal, each taken in two halves of 32 keys (S and dP m64n32;
+//   dQ m64nD accumulates over the walk). dQ leaves through the warp's own
+//   rows of the Q staging area, 16 bytes a store. The grid is 1-d and
+//   walks query blocks from the last (the most keys) to the first over
+//   every (kv head, batch): the longest CTAs start first.
+// - flash_bwd_dkv: one CTA owns one (batch, kv head, 64-key tile) and the
+//   query heads g0 .. g0 + G/C - 1 of the group; K and V of the tile stay
+//   in shared memory as the A operands of S^T = K Q^T and dP^T = V dO^T
+//   (both operands from shared memory). The ring streams (query tile,
+//   head) steps: 64 rows of Q and dO with their LSE and Delta (and ids and
+//   positions on the segment branch), from the causal diagonal to the end,
+//   each taken in two halves of 32 queries. P^T and dS^T
+//   become the A fragments of dV += P^T dO and dK += dS^T Q (m64nD),
+//   whose f32 accumulators sum over the group's heads; KV is never
+//   expanded. At the end the accumulators go to shared memory (row-major
+//   f32, over the drained K, V and ring) and leave coalesced.
+// - Balance: dK/dV's grid is 1-d, key tile slowest, so the longest CTAs
+//   (the first key tiles under causal masking) start first. A grid of few
+//   CTAs still leaves a tail (Llama-3-8B at B 1, S 2048: 256 CTAs for 264
+//   slots, the first CTA walking 128 steps while the mean walks 66), so
+//   the C entry point takes a thread-block cluster of C CTAs per key tile
+//   (C a power of two dividing G, at most 8): rank r takes G/C of the
+//   heads, and the C partial sums meet in distributed shared memory, each
+//   rank summing 64/C keys over the ranks in rank order -- deterministic,
+//   no atomics. The wrapper picks C (`dkv_cluster`): 2 for an even G below
+//   2048 CTAs, which measured faster than 1 and 4 on the H100 both at
+//   Llama's shape (256 CTAs) and at an 8192-token packed row (1024).
+// - The mask runs only where one is needed. Dense: dQ masks a tile that
+//   crosses the diagonal of the CTA's first row or the end of the keys
+//   (keys past Sk are zero-filled, and exp of a very small LSE would
+//   overflow there); dK/dV masks a tile that crosses the diagonal (rows
+//   past Sq are zero-filled with LSE 0 and Delta 0: P = 1 there but
+//   dO = 0 and dS = 0, so they add exact zeros; keys past Sk are never
+//   written). Sub-tiles above the diagonal are skipped.
+// - The segment branch (kSeg) classifies every (query block, key tile)
+//   pair from [id min, id max, position min, position max] bounds
+//   (`pair_class`): a first small launch writes the bounds of every
+//   64-token tile into a workspace (`tile_bounds_kernel`, one warp a tile:
+//   on the host it took ten PyTorch operations a call, which outlasted
+//   the kernel at short packed rows), and dQ reduces its own block's:
+//   skip when the id ranges do not overlap or, causal, when every query
+//   position lies before every key position; full (no mask) when block
+//   and tile hold one id between them and, causal, the block's first
+//   position is not before the tile's last; masked otherwise. The CTA
+//   compacts the pairs it must walk into a list in shared memory, each
+//   entry flagged full or masked. Each staged tile carries its ids and
+//   positions beside it for the masked ones.
+// - Not yet: TMA, a producer warp, and overlap of one sub-step's products
+//   with the next one's softmax recompute inside a CTA (the two CTAs that
+//   share an SM overlap each other).
 
+#include <cooperative_groups.h>
+
+#include "async_tiles.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace flash;
+using tiles::cp_async16;
+using tiles::cp_async4;
+using tiles::cp_async_commit;
+using tiles::cp_async_wait;
+using tiles::ldsm_x4;
 
-constexpr int kBQ = 64;  // query rows per tile of the dK/dV kernel
+constexpr int kBQ = 64;        // query rows per step of the dK/dV kernel
+constexpr int kStages = 2;     // ring depth
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// shared ints of `block_bounds` and `live_pairs`
+constexpr int kBwdScratch = 4 * kWarps;
+// a list entry's flag: the pair needs no mask
+constexpr int kFull = 1 << 30;
 
-// the dQ kernel's dynamic shared memory on the segment branch: the tile's
-// kv ids and positions, scratch, then the live key tiles' list
-constexpr int kDqSegInts = 2 * kBK + kScratchInts;
+// pair classes (flash_attention.py: pair_classes holds the same rule)
+constexpr int kSkip = 0;
+constexpr int kMasked = 1;
+constexpr int kFullPair = 2;
+
+// the segment branch's inputs; all NULL on the dense branch. Bounds are
+// four rows (id min, id max, position min, position max) over the 64-token
+// tiles of a batch row, [B, 4, tiles].
+struct SegB {
+  const int* qseg;   // [B, Sq]
+  const int* kseg;   // [B, Sk]
+  const int* qpos;   // [B, Sq]
+  const int* kpos;   // [B, Sk]
+  const int* qb;     // [B, 4, ceil(Sq / 64)] (dK/dV only)
+  const int* kb;     // [B, 4, ceil(Sk / 64)]
+};
+
+// tile t's bounds from one batch row's [4, n] rows
+__device__ __forceinline__ int4 bounds_at(const int* __restrict__ rows,
+                                          int n, int t) {
+  return make_int4(rows[t], rows[n + t], rows[2 * n + t], rows[3 * n + t]);
+}
+
+// The class of a (query block, key tile) pair from their bounds: skip when
+// no entry can be visible whatever the ids and positions inside are, full
+// when every entry is, masked otherwise.
+__device__ __forceinline__ int pair_class(int4 q, int4 k, int causal) {
+  if (q.x > k.y || k.x > q.y) return kSkip;  // no id in common
+  if (causal && q.w < k.z) return kSkip;     // every query before every key
+  const bool one_id = q.x == q.y && k.x == k.y && q.x == k.x;
+  return one_id && (!causal || q.z >= k.w) ? kFullPair : kMasked;
+}
+
+// (id min, id max, position min, position max) of ids/pos[0, n),
+// 1 <= n <= kThreads, to every thread of the CTA
+__device__ __forceinline__ int4 block_bounds(const int* __restrict__ ids,
+                                             const int* __restrict__ pos,
+                                             int n, int* scratch) {
+  const int warp = threadIdx.x >> 5;
+  int a = INT_MAX, b = INT_MIN, c = INT_MAX, d = INT_MIN;
+  if (threadIdx.x < n) {
+    a = b = ids[threadIdx.x];
+    c = d = pos[threadIdx.x];
+  }
+  a = __reduce_min_sync(0xffffffffu, a);
+  b = __reduce_max_sync(0xffffffffu, b);
+  c = __reduce_min_sync(0xffffffffu, c);
+  d = __reduce_max_sync(0xffffffffu, d);
+  if ((threadIdx.x & 31) == 0) {
+    scratch[warp] = a;
+    scratch[kWarps + warp] = b;
+    scratch[2 * kWarps + warp] = c;
+    scratch[3 * kWarps + warp] = d;
+  }
+  __syncthreads();
+  int4 r = make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
+  #pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    r.x = min(r.x, scratch[w]);
+    r.y = max(r.y, scratch[kWarps + w]);
+    r.z = min(r.z, scratch[2 * kWarps + w]);
+    r.w = max(r.w, scratch[3 * kWarps + w]);
+  }
+  __syncthreads();  // scratch is free again
+  return r;
+}
+
+// The tiles t in [0, n) of `bounds` (one batch row's [4, n]) that pair
+// with `mine` (the query side when kMineIsQ), in order, into `list` as
+// t | kFull (no mask needed) or t; returns their count to every thread.
+// Called by all kThreads threads; the list is complete and visible when it
+// returns.
+template <bool kMineIsQ>
+__device__ __forceinline__ int live_pairs(const int* __restrict__ bounds,
+                                          int n, int4 mine, int causal,
+                                          int* list, int* scratch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int t = base + threadIdx.x;
+    int cls = kSkip;
+    if (t < n) {
+      const int4 other = bounds_at(bounds, n, t);
+      cls = kMineIsQ ? pair_class(mine, other, causal)
+                     : pair_class(other, mine, causal);
+    }
+    const bool live = cls != kSkip;
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) scratch[warp] = __popc(m);
+    __syncthreads();
+    int at = count, total = 0;
+    #pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? scratch[w] : 0;
+      total += scratch[w];
+    }
+    if (live)
+      list[at + __popc(m & ((1u << lane) - 1u))] =
+          t | (cls == kFullPair ? kFull : 0);
+    __syncthreads();  // the list's writes land; scratch is reused
+    count += total;
+  }
+  return count;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+// Tiles that wgmma reads are stored with the 128-byte swizzle of
+// async_tiles.cuh: a tile of `rows` rows of D bf16 is D / 64 blocks of
+// [rows][64] (128-byte rows in 1024-byte atoms of 8), block after block;
+// wgmma reads it K-major (kstep_desc) or MN-major (desc_mn_sw128). The
+// byte offset of 16-byte chunk c8 (elements 8 c8 .. 8 c8 + 7) of a row:
+template <int kTileRows>
+__device__ __forceinline__ int swz(int row, int c8) {
+  return (c8 >> 3) * kTileRows * 128 + tiles::sw128_offset(row, c8 & 7);
+}
+
+// the descriptor of k step kc (16 of the D columns) of a swizzled tile of
+// kTileRows rows, starting at row r0 (a multiple of 8)
+template <int kTileRows>
+__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
+                                               int r0, int kc) {
+  return tiles::wgmma_desc_sw128(tile + (kc >> 2) * kTileRows * 128 +
+                                 r0 * 128 + (kc & 3) * 32);
+}
+
+// d[16] (+)= A . B, m64n32k16: A (64 x 16 bf16) from registers in
+// mma.sync's A layout for each warp's 16 rows; B (32 x 16) K-major in
+// shared memory, 128-byte swizzle (descriptor b); accumulate == 0
+// ignores the old d
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[16] (+)= A . B, m64n32k16: A (64 x 16) and B (32 x 16) K-major in
+// shared memory, 128-byte swizzle (descriptors a, b)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] (+)= A . B, m64n64k16: A from registers as in wgmma_rs_n32; B
+// (16 x 64) MN-major, its N columns contiguous (desc_mn_sw128)
+__device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[64] (+)= A . B, m64n128k16, as wgmma_rs_t_n64
+__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// descriptor of an MN-major operand (N contiguous) stored as the swizzled
+// tiles above: 8-row groups along K 1024 bytes apart (SBO), 64-column
+// blocks along N `block_bytes` apart (LBO); 128-byte swizzle
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p,
+                                                  int block_bytes) {
+  return static_cast<uint64_t>((tiles::smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(block_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(tiles::kAtomBytes >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (+)= A . B over N = D columns with B MN-major: the products that take
+// a tile transposed (dQ += dS K, dV += P^T dO, dK += dS^T Q)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[D / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int accumulate) {
+  if constexpr (D == 64) wgmma_rs_t_n64(d, a, b, accumulate);
+  else wgmma_rs_t_n128(d, a, b, accumulate);
+}
+
+// keeps A fragments that an in-flight wgmma reads live until the wait
+// that retires it (else the register allocator may hand their registers
+// to other values while the product still reads them)
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+  #pragma unroll
+  for (int i = 0; i < N; ++i)
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// wgmma's m64nN accumulator, d[4 j + 2 h + e] = (row 16 w + gid + 8 h,
+// column 8 j + 2 tig + e) for warp w, is mma.sync's C fragment of n-tile
+// j: the [N / 8][4] arrays below are viewed flat
+template <int kNT>
+__device__ __forceinline__ float (&flat(float (&x)[kNT][4]))[kNT * 4] {
+  return *reinterpret_cast<float(*)[kNT * 4]>(&x[0][0]);
+}
+
+// One side's tokens for `tile_bounds_kernel`: ids and positions [B, S],
+// and the bounds it writes, [B, 4, ceil(S / 64)]
+struct Side {
+  const int* ids;
+  const int* pos;
+  int* out;
+  int S;
+};
+
+// [id min, id max, position min, position max] of every 64-token tile of
+// one or two sides (b.out NULL: one), as four rows per batch row; one warp
+// a tile, the ragged last tile padded with its own last token. The plain
+// version is flash_attention.py's tile_bounds.
+__global__ void __launch_bounds__(kThreads)
+tile_bounds_kernel(Side a, Side b, int B) {
+  const int na = (a.S + kBK - 1) / kBK;
+  const int nb = b.out ? (b.S + kBK - 1) / kBK : 0;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= B * (na + nb)) return;  // the whole warp
+  const bool first = w < B * na;
+  const Side s = first ? a : b;
+  const int n = first ? na : nb;
+  const int i = first ? w : w - B * na;
+  const int bi = i / n;
+  const int t = i % n;
+  const int* ids = s.ids + static_cast<size_t>(bi) * s.S;
+  const int* pos = s.pos + static_cast<size_t>(bi) * s.S;
+  int lo = INT_MAX, hi = INT_MIN, plo = INT_MAX, phi = INT_MIN;
+  #pragma unroll
+  for (int j = lane; j < kBK; j += 32) {
+    const int x = min(t * kBK + j, s.S - 1);
+    lo = min(lo, ids[x]);
+    hi = max(hi, ids[x]);
+    plo = min(plo, pos[x]);
+    phi = max(phi, pos[x]);
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  plo = __reduce_min_sync(0xffffffffu, plo);
+  phi = __reduce_max_sync(0xffffffffu, phi);
+  if (lane == 0) {
+    int* o = s.out + static_cast<size_t>(bi) * 4 * n + t;
+    o[0] = lo;
+    o[n] = hi;
+    o[2 * n] = plo;
+    o[3 * n] = phi;
+  }
+}
+
+// launch `tile_bounds_kernel` on the stream of the launch that reads them
+cudaError_t launch_bounds(Side a, Side b, int B, cudaStream_t st) {
+  const long long tiles =
+      static_cast<long long>(B) *
+      ((a.S + kBK - 1) / kBK + (b.out ? (b.S + kBK - 1) / kBK : 0));
+  const long long blocks = (tiles + kWarps - 1) / kWarps;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  tile_bounds_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      a, b, B);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqSmem {
+  static constexpr int kTile = kBK * D * 2;   // bytes of a swizzled K or V
+  static constexpr int kStride = D + 8;       // bf16 per padded Q/dO row
+  static constexpr int kQ = kRows * kStride;  // Q or dO, folded rows
+  // the K ring, the V ring (1024-byte aligned), then Q and dO
+  static constexpr int kBytes = 2 * kStages * kTile + 2 * kQ * 2;
+  // the segment branch's ints after those: each stage's kv ids and
+  // positions, scratch, then the list of live key tiles (one per tile)
+  static constexpr int kSegInts = 2 * kStages * kBK + kBwdScratch;
+};
+
+// P (masked when kMask), then dS = P (dP - Delta) scale into s, for one
+// sub-tile of kNT * 8 keys starting at key `key0` (tile-local `kl0`). kSeg
+// masks by the staged ids and positions (tseg, tpos: the tile's) against
+// the rows' (qid, qp); otherwise by the end of the keys and the
+// bottom-right diagonal.
+template <bool kMask, bool kSeg, int kNT>
+__device__ __forceinline__ void dq_scores(
+    float (&s)[kNT][4], const float (&dp)[kNT][4], const int (&pos)[2],
+    const float (&lse2)[2], const float (&dlt)[2], int key0, int kl0, int Sk,
+    int causal, int off, float scale_log2, float scale, int tig,
+    const int* tseg, const int* tpos, const int (&qid)[2],
+    const int (&qp)[2]) {
+  #pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = c >> 1;
+      float p = exp2f(fmaf(s[nt][c], scale_log2, -lse2[i]));
+      if (kMask) {
+        const int kl = nt * 8 + tig * 2 + (c & 1);
+        const int key = key0 + kl;
+        bool ok;
+        if constexpr (kSeg)
+          ok = key < Sk && tseg[kl0 + kl] == qid[i] &&
+               (!causal || qp[i] >= tpos[kl0 + kl]);
+        else
+          ok = key < Sk && (!causal || key <= pos[i] + off);
+        if (!ok) p = 0.f;
+      }
+      s[nt][c] = p * (dp[nt][c] - dlt[i]) * scale;
+    }
+  }
+}
 
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int Hq,
-                    int Hk, int causal, float scale, float scale_log2,
-                    Strides qs, Strides ks, Strides vs, Strides dos,
-                    Seg seg) {
-  constexpr int kStride = D + 8;  // padded smem row: conflict-free reads
+                    __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk,
+                    int Hq, int Hk, int causal, float scale,
+                    float scale_log2, Strides qs, Strides ks, Strides vs,
+                    Strides dos, SegB seg) {
+  using L = DqSmem<D>;
+  constexpr int kStride = L::kStride;
   constexpr int kKC = D / 16;     // k-chunks over the head dim
   constexpr int kDT = D / 8;      // n-tiles over the head dim
-  constexpr int kNT = kBK / 8;    // n-tiles over a key tile
-  __shared__ __align__(16) __nv_bfloat16 sK[kBK * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBK * kStride];
-  extern __shared__ int seg_smem[];  // segment branch only
-  int* sKseg = seg_smem;
-  int* sKpos = sKseg + kBK;
-  int* sScratch = sKpos + kBK;
-  int* sList = sScratch + kScratchInts;
+  // keys per sub-step (S, dP m64n32): 64 at D 64 gave wrong dQ on every
+  // CTA that walks two or more key tiles, for a reason not found
+  constexpr int kSub = 32;
+  constexpr int kSNT = kSub / 8;  // n-tiles over a sub-step's keys
+  constexpr int kPieces = D / 8;  // 16-byte pieces per row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sK = smem_raw;               // [stage] swizzled [kBK][D]
+  unsigned char* sV = sK + kStages * L::kTile;
+  __nv_bfloat16* sQ =
+      reinterpret_cast<__nv_bfloat16*>(sV + kStages * L::kTile);
+  __nv_bfloat16* sD = sQ + L::kQ;             // dO
+  // segment branch only: [stage][kBK] kv ids, then positions, scratch and
+  // the live tile list
+  int* sKseg = reinterpret_cast<int*>(sD + L::kQ);
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kBwdScratch;
 
   const int G = Hq / Hk;
   const int bq = kRows / G;  // query positions per CTA
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int nqb = (Sq + bq - 1) / bq;
+  // 1-d grid: (kv head, batch) fastest, query blocks from the last
+  const int hb = blockIdx.x % (Hk * B);
+  const int kvh = hb % Hk;
+  const int b = hb / Hk;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / (Hk * B)) * bq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int off = Sk - Sq;
 
-  // the two rows this thread owns in the mma layout: gid and gid + 8,
-  // with their query's segment id and position (segment branch)
-  int pos[2], head[2], qid[2], qp[2];
-  bool live[2];
-  float lse2[2], dlt[2];
-  #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    head[i] = kvh * G + r / bq;
-    pos[i] = q0 + r % bq;
-    live[i] = pos[i] < Sq;
-    const size_t row = (static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i];
-    lse2[i] = live[i] ? lse[row] * kLog2e : kBig;
-    dlt[i] = live[i] ? delta[row] : 0.f;
-    qid[i] = -2;
-    qp[i] = 0;
-    if constexpr (kSeg) {
-      if (live[i]) {
-        qid[i] = seg.qseg[static_cast<size_t>(b) * Sq + pos[i]];
-        qp[i] = seg.qpos[static_cast<size_t>(b) * Sq + pos[i]];
-      }
-    }
+  // stage Q and dO: folded row r is (head kvh G + r / bq, position
+  // q0 + r % bq)
+  for (int i = tid; i < kRows * kPieces; i += kThreads) {
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 8;
+    const int pos = q0 + r % bq;
+    const int head = kvh * G + r / bq;
+    const bool ok = pos < Sq;
+    cp_async16(sQ + r * kStride + c, ok ? q + qs.at(b, pos, head) + c : q,
+               ok);
+    cp_async16(sD + r * kStride + c,
+               ok ? dout + dos.at(b, pos, head) + c : dout, ok);
   }
+  cp_async_commit();
 
-  // Q and dO fragments for the whole head dim, straight from global memory
-  uint32_t qf[kKC][4], df[kKC][4];
-  #pragma unroll
-  for (int kc = 0; kc < kKC; ++kc) {
-    #pragma unroll
-    for (int reg = 0; reg < 4; ++reg) {
-      const int i = reg & 1;
-      const int col = kc * 16 + tig * 2 + ((reg >> 1) << 3);
-      uint32_t qv = 0, dv = 0;
-      if (live[i]) {
-        qv = *reinterpret_cast<const uint32_t*>(
-            q + qs.at(b, pos[i], head[i]) + col);
-        dv = *reinterpret_cast<const uint32_t*>(
-            dout + dos.at(b, pos[i], head[i]) + col);
-      }
-      qf[kc][reg] = qv;
-      df[kc][reg] = dv;
-    }
-  }
-
-  float acc[kDT][4];
-  #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-    #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-
-  // keys this CTA can see: up to the diagonal of its last live row; with
-  // segments, the tiles whose id range overlaps the rows' (sList)
+  // key tiles this CTA walks: up to the diagonal of its last live row;
+  // with segments, the list of live pairs (sList)
   const int q_hi = min(q0 + bq, Sq) - 1;
   int ntiles;
   if constexpr (kSeg) {
     const int nkt = (Sk + kBK - 1) / kBK;
-    const int2 r = id_range(seg.qseg + static_cast<size_t>(b) * Sq + q0,
-                            q_hi + 1 - q0, sScratch);
-    ntiles = live_tiles(seg.krange + static_cast<size_t>(b) * nkt, nkt, r.x,
-                        r.y, sList, sScratch);
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
+                                   q_hi + 1 - q0, sScratch);
+    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+                              nkt, mine, causal, sList, sScratch);
   } else {
-    int kend = causal ? min(Sk, q_hi + off + 1) : Sk;
-    if (kend < 0) kend = 0;
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
     ntiles = (kend + kBK - 1) / kBK;
   }
+  // the list entry of the n-th step (the tile, flagged kFull if unmasked)
+  auto entry_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
 
-  for (int n = 0; n < ntiles; ++n) {
-    int t0 = n * kBK;
-    if constexpr (kSeg) t0 = sList[n] * kBK;
-    __syncthreads();  // the previous tile is consumed
-    if constexpr (kSeg) {  // threads 0-63 stage the ids, 64-127 positions
-      const int i = threadIdx.x % kBK;
-      const int key = t0 + i;
-      const int* src = threadIdx.x < kBK ? seg.kseg : seg.kpos;
-      (threadIdx.x < kBK ? sKseg : sKpos)[i] =
-          key < Sk ? src[static_cast<size_t>(b) * Sk + key] : 0;
+  auto load_kv = [&](int n, int st) {
+    const int t = entry_of(n) & (kFull - 1);
+    unsigned char* dk = sK + st * L::kTile;
+    unsigned char* dv = sV + st * L::kTile;
+    if constexpr (kSeg) {  // threads 0-63 copy the ids, 64-127 positions
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                ok);
     }
-    for (int idx = threadIdx.x; idx < kBK * (D / 8); idx += kThreads) {
-      const int row = idx / (D / 8);
-      const int c = (idx % (D / 8)) * 8;
-      const int key = t0 + row;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (key < Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(k + ks.at(b, key, kvh) + c);
-        vv4 = *reinterpret_cast<const uint4*>(v + vs.at(b, key, kvh) + c);
-      }
-      *reinterpret_cast<uint4*>(sK + row * kStride + c) = kv4;
-      *reinterpret_cast<uint4*>(sV + row * kStride + c) = vv4;
+    for (int i = tid; i < kBK * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int c8 = i % kPieces;
+      const int key = t * kBK + r;
+      const bool ok = key < Sk;
+      cp_async16(dk + swz<kBK>(r, c8),
+                 ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
+      cp_async16(dv + swz<kBK>(r, c8),
+                 ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
     }
-    __syncthreads();
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[kNT][4], dp[kNT][4];
-    #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[nt][c] = 0.f;
-        dp[nt][c] = 0.f;
-      }
-      #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc) {
-        mma_abt(s[nt], qf[kc], sK, kStride, nt, kc, gid, tig);
-        mma_abt(dp[nt], df[kc], sV, kStride, nt, kc, gid, tig);
-      }
-    }
-
-    // P = exp2(S * scale * log2e - LSE * log2e), masked; dS into s
-    #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c >> 1;
-        const int kl = nt * 8 + tig * 2 + (c & 1);
-        const int key = t0 + kl;
-        bool ok;
-        if constexpr (kSeg)
-          ok = live[i] && key < Sk && sKseg[kl] == qid[i] &&
-               (!causal || qp[i] >= sKpos[kl]);
-        else
-          ok = live[i] && key < Sk && (!causal || key <= pos[i] + off);
-        const float p = ok ? exp2f(s[nt][c] * scale_log2 - lse2[i]) : 0.f;
-        s[nt][c] = p * (dp[nt][c] - dlt[i]) * scale;
-      }
-    }
-
-    // dQ += dS(bf16) K
-    #pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
-      #pragma unroll
-      for (int dt = 0; dt < kDT; ++dt)
-        mma_ab(acc[dt], a, sK, kStride, dt, kc, gid, tig);
-    }
-  }
-
+  // the two rows this thread owns in the mma layout: gid and gid + 8,
+  // with their LSE (log2 domain), Delta, and segment id and position
+  int pos[2], qid[2], qp[2];
+  float lse2[2], dlt[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (!live[i]) continue;
-    const size_t base =
-        ((static_cast<size_t>(b) * Sq + pos[i]) * Hq + head[i]) * D;
+    const int r = warp * 16 + gid + 8 * i;
+    const int head = kvh * G + r / bq;
+    pos[i] = q0 + r % bq;
+    const bool live = pos[i] < Sq;
+    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos[i];
+    lse2[i] = live ? lse[row] * kLog2e : kBig;
+    dlt[i] = live ? delta[row] : 0.f;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (live) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
+  }
+
+  cp_async_wait<kStages - 1>();  // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[kKC][4], df[kKC][4];
+  #pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) {
+    const int at = (warp * 16 + (lane & 15)) * kStride + kc * 16 +
+                   8 * (lane >> 4);
+    ldsm_x4(qf[kc], sQ + at);
+    ldsm_x4(df[kc], sD + at);
+  }
+
+  // dQ, written by wgmma only (the first product starts it: a non-wgmma
+  // write would make ptxas serialize the products), and the A fragments
+  // of dS, kept until the product that reads them retires
+  float acc[kDT][4];
+  uint32_t a_ds[kSub / 16][4];
+  bool started = false;
+
+  for (int n = 0; n < ntiles; ++n) {
+    cp_async_wait<kStages - 2>();  // step n's tile has landed
+    tiles::fence_proxy_async();    // ... where wgmma reads it
+    __syncthreads();  // ... for every thread, and step n - 1's is consumed
+    if (n + 1 < ntiles) load_kv(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const unsigned char* tK = sK + st * L::kTile;
+    const unsigned char* tV = sV + st * L::kTile;
+    const int entry = entry_of(n);
+    const int t0 = (entry & (kFull - 1)) * kBK;
+    // a tile past the end of the keys is always masked
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = (entry & kFull) && t0 + kBK <= Sk;
+    else
+      full_tile = t0 + kBK <= Sk && !(causal && t0 + kBK - 1 > q0 + off);
+
     #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt) {
-      const int col = dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(dq + base + col) =
+    for (int s0 = 0; s0 < kBK; s0 += kSub) {
+      // a dense sub-tile no row of the CTA sees adds nothing
+      if (!kSeg && (t0 + s0 >= Sk || (causal && t0 + s0 > q_hi + off)))
+        continue;
+      // S = Q K^T and dP = dO V^T for the CTA's 64 rows x kSub keys: one
+      // warpgroup's wgmma, A (Q, dO) from the fragments in registers, B
+      // (K, V) from the swizzled tile; each warp gets its 16 rows back in
+      // mma.sync's C layout
+      float s[kSNT][4], dp[kSNT][4];
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_rs_n32(flat(s), qf[kc], kstep_desc<kBK>(tK, s0, kc), kc);
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_rs_n32(flat(dp), df[kc], kstep_desc<kBK>(tV, s0, kc), kc);
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+
+      const bool masked =
+          !full_tile &&
+          (kSeg || t0 + s0 + kSub > Sk ||
+           (causal && t0 + s0 + kSub - 1 > q0 + off));
+      const int* tseg = sKseg + st * kBK;
+      const int* tpos = sKpos + st * kBK;
+      if (masked)
+        dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk, causal,
+                              off, scale_log2, scale, tig, tseg, tpos, qid,
+                              qp);
+      else
+        dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk,
+                               causal, off, scale_log2, scale, tig, tseg,
+                               tpos, qid, qp);
+
+      // dQ += dS(bf16) K: the dS accumulators of n-tiles 2kc, 2kc+1 are
+      // the A fragment of k step kc; B is the K tile read MN-major (keys
+      // along k, the head dim along n). Retired before the sub-step ends:
+      // left in flight across the loop's back edge, its accumulators
+      // came out wrong (the compiler may move them there).
+      #pragma unroll
+      for (int kc = 0; kc < kSub / 16; ++kc)
+        acc_to_a(a_ds[kc], s[2 * kc], s[2 * kc + 1]);
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < kSub / 16; ++kc)
+        wgmma_rs_t<D>(flat(acc),  a_ds[kc],
+                      desc_mn_sw128(tK + (s0 + 16 * kc) * 128, kBK * 128),
+                      started || kc > 0);
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(acc));
+      fence_frags(a_ds);
+      started = true;
+    }
+  }
+  if (!started)  // no key tile: dQ is 0
+    #pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  cp_async_wait<0>();
+
+  // dQ through the warp's own 16 rows of sQ (only this warp read them)
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    __nv_bfloat16* row = sQ + (warp * 16 + gid + 8 * i) * kStride;
+    #pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
           pack_f32(acc[dt][i * 2], acc[dt][i * 2 + 1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kPieces; i += 32) {
+    const int r = warp * 16 + i / kPieces;
+    const int c = (i % kPieces) * 8;
+    const int p = q0 + r % bq;
+    if (p >= Sq) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+    *reinterpret_cast<uint4*>(dq + base + c) =
+        *reinterpret_cast<const uint4*>(sQ + r * kStride + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK / dV
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvSmem {
+  static constexpr int kKV = kBK * D * 2;  // bytes of the swizzled K or V
+  static constexpr int kQ = kBQ * D * 2;   // bytes of a swizzled Q or dO
+  // K, V, then the ring: [stage] Q tiles, [stage] dO tiles (all 1024-byte
+  // aligned); [stage] LSE, Delta rows
+  static constexpr int kTiles = 2 * kKV + 2 * kStages * kQ;
+  static constexpr int kBytes = kTiles + 2 * kStages * kBQ * 4;
+  // the f32 dK, dV of the tile ([64][D + 8] each), over K, V and the
+  // drained ring
+  static constexpr int kAccStride = D + 8;
+  static_assert(2 * kBK * kAccStride * 4 <= kTiles, "room for dK, dV");
+  // the segment branch's ints after those: each stage's query ids and
+  // positions, scratch, then the list of live query tiles
+  static constexpr int kSegInts = 2 * kStages * kBQ + kBwdScratch;
+};
+
+// P^T into s and dS^T into dp for one sub-step of kNT * 8 queries (the
+// staged tile's rows r0 ..; tL, tDelta, tseg, tpos point at row r0). The
+// two keys this thread owns are key[i] (ids kid, positions kp). kSeg masks
+// by ids and positions, else by the bottom-right diagonal; rows past Sq
+// and keys past Sk need no mask here (they add zeros or are not written).
+template <bool kMask, bool kSeg, int kNT>
+__device__ __forceinline__ void dkv_scores(
+    float (&s)[kNT][4], float (&dp)[kNT][4], const float* tL,
+    const float* tDelta, const int* tseg, const int* tpos, int qpos0,
+    const int (&key)[2], const int (&kid)[2], const int (&kp)[2],
+    int causal, int off, float scale_log2, float scale, int tig) {
+  #pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int r = nt * 8 + tig * 2;
+    const float2 l2 = *reinterpret_cast<const float2*>(tL + r);
+    const float2 d2 = *reinterpret_cast<const float2*>(tDelta + r);
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = c >> 1;
+      const int j = c & 1;
+      const float l = (j ? l2.y : l2.x) * kLog2e;
+      float p = exp2f(fmaf(s[nt][c], scale_log2, -l));
+      if (kMask) {
+        bool ok;
+        if constexpr (kSeg)
+          ok = tseg[r + j] == kid[i] && (!causal || tpos[r + j] >= kp[i]);
+        else
+          ok = !causal || key[i] <= qpos0 + r + j + off;
+        if (!ok) p = 0.f;
+      }
+      s[nt][c] = p;
+      dp[nt][c] = p * (dp[nt][c] - (j ? d2.y : d2.x)) * scale;
     }
   }
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return static_cast<size_t>(2 * kBK + 2 * kBQ) * (D + 8) *
-             sizeof(__nv_bfloat16) +
-         2 * kBQ * sizeof(float);
-}
-
-// the dK/dV kernel's ints after those on the segment branch: the query
-// tile's ids and positions, scratch, then the live query tiles' list
-constexpr int kDkvSegInts = 2 * kBQ + kScratchInts;
-
 template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads)
+// three CTAs an SM at D 64 (at most 168 registers a thread), two at 128
+__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -273,48 +843,112 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int Hq,
-                     int Hk, int causal, float scale, float scale_log2,
-                     Strides qs, Strides ks, Strides vs, Strides dos,
-                     Seg seg) {
-  constexpr int kStride = D + 8;
+                     __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk,
+                     int Hq, int Hk, int causal, float scale,
+                     float scale_log2, Strides qs, Strides ks, Strides vs,
+                     Strides dos, SegB seg) {
+  using L = DkvSmem<D>;
   constexpr int kKC = D / 16;
   constexpr int kDT = D / 8;
-  constexpr int kNQ = kBQ / 8;  // n-tiles over a query tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kBK * kStride;
-  __nv_bfloat16* sQ = sV + kBK * kStride;
-  __nv_bfloat16* sD = sQ + kBQ * kStride;  // dO
-  float* sL = reinterpret_cast<float*>(sD + kBQ * kStride);  // LSE * log2e
-  float* sDelta = sL + kBQ;
-  int* sQseg = reinterpret_cast<int*>(sDelta + kBQ);  // segment branch
-  int* sQpos = sQseg + kBQ;
-  int* sScratch = sQpos + kBQ;
-  int* sList = sScratch + kScratchInts;
+  constexpr int kQH = 32;  // queries per sub-step (S^T, dP^T m64n32)
+  constexpr int kQNT = kQH / 8;            // n-tiles over a sub-step
+  constexpr int kPieces = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* sK = smem;                  // swizzled [kBK][D]
+  unsigned char* sV = sK + L::kKV;
+  unsigned char* sQ = sV + L::kKV;           // [stage] swizzled [kBQ][D]
+  unsigned char* sD = sQ + kStages * L::kQ;  // [stage] dO
+  float* sL = reinterpret_cast<float*>(sD + kStages * L::kQ);  // [stage]
+  float* sDelta = sL + kStages * kBQ;                          // [stage]
+  int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kBQ);  // segments
+  int* sQpos = sQseg + kStages * kBQ;
+  int* sScratch = sQpos + kStages * kBQ;
+  int* sList = sScratch + kBwdScratch;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int G = Hq / Hk;
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int Gc = G / C;  // heads of this rank: g0 .. g0 + Gc - 1
+  const int g0 = rank * Gc;
+  // 1-d grid: cluster rank fastest, then kv head, batch, key tile
+  const int rest = blockIdx.x / C;
+  const int kvh = rest % Hk;
+  const int b = (rest / Hk) % B;
+  const int kt = rest / (Hk * B);
+  const int k0 = kt * kBK;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int off = Sk - Sq;
+  const int nqt = (Sq + kBQ - 1) / kBQ;
 
-  for (int idx = threadIdx.x; idx < kBK * (D / 8); idx += kThreads) {
-    const int row = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
-    const int key = k0 + row;
-    uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-    if (key < Sk) {
-      kv4 = *reinterpret_cast<const uint4*>(k + ks.at(b, key, kvh) + c);
-      vv4 = *reinterpret_cast<const uint4*>(v + vs.at(b, key, kvh) + c);
-    }
-    *reinterpret_cast<uint4*>(sK + row * kStride + c) = kv4;
-    *reinterpret_cast<uint4*>(sV + row * kStride + c) = vv4;
+  for (int i = tid; i < kBK * kPieces; i += kThreads) {
+    const int r = i / kPieces;
+    const int c8 = i % kPieces;
+    const int key = k0 + r;
+    const bool ok = key < Sk;
+    cp_async16(sK + swz<kBK>(r, c8),
+               ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
+    cp_async16(sV + swz<kBK>(r, c8),
+               ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
   }
+  cp_async_commit();
+
+  // query tiles to walk: from the first that sees key k0 to the end; with
+  // segments, the list of live pairs (sList)
+  int qt0 = 0, ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const int4 mine =
+        bounds_at(seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, kt);
+    ntiles = live_pairs<false>(seg.qb + static_cast<size_t>(b) * 4 * nqt,
+                               nqt, mine, causal, sList, sScratch);
+  } else {
+    qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
+    ntiles = max(0, nqt - qt0);
+  }
+  const int nsteps = ntiles * Gc;
+  auto entry_of = [&](int t) {
+    if constexpr (kSeg) return sList[t];
+    else return qt0 + t;
+  };
+
+  // step n: query tile n / Gc, head kvh G + g0 + n % Gc
+  auto load_q = [&](int n, int st) {
+    const int q0 = (entry_of(n / Gc) & (kFull - 1)) * kBQ;
+    const int head = kvh * G + g0 + n % Gc;
+    unsigned char* dq_ = sQ + st * L::kQ;
+    unsigned char* dd = sD + st * L::kQ;
+    for (int i = tid; i < kBQ * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int c8 = i % kPieces;
+      const int pos = q0 + r;
+      const bool ok = pos < Sq;
+      cp_async16(dq_ + swz<kBQ>(r, c8),
+                 ok ? q + qs.at(b, pos, head) + 8 * c8 : q, ok);
+      cp_async16(dd + swz<kBQ>(r, c8),
+                 ok ? dout + dos.at(b, pos, head) + 8 * c8 : dout, ok);
+    }
+    // threads 0-63 copy LSE, 64-127 Delta (0 past Sq); on the segment
+    // branch also the rows' ids and positions
+    const int r = tid % kBQ;
+    const int pos = q0 + r;
+    const bool ok = pos < Sq;
+    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
+    const float* src = tid < kBQ ? lse : delta;
+    cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
+              ok ? src + row : src, ok);
+    if constexpr (kSeg) {
+      const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
+      cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
+                ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+    }
+  };
+  if (nsteps > 0) load_q(0, 0);
+  cp_async_commit();
 
   // the two keys this thread owns in the mma layout, with their segment
   // ids and positions (segment branch)
@@ -331,177 +965,233 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  const __nv_bfloat16* kRows16 = sK + warp * 16 * kStride;
-  const __nv_bfloat16* vRows16 = sV + warp * 16 * kStride;
 
+  // dK, dV, written by wgmma only (as dQ above), and the A fragments of
+  // P^T and dS^T, kept until the products that read them retire
   float dka[kDT][4], dva[kDT][4];
-  #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
+  uint32_t a_p[kQH / 16][4], a_ds[kQH / 16][4];
+  bool started = false;
+
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait<kStages - 2>();  // step n's tiles (and K/V) have landed
+    tiles::fence_proxy_async();    // ... where wgmma reads them
+    __syncthreads();
+    if (n + 1 < nsteps) load_q(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const unsigned char* tQ = sQ + st * L::kQ;
+    const unsigned char* tD = sD + st * L::kQ;
+    const int entry = entry_of(n / Gc);
+    const int q0 = (entry & (kFull - 1)) * kBQ;
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = entry & kFull;
+    else
+      full_tile = !(causal && k0 + kBK - 1 > q0 + off);
+
+    #pragma unroll 1
+    for (int r0 = 0; r0 < kBQ; r0 += kQH) {
+      // a dense sub-step whose rows are all past Sq, or see no key of the
+      // tile, adds nothing
+      if (!kSeg && (q0 + r0 >= Sq ||
+                    (causal && q0 + r0 + kQH - 1 + off < k0)))
+        continue;
+      // S^T = K Q^T and dP^T = V dO^T for the tile's 64 keys x kQH rows:
+      // one warpgroup's wgmma with both operands in shared memory (K, V
+      // as A; the staged Q, dO rows as B); each warp gets its 16 keys back
+      // in mma.sync's C layout
+      float s[kQNT][4], dp[kQNT][4];
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_ss_n32(flat(s), kstep_desc<kBK>(sK, 0, kc),
+                     kstep_desc<kBQ>(tQ, r0, kc), kc);
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_ss_n32(flat(dp), kstep_desc<kBK>(sV, 0, kc),
+                     kstep_desc<kBQ>(tD, r0, kc), kc);
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+
+      const bool masked =
+          !full_tile && (kSeg || (causal && k0 + kBK - 1 > q0 + r0 + off));
+      const float* tL = sL + st * kBQ + r0;
+      const float* tDl = sDelta + st * kBQ + r0;
+      const int* tseg = sQseg + st * kBQ + r0;
+      const int* tpos = sQpos + st * kBQ + r0;
+      if (masked)
+        dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
+                               kid, kp, causal, off, scale_log2, scale,
+                               tig);
+      else
+        dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
+                                kid, kp, causal, off, scale_log2, scale,
+                                tig);
+
+      // dV += P^T(bf16) dO and dK += dS^T(bf16) Q: A from the P^T and
+      // dS^T accumulators, B the staged dO and Q rows read MN-major
+      // (queries along k, the head dim along n); retired before the
+      // sub-step ends, as dQ's
+      #pragma unroll
+      for (int kc = 0; kc < kQH / 16; ++kc) {
+        acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+        acc_to_a(a_ds[kc], dp[2 * kc], dp[2 * kc + 1]);
+      }
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < kQH / 16; ++kc) {
+        const int at = (r0 + 16 * kc) * 128;
+        wgmma_rs_t<D>(flat(dva), a_p[kc], desc_mn_sw128(tD + at, kBQ * 128),
+                      started || kc > 0);
+        wgmma_rs_t<D>(flat(dka), a_ds[kc],
+                      desc_mn_sw128(tQ + at, kBQ * 128), started || kc > 0);
+      }
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(dka));
+      tiles::fence_regs(flat(dva));
+      fence_frags(a_p);
+      fence_frags(a_ds);
+      started = true;
+    }
+  }
+  if (!started)  // no query row: dK = dV = 0
     #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      dka[dt][c] = 0.f;
-      dva[dt][c] = 0.f;
-    }
-
-  // the query tiles to walk: from the first that sees key k0 (its
-  // position rounded down to a tile) to the end; with segments, those
-  // whose id range overlaps the tile's (sList)
-  int qt0 = 0, ntiles;
-  if constexpr (kSeg) {
-    const int nqt = (Sq + kBQ - 1) / kBQ;
-    const int2 r = seg.krange[static_cast<size_t>(b) * gridDim.x +
-                              blockIdx.x];
-    ntiles = live_tiles(seg.qrange + static_cast<size_t>(b) * nqt, nqt, r.x,
-                        r.y, sList, sScratch);
-  } else {
-    qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
-    ntiles = max(0, (Sq + kBQ - 1) / kBQ - qt0);
-  }
-
-  for (int n = 0; n < ntiles; ++n) {
-    int q0 = (qt0 + n) * kBQ;
-    if constexpr (kSeg) q0 = sList[n] * kBQ;
-    for (int g = 0; g < G; ++g) {
-      const int head = kvh * G + g;
-      __syncthreads();  // K/V staged; the previous Q/dO tile is consumed
-      for (int idx = threadIdx.x; idx < kBQ * (D / 8); idx += kThreads) {
-        const int row = idx / (D / 8);
-        const int c = (idx % (D / 8)) * 8;
-        const int pos = q0 + row;
-        uint4 q4 = make_uint4(0, 0, 0, 0), d4 = make_uint4(0, 0, 0, 0);
-        if (pos < Sq) {
-          q4 = *reinterpret_cast<const uint4*>(q + qs.at(b, pos, head) + c);
-          d4 = *reinterpret_cast<const uint4*>(dout + dos.at(b, pos, head) +
-                                               c);
-        }
-        *reinterpret_cast<uint4*>(sQ + row * kStride + c) = q4;
-        *reinterpret_cast<uint4*>(sD + row * kStride + c) = d4;
-      }
-      if (threadIdx.x < kBQ) {
-        const int pos = q0 + threadIdx.x;
-        const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
-        sL[threadIdx.x] = pos < Sq ? lse[row] * kLog2e : kBig;
-        sDelta[threadIdx.x] = pos < Sq ? delta[row] : 0.f;
-      } else if (kSeg && threadIdx.x < 2 * kBQ) {
-        const int r = threadIdx.x - kBQ;
-        const int pos = q0 + r;
-        const size_t at = static_cast<size_t>(b) * Sq + pos;
-        sQseg[r] = pos < Sq ? seg.qseg[at] : -2;
-        sQpos[r] = pos < Sq ? seg.qpos[at] : 0;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 rows
-      float s[kNQ][4], dp[kNQ][4];
+    for (int dt = 0; dt < kDT; ++dt)
       #pragma unroll
-      for (int nt = 0; nt < kNQ; ++nt)
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[nt][c] = 0.f;
-          dp[nt][c] = 0.f;
-        }
-      #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc) {
-        uint32_t ak[4], av[4];
-        smem_a(ak, kRows16, kStride, kc, gid, tig);
-        smem_a(av, vRows16, kStride, kc, gid, tig);
-        #pragma unroll
-        for (int nt = 0; nt < kNQ; ++nt) {
-          mma_abt(s[nt], ak, sQ, kStride, nt, kc, gid, tig);
-          mma_abt(dp[nt], av, sD, kStride, nt, kc, gid, tig);
-        }
+      for (int c = 0; c < 4; ++c) {
+        dka[dt][c] = 0.f;
+        dva[dt][c] = 0.f;
       }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with K, V and the ring
 
-      // P^T into s, dS^T into dp
-      #pragma unroll
-      for (int nt = 0; nt < kNQ; ++nt) {
-        #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int kj = key[c >> 1];
-          const int r = nt * 8 + tig * 2 + (c & 1);
-          const int pos = q0 + r;
-          bool ok;
-          if constexpr (kSeg)
-            ok = pos < Sq && kj < Sk && sQseg[r] == kid[c >> 1] &&
-                 (!causal || sQpos[r] >= kp[c >> 1]);
-          else
-            ok = pos < Sq && kj < Sk && (!causal || kj <= pos + off);
-          const float p = ok ? exp2f(s[nt][c] * scale_log2 - sL[r]) : 0.f;
-          s[nt][c] = p;
-          dp[nt][c] = p * (dp[nt][c] - sDelta[r]) * scale;
-        }
-      }
-
-      // dV += P^T(bf16) dO and dK += dS^T(bf16) Q
-      #pragma unroll
-      for (int kc = 0; kc < kBQ / 16; ++kc) {
-        uint32_t ap[4], ads[4];
-        acc_to_a(ap, s[2 * kc], s[2 * kc + 1]);
-        acc_to_a(ads, dp[2 * kc], dp[2 * kc + 1]);
-        #pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_ab(dva[dt], ap, sD, kStride, dt, kc, gid, tig);
-          mma_ab(dka[dt], ads, sQ, kStride, dt, kc, gid, tig);
-        }
-      }
-    }
-  }
-
+  // the tile's f32 dK, dV, row-major over K, V and the drained ring
+  constexpr int kAS = L::kAccStride;
+  float* fK = reinterpret_cast<float*>(smem);
+  float* fV = fK + kBK * kAS;
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (key[i] >= Sk) continue;
-    const size_t base =
-        ((static_cast<size_t>(b) * Sk + key[i]) * Hk + kvh) * D;
+    const int row = warp * 16 + gid + 8 * i;
     #pragma unroll
     for (int dt = 0; dt < kDT; ++dt) {
       const int col = dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(dk + base + col) =
-          pack_f32(dka[dt][i * 2], dka[dt][i * 2 + 1]);
-      *reinterpret_cast<uint32_t*>(dv + base + col) =
-          pack_f32(dva[dt][i * 2], dva[dt][i * 2 + 1]);
+      *reinterpret_cast<float2*>(fK + row * kAS + col) =
+          make_float2(dka[dt][i * 2], dka[dt][i * 2 + 1]);
+      *reinterpret_cast<float2*>(fV + row * kAS + col) =
+          make_float2(dva[dt][i * 2], dva[dt][i * 2 + 1]);
     }
   }
+  if (C > 1)
+    cluster.sync();  // every rank's partial sums are in place
+  else
+    __syncthreads();
+
+  // rank r sums keys [r 64/C, (r + 1) 64/C) over the ranks, in rank order,
+  // and stores them 8 bytes (4 bf16) at a time
+  const int rows = kBK / C;
+  constexpr int kQuads = D / 4;
+  for (int i = tid; i < 2 * rows * kQuads; i += kThreads) {
+    const int which = i / (rows * kQuads);  // 0: dK, 1: dV
+    const int row = rank * rows + (i % (rows * kQuads)) / kQuads;
+    const int col = (i % kQuads) * 4;
+    const int kj = k0 + row;
+    if (kj >= Sk) continue;
+    const float* mine = (which ? fV : fK) + row * kAS + col;
+    float4 sum = *reinterpret_cast<const float4*>(
+        C > 1 ? cluster.map_shared_rank(mine, 0) : mine);
+    for (int rr = 1; rr < C; ++rr) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, rr));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    __nv_bfloat16* out = (which ? dv : dk) +
+                         ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
+                         col;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_f32(sum.x, sum.y), pack_f32(sum.z, sum.w));
+  }
+  if (C > 1) cluster.sync();  // no rank leaves while another reads it
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const __nv_bfloat16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  __nv_bfloat16 *dq, *dk, *dv;
+  int B, Sq, Sk, Hq, Hk, causal, cluster;
+  float scale, sl2;
+  Strides qs, ks, vs, dos;
+  SegB seg;
+  cudaStream_t s;
+};
+
 template <int D, bool kSeg>
-cudaError_t launch_dq(dim3 grid, cudaStream_t s, const __nv_bfloat16* q,
-                      const __nv_bfloat16* k, const __nv_bfloat16* v,
-                      const __nv_bfloat16* dout, const float* lse,
-                      const float* delta, __nv_bfloat16* dq, int Sq, int Sk,
-                      int Hq, int Hk, int causal, float scale, float sl2,
-                      Strides qs, Strides ks, Strides vs, Strides dos,
-                      const Seg& seg) {
-  static int allowed = 0;
-  const int smem = kSeg ? (kDqSegInts + (Sk + kBK - 1) / kBK) * 4 : 0;
-  if (kSeg) {
-    const cudaError_t e =
-        allow_dynamic_smem(flash_bwd_dq_kernel<D, kSeg>, smem, allowed);
-    if (e != cudaSuccess) return e;
-  }
-  flash_bwd_dq_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, Hq, Hk, causal, scale, sl2, qs,
-      ks, vs, dos, seg);
+cudaError_t launch_dq(const Args& a) {
+  static int allowed = 48 * 1024;  // the default needs no opt-in
+  using L = DqSmem<D>;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nkt) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dq_kernel<D, kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const int bq = kRows / (a.Hq / a.Hk);
+  const long long ctas =
+      static_cast<long long>((a.Sq + bq - 1) / bq) * a.Hk * a.B;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<D, kSeg><<<static_cast<unsigned>(ctas), kThreads,
+                                 smem, a.s>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Sq, a.Sk, a.Hq,
+      a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
   return cudaGetLastError();
 }
 
 template <int D, bool kSeg>
-cudaError_t launch_dkv(dim3 grid, cudaStream_t s,
-                       const __nv_bfloat16* q, const __nv_bfloat16* k,
-                       const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                       const float* lse, const float* delta,
-                       __nv_bfloat16* dk, __nv_bfloat16* dv, int Sq, int Sk,
-                       int Hq, int Hk, int causal, float scale, float sl2,
-                       Strides qs, Strides ks, Strides vs, Strides dos,
-                       const Seg& seg) {
-  static int allowed = 48 * 1024;  // the default needs no opt-in
-  const int smem = static_cast<int>(dkv_smem_bytes<D>()) +
-                   (kSeg ? (kDkvSegInts + (Sq + kBQ - 1) / kBQ) * 4 : 0);
-  const cudaError_t e =
-      allow_dynamic_smem(flash_bwd_dkv_kernel<D, kSeg>, smem, allowed);
+cudaError_t launch_dkv(const Args& a) {
+  static int allowed = 48 * 1024;
+  using L = DkvSmem<D>;
+  const int nqt = (a.Sq + kBQ - 1) / kBQ;
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nqt) * 4 : 0);
+  auto kern = flash_bwd_dkv_kernel<D, kSeg>;
+  const cudaError_t e = allow_dynamic_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<D, kSeg><<<grid, kThreads, smem, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, Hq, Hk, causal, scale, sl2,
-      qs, ks, vs, dos, seg);
+  const long long ctas = static_cast<long long>((a.Sk + kBK - 1) / kBK) *
+                         a.B * a.Hk * a.cluster;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  if (a.cluster == 1) {
+    kern<<<static_cast<unsigned>(ctas), kThreads, smem, a.s>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
+        a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos,
+        a.seg);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, kern, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B,
+      a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs,
+      a.dos, a.seg);
+  if (le != cudaSuccess) return le;
   return cudaGetLastError();
 }
 
@@ -510,119 +1200,132 @@ bool bad_group(int Hq, int Hk) {
 }
 
 // the segment pointers of the C entry points: all NULL (dense) or all
-// given, with the range arrays the kernel reads
-bool bad_seg(const Seg& seg, bool need_qrange) {
+// given, with the bounds arrays the kernel reads
+bool bad_seg(const SegB& seg, bool need_qb) {
   if (!seg.qseg) return false;
-  return !(seg.kseg && seg.qpos && seg.kpos && seg.krange &&
-           (seg.qrange || !need_qrange));
+  return !(seg.kseg && seg.qpos && seg.kpos && seg.kb &&
+           (seg.qb || !need_qb));
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, int B, int Sq, int Sk,
+               int Hq, int Hk, int causal, float scale, long long qsb,
+               long long qss, long long qsh, long long ksb, long long kss,
+               long long ksh, long long vsb, long long vss, long long vsh,
+               long long dsb, long long dss, long long dsh, void* stream) {
+  Args a = {};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.Hq = Hq;
+  a.Hk = Hk;
+  a.causal = causal;
+  a.cluster = 1;
+  a.scale = scale;
+  a.sl2 = scale * kLog2e;
+  a.qs = Strides{qsb, qss, qsh};
+  a.ks = Strides{ksb, kss, ksh};
+  a.vs = Strides{vsb, vss, vsh};
+  a.dos = Strides{dsb, dss, dsh};
+  a.s = static_cast<cudaStream_t>(stream);
+  return a;
 }
 
 }  // namespace
 
-// q_seg, kv_seg, q_pos, kv_pos and kv_range are NULL on the dense branch;
-// otherwise all five are given (flash_common.cuh: Seg)
+// q_seg, kv_seg, q_pos, kv_pos and kv_bounds are NULL on the dense branch;
+// otherwise all five are given. kv_bounds is a workspace, int32
+// [B, 4, ceil(Sk / 64)], that a first launch fills with the rows id min,
+// id max, position min, position max of the 64-key tiles.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* q_seg,
     const void* kv_seg, const void* q_pos, const void* kv_pos,
-    const void* kv_range, int B, int Sq, int Sk, int Hq, int Hk, int D,
+    void* kv_bounds, int B, int Sq, int Sk, int Hq, int Hk, int D,
     int causal, float scale, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long dsb, long long dss,
     long long dsh, void* stream) {
-  const Seg seg{static_cast<const int*>(q_seg),
-                static_cast<const int*>(kv_seg),
-                static_cast<const int*>(q_pos),
-                static_cast<const int*>(kv_pos), nullptr,
-                static_cast<const int2*>(kv_range)};
-  if (bad_group(Hq, Hk) || bad_seg(seg, false))
+  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, causal,
+                     scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb,
+                     dss, dsh, stream);
+  a.dq = static_cast<__nv_bfloat16*>(dq);
+  a.seg = SegB{static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg),
+               static_cast<const int*>(q_pos),
+               static_cast<const int*>(kv_pos), nullptr,
+               static_cast<const int*>(kv_bounds)};
+  if (bad_group(Hq, Hk) || bad_seg(a.seg, false))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
-  const int bq = kRows / (Hq / Hk);
-  dim3 grid((Sq + bq - 1) / bq, Hk, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dsb, dss, dsh};
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  const auto* dd = static_cast<const __nv_bfloat16*>(dout);
-  const auto* ll = static_cast<const float*>(lse);
-  const auto* de = static_cast<const float*>(delta);
-  auto* out = static_cast<__nv_bfloat16*>(dq);
-  const float sl2 = scale * kLog2e;
+  if (Sq <= 0 || B <= 0 || Hk <= 0) return static_cast<int>(cudaSuccess);
+  if (D != 128 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (D == 128 && seg.qseg)
-    e = launch_dq<128, true>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
-                             Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
-                             seg);
-  else if (D == 128)
-    e = launch_dq<128, false>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
-                              Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
-                              seg);
-  else if (D == 64 && seg.qseg)
-    e = launch_dq<64, true>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
-                            Hq, Hk, causal, scale, sl2, qs, ks, vs, dos, seg);
+  if (a.seg.qseg) {
+    e = launch_bounds(Side{a.seg.kseg, a.seg.kpos,
+                           static_cast<int*>(kv_bounds), Sk},
+                      Side{}, B, a.s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (D == 128)
+    e = a.seg.qseg ? launch_dq<128, true>(a) : launch_dq<128, false>(a);
   else if (D == 64)
-    e = launch_dq<64, false>(grid, s, qq, kk, vv, dd, ll, de, out, Sq, Sk,
-                             Hq, Hk, causal, scale, sl2, qs, ks, vs, dos,
-                             seg);
+    e = a.seg.qseg ? launch_dq<64, true>(a) : launch_dq<64, false>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(e);
 }
 
-// as flash_bwd_dq_bf16, with q_range (NULL on the dense branch) before
-// kv_range
+// as flash_bwd_dq_bf16, with the workspace q_bounds (NULL on the dense
+// branch; [B, 4, ceil(Sq / 64)]) before kv_bounds, both filled by one
+// first launch, and the cluster size C after causal: the C CTAs of a
+// cluster share one key tile and split the G query heads of its group (C
+// a power of two dividing G, at most 8)
 extern "C" int flash_bwd_dkv_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const void* q_seg, const void* kv_seg, const void* q_pos,
-    const void* kv_pos, const void* q_range, const void* kv_range, int B,
-    int Sq, int Sk, int Hq, int Hk, int D, int causal, float scale,
-    long long qsb, long long qss, long long qsh, long long ksb,
+    const void* kv_pos, void* q_bounds, void* kv_bounds, int B,
+    int Sq, int Sk, int Hq, int Hk, int D, int causal, int cluster,
+    float scale, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long dsb, long long dss, long long dsh,
     void* stream) {
-  const Seg seg{static_cast<const int*>(q_seg),
-                static_cast<const int*>(kv_seg),
-                static_cast<const int*>(q_pos),
-                static_cast<const int*>(kv_pos),
-                static_cast<const int2*>(q_range),
-                static_cast<const int2*>(kv_range)};
-  if (bad_group(Hq, Hk) || bad_seg(seg, true))
+  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, causal,
+                     scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb,
+                     dss, dsh, stream);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  a.cluster = cluster;
+  a.seg = SegB{static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg),
+               static_cast<const int*>(q_pos),
+               static_cast<const int*>(kv_pos),
+               static_cast<const int*>(q_bounds),
+               static_cast<const int*>(kv_bounds)};
+  if (bad_group(Hq, Hk) || bad_seg(a.seg, true) || cluster <= 0 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+      (Hq / Hk) % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sk <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
-  dim3 grid((Sk + kBK - 1) / kBK, Hk, B);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
-      dos{dsb, dss, dsh};
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  const auto* dd = static_cast<const __nv_bfloat16*>(dout);
-  const auto* ll = static_cast<const float*>(lse);
-  const auto* de = static_cast<const float*>(delta);
-  auto* gk = static_cast<__nv_bfloat16*>(dk);
-  auto* gv = static_cast<__nv_bfloat16*>(dv);
-  const float sl2 = scale * kLog2e;
+  if (D != 128 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (D == 128 && seg.qseg)
-    e = launch_dkv<128, true>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
-                              Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
-                              dos, seg);
-  else if (D == 128)
-    e = launch_dkv<128, false>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
-                               Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
-                               dos, seg);
-  else if (D == 64 && seg.qseg)
-    e = launch_dkv<64, true>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
-                             Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
-                             dos, seg);
+  if (a.seg.qseg) {
+    e = launch_bounds(
+        Side{a.seg.qseg, a.seg.qpos, static_cast<int*>(q_bounds), Sq},
+        Side{a.seg.kseg, a.seg.kpos, static_cast<int*>(kv_bounds), Sk}, B,
+        a.s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (D == 128)
+    e = a.seg.qseg ? launch_dkv<128, true>(a) : launch_dkv<128, false>(a);
   else if (D == 64)
-    e = launch_dkv<64, false>(grid, s, qq, kk, vv, dd, ll, de, gk, gv, Sq,
-                              Sk, Hq, Hk, causal, scale, sl2, qs, ks, vs,
-                              dos, seg);
+    e = a.seg.qseg ? launch_dkv<64, true>(a) : launch_dkv<64, false>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(e);

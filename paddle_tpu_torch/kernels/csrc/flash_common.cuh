@@ -1,7 +1,9 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
 //
-// Both products of every kernel run on mma.sync m16n8k16 (bf16 in, f32
-// accumulate). Fragment layouts, with gid = lane / 4 and tig = lane % 4:
+// The forward's products run on mma.sync m16n8k16 (bf16 in, f32
+// accumulate); the backward's run on wgmma, whose accumulators come back
+// in the same C layout. Fragment layouts, with gid = lane / 4 and
+// tig = lane % 4:
 // - A (16 x 16, row-major): a0 (row gid, cols 2tig, 2tig+1), a1 (row
 //   gid+8, same cols), a2 (row gid, cols 2tig+8, +9), a3 (row gid+8, same);
 // - B (16 x 8, "col"): b0 (rows 2tig, 2tig+1 of column gid), b1 (rows
@@ -18,9 +20,10 @@
 // kernel is a template on kSeg; kSeg = false compiles the dense kernel as
 // it was. Ids and positions are int32 [B, S], contiguous. A (query block,
 // key tile) pair whose [min, max] id ranges do not overlap holds no equal
-// ids, whatever the ids are, so the segment branch skips it: the wrapper
-// hands the ranges of every 64-key (and, for dK/dV, 64-query) tile, and
-// `live_tiles` compacts the tiles a CTA must visit into shared memory.
+// ids, whatever the ids are, so the forward's segment branch skips it: the
+// wrapper hands the ranges of every 64-key tile, and `live_tiles` compacts
+// the tiles a CTA must visit into shared memory. (The backward classifies
+// pairs by id and position bounds: flash_bwd.cu.)
 
 #pragma once
 
@@ -45,7 +48,7 @@ struct Seg {
   const int* kseg;     // [B, Sk]
   const int* qpos;     // [B, Sq]
   const int* kpos;     // [B, Sk]
-  const int2* qrange;  // [B, ceil(Sq / 64)] (min, max) of q ids (dK/dV)
+  const int2* qrange;  // unused: NULL (the forward reads kv ranges only)
   const int2* krange;  // [B, ceil(Sk / 64)] (min, max) of kv ids
 };
 
@@ -143,12 +146,6 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
 // A fragment of k-chunk kc from the C fragments of n-tiles 2kc, 2kc+1
 __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
                                          const float hi[4]) {
@@ -156,40 +153,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
   a[1] = pack_f32(lo[2], lo[3]);
   a[2] = pack_f32(hi[0], hi[1]);
   a[3] = pack_f32(hi[2], hi[3]);
-}
-
-// A fragment of k-chunk kc from a row-major [16 rows x ...] bf16 tile
-// (`rows` points at the tile's first row, `stride` elements apart)
-__device__ __forceinline__ void smem_a(uint32_t a[4],
-                                       const __nv_bfloat16* rows, int stride,
-                                       int kc, int gid, int tig) {
-  #pragma unroll
-  for (int reg = 0; reg < 4; ++reg) {
-    const int r = gid + 8 * (reg & 1);
-    const int col = kc * 16 + tig * 2 + ((reg >> 1) << 3);
-    a[reg] = *reinterpret_cast<const uint32_t*>(rows + r * stride + col);
-  }
-}
-
-// c[nt] += A . X^T over n-tiles of 8 rows of X (row-major [rows][D] in
-// shared memory): B[k][n] = X[n][k], so each B register is one u32 read
-__device__ __forceinline__ void mma_abt(float c[4], const uint32_t a[4],
-                                        const __nv_bfloat16* x, int stride,
-                                        int nt, int kc, int gid, int tig) {
-  const __nv_bfloat16* p = x + (nt * 8 + gid) * stride + kc * 16 + tig * 2;
-  mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(p),
-           *reinterpret_cast<const uint32_t*>(p + 8));
-}
-
-// c += A . X over the d-tile dt of X (row-major [k rows][D] in shared
-// memory, k-chunk kc): B[k][n] = X[k][n], gathered from two rows per
-// register
-__device__ __forceinline__ void mma_ab(float c[4], const uint32_t a[4],
-                                       const __nv_bfloat16* x, int stride,
-                                       int dt, int kc, int gid, int tig) {
-  const __nv_bfloat16* p = x + (kc * 16 + tig * 2) * stride + dt * 8 + gid;
-  mma_bf16(c, a, pack_raw(p[0], p[stride]),
-           pack_raw(p[8 * stride], p[9 * stride]));
 }
 
 }  // namespace flash

@@ -288,9 +288,77 @@ def tile_ranges(ids, block=64):
     return torch.stack([t.amin(-1), t.amax(-1)], -1).contiguous()
 
 
+# the classes of a (query block, key tile) pair on the backward kernels'
+# segment branch (``pair_classes``; flash_bwd.cu ``pair_class``)
+SKIP, MASKED, FULL = 0, 1, 2
+# B3 (dK/dV) splits a GQA group over a cluster of two CTAs when its grid
+# has fewer CTAs than this (``dkv_cluster``)
+_DKV_SPLIT_BELOW = 2048
+
+
+def tile_bounds(ids, pos, block=64):
+    """[id min, id max, position min, position max] of each ``block``
+    consecutive tokens, from segment ids and positions int32 [B, S]:
+    int32 [B, 4, ceil(S / block)], each of the four a contiguous row. The
+    ragged last block is padded with its own last id and position. The
+    backward kernels classify a (query block, key tile) pair by these
+    (``pair_classes``); their C entry points compute the 64-token tiles'
+    on the card (``flash_bwd.cu`` ``tile_bounds_kernel``), in this
+    layout."""
+    B, S = ids.shape
+    n = -(-S // block)
+    t = torch.stack([ids, pos], 1)                        # [B, 2, S]
+    if n * block > S:
+        t = torch.cat([t, t[:, :, -1:].expand(B, 2, n * block - S)], 2)
+    t = t.view(B, 2, n, block)
+    return torch.stack([t.amin(3), t.amax(3)], 2).view(B, 4, n)
+
+
+def pair_classes(q_bounds, k_bounds, causal):
+    """Class of every (query block, key tile) pair from their
+    ``tile_bounds`` ([..., 4, nq] and [..., 4, nk]): [..., nq, nk] of
+    ``SKIP`` (no entry can be visible: the id ranges do not overlap or,
+    causal, every query position lies before every key position),
+    ``FULL`` (every entry is: block and tile hold one id between them and,
+    causal, the block's first position is not before the tile's last) or
+    ``MASKED``. The backward kernels apply the same rule on the card
+    (``flash_bwd.cu`` ``pair_class``); rows and keys past the ends are
+    theirs to handle."""
+    q = q_bounds[..., :, :, None]
+    k = k_bounds[..., :, None, :]
+    live = (q[..., 0, :, :] <= k[..., 1, :, :]) & \
+        (k[..., 0, :, :] <= q[..., 1, :, :])
+    full = (q[..., 0, :, :] == q[..., 1, :, :]) & \
+        (k[..., 0, :, :] == k[..., 1, :, :]) & \
+        (q[..., 0, :, :] == k[..., 0, :, :])
+    if causal:
+        live &= q[..., 3, :, :] >= k[..., 2, :, :]
+        full &= q[..., 2, :, :] >= k[..., 3, :, :]
+    full &= live
+    return torch.where(full, FULL, torch.where(live, MASKED, SKIP))
+
+
+def dkv_cluster(B, Hk, G, Sk):
+    """Cluster size C of B3 (dK/dV): the C CTAs of a cluster share one
+    64-key tile and take G / C query heads each, their partial sums meeting
+    in distributed shared memory. 2 when G is even and the grid has fewer
+    than ``_DKV_SPLIT_BELOW`` CTAs, else 1. On the H100, C 2 beat C 1 and
+    C 4 at Llama-3-8B's B 1, S 2048 (256 CTAs) and at the 8192-token
+    packed row (1024 CTAs) (``tools/torch_flash_bwd_ab.py .@1 .@2 .@4``;
+    PERF.md)."""
+    split = G % 2 == 0 and B * Hk * -(-Sk // 64) < _DKV_SPLIT_BELOW
+    return 2 if split else 1
+
+
+def _bounds_workspace(B, S, device):
+    """Room for ``tile_bounds`` of S tokens, which the backward kernels'
+    C entry points fill on the card before they read it."""
+    return torch.empty((B, 4, -(-S // 64)), dtype=torch.int32, device=device)
+
+
 def _seg_ptrs(seg, *ranges):
     """The C entry points' segment pointers: the four tensors and the tile
-    ranges, NULL where absent (the dense branch)."""
+    ranges or bounds, NULL where absent (the dense branch)."""
     return [None if t is None else t.data_ptr()
             for t in (seg or (None,) * 4) + ranges]
 
@@ -362,14 +430,14 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
                     ("delta", delta))
     seg = _check_seg("flash_bwd_dq", q, k, (q_segment_ids, kv_segment_ids,
                                            q_positions, kv_positions))
-    ranges = (None if seg is None else tile_ranges(seg[1]),)
+    bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
     dq = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
     lib = _build.load("flash_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
         _scale(scale, D), *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dq_bf16")
     _count(flash_bwd_dq_cuda, seg)
@@ -384,15 +452,17 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
                        q_segment_ids=None, kv_segment_ids=None,
                        q_positions=None, kv_positions=None):
     """Launch ``flash_bwd_dkv_bf16`` (B3): (dK, dV) [B, Sk, Hk, D] in bf16,
-    contiguous, each summed over the G query heads of its group."""
+    contiguous, each summed over the G query heads of its group (split
+    over a cluster of ``dkv_cluster`` CTAs where the grid is small)."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_bwd_dkv", q, k, v,
                                       (("do", do),))
     _check_rowstats("flash_bwd_dkv", B, Hq, Sq, ("lse", lse),
                     ("delta", delta))
     seg = _check_seg("flash_bwd_dkv", q, k, (q_segment_ids, kv_segment_ids,
                                             q_positions, kv_positions))
-    ranges = (None, None) if seg is None else (tile_ranges(seg[0]),
-                                               tile_ranges(seg[1]))
+    bounds = (None, None) if seg is None else (
+        _bounds_workspace(B, Sq, q.device),
+        _bounds_workspace(B, Sk, q.device))
     dk = torch.empty((B, Sk, Hk, D), device=q.device, dtype=k.dtype)
     dv = torch.empty((B, Sk, Hk, D), device=q.device, dtype=v.dtype)
     lib = _build.load("flash_bwd")
@@ -400,8 +470,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
     err = lib.flash_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
-        _scale(scale, D), *_strides(q, k, v, do), stream)
+        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        dkv_cluster(B, Hk, Hq // Hk, Sk), _scale(scale, D),
+        *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dkv_bf16")
     _count(flash_bwd_dkv_cuda, seg)
     return dk, dv

@@ -31,9 +31,10 @@ import torch
 
 from paddle_tpu_torch.core import set_flags
 from paddle_tpu_torch.kernels.flash_attention import (
-    flash_attention_bwd_plain, flash_attention_plain, flash_bwd_cuda,
-    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
-    scaled_dot_product_attention, varlen_segments)
+    _SEG_NAMES, FULL, MASKED, SKIP, flash_attention_bwd_plain,
+    flash_attention_plain, flash_bwd_cuda, flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda, pair_classes,
+    scaled_dot_product_attention, tile_bounds, varlen_segments)
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
     paged_decode_attention_kernel)
@@ -281,6 +282,17 @@ def _rel_err(out, ref):
     (1, 37, 200, 8, 2, 64, False),
     (2, 200, 37, 4, 1, 64, True),      # Sq > Sk: fully masked rows
     (1, 130, 130, 64, 1, 64, True),    # G = 64: one position per CTA
+    # ragged ends (not multiples of 64 rows, 64 keys or 32-key halves)
+    (1, 333, 333, 32, 8, 128, True),
+    (2, 129, 161, 8, 8, 64, False),
+    (1, 77, 1000, 8, 1, 128, True),    # Sq < Sk, G 8
+    (1, 1000, 77, 8, 1, 64, True),     # Sq > Sk, G 8: masked rows
+    (1, 1000, 333, 16, 4, 128, True),
+    (1, 300, 300, 4, 4, 128, False),   # G 1, D 128
+    (1, 500, 500, 64, 8, 64, True),    # G 8
+    # S 2048 at G 4: the balanced dK/dV grid (Llama-3-8B's shape)
+    (1, 2048, 2048, 32, 8, 128, True),
+    (1, 2048, 2048, 16, 4, 64, True),
 ])
 def test_flash_bwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
     q = _randn(dev, B, Sq, Hq, D, seed=1)
@@ -301,6 +313,97 @@ def test_flash_bwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
         assert _rel_err(out, ref) <= BWD_RTOL, name
     if causal and Sq > Sk:  # rows that see no key get exactly zero
         assert dq[:, :Sq - Sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("seg", [False, True])
+def test_flash_bwd_cluster_sizes_match_plain(dev, monkeypatch, cluster, seg):
+    """B3 with its GQA group split over a cluster of 1, 2, 4 or 8 CTAs
+    (``dkv_cluster`` picks 1 or 2; the kernel takes any power of two up to
+    the portable 8) gives the plain gradients, dense and segment."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "dkv_cluster", lambda B, Hk, G, Sk: cluster)
+    if seg:
+        q, k, v, do, causal, kw = _seg_inputs(dev, "long-g8-d64")
+    else:
+        q, k, v, do = _dense_inputs(dev, 1, 500, 16, 2, 128)
+        causal, kw = True, {}
+    dq, dk, dv = _bwd_calls(q, k, v, do, causal, kw)()
+    o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, **kw)
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert _rel_err(out, ref) <= BWD_RTOL, name
+
+
+def _bwd_calls(q, k, v, do, causal, kw):
+    """B2 and B3 on the forward's O and LSE: a function of no arguments
+    returning (dQ, dK, dV)."""
+    o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+    delta = flash_delta(o, do)
+
+    def run():
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, **kw)
+        return (dq,) + flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                          **kw)
+    return run
+
+
+def _dense_inputs(dev, B, S, Hq, Hk, D):
+    return (_randn(dev, B, S, Hq, D, seed=1), _randn(dev, B, S, Hk, D, seed=2),
+            _randn(dev, B, S, Hk, D, seed=3), _randn(dev, B, S, Hq, D, seed=4))
+
+
+@pytest.mark.parametrize("case", ["dense-g4-d128", "dense-g1-d64",
+                                  "ragged-g4-d128", "nonmono-g4-d128"])
+def test_flash_bwd_is_deterministic(dev, case):
+    """Two launches on the same inputs give the same bits: no atomics, and
+    the cluster's partial sums meet in a fixed order."""
+    if case == "dense-g4-d128":
+        q, k, v, do = _dense_inputs(dev, 1, 2048, 32, 8, 128)
+        causal, kw = True, {}
+    elif case == "dense-g1-d64":
+        q, k, v, do = _dense_inputs(dev, 2, 1000, 16, 16, 64)
+        causal, kw = True, {}
+    else:
+        q, k, v, do, causal, kw = _seg_inputs(dev, case)
+    run = _bwd_calls(q, k, v, do, causal, kw)
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", ["dense-g4-d128", "dense-g1-d64",
+                                  "long-g4-d128", "runs-g2-d64"])
+def test_flash_bwd_replays_in_a_cuda_graph(dev, case):
+    """B2 and B3 (the segment branch's tile bounds included) captured in a
+    CUDA graph and replayed on new q and dO give the eager result."""
+    if case.startswith("dense"):
+        q, k, v, do = _dense_inputs(dev, *((1, 1000, 32, 8, 128)
+                                          if "g4" in case else
+                                          (2, 300, 4, 4, 64)))
+        causal, kw = True, {}
+    else:
+        q, k, v, do, causal, kw = _seg_inputs(dev, case)
+    o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+    delta = flash_delta(o, do)
+    call = lambda: (flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, **kw),
+                    *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                        **kw))
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = call()
+    q.copy_(_randn(dev, *q.shape, seed=31))
+    do.copy_(_randn(dev, *do.shape, seed=32))
+    g.replay()
+    eager = call()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), outs, eager):
+        assert torch.equal(a, b), name
 
 
 def test_flash_autograd_on_strided_views_matches_plain_route(dev):
@@ -332,14 +435,14 @@ def _packed_seg(dev, cu_q, cu_k):
         cu(cu_q), cu(cu_k), cu_q[-1], cu_k[-1], dev))
 
 
-def _dense_seg(dev, B, S, orphan):
-    """Non-monotone ids (pos // 24) % 3 on both sides; with ``orphan``,
-    query rows S//2 .. S//2+9 carry an id no key has."""
+def _dense_seg(dev, B, S, orphan, run=24, ids=3, orphans=10):
+    """Non-monotone ids (pos // run) % ids on both sides; with ``orphan``,
+    query rows S//2 .. S//2 + orphans - 1 carry an id no key has."""
     pos = torch.arange(S, device=dev, dtype=torch.int32)
-    kseg = ((pos // 24) % 3).expand(B, S).contiguous()
+    kseg = ((pos // run) % ids).expand(B, S).contiguous()
     qseg = kseg.clone()
     if orphan:
-        qseg[:, S // 2:S // 2 + 10] = 7
+        qseg[:, S // 2:S // 2 + orphans] = 7
     p = pos.expand(B, S).contiguous()
     return qseg, kseg, p, p.clone()
 
@@ -359,6 +462,15 @@ _SEG_CASES = {
                                           [0, 40, 40, 120])),
     "nonmono-g4-d128": (2, 16, 4, 128, True, ("dense", 200, True)),
     "nonmono-g1-d64": (2, 4, 4, 64, False, ("dense", 150, False)),
+    # long sequences: pairs skipped by position inside a segment, full
+    # (single-id, below the diagonal) and masked pairs
+    "long-g4-d128": (1, 32, 8, 128, True, ("cu", [0, 300, 700, 701, 1100],
+                                           None)),
+    "long-g1-d64": (1, 4, 4, 64, False, ("cu", [0, 256, 257, 650], None)),
+    "long-g8-d64": (1, 16, 2, 64, True, ("cu", [0, 3, 515, 900], None)),
+    # runs of 128 tokens, ids (pos // 128) % 2, 40 orphan queries
+    "runs-g2-d64": (2, 8, 4, 64, True, ("runs", 600, True)),
+    "runs-g4-d128": (1, 16, 4, 128, False, ("runs", 450, False)),
 }
 
 
@@ -366,6 +478,8 @@ def _seg_inputs(dev, name):
     B, Hq, Hk, D, causal, (kind, a, c) = _SEG_CASES[name]
     if kind == "cu":
         seg = _packed_seg(dev, a, c or a)
+    elif kind == "runs":
+        seg = _dense_seg(dev, B, a, c, run=128, ids=2, orphans=40)
     else:
         seg = _dense_seg(dev, B, a, c)
     Sq, Sk = seg[0].shape[1], seg[1].shape[1]
@@ -423,6 +537,39 @@ def test_flash_segment_kernels_match_plain(dev, name):
         assert dv[c].abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize("name", ["cross-g4-d64", "runs-g2-d64"])
+def test_device_tile_bounds_match_tile_bounds(dev, monkeypatch, name):
+    """The bounds the C entry points write on the card (B2: the kv side;
+    B3: the q side, then the kv side) are ``tile_bounds``'."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    made, real = [], fa._bounds_workspace
+    monkeypatch.setattr(fa, "_bounds_workspace",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    q, k, v, do, causal, kw = _seg_inputs(dev, name)
+    _bwd_calls(q, k, v, do, causal, kw)()
+    torch.cuda.synchronize()
+    qs, ks, qp, kp = (kw[n] for n in _SEG_NAMES)
+    want = [tile_bounds(ks, kp), tile_bounds(qs, qp), tile_bounds(ks, kp)]
+    assert len(made) == 3
+    for got, ref in zip(made, want):
+        assert torch.equal(got, ref)
+
+
+def test_segment_cases_reach_every_pair_class(dev):
+    """The segment cases above reach skip, masked and full pairs in both
+    B2's tiling (blocks of 64 / G positions) and B3's (64-row tiles)."""
+    seen = {"dq": set(), "dkv": set()}
+    for name in _SEG_CASES:
+        _, Hq, Hk, _, causal, _ = _SEG_CASES[name]
+        _, _, _, _, causal, kw = _seg_inputs(dev, name)
+        qs, ks, qp, kp = (kw[n] for n in _SEG_NAMES)
+        kb = tile_bounds(ks, kp)
+        for kname, block in (("dq", 64 * Hk // Hq), ("dkv", 64)):
+            cls = pair_classes(tile_bounds(qs, qp, block), kb, causal)
+            seen[kname] |= set(cls.unique().tolist())
+    assert seen == {"dq": {SKIP, MASKED, FULL}, "dkv": {SKIP, MASKED, FULL}}
+
+
 def test_flash_segment_forward_replays_in_a_cuda_graph(dev):
     """The segment forward (its tile ranges included) captured in a CUDA
     graph and replayed on new inputs gives the eager result."""
@@ -449,8 +596,11 @@ def test_flash_segment_wrappers_reject_bad_ids(dev):
         flash_fwd_cuda(q, q, q, q_segment_ids=ids)
 
 
-# digests of the dense B1-B3 outputs from PR 5's kernels
-# (``tools/torch_flash_digest.py`` on that tree, NVIDIA H100 80GB HBM3)
+# digests of the dense B1-B3 outputs (``tools/torch_flash_digest.py``,
+# NVIDIA H100 80GB HBM3): B1's, and B2's and B3's at G 1, are those of the
+# first kernels recorded, which the wgmma backward reproduces bit for bit;
+# B3's at G 4 (B1_S200_Hq32_Hk8_D128) is the wgmma backward's, whose
+# cluster of 2 CTAs sums the group's heads in another order
 _DENSE_DIGESTS = {
     "B2_S300_Hq16_Hk16_D64": dict(
         flash_fwd="40838b7b7627c8b74d6b1118a8ca1544"
@@ -464,14 +614,13 @@ _DENSE_DIGESTS = {
                   "8535bb82dd31192fb731e9697fef9628",
         flash_bwd_dq="0ab54553205a9947bb0bde94ea7f5b5a"
                      "4739a9ce0c8771a8c2837ff7cae7553c",
-        flash_bwd_dkv="4c931a2d22bb0723b71a056367438be3"
-                      "0449c8c1898b403775a6ee3cac8580f3"),
+        flash_bwd_dkv="74f4cd5d160ee099d4354f51176052c3"
+                      "04cc0c0cb7ecde1de506bf587865acf0"),
 }
 
 
 def test_dense_flash_outputs_are_bit_identical_to_the_recorded_ones(dev):
-    """The segment branch left the dense one as it was: B1-B3 give, bit
-    for bit, the outputs recorded from the kernels before it existed."""
+    """B1-B3 give, bit for bit, the dense outputs recorded above."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).parents[1] / "tools" / \
