@@ -20,7 +20,8 @@
    row too and shown to fail without its last key tile; the flash
    backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's and at Llama-3-8B's
    (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels at the
-   serving path's, over bf16 pools (B4, B6) and int8 pools (B5, B6q); the
+   serving path's, over bf16 pools (B4, B6) and int8 pools (B5, B6q), the
+   per-page kernel timed beside the split route at its shape; the
    int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
    projection shapes and at the longest prefill (M 1008) for each of the
    four layer shapes (and gate/up at the shortest, M 112), with its sums
@@ -533,9 +534,10 @@ def varlen_library(torch, case, q, k, v, do):
 
 
 def tile_pair_counts(torch, seg, causal, hq, hk):
-    """How B2 and B3 classify this run's (query block, key tile) pairs
-    (``pair_classes``): skip, masked and full counts over the batch, for
-    B2's blocks of 64 / G positions and B3's 64-row query tiles."""
+    """How the segment kernels classify this run's (query block, key
+    tile) pairs (``pair_classes``): skip, masked and full counts over the
+    batch, for the blocks of 64 / G positions that B1 and B2 share (``dq``)
+    and B3's 64-row query tiles."""
     from paddle_tpu_torch.kernels.flash_attention import (
         FULL, MASKED, SKIP, pair_classes, tile_bounds)
     qseg, kseg, qpos, kpos = seg
@@ -796,14 +798,16 @@ def slot_rel_err(out, ref):
 
 
 def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
-                 quantized=False, drop_pages=1):
+                 quantized=False, drop_pages=1, beside=None):
     """One paged-decode kernel against ``paged_decode_attention_dense``;
     with ``quantized`` the pools are int8 rows with float32 scales
     (``quantize_rows`` of the same bf16 pools), and the library yardstick
     is SDPA over the gathered KV dequantized outside the timed call. The
-    check must see ``drop_pages`` pages (one staged chunk of the split
-    kernel) go missing: the plain version over the longest slot cut short
-    by that many pages has to fail it."""
+    check must see ``drop_pages`` pages go missing: the plain version over
+    the longest slot cut short by that many pages has to fail it.
+    ``beside``, another wrapper of the same function, is timed as a graph
+    replay on the same inputs (``beside_graph_ms``: the per-page kernel
+    beside the split route)."""
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_dense)
     from paddle_tpu_torch.quantization import quantize_rows
@@ -849,6 +853,10 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
     lib = sdpa_library(torch, q[:, :, None, :], kg, vg, attn_mask=mask)
     library_ms = timer(lib, cold=True)
     library_graph_ms = timer.graph(lib, cold=True)
+    extra = {}
+    if beside is not None:
+        extra["beside_graph_ms"] = timer.graph(
+            lambda: beside(q, kp, vp, tbl, sl, **scales), cold=True)
     total = int(np.sum(lens))
     row_bytes = D + 4 if quantized else D * 2  # int8 row + its f32 scale
     nbytes = 2 * q.numel() * 2 + total * HK * row_bytes * 2 \
@@ -860,13 +868,14 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
                missing_pages_rel_err=missing, ms=ms, graph_ms=graph_ms,
                host_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
                library_graph_ms=library_graph_ms, bound_ms=bms, bound_by=by,
-               ok=ok)
+               **extra, ok=ok)
     print(f"{name} B={B} pages={mbps} lens={list(map(int, lens))} "
           f"pools={rec['pools']}: err {err:.3e} (slot rel {rel:.3e}; "
           f"{drop_pages} pages missing: {missing:.3e}) | kernel {ms:.4f} ms "
           f"(graph {graph_ms:.4f}, host {host_ms:.4f}) plain {plain_ms:.4f} "
           f"ms sdpa {library_ms:.4f} ms (graph {library_graph_ms:.4f}) "
-          f"bound {bms:.4f} ms ({by})", flush=True)
+          f"bound {bms:.4f} ms ({by})"
+          + "".join(f" {k} {v:.4f}" for k, v in extra.items()), flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version: slot relative "
              f"error {rel} (limit {DECODE_RTOL}), absolute {err} (limit "
@@ -931,8 +940,7 @@ def qmm_phase(torch, timer, M, N, K, seed):
 
 def kernel_phases(torch):
     from paddle_tpu_torch.kernels.paged_attention import (
-        paged_decode_attention_chunked, paged_decode_attention_kernel,
-        pick_chunk_pages)
+        paged_decode_attention_chunked, paged_decode_attention_kernel)
     timer = Timer(torch)
     gpt_shape = dict(B=GPT_B, hq=GPT_H, hk=GPT_H, dh=GPT_D)
     flash = [flash_phase(torch, timer, GPT_S, **gpt_shape)] + \
@@ -950,8 +958,7 @@ def kernel_phases(torch):
         decode["paged_decode_split" + suffix] = [decode_phase(
             torch, timer, "paged_decode_split" + suffix,
             paged_decode_attention_chunked, 8, 128, lens, seed=2,
-            quantized=quantized, drop_pages=pick_chunk_pages(
-                128, 16, D, 1 if quantized else 2, quantized))]
+            quantized=quantized, beside=paged_decode_attention_kernel)]
     qmm = [qmm_phase(torch, timer, 8, n, k, seed=3000 + i)
            for i, ((n, k), _) in enumerate(QMM_DECODE)]
     step_ms = sum(r["ms"] * per for r, (_, per) in zip(qmm, QMM_DECODE))

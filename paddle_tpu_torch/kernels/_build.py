@@ -34,9 +34,10 @@ _L = ctypes.c_int64
 # each returns its cudaError_t as an int
 SIGNATURES = {
     "flash_fwd": {
-        # q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos, kv tile ranges
-        # (the five NULL on the dense branch), B, Sq, Sk, Hq, Hk, D,
-        # causal, scale, (batch, seq, head) strides of q, k, v, stream
+        # q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos, kv tile bounds
+        # (a workspace; the five NULL on the dense branch), B, Sq, Sk, Hq,
+        # Hk, D, causal, scale, (batch, seq, head) strides of q, k, v,
+        # stream
         "flash_fwd_bf16": [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
     },
     "flash_bwd": {
@@ -60,15 +61,10 @@ SIGNATURES = {
         "paged_decode_i8": [_P] * 8 + [_I] * 8 + [_F, _P],
     },
     "paged_decode_split": {
-        # q, k_pool, v_pool, tables, lens, acc, m, l, B, Hq, Hk, D, bs,
-        # mbps, chunk_pages, chunks_per_split, nsplit, scale, stream
-        "paged_decode_split_bf16": [_P] * 8 + [_I] * 9 + [_F, _P],
-        # q, k_pool, v_pool, k_scale, v_scale, tables, lens, acc, m, l,
-        # then as paged_decode_split_bf16
-        "paged_decode_split_i8": [_P] * 10 + [_I] * 9 + [_F, _P],
-        # acc, m, l, lens, out, B, Hq, Hk, D, nsplit, keys_per_split,
-        # stream
-        "paged_decode_merge_bf16": [_P] * 5 + [_I] * 6 + [_P],
+        # as paged_decode_bf16 and paged_decode_i8 without chunk_pages
+        # (clusters of up to 16 CTAs)
+        "paged_decode_split_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
+        "paged_decode_split_i8": [_P] * 8 + [_I] * 7 + [_F, _P],
     },
     "quant_matmul": {
         # x, w_int8, w_scales, y, workspace, M, N, K, k chunks per split,

@@ -17,7 +17,7 @@
 // (query i sees keys j <= i + Sk - Sq); a fully masked row (LSE = +1e30)
 // gets P = 0 and zero gradients. With segment ids (the Pallas bodies'
 // `has_seg` branch, :382 and :435) a query sees a key of its own segment
-// and, if causal, of a position not after its own (flash_common.cuh); a
+// and, if causal, of a position not after its own (flash_seg.cuh); a
 // row no key is visible to gets dQ = 0 and a key no row sees dK = dV = 0.
 //
 // What bounds it on this card: at training lengths (S ~ 1024) the work is
@@ -83,7 +83,8 @@
 //   written). Sub-tiles above the diagonal are skipped.
 // - The segment branch (kSeg) classifies every (query block, key tile)
 //   pair from [id min, id max, position min, position max] bounds
-//   (`pair_class`): a first small launch writes the bounds of every
+//   (`pair_class`, flash_seg.cuh, shared with the forward's segment
+//   branch): a first small launch writes the bounds of every
 //   64-token tile into a workspace (`tile_bounds_kernel`, one warp a tile:
 //   on the host it took ten PyTorch operations a call, which outlasted
 //   the kernel at short packed rows), and dQ reduces its own block's:
@@ -101,7 +102,7 @@
 #include <cooperative_groups.h>
 
 #include "async_tiles.cuh"
-#include "flash_common.cuh"
+#include "flash_seg.cuh"
 
 namespace {
 
@@ -115,355 +116,7 @@ using tiles::ldsm_x4;
 
 constexpr int kBQ = 64;        // query rows per step of the dK/dV kernel
 constexpr int kStages = 2;     // ring depth
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;  // the portable cluster size
-// shared ints of `block_bounds` and `live_pairs`
-constexpr int kBwdScratch = 4 * kWarps;
-// a list entry's flag: the pair needs no mask
-constexpr int kFull = 1 << 30;
-
-// pair classes (flash_attention.py: pair_classes holds the same rule)
-constexpr int kSkip = 0;
-constexpr int kMasked = 1;
-constexpr int kFullPair = 2;
-
-// the segment branch's inputs; all NULL on the dense branch. Bounds are
-// four rows (id min, id max, position min, position max) over the 64-token
-// tiles of a batch row, [B, 4, tiles].
-struct SegB {
-  const int* qseg;   // [B, Sq]
-  const int* kseg;   // [B, Sk]
-  const int* qpos;   // [B, Sq]
-  const int* kpos;   // [B, Sk]
-  const int* qb;     // [B, 4, ceil(Sq / 64)] (dK/dV only)
-  const int* kb;     // [B, 4, ceil(Sk / 64)]
-};
-
-// tile t's bounds from one batch row's [4, n] rows
-__device__ __forceinline__ int4 bounds_at(const int* __restrict__ rows,
-                                          int n, int t) {
-  return make_int4(rows[t], rows[n + t], rows[2 * n + t], rows[3 * n + t]);
-}
-
-// The class of a (query block, key tile) pair from their bounds: skip when
-// no entry can be visible whatever the ids and positions inside are, full
-// when every entry is, masked otherwise.
-__device__ __forceinline__ int pair_class(int4 q, int4 k, int causal) {
-  if (q.x > k.y || k.x > q.y) return kSkip;  // no id in common
-  if (causal && q.w < k.z) return kSkip;     // every query before every key
-  const bool one_id = q.x == q.y && k.x == k.y && q.x == k.x;
-  return one_id && (!causal || q.z >= k.w) ? kFullPair : kMasked;
-}
-
-// (id min, id max, position min, position max) of ids/pos[0, n),
-// 1 <= n <= kThreads, to every thread of the CTA
-__device__ __forceinline__ int4 block_bounds(const int* __restrict__ ids,
-                                             const int* __restrict__ pos,
-                                             int n, int* scratch) {
-  const int warp = threadIdx.x >> 5;
-  int a = INT_MAX, b = INT_MIN, c = INT_MAX, d = INT_MIN;
-  if (threadIdx.x < n) {
-    a = b = ids[threadIdx.x];
-    c = d = pos[threadIdx.x];
-  }
-  a = __reduce_min_sync(0xffffffffu, a);
-  b = __reduce_max_sync(0xffffffffu, b);
-  c = __reduce_min_sync(0xffffffffu, c);
-  d = __reduce_max_sync(0xffffffffu, d);
-  if ((threadIdx.x & 31) == 0) {
-    scratch[warp] = a;
-    scratch[kWarps + warp] = b;
-    scratch[2 * kWarps + warp] = c;
-    scratch[3 * kWarps + warp] = d;
-  }
-  __syncthreads();
-  int4 r = make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
-  #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    r.x = min(r.x, scratch[w]);
-    r.y = max(r.y, scratch[kWarps + w]);
-    r.z = min(r.z, scratch[2 * kWarps + w]);
-    r.w = max(r.w, scratch[3 * kWarps + w]);
-  }
-  __syncthreads();  // scratch is free again
-  return r;
-}
-
-// The tiles t in [0, n) of `bounds` (one batch row's [4, n]) that pair
-// with `mine` (the query side when kMineIsQ), in order, into `list` as
-// t | kFull (no mask needed) or t; returns their count to every thread.
-// Called by all kThreads threads; the list is complete and visible when it
-// returns.
-template <bool kMineIsQ>
-__device__ __forceinline__ int live_pairs(const int* __restrict__ bounds,
-                                          int n, int4 mine, int causal,
-                                          int* list, int* scratch) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int count = 0;
-  for (int base = 0; base < n; base += kThreads) {
-    const int t = base + threadIdx.x;
-    int cls = kSkip;
-    if (t < n) {
-      const int4 other = bounds_at(bounds, n, t);
-      cls = kMineIsQ ? pair_class(mine, other, causal)
-                     : pair_class(other, mine, causal);
-    }
-    const bool live = cls != kSkip;
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) scratch[warp] = __popc(m);
-    __syncthreads();
-    int at = count, total = 0;
-    #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < warp ? scratch[w] : 0;
-      total += scratch[w];
-    }
-    if (live)
-      list[at + __popc(m & ((1u << lane) - 1u))] =
-          t | (cls == kFullPair ? kFull : 0);
-    __syncthreads();  // the list's writes land; scratch is reused
-    count += total;
-  }
-  return count;
-}
-
-// ---------------------------------------------------------------------------
-// wgmma (sm_90a)
-// ---------------------------------------------------------------------------
-
-// Tiles that wgmma reads are stored with the 128-byte swizzle of
-// async_tiles.cuh: a tile of `rows` rows of D bf16 is D / 64 blocks of
-// [rows][64] (128-byte rows in 1024-byte atoms of 8), block after block;
-// wgmma reads it K-major (kstep_desc) or MN-major (desc_mn_sw128). The
-// byte offset of 16-byte chunk c8 (elements 8 c8 .. 8 c8 + 7) of a row:
-template <int kTileRows>
-__device__ __forceinline__ int swz(int row, int c8) {
-  return (c8 >> 3) * kTileRows * 128 + tiles::sw128_offset(row, c8 & 7);
-}
-
-// the descriptor of k step kc (16 of the D columns) of a swizzled tile of
-// kTileRows rows, starting at row r0 (a multiple of 8)
-template <int kTileRows>
-__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
-                                               int r0, int kc) {
-  return tiles::wgmma_desc_sw128(tile + (kc >> 2) * kTileRows * 128 +
-                                 r0 * 128 + (kc & 3) * 32);
-}
-
-// d[16] (+)= A . B, m64n32k16: A (64 x 16 bf16) from registers in
-// mma.sync's A layout for each warp's 16 rows; B (32 x 16) K-major in
-// shared memory, 128-byte swizzle (descriptor b); accumulate == 0
-// ignores the old d
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// d[16] (+)= A . B, m64n32k16: A (64 x 16) and B (32 x 16) K-major in
-// shared memory, 128-byte swizzle (descriptors a, b)
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[32] (+)= A . B, m64n64k16: A from registers as in wgmma_rs_n32; B
-// (16 x 64) MN-major, its N columns contiguous (desc_mn_sw128)
-__device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// d[64] (+)= A . B, m64n128k16, as wgmma_rs_t_n64
-__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
-}
-
-// descriptor of an MN-major operand (N contiguous) stored as the swizzled
-// tiles above: 8-row groups along K 1024 bytes apart (SBO), 64-column
-// blocks along N `block_bytes` apart (LBO); 128-byte swizzle
-__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p,
-                                                  int block_bytes) {
-  return static_cast<uint64_t>((tiles::smem_addr(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(block_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(tiles::kAtomBytes >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// d (+)= A . B over N = D columns with B MN-major: the products that take
-// a tile transposed (dQ += dS K, dV += P^T dO, dK += dS^T Q)
-template <int D>
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[D / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b, int accumulate) {
-  if constexpr (D == 64) wgmma_rs_t_n64(d, a, b, accumulate);
-  else wgmma_rs_t_n128(d, a, b, accumulate);
-}
-
-// keeps A fragments that an in-flight wgmma reads live until the wait
-// that retires it (else the register allocator may hand their registers
-// to other values while the product still reads them)
-template <int N>
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
-  #pragma unroll
-  for (int i = 0; i < N; ++i)
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// wgmma's m64nN accumulator, d[4 j + 2 h + e] = (row 16 w + gid + 8 h,
-// column 8 j + 2 tig + e) for warp w, is mma.sync's C fragment of n-tile
-// j: the [N / 8][4] arrays below are viewed flat
-template <int kNT>
-__device__ __forceinline__ float (&flat(float (&x)[kNT][4]))[kNT * 4] {
-  return *reinterpret_cast<float(*)[kNT * 4]>(&x[0][0]);
-}
-
-// One side's tokens for `tile_bounds_kernel`: ids and positions [B, S],
-// and the bounds it writes, [B, 4, ceil(S / 64)]
-struct Side {
-  const int* ids;
-  const int* pos;
-  int* out;
-  int S;
-};
-
-// [id min, id max, position min, position max] of every 64-token tile of
-// one or two sides (b.out NULL: one), as four rows per batch row; one warp
-// a tile, the ragged last tile padded with its own last token. The plain
-// version is flash_attention.py's tile_bounds.
-__global__ void __launch_bounds__(kThreads)
-tile_bounds_kernel(Side a, Side b, int B) {
-  const int na = (a.S + kBK - 1) / kBK;
-  const int nb = b.out ? (b.S + kBK - 1) / kBK : 0;
-  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w >= B * (na + nb)) return;  // the whole warp
-  const bool first = w < B * na;
-  const Side s = first ? a : b;
-  const int n = first ? na : nb;
-  const int i = first ? w : w - B * na;
-  const int bi = i / n;
-  const int t = i % n;
-  const int* ids = s.ids + static_cast<size_t>(bi) * s.S;
-  const int* pos = s.pos + static_cast<size_t>(bi) * s.S;
-  int lo = INT_MAX, hi = INT_MIN, plo = INT_MAX, phi = INT_MIN;
-  #pragma unroll
-  for (int j = lane; j < kBK; j += 32) {
-    const int x = min(t * kBK + j, s.S - 1);
-    lo = min(lo, ids[x]);
-    hi = max(hi, ids[x]);
-    plo = min(plo, pos[x]);
-    phi = max(phi, pos[x]);
-  }
-  lo = __reduce_min_sync(0xffffffffu, lo);
-  hi = __reduce_max_sync(0xffffffffu, hi);
-  plo = __reduce_min_sync(0xffffffffu, plo);
-  phi = __reduce_max_sync(0xffffffffu, phi);
-  if (lane == 0) {
-    int* o = s.out + static_cast<size_t>(bi) * 4 * n + t;
-    o[0] = lo;
-    o[n] = hi;
-    o[2 * n] = plo;
-    o[3 * n] = phi;
-  }
-}
-
-// launch `tile_bounds_kernel` on the stream of the launch that reads them
-cudaError_t launch_bounds(Side a, Side b, int B, cudaStream_t st) {
-  const long long tiles =
-      static_cast<long long>(B) *
-      ((a.S + kBK - 1) / kBK + (b.out ? (b.S + kBK - 1) / kBK : 0));
-  const long long blocks = (tiles + kWarps - 1) / kWarps;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  if (blocks == 0) return cudaSuccess;
-  tile_bounds_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      a, b, B);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // dQ
@@ -478,7 +131,7 @@ struct DqSmem {
   static constexpr int kBytes = 2 * kStages * kTile + 2 * kQ * 2;
   // the segment branch's ints after those: each stage's kv ids and
   // positions, scratch, then the list of live key tiles (one per tile)
-  static constexpr int kSegInts = 2 * kStages * kBK + kBwdScratch;
+  static constexpr int kSegInts = 2 * kStages * kBK + kSegScratch;
 };
 
 // P (masked when kMask), then dS = P (dP - Delta) scale into s, for one
@@ -526,7 +179,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk,
                     int Hq, int Hk, int causal, float scale,
                     float scale_log2, Strides qs, Strides ks, Strides vs,
-                    Strides dos, SegB seg) {
+                    Strides dos, Seg seg) {
   using L = DqSmem<D>;
   constexpr int kStride = L::kStride;
   constexpr int kKC = D / 16;     // k-chunks over the head dim
@@ -547,7 +200,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   int* sKseg = reinterpret_cast<int*>(sD + L::kQ);
   int* sKpos = sKseg + kStages * kBK;
   int* sScratch = sKpos + kStages * kBK;
-  int* sList = sScratch + kBwdScratch;
+  int* sList = sScratch + kSegScratch;
 
   const int G = Hq / Hk;
   const int bq = kRows / G;  // query positions per CTA
@@ -794,7 +447,7 @@ struct DkvSmem {
   static_assert(2 * kBK * kAccStride * 4 <= kTiles, "room for dK, dV");
   // the segment branch's ints after those: each stage's query ids and
   // positions, scratch, then the list of live query tiles
-  static constexpr int kSegInts = 2 * kStages * kBQ + kBwdScratch;
+  static constexpr int kSegInts = 2 * kStages * kBQ + kSegScratch;
 };
 
 // P^T into s and dS^T into dp for one sub-step of kNT * 8 queries (the
@@ -846,7 +499,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk,
                      int Hq, int Hk, int causal, float scale,
                      float scale_log2, Strides qs, Strides ks, Strides vs,
-                     Strides dos, SegB seg) {
+                     Strides dos, Seg seg) {
   using L = DkvSmem<D>;
   constexpr int kKC = D / 16;
   constexpr int kDT = D / 8;
@@ -863,7 +516,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kBQ);  // segments
   int* sQpos = sQseg + kStages * kBQ;
   int* sScratch = sQpos + kStages * kBQ;
-  int* sList = sScratch + kBwdScratch;
+  int* sList = sScratch + kSegScratch;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
@@ -1132,7 +785,7 @@ struct Args {
   int B, Sq, Sk, Hq, Hk, causal, cluster;
   float scale, sl2;
   Strides qs, ks, vs, dos;
-  SegB seg;
+  Seg seg;
   cudaStream_t s;
 };
 
@@ -1201,7 +854,7 @@ bool bad_group(int Hq, int Hk) {
 
 // the segment pointers of the C entry points: all NULL (dense) or all
 // given, with the bounds arrays the kernel reads
-bool bad_seg(const SegB& seg, bool need_qb) {
+bool bad_seg(const Seg& seg, bool need_qb) {
   if (!seg.qseg) return false;
   return !(seg.kseg && seg.qpos && seg.kpos && seg.kb &&
            (seg.qb || !need_qb));
@@ -1256,7 +909,7 @@ extern "C" int flash_bwd_dq_bf16(
                      scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb,
                      dss, dsh, stream);
   a.dq = static_cast<__nv_bfloat16*>(dq);
-  a.seg = SegB{static_cast<const int*>(q_seg),
+  a.seg = Seg{static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg),
                static_cast<const int*>(q_pos),
                static_cast<const int*>(kv_pos), nullptr,
@@ -1302,7 +955,7 @@ extern "C" int flash_bwd_dkv_bf16(
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
   a.cluster = cluster;
-  a.seg = SegB{static_cast<const int*>(q_seg),
+  a.seg = Seg{static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg),
                static_cast<const int*>(q_pos),
                static_cast<const int*>(kv_pos),

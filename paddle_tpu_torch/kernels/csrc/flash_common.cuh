@@ -1,9 +1,9 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
 //
-// The forward's products run on mma.sync m16n8k16 (bf16 in, f32
-// accumulate); the backward's run on wgmma, whose accumulators come back
-// in the same C layout. Fragment layouts, with gid = lane / 4 and
-// tig = lane % 4:
+// The dense forward's products run on mma.sync m16n8k16 (bf16 in, f32
+// accumulate); the backward's and the segment forward's run on wgmma,
+// whose accumulators come back in the same C layout. Fragment layouts,
+// with gid = lane / 4 and tig = lane % 4:
 // - A (16 x 16, row-major): a0 (row gid, cols 2tig, 2tig+1), a1 (row
 //   gid+8, same cols), a2 (row gid, cols 2tig+8, +9), a3 (row gid+8, same);
 // - B (16 x 8, "col"): b0 (rows 2tig, 2tig+1 of column gid), b1 (rows
@@ -12,18 +12,8 @@
 // So the C fragments of n-tiles 2kc and 2kc+1 are the A fragment of
 // k-chunk kc: a product's f32 result feeds the next product from
 // registers, rounded to bf16 (pack_f32).
-
 //
-// The segment branch (the Pallas bodies' `has_seg`, varlen attention):
-// query i sees key j when their segment ids are equal and, if causal, when
-// q_pos[i] >= kv_pos[j]; the global causal diagonal plays no part. Each
-// kernel is a template on kSeg; kSeg = false compiles the dense kernel as
-// it was. Ids and positions are int32 [B, S], contiguous. A (query block,
-// key tile) pair whose [min, max] id ranges do not overlap holds no equal
-// ids, whatever the ids are, so the forward's segment branch skips it: the
-// wrapper hands the ranges of every 64-key tile, and `live_tiles` compacts
-// the tiles a CTA must visit into shared memory. (The backward classifies
-// pairs by id and position bounds: flash_bwd.cu.)
+// The segment branch's pair classification lives in flash_seg.cuh.
 
 #pragma once
 
@@ -32,83 +22,18 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "async_tiles.cuh"
+
 namespace flash {
 
 constexpr int kRows = 64;      // folded (position, head) rows per CTA
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps x 16 rows
+constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
 constexpr float kBig = 1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// the segment branch's inputs; all NULL on the dense branch
-struct Seg {
-  const int* qseg;     // [B, Sq]
-  const int* kseg;     // [B, Sk]
-  const int* qpos;     // [B, Sq]
-  const int* kpos;     // [B, Sk]
-  const int2* qrange;  // unused: NULL (the forward reads kv ranges only)
-  const int2* krange;  // [B, ceil(Sk / 64)] (min, max) of kv ids
-};
-
-// shared ints `live_tiles` and `id_range` use as scratch
-constexpr int kScratchInts = 2 * (kThreads / 32);
-
-// [min, max] of ids[0, n) (1 <= n <= kThreads) to every thread of the CTA
-__device__ __forceinline__ int2 id_range(const int* __restrict__ ids, int n,
-                                         int* scratch) {
-  const int warp = threadIdx.x >> 5;
-  int lo = INT_MAX, hi = INT_MIN;
-  if (threadIdx.x < n) lo = hi = ids[threadIdx.x];
-  lo = __reduce_min_sync(0xffffffffu, lo);
-  hi = __reduce_max_sync(0xffffffffu, hi);
-  if ((threadIdx.x & 31) == 0) {
-    scratch[warp] = lo;
-    scratch[kThreads / 32 + warp] = hi;
-  }
-  __syncthreads();
-  int2 r = make_int2(INT_MAX, INT_MIN);
-  #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    r.x = min(r.x, scratch[w]);
-    r.y = max(r.y, scratch[kThreads / 32 + w]);
-  }
-  __syncthreads();  // scratch is free again
-  return r;
-}
-
-// The tiles t in [0, n) whose id range overlaps [lo, hi], in order, into
-// `list`; returns their count to every thread. Called by all kThreads
-// threads; the list is complete and visible when it returns.
-__device__ __forceinline__ int live_tiles(const int2* __restrict__ ranges,
-                                          int n, int lo, int hi, int* list,
-                                          int* scratch) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int count = 0;
-  for (int base = 0; base < n; base += kThreads) {
-    const int t = base + threadIdx.x;
-    bool live = false;
-    if (t < n) {
-      const int2 r = ranges[t];
-      live = r.x <= hi && lo <= r.y;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) scratch[warp] = __popc(m);
-    __syncthreads();
-    int at = count, total = 0;
-    #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      at += w < warp ? scratch[w] : 0;
-      total += scratch[w];
-    }
-    if (live) list[at + __popc(m & ((1u << lane) - 1u))] = t;
-    __syncthreads();  // the list's writes land; scratch is reused
-    count += total;
-  }
-  return count;
-}
 
 // raise a kernel's dynamic shared memory opt-in to `bytes` when a launch
 // needs more than allowed before (`allowed` keeps the kernel's level): the
@@ -153,6 +78,207 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
   a[1] = pack_f32(lo[2], lo[3]);
   a[2] = pack_f32(hi[0], hi[1]);
   a[3] = pack_f32(hi[2], hi[3]);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+// Tiles that wgmma reads are stored with the 128-byte swizzle of
+// async_tiles.cuh: a tile of `rows` rows of D bf16 is D / 64 blocks of
+// [rows][64] (128-byte rows in 1024-byte atoms of 8), block after block;
+// wgmma reads it K-major (kstep_desc) or MN-major (desc_mn_sw128). The
+// byte offset of 16-byte chunk c8 (elements 8 c8 .. 8 c8 + 7) of a row:
+template <int kTileRows>
+__device__ __forceinline__ int swz(int row, int c8) {
+  return (c8 >> 3) * kTileRows * 128 + tiles::sw128_offset(row, c8 & 7);
+}
+
+// the descriptor of k step kc (16 of the D columns) of a swizzled tile of
+// kTileRows rows, starting at row r0 (a multiple of 8)
+template <int kTileRows>
+__device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
+                                               int r0, int kc) {
+  return tiles::wgmma_desc_sw128(tile + (kc >> 2) * kTileRows * 128 +
+                                 r0 * 128 + (kc & 3) * 32);
+}
+
+// d[16] (+)= A . B, m64n32k16: A (64 x 16 bf16) from registers in
+// mma.sync's A layout for each warp's 16 rows; B (32 x 16) K-major in
+// shared memory, 128-byte swizzle (descriptor b); accumulate == 0
+// ignores the old d
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[32] (+)= A . B, m64n64k16: as wgmma_rs_n32 over 64 columns of B
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[16] (+)= A . B, m64n32k16: A (64 x 16) and B (32 x 16) K-major in
+// shared memory, 128-byte swizzle (descriptors a, b)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] (+)= A . B, m64n64k16: A from registers as in wgmma_rs_n32; B
+// (16 x 64) MN-major, its N columns contiguous (desc_mn_sw128)
+__device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d[64] (+)= A . B, m64n128k16, as wgmma_rs_t_n64
+__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// descriptor of an MN-major operand (N contiguous) stored as the swizzled
+// tiles above: 8-row groups along K 1024 bytes apart (SBO), 64-column
+// blocks along N `block_bytes` apart (LBO); 128-byte swizzle
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p,
+                                                  int block_bytes) {
+  return static_cast<uint64_t>((tiles::smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(block_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(tiles::kAtomBytes >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (+)= A . B over N = D columns with B MN-major: the products that take
+// a tile transposed (dQ += dS K, dV += P^T dO, dK += dS^T Q)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[D / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int accumulate) {
+  if constexpr (D == 64) wgmma_rs_t_n64(d, a, b, accumulate);
+  else wgmma_rs_t_n128(d, a, b, accumulate);
+}
+
+// keeps A fragments that an in-flight wgmma reads live until the wait
+// that retires it (else the register allocator may hand their registers
+// to other values while the product still reads them)
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+  #pragma unroll
+  for (int i = 0; i < N; ++i)
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// wgmma's m64nN accumulator, d[4 j + 2 h + e] = (row 16 w + gid + 8 h,
+// column 8 j + 2 tig + e) for warp w, is mma.sync's C fragment of n-tile
+// j: the [N / 8][4] arrays below are viewed flat
+template <int kNT>
+__device__ __forceinline__ float (&flat(float (&x)[kNT][4]))[kNT * 4] {
+  return *reinterpret_cast<float(*)[kNT * 4]>(&x[0][0]);
 }
 
 }  // namespace flash

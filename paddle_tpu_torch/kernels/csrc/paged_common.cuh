@@ -1,145 +1,64 @@
-// Shared pieces of the split-KV paged-decode kernel (paged_decode_split.cu),
-// for bf16 pools and for int8 pools with float32 per-row scales.
+// Shared pieces of the paged-decode kernels for Hopper (sm_90a): the
+// per-page route's cluster kernel (paged_decode.cu: B4 on bf16 pools, B5
+// on int8 pools) and the split route's for long tables
+// (paged_decode_split.cu: B6, B6q).
 //
-// Thread layout: a CTA of 128 threads is cut into row groups of
-// kLanes = D/8 threads; each thread of a group owns 8 consecutive elements
-// of the head dim, so one group reads one KV row (one head of a page row:
-// [D] bf16 as 16-byte vectors, or [D] int8 as 8-byte vectors). The
-// kRowsInFlight groups of a CTA take interleaved key rows, and each group
-// keeps its own online-softmax state (m, l, acc) for the G query heads of
-// its kv head. At the end the groups' states are merged through shared
-// memory by their max -- the same merge the split kernel's second pass
-// does across CTAs.
+// Both take one query token per slot against that slot's pages of a
+// shared pool: q [B, Hq, D] bf16; k_pool/v_pool [NB, bs, Hk, D] bf16, or
+// int8 with k_scale/v_scale [NB, bs, Hk] f32 (one scale per row and kv
+// head); block_tables [B, MBPS] int32; seq_lens [B] int32; out [B, Hq, D]
+// bf16. Positions >= seq_len are masked; seq_len == 0 gives zeros. An int8
+// row is dequantized as bf16(f32(q8) * scale) before the dot products, as
+// the JAX package's `_deq` casts to the query's dtype.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "async_tiles.cuh"
+#include "flash_common.cuh"
 
 namespace paged {
 
+using flash::pack_f32;
+
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// 4 bytes global -> shared, asynchronously; zero-fills when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   tiles::smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 8 int8 values and their row's scale -> 8 bf16 of q * scale, each product
+// rounded once from f32 then to bf16. int8 -> f32 is exact and avoids the
+// quarter-rate conversion unit (as in quant_matmul.cu): (q + 128) as the
+// low byte of 2^23's f32 pattern is 2^23 + q + 128, and subtracting
+// 2^23 + 128 leaves q.
+__device__ __forceinline__ uint4 dequant8(uint2 u, float scale) {
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+  uint4 r;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    const uint32_t x = w[i >> 1];
+    const int byte = (i & 1) * 2;
+    const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u,
+                                                 0x7650 + byte));
+    const float hi = __uint_as_float(__byte_perm(x, 0x4B000000u,
+                                                 0x7651 + byte));
+    o[i] = pack_f32((lo - kMagic) * scale, (hi - kMagic) * scale);
   }
+  return r;
 }
 
-// 8 int8 values of one row -> q * scale rounded to bf16, as the JAX
-// package dequantizes (int8 -> f32 * scale -> the compute dtype) before
-// the dot products
-__device__ __forceinline__ void dequant8(const uint2& u, float scale,
-                                         float f[8]) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-  #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    f[i] = __bfloat162float(
-        __float2bfloat16(static_cast<float>(b[i]) * scale));
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~size_t(15);
 }
-
-template <int D, int G>
-struct DecodeState {
-  static constexpr int kLanes = D / 8;                   // threads per row
-  static constexpr int kRowsInFlight = kThreads / kLanes;
-  static_assert(kLanes <= 32 && 32 % kLanes == 0, "row group in one warp");
-
-  float q[G][8];    // this thread's slice of the G query rows, pre-scaled
-  float m[G];       // running max (exp2 domain)
-  float l[G];       // running sum of unrounded p
-  float acc[G][8];  // running sum of bf16(p) * v for this thread's slice
-
-  // q [B, Hq, D]; query head of group g is kvh * G + g
-  __device__ void init(const __nv_bfloat16* __restrict__ qp, int b, int kvh,
-                       int Hq, int lane_c, float scale_log2) {
-    #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const size_t idx =
-          (static_cast<size_t>(b) * Hq + kvh * G + g) * D + lane_c * 8;
-      float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(qp + idx), f);
-      #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        q[g][e] = f[e] * scale_log2;
-        acc[g][e] = 0.f;
-      }
-      m[g] = kNeg;
-      l[g] = 0.f;
-    }
-  }
-
-  // One key row, this thread's 8 elements of K and V as floats: every
-  // thread of the warp must call this (the dot products reduce with warp
-  // shuffles); `ok` false leaves the state as it is.
-  __device__ void update(const float kf[8], const float vf[8], bool ok) {
-    #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-      #pragma unroll
-      for (int e = 0; e < 8; ++e) s += q[g][e] * kf[e];
-      #pragma unroll
-      for (int o = kLanes / 2; o > 0; o >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (ok) {
-        const float mn = fmaxf(m[g], s);
-        const float alpha = exp2f(m[g] - mn);
-        const float p = exp2f(s - mn);
-        // P is cast to V's dtype before P V; the sum keeps the f32 value
-        const float pr = __bfloat162float(__float2bfloat16(p));
-        l[g] = l[g] * alpha + p;
-        #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = acc[g][e] * alpha + pr * vf[e];
-        m[g] = mn;
-      }
-    }
-  }
-
-  // Merge the row groups of the CTA. `smem` holds at least
-  // kSmemFloats floats. Afterwards thread t owns output elements
-  // idx = t, t + 128, ... < G * D (g = idx / D, d = idx % D) and `emit`
-  // is called with (g, d, M, L, O_unnormalized).
-  static constexpr int kSmemFloats = kRowsInFlight * G * (D + 2);
-
-  template <typename Emit>
-  __device__ void merge(float* smem, int row, int lane_c, Emit emit) const {
-    float* sM = smem;
-    float* sL = sM + kRowsInFlight * G;
-    float* sA = sL + kRowsInFlight * G;
-    __syncthreads();  // smem may still be in use by the caller
-    if (lane_c == 0) {
-      #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        sM[row * G + g] = m[g];
-        sL[row * G + g] = l[g];
-      }
-    }
-    #pragma unroll
-    for (int g = 0; g < G; ++g)
-      #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        sA[(row * G + g) * D + lane_c * 8 + e] = acc[g][e];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-      const int g = idx / D;
-      const int d = idx % D;
-      float M = kNeg;
-      for (int r = 0; r < kRowsInFlight; ++r) M = fmaxf(M, sM[r * G + g]);
-      float L = 0.f, O = 0.f;
-      for (int r = 0; r < kRowsInFlight; ++r) {
-        const float w = exp2f(sM[r * G + g] - M);
-        L += sL[r * G + g] * w;
-        O += sA[(r * G + g) * D + d] * w;
-      }
-      emit(g, d, M, L, O);
-    }
-  }
-};
 
 }  // namespace paged

@@ -54,12 +54,12 @@
 
 #include <cooperative_groups.h>
 
-#include "async_tiles.cuh"
-#include "flash_common.cuh"
+#include "paged_common.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace paged;
 using flash::mma_bf16;
 using flash::pack_f32;
 using tiles::cp_async16;
@@ -68,47 +68,7 @@ using tiles::cp_async_wait;
 using tiles::ldsm_x4;
 using tiles::ldsm_x4_trans;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;  // the portable cluster size
-constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 4 bytes global -> shared, asynchronously; zero-fills when !ok
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   tiles::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// 8 int8 values and their row's scale -> 8 bf16 of q * scale, each product
-// rounded once from f32 then to bf16. int8 -> f32 is exact and avoids the
-// quarter-rate conversion unit (as in quant_matmul.cu): (q + 128) as the
-// low byte of 2^23's f32 pattern is 2^23 + q + 128, and subtracting
-// 2^23 + 128 leaves q.
-__device__ __forceinline__ uint4 dequant8(uint2 u, float scale) {
-  constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
-  uint4 r;
-  uint32_t* o = reinterpret_cast<uint32_t*>(&r);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t x = w[i >> 1];
-    const int byte = (i & 1) * 2;
-    const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u,
-                                                 0x7650 + byte));
-    const float hi = __uint_as_float(__byte_perm(x, 0x4B000000u,
-                                                 0x7651 + byte));
-    o[i] = pack_f32((lo - kMagic) * scale, (hi - kMagic) * scale);
-  }
-  return r;
-}
-
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
 
 // Dynamic shared memory, in bytes, for chunks of `rows` key rows (a
 // multiple of 16), a table row of `mbps` block ids and `stages` ring

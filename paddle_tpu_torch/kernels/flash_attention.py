@@ -274,22 +274,8 @@ def _check_seg(what, q, k, seg):
     return tuple(seg)
 
 
-def tile_ranges(ids, block=64):
-    """[min, max] of the ids in each ``block`` consecutive positions,
-    int32 [B, ceil(S / block), 2]: the segment kernels skip a (query
-    block, key tile) pair whose two ranges do not overlap, since no entry
-    of it can be visible whatever the ids are. The ragged last block is
-    padded with its own last id."""
-    B, S = ids.shape
-    n = -(-S // block)
-    if n * block > S:
-        ids = torch.cat([ids, ids[:, -1:].expand(B, n * block - S)], 1)
-    t = ids.view(B, n, block)
-    return torch.stack([t.amin(-1), t.amax(-1)], -1).contiguous()
-
-
-# the classes of a (query block, key tile) pair on the backward kernels'
-# segment branch (``pair_classes``; flash_bwd.cu ``pair_class``)
+# the classes of a (query block, key tile) pair on the kernels' segment
+# branch (``pair_classes``; flash_seg.cuh ``pair_class``)
 SKIP, MASKED, FULL = 0, 1, 2
 # B3 (dK/dV) splits a GQA group over a cluster of two CTAs when its grid
 # has fewer CTAs than this (``dkv_cluster``)
@@ -301,10 +287,10 @@ def tile_bounds(ids, pos, block=64):
     consecutive tokens, from segment ids and positions int32 [B, S]:
     int32 [B, 4, ceil(S / block)], each of the four a contiguous row. The
     ragged last block is padded with its own last id and position. The
-    backward kernels classify a (query block, key tile) pair by these
-    (``pair_classes``); their C entry points compute the 64-token tiles'
-    on the card (``flash_bwd.cu`` ``tile_bounds_kernel``), in this
-    layout."""
+    kernels' segment branch classifies a (query block, key tile) pair by
+    these (``pair_classes``); their C entry points compute the 64-token
+    tiles' on the card (``flash_seg.cuh`` ``tile_bounds_kernel``), in
+    this layout."""
     B, S = ids.shape
     n = -(-S // block)
     t = torch.stack([ids, pos], 1)                        # [B, 2, S]
@@ -321,9 +307,10 @@ def pair_classes(q_bounds, k_bounds, causal):
     causal, every query position lies before every key position),
     ``FULL`` (every entry is: block and tile hold one id between them and,
     causal, the block's first position is not before the tile's last) or
-    ``MASKED``. The backward kernels apply the same rule on the card
-    (``flash_bwd.cu`` ``pair_class``); rows and keys past the ends are
-    theirs to handle."""
+    ``MASKED``. The kernels apply the same rule on the card
+    (``flash_seg.cuh`` ``pair_class``; the forward and dQ at blocks of
+    64 / G positions, dK/dV at 64-row tiles); rows and keys past the ends
+    are theirs to handle."""
     q = q_bounds[..., :, :, None]
     k = k_bounds[..., :, None, :]
     live = (q[..., 0, :, :] <= k[..., 1, :, :]) & \
@@ -351,16 +338,16 @@ def dkv_cluster(B, Hk, G, Sk):
 
 
 def _bounds_workspace(B, S, device):
-    """Room for ``tile_bounds`` of S tokens, which the backward kernels'
+    """Room for ``tile_bounds`` of S tokens, which the segment kernels'
     C entry points fill on the card before they read it."""
     return torch.empty((B, 4, -(-S // 64)), dtype=torch.int32, device=device)
 
 
-def _seg_ptrs(seg, *ranges):
-    """The C entry points' segment pointers: the four tensors and the tile
-    ranges or bounds, NULL where absent (the dense branch)."""
+def _seg_ptrs(seg, *bounds):
+    """The C entry points' segment pointers: the four tensors and the
+    tile-bounds workspaces, NULL where absent (the dense branch)."""
     return [None if t is None else t.data_ptr()
-            for t in (seg or (None,) * 4) + ranges]
+            for t in (seg or (None,) * 4) + bounds]
 
 
 def _count(fn, seg):
@@ -382,14 +369,14 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v)
     seg = _check_seg("flash_fwd", q, k, (q_segment_ids, kv_segment_ids,
                                         q_positions, kv_positions))
-    ranges = (None if seg is None else tile_ranges(seg[1]),)
+    bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
     out = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
     lib = _build.load("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), lse.data_ptr(),
-                             *_seg_ptrs(seg, *ranges), B, Sq, Sk, Hq, Hk, D,
+                             *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D,
                              int(bool(causal)), _scale(scale, D),
                              *_strides(q, k, v), stream)
     _build.check(err, "flash_fwd_bf16")

@@ -18,9 +18,10 @@ float32, one scale per (row, kv head): a row is dequantized as
   shared memory (``decode_cluster_plan`` picks C and the staged chunk).
 - ``paged_decode_attention_chunked`` launches ``csrc/paged_decode_split.cu``
   (counterpart of ``_decode_kernel_chunked``, :186 there, both pool
-  types): the KV sequence is split across CTAs in ``chunk_pages``-page
-  chunks staged through shared memory, then a merge kernel combines the
-  splits by their LSE.
+  types) for long tables: one launch of clusters of up to 16 CTAs per
+  (slot, kv head), each warp streaming 16-row blocks of its CTA's share
+  through its own ``cp.async`` ring, the partials merged through
+  distributed shared memory (``split_cluster_plan`` picks C).
 - ``paged_decode_attention_dense`` is the plain version, a copy of
   ``paddle_tpu/inference/paged.py:1059`` (int8 pools dequantized in the
   gather, as its ``_gather_kv`` does).
@@ -42,11 +43,15 @@ from . import _build
 _NEG = -1e30
 # shared memory a block may use on Hopper (227 KB of the SM's 256 KB)
 SMEM_PER_BLOCK = 227 * 1024
-_CHUNK_CANDIDATES = (1, 2, 4, 8, 16)
-# cluster sizes of the per-page kernel (8 is the portable maximum) and its
-# warps per CTA
+# cluster sizes of the per-page route (8 is the portable maximum) and of
+# the split route (16 needs the non-portable cluster size), and the
+# kernels' warps per CTA
 _CLUSTER_SIZES = (1, 2, 4, 8)
+_SPLIT_CLUSTER_SIZES = (1, 2, 4, 8, 16)
 _DECODE_WARPS = 4
+# the split route grows its clusters until the grid holds this many CTAs
+# per SM (``split_cluster_plan``)
+_SPLIT_CTAS_PER_SM = 2
 
 
 def _gather_kv(pool, idx, scale, dtype):
@@ -205,6 +210,57 @@ def decode_cluster_plan(b, hk, g, npages, bs, d, quantized, num_sms):
     return cluster, pages, 2
 
 
+def split_smem_bytes(npages, d, g, quantized, cluster):
+    """Dynamic shared memory of the split route's kernel (``slots_at`` in
+    ``csrc/paged_decode_split.cu``): the table row's block ids, then each
+    of the 4 warps' 16-row stages (bf16 pools: one stage of a padded K and
+    V tile [16][D + 8] bf16; int8 pools: two of raw rows [16][D] int8 with
+    their f32 scales, after one such bf16 tile for K, then V); the warps'
+    f32 partials reuse those bytes, and past them lie the cluster's f32
+    slots (m, l, O of each rank)."""
+    tile = 16 * (d + 8) * 2
+    warp = tile + 2 * 16 * (2 * d + 8) if quantized else 2 * tile
+    rings = -(-npages * 4 // 16) * 16 + _DECODE_WARPS * warp
+    partials = _DECODE_WARPS * g * (d + 2) * 4
+    return max(rings, partials) + cluster * (2 * g + g * d) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def split_cluster_plan(b, hk, g, npages, d, quantized, num_sms,
+                       cluster=None):
+    """Cluster size C of the split route (long tables,
+    ``paged_decode_attention_chunked``): the smallest of 1, 2, 4, 8, 16
+    whose grid holds ``_SPLIT_CTAS_PER_SM`` CTAs per SM (B * Hk * C >= that
+    many times ``num_sms``), never more than the table's pages and never
+    so many that two CTAs no longer share an SM (``split_smem_bytes``: the
+    cluster's slots grow with C). ``cluster`` forces C; it must fit one
+    CTA's shared memory. Each rank streams its share of a slot's live
+    pages 16 rows at a time, every warp on its own, so no chunk size is
+    planned. Raises ``ValueError`` for a C outside those sizes or one that
+    does not fit."""
+    fits = lambda c, room: split_smem_bytes(npages, d, g, quantized,
+                                            c) <= room
+    if cluster is None:
+        cluster = 1
+        for c in _SPLIT_CLUSTER_SIZES:
+            if c > max(npages, 1) or not fits(c, SMEM_PER_BLOCK // 2):
+                break
+            cluster = c
+            if b * hk * c >= _SPLIT_CTAS_PER_SM * num_sms:
+                break
+    elif cluster not in _SPLIT_CLUSTER_SIZES:
+        raise ValueError(f"split_cluster_plan: cluster {cluster} not in "
+                         f"{_SPLIT_CLUSTER_SIZES}")
+    if not fits(cluster, SMEM_PER_BLOCK):
+        raise ValueError(
+            f"paged_decode_split: a {npages}-page table of head_dim {d} "
+            f"({'int8' if quantized else 'bf16'} pools) at cluster size "
+            f"{cluster} needs "
+            f"{split_smem_bytes(npages, d, g, quantized, cluster)} bytes "
+            f"of shared memory, more than {SMEM_PER_BLOCK}")
+    return cluster
+
+
 def paged_decode_attention_kernel(q, k_pool, v_pool, block_tables,
                                   seq_lens, k_scale=None, v_scale=None):
     """Per-page decode: grid (B, Hk, C) in clusters of C CTAs, one cluster
@@ -241,51 +297,22 @@ paged_decode_attention_kernel.launches = 0
 paged_decode_attention_kernel.launches_q = 0
 
 
-def pick_chunk_pages(npages, bs, d, itemsize, quantized=False):
-    """Pages per staged chunk for the split kernel: the largest candidate
-    whose double-buffered K+V chunk (2 stages x 2 pools x pages x bs rows
-    of D x itemsize bytes, plus a 4-byte scale per row for int8 pools)
-    lets two CTAs share one SM's shared memory, never more than the table
-    holds."""
-    page_bytes = 2 * bs * (d * itemsize + (4 if quantized else 0))
-    best = 1
-    for cpp in _CHUNK_CANDIDATES:
-        if cpp > max(int(npages), 1):
-            break
-        if 2 * cpp * page_bytes <= SMEM_PER_BLOCK // 2:
-            best = cpp
-    return best
-
-
-def split_plan(b, hk, npages, chunk_pages, num_sms):
-    """(nsplit, chunks_per_split): split the table's chunks over enough
-    CTAs that B * Hk * nsplit >= 2 * num_sms where the chunks allow it."""
-    nchunks = -(-npages // chunk_pages)
-    want = -(-2 * num_sms // (b * hk))
-    nsplit = max(1, min(nchunks, want))
-    per = -(-nchunks // nsplit)
-    return -(-nchunks // per), per
-
-
 def paged_decode_attention_chunked(q, k_pool, v_pool, block_tables,
                                    seq_lens, k_scale=None, v_scale=None):
-    """Split-KV decode for long tables: grid (B, Hk, nsplit) writes float32
-    partials (acc, m, l) per split, then a (B, Hk) merge combines them."""
+    """Split-KV decode for long tables: one launch, grid (B, Hk, C) in
+    clusters of C CTAs per slot and kv head, the slot's live pages split
+    over the cluster, streamed by each warp on its own and merged in rank
+    0's shared memory (``split_cluster_plan``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
                                             seq_lens, k_scale, v_scale)
     quantized, b, hq, hk, d, bs, mbps = _check_cuda_args(
         "paged_decode_split", q, k_pool, v_pool, block_tables, seq_lens,
         k_scale, v_scale)
-    g = hq // hk
     sm_scale = 1.0 / math.sqrt(d)
-    cpp = pick_chunk_pages(mbps, bs, d, k_pool.element_size(), quantized)
     num_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, per = split_plan(b, hk, mbps, cpp, num_sms)
-    acc = torch.empty((b, hk, nsplit, g, d), device=q.device,
-                      dtype=torch.float32)
-    m = torch.empty((b, hk, nsplit, g), device=q.device, dtype=torch.float32)
-    l = torch.empty_like(m)
+    cluster = split_cluster_plan(b, hk, hq // hk, mbps, d, quantized,
+                                 num_sms)
     out = torch.empty_like(q)
     lib = _build.load("paged_decode_split")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -293,13 +320,9 @@ def paged_decode_attention_chunked(q, k_pool, v_pool, block_tables,
     err = getattr(lib, fn)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *_scale_ptrs(k_scale, v_scale), block_tables.data_ptr(),
-        seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
-        hq, hk, d, bs, mbps, cpp, per, nsplit, float(sm_scale), stream)
+        seq_lens.data_ptr(), out.data_ptr(), b, hq, hk, d, bs, mbps,
+        cluster, float(sm_scale), stream)
     _build.check(err, fn)
-    err = lib.paged_decode_merge_bf16(
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), b, hq, hk, d, nsplit, per * cpp * bs, stream)
-    _build.check(err, "paged_decode_merge_bf16")
     if quantized:
         paged_decode_attention_chunked.launches_q += 1
     else:

@@ -25,6 +25,8 @@ weight matmul too, at 1e-2: it multiplies the scale after the f32 sum,
 the plain version before, which moves the bf16 output by an ulp at most.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -35,9 +37,10 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_plain, flash_bwd_cuda, flash_bwd_dkv_cuda,
     flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda, pair_classes,
     scaled_dot_product_attention, tile_bounds, varlen_segments)
+from paddle_tpu_torch.kernels import paged_attention as _pa
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
-    paged_decode_attention_kernel)
+    paged_decode_attention_kernel, split_cluster_plan)
 from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
                                                    quant_matmul_plain)
 from paddle_tpu_torch.quantization import _quantize_weight, quantize_rows
@@ -229,6 +232,94 @@ def test_paged_decode_rejects_an_int8_pool_without_scales(dev):
         paged_decode_attention_chunked(q, kp, kp, tbl, sl,
                                        k_scale=torch.ones(3, 16, 2,
                                                           device=dev))
+
+
+def _decode_case(dev, B, Hq, Hk, D, bs, mbps, lens, quantized, seed):
+    """Scattered-block pools, tables and lens; (q, kp, vp, tbl, sl,
+    scales)."""
+    rng = np.random.RandomState(seed)
+    kp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=seed + 1)
+    vp = _randn(dev, B * mbps + 1, bs, Hk, D, seed=seed + 2)
+    q = _randn(dev, B, Hq, D, seed=seed + 3)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tbl = np.zeros((B, mbps), np.int32)
+    for i in range(B):
+        need = min(-(-int(lens[i]) // bs), mbps)
+        tbl[i, :need] = rng.permutation(np.arange(
+            1 + i * mbps, 1 + (i + 1) * mbps))[:need]
+    tbl = torch.as_tensor(tbl, device=dev)
+    sl = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+    return q, kp, vp, tbl, sl, scales
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B,Hq,Hk,D,bs,mbps", [
+    (5, 8, 8, 64, 8, 32),      # G 1, D 64, 8-row pages
+    (5, 32, 4, 128, 16, 24),   # G 8, 16-row pages
+    (5, 16, 4, 128, 32, 20),   # G 4, 32-row pages
+])
+def test_split_decode_matches_plain(dev, monkeypatch, quantized, cluster,
+                                    B, Hq, Hk, D, bs, mbps):
+    """The split route (B6, B6q) at every cluster size its plan can
+    choose (forced): lens of 0, 1, a page boundary, the whole table and
+    one in between; per-slot error, zeros for the empty slot, one launch
+    a call, and the same bits from two calls."""
+    monkeypatch.setattr(_pa, "split_cluster_plan", functools.partial(
+        split_cluster_plan, cluster=cluster))
+    lens = [0, 1, bs, mbps * bs, 3 * bs + 5]
+    q, kp, vp, tbl, sl, scales = _decode_case(dev, B, Hq, Hk, D, bs, mbps,
+                                              lens, quantized, seed=30)
+    wrapper = paged_decode_attention_chunked
+    count = "launches_q" if quantized else "launches"
+    before = getattr(wrapper, count)
+    out = wrapper(q, kp, vp, tbl, sl, **scales)
+    again = wrapper(q, kp, vp, tbl, sl, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, count) == before + 2
+    assert torch.equal(out, again)
+    assert bool(torch.isfinite(out.float()).all())
+    assert out[0].abs().max().item() == 0.0
+    for i in range(1, B):
+        assert _rel_err(out[i], ref[i]) <= DECODE_RTOL, i
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_decode_replays_in_a_cuda_graph(dev, quantized):
+    """The split route's one launch captured in a CUDA graph at engine A's
+    shape (B 8, Hq 32, Hk 8, D 128, 128 16-row pages, lens 1..2048): the
+    capture counts one launch, and a replay after the query changes in
+    place gives the plain version's answer for the new query."""
+    B, Hq, Hk, D, bs, mbps = 8, 32, 8, 128, 16, 128
+    lens = np.linspace(1, 2048, 8).astype(np.int64)
+    q, kp, vp, tbl, sl, scales = _decode_case(dev, B, Hq, Hk, D, bs, mbps,
+                                              lens, quantized, seed=40)
+    wrapper = paged_decode_attention_chunked
+    count = "launches_q" if quantized else "launches"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        wrapper(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = getattr(wrapper, count)
+    with torch.cuda.graph(graph):
+        out = wrapper(q, kp, vp, tbl, sl, **scales)
+    assert getattr(wrapper, count) == before + 1
+    q.copy_(_randn(dev, B, Hq, D, seed=44))
+    graph.replay()
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert getattr(wrapper, count) == before + 1
+    for i in range(B):
+        assert _rel_err(out[i], ref[i]) <= DECODE_RTOL, i
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
 
 
 # the prefill kernel's tile edges (128 tokens x 256 channels, 64-wide k
@@ -539,8 +630,8 @@ def test_flash_segment_kernels_match_plain(dev, name):
 
 @pytest.mark.parametrize("name", ["cross-g4-d64", "runs-g2-d64"])
 def test_device_tile_bounds_match_tile_bounds(dev, monkeypatch, name):
-    """The bounds the C entry points write on the card (B2: the kv side;
-    B3: the q side, then the kv side) are ``tile_bounds``'."""
+    """The bounds the C entry points write on the card (B1 and B2: the kv
+    side; B3: the q side, then the kv side) are ``tile_bounds``'."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     made, real = [], fa._bounds_workspace
     monkeypatch.setattr(fa, "_bounds_workspace",
@@ -549,8 +640,9 @@ def test_device_tile_bounds_match_tile_bounds(dev, monkeypatch, name):
     _bwd_calls(q, k, v, do, causal, kw)()
     torch.cuda.synchronize()
     qs, ks, qp, kp = (kw[n] for n in _SEG_NAMES)
-    want = [tile_bounds(ks, kp), tile_bounds(qs, qp), tile_bounds(ks, kp)]
-    assert len(made) == 3
+    want = [tile_bounds(ks, kp), tile_bounds(ks, kp), tile_bounds(qs, qp),
+            tile_bounds(ks, kp)]
+    assert len(made) == 4
     for got, ref in zip(made, want):
         assert torch.equal(got, ref)
 
@@ -571,8 +663,8 @@ def test_segment_cases_reach_every_pair_class(dev):
 
 
 def test_flash_segment_forward_replays_in_a_cuda_graph(dev):
-    """The segment forward (its tile ranges included) captured in a CUDA
-    graph and replayed on new inputs gives the eager result."""
+    """The segment forward (its tile-bounds launch included) captured in
+    a CUDA graph and replayed on new inputs gives the eager result."""
     q, k, v, _, causal, kw = _seg_inputs(dev, "ragged-g4-d128")
     flash_fwd_cuda(q, k, v, causal, **kw)
     torch.cuda.synchronize()
@@ -594,6 +686,53 @@ def test_flash_segment_wrappers_reject_bad_ids(dev):
                        q_positions=ids, kv_positions=ids)
     with pytest.raises(ValueError, match="segment branch takes all"):
         flash_fwd_cuda(q, q, q, q_segment_ids=ids)
+
+
+# the segment forward's packed cases: kv sequences of 1, 70, 330, 0 and 97
+# tokens, queries over all of each, 25 of them over the empty one (rows
+# that see no key); Sq 523 and Sk 498 end inside a block and a tile, and
+# the 330-token sequence's late blocks lie after its early tiles
+_FWD_LENS_Q = [1, 70, 330, 25, 97]
+_FWD_LENS_K = [1, 70, 330, 0, 97]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hq,Hk", [(8, 8), (16, 4), (16, 2)])
+def test_flash_segment_forward_matches_plain(dev, Hq, Hk, D, causal):
+    """B1-seg at G 1, 4 and 8, D 64 and 128, causal or not, on a packed
+    row whose (query block, key tile) pairs reach every class at the
+    forward's blocks of 64 / G positions: O and LSE against the plain
+    version, O 0 and LSE +1e30 on rows that see no key, one launch a call,
+    the same bits from two calls."""
+    cu = lambda ls: np.concatenate([[0], np.cumsum(ls)]).tolist()
+    seg = _packed_seg(dev, cu(_FWD_LENS_Q), cu(_FWD_LENS_K))
+    kw = dict(zip(_SEG_NAMES, seg))
+    cls = pair_classes(tile_bounds(seg[0], seg[2], 64 * Hk // Hq),
+                       tile_bounds(seg[1], seg[3]), causal)
+    assert set(cls.unique().tolist()) == {SKIP, MASKED, FULL}
+    Sq, Sk = seg[0].shape[1], seg[1].shape[1]
+    q = _randn(dev, 1, Sq, Hq, D, seed=51)
+    k = _randn(dev, 1, Sk, Hk, D, seed=52)
+    v = _randn(dev, 1, Sk, Hk, D, seed=53)
+    before = (flash_fwd_cuda.seg_launches, flash_fwd_cuda.launches)
+    o, lse = flash_fwd_cuda(q, k, v, causal, scale=0.1, **kw)
+    o2, lse2 = flash_fwd_cuda(q, k, v, causal, scale=0.1, **kw)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale=0.1,
+                                           return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.seg_launches, flash_fwd_cuda.launches) == \
+        (before[0] + 2, before[1])
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert bool(torch.isfinite(o.float()).all())
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATOL
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL
+    rows, _ = _unseen(kw, causal)
+    assert bool(rows.any())
+    r = rows[..., None, None].expand_as(o)
+    assert o[r].abs().max().item() == 0.0
+    assert bool((lse.transpose(1, 2)[rows] == 1e30).all())
 
 
 # digests of the dense B1-B3 outputs (``tools/torch_flash_digest.py``,

@@ -1,18 +1,20 @@
 """PyTorch port: the tile bounds and (query block, key tile) pair classes
-that the backward kernels' segment branch walks by.
+that the segment branch of the flash kernels (B1, B2, B3) walks by.
 
 ``tile_bounds`` gives each 64-token tile's [id min, id max, position min,
 position max]; ``pair_classes`` turns a query block's and a key tile's
 bounds into SKIP (no pair inside can be visible), FULL (every pair inside
 is visible, so the kernel runs it without a mask) or MASKED. The CUDA
-kernels (``flash_bwd.cu`` ``pair_class``) apply the same rule on the card,
-where ``tests/test_torch_cuda_kernels.py`` holds their gradients against
-the plain backward. Here, on the CPU, the rule itself is held against the
-segment mask (``_block_mask`` of the Pallas kernels: equal ids and, if
-causal, q_pos >= kv_pos) over every pair of a block: a visible pair never
-lies in a SKIP pair, and every pair of a FULL pair is visible. Inputs are
+kernels (``flash_seg.cuh`` ``pair_class``) apply the same rule on the card,
+where ``tests/test_torch_cuda_kernels.py`` holds their outputs and
+gradients against the plain pair. Here, on the CPU, the rule itself is
+held against the segment mask (``_block_mask`` of the Pallas kernels:
+equal ids and, if causal, q_pos >= kv_pos) over every pair of a block: a
+visible pair never lies in a SKIP pair, and every pair of a FULL pair is
+visible. Inputs are
 seeded numpy draws and the varlen phase's patterns V1, V2 and V3
-(``chip_smoke.py``), at the blocks of B2 (64 / G positions) and B3 (64).
+(``chip_smoke.py``), at the blocks of B1 and B2 (64 / G positions) and B3
+(64).
 """
 
 import importlib.util
@@ -180,3 +182,33 @@ def test_pair_class_cases():
 ])
 def test_dkv_cluster(B, Hk, G, Sk, want):
     assert fa.dkv_cluster(B, Hk, G, Sk) == want
+
+
+@pytest.mark.parametrize("block", [1, 8, 16, 64])
+@pytest.mark.parametrize("name", ["V2", "random-cross", "random-ids"])
+def test_forward_block_bounds_ignore_rows_past_sq(name, block):
+    """A query block's bounds (B1 and B2 reduce their own on the card over
+    the block's live positions) cover its rows before Sq only: the ragged
+    last block's padding repeats its last real row and adds nothing."""
+    qseg, _, qpos, _ = _pattern(name)
+    S = qseg.shape[1]
+    b = fa.tile_bounds(qseg, qpos, block)
+    assert b.shape[2] == -(-S // block)
+    for t in range(b.shape[2]):
+        ids = qseg[:, t * block:min(S, (t + 1) * block)]
+        pos = qpos[:, t * block:min(S, (t + 1) * block)]
+        want = torch.stack([ids.amin(1), ids.amax(1), pos.amin(1),
+                            pos.amax(1)], 1)
+        assert torch.equal(b[:, :, t], want)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("name", ["V1", "V3"])
+def test_forward_blocks_reach_every_pair_class(name, G):
+    """The forward's folded blocks (64 / G positions: 64, 16, 8) against
+    64-key tiles reach SKIP, FULL and MASKED pairs on the varlen phase's
+    V1 and V3, causal, so the chip run times every path of B1-seg."""
+    qseg, kseg, qpos, kpos = _pattern(name)
+    cls = fa.pair_classes(fa.tile_bounds(qseg, qpos, 64 // G),
+                          fa.tile_bounds(kseg, kpos), True)
+    assert set(cls.unique().tolist()) == {fa.SKIP, fa.MASKED, fa.FULL}

@@ -293,9 +293,3 @@ def test_segment_wrappers_refuse_cpu_and_partial_segments():
     with pytest.raises(ValueError, match="segment branch takes all"):
         fa._check_seg("flash_fwd", q, q, (ids, None, None, None))
 
-
-def test_tile_ranges():
-    ids = torch.tensor([[0, 0, 1, 5, 2, 2, 2]], dtype=torch.int32)
-    r = fa.tile_ranges(ids, block=3)
-    assert r.dtype == torch.int32 and r.is_contiguous()
-    assert r.tolist() == [[[0, 1], [2, 5], [2, 2]]]

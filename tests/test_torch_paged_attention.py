@@ -24,10 +24,10 @@ from paddle_tpu.kernels.pallas.paged_attention import (
 from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS,
                                               paged_decode_attention)
 from paddle_tpu_torch.kernels.paged_attention import (
-    SMEM_PER_BLOCK, _gather_kv, decode_cluster_plan, decode_cluster_shares,
-    decode_smem_bytes, paged_decode_attention_chunked,
+    _SPLIT_CTAS_PER_SM, SMEM_PER_BLOCK, _gather_kv, decode_cluster_plan,
+    decode_cluster_shares, decode_smem_bytes, paged_decode_attention_chunked,
     paged_decode_attention_dense, paged_decode_attention_kernel,
-    pick_chunk_pages, split_plan)
+    split_cluster_plan, split_smem_bytes)
 
 ATOL = 1e-5
 INT8_ATOL = 5e-5
@@ -119,15 +119,16 @@ def test_routing_rejects_unknown_mode():
                                kernel_mode="pallas")
 
 
-def test_split_plan_fills_the_card():
-    # Llama-3-8B decode: B 8, Hk 8, a 128-page table of 16-token pages
-    cpp = pick_chunk_pages(128, 16, 128, 2)
-    assert 2 * 2 * cpp * 16 * 128 * 2 <= 227 * 1024 // 2
-    nsplit, per = split_plan(8, 8, 128, cpp, 132)
-    assert 8 * 8 * nsplit >= 2 * 132
-    assert nsplit * per * cpp >= 128 and (nsplit - 1) * per * cpp < 128
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_cluster_plan_at_engine_a_shape(quantized):
+    # Llama-3-8B decode on engine A: B 8, Hk 8, G 4, a 128-page table; C
+    # is the smallest size whose grid holds _SPLIT_CTAS_PER_SM CTAs per SM
+    cluster = split_cluster_plan(8, 8, 4, 128, 128, quantized, 132)
+    assert cluster in (1, 2, 4, 8, 16)
+    assert 8 * 8 * cluster >= _SPLIT_CTAS_PER_SM * 132
+    assert 8 * 8 * cluster // 2 < _SPLIT_CTAS_PER_SM * 132
     # a table too short to split stays one CTA per (slot, kv head)
-    assert split_plan(8, 8, 1, 1, 132) == (1, 1)
+    assert split_cluster_plan(8, 8, 4, 1, 128, quantized, 132) == 1
 
 
 def _int8_case(B, HQ, HK, D, BS, MBPS, lens, seed=0):
@@ -171,11 +172,59 @@ def test_quantized_plain_decode_matches_pallas(B, HQ, HK, D, BS, MBPS, lens,
             assert torch.all(out[i] == 0)
 
 
-def test_int8_chunks_hold_twice_the_pages():
-    # Llama-3-8B decode, 16-token pages of 128-wide heads: the int8 page
-    # (with its scale rows) is about half a bf16 one
-    assert pick_chunk_pages(128, 16, 128, 2) == 4
-    assert pick_chunk_pages(128, 16, 128, 1, quantized=True) == 8
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_cluster_plan_fits_two_ctas_per_sm(quantized, cluster):
+    """The size the split route picks leaves room for two CTAs on an SM
+    (the block ids, the warps' stages and, on rank 0, the cluster's
+    slots), whatever the grid asks for, and at engine A's shape for as
+    many as the kernel's launch bounds ask (four, three for int8 pools); a
+    forced size must fit one CTA, and one the kernel cannot launch is
+    refused."""
+    for b, d, g in ((8, 128, 4), (1, 128, 8), (1, 64, 8), (2, 128, 1)):
+        for npages in (16, 128, 512):
+            c = split_cluster_plan(b, 1, g, npages, d, quantized,
+                                   132 * cluster)
+            assert 2 * split_smem_bytes(npages, d, g, quantized, c) <= \
+                SMEM_PER_BLOCK
+            assert split_cluster_plan(b, 1, g, npages, d, quantized, 132,
+                                      cluster=cluster) == cluster
+            assert split_smem_bytes(npages, d, g, quantized, cluster) <= \
+                SMEM_PER_BLOCK
+    c = split_cluster_plan(8, 8, 4, 128, 128, quantized, 132)
+    assert (3 if quantized else 4) * \
+        split_smem_bytes(128, 128, 4, quantized, c) <= SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="cluster"):
+        split_cluster_plan(8, 8, 4, 128, 128, quantized, 132, cluster=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        split_cluster_plan(8, 8, 4, 1 << 16, 128, quantized, 132,
+                           cluster=cluster)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_split_cluster_plan_covers_every_live_page(quantized, d, bs):
+    """The split route's plan: C <= 16 and never more than the pages
+    unless forced; every live page of every length, from 0 to past the
+    table, goes to exactly one rank, in order, at most ceil(live / C) a
+    rank (the kernel's share formula)."""
+    for b, hk, g in ((8, 8, 4), (1, 1, 8), (3, 2, 1), (2, 8, 2)):
+        for npages in (16, 17, 33, 64, 128):
+            for forced in (None, 16):
+                cluster = split_cluster_plan(b, hk, g, npages, d, quantized,
+                                             132, cluster=forced)
+                assert cluster in (1, 2, 4, 8, 16)
+                assert forced or cluster <= npages
+                for length in range(0, npages * bs + 2 * bs + 1, 7):
+                    live = -(-min(length, npages * bs) // bs)
+                    shares = decode_cluster_shares(length, bs, npages,
+                                                   cluster)
+                    assert len(shares) == cluster
+                    pages = [p for p0, p1 in shares for p in range(p0, p1)]
+                    assert pages == list(range(live))
+                    assert all(p1 - p0 <= -(-live // cluster)
+                               for p0, p1 in shares)
 
 
 @pytest.mark.parametrize("bs", [8, 16, 32])
@@ -291,3 +340,20 @@ def test_cluster_split_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
         else:
             assert (diff / ref[i].float().abs().max()).item() <= \
                 DECODE_RTOL, i
+
+
+@pytest.mark.parametrize("pools", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("B,HQ,HK,D,BS,MBPS,lens", [
+    # long tables (the split route's): empty, one key, a page boundary,
+    # the whole table, past it
+    (5, 8, 2, 32, 16, 20, [0, 1, 16, 320, 333]),
+    (3, 8, 8, 64, 8, 17, [9, 136, 70]),       # G 1, 8-row pages
+])
+def test_split_route_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
+                                         cluster, pools):
+    """The split route's clusters (up to 16 ranks) on long tables: the
+    plain version split along the ranks' shares and merged in f32 matches
+    the unsplit one, as for the per-page route."""
+    test_cluster_split_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
+                                           cluster, pools)

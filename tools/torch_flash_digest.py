@@ -15,6 +15,12 @@ causal), the digests of O and LSE (``flash_fwd_cuda``), dQ
 come from numpy with a fixed seed, cast to bf16 on the card; the kernels
 use no atomics, so equal code gives equal bits. The GPU tests hold the
 current tree to digests recorded from an earlier one with this script.
+
+The line also carries ``seg_digests``: the segment branch's outputs at
+B 2, S 300, Hq 16, Hk 4, D 64, causal, ids (pos // 40) % 3 with 20 orphan
+queries: O and LSE of B1-seg, and dQ of B2-seg and dK, dV of B3-seg on O
+and LSE from ``flash_attention_plain`` (the same inputs for every
+checkout, whatever its forward gives).
 """
 
 from __future__ import annotations
@@ -61,6 +67,42 @@ def digests(fa):
     return out
 
 
+def seg_digests(fa):
+    """Digests of the segment kernels of ``fa`` on fixed inputs; B2-seg
+    and B3-seg take O and LSE from the plain forward."""
+    import numpy as np
+    import torch
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    B, S, hq, hk, dh = 2, 300, 16, 4, 64
+    rng = np.random.default_rng(7)
+    mk = lambda h: torch.from_numpy(rng.standard_normal(
+        (B, S, h, dh)).astype(np.float32)).to("cuda", torch.bfloat16)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)
+    kseg = ((pos // 40) % 3).expand(B, S).contiguous()
+    qseg = kseg.clone()
+    qseg[:, 150:170] = 5
+    p = pos.expand(B, S).contiguous()
+    kw = dict(q_segment_ids=qseg, kv_segment_ids=kseg, q_positions=p,
+              kv_positions=p.clone())
+    o, lse = fa.flash_fwd_cuda(q, k, v, True, **kw)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, True, return_lse=True,
+                                          **kw)
+    delta = fa.flash_delta(o_p, do)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, True, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, True, **kw)
+    torch.cuda.synchronize()
+    return dict(flash_fwd=sha(o, lse), flash_bwd_dq=sha(dq),
+                flash_bwd_dkv=sha(dk, dv))
+
+
 def one(root):
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -69,7 +111,7 @@ def one(root):
     _build.build_all(["flash_fwd", "flash_bwd"])
     print("digest " + json.dumps(dict(
         card=torch.cuda.get_device_name(0), root=root,
-        digests=digests(fa))), flush=True)
+        digests=digests(fa), seg_digests=seg_digests(fa))), flush=True)
 
 
 def main(argv):
