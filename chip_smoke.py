@@ -26,7 +26,11 @@
    projection shapes and at the longest prefill (M 1008) for each of the
    four layer shapes (and gate/up at the shortest, M 112), with its sums
    over one decode step's 225 launches and one prefill's 224 layer
-   launches against their bounds.
+   launches against their bounds. Every B7 shape is also a graph replay
+   (with the wrapper's host time per call), one decode layer's seven B7
+   launches are one graph (the step: 32 of them and the LM head's), and
+   ``torch._weight_int8pack_mm`` is timed beside ``F.linear`` where this
+   build has it for CUDA.
 3. Varlen phase: packed sequences through the segment branch of B1-B3,
    bf16, ``requires_grad`` inputs, through the public entry points: V1
    ``nn.functional.flash_attn_unpadded`` at Llama-3-8B width (Hq 32, Hk 8,
@@ -157,6 +161,11 @@ QMM_SHORT_M = 112                    # the shortest padded prompt of A8
 # kernel). Gate/up first: the kernel's prefill record shape.
 QMM_PREFILL = QMM_DECODE[:4]
 QMM_PER_FORWARD = 7 * LAYERS + 1     # B7 launches per prefill or decode step
+# one layer's B7 launches at decode, in the model's order: (name, N, K)
+QMM_LAYER = (("q_proj", 4096, 4096), ("k_proj", 1024, 4096),
+             ("v_proj", 1024, 4096), ("o_proj", 4096, 4096),
+             ("gate_proj", 14336, 4096), ("up_proj", 14336, 4096),
+             ("down_proj", 4096, 14336))
 PREFILL_PROFILE_LEN = 1000           # one prompt, padded to 1008
 # varlen phase (segment branch of B1-B3): V1's packed row and longest
 # sequence, V2's packed kv row and longest sequence, V3's sequence length
@@ -883,58 +892,170 @@ def decode_phase(torch, timer, name, wrapper, B, mbps, lens, seed,
     return rec
 
 
-def qmm_phase(torch, timer, M, N, K, seed):
-    """B7 against ``quant_matmul_plain`` on x [M, K] bf16 and a weight
-    [N, K] quantized by the port's own ``_quantize_weight`` (bf16 scales,
-    handed to the kernel in float32, as ``ConvertedInt8Linear`` does).
-    Error: max |kernel - plain| / max |plain|. Library yardstick:
-    ``F.linear`` on a bf16 copy of w * s made outside the timed call -- the
-    same product, reading twice the weight bytes. Cold L2: at decode every
-    weight is read once per step, far more than the 50 MB L2 holds."""
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_plain)
+def int8pack_library(torch):
+    """``torch._weight_int8pack_mm`` where this build has a CUDA kernel for
+    it, else None: the one PyTorch call that computes B7's function on
+    B7's own bytes (int8 [N, K] weight, per-channel scales, bf16 x). A
+    yardstick only; the port never calls it."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None or not torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::_weight_int8pack_mm", "CUDA"):
+        return None
+    return fn
+
+
+def qmm_inputs(torch, M, N, K, seed):
+    """x [M, K] bf16 and a weight [N, K] quantized by the port's own
+    ``_quantize_weight`` (bf16 scales, handed to the kernel in float32, as
+    ``ConvertedInt8Linear`` does)."""
     from paddle_tpu_torch.quantization import _quantize_weight
-    F = torch.nn.functional
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn(M, K, generator=g, device=DEVICE, dtype=torch.bfloat16)
     w, s = _quantize_weight(
         torch.randn(N, K, generator=g, device=DEVICE,
                     dtype=torch.bfloat16) * 0.02, 0)
-    s = s.float()
+    return x, w, s.float()
+
+
+def rel_err(out, ref):
+    """max |out - ref| / max |ref| and max |out - ref|."""
+    diff = (out.float() - ref.float()).abs().max().item()
+    return diff / max(ref.float().abs().max().item(), 1e-6), diff
+
+
+def qmm_phase(torch, timer, M, N, K, seed, plain=True, library=True):
+    """B7 against ``quant_matmul_plain`` on ``qmm_inputs``. Error: max
+    |kernel - plain| / max |plain|. Times: CUDA events around the wrapper
+    (``ms``), a CUDA-graph replay (``graph_ms``: the device's time without
+    the wrapper's host cost) and the wrapper's host time per call
+    (``host_ms``). Library yardsticks (``library``): ``F.linear`` on a bf16
+    copy of w * s made outside the timed call -- the same product,
+    reading twice the weight bytes -- and, where this build has it for
+    CUDA, ``torch._weight_int8pack_mm`` on the int8 weight with the scales
+    in bf16 (exact: they come from bf16). Cold L2: at decode every weight
+    is read once per step, far more than the 50 MB L2 holds. ``plain``
+    times the plain version too."""
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_plain)
+    F = torch.nn.functional
+    x, w, s = qmm_inputs(torch, M, N, K, seed)
     out = quant_matmul(x, w, s)
     ref = quant_matmul_plain(x, w, s)
     torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs().max().item()
-    rel = diff / max(ref.float().abs().max().item(), 1e-6)
+    rel, diff = rel_err(out, ref)
     ok = rel <= QMM_RTOL and bool(torch.isfinite(out.float()).all()) and \
         out.shape == (M, N)
-    del out, ref
-    ms = timer(lambda: quant_matmul(x, w, s), cold=True)
-    plain_ms = timer(lambda: quant_matmul_plain(x, w, s), cold=True,
-                     iters=10)
-    wb = (w.float() * s[:, None]).to(torch.bfloat16)
-    library_ms = timer(lambda: F.linear(x, wb), cold=True)
-    graphs = {}
-    if M > 8:  # the prefill kernel; decode's records stay as they were
-        graphs = dict(
-            graph_ms=timer.graph(lambda: quant_matmul(x, w, s), cold=True),
-            library_graph_ms=timer.graph(lambda: F.linear(x, wb),
-                                         cold=True))
-    del wb
+    del out
+    run = lambda: quant_matmul(x, w, s)
+    rec = dict(M=M, N=N, K=K, max_abs_err=diff, rel_err=rel,
+               ms=timer(run, cold=True),
+               graph_ms=timer.graph(run, cold=True), host_ms=timer.host(run))
+    if plain:
+        rec["plain_ms"] = timer(lambda: quant_matmul_plain(x, w, s),
+                                cold=True, iters=10)
+    if library:
+        wb = (w.float() * s[:, None]).to(torch.bfloat16)
+        lib = lambda: F.linear(x, wb)
+        rec.update(library_ms=timer(lib, cold=True),
+                   library_graph_ms=timer.graph(lib, cold=True),
+                   library="F.linear on a bf16 copy of w*s (2x the weight "
+                           "bytes)")
+        del wb
+        pack = int8pack_library(torch)
+        if pack is not None:
+            sb = s.bfloat16()
+            prel, _ = rel_err(pack(x, w, sb), ref)
+            lib = lambda: pack(x, w, sb)
+            rec.update(int8pack_ms=timer(lib, cold=True),
+                       int8pack_graph_ms=timer.graph(lib, cold=True),
+                       int8pack_rel_err=prel)
+        rec["int8pack_cuda"] = pack is not None
+    del ref
     nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
-    bms, by = bound(nbytes, 2 * M * N * K)
-    rec = dict(M=M, N=N, K=K, max_abs_err=diff, rel_err=rel, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, **graphs,
-               library="F.linear on a bf16 copy of w*s (2x the weight bytes)",
-               bound_ms=bms, bound_by=by, ok=ok)
-    shown = "".join(f" {k} {v:.4f}" for k, v in graphs.items())
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * M * N * K)
+    rec["ok"] = ok
+    shown = "".join(f" {k} {rec[k]:.4f}" for k in (
+        "graph_ms", "host_ms", "plain_ms", "library_ms", "library_graph_ms",
+        "int8pack_ms", "int8pack_graph_ms") if k in rec)
     print(f"quant_matmul M={M} N={N} K={K}: err {diff:.3e} (rel "
-          f"{rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"F.linear bf16 {library_ms:.4f} ms bound {bms:.4f} ms ({by})"
-          f"{shown}", flush=True)
+          f"{rel:.3e}) | kernel {rec['ms']:.4f} ms{shown} bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
     if not ok:
         fail(f"quant_matmul disagrees with quant_matmul_plain at M={M} "
              f"N={N} K={K}: relative error {rel} (limit {QMM_RTOL})")
+    return rec
+
+
+def qmm_layer_phase(torch, timer, M=8, seed=3300, library=True):
+    """One Llama-3-8B layer's seven B7 launches at decode (``QMM_LAYER``,
+    the model's order), x [M, K] of each input width, on the layer's own
+    int8 weights (~218 MB), captured in one CUDA graph and replayed with
+    the L2 evicted before each replay: the layer's B7 time without a
+    per-launch event floor. Each output is held against the plain
+    version. With ``library``, the same seven products through
+    ``F.linear`` on bf16 copies and, where this build has it,
+    ``torch._weight_int8pack_mm``, each as one graph too."""
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_plain)
+    F = torch.nn.functional
+    layer = []
+    for i, (name, n, k) in enumerate(QMM_LAYER):
+        x, w, s = qmm_inputs(torch, M, n, k, seed + i)
+        if layer and layer[0][1].shape[1] == k:
+            x = layer[0][1]  # q, k, v, gate, up read the same x
+        layer.append((name, x, w, s))
+    outs = [quant_matmul(x, w, s) for _, x, w, s in layer]
+    errs = {name: rel_err(out, quant_matmul_plain(x, w, s))[0]
+            for (name, x, w, s), out in zip(layer, outs)}
+    del outs
+    bad = {k: v for k, v in errs.items() if not v <= QMM_RTOL}
+    if bad:
+        fail(f"quant_matmul disagrees with quant_matmul_plain in the "
+             f"decode layer (M={M}): {bad} (limit {QMM_RTOL})")
+    rec = dict(M=M, rel_err=max(errs.values()), graph_ms=timer.graph(
+        lambda: [quant_matmul(x, w, s) for _, x, w, s in layer], cold=True))
+    if library:
+        wbs = [(x, (w.float() * s[:, None]).to(torch.bfloat16))
+               for _, x, w, s in layer]
+        rec["library_graph_ms"] = timer.graph(
+            lambda: [F.linear(x, wb) for x, wb in wbs], cold=True)
+        del wbs
+        pack = int8pack_library(torch)
+        if pack is not None:
+            sbs = [(x, w, s.bfloat16()) for _, x, w, s in layer]
+            rec["int8pack_graph_ms"] = timer.graph(
+                lambda: [pack(x, w, sb) for x, w, sb in sbs], cold=True)
+    nbytes = sum(M * k * 2 + n * k + n * 4 + M * n * 2
+                 for _, n, k in QMM_LAYER)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nbytes, sum(2 * M * n * k for _, n, k in QMM_LAYER))
+    print(f"quant_matmul decode layer (M {M}, 7 launches in one graph): "
+          + " ".join(f"{k} {rec[k]:.4f}" for k in (
+              "graph_ms", "library_graph_ms", "int8pack_graph_ms",
+              "bound_ms") if k in rec) + f" (rel err {rec['rel_err']:.3e})",
+          flush=True)
+    return rec
+
+
+def qmm_decode_step(decode, layer):
+    """One decode step's B7 time (225 launches) from the per-shape
+    records ``decode`` (``QMM_DECODE``'s order) and the layer graph
+    ``layer``: sums over the launches of events and of per-shape graph
+    replays, and ``LAYERS`` x the layer graph + the LM head's graph."""
+    head = decode[-1]
+    per = [n for _, n in QMM_DECODE]
+    rec = {key: sum(r[key] * n for r, n in zip(decode, per))
+           for key in ("ms", "graph_ms", "bound_ms", "library_ms",
+                       "library_graph_ms", "int8pack_ms",
+                       "int8pack_graph_ms")
+           if all(key in r for r in decode)}
+    rec["layer_graph_ms"] = LAYERS * layer["graph_ms"] + head["graph_ms"]
+    for lib in ("library", "int8pack"):
+        key = lib + "_graph_ms"
+        if key in layer and key in head:
+            rec["layer_" + key] = LAYERS * layer[key] + head[key]
+    print("quant_matmul per decode step (M 8, 225 launches): "
+          + " ".join(f"{k} {v:.4f}" for k, v in rec.items()), flush=True)
     return rec
 
 
@@ -961,14 +1082,8 @@ def kernel_phases(torch):
             quantized=quantized, beside=paged_decode_attention_kernel)]
     qmm = [qmm_phase(torch, timer, 8, n, k, seed=3000 + i)
            for i, ((n, k), _) in enumerate(QMM_DECODE)]
-    step_ms = sum(r["ms"] * per for r, (_, per) in zip(qmm, QMM_DECODE))
-    step_bound = sum(r["bound_ms"] * per
-                     for r, (_, per) in zip(qmm, QMM_DECODE))
-    step_lib = sum(r["library_ms"] * per
-                   for r, (_, per) in zip(qmm, QMM_DECODE))
-    print(f"quant_matmul per decode step (M 8, 225 launches): kernel "
-          f"{step_ms:.4f} ms, weight-read bound {step_bound:.4f} ms, "
-          f"F.linear on bf16 copies {step_lib:.4f} ms", flush=True)
+    layer = qmm_layer_phase(torch, timer)
+    step = qmm_decode_step(qmm, layer)
     prefill = [qmm_phase(torch, timer, QMM_PREFILL_M, n, k, seed=3100 + i)
                for i, ((n, k), _) in enumerate(QMM_PREFILL)]
     sums = {key: sum(r[key] * per for r, (_, per) in zip(prefill,
@@ -991,8 +1106,8 @@ def kernel_phases(torch):
             "flash_bwd_dq": [r["flash_bwd_dq"] for r in bwd],
             "flash_bwd_dkv": [r["flash_bwd_dkv"] for r in bwd],
             **decode, "quant_matmul": qmm,
-            "quant_matmul_decode_step": dict(
-                ms=step_ms, bound_ms=step_bound, library_ms=step_lib),
+            "quant_matmul_decode_step": step,
+            "quant_matmul_decode_layer": layer,
             "quant_matmul_prefill": dict(M=QMM_PREFILL_M, launches=launches,
                                          **sums)}
 
@@ -1793,10 +1908,14 @@ def main():
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "library_graph_ms")},
                 per_prefill=phases["quant_matmul_prefill"])
-        # device-only times (CUDA-graph replays) where the phase took them
-        graphs = {k: main_rec[k] for k in ("graph_ms", "library_graph_ms",
-                                           "graph_share_of_bound")
-                  if k in main_rec}
+            paths["decode_step"] = phases["quant_matmul_decode_step"]
+            paths["decode_layer"] = phases["quant_matmul_decode_layer"]
+        # device-only times (CUDA-graph replays) where the phase took them,
+        # and B7's second library yardstick
+        graphs = {k: main_rec[k] for k in (
+            "graph_ms", "library_graph_ms", "graph_share_of_bound",
+            "host_ms", "int8pack_ms", "int8pack_graph_ms", "int8pack_cuda")
+            if k in main_rec}
         records.append(dict(**paths, **graphs,
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches,

@@ -70,6 +70,8 @@ SIGNATURES = {
         # x, w_int8, w_scales, y, workspace, M, N, K, k chunks per split,
         # stream
         "quant_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
+        # x, w_int8, w_scales, y, M, N, K, cluster size, stream (M <= 8)
+        "quant_matmul_decode_bf16": [_P] * 4 + [_I] * 4 + [_P],
     },
 }
 

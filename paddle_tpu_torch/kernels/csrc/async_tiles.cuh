@@ -172,6 +172,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate));
 }
 
+// --- thread-block clusters ---------------------------------------------
+
+// The two halves of a cluster barrier, apart. A CTA may write into another
+// CTA's shared memory only once that one has started: every thread arrives
+// at its kernel's start and waits before its first remote store.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // opt a kernel into more than 48 KB of dynamic shared memory, once
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {

@@ -130,6 +130,7 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   cg::cluster_group cluster = cg::this_cluster();
   const int nrank = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  if (nrank > 1) tiles::cluster_arrive();  // waited for before remote stores
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int Hq = Hk * G;
@@ -349,6 +350,7 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kSlot = 2 * G + G * D;  // one rank's m, l, O
   float* slots = reinterpret_cast<float*>(smem + slots_at<D, G, Q>(mbps));
   float* mine_slot = cluster.map_shared_rank(slots, 0) + rank * kSlot;
+  if (nrank > 1) tiles::cluster_wait();  // rank 0 has started
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D;
     float M = kNeg;

@@ -8,32 +8,82 @@
 // f32. w is PyTorch's Linear layout (K-contiguous); the TPU kernel takes
 // [K, N].
 //
-// What bounds it on this card: at decode (M = 8 slot rows) bytes -- the
+// What bounds it on this card: at decode (M <= 8 slot rows) bytes -- the
 // int8 weight is read once and each byte feeds M multiply-adds, far under
-// the ~295 flops/byte where the tensor cores would be the limit. At
-// prefill M is the padded prompt length (32 to 1008 on the serving path):
-// at M 1008 operations (2 M N K flops, 0.12 ms for the gate/up shape at
-// the bf16 peak), at M 112 still bytes (the 58.7 MB gate/up weight
-// streams in 0.019 ms, the operations take 0.013).
+// the ~295 flops/byte where the tensor cores would be the limit (gate/up:
+// 58.7 MB, 0.0176 ms at 3.35 TB/s). At prefill M is the padded prompt
+// length (32 to 1008 on the serving path): at M 1008 operations (2 M N K
+// flops, 0.12 ms for the gate/up shape at the bf16 peak), at M 112 still
+// bytes (the weight streams in 0.019 ms, the operations take 0.013).
 //
-// Both paths: int8 -> bf16 is exact (|q| <= 127 fits bf16's 8-bit
+// Both paths: int8 -> bf16 is exact (|q| <= 128 fits bf16's 8-bit
 // significand), so the products run on the tensor cores in bf16 on
 // (q, x), summed in f32, and s[n] multiplies each output channel's sum in
 // the epilogue; one bf16 rounding of y. That equals the TPU kernel's order
-// (w * s first, then the dot) up to f32 rounding.
+// (w * s first, then the dot) up to f32 rounding. The conversion
+// (`i8x4`) is a byte permutation and one f32 subtract a value: a byte,
+// biased by 128, becomes the low mantissa byte of 2^23's f32 pattern, and
+// subtracting 2^23 + 128 leaves q; the f32 of any |q| <= 128 has at most
+// 8 significant bits, so its upper half is its bf16 and one more byte
+// permutation packs two of them. No int-to-float or float-to-bf16
+// conversion instruction: those run on the SM's narrow conversion pipe.
 //
-// Decode (M <= 8), unchanged since its first version: mma.sync m16n8k16
-// with the weight as the A operand (16 output channels) and the tokens as
-// the n8 operand, no shared-memory staging. A dot product does not depend
-// on the order of k, so the mma's k index is permuted to match contiguous
-// loads: in step j (0..3) of a 64-wide chunk, fragment columns 2tig,
-// 2tig+1 are k = 16tig + 4j + {0, 1} and columns 2tig+8, 2tig+9 are
-// k = 16tig + 4j + {2, 3}, in A (weight bytes) and B (x elements) alike.
-// A CTA of 8 warps owns 16 output channels and splits K among its warps
-// (interleaved chunks, 4 chunks' loads in flight per thread, straight
-// from global memory into registers; a K % 64 tail runs 16-wide chunks of
-// the same form); the 8 partial tiles are summed in shared memory in a
-// fixed order: deterministic, one launch, N/16 CTAs (256 at N = 4096).
+// Decode (M <= 8). The first version (one 16-channel CTA a slice, every
+// CTA re-reading all of x from L2, I2F conversion) reached 12-72 % of the
+// bound. What holds a kernel of this size back on this card is the weight
+// stream's depth and its start and end, not the products: a copy-only
+// build of the ring below took most of the kernel's time at every shape
+// (PERF.md).
+// - A CTA of kW = 4 consumer warps owns 64 output channels (16 a warp)
+//   and one producer warp. One lane of the producer fills a
+//   kStages-deep ring with TMA (cp.async.bulk.tensor, 2-d tensor maps made
+//   on the host, zeros past N, K and M): per 128-wide k stage one box of
+//   64 weight rows x 128 bytes and two boxes of x's 8 rows x 64 k, all
+//   with the 128-byte swizzle, completing on the stage's full barrier
+//   (mbarrier with the byte count); consumer warps wait on it, multiply,
+//   and arrive on the stage's empty barrier, which the producer waits on
+//   before it refills the slot. No copy waits on a product and no warp
+//   issues copies: earlier versions that copied with cp.async from every
+//   thread (a CTA-wide barrier a stage, or a ring per warp) lost 10-30 %
+//   to products holding up the next copies, one producer warp issuing
+//   cp.async was 2-3x slower still.
+// - x is staged with the weight, 2 KB a stage against 8 KB of weight:
+//   a quarter of the weight's L2 traffic, no staging before the loop and
+//   no shared memory that grows with K.
+// - Launched as a programmatic dependent (PDL): a CTA starts, sets up its
+//   barriers and the cluster while the kernel before it finishes, and
+//   waits (`griddepcontrol.wait`) before its first global read; it lets
+//   the next kernel launch once its last copy is issued. One layer's
+//   seven launches in a CUDA graph overlap each launch with the last
+//   one's tail. (Asking for the first weight stages before the wait
+//   saved a little more, but would read a weight that the kernel before
+//   might still be writing.)
+// - Products: mma.sync m16n8k16, the weight as A (16 channels), the tokens
+//   as the n8 operand. A dot product does not depend on the order of k, so
+//   the mma's k index is permuted to match 16-byte reads: in step j (0..3)
+//   of a 64-wide chunk, fragment columns 2tig, 2tig+1 are k = 16tig + 4j +
+//   {0, 1} and columns 2tig+8, 2tig+9 are k = 16tig + 4j + {2, 3}, in A
+//   (one 16-byte shared read a row: 4 steps) and in B (two 16-byte reads of
+//   x's row: 4 steps) alike. mma row g reads weight row pi(g) (`row_of`)
+//   so that the swizzled reads are free of bank conflicts. The products
+//   need under a tenth of the tensor cores at the bound, so mma.sync,
+//   which lets each warp multiply on its own, is kept; wgmma m64n8k16
+//   would tie four warps to one k step and need x permuted in shared
+//   memory; it was not built.
+// - K is split over a thread-block cluster of S CTAs (S 1, 2, 4 or 8, one
+//   launch through cudaLaunchKernelEx) so that the grid fills the card at
+//   every shape: k/v (N 1024) runs 16 channel tiles x 8, q/o 64 x 4. For
+//   the same bits at every S, K is cut into kGranules = 8 granules (a
+//   multiple of 128 wide, fixed by K alone); each granule's sum starts
+//   from zero, and the granules' sums meet in one fixed balanced binary
+//   tree: rank r of S holds granules [8r/S, 8(r+1)/S) and sums its subtree,
+//   the S subtree sums meet in the tree's top levels. Each warp stores its
+//   subtree sum (one float4 a lane) into the shared memory of the rank
+//   that owns its channels (rank w % S; distributed shared memory, remote
+//   stores once every CTA of the cluster has started), one cluster barrier
+//   later the owner adds the S sums, scales and rounds once. No workspace,
+//   no second launch, no atomics: two calls and every S give the same
+//   bits, and a CUDA graph can capture the call.
 //
 // Prefill (M >= 9):
 // - A CTA of four warpgroups owns 256 channels x 128 tokens; warpgroup g
@@ -51,10 +101,8 @@
 // - The weight is wgmma's A operand from registers: each warp turns its 16
 //   channel rows of a k step into the A fragment directly (two 4-byte
 //   shared reads per row and one byte permutation pick k 2tig, 2tig + 1,
-//   2tig + 8, 2tig + 9), converted exactly by byte permutation: a byte
-//   (biased by 128) becomes the low mantissa byte of 2^23, one f32
-//   subtract recovers q, one cvt packs two values; no int-to-float
-//   conversions and no bf16 copy of the tile in shared memory.
+//   2tig + 8, 2tig + 9), converted exactly by `i8x4`; no bf16 copy of the
+//   tile in shared memory.
 // - As in CUTLASS's mixed-input mainloop, each k step is its own wgmma
 //   commit group with up to three in flight, and a step's fragment is
 //   rebuilt only after the product that last read it retired: the
@@ -72,166 +120,377 @@
 // - Not yet: TMA with multicast across a cluster (would cut the L2
 //   re-reads), a producer warp, a persistent grid.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "async_tiles.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using flash::mma_bf16;
 using flash::pack_f32;
 
-// bytes `byte` and `byte + 1` of `word`, as signed ints, to bf16x2 (exact)
-__device__ __forceinline__ uint32_t i8x2(uint32_t word, int byte) {
-  const float lo = static_cast<float>(static_cast<int8_t>(word >> (8 * byte)));
-  const float hi =
-      static_cast<float>(static_cast<int8_t>(word >> (8 * byte + 8)));
-  return pack_f32(lo, hi);
+// four int8 (one word) -> two bf16x2, exactly: bytes 0, 1 into lo and
+// bytes 2, 3 into hi. (q + 128) as the low byte of 2^23's f32 pattern is
+// 2^23 + q + 128; subtracting 2^23 + 128 leaves q, whose f32 has its bf16
+// in the upper half (at most 8 significant bits): one byte permutation
+// packs two.
+__device__ __forceinline__ void i8x4(uint32_t word, uint32_t& lo,
+                                     uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650));
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651));
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652));
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653));
+  lo = __byte_perm(__float_as_uint(f0 - kMagic), __float_as_uint(f1 - kMagic),
+                   0x7632);
+  hi = __byte_perm(__float_as_uint(f2 - kMagic), __float_as_uint(f3 - kMagic),
+                   0x7632);
 }
 
-// W consecutive 32-bit words from global memory (zeros when !ok)
-template <int W>
-__device__ __forceinline__ void ldg_words(uint32_t (&dst)[W],
-                                          const void* src, bool ok) {
-  if constexpr (W % 4 == 0) {
-    #pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(src) + i)
-                         : make_uint4(0, 0, 0, 0);
-      dst[4 * i] = v.x;
-      dst[4 * i + 1] = v.y;
-      dst[4 * i + 2] = v.z;
-      dst[4 * i + 3] = v.w;
-    }
-  } else if constexpr (W == 2) {
-    const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(src))
-                       : make_uint2(0, 0);
-    dst[0] = v.x;
-    dst[1] = v.y;
-  } else {
-    static_assert(W == 1, "1, 2 or a multiple of 4 words");
-    dst[0] = ok ? __ldg(reinterpret_cast<const unsigned*>(src)) : 0u;
-  }
+// --- decode path (M <= 8) --------------------------------------------------
+
+namespace dec {
+
+// mirrored by kernels/quant_matmul.py (DEC_*)
+constexpr int kBK = 128;           // k (weight bytes a row) per ring stage
+constexpr int kStages = 4;         // ring depth
+constexpr int kGranules = 8;       // leaves of the fixed k tree
+constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kTok = 8;            // token rows of x staged (zeros past M)
+constexpr int kX = kTok * 2 * kBK;   // x's rows of a stage: two 64-wide boxes
+constexpr int kWarpRows = 16 * kBK;  // one warp's 16 weight rows of a stage
+constexpr int kW = 4;              // consumer warps a CTA (16 channels each)
+constexpr int kCh = 16 * kW;       // output channels a CTA
+constexpr int kStage = kX + kW * kWarpRows;  // x's 8 rows, then 64 of w's
+static_assert(kBK == 128, "one 128-byte swizzle span a weight row");
+
+// k per granule: K / 8 rounded up to a whole number of stages
+__host__ __device__ __forceinline__ int granule(int K) {
+  return (K + kGranules * kBK - 1) / (kGranules * kBK) * kBK;
 }
 
-// One thread's share of a k chunk 16 * J wide: J words (4 bytes) of each of
-// its two weight rows and 2 J words (4 bf16) of each of its NT token rows,
-// all starting at the thread's offset in the chunk.
-template <int J, int NT>
-struct Chunk {
-  uint32_t wa[J], wb[J];
-  uint32_t x[NT][2 * J];
+// dynamic shared memory: the ring, with S > 1 the owner slots (one float4
+// a lane for each of the ceil(kW / S) warps a rank owns, from each of S
+// ranks), and the ring's full and empty barriers
+__host__ __device__ __forceinline__ size_t slot_bytes(int S) {
+  return S > 1 ? static_cast<size_t>((kW + S - 1) / S) * S * 32 *
+                     sizeof(float4)
+               : 0;
+}
+__host__ __device__ __forceinline__ size_t smem_bytes(int S) {
+  return static_cast<size_t>(kStages) * kStage + slot_bytes(S) +
+         2 * kStages * sizeof(uint64_t);
+}
 
-  __device__ __forceinline__ void load(const int8_t* ra, const int8_t* rb,
-                                       bool oka, bool okb,
-                                       const __nv_bfloat16* const* xr,
-                                       const bool* okx, int k) {
-    ldg_words<J>(wa, ra + k, oka);
-    ldg_words<J>(wb, rb + k, okb);
-    #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      ldg_words<2 * J>(x[nt], xr[nt] + k, okx[nt]);
-  }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
 
-  __device__ __forceinline__ void mma(float (&acc)[NT][4]) const {
+// v[0] + ... + v[n - 1] for n in {1, 2, 4, 8} as the balanced binary tree:
+// the subtree of n leaves of the one fixed 8-leaf tree
+__device__ __forceinline__ float4 tree_sum(const float4 (&v)[kGranules],
+                                           int n) {
+  if (n == 1) return v[0];
+  const float4 s01 = add4(v[0], v[1]);
+  if (n == 2) return s01;
+  const float4 s03 = add4(s01, add4(v[2], v[3]));
+  if (n == 4) return s03;
+  return add4(s03, add4(add4(v[4], v[5]), add4(v[6], v[7])));
+}
+
+__device__ __forceinline__ uint4 lds128(const unsigned char* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// shared-memory barriers (mbarrier): the ring's full barrier completes when
+// a stage's bytes have landed (the producer's one arrive with the byte
+// count, then the copies' own), its empty barrier when the kW consumer warps
+// have read the stage
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   tiles::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   tiles::smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   tiles::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// a 2-d box of `map` at (inner, outer) into dst, completing on bar
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int inner, int outer, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(tiles::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
+      "r"(tiles::smem_addr(bar))
+      : "memory");
+}
+// programmatic dependent launch: wait until the kernel before this one has
+// finished and its writes are visible (at once when it was not launched as
+// a dependent); let the kernel after this one start launching
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(tiles::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// mma row g of a warp's 16-row tile (and g + 8) reads weight row pi(g): the
+// 128-byte swizzle puts 16-byte piece p of row r at p ^ (r & 7), and rows
+// pi(g), pi(g + 1) of one quarter of a warp then differ in bit 2 of (r & 7):
+// their pieces 4 c .. 4 c + 3 land in different bank groups
+__device__ __forceinline__ int row_of(int g) { return ((g & 1) << 2) | (g >> 1); }
+
+// 1-d grid of (N / 64) x S CTAs, clusters of S along x: cluster = channel
+// tile, rank = share of K. kW consumer warps (16 channels each) and one
+// producer warp. `wmap` boxes 128 bytes x 64 rows of w, `xmap` 64 x 8 of
+// x (zeros past N, K and M), both with the 128-byte swizzle.
+__global__ void __launch_bounds__(32 * (kW + 1), 4)
+qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap xmap,
+                  const float* __restrict__ s, __nv_bfloat16* __restrict__ y,
+                  int M, int N, int K) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gk = granule(K);
+  const int gpr = kGranules / S;   // granules of this rank
+  const int spg = gk / kBK;        // stages a granule
+  const int k0 = rank * gpr * gk;
+  const int k1 = min(k0 + gpr * gk, K);
+  const int nst = k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
+  const int c0 = (blockIdx.x / S) * kCh;  // the CTA's first channel
+  float4* slots = reinterpret_cast<float4*>(smem + kStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kStages * kStage + slot_bytes(S));
+  uint64_t* empty = full + kStages;
+  if (tid == 0) {
     #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const uint32_t a[4] = {i8x2(wa[j], 0), i8x2(wb[j], 0), i8x2(wa[j], 2),
-                             i8x2(wb[j], 2)};
-      #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mma_bf16(acc[nt], a, x[nt][2 * j], x[nt][2 * j + 1]);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kW);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-};
+  __syncthreads();
+  if (S > 1) tiles::cluster_arrive();  // waited for before remote stores
 
-// CTA: WN x WK warps; warp (wn, wk) computes 16 channels x 8 NT tokens
-// over the k chunks wk, wk + WK, ...; U chunks are loaded before any is
-// multiplied.
-template <int NT, int WN, int WK, int U>
-__global__ void __launch_bounds__(32 * WN * WK)
-quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ w, const float* __restrict__ s,
-                    __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  constexpr int kTok = 8 * NT;
-  constexpr int kCh = 16 * WN;
-  __shared__ float red[WK > 1 ? WK * kCh * kTok : 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wn = warp % WN;
-  const int wk = warp / WN;
+  if (warp == kW) {
+    // the producer (one lane): stage st -> slot st % kStages once the
+    // consumers have read what it held: x's 8 rows over the stage's 128 k
+    // (two boxes of 64), then the CTA's 64 weight rows of 128 bytes (one
+    // box). A granule boundary never falls inside a stage, so a rank's
+    // stages end at K or at the next rank's first k.
+    if (lane == 0) {
+      grid_dependency_wait();  // every global read after the kernel before
+      for (int st = 0; st < nst; ++st) {
+        const int slot = st % kStages;
+        if (st >= kStages) mbar_wait(empty + slot, (st / kStages + 1) & 1);
+        unsigned char* xs = smem + slot * kStage;
+        const int kb = k0 + st * kBK;
+        mbar_expect(full + slot, kStage);
+        tma_2d(xs, &xmap, kb, 0, full + slot);
+        tma_2d(xs + kX / 2, &xmap, kb + 64, 0, full + slot);
+        tma_2d(xs + kX, &wmap, kb, c0, full + slot);
+      }
+      // every copy is issued: the next kernel may start launching
+      launch_dependents();
+    }
+    __syncwarp();
+    if (S > 1) {
+      tiles::cluster_wait();
+      cluster.sync();
+    }
+    return;
+  }
+
+  // the consumers. Fragment reads: weight rows pi(gid) and pi(gid) + 8 of
+  // the warp's 16, piece 4 c + tig of 64-wide chunk c; x row gid of box c,
+  // pieces 2 tig and 2 tig + 1 (elements 16 tig .. 16 tig + 15 of the
+  // chunk)
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int ca = blockIdx.x * kCh + 16 * wn + gid;  // channels ca, ca + 8
-  const int m0 = blockIdx.y * kTok;
-  const bool oka = ca < N;
-  const bool okb = ca + 8 < N;
-  const int8_t* ra = w + static_cast<size_t>(oka ? ca : 0) * K;
-  const int8_t* rb = w + static_cast<size_t>(okb ? ca + 8 : 0) * K;
-  const __nv_bfloat16* xr[NT];
-  bool okx[NT];
+  const int n0 = c0 + 16 * warp;  // the warp's first channel
+  const int wrow = row_of(gid);
+  const bool live = n0 < N;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float4 leaf[kGranules];
   #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int m = m0 + 8 * nt + gid;
-    okx[nt] = m < M;
-    xr[nt] = x + static_cast<size_t>(okx[nt] ? m : 0) * K;
-  }
-
-  float acc[NT][4] = {};
-  const int nchunks = K / 64;
-  for (int c = wk; c < nchunks; c += WK * U) {
-    Chunk<4, NT> ch[U];
-    #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const bool live = c + u * WK < nchunks;
-      ch[u].load(ra, rb, oka && live, okb && live, xr, okx,
-                 (c + u * WK) * 64 + 16 * tig);
-    }
-    #pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (c + u * WK < nchunks) ch[u].mma(acc);
-  }
-  for (int k0 = nchunks * 64 + 16 * wk; k0 < K; k0 += 16 * WK) {
-    Chunk<1, NT> ch;
-    ch.load(ra, rb, oka, okb, xr, okx, k0 + 4 * tig);
-    ch.mma(acc);
-  }
-
-  // acc[nt]: c0, c1 at (channel ca, tokens m0 + 8nt + 2tig + {0, 1}),
-  // c2, c3 at channel ca + 8
-  if constexpr (WK == 1) {
-    #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+  for (int t = 0; t < kGranules; ++t) leaf[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int g = 0;          // the granule stage st is in
+  int g_end = spg;    // its first stage past it
+  for (int st = 0; st < nst; ++st) {
+    const int slot = st % kStages;
+    mbar_wait(full + slot, (st / kStages) & 1);
+    const unsigned char* xs = smem + slot * kStage;
+    const unsigned char* ws = xs + kX + (16 * warp + wrow) * kBK;
+    const unsigned char* xr = xs + gid * 128;
+    if (live) {
       #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int n = ca + 8 * (e >> 1);
-        const int m = m0 + 8 * nt + 2 * tig + (e & 1);
-        if (n < N && m < M)
-          y[static_cast<size_t>(m) * N + n] =
-              __float2bfloat16(acc[nt][e] * s[n]);
+      for (int c = 0; c < kBK / 64; ++c) {
+        const int off = 16 * ((4 * c + tig) ^ wrow);
+        const uint4 wa = lds128(ws + off);
+        const uint4 wb = lds128(ws + 8 * kBK + off);
+        const uint4 x0 = lds128(xr + c * (kX / 2) + 16 * ((2 * tig) ^ gid));
+        const uint4 x1 =
+            lds128(xr + c * (kX / 2) + 16 * ((2 * tig + 1) ^ gid));
+        const uint32_t ra[4] = {wa.x, wa.y, wa.z, wa.w};
+        const uint32_t rb[4] = {wb.x, wb.y, wb.z, wb.w};
+        const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w,
+                                x1.x, x1.y, x1.z, x1.w};
+        #pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t a[4];
+          i8x4(ra[j], a[0], a[2]);
+          i8x4(rb[j], a[1], a[3]);
+          mma_bf16(acc, a, xb[2 * j], xb[2 * j + 1]);
+        }
       }
-  } else {
-    // red[wk][channel in CTA][token in CTA]
-    #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(wk * kCh + 16 * wn + gid + 8 * (e >> 1)) * kTok + 8 * nt +
-            2 * tig + (e & 1)] = acc[nt][e];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kCh * kTok; idx += blockDim.x) {
-      const int tok = idx / kCh;
-      const int chl = idx % kCh;
-      const int n = blockIdx.x * kCh + chl;
-      const int m = m0 + tok;
-      if (n >= N || m >= M) continue;
-      float sum = 0.f;
-      #pragma unroll
-      for (int r = 0; r < WK; ++r) sum += red[(r * kCh + chl) * kTok + tok];
-      y[static_cast<size_t>(m) * N + n] = __float2bfloat16(sum * s[n]);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);  // the warp is done with it
+    if (st + 1 == g_end || st + 1 == nst) {  // granule g ends
+      #pragma unroll
+      for (int t = 0; t < kGranules; ++t)
+        if (t == g) leaf[t] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+      ++g;
+      g_end += spg;
+    }
+  }
+  float4 v = tree_sum(leaf, gpr);
+  grid_dependency_wait();  // s and y: after the kernel before this one
+
+  if (S > 1) {
+    // the subtree sum to the owner of these channels (rank warp % S), slot
+    // [warp / S][rank][lane]; then the owner's warps add the S sums
+    float4* remote = cluster.map_shared_rank(slots, warp % S);
+    tiles::cluster_wait();  // every CTA of the cluster has started
+    remote[((warp / S) * S + rank) * 32 + lane] = v;
+    cluster.sync();  // every rank's sums have landed
+    if (warp % S != rank) return;
+    float4 part[kGranules];
+    #pragma unroll
+    for (int r = 0; r < kGranules; ++r)
+      part[r] = r < S ? slots[((warp / S) * S + r) * 32 + lane]
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    v = tree_sum(part, S);
+  }
+
+  // v: channel n0 + pi(gid) (x, y) and n0 + pi(gid) + 8 (z, w), tokens
+  // 2 tig and 2 tig + 1
+  const float vals[4] = {v.x, v.y, v.z, v.w};
+  #pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int n = n0 + wrow + 8 * (e >> 1);
+    const int m = 2 * tig + (e & 1);
+    if (n < N && m < M)
+      y[static_cast<size_t>(m) * N + n] = __float2bfloat16(vals[e] * s[n]);
   }
 }
 
+// cuTensorMapEncodeTiled through the runtime (no link against libcuda),
+// looked up once
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] tensor of `elem`-byte values as 2-d boxes of
+// box_cols x box_rows, 128-byte swizzle, zeros out of bounds
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                const void* base, int rows, int cols, int box_cols,
+                int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estrides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+            estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const void* x, const void* w, const void* s, void* y, int M,
+           int N, int K, int S, cudaStream_t st) {
+  const size_t smem = smem_bytes(S);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t opened = 0;  // dynamic shared memory allowed so far
+  if (smem > opened) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opened = smem;
+  }
+  CUtensorMap wmap, xmap;
+  if (!tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K, kBK,
+                  kCh) ||
+      !tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64,
+                  kTok))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((N + kCh - 1) / kCh * S));
+  cfg.blockDim = dim3(32 * (kW + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, qmm_decode_kernel, wmap, xmap, static_cast<const float*>(s),
+      static_cast<__nv_bfloat16*>(y), M, N, K);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dec
 
 // --- prefill path (M >= 9) -------------------------------------------------
 
@@ -253,21 +512,6 @@ constexpr int kOutStride = kCh + 4;  // floats per staged output row
 constexpr int kOut = kTok * kOutStride * 4;  // the f32 output tile
 constexpr int kSmem = kStages * kStage > kOut ? kStages * kStage : kOut;
 static_assert(kStage % tiles::kAtomBytes == 0, "stages keep atoms aligned");
-
-// four int8 (one word) -> two bf16x2, exactly: bytes 0, 1 into lo and
-// bytes 2, 3 into hi. (q + 128) as the low byte of 2^23's f32 pattern is
-// 2^23 + q + 128; subtracting 2^23 + 128 leaves q.
-__device__ __forceinline__ void i8x4(uint32_t word, uint32_t& lo,
-                                     uint32_t& hi) {
-  const uint32_t u = word ^ 0x80808080u;
-  constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650));
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651));
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652));
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653));
-  lo = pack_f32(f0 - kMagic, f1 - kMagic);
-  hi = pack_f32(f2 - kMagic, f3 - kMagic);
-}
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -468,29 +712,31 @@ int launch(const void* x, const void* w, const void* s, void* y, void* ws,
 
 }  // namespace pf
 
-template <int NT, int WN, int WK, int U>
-int launch(const void* x, const void* w, const void* s, void* y, int M,
-           int N, int K, cudaStream_t st) {
-  const dim3 grid((N + 16 * WN - 1) / (16 * WN), (M + 8 * NT - 1) / (8 * NT));
-  quant_matmul_kernel<NT, WN, WK, U><<<grid, 32 * WN * WK, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// M <= 8: the decode kernel (cps and ws unused). M >= 9: the prefill
-// kernel with `cps` 64-wide k chunks per split; with more than one split,
-// ws holds splits x M x N floats.
+// M <= 8: y = x . (w * s)^T by the decode kernel, 64-channel CTAs in
+// clusters of `cluster` (1, 2, 4 or 8) CTAs splitting K; one launch, no
+// workspace.
+extern "C" int quant_matmul_decode_bf16(const void* x, const void* w,
+                                        const void* s, void* y, int M, int N,
+                                        int K, int cluster, void* stream) {
+  if (M < 0 || M > dec::kTok || N <= 0 || K <= 0 || K % 16 != 0 ||
+      cluster <= 0 || cluster > dec::kMaxCluster ||
+      (cluster & (cluster - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return static_cast<int>(cudaSuccess);
+  return dec::launch(x, w, s, y, M, N, K, cluster,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// M >= 9: the prefill kernel with `cps` 64-wide k chunks per split; with
+// more than one split, ws holds splits x M x N floats.
 extern "C" int quant_matmul_bf16(const void* x, const void* w, const void* s,
                                  void* y, void* ws, int M, int N, int K,
                                  int cps, void* stream) {
-  if (M < 0 || N <= 0 || K <= 0 || K % 16 != 0)
+  if (M <= 8 || N <= 0 || K <= 0 || K % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch<1, 1, 8, 4>(x, w, s, y, M, N, K, st);
   const int nck = (K + pf::kBK - 1) / pf::kBK;
   if (cps <= 0 || (cps < nck && ws == nullptr) ||
       (N + pf::kCh - 1) / pf::kCh > 65535 || (nck + cps - 1) / cps > 65535)

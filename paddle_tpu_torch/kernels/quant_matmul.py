@@ -12,9 +12,14 @@ y [..., N] = x [..., K] @ (w_int8 [N, K] * w_scales [N, 1]).T in
   weight to float32 (w * s), then a float32 product.
 - ``prefill_plan`` picks the prefill kernel's token tile and split of K
   (M >= 9) so that every launch fills the card's SMs.
+- ``decode_plan`` picks the decode kernel's (M <= 8) split of K over a
+  thread-block cluster; ``decode_shares`` is the k range of each rank of
+  the cluster.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -25,6 +30,14 @@ TOK_TILE = 128    # tokens per CTA of the prefill kernel
 CH_TILE = 256     # output channels per CTA of the prefill kernel
 K_CHUNK = 64      # k per staged chunk
 MIN_CHUNKS = 2    # least k chunks per split
+# the decode kernel (M <= 8), mirrored from csrc/quant_matmul.cu (dec::)
+DEC_MAX_M = 8            # token rows of x it stages
+DEC_BK = 128             # k per ring stage
+DEC_STAGES = 4           # ring depth
+DEC_GRANULES = 8         # leaves of the fixed k tree
+DEC_CLUSTERS = (1, 2, 4, 8)  # splits of K (portable cluster sizes)
+DEC_CH = 64              # output channels per CTA (4 warps of 16)
+SMEM_PER_BLOCK = 227 * 1024
 
 
 def prefill_plan(m, n, k):
@@ -39,6 +52,51 @@ def prefill_plan(m, n, k):
     return cps, -(-chunks // cps)
 
 
+def decode_granule(k):
+    """k per granule of the decode kernel's fixed sum tree: K / 8 rounded
+    up to a whole number of 128-wide stages (the last granules may be
+    short or empty)."""
+    return -(-k // (DEC_GRANULES * DEC_BK)) * DEC_BK
+
+
+def decode_shares(k, cluster):
+    """The k range [k0, k1) of each of the ``cluster`` ranks splitting K:
+    rank r holds granules [8 r / C, 8 (r + 1) / C); a range may be empty."""
+    span = DEC_GRANULES // cluster * decode_granule(k)
+    return [(min(r * span, k), min((r + 1) * span, k))
+            for r in range(cluster)]
+
+
+def decode_smem_bytes(cluster):
+    """Dynamic shared memory of one decode CTA: the ring (each stage x's 8
+    rows over 128 k and the CTA's 64 weight rows), with a cluster the
+    owner slots (one float4 a lane of each owned warp, from each rank),
+    and the ring's full and empty barriers."""
+    warps = DEC_CH // 16
+    slots = -(-warps // cluster) * cluster * 32 * 16 if cluster > 1 else 0
+    return DEC_STAGES * (DEC_MAX_M * 2 * DEC_BK + DEC_CH * DEC_BK) \
+        + slots + 2 * DEC_STAGES * 8
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(m, n, k, cluster=None):
+    """Cluster size of the decode kernel (M <= 8) for x [m, k] and w [n, k]
+    (m, 1 to 8, does not change it). A CTA owns ``DEC_CH`` channels; a
+    cluster of C CTAs splits K (``decode_shares``): the smallest C whose
+    grid, ceil(n / 64) x C CTAs, reaches one CTA per SM, else the largest,
+    never one with a rank that holds none of K. ``cluster`` forces C (a
+    forced cluster may leave a rank with none of K). Raises ``ValueError``
+    for a size the kernel does not take."""
+    if cluster is not None and cluster not in DEC_CLUSTERS:
+        raise ValueError(f"decode_plan: cluster {cluster} not in "
+                         f"{DEC_CLUSTERS}")
+    if cluster is None:
+        tiles = -(-n // DEC_CH)
+        sizes = [c for c in DEC_CLUSTERS if decode_shares(k, c)[-1][0] < k]
+        cluster = next((c for c in sizes if tiles * c >= SMS), sizes[-1])
+    return cluster
+
+
 def quant_matmul_plain(x, w_int8, w_scales):
     """``(x.float() @ (w.float() * s.float()[:, None]).T).to(x.dtype)``."""
     w = w_int8.float() * w_scales.float()[:, None]
@@ -46,11 +104,13 @@ def quant_matmul_plain(x, w_int8, w_scales):
 
 
 def quant_matmul(x, w_int8, w_scales):
-    """Launch ``quant_matmul_bf16`` for CUDA tensors: x bf16 [..., K]
+    """Launch ``csrc/quant_matmul.cu`` for CUDA tensors: x bf16 [..., K]
     (contiguous), w_int8 int8 [N, K], w_scales float32 [N], all contiguous
     and 16-byte aligned, K a multiple of 16; returns bf16 [..., N]. Raises
-    on anything else. Where ``prefill_plan`` splits K, the partial sums go
-    to a float32 workspace [splits, M, N] allocated here."""
+    on anything else. M = x's rows: up to 8, one launch of the decode
+    kernel as ``decode_plan`` says (no workspace); from 9, the prefill
+    kernel, and where ``prefill_plan`` splits K, the partial sums go to a
+    float32 workspace [splits, M, N] allocated here."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int8, w_scales)
     n, k = w_int8.shape
@@ -68,16 +128,24 @@ def quant_matmul(x, w_int8, w_scales):
                          f"must match and be a multiple of 16")
     m = x.numel() // k
     out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
-    cps, splits = prefill_plan(m, n, k) if m > 8 else (1, 1)
-    ws = torch.empty((splits, m, n), device=x.device,
-                     dtype=torch.float32) if splits > 1 else None
+    if m == 0:
+        return out
     lib = _build.load("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.quant_matmul_bf16(x.data_ptr(), w_int8.data_ptr(),
-                                w_scales.data_ptr(), out.data_ptr(),
-                                None if ws is None else ws.data_ptr(), m,
-                                n, k, cps, stream)
-    _build.check(err, "quant_matmul_bf16")
+    if m <= DEC_MAX_M:
+        err = lib.quant_matmul_decode_bf16(
+            x.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
+            out.data_ptr(), m, n, k, decode_plan(m, n, k), stream)
+        _build.check(err, "quant_matmul_decode_bf16")
+    else:
+        cps, splits = prefill_plan(m, n, k)
+        ws = torch.empty((splits, m, n), device=x.device,
+                         dtype=torch.float32) if splits > 1 else None
+        err = lib.quant_matmul_bf16(x.data_ptr(), w_int8.data_ptr(),
+                                    w_scales.data_ptr(), out.data_ptr(),
+                                    None if ws is None else ws.data_ptr(),
+                                    m, n, k, cps, stream)
+        _build.check(err, "quant_matmul_bf16")
     quant_matmul.launches += 1
     return out
 

@@ -41,8 +41,10 @@ from paddle_tpu_torch.kernels import paged_attention as _pa
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_decode_attention_chunked, paged_decode_attention_dense,
     paged_decode_attention_kernel, split_cluster_plan)
-from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                   quant_matmul_plain)
+from paddle_tpu_torch.kernels import quant_matmul as _qm
+from paddle_tpu_torch.kernels.quant_matmul import (
+    DEC_CLUSTERS, SMEM_PER_BLOCK, decode_plan, decode_smem_bytes,
+    quant_matmul, quant_matmul_plain)
 from paddle_tpu_torch.quantization import _quantize_weight, quantize_rows
 
 pytestmark = pytest.mark.cuda
@@ -331,15 +333,30 @@ _QMM_EDGES = [(M, N, K) for M in (9, 16, 112, 127, 128, 129, 1008)
     [(200, 200, 4144), (257, 4100, 4144)]
 
 
+# the decode kernel's edges (M <= 8; 16 W channels a CTA, 128-wide ring
+# stages, K cut into 8 granules split over clusters of 1-8 CTAs): every
+# token count, N 72, 200, 1000 (partial channel tiles), K 48 (one partial
+# stage), 4144 (a partial stage and an empty rank at cluster 8)
+_QMM_DECODE = [(M, N, K) for N in (72, 200, 1000, 1024, 4096, 14336)
+               for K in (48, 4144, 4096, 14336) for M in range(1, 9)]
+
+
+@functools.lru_cache(maxsize=1)
+def _qmm_weight(N, K):
+    """The quantized weight [N, K] of the matmul cases (kept for the next
+    case of the same shape: the decode grid runs M fastest)."""
+    w, s = _quantize_weight(_randn("cuda", N, K, seed=10) * 0.02, 0)
+    return w, s.float()
+
+
 @pytest.mark.parametrize("M,N,K", [
     (8, 4096, 4096), (1, 1024, 4096), (5, 200, 96), (3, 8, 32),
     (8, 4096, 14336), (1008, 14336, 4096), (32, 1024, 4096), (130, 128, 64),
     (17, 72, 48),
-] + _QMM_EDGES)
+] + _QMM_EDGES + _QMM_DECODE)
 def test_quant_matmul_matches_plain(dev, M, N, K):
     x = _randn(dev, M, K, seed=9)
-    w, s = _quantize_weight(_randn(dev, N, K, seed=10) * 0.02, 0)
-    s = s.float()
+    w, s = _qmm_weight(N, K)
     before = quant_matmul.launches
     out = quant_matmul(x, w, s)
     ref = quant_matmul_plain(x, w, s)
@@ -347,6 +364,126 @@ def test_quant_matmul_matches_plain(dev, M, N, K):
     assert quant_matmul.launches == before + 1
     assert out.shape == (M, N) and out.dtype == torch.bfloat16
     assert _rel_err(out, ref) <= QMM_RTOL
+
+
+def _force_decode_plan(monkeypatch, cluster):
+    monkeypatch.setattr(_qm, "decode_plan", functools.partial(
+        decode_plan, cluster=cluster))
+
+
+@pytest.mark.parametrize("cluster", DEC_CLUSTERS)
+def test_quant_matmul_decode_converts_every_int8_exactly(dev, monkeypatch,
+                                                         cluster):
+    """Every int8 value, -128 included, in every row and column of the
+    weight, with x as unit rows (x[m] = e_k): y[m] = bf16(q[:, k] * s)
+    exactly, for every k, at every cluster size."""
+    N, K = 256, 512
+    n = torch.arange(N, device=dev)[:, None]
+    k = torch.arange(K, device=dev)[None, :]
+    w = ((n + 7 * k) % 256 - 128).to(torch.int8).contiguous()
+    s = _randn(dev, N, seed=11).abs().float() * 1e-2 + 1e-3
+    _force_decode_plan(monkeypatch, cluster)
+    eye = torch.eye(K, device=dev, dtype=torch.bfloat16)
+    for k0 in range(0, K, 8):
+        out = quant_matmul(eye[k0:k0 + 8].contiguous(), w, s)
+        ref = (w[:, k0:k0 + 8].float().T * s).to(torch.bfloat16)
+        assert torch.equal(out, ref), k0
+
+
+@pytest.mark.parametrize("M,N,K", [(8, 4096, 4096), (3, 1000, 14336),
+                                   (8, 1024, 4144), (1, 200, 48),
+                                   (5, 14336, 4096)])
+def test_quant_matmul_decode_bits_are_the_same_at_every_plan(dev,
+                                                             monkeypatch,
+                                                             M, N, K):
+    """Every cluster size the plan can choose (forced): two calls give the
+    same bits, and every size the same bits as every other (one fixed tree
+    of sums over K)."""
+    x = _randn(dev, M, K, seed=12)
+    w, s = _qmm_weight(N, K)
+    ref = quant_matmul_plain(x, w, s)
+    outs = []
+    for cluster in DEC_CLUSTERS:
+        assert decode_smem_bytes(cluster) <= SMEM_PER_BLOCK
+        _force_decode_plan(monkeypatch, cluster)
+        out = quant_matmul(x, w, s)
+        assert torch.equal(out, quant_matmul(x, w, s)), cluster
+        outs.append(out)
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert _rel_err(outs[0], ref) <= QMM_RTOL
+
+
+def test_quant_matmul_decode_replays_in_a_cuda_graph(dev):
+    """The decode kernel's one launch captured in a CUDA graph at q/o's
+    shape (M 8, N 4096, K 4096; a cluster split of K): the capture counts
+    one launch, and a replay after x changes in place gives the eager
+    call's bits for the new x."""
+    M, N, K = 8, 4096, 4096
+    x = _randn(dev, M, K, seed=13)
+    w, s = _qmm_weight(N, K)
+    assert decode_plan(M, N, K) > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        quant_matmul(x, w, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = quant_matmul.launches
+    with torch.cuda.graph(graph):
+        out = quant_matmul(x, w, s)
+    assert quant_matmul.launches == before + 1
+    x.copy_(_randn(dev, M, K, seed=14))
+    graph.replay()
+    eager = quant_matmul(x, w, s)
+    ref = quant_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert _rel_err(out, ref) <= QMM_RTOL
+
+
+def test_quant_matmul_with_no_rows_launches_nothing(dev):
+    w, s = _qmm_weight(1024, 4096)
+    x = torch.empty(0, 4096, device=dev, dtype=torch.bfloat16)
+    before = quant_matmul.launches
+    assert quant_matmul(x, w, s).shape == (0, 1024)
+    assert quant_matmul.launches == before
+
+
+# the prefill kernel's outputs (M 112 and 1008 at Llama-3-8B's four layer
+# shapes) on tools/torch_qmm_ab.py's fixed inputs, recorded from the first
+# redesigned prefill kernel; the decode kernel's redesign shares its
+# conversion and leaves these bits as they were
+_PREFILL_DIGESTS = {
+    "M112_N14336_K4096": "2f12e3704d96d1dd2ab6abf465584c16"
+                         "af1af28150e196f41f18c1602a5aaf08",
+    "M1008_N14336_K4096": "3e9c057be17c3c3c0dde7cefcea35089"
+                          "50592d42bb68f4117afd965752c43415",
+    "M112_N4096_K4096": "ff55142a65d676482acd8f0bbe90510e"
+                        "8ef44294fc01dfae3a3e60608f594580",
+    "M1008_N4096_K4096": "7694b3193be03579812234cec5c7eb0c"
+                         "66d98ba6bfdfe4f3933c1e0ae0ab2571",
+    "M112_N1024_K4096": "e290c07f0785ddf6d39835bfe4c431eb"
+                        "c1a4e251e3fdda62f0a281ba38de57d1",
+    "M1008_N1024_K4096": "4235bdc8e6afa01ff1579978dff94884"
+                         "4f539fbc9946ca83c917528557e45368",
+    "M112_N4096_K14336": "5744169404f31ab6b7d2be1ed85a5049"
+                         "de3a6f1d4287c0d079b8e9b4e4eb50f6",
+    "M1008_N4096_K14336": "ff0eda99620ddc1d71413abcc799c554"
+                          "f016db30ce3a8963bb356dc17722884f",
+}
+
+
+def test_quant_matmul_prefill_outputs_are_bit_identical_to_the_recorded_ones(
+        dev):
+    """B7's prefill path gives, bit for bit, the outputs recorded above."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).parents[1] / "tools" / "torch_qmm_ab.py"
+    spec = importlib.util.spec_from_file_location("torch_qmm_ab", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.digests(_qm, which=("prefill",)) == {
+        "prefill": _PREFILL_DIGESTS}
 
 
 def test_quant_matmul_rejects_bad_inputs(dev):

@@ -25,8 +25,10 @@ from paddle_tpu_torch import quantization as TQ
 from paddle_tpu_torch.convert import llama_int8_params_from_numpy
 from paddle_tpu_torch.core.flags import set_flags
 from paddle_tpu_torch.kernels.quant_matmul import (
-    CH_TILE, K_CHUNK, MIN_CHUNKS, SMS, TOK_TILE, prefill_plan, quant_matmul,
-    quant_matmul_plain)
+    CH_TILE, DEC_BK, DEC_CLUSTERS, DEC_GRANULES, DEC_MAX_M, DEC_CH,
+    K_CHUNK, MIN_CHUNKS, SMEM_PER_BLOCK, SMS, TOK_TILE, decode_granule,
+    decode_plan, decode_shares, decode_smem_bytes, prefill_plan,
+    quant_matmul, quant_matmul_plain)
 from paddle_tpu_torch.nn import Linear
 
 _DT = {"float32": (jnp.float32, torch.float32),
@@ -121,6 +123,87 @@ def test_prefill_plan_covers_k_and_fills_the_card(n, k):
         ctas = -(-m // TOK_TILE) * -(-n // CH_TILE) * splits
         assert ctas >= 0.7 * SMS, (m, cps, splits)
         assert splits == 1 or ctas < 1.5 * SMS, (m, cps, splits)
+
+
+# Llama-3-8B's five decode shapes (N, K) and the decode kernel's edges:
+# partial channel tiles (72, 200, 1000), K 48 (one partial stage), 4144 (a
+# partial stage; at cluster 8 an empty rank)
+_LLAMA_DECODE = [(14336, 4096), (4096, 4096), (1024, 4096), (4096, 14336),
+                 (128256, 4096)]
+_DECODE_EDGES = [(72, 48), (200, 4144), (1000, 14336), (1024, 4144)]
+
+
+@pytest.mark.parametrize("n,k", _LLAMA_DECODE + _DECODE_EDGES)
+def test_decode_plan_covers_channels_and_k_and_fits(n, k):
+    """For every token count of the decode kernel: CTAs own 64 channels
+    each and together cover N once; the cluster's K shares are
+    contiguous, granule-aligned and cover K once; the cluster is a
+    portable size; one CTA fits shared memory; at Llama-3-8B's shapes the
+    CTAs come to about one wave of the card's SMs."""
+    gk = decode_granule(k)
+    # the least whole number of stages whose 8 granules hold K
+    assert gk % DEC_BK == 0 and DEC_GRANULES * (gk - DEC_BK) < k <= \
+        DEC_GRANULES * gk
+    for m in range(1, DEC_MAX_M + 1):
+        cluster = decode_plan(m, n, k)
+        assert cluster in DEC_CLUSTERS
+        assert cluster <= 8
+        tiles = -(-n // DEC_CH)
+        assert (tiles - 1) * DEC_CH < n <= tiles * DEC_CH
+        shares = decode_shares(k, cluster)
+        assert len(shares) == cluster and shares[0][0] == 0 and \
+            shares[-1][1] == k
+        for (a0, a1), (b0, _) in zip(shares, shares[1:]):
+            assert a1 == b0 and a0 % gk == 0
+        assert all(k0 < k1 for k0, k1 in shares)  # no idle rank
+        assert decode_smem_bytes(cluster) <= SMEM_PER_BLOCK
+        if (n, k) in _LLAMA_DECODE:
+            assert tiles * cluster >= 0.95 * SMS, (m, cluster)
+
+
+def test_decode_plan_forced_values():
+    assert decode_plan(8, 4096, 4096, cluster=2) == 2
+    # a forced cluster may leave ranks with no K (the kernel zero-fills)
+    assert decode_plan(8, 72, 48, cluster=8) == 8
+    assert decode_shares(48, 8)[1:] == [(48, 48)] * 7
+    for bad in (0, 3, 16):
+        with pytest.raises(ValueError):
+            decode_plan(8, 4096, 4096, cluster=bad)
+
+
+def _tree(parts):
+    """The balanced binary tree of sums over 1, 2, 4 or 8 parts."""
+    while len(parts) > 1:
+        parts = [a + b for a, b in zip(parts[::2], parts[1::2])]
+    return parts[0]
+
+
+@pytest.mark.parametrize("n,k", [(72, 4144), (200, 48), (40, 14336)])
+@pytest.mark.parametrize("cluster", DEC_CLUSTERS)
+def test_decode_split_sum_matches_unsplit(n, k, cluster):
+    """``quant_matmul_plain`` split along ``decode_shares`` (each rank's
+    own sum over its K share, float32) and summed in rank order by the
+    kernel's tree matches the unsplit plain version; each rank's share is
+    the k range of the granules whose subtree it sums, so the ranks' sums
+    meet in the top levels of the one tree over all granules."""
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((DEC_MAX_M, k)).astype(
+        np.float32))
+    w = torch.from_numpy(rng.integers(-128, 128, (n, k), dtype=np.int8))
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-3, n).astype(np.float32))
+    q = w.float()
+    part = lambda k0, k1: x[:, k0:k1] @ q[:, k0:k1].T
+    split = _tree([part(k0, k1) for k0, k1 in decode_shares(k, cluster)])
+    ref = quant_matmul_plain(x, w, s)
+    # float32 sums of the same products in another order: within a few
+    # ulps of the largest output (near-cancelling outputs carry that
+    # absolute error too)
+    np.testing.assert_allclose((split * s).numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    gk = decode_granule(k)
+    per = DEC_GRANULES // cluster
+    for r, share in enumerate(decode_shares(k, cluster)):
+        assert share == (min(r * per * gk, k), min((r + 1) * per * gk, k))
 
 
 def _jax_converted_linear(seed):
