@@ -24,7 +24,8 @@
    per-page kernel timed beside the split route at its shape; the
    int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
    projection shapes and at the longest prefill (M 1008) for each of the
-   four layer shapes (and gate/up at the shortest, M 112), with its sums
+   four layer shapes (and gate/up at the shortest, M 112, and at the
+   frontend's extend buckets, M 16 and 256), with its sums
    over one decode step's 225 launches and one prefill's 224 layer
    launches against their bounds. Every B7 shape is also a graph replay
    (with the wrapper's host time per call), one decode layer's seven B7
@@ -61,7 +62,26 @@
    B's prompts, routes and token counts), and A8's and B8's decode are
    profiled.
    One 1000-token prefill (padded to 1008) of A's and of A8's model is
-   timed and profiled by kernel group.
+   timed and profiled by kernel group, and so is one prefix-cache extend
+   as engines S and S8 run it (a 200-token tail, bucket 256, over the
+   512-token system prompt), with its tail attention's device time.
+   The frontend: the same model behind ``serving.ServingEngine`` with the
+   default flags (prefix cache, budget 512, bucket cap 1024, admission
+   and brownout on), engine S (bf16) after engine B and engine S8 (int8
+   weights and KV) after B8, ``max_seq_len`` 2048. Each is built not
+   ready (a submit must raise ``NotReadyError``) and warmed up (every
+   prefill bucket and the decode step), then takes 16 requests at once:
+   a 512-token system prompt shared by 14 of them (one cold request that
+   registers it, hits, a duplicate prompt, one extending another's), two
+   unrelated misses, 32 new tokens each. Its ``serving.prefix.*``
+   counters must move by what the traffic works out to on the host
+   (``expected_prefix_counts``: two copy-on-writes), with no preemption,
+   every request ``DONE``, 32 B1 launches per cold prefill and none per
+   extend, 32 B6 (S) or B6q (S8) per decode step and, in S8, 225 B7 per
+   prefill, extend and decode step; TTFT of hits and misses, decode
+   tokens/s and peak memory are printed; the teacher-forced check holds
+   its tokens. A ``background=True`` engine then serves its first four
+   prompts through ``handle.result()``: the tokens must be engine S's.
    Each engine's kernel launch counts are zeroed before it runs and must
    move by exactly the expected amounts; a teacher-forced dense forward of
    the model as served (bf16, or int8 weights through B7's plain version
@@ -167,6 +187,12 @@ QMM_LAYER = (("q_proj", 4096, 4096), ("k_proj", 1024, 4096),
              ("gate_proj", 14336, 4096), ("up_proj", 14336, 4096),
              ("down_proj", 4096, 14336))
 PREFILL_PROFILE_LEN = 1000           # one prompt, padded to 1008
+QMM_EXTEND_M = (16, 256)             # frontend extends: tail buckets 16..256
+# frontend phase (serving.ServingEngine, engines S and S8): a 512-token
+# system prompt (32 full blocks) shared by 14 of 16 requests, each asking
+# for FRONT_NEW tokens; suffixes of 17-200 tokens, never a block multiple
+FRONT_SYSTEM = 512
+FRONT_NEW = 32
 # varlen phase (segment branch of B1-B3): V1's packed row and longest
 # sequence, V2's packed kv row and longest sequence, V3's sequence length
 V1_TOKENS, V1_LONGEST = 8192, 2048
@@ -1100,6 +1126,8 @@ def kernel_phases(torch):
     qmm += prefill
     qmm.append(qmm_phase(torch, timer, QMM_SHORT_M, *QMM_PREFILL[0][0],
                          seed=3200))
+    qmm += [qmm_phase(torch, timer, m, *QMM_PREFILL[0][0], seed=3210 + m)
+            for m in QMM_EXTEND_M]
     del timer
     torch.cuda.empty_cache()
     return {"flash_fwd": flash,
@@ -1158,17 +1186,19 @@ class Instrumented:
     """Times the model's serving calls (host clock around work that ends in
     a synchronize) and counts prefills and decode steps."""
 
+    KINDS = {"prefill": "paged_prefill", "extend": "paged_prefill_extend",
+             "decode": "paged_decode_step"}
+
     def __init__(self, torch, model):
         self.torch = torch
         self.model = model
-        self.orig = (model.paged_prefill, model.paged_decode_step)
-        model.paged_prefill = self._wrap(self.orig[0], "prefill")
-        model.paged_decode_step = self._wrap(self.orig[1], "decode")
+        for kind, attr in self.KINDS.items():
+            setattr(model, attr, self._wrap(getattr(model, attr), kind))
         self.reset()
 
     def reset(self):
-        self.calls = {"prefill": 0, "decode": 0}
-        self.secs = {"prefill": 0.0, "decode": 0.0}
+        self.calls = {k: 0 for k in self.KINDS}
+        self.secs = {k: 0.0 for k in self.KINDS}
 
     def _wrap(self, fn, kind):
         def run(*a, **kw):
@@ -1182,8 +1212,8 @@ class Instrumented:
         return run
 
     def restore(self):
-        del self.model.paged_prefill
-        del self.model.paged_decode_step
+        for attr in self.KINDS.values():
+            delattr(self.model, attr)
 
 
 def _first_token_done(engine, rid):
@@ -1272,12 +1302,15 @@ def _dense_logits(torch, model, ids, attention=None):
     return logits
 
 
-def teacher_forced(torch, model, engine, kv8=False):
+def teacher_forced(torch, model, engine, kv8=False, exact=None):
     """Dense forward over prompt + generated for every finished request;
     where the top-2 gap exceeds GAP_TOL the argmax must be the engine's
     token. Holds the paged-decode kernels against the flash kernel, and
     B7 against its plain version. With ``kv8`` (an int8-cache engine) the
-    forward attends as the engine does (``kv8_attention``)."""
+    forward attends as the engine does (``kv8_attention``): queries before
+    ``exact[rid]`` (default: the prompt's length) attend the exact KV, as
+    a cold prefill computed them; later ones attend int8-rounded KV, as
+    decode steps and prefix-cache extends read the pools."""
     checked = total = 0
     min_gap_checked = float("inf")
     with torch.inference_mode():
@@ -1286,8 +1319,9 @@ def teacher_forced(torch, model, engine, kv8=False):
             n = len(req.prompt)
             gen = torch.as_tensor(req.generated)
             span = slice(n - 1, n - 1 + len(req.generated))
+            n_exact = (exact or {}).get(req.rid, n)
             logits = _dense_logits(torch, model, ids,
-                                   kv8_attention(n) if kv8 else None)
+                                   kv8_attention(n_exact) if kv8 else None)
             top = logits[span].topk(2, dim=-1)
             gap = (top.values[:, 0] - top.values[:, 1]).cpu()
             arg = top.indices[:, 0].cpu()
@@ -1391,23 +1425,49 @@ _CACHE_WRITE = "cache writes (paged_prefill_write[_q])"
 _PREFILL_OTHER = "elementwise, norms, rope, embedding, copies"
 
 
-def profile_prefill(torch, model, prompt, label, **engine_kw):
+def profile_prefill(torch, model, prompt, label, prefix_len=0,
+                    **engine_kw):
     """One prefill of ``prompt`` (padded to a block multiple) into a fresh
     engine's cache: its host-clock time (median of 3, synchronized), then
     torch.profiler over one more: device time by kernel group, the cache
-    writes read from a ``record_function`` range around them."""
+    writes read from a ``record_function`` range around them. With
+    ``prefix_len`` (a block multiple) one cold prefill registers the
+    prompt's first ``prefix_len`` tokens in the prefix cache, and the call
+    profiled is the prefix-cache extend of the rest, at the bucket the
+    scheduler gives it; the tail attention's device time is read from a
+    range around ``paged_prefix_attention_dense`` (its kernels also count
+    in the groups)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     import paddle_tpu_torch.inference.paged as paged_mod
     from paddle_tpu_torch import ContinuousBatchingEngine
+    from paddle_tpu_torch.serving import bucket_length
     engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
                                       max_seq_len=2048, temperature=0.0,
                                       **engine_kw)
     cache = engine.cache
+    padded = -(-len(prompt) // 16) * 16
+    if prefix_len:
+        head = prompt[:prefix_len]
+        plan = cache.plan_prefix(head)
+        slot = cache.alloc_slot_cached(plan)
+        model.paged_prefill(cache, slot, head)
+        cache.commit_prefix(slot, plan)
+        cache.free_slot(slot)
+        padded = bucket_length(len(prompt) - prefix_len, 16, 1024, 2048)
 
     def prefill():
-        slot = cache.alloc_slot(len(prompt))
+        if prefix_len:
+            plan = cache.plan_prefix(prompt)
+            slot = cache.alloc_slot_cached(plan)
+        else:
+            slot = cache.alloc_slot(len(prompt))
         try:
-            model.paged_prefill(cache, slot, prompt)
+            if prefix_len:
+                model.paged_prefill_extend(cache, slot, prompt,
+                                           plan.tail_start, plan.write_start,
+                                           pad_to=padded)
+            else:
+                model.paged_prefill(cache, slot, prompt)
         finally:
             cache.free_slot(slot)
 
@@ -1418,17 +1478,21 @@ def profile_prefill(torch, model, prompt, label, **engine_kw):
         prefill()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-    names = ("paged_prefill_write", "paged_prefill_write_q")
-    orig = {n: getattr(paged_mod, n) for n in names}
+    ranges = {"paged_prefill_write": "cache_write",
+              "paged_prefill_write_q": "cache_write",
+              "paged_prefill_write_masked": "cache_write",
+              "paged_prefill_write_masked_q": "cache_write",
+              "paged_prefix_attention_dense": "prefix_attention"}
+    orig = {n: getattr(paged_mod, n) for n in ranges}
 
-    def traced(fn):
+    def traced(fn, rng):
         def run(*a, **kw):
-            with record_function("cache_write"):
+            with record_function(rng):
                 return fn(*a, **kw)
         return run
 
     for n, fn in orig.items():
-        setattr(paged_mod, n, traced(fn))
+        setattr(paged_mod, n, traced(fn, ranges[n]))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1451,14 +1515,19 @@ def profile_prefill(torch, model, prompt, label, **engine_kw):
         grp = next((lab for key, lab in _PREFILL_GROUPS if key in e.name),
                    _PREFILL_OTHER)
         groups[grp] = groups.get(grp, 0.0) + us / 1e3
-    write_ms = sum(getattr(e, "device_time_total", 0.0) for e in events
-                   if e.device_type != cuda and e.name == "cache_write") / 1e3
+    def range_ms(name):
+        return sum(getattr(e, "device_time_total", 0.0) for e in events
+                   if e.device_type != cuda and e.name == name) / 1e3
+
+    write_ms = range_ms("cache_write")
     groups[_CACHE_WRITE] = write_ms
     groups[_PREFILL_OTHER] = groups.get(_PREFILL_OTHER, 0.0) - write_ms
-    rec = dict(tokens=len(prompt), padded=-(-len(prompt) // 16) * 16,
+    rec = dict(tokens=len(prompt), prefix=prefix_len, padded=padded,
                prefill_ms=float(np.median(secs[1:])) * 1e3,
                profiled_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                kernels=n_kernels, by_group_ms=groups)
+    if prefix_len:
+        rec["prefix_attention_ms"] = range_ms("prefix_attention")
     print(f"prefill profile (engine {label}): {json.dumps(rec)}", flush=True)
     if busy_us == 0.0:
         print("profile: the profiler saw no device time; prefill breakdown "
@@ -1521,6 +1590,223 @@ def convert_int8(torch, model):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# frontend phase: the same model behind serving.ServingEngine
+# ---------------------------------------------------------------------------
+
+def front_traffic(vocab, seed=10):
+    """Engines S and S8's 16 prompts: r0 the system prompt plus a suffix
+    (cold; it registers the prefix), r1, r3 and r5-r13 the system prompt
+    plus distinct suffixes (hits on its 32 blocks), r2 r1's prompt exactly
+    (full coverage), r4 r3's prompt plus 3 tokens (a partial match), r14
+    and r15 unrelated prompts of 300-600 tokens (misses). Suffixes are
+    17-200 tokens and no prompt is a block multiple."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, FRONT_SYSTEM)
+    lens = [n for n in rng.permutation(np.arange(17, 201)) if n % 16 and
+            (n + 3) % 16][:12]
+
+    def tokens(n):
+        return rng.integers(0, vocab, int(n))
+
+    suffixed = [np.concatenate([system, tokens(n)]) for n in lens]
+    prompts = suffixed[:2] + [suffixed[1].copy()] + [suffixed[2]] + \
+        [np.concatenate([suffixed[2], tokens(3)])] + suffixed[3:]
+    for n in (int(rng.integers(300, 601)), int(rng.integers(300, 601))):
+        prompts.append(tokens(n + (n % 16 == 0)))
+    assert len(prompts) == 16
+    return [p.astype(np.int64) for p in prompts]
+
+
+def expected_prefix_counts(prompts, bs=16):
+    """The prefix cache's counters for FCFS admission of ``prompts`` into
+    an empty cache, worked out from token contents alone (a chunk is
+    resident once a prompt with the same tokens up to its end was
+    admitted; a partial block likewise) -- independent of the port's
+    hashing. Each shared partial block costs one copy at the first decode
+    append, each partial match extended past its tokens one at
+    admission. Returns the counters and each prompt's covered tokens."""
+    full, part = set(), set()
+    hits = misses = cow = 0
+    covered_of = []
+    for ids in prompts:
+        ids = tuple(int(t) for t in ids)
+        n, matched = len(ids), 0
+        while (matched + 1) * bs <= n and ids[:(matched + 1) * bs] in full:
+            matched += 1
+        covered, partial, shared = matched * bs, False, False
+        if covered < n:
+            for p in range(min(bs - 1, n - covered), 0, -1):
+                if ids[:covered + p] in part:
+                    partial, shared = True, p == n - covered
+                    covered += p
+                    break
+        hit = matched + partial
+        hits += hit
+        misses += -(-n // bs) - hit
+        cow += partial  # at admission, or at the sharer's first append
+        full.update(ids[:(c + 1) * bs] for c in range(n // bs))
+        if n % bs and not shared:
+            part.add(ids)
+        covered_of.append(covered)
+    return {"serving.prefix.hit_blocks": hits,
+            "serving.prefix.miss_blocks": misses,
+            "serving.prefix.cow_copies": cow}, covered_of
+
+
+def frontend_engine(torch, model, name, **kw):
+    """Engine S (or S8: ``kv_cache_dtype="int8"``) with the default flags,
+    built not ready: a submit must raise NotReadyError, then ``warmup()``
+    runs every prefill bucket and the decode step."""
+    from paddle_tpu_torch.serving import NotReadyError, ServingEngine
+    engine = ServingEngine(model, max_batch=8, block_size=16,
+                           max_seq_len=2048, temperature=0.0,
+                           background=False, ready=False, **kw)
+    try:
+        engine.submit(np.zeros(8, np.int64), max_new_tokens=1)
+    except NotReadyError:
+        pass
+    else:
+        fail(f"engine {name}: a WARMING engine took a submit")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    programs = engine.warmup()
+    torch.cuda.synchronize()
+    warm = dict(programs=programs, secs=time.perf_counter() - t,
+                lifecycle=engine.lifecycle)
+    print(f"engine {name} warm-up: {json.dumps(warm)}", flush=True)
+    if engine.lifecycle != "READY":
+        fail(f"engine {name}: warmup() left it {engine.lifecycle}")
+    return engine, warm
+
+
+def serve_frontend(torch, inst, model, name, prompts, **kw):
+    """Serve ``prompts`` (all submitted at once) on a warmed engine; counts
+    and ``serving.*`` counters zeroed or snapshot just before, read just
+    after. Gates: every request DONE with FRONT_NEW tokens, no
+    preemption, the prefix counters as ``expected_prefix_counts`` works
+    them out, the teacher-forced check."""
+    from paddle_tpu_torch.profiler import metrics
+    engine, warm = frontend_engine(torch, model, name, **kw)
+    want, covered = expected_prefix_counts(prompts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inst.reset()
+    zero_counts()
+    before = metrics.snapshot("serving.")
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=FRONT_NEW) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts()
+    delta = metrics.window_delta(before, metrics.snapshot("serving."))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sched = engine.scheduler
+    reqs = [sched.finished[h.rid] for h in handles]
+    for r in reqs:
+        if r.status != "DONE" or len(r.generated) != FRONT_NEW:
+            fail(f"engine {name}: request {r.rid} ended {r.status} with "
+                 f"{len(r.generated)} tokens")
+    counts = {k: delta.get(k, 0) for k in
+              ("serving.prefix.hit_blocks", "serving.prefix.miss_blocks",
+               "serving.prefix.cow_copies", "serving.prefix.evictions",
+               "serving.preempt", "serving.admitted", "serving.completed",
+               "serving.decoded_tokens", "serving.prefix.computed_tokens")}
+    for k, v in want.items():
+        if counts[k] != v:
+            fail(f"engine {name}: {k} moved by {counts[k]}, the traffic "
+                 f"works out to {v}")
+    if counts["serving.prefix.cow_copies"] != 2 or \
+            counts["serving.preempt"] != 0:
+        fail(f"engine {name}: {counts}")
+    hit = [i for i, c in enumerate(covered) if c]
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    ttft_hit = sorted(ttft[i] for i in hit)
+    ttft_miss = sorted(t for i, t in enumerate(ttft) if i not in hit)
+    decoded = sum(len(r.generated) - 1 for r in reqs)
+    rec = dict(requests=len(prompts), wall_s=wall, warmup=warm,
+               prefills=inst.calls["prefill"], extends=inst.calls["extend"],
+               prefill_s=inst.secs["prefill"], extend_s=inst.secs["extend"],
+               decode_steps=inst.calls["decode"],
+               decode_s=inst.secs["decode"], decode_tokens=decoded,
+               decode_tok_per_s=decoded / max(inst.secs["decode"], 1e-9),
+               ttft_hit_median_s=float(np.median(ttft_hit)),
+               ttft_hit_max_s=ttft_hit[-1],
+               ttft_miss_median_s=float(np.median(ttft_miss)),
+               ttft_miss_max_s=ttft_miss[-1], peak_mem_gib=peak,
+               counters=counts, expected=want, launches=launches,
+               routes=routes, num_blocks=engine.cache.num_blocks)
+    if rec["prefills"] != len(prompts) - len(hit) or \
+            rec["extends"] != len(hit):
+        fail(f"engine {name}: {rec['prefills']} cold prefills and "
+             f"{rec['extends']} extends for {len(hit)} hits")
+    # a hit's first FRONT_SYSTEM positions came from r0's cold prefill;
+    # the rest were computed by extends that read the pools
+    exact = {h.rid: FRONT_SYSTEM for i, h in enumerate(handles) if i in hit}
+    rec["teacher_forced"] = teacher_forced(
+        torch, model, sched, kv8=engine.cache.quantized, exact=exact)
+    rec["tokens"] = [list(map(int, r.generated)) for r in reqs]
+    engine.close()
+    print(f"engine {name}: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "tokens"}), flush=True)
+    print(f"engine {name}: TTFT hits median {rec['ttft_hit_median_s']:.4f} "
+          f"s max {rec['ttft_hit_max_s']:.4f} s, misses median "
+          f"{rec['ttft_miss_median_s']:.4f} s max "
+          f"{rec['ttft_miss_max_s']:.4f} s; decode "
+          f"{rec['decode_tok_per_s']:.1f} tokens/s; peak "
+          f"{peak:.2f} GiB", flush=True)
+    del engine, sched, reqs, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def background_check(torch, model, prompts, want):
+    """A ``background=True`` engine serves ``prompts`` through
+    ``handle.result()`` on its driver thread; the tokens must be ``want``
+    (engine S's for the same prompts)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    t = time.perf_counter()
+    with ServingEngine(model, max_batch=8, block_size=16, max_seq_len=2048,
+                       temperature=0.0) as engine:
+        handles = [engine.submit(p, max_new_tokens=FRONT_NEW)
+                   for p in prompts]
+        got = [list(map(int, h.result(timeout=600))) for h in handles]
+        driver = engine._thread is not None and engine._thread.is_alive()
+    rec = dict(requests=len(prompts), secs=time.perf_counter() - t,
+               driver_thread=driver, equal=got == want)
+    print(f"background driver: {json.dumps(rec)}", flush=True)
+    if not driver or got != want:
+        fail(f"the background engine's tokens differ from engine S's: "
+             f"{got} vs {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_frontend_launches(results):
+    """Exactly 32 B1 launches per cold prefill and none per extend, 32
+    B6 (S) or B6q (S8) per decode step, and in S8 225 B7 per prefill,
+    extend and decode step."""
+    for name, route in (("S", "paged_decode_split"),
+                        ("S8", "paged_decode_split_q")):
+        r = results[name]
+        exp = {k: 0 for k in ("flash_bwd_dq", "flash_bwd_dkv",
+                              "paged_decode", "paged_decode_split",
+                              "paged_decode_q", "paged_decode_split_q",
+                              "quant_matmul")}
+        exp["flash_fwd"] = r["prefills"] * LAYERS
+        exp[route] = r["decode_steps"] * LAYERS
+        if name == "S8":
+            exp["quant_matmul"] = (r["prefills"] + r["extends"]
+                                   + r["decode_steps"]) * QMM_PER_FORWARD
+        for k, n in exp.items():
+            if r["launches"][k] != n:
+                fail(f"engine {name}: {k} launched {r['launches'][k]} "
+                     f"times, expected {n}")
+
+
 def slice_phase(torch):
     from paddle_tpu_torch import Llama, LlamaConfig
     cfg = LlamaConfig.llama3_8b()
@@ -1547,16 +1833,26 @@ def slice_phase(torch):
     bf16_engines = (("A", dict(max_seq_len=2048), 8, 100, 1000, 32),
                     ("B", dict(max_seq_len=240), 4, 20, 180, 24))
     results, asked = {}, {}
+    front = front_traffic(cfg.vocab_size)
     inst = Instrumented(torch, model)
     for name, kw, n, lo, hi, new in bf16_engines:
         asked[name] = (prompts(n, lo, hi), new)
         results[name] = run_engine(torch, inst, model, name, *asked[name],
                                    **kw)
+    results["S"] = serve_frontend(torch, inst, model, "S", front)
     inst.restore()
+    results["S"]["background"] = background_check(
+        torch, model, front[:4], results["S"]["tokens"][:4])
     results["A"]["profile"] = profile_decode(torch, model, asked["A"][0], 8)
     long_prompt = prompts(1, PREFILL_PROFILE_LEN, PREFILL_PROFILE_LEN)[0]
     results["A"]["prefill_profile"] = profile_prefill(torch, model,
                                                       long_prompt, "A")
+    # one extend as the frontend runs it: a 200-token tail (bucket 256)
+    # over the 512-token system prompt
+    ext_prompt = np.concatenate([front[0][:FRONT_SYSTEM],
+                                 prompts(1, 200, 200)[0]])
+    results["S"]["extend_profile"] = profile_prefill(
+        torch, model, ext_prompt, "S, extend", prefix_len=FRONT_SYSTEM)
 
     results["int8_model"] = convert_int8(torch, model)
     inst = Instrumented(torch, model)
@@ -1564,6 +1860,8 @@ def slice_phase(torch):
         results[name + "8"] = run_engine(torch, inst, model, name + "8",
                                          *asked[name], kv_cache_dtype="int8",
                                          **kw)
+    results["S8"] = serve_frontend(torch, inst, model, "S8", front,
+                                   kv_cache_dtype="int8")
     inst.restore()
     prof8 = profile_decode(torch, model, asked["A"][0], 8, label="A8",
                            kv_cache_dtype="int8")
@@ -1573,6 +1871,9 @@ def slice_phase(torch):
         kv_cache_dtype="int8")
     results["A8"]["prefill_profile"] = profile_prefill(
         torch, model, long_prompt, "A8", kv_cache_dtype="int8")
+    results["S8"]["extend_profile"] = profile_prefill(
+        torch, model, ext_prompt, "S8, extend", prefix_len=FRONT_SYSTEM,
+        kv_cache_dtype="int8")
     pa, p8 = results["A"]["prefill_profile"], results["A8"]["prefill_profile"]
     print(f"prefill of {pa['tokens']} tokens: A {pa['prefill_ms']:.2f} ms, "
           f"A8 {p8['prefill_ms']:.2f} ms (host clock); TTFT medians: A "
@@ -1610,6 +1911,7 @@ def slice_phase(torch):
                      f"expected {n}")
         if results[name]["decode_steps"] == 0:
             fail(f"engine {name} ran no decode step")
+    check_frontend_launches(results)
     return results
 
 
@@ -1898,7 +2200,7 @@ def main():
         # the first record of each kernel is at its main path's shape
         main_rec = phases[name][0]
         launches = sum(served[e]["launches"][name]
-                       for e in ("A", "B", "A8", "B8")) \
+                       for e in ("A", "B", "A8", "B8", "S", "S8")) \
             + trained["launches"][name]
         paths = {}
         if name == "quant_matmul":  # decode (above) and prefill

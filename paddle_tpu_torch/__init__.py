@@ -2,14 +2,16 @@
 
 This package holds the Llama serving path (continuous batching over a
 paged KV cache, bf16 or int8, with bf16 or int8 weights through
-``quantization.QAT``) and the GPT training path (``GPT`` trained by
-``jit.TrainStep`` with ``optimizer.AdamW`` and fp32 master weights), with
-hand-written Hopper (sm_90a) CUDA kernels for the flash-attention forward
-and backward, the paged-decode attention over bf16 and int8 pools and the
+``quantization.QAT``, behind the serving frontend
+``serving.ServingEngine`` with its scheduler, prefix cache and overload
+control) and the GPT training path (``GPT`` trained by ``jit.TrainStep``
+with ``optimizer.AdamW`` and fp32 master weights), with hand-written
+Hopper (sm_90a) CUDA kernels for the flash-attention forward and
+backward, the paged-decode attention over bf16 and int8 pools and the
 int8 weight matmul. Its layout follows ``paddle_tpu`` (``core/``,
 ``nn/``, ``models/``, ``optimizer/``, ``jit/``, ``inference/``,
-``quantization/``, ``kernels/``) so each module's counterpart is found
-under the same path.
+``serving/``, ``profiler/``, ``quantization/``, ``kernels/``) so each
+module's counterpart is found under the same path.
 
 It imports torch, numpy and the standard library only. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
@@ -21,6 +23,7 @@ from .jit import TrainStep
 from .models.gpt import GPT, GPTConfig
 from .models.llama import Llama, LlamaConfig
 from .optimizer import AdamW
+from .serving import ServingEngine
 
 __all__ = ["AdamW", "ContinuousBatchingEngine", "GPT", "GPTConfig", "Llama",
-           "LlamaConfig", "PagedKVCache", "TrainStep"]
+           "LlamaConfig", "PagedKVCache", "ServingEngine", "TrainStep"]

@@ -1,9 +1,13 @@
-"""The flags this slice reads (mirrors ``paddle_tpu/core/flags.py``).
+"""The flags the port reads (mirrors ``paddle_tpu/core/flags.py``).
 
-Each flag has a default, may be overridden by an environment variable of
-the same name at import, and by ``set_flags`` at run time. Engines read
-them once, at construction; attention reads ``FLAGS_flash_kernel`` at each
-call.
+Each flag has a default whose type it keeps (bool, int, float or str),
+may be overridden by an environment variable of the same name at import,
+and by ``set_flags`` at run time (a value of another type is parsed as
+the reference parses it: ``1``/``true``/``yes``/``on`` are a true bool).
+Engines read them once, at construction; attention reads
+``FLAGS_flash_kernel`` at each call.
+
+Kernel routing and KV storage:
 
 - ``FLAGS_paged_kernel``: ``auto`` (default) launches the paged-decode
   CUDA kernels for CUDA tensors (their plain PyTorch version for CPU
@@ -20,6 +24,27 @@ call.
 - ``FLAGS_kv_cache_dtype``: KV pool storage, read when an engine is
   built: ``""`` (default) keeps the pools in the compute dtype; ``int8``
   stores int8 rows with a float32 scale per (token, kv head) row.
+
+The serving frontend (``serving/``), read when a ``Scheduler`` is built:
+
+- ``FLAGS_serving_max_queue`` (256): admission-queue bound; a submit past
+  it raises ``QueueFullError``; 0 = unbounded.
+- ``FLAGS_serving_prefill_budget`` (512): prompt tokens (uncovered ones,
+  with the prefix cache) prefilled per scheduler step; 0 = unlimited.
+- ``FLAGS_serving_prefix_cache`` (True): content-addressed prefix
+  caching in the paged pool (shared read-only blocks, copy-on-write, LRU
+  reclamation); 0 gives every request private blocks.
+- ``FLAGS_serving_prefill_bucket_cap`` (1024): prefill lengths round up to
+  power-of-two buckets capped here; 0 pads to a block multiple only.
+- ``FLAGS_serving_admission`` (True): deadline-aware admission and
+  priority load shedding (``serving/overload.py``).
+- ``FLAGS_serving_brownout`` (True): the brownout ladder.
+- Overload tuning: ``FLAGS_admission_optimism`` (0.5),
+  ``FLAGS_shed_min_queue`` (16), ``FLAGS_shed_queue_frac`` (0.75),
+  ``FLAGS_shed_kv_frac`` (0.95), ``FLAGS_shed_wait_s`` (30.0),
+  ``FLAGS_brownout_enter_steps`` (3), ``FLAGS_brownout_exit_steps`` (6),
+  ``FLAGS_brownout_exit_pressure`` (0.7), ``FLAGS_brownout_clamp_tokens``
+  (16).
 """
 
 from __future__ import annotations
@@ -30,9 +55,36 @@ _DEFAULTS = {
     "FLAGS_paged_kernel": "auto",
     "FLAGS_flash_kernel": "auto",
     "FLAGS_kv_cache_dtype": "",
+    "FLAGS_serving_max_queue": 256,
+    "FLAGS_serving_prefill_budget": 512,
+    "FLAGS_serving_prefix_cache": True,
+    "FLAGS_serving_prefill_bucket_cap": 1024,
+    "FLAGS_serving_admission": True,
+    "FLAGS_serving_brownout": True,
+    "FLAGS_admission_optimism": 0.5,
+    "FLAGS_shed_min_queue": 16,
+    "FLAGS_shed_queue_frac": 0.75,
+    "FLAGS_shed_kv_frac": 0.95,
+    "FLAGS_shed_wait_s": 30.0,
+    "FLAGS_brownout_enter_steps": 3,
+    "FLAGS_brownout_exit_steps": 6,
+    "FLAGS_brownout_exit_pressure": 0.7,
+    "FLAGS_brownout_clamp_tokens": 16,
 }
 
-_values = {name: os.environ.get(name, default)
+
+def _parse(value, like):
+    t = type(like)
+    if isinstance(value, t):
+        return value
+    s = str(value)
+    if t is bool:
+        return s.strip().lower() in ("1", "true", "yes", "on")
+    return t(s)
+
+
+_values = {name: _parse(os.environ[name], default)
+           if name in os.environ else default
            for name, default in _DEFAULTS.items()}
 
 
@@ -47,5 +99,5 @@ def set_flags(flags: dict):
         if name not in _values:
             raise ValueError(f"unknown flag {name!r}")
     for name, value in flags.items():
-        _values[name] = str(value)
+        _values[name] = _parse(value, _DEFAULTS[name])
 

@@ -1,5 +1,5 @@
-"""Paged (block) KV cache and continuous batching (mirrors
-``paddle_tpu/inference/paged.py``).
+"""Paged (block) KV cache, its prefix cache and continuous batching
+(mirrors ``paddle_tpu/inference/paged.py``).
 
 - The KV pool is one tensor per layer ``[num_blocks, block_size, Hk, D]``
   on the device; a per-slot block table ``[max_batch, max_blocks_per_seq]``
@@ -12,10 +12,25 @@
   the compute dtype. Default pool sizing grows by the byte ratio
   (``quant_block_ratio``), as the JAX package's does.
 - **The pools are updated in place** (``paged_prefill_write[_q]``,
-  ``paged_decode_write[_q]``), where the JAX package returns new arrays
-  from functional ``.at[].set`` updates.
-- Block tables, sequence lengths, the free list and the refcounts are host
-  numpy state; they are uploaded as small tensors each step.
+  ``paged_prefill_write_masked[_q]``, ``paged_decode_write[_q]``,
+  ``PagedKVCache._copy_block_rows``), where the JAX package returns new
+  arrays from functional ``.at[].set`` updates.
+- Block tables, sequence lengths, the free list, the refcounts and the
+  prefix index are host state (numpy and Python); they are uploaded as
+  small tensors each step.
+- **Prefix cache.** Block-aligned prompt chunks are content-hashed
+  (``chunk_digests``: a rolling blake2b over int64 token bytes, the
+  reference's digests bit for bit); ``plan_prefix`` matches a prompt's
+  leading chunks (and a partially filled tail block) against the index,
+  ``alloc_slot_cached`` maps the matched blocks read-only (refcount + 1)
+  and copies a matched partial block that the prompt writes past
+  (copy-on-write), ``commit_prefix`` registers a prefilled slot's chunks.
+  ``prepare_append`` copies a shared block before a decode append lands
+  in it. Registered blocks whose refcount drops to 0 park in an LRU
+  (``_cached_free``) and are evicted only when the free list is empty.
+  ``Llama.paged_prefill_extend`` computes only the uncovered tail
+  (``paged_prefill_write_masked``, ``paged_prefix_attention_dense``; the
+  latter has no Pallas kernel in the reference and stays plain PyTorch).
 - ``paged_decode_attention`` is the routing point of the decode attention
   (``FLAGS_paged_kernel``): ``auto``/``kernel`` launch the CUDA kernels for
   CUDA tensors -- the split-KV kernel when the table has at least
@@ -23,13 +38,17 @@
   plain version for CPU tensors; ``dense`` forces the plain version.
   ``ROUTE_COUNTS`` records each routing decision.
 
-Not ported yet: the prefix index, copy-on-write, LRU parking and mesh
-capacity slices.
+Not ported yet: mesh capacity slices (``num_slices``), the speculative
+range helpers (``prepare_append_range``, ``truncate_blocks``,
+``paged_spec_write``, ``paged_spec_attention_dense``) and the
+tensor-parallel decode attention.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,17 +56,33 @@ import torch
 
 from ..core import flags as _flags
 from ..core.device import resolve_device
+from ..profiler import metrics as _metrics
 from ..quantization import quantize_rows
-from ..kernels.paged_attention import (paged_decode_attention_chunked,
+from ..kernels.paged_attention import (_NEG, _gather_kv,
+                                       paged_decode_attention_chunked,
                                        paged_decode_attention_dense,
                                        paged_decode_attention_kernel)
 
 __all__ = ["PagedKVCache", "CapacityError", "ContinuousBatchingEngine",
+           "PrefixPlan", "chunk_digests",
            "paged_prefill_write", "paged_prefill_write_q",
+           "paged_prefill_write_masked", "paged_prefill_write_masked_q",
+           "paged_prefix_attention_dense",
            "paged_decode_write", "paged_decode_write_q",
            "paged_decode_attention", "paged_decode_attention_dense",
-           "validate_request", "sized_num_blocks", "resolve_paged_kernel",
+           "validate_request", "sized_num_blocks", "prefill_ids",
+           "resolve_paged_kernel",
            "resolve_kv_dtype", "quant_block_ratio", "ROUTE_COUNTS"]
+
+# pool-exhaustion preemptions, under the name the serving scheduler
+# counts its own under (both engines report as one metric)
+_PREEMPTS = _metrics.counter("serving.preempt")
+# prefix-cache economics: blocks mapped from the cache and computed fresh
+# at admission, copy-on-write copies, LRU evictions of cold cached blocks
+_PREFIX_HITS = _metrics.counter("serving.prefix.hit_blocks")
+_PREFIX_MISSES = _metrics.counter("serving.prefix.miss_blocks")
+_PREFIX_COW = _metrics.counter("serving.prefix.cow_copies")
+_PREFIX_EVICT = _metrics.counter("serving.prefix.evictions")
 
 _KERNEL_MODES = ("auto", "kernel", "dense")
 # tables at least this many pages long route to the split-KV kernel
@@ -95,10 +130,40 @@ def quant_block_ratio(head_dim, dtype):
     return head_dim * itemsize / (head_dim + 4)
 
 
+# ---------------------------------------------------------------------------
+# content addressing (prefix cache)
+# ---------------------------------------------------------------------------
+
+def chunk_digests(token_ids, block_size):
+    """Rolling content hashes of the full block-aligned chunks of
+    ``token_ids`` (as int64; hash real tokens only, never bucket
+    padding). Each digest folds in its parent's, so a chunk's digest
+    names the whole prefix up to and including that chunk."""
+    ids = np.ascontiguousarray(np.asarray(token_ids).reshape(-1),
+                               dtype=np.int64)
+    out, parent = [], b""
+    for c in range(ids.size // block_size):
+        parent = hashlib.blake2b(
+            parent + ids[c * block_size:(c + 1) * block_size].tobytes(),
+            digest_size=16).digest()
+        out.append(parent)
+    return out
+
+
+def _partial_key(parent_digest, token_ids):
+    """Content key of a partially filled tail block: the full-chunk
+    parent chain plus the partial tokens themselves."""
+    ids = np.ascontiguousarray(np.asarray(token_ids).reshape(-1),
+                               dtype=np.int64)
+    return hashlib.blake2b(parent_digest + b"|part|" + ids.tobytes(),
+                           digest_size=16).digest()
+
+
 class CapacityError:
-    """Falsy result of a failed ``ensure_capacity``: ``blocks`` (pool
-    exhausted; preemption can help) or ``seq_limit`` (the sequence
-    outgrew ``max_blocks_per_seq``; it can never fit)."""
+    """Falsy result of a failed ``ensure_capacity``/``prepare_append``:
+    ``blocks`` (pool exhausted; eviction or preemption can help) or
+    ``seq_limit`` (the sequence outgrew ``max_blocks_per_seq``; it can
+    never fit)."""
 
     __slots__ = ("reason", "detail")
 
@@ -116,9 +181,57 @@ class CapacityError:
         return f"CapacityError({self.reason!r}, {self.detail!r})"
 
 
+@dataclass
+class PrefixPlan:
+    """Admission plan from ``PagedKVCache.plan_prefix``: which leading
+    chunks of a prompt are resident (and where), and how much of the
+    prompt they cover. Computing a plan has no side effects;
+    ``alloc_slot_cached`` consumes it."""
+
+    ids: np.ndarray            # the (unpadded) token ids planned against
+    num_tokens: int
+    chunks_total: int          # ceil(num_tokens / block_size), >= 1
+    digests: list              # rolling digests of the full chunks
+    matched_full: int          # leading full chunks found in the index
+    matched_blocks: list       # their pool block ids, in chunk order
+    partial_block: int | None  # matched partially filled tail block
+    partial_len: int           # tokens matched inside it
+    partial_shared: bool       # True: mapped read-only (no write lands in
+    #                            it); False: copied at admission
+    covered_tokens: int        # matched_full * block_size + partial_len
+
+    @property
+    def tail_start(self):
+        """First position the prefill must compute. Full coverage still
+        recomputes the last token: its logits seed decoding."""
+        return self.covered_tokens if self.covered_tokens \
+            < self.num_tokens else self.num_tokens - 1
+
+    @property
+    def write_start(self):
+        """First position the prefill may write (never a shared row;
+        full coverage writes nothing)."""
+        return self.covered_tokens
+
+    @property
+    def hit_blocks(self):
+        return self.matched_full + (1 if self.partial_block is not None
+                                    else 0)
+
+
 class PagedKVCache:
     """Per-layer block pools (device) + block tables, sequence lengths,
-    free list and per-block refcounts (host)."""
+    free list, per-block refcounts and the prefix index (host).
+
+    A block registered in the prefix index is immutable in its
+    registered rows and may back several slots (refcount > 1). Appends
+    past every sharer's length are safe in place at refcount 1; a write
+    into a block with refcount > 1 copies it first (``prepare_append``,
+    admission copy-on-write). ``free_slot`` only decrements refcounts:
+    registered blocks that reach 0 park in an LRU of reclaimable blocks,
+    which allocation evicts before it fails. A cache whose chunks are
+    never registered (``commit_prefix``) behaves as one without the
+    prefix cache."""
 
     def __init__(self, num_layers, num_kv_heads, head_dim, *, num_blocks,
                  block_size=16, max_blocks_per_seq, max_batch,
@@ -155,26 +268,102 @@ class PagedKVCache:
         self.seq_lens = np.zeros((max_batch,), np.int32)
         self._slot_blocks = [[] for _ in range(max_batch)]
         self._live = [False] * max_batch
+        # prefix-cache state (inert until commit_prefix registers chunks)
         self._refcount = np.zeros((num_blocks,), np.int32)
+        self._prefix_index = {}    # full-chunk digest -> block id
+        self._partial_index = {}   # partial-tail key  -> block id
+        self._block_keys = {}      # block id -> [(kind, key), ...]
+        self._cached_free = OrderedDict()  # refcount-0 registered, LRU
+
+    # -- occupancy ---------------------------------------------------------
 
     def free_slots(self):
         return [i for i, live in enumerate(self._live) if not live]
 
     def num_free_blocks(self):
-        return len(self._free)
+        """Blocks allocatable now: free plus reclaimable cached ones."""
+        return len(self._free) + len(self._cached_free)
+
+    def num_cached_blocks(self):
+        """Reclaimable refcount-0 blocks held only by the prefix index."""
+        return len(self._cached_free)
+
+    def num_shared_blocks(self):
+        """Blocks backing more than one slot."""
+        return int((self._refcount > 1).sum())
+
+    def reclaimable_blocks(self, slot):
+        """How many of the slot's blocks freeing it would return to the
+        pool (refcount 1: not shared)."""
+        return sum(1 for b in self._slot_blocks[slot]
+                   if self._refcount[b] == 1)
+
+    def occupancy(self):
+        """Pool occupancy from host state: ``active`` blocks are pinned by
+        live slots, ``shared`` of those back more than one slot,
+        ``cached_free`` are reclaimable, ``free`` are free; active +
+        cached_free + free == usable."""
+        usable = self.num_blocks - 1
+        free = len(self._free)
+        cached = len(self._cached_free)
+        return {"usable": usable, "active": usable - free - cached,
+                "shared": self.num_shared_blocks(),
+                "cached_free": cached, "free": free}
+
+    # -- block primitives --------------------------------------------------
+
+    def _drop_cached(self, b):
+        """Evict one reclaimable cached block: its index entries go."""
+        del self._cached_free[b]
+        for kind, key in self._block_keys.pop(b, ()):
+            idx = self._prefix_index if kind == "full" \
+                else self._partial_index
+            if idx.get(key) == b:
+                del idx[key]
+        _PREFIX_EVICT.inc()
 
     def _take_block(self):
-        if not self._free:
+        """Allocate one block (refcount 1): the free list first, then the
+        LRU-oldest cached block. None when both are empty."""
+        if self._free:
+            b = self._free.pop()
+        elif self._cached_free:
+            b = next(iter(self._cached_free))
+            self._drop_cached(b)
+        else:
             return None
-        b = self._free.pop()
         self._refcount[b] = 1
         return b
+
+    def _release_block(self, b):
+        """A block's refcount reached 0: park it cached if the index
+        still names it, else free it."""
+        if self._block_keys.get(b):
+            self._cached_free[b] = None  # most-recently-used end
+        else:
+            self._free.append(b)
+
+    def _ref_block(self, b):
+        self._refcount[b] += 1
+        if b in self._cached_free:
+            del self._cached_free[b]
 
     def _deref_block(self, b):
         self._refcount[b] -= 1
         if self._refcount[b] <= 0:
             self._refcount[b] = 0
-            self._free.append(b)
+            self._release_block(b)
+
+    def _copy_block_rows(self, src, dst):
+        """Copy-on-write body: duplicate one pool block in every layer,
+        in place on the device (K and V; int8 pools copy their scale
+        rows too, so the copy is bit-exact)."""
+        pools = [self.k_pools, self.v_pools]
+        if self.quantized:
+            pools += [self.k_scales, self.v_scales]
+        for per_layer in pools:
+            for pool in per_layer:
+                pool[dst] = pool[src]
 
     def alloc_slot(self, num_tokens):
         """Claim the first free slot and enough blocks for ``num_tokens``;
@@ -182,7 +371,7 @@ class PagedKVCache:
         need = max(1, math.ceil(num_tokens / self.block_size))
         free = self.free_slots()
         if not free or need > self.max_blocks_per_seq or \
-                need > len(self._free):
+                need > self.num_free_blocks():
             return None
         slot = free[0]
         blocks = [self._take_block() for _ in range(need)]
@@ -194,8 +383,9 @@ class PagedKVCache:
         return slot
 
     def ensure_capacity(self, slot, new_len):
-        """Grow the slot's table so ``new_len`` tokens fit. Returns True or
-        a falsy :class:`CapacityError`."""
+        """Grow the slot's table so ``new_len`` tokens fit (evicting cold
+        cached blocks when the free list is dry). Returns True or a falsy
+        :class:`CapacityError`."""
         have = len(self._slot_blocks[slot])
         need = math.ceil(new_len / self.block_size)
         while have < need:
@@ -215,6 +405,29 @@ class PagedKVCache:
             have += 1
         return True
 
+    def prepare_append(self, slot, new_len):
+        """Make position ``new_len - 1`` writable for this slot: grow the
+        table if the position opens a new block, and copy the target
+        block first if it is shared (another sharer must never see the
+        append). Returns True or a falsy :class:`CapacityError`."""
+        r = self.ensure_capacity(slot, new_len)
+        if not r:
+            return r
+        ci = (new_len - 1) // self.block_size
+        b = self._slot_blocks[slot][ci]
+        if self._refcount[b] > 1:
+            nb = self._take_block()
+            if nb is None:
+                return CapacityError(
+                    CapacityError.BLOCKS,
+                    f"pool exhausted copy-on-writing shared block {b}")
+            self._copy_block_rows(b, nb)
+            self._slot_blocks[slot][ci] = nb
+            self.block_tables[slot, ci] = nb
+            self._deref_block(b)
+            _PREFIX_COW.inc()
+        return True
+
     def free_slot(self, slot):
         for b in reversed(self._slot_blocks[slot]):
             self._deref_block(b)
@@ -222,6 +435,114 @@ class PagedKVCache:
         self._live[slot] = False
         self.block_tables[slot] = 0
         self.seq_lens[slot] = 0
+
+    # -- prefix cache ------------------------------------------------------
+
+    def plan_prefix(self, token_ids):
+        """Match a prompt against the prefix index (no side effects): the
+        longest run of leading full chunks whose digests are resident,
+        then a registered partially filled block whose tokens
+        prefix-match the remainder. That block is mapped read-only when it
+        completes the prompt exactly (``partial_shared``), else copied at
+        admission."""
+        ids = np.asarray(token_ids).reshape(-1)
+        n = int(ids.size)
+        bs = self.block_size
+        digests = chunk_digests(ids, bs)
+        matched, blocks = 0, []
+        for d in digests:
+            b = self._prefix_index.get(d)
+            if b is None:
+                break
+            blocks.append(b)
+            matched += 1
+        covered = matched * bs
+        partial_block, partial_len, partial_shared = None, 0, False
+        if covered < n:
+            parent = digests[matched - 1] if matched else b""
+            rem = n - covered
+            for p in range(min(bs - 1, rem), 0, -1):
+                b = self._partial_index.get(
+                    _partial_key(parent, ids[covered:covered + p]))
+                if b is not None:
+                    partial_block, partial_len = b, p
+                    partial_shared = (p == rem)
+                    covered += p
+                    break
+        return PrefixPlan(
+            ids=ids, num_tokens=n,
+            chunks_total=max(1, math.ceil(n / bs)),
+            digests=digests, matched_full=matched,
+            matched_blocks=blocks, partial_block=partial_block,
+            partial_len=partial_len, partial_shared=partial_shared,
+            covered_tokens=covered)
+
+    def alloc_slot_cached(self, plan):
+        """Claim a slot for a planned prompt: matched blocks are mapped
+        read-only (refcount + 1), a matched partial block the prompt
+        writes past is copied, and only the uncovered chunks take fresh
+        blocks. Returns the slot or None (the cache is then unchanged)."""
+        free = self.free_slots()
+        if not free or plan.chunks_total > self.max_blocks_per_seq:
+            return None
+        slot = free[0]
+        shared = list(plan.matched_blocks)
+        cow_src = None
+        if plan.partial_block is not None:
+            if plan.partial_shared:
+                shared.append(plan.partial_block)
+            else:
+                cow_src = plan.partial_block
+        # pin every block read before an eviction can run
+        for b in shared:
+            self._ref_block(b)
+        if cow_src is not None:
+            self._ref_block(cow_src)
+        fresh_needed = plan.chunks_total - len(shared)
+        if fresh_needed > self.num_free_blocks():
+            if cow_src is not None:
+                self._deref_block(cow_src)
+            for b in reversed(shared):
+                self._deref_block(b)
+            return None
+        fresh = [self._take_block() for _ in range(fresh_needed)]
+        if cow_src is not None:
+            self._copy_block_rows(cow_src, fresh[0])
+            self._deref_block(cow_src)
+            _PREFIX_COW.inc()
+        blocks = shared + fresh
+        self._slot_blocks[slot] = blocks
+        self._live[slot] = True
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(blocks)] = blocks
+        self.seq_lens[slot] = 0
+        # a copied partial match counts as a hit: its tokens were served
+        # from the cache
+        hit = plan.hit_blocks
+        _PREFIX_HITS.inc(hit)
+        _PREFIX_MISSES.inc(plan.chunks_total - hit)
+        return slot
+
+    def commit_prefix(self, slot, plan):
+        """Register the slot's freshly prefilled chunks in the index
+        (their rows are immutable from here on). The first registration
+        of a digest wins."""
+        blocks = self._slot_blocks[slot]
+        for i in range(plan.matched_full, len(plan.digests)):
+            d = plan.digests[i]
+            if d in self._prefix_index:
+                continue
+            b = blocks[i]
+            self._prefix_index[d] = b
+            self._block_keys.setdefault(b, []).append(("full", d))
+        rem = plan.num_tokens - len(plan.digests) * self.block_size
+        if rem > 0 and not plan.partial_shared:
+            parent = plan.digests[-1] if plan.digests else b""
+            key = _partial_key(parent, plan.ids[plan.num_tokens - rem:])
+            if key not in self._partial_index:
+                b = blocks[len(plan.digests)]
+                self._partial_index[key] = b
+                self._block_keys.setdefault(b, []).append(("part", key))
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +574,84 @@ def paged_prefill_write_q(k_pool, v_pool, k_scale, v_scale, block_row,
         q, sc = quantize_rows(new)
         pool[blocks] = q.reshape(nb, bs, *q.shape[1:])
         scales[blocks] = sc.reshape(nb, bs, -1)
+
+
+def _masked_rows(block_row, n, start, write_start, total_len, bs):
+    """Validity and (block, offset) of rows ``start .. start + n - 1``:
+    rows outside ``[write_start, total_len)`` map to null block 0, row
+    0."""
+    pos = start + torch.arange(n, device=block_row.device)
+    valid = (pos >= write_start) & (pos < total_len)
+    zero = torch.zeros_like(pos)
+    blocks = torch.where(valid, block_row.long()[torch.where(
+        valid, pos // bs, zero)], zero)
+    return valid, blocks, torch.where(valid, pos % bs, zero)
+
+
+def paged_prefill_write_masked(k_pool, v_pool, block_row, k_new, v_new,
+                               start, write_start, total_len):
+    """Write a prefill tail's KV in place: ``k_new``/``v_new`` [S, Hk, D]
+    hold positions ``start .. start + S - 1``; only positions in
+    ``[write_start, total_len)`` land. Shared prefix rows and bucket
+    padding go to null block 0, row 0, with its old value: nothing else
+    changes."""
+    valid, blocks, offs = _masked_rows(block_row, k_new.shape[0], start,
+                                       write_start, total_len,
+                                       k_pool.shape[1])
+    keep = valid[:, None, None]
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        pool[blocks, offs] = torch.where(keep, new.to(pool.dtype),
+                                         pool[blocks, offs])
+
+
+def paged_prefill_write_masked_q(k_pool, v_pool, k_scale, v_scale,
+                                 block_row, k_new, v_new, start,
+                                 write_start, total_len):
+    """Quantized :func:`paged_prefill_write_masked`: the same masking,
+    rows quantized per (position, kv head) on the way in, their scales
+    into the scale pools. In place."""
+    valid, blocks, offs = _masked_rows(block_row, k_new.shape[0], start,
+                                       write_start, total_len,
+                                       k_pool.shape[1])
+    for pool, scales, new in ((k_pool, k_scale, k_new),
+                              (v_pool, v_scale, v_new)):
+        q, sc = quantize_rows(new)
+        pool[blocks, offs] = torch.where(valid[:, None, None], q,
+                                         pool[blocks, offs])
+        scales[blocks, offs] = torch.where(valid[:, None], sc,
+                                           scales[blocks, offs])
+
+
+def paged_prefix_attention_dense(q, k_pool, v_pool, block_row, q_start,
+                                 total_len, scale=None, k_scale=None,
+                                 v_scale=None):
+    """Attention of a prefix-cache tail: queries [S, Hq, D] at absolute
+    positions ``q_start .. q_start + S - 1`` attend the slot's whole paged
+    context (cached prefix blocks and the tail just written), causal by
+    absolute position and masked to ``total_len``. Gather then attend,
+    group-folded GQA, float32 logits, a -1e30 mask, probabilities cast to
+    V's dtype before P @ V (int8 pools dequantized in the gather). Padded
+    query rows give junk that the caller never reads."""
+    s, hq, d = q.shape
+    _, bs, hk, _ = k_pool.shape
+    g = hq // hk
+    s_max = block_row.shape[0] * bs
+    idx = block_row.long()
+    k = _gather_kv(k_pool, idx, k_scale, q.dtype).reshape(s_max, hk, d)
+    v = _gather_kv(v_pool, idx, v_scale, q.dtype).reshape(s_max, hk, d)
+    sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(s, hk, g, d)
+    logits = torch.einsum("sngd,tnd->sngt", qg.float(), k.float()) \
+        * sm_scale
+    pos_q = q_start + torch.arange(s, device=q.device)
+    pos_k = torch.arange(s_max, device=q.device)
+    mask = ((pos_k[None, :] <= pos_q[:, None])
+            & (pos_k[None, :] < total_len))[:, None, None, :]
+    logits = logits.masked_fill(~mask, _NEG)
+    probs = torch.softmax(logits, dim=-1) * mask
+    out = torch.einsum("sngt,tnd->sngd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(s, hq, d).to(q.dtype)
 
 
 def _decode_rows(block_tables, positions, active, bs):
@@ -360,6 +759,16 @@ def sized_num_blocks(num_blocks, max_batch, max_blocks_per_seq, kv_dtype,
     return base + 1
 
 
+def prefill_ids(req):
+    """A request's prompt plus any already-generated tokens: the
+    re-prefill after a preemption continues the sequence where it
+    stopped, its sampled token being the next new one."""
+    if not req.generated:
+        return req.prompt
+    return np.concatenate(
+        [req.prompt, np.asarray(req.generated, dtype=req.prompt.dtype)])
+
+
 @dataclass
 class _Request:
     rid: int
@@ -422,14 +831,6 @@ class ContinuousBatchingEngine:
     def has_work(self):
         return bool(self.waiting or self.running)
 
-    def _prefill_ids(self, req):
-        """Prompt plus any already-generated tokens (re-prefill after a
-        preemption continues the sequence where it stopped)."""
-        if not req.generated:
-            return req.prompt
-        return np.concatenate(
-            [req.prompt, np.asarray(req.generated, dtype=req.prompt.dtype)])
-
     def _admit(self):
         admitted, still_waiting = [], []
         for req in self.waiting:
@@ -445,7 +846,7 @@ class ContinuousBatchingEngine:
         self.waiting = still_waiting
         for req in admitted:
             tok = self.model.paged_prefill(self.cache, req.slot,
-                                           self._prefill_ids(req),
+                                           prefill_ids(req),
                                            temperature=self.temperature,
                                            generator=self.generator)
             self._last_tok[req.slot] = tok
@@ -462,6 +863,7 @@ class ContinuousBatchingEngine:
         req.slot = -1
         self.waiting.insert(0, req)
         self.preemptions += 1
+        _PREEMPTS.inc()
 
     def _maybe_finish(self, slot):
         req = self.running.get(slot)

@@ -7,12 +7,15 @@ Parameter names equal the JAX package's (``convert.py`` maps them);
 ``Linear`` weights are stored [out, in].
 
 Serving: ``paged_prefill`` runs the dense causal forward over the prompt
-padded with token 0 to a block multiple, writes every padded position's
-KV into the slot's pool blocks and samples at ``true_len - 1``;
-``paged_decode_step`` writes each live slot's new KV at ``seq_len`` and
-attends the paged cache with ``seq_len + 1``. With an int8 cache the KV
-is quantized on its way into the pools and dequantized by the decode
-attention; the prompt's own attention in prefill uses the exact KV.
+padded with token 0 to a block multiple (or to a bucket, ``pad_to``),
+writes every padded position's KV into the slot's pool blocks and
+samples at ``true_len - 1``; ``paged_prefill_extend`` computes only the
+tail a prefix-cache hit leaves uncovered, attending the cached blocks
+through ``paged_prefix_attention_dense``; ``paged_decode_step`` writes
+each live slot's new KV at ``seq_len`` and attends the paged cache with
+``seq_len + 1``. With an int8 cache the KV is quantized on its way into
+the pools and dequantized by the decode and the tail attention; the
+prompt's own attention in a cold prefill uses the exact KV.
 
 ``QAT(...).convert`` (``paddle_tpu_torch.quantization``) turns every
 projection and the LM head into a ``ConvertedInt8Linear``: the model runs
@@ -222,20 +225,36 @@ class Llama(nn.Module):
                                 temperature=1.0, generator=generator)
         return torch.argmax(last, dim=-1)
 
+    @staticmethod
+    def _padded_len(cache, n, pad_to):
+        """``n`` tokens padded to a block multiple, or to ``pad_to`` (a
+        bucket, ``serving/bucketing.py``) clamped to the table's
+        ``max_blocks_per_seq * block_size`` and rounded to a block
+        multiple."""
+        bs = cache.block_size
+        spad = -(-n // bs) * bs
+        if pad_to is not None:
+            want = min(max(int(pad_to), spad),
+                       cache.max_blocks_per_seq * bs)
+            spad = -(-want // bs) * bs
+        return spad
+
     @torch.inference_mode()
     def paged_prefill(self, cache, slot, prompt_ids, temperature=0.0,
-                      generator=None):
-        """Run the prompt, padded with token 0 to a block multiple, through
-        the dense causal forward; write its post-rope KV (padding included)
-        into the slot's pool blocks; set seq_len to the true length; return
-        the token sampled from the logits at ``true_len - 1``."""
+                      generator=None, pad_to=None):
+        """Run the prompt, padded with token 0 to a block multiple (or to
+        the bucket ``pad_to``), through the dense causal forward; write its
+        post-rope KV (padding included) into the slot's pool blocks; set
+        seq_len to the true length; return the token sampled from the
+        logits at ``true_len - 1``. Padding past the slot's blocks lands
+        in null block 0 (the table's entries there are 0) and everything
+        past the true length is masked."""
         from ..inference.paged import (paged_prefill_write,
                                        paged_prefill_write_q)
 
         prompt = np.asarray(prompt_ids).reshape(-1)
         s = prompt.shape[0]
-        bs = cache.block_size
-        spad = -(-s // bs) * bs
+        spad = self._padded_len(cache, s, pad_to)
         ids = np.zeros((1, spad), np.int64)
         ids[:, :s] = prompt
         sink = []
@@ -253,6 +272,56 @@ class Llama(nn.Module):
                 paged_prefill_write(cache.k_pools[i], cache.v_pools[i], row,
                                     k[0], v[0])
         cache.seq_lens[slot] = s
+        return int(tok[0])
+
+    @torch.inference_mode()
+    def paged_prefill_extend(self, cache, slot, ids, tail_start, write_start,
+                             temperature=0.0, generator=None, pad_to=None):
+        """Prefix-cache prefill: the slot's table already maps cached KV
+        for positions ``[0, tail_start)``; compute only the tail
+        ``ids[tail_start:]`` (padded with token 0 to a block multiple, or
+        to the bucket ``pad_to``): embed it, rope at the absolute offset
+        ``tail_start``, write its KV at positions ``>= write_start`` only
+        (``paged_prefill_write_masked[_q]``; a fully covered prompt
+        recomputes its last token and writes nothing), and attend each
+        tail token against the slot's whole paged context
+        (``paged_prefix_attention_dense``). Sets seq_len to the whole
+        length and returns the token sampled at ``total - 1``, as
+        ``paged_prefill`` does."""
+        from ..inference.paged import (paged_prefill_write_masked,
+                                       paged_prefill_write_masked_q,
+                                       paged_prefix_attention_dense)
+
+        ids = np.asarray(ids).reshape(-1)
+        total = ids.shape[0]
+        s_tail = total - tail_start
+        spad = self._padded_len(cache, s_tail, pad_to)
+        tail = np.zeros((1, spad), np.int64)
+        tail[0, :s_tail] = ids[tail_start:]
+        dev = self.device
+        cfg = self.config
+        row = torch.as_tensor(cache.block_tables[slot], device=dev)
+        x = self.embed_tokens(torch.as_tensor(tail, device=dev))
+        for i, blk in enumerate(self.layers):
+            attn = blk.self_attn
+            q, k, v = attn.qkv(blk.input_layernorm(x),
+                               position_offset=tail_start)
+            kp, vp = cache.k_pools[i], cache.v_pools[i]
+            if cache.quantized:
+                ks, vs = cache.k_scales[i], cache.v_scales[i]
+                paged_prefill_write_masked_q(kp, vp, ks, vs, row, k[0], v[0],
+                                             tail_start, write_start, total)
+            else:
+                ks = vs = None
+                paged_prefill_write_masked(kp, vp, row, k[0], v[0],
+                                           tail_start, write_start, total)
+            out = paged_prefix_attention_dense(q[0], kp, vp, row, tail_start,
+                                               total, k_scale=ks, v_scale=vs)
+            x = x + attn.o_proj(out.reshape(1, spad, cfg.hidden_size))
+            x = x + blk.mlp(blk.post_attention_layernorm(x))
+        last = self.head(self.norm(x[:, total - 1 - tail_start]))
+        tok = self._pick(last, temperature, generator)
+        cache.seq_lens[slot] = total
         return int(tok[0])
 
     @torch.inference_mode()

@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         for sub in ("optimizer", "jit", "models.gpt", "nn.fused_ce",
-                    "nn.clip"):
+                    "nn.clip", "serving.frontend", "inference.paged"):
             assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)
