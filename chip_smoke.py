@@ -25,7 +25,8 @@
    int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
    projection shapes and at the longest prefill (M 1008) for each of the
    four layer shapes (and gate/up at the shortest, M 112, and at the
-   frontend's extend buckets, M 16 and 256), with its sums
+   frontend's extend buckets, M 16 and 256, and at a verify sweep's
+   M 40 for every layer shape and the LM head), with its sums
    over one decode step's 225 launches and one prefill's 224 layer
    launches against their bounds. Every B7 shape is also a graph replay
    (with the wrapper's host time per call), one decode layer's seven B7
@@ -82,6 +83,36 @@
    tokens/s and peak memory are printed; the teacher-forced check holds
    its tokens. A ``background=True`` engine then serves its first four
    prompts through ``handle.result()``: the tokens must be engine S's.
+   The speculative phase (after S, and after S8 with int8 weights and
+   KV): the same frontend with ``spec=True`` and 4 drafts a slot
+   (engines S-spec and S8-spec) and, first, with ``spec=False`` on the
+   same traffic for the reference tokens: 8 requests at once
+   (``spec_traffic``, seed 11: a 32-64-token phrase repeated to 400-900
+   tokens plus a unique 5-20-token tail), 64 new tokens each. Gates:
+   every request ``DONE``, no preemption, ``serving.spec.proposed`` =
+   accepted + rejected with drafts proposed and verify sweeps run, one
+   ``Llama.paged_spec_step`` per ``serving.spec.steps``; 32 B1 per cold
+   prefill, 32 B6 (S) or B6q (S8) per plain decode step and none in a
+   sweep, in S8 225 B7 (M 40 in a sweep) per prefill, extend, plain step
+   and sweep; every accounted step closes (attributed + build + idle =
+   step time, 1e-6 relative), the requests' ``CostReport.attributed_us``
+   sum to the engine's, each request's ``spec_accepted`` equals the sum
+   over its trace's ``serving.decode_step`` spans, ``export_trace``
+   parses as JSON; the teacher-forced check on both engines, and the
+   spec tokens equal the plain ones up to each request's first
+   divergence, where the top-2 gap must be within the bf16 tolerance.
+   Decode tokens/s, tokens per step, the acceptance rate, the MFU gauge
+   and TTFT are printed, and one verify sweep of 8 slots x 5 rows is
+   profiled beside a plain decode step (``profile_verify``: host ms,
+   device busy, the plain verify attention's and B7's device ms).
+   The random-weight model's greedy continuation never reproduces a
+   token of its context, so prompt lookup proposes (almost) nothing on
+   it: S-spec and S8-spec record how often it engaged. Engines R-spec
+   and R8-spec run the same traffic on ``repeating_model`` (the same
+   layers, the embedding at N(0, 1) and the LM head equal to it, so
+   greedy decode repeats the last token; bf16, then converted in place
+   to int8 weights with an int8 KV cache), where drafts must be proposed
+   and accepted, with every gate above.
    Each engine's kernel launch counts are zeroed before it runs and must
    move by exactly the expected amounts; a teacher-forced dense forward of
    the model as served (bf16, or int8 weights through B7's plain version
@@ -195,6 +226,17 @@ FRONT_SYSTEM = 512
 FRONT_NEW = 32
 # varlen phase (segment branch of B1-B3): V1's packed row and longest
 # sequence, V2's packed kv row and longest sequence, V3's sequence length
+# speculative phase (engines S-spec and S8-spec, and the plain engines
+# that give their reference tokens): SPEC_REQUESTS prompts, each a seeded
+# 32-64-token phrase repeated to 400-900 tokens plus a unique 5-20-token
+# tail, SPEC_NEW new tokens each, SPEC_TOKENS drafts a slot per sweep
+SPEC_REQUESTS, SPEC_SEED, SPEC_NEW, SPEC_TOKENS = 8, 11, 64, 4
+QMM_VERIFY_M = 8 * (1 + SPEC_TOKENS)  # B7's rows in a verify sweep
+# repeating_model's embedding scale: a row's norm (16 x 64) against the
+# layers' residual sum, which grows about as the square root of depth
+REPEAT_EMBED_STD = 16.0
+# every accounted step closes: attributed + build + idle = step time
+CLOSURE_RTOL = 1e-6
 V1_TOKENS, V1_LONGEST = 8192, 2048
 V2_TOKENS, V2_LONGEST = 4096, 1024
 V3_SEQ = 2048
@@ -1128,6 +1170,19 @@ def kernel_phases(torch):
                          seed=3200))
     qmm += [qmm_phase(torch, timer, m, *QMM_PREFILL[0][0], seed=3210 + m)
             for m in QMM_EXTEND_M]
+    # a verify sweep: every layer shape and the LM head at M 40
+    verify = [qmm_phase(torch, timer, QMM_VERIFY_M, n, k, seed=3400 + i)
+              for i, ((n, k), _) in enumerate(QMM_DECODE)]
+    vsums = {key: sum(r[key] * per for r, (_, per) in zip(verify,
+                                                          QMM_DECODE))
+             for key in ("ms", "graph_ms", "bound_ms", "plain_ms",
+                         "library_ms", "library_graph_ms")}
+    print(f"quant_matmul per verify sweep (M {QMM_VERIFY_M}, "
+          f"{QMM_PER_FORWARD} launches): kernel {vsums['ms']:.4f} ms (graph "
+          f"{vsums['graph_ms']:.4f}), bound {vsums['bound_ms']:.4f} ms, "
+          f"F.linear on bf16 copies {vsums['library_ms']:.4f} ms (graph "
+          f"{vsums['library_graph_ms']:.4f})", flush=True)
+    qmm += verify
     del timer
     torch.cuda.empty_cache()
     return {"flash_fwd": flash,
@@ -1137,7 +1192,9 @@ def kernel_phases(torch):
             "quant_matmul_decode_step": step,
             "quant_matmul_decode_layer": layer,
             "quant_matmul_prefill": dict(M=QMM_PREFILL_M, launches=launches,
-                                         **sums)}
+                                         **sums),
+            "quant_matmul_verify": dict(M=QMM_VERIFY_M,
+                                        launches=QMM_PER_FORWARD, **vsums)}
 
 
 # ---------------------------------------------------------------------------
@@ -1187,7 +1244,7 @@ class Instrumented:
     a synchronize) and counts prefills and decode steps."""
 
     KINDS = {"prefill": "paged_prefill", "extend": "paged_prefill_extend",
-             "decode": "paged_decode_step"}
+             "decode": "paged_decode_step", "verify": "paged_spec_step"}
 
     def __init__(self, torch, model):
         self.torch = torch
@@ -1807,6 +1864,387 @@ def check_frontend_launches(results):
                      f"times, expected {n}")
 
 
+# ---------------------------------------------------------------------------
+# speculative phase: the frontend with spec=True on a repetitive corpus
+# ---------------------------------------------------------------------------
+
+def spec_traffic(vocab, seed=SPEC_SEED):
+    """SPEC_REQUESTS prompts: a seeded 32-64-token phrase repeated to
+    400-900 tokens, then a unique 5-20-token tail (a prompt-lookup
+    proposer's best case: the context repeats itself)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(SPEC_REQUESTS):
+        phrase = rng.integers(0, vocab, int(rng.integers(32, 65)))
+        n = int(rng.integers(400, 901))
+        body = np.tile(phrase, -(-n // len(phrase)))[:n]
+        tail = rng.integers(0, vocab, int(rng.integers(5, 21)))
+        out.append(np.concatenate([body, tail]).astype(np.int64))
+    return out
+
+
+def spec_accounting_gates(name, engine, handles):
+    """Every step closes; the requests' attributed time sums to the
+    engine's; each request's spec_accepted is the sum over its trace's
+    ``serving.decode_step`` spans; one request's trace exports as JSON."""
+    from paddle_tpu_torch.profiler import tracing
+    acct = engine.accounting
+    if not acct.armed or not acct.step_log:
+        fail(f"engine {name}: accounting is not armed")
+    worst = 0.0
+    for e in acct.step_log:
+        gap = abs(e["attributed_us"] + e["compile_us"] + e["idle_us"]
+                  - e["step_us"])
+        worst = max(worst, gap / max(e["step_us"], 1.0))
+    if worst > CLOSURE_RTOL:
+        fail(f"engine {name}: a step's attribution does not close "
+             f"(relative gap {worst})")
+    costs = [h.cost() for h in handles]
+    billed = sum(c.attributed_us for c in costs)
+    engine_us = acct.attributed_us + acct.compile_us
+    if abs(billed - engine_us) > CLOSURE_RTOL * engine_us:
+        fail(f"engine {name}: the requests' attributed time {billed} us is "
+             f"not the engine's {engine_us} us")
+    for h, c in zip(handles, costs):
+        spans = [r for r in tracing.get_trace(h.trace_id)
+                 if r["name"] == "serving.decode_step"]
+        in_spans = sum(r.get("args", {}).get("spec_accepted", 0)
+                       for r in spans)
+        if not spans or in_spans != c.spec_accepted:
+            fail(f"engine {name}: request {h.rid} accepted "
+                 f"{c.spec_accepted} drafts, its spans say {in_spans}")
+    doc = json.loads(json.dumps(tracing.export_trace(handles[0].trace_id)))
+    if not doc["traceEvents"]:
+        fail(f"engine {name}: request {handles[0].rid}'s trace is empty")
+    report = acct.engine_report()
+    return dict(steps=len(acct.step_log), closure_max_rel_gap=worst,
+                requests_attributed_us=billed, engine_attributed_us=
+                acct.attributed_us, compile_us=acct.compile_us,
+                idle_us=acct.idle_us, mfu=report["mfu"],
+                peak_flops=acct.peak_flops,
+                tokens_processed=report["tokens_processed"],
+                tokens_emitted=report["tokens"],
+                trace_events=len(doc["traceEvents"]),
+                cost_example=costs[0].as_dict())
+
+
+def serve_spec(torch, inst, model, name, prompts, spec, engages=True, **kw):
+    """The frontend (default flags: prefix cache, budget 512, bucket cap
+    1024, admission, brownout, accounting, tracing) with ``spec`` and
+    SPEC_TOKENS drafts, warmed up, then ``prompts`` submitted at once,
+    SPEC_NEW tokens each. Counts, ``serving.*`` counters and the trace
+    ring are zeroed or snapshot just before and read just after. Gates:
+    every request DONE with SPEC_NEW tokens, no preemption, proposed =
+    accepted + rejected, none of them moving in a plain engine, and with
+    ``engages`` (a model whose greedy output repeats its context) drafts
+    proposed and accepted in verify sweeps; the accounting gates; the
+    teacher-forced check."""
+    from paddle_tpu_torch.profiler import metrics, tracing
+    engine, warm = frontend_engine(torch, model, name, spec=spec,
+                                   spec_tokens=SPEC_TOKENS, **kw)
+    sched = engine.scheduler
+    if sched.spec != spec:
+        fail(f"engine {name}: spec={spec} did not arm as asked")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inst.reset()
+    zero_counts()
+    tracing.reset()
+    before = metrics.snapshot("serving.")
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts()
+    delta = metrics.window_delta(before, metrics.snapshot("serving."))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reqs = [sched.finished[h.rid] for h in handles]
+    for r in reqs:
+        if r.status != "DONE" or len(r.generated) != SPEC_NEW:
+            fail(f"engine {name}: request {r.rid} ended {r.status} with "
+                 f"{len(r.generated)} tokens")
+    counts = {k: delta.get(k, 0) for k in (
+        "serving.preempt", "serving.admitted", "serving.completed",
+        "serving.decoded_tokens", "serving.steps", "serving.spec.proposed",
+        "serving.spec.accepted", "serving.spec.rejected",
+        "serving.spec.steps", "serving.prefix.hit_blocks")}
+    proposed, accepted = counts["serving.spec.proposed"], \
+        counts["serving.spec.accepted"]
+    if counts["serving.preempt"]:
+        fail(f"engine {name}: {counts['serving.preempt']} preemptions")
+    if proposed != accepted + counts["serving.spec.rejected"]:
+        fail(f"engine {name}: spec counters do not add up: {counts}")
+    if spec and engages and (counts["serving.spec.steps"] == 0
+                             or proposed == 0 or accepted == 0):
+        fail(f"engine {name}: no draft was proposed, verified or "
+             f"accepted: {counts}")
+    if not spec and (proposed or counts["serving.spec.steps"]):
+        fail(f"engine {name}: a plain engine speculated: {counts}")
+    if inst.calls["verify"] != counts["serving.spec.steps"]:
+        fail(f"engine {name}: {inst.calls['verify']} verify sweeps ran, "
+             f"serving.spec.steps moved by {counts['serving.spec.steps']}")
+    acct = spec_accounting_gates(name, engine, handles)
+    ttft = sorted(r.first_token_at - r.submitted_at for r in reqs)
+    decoded = sum(len(r.generated) - 1 for r in reqs)
+    dec_s = inst.secs["decode"] + inst.secs["verify"]
+    dec_calls = inst.calls["decode"] + inst.calls["verify"]
+    rec = dict(requests=len(prompts), spec=spec, wall_s=wall, warmup=warm,
+               prefills=inst.calls["prefill"], extends=inst.calls["extend"],
+               prefill_s=inst.secs["prefill"],
+               decode_steps=inst.calls["decode"],
+               verify_sweeps=inst.calls["verify"],
+               decode_s=inst.secs["decode"], verify_s=inst.secs["verify"],
+               decode_tokens=decoded,
+               decode_tok_per_s=decoded / max(dec_s, 1e-9),
+               tokens_per_step=decoded / max(dec_calls, 1),
+               acceptance=accepted / proposed if proposed else None,
+               ttft_median_s=float(np.median(ttft)), ttft_max_s=ttft[-1],
+               peak_mem_gib=peak, counters=counts, accounting=acct,
+               launches=launches, routes=routes,
+               num_blocks=engine.cache.num_blocks)
+    rec["teacher_forced"] = teacher_forced(torch, model, sched,
+                                           kv8=engine.cache.quantized)
+    rec["tokens"] = [list(map(int, r.generated)) for r in reqs]
+    engine.close()
+    print(f"engine {name}: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "tokens"}), flush=True)
+    acc = "n/a" if rec["acceptance"] is None else f"{rec['acceptance']:.4f}"
+    mfu = "n/a" if acct["mfu"] is None else f"{acct['mfu']:.6f}"
+    print(f"engine {name}: decode {rec['decode_tok_per_s']:.2f} tokens/s, "
+          f"{rec['tokens_per_step']:.3f} tokens per step "
+          f"({rec['decode_steps']} plain steps, {rec['verify_sweeps']} "
+          f"verify sweeps), acceptance {acc} ({accepted}/{proposed}), MFU "
+          f"gauge {mfu}, TTFT median {rec['ttft_median_s']:.4f} s max "
+          f"{rec['ttft_max_s']:.4f} s", flush=True)
+    del engine, sched, reqs, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def repeating_model(torch, cfg):
+    """The frontend's model (the same seed, so the same layers) with its
+    embedding drawn N(0, REPEAT_EMBED_STD) and the LM head set to the
+    embedding's values: the token embedding then outweighs the 32
+    layers' sum in the last hidden state, and greedy decode repeats the
+    last token, the degenerate repetition prompt lookup is built for.
+    (At the 0.02 scale the continuation of a random-weight model never
+    reproduces a token of its context, so drafts never match.) Full
+    width and depth, bf16."""
+    from paddle_tpu_torch import Llama
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = Llama(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        model.embed_tokens.weight.normal_(0.0, REPEAT_EMBED_STD,
+                                          generator=gen)
+        model.lm_head.weight.copy_(model.embed_tokens.weight)
+    torch.cuda.synchronize()
+    return model
+
+
+def spec_divergence(torch, model, prompts, plain, spec, kv8=False):
+    """Spec tokens against the plain engine's, request by request, up to
+    the first position where they differ (past it the two contexts
+    differ too). There the teacher-forced top-2 gap of the plain
+    sequence must be within GAP_TOL: a near-tie that bf16 rounding may
+    break either way (the sweep attends through the plain dense path,
+    the plain step through B6/B6q). Returns the first divergences."""
+    out = []
+    with torch.inference_mode():
+        for i, (p, a, b) in enumerate(zip(prompts, plain, spec)):
+            j = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            ids = np.concatenate([p, np.asarray(a)])
+            logits = _dense_logits(torch, model, ids,
+                                   kv8_attention(len(p)) if kv8 else None)
+            top = logits[len(p) - 1 + j].topk(2)
+            gap = float(top.values[0] - top.values[1])
+            out.append(dict(request=i, position=j, plain=a[j], spec=b[j],
+                            gap=gap))
+            if gap > GAP_TOL:
+                fail(f"request {i}: spec token {j} is {b[j]}, plain decode "
+                     f"gave {a[j]} with a top-2 gap of {gap:.3f} > {GAP_TOL}")
+    first = min(out, key=lambda d: d["position"]) if out else None
+    print(f"spec vs plain tokens: {len(out)} of {len(prompts)} requests "
+          f"diverge; first divergence {json.dumps(first)}", flush=True)
+    return out
+
+
+def check_spec_launches(name, r, route, int8):
+    """32 B1 launches per cold prefill, 32 B6 (S) or B6q (S8) per plain
+    decode step and none in a verify sweep, and with int8 weights 225 B7
+    per prefill, extend, plain step and verify sweep; nothing else."""
+    exp = {k: 0 for k in ("flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+                          "paged_decode_split", "paged_decode_q",
+                          "paged_decode_split_q", "quant_matmul")}
+    exp["flash_fwd"] = r["prefills"] * LAYERS
+    exp[route] = r["decode_steps"] * LAYERS
+    if int8:
+        exp["quant_matmul"] = (r["prefills"] + r["extends"]
+                               + r["decode_steps"] + r["verify_sweeps"]) \
+            * QMM_PER_FORWARD
+    for k, n in exp.items():
+        if r["launches"][k] != n:
+            fail(f"engine {name}: {k} launched {r['launches'][k]} times, "
+                 f"expected {n}")
+
+
+def spec_phase(torch, inst, model, prompts, label, engages=True, **kw):
+    """Engine ``label`` plain on the spec traffic, then ``label``-spec;
+    their tokens compared, their launches checked. ``kw``: the int8 KV
+    cache of S8 and R8 (whose weights are int8 too)."""
+    int8 = bool(kw)
+    route = "paged_decode_split_q" if int8 else "paged_decode_split"
+    plain = serve_spec(torch, inst, model, f"{label} (spec traffic)",
+                       prompts, spec=False, **kw)
+    spec = serve_spec(torch, inst, model, f"{label}-spec", prompts,
+                      spec=True, engages=engages, **kw)
+    check_spec_launches(f"{label} (spec traffic)", plain, route, int8)
+    check_spec_launches(f"{label}-spec", spec, route, int8)
+    spec["divergence"] = spec_divergence(torch, model, prompts,
+                                         plain["tokens"], spec["tokens"],
+                                         kv8=int8)
+    spec["plain"] = plain
+    print(f"engine {label}-spec vs plain: decode "
+          f"{spec['decode_tok_per_s']:.2f} vs {plain['decode_tok_per_s']:.2f}"
+          f" tokens/s, {spec['tokens_per_step']:.3f} vs "
+          f"{plain['tokens_per_step']:.3f} tokens per step, burst "
+          f"{spec['wall_s']:.3f} vs {plain['wall_s']:.3f} s", flush=True)
+    return spec
+
+
+_VERIFY_GROUPS = (
+    ("quant_matmul", "B7 int8 weight matmul (port)"),
+    ("qmm_", "B7 int8 weight matmul (port)"),
+    ("paged_decode", "decode attention (port)"),
+    ("flash_fwd", "B1 flash forward (port)"),
+) + tuple((key, "cuBLAS bf16 matmul") for key, _ in _MATMUL_GROUPS)
+
+
+def _profiled(torch, fn, steps, ranges):
+    """torch.profiler over ``steps`` calls of ``fn``, with the module
+    functions ``ranges`` ({name in paged: range}) wrapped in
+    record_function ranges: wall ms, device busy ms, kernels and device
+    ms by group, per call, and each range's device ms per call."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import paddle_tpu_torch.inference.paged as paged_mod
+    orig = {n: getattr(paged_mod, n) for n in ranges}
+
+    def traced(f, rng):
+        def run(*a, **k):
+            with record_function(rng):
+                return f(*a, **k)
+        return run
+
+    for n, f in orig.items():
+        setattr(paged_mod, n, traced(f, ranges[n]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for n, f in orig.items():
+            setattr(paged_mod, n, f)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    groups, busy_us, n_kernels = {}, 0.0, 0
+    for e in events:
+        if e.device_type != cuda or getattr(e, "is_user_annotation", False):
+            continue
+        us = e.time_range.end - e.time_range.start
+        busy_us += us
+        n_kernels += 1
+        grp = next((lab for key, lab in _VERIFY_GROUPS if key in e.name),
+                   "other (elementwise, norms, rope, gathers, copies)")
+        groups[grp] = groups.get(grp, 0.0) + us / 1e3 / steps
+    rng_ms = {rng: sum(getattr(e, "device_time_total", 0.0) for e in events
+                       if e.device_type != cuda and e.name == rng)
+              / 1e3 / steps for rng in set(ranges.values())}
+    return dict(host_ms=wall_ms / steps, device_busy_ms=busy_us / 1e3 / steps,
+                device_busy_share=busy_us / 1e3 / wall_ms if wall_ms
+                else None, kernels=n_kernels / steps, by_group_ms=groups,
+                ranges_ms=rng_ms)
+
+
+def profile_verify(torch, model, prompts, label, steps=2, **engine_kw):
+    """One verify sweep of 8 live slots (1 + SPEC_TOKENS positions each,
+    every draft row real) beside one plain decode step on the same cache:
+    host ms (synchronized, median of 3 sweeps or 2 steps), then
+    torch.profiler over ``steps`` of each: device busy, kernels, device
+    time by group, the plain verify attention's device ms
+    (``paged_spec_attention_dense``) and the decode attention's."""
+    from paddle_tpu_torch import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
+                                      max_seq_len=2048, temperature=0.0,
+                                      **engine_kw)
+    for p in prompts:
+        engine.add_request(p, 8)
+    engine.step()  # prefills every request and decodes once
+    cache = engine.cache
+    active = np.array(cache._live)
+    for slot in np.flatnonzero(active):
+        # room for the sweep's rows and the plain steps after it
+        if not cache.prepare_append_range(
+                int(slot), int(cache.seq_lens[slot]) + 1 + SPEC_TOKENS):
+            fail(f"profile_verify ({label}): no room for the sweep")
+    last = np.zeros((cache.max_batch,), np.int64)
+    drafts = np.zeros((cache.max_batch, SPEC_TOKENS), np.int64)
+    n_in = np.full((cache.max_batch,), 1 + SPEC_TOKENS, np.int64)
+    n_in[~active] = 0
+
+    def sweep():
+        model.paged_spec_step(cache, last, drafts, n_in, active)
+
+    def step():
+        model.paged_decode_step(cache, last, active)
+
+    def host(fn, n):
+        secs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        return float(np.median(secs)) * 1e3
+
+    sweep()  # warm
+    rec = dict(live_slots=int(active.sum()), rows=int(n_in.sum()),
+               sweep_host_ms=host(sweep, 3))
+    rec["sweep"] = _profiled(torch, sweep, steps, {
+        "paged_spec_attention_dense": "verify_attention",
+        "paged_spec_write": "cache_write", "paged_spec_write_q":
+        "cache_write"})
+    # the plain steps advance seq_lens: 2 + steps positions, within the
+    # 1 + SPEC_TOKENS prepared above
+    rec["step_host_ms"] = host(step, 2)
+    rec["step"] = _profiled(torch, step, steps, {})
+    sw = rec["sweep"]
+    b7 = sw["by_group_ms"].get("B7 int8 weight matmul (port)")
+    print(f"verify sweep profile (engine {label}, {rec['live_slots']} "
+          f"slots x {1 + SPEC_TOKENS} rows): host {rec['sweep_host_ms']:.2f}"
+          f" ms, device busy {sw['device_busy_ms']:.2f} ms, plain verify "
+          f"attention {sw['ranges_ms']['verify_attention']:.2f} ms, B7 at M "
+          f"{QMM_VERIFY_M} {b7} ms; plain decode step host "
+          f"{rec['step_host_ms']:.2f} ms, device busy "
+          f"{rec['step']['device_busy_ms']:.2f} ms: {json.dumps(rec)}",
+          flush=True)
+    if sw["device_busy_ms"] == 0.0:
+        print("profile: the profiler saw no device time; verify breakdown "
+              "not measured", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rec
+
+
 def slice_phase(torch):
     from paddle_tpu_torch import Llama, LlamaConfig
     cfg = LlamaConfig.llama3_8b()
@@ -1840,6 +2278,9 @@ def slice_phase(torch):
         results[name] = run_engine(torch, inst, model, name, *asked[name],
                                    **kw)
     results["S"] = serve_frontend(torch, inst, model, "S", front)
+    spec_prompts = spec_traffic(cfg.vocab_size)
+    results["S-spec"] = spec_phase(torch, inst, model, spec_prompts, "S",
+                                   engages=False)
     inst.restore()
     results["S"]["background"] = background_check(
         torch, model, front[:4], results["S"]["tokens"][:4])
@@ -1853,6 +2294,21 @@ def slice_phase(torch):
                                  prompts(1, 200, 200)[0]])
     results["S"]["extend_profile"] = profile_prefill(
         torch, model, ext_prompt, "S, extend", prefix_len=FRONT_SYSTEM)
+    results["S-spec"]["verify_profile"] = profile_verify(
+        torch, model, spec_prompts, "S-spec")
+
+    # engines R-spec and R8-spec: the same traffic on a model whose greedy
+    # output repeats itself, bf16 and then int8 weights + KV
+    rmodel = repeating_model(torch, cfg)
+    rinst = Instrumented(torch, rmodel)
+    results["R-spec"] = spec_phase(torch, rinst, rmodel, spec_prompts, "R")
+    results["R8-spec"] = dict(int8_model=convert_int8(torch, rmodel))
+    results["R8-spec"].update(spec_phase(torch, rinst, rmodel, spec_prompts,
+                                         "R8", kv_cache_dtype="int8"))
+    rinst.restore()
+    del rinst, rmodel
+    gc.collect()
+    torch.cuda.empty_cache()
 
     results["int8_model"] = convert_int8(torch, model)
     inst = Instrumented(torch, model)
@@ -1862,6 +2318,8 @@ def slice_phase(torch):
                                          **kw)
     results["S8"] = serve_frontend(torch, inst, model, "S8", front,
                                    kv_cache_dtype="int8")
+    results["S8-spec"] = spec_phase(torch, inst, model, spec_prompts, "S8",
+                                    engages=False, kv_cache_dtype="int8")
     inst.restore()
     prof8 = profile_decode(torch, model, asked["A"][0], 8, label="A8",
                            kv_cache_dtype="int8")
@@ -1874,6 +2332,8 @@ def slice_phase(torch):
     results["S8"]["extend_profile"] = profile_prefill(
         torch, model, ext_prompt, "S8, extend", prefix_len=FRONT_SYSTEM,
         kv_cache_dtype="int8")
+    results["S8-spec"]["verify_profile"] = profile_verify(
+        torch, model, spec_prompts, "S8-spec", kv_cache_dtype="int8")
     pa, p8 = results["A"]["prefill_profile"], results["A8"]["prefill_profile"]
     print(f"prefill of {pa['tokens']} tokens: A {pa['prefill_ms']:.2f} ms, "
           f"A8 {p8['prefill_ms']:.2f} ms (host clock); TTFT medians: A "
@@ -2201,6 +2661,9 @@ def main():
         main_rec = phases[name][0]
         launches = sum(served[e]["launches"][name]
                        for e in ("A", "B", "A8", "B8", "S", "S8")) \
+            + sum(served[e]["launches"][name] + served[e]["plain"][
+                "launches"][name] for e in ("S-spec", "S8-spec", "R-spec",
+                                            "R8-spec")) \
             + trained["launches"][name]
         paths = {}
         if name == "quant_matmul":  # decode (above) and prefill
@@ -2212,6 +2675,7 @@ def main():
                 per_prefill=phases["quant_matmul_prefill"])
             paths["decode_step"] = phases["quant_matmul_decode_step"]
             paths["decode_layer"] = phases["quant_matmul_decode_layer"]
+            paths["verify"] = phases["quant_matmul_verify"]
         # device-only times (CUDA-graph replays) where the phase took them,
         # and B7's second library yardstick
         graphs = {k: main_rec[k] for k in (

@@ -3,8 +3,9 @@
 This package holds the Llama serving path (continuous batching over a
 paged KV cache, bf16 or int8, with bf16 or int8 weights through
 ``quantization.QAT``, behind the serving frontend
-``serving.ServingEngine`` with its scheduler, prefix cache and overload
-control) and the GPT training path (``GPT`` trained by ``jit.TrainStep``
+``serving.ServingEngine`` with its scheduler, prefix cache, overload
+control, self-speculative decode, per-request cost accounting and
+tracing) and the GPT training path (``GPT`` trained by ``jit.TrainStep``
 with ``optimizer.AdamW`` and fp32 master weights), with hand-written
 Hopper (sm_90a) CUDA kernels for the flash-attention forward and
 backward, the paged-decode attention over bf16 and int8 pools and the

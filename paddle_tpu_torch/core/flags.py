@@ -45,11 +45,45 @@ The serving frontend (``serving/``), read when a ``Scheduler`` is built:
   ``FLAGS_brownout_enter_steps`` (3), ``FLAGS_brownout_exit_steps`` (6),
   ``FLAGS_brownout_exit_pressure`` (0.7), ``FLAGS_brownout_clamp_tokens``
   (16).
+- ``FLAGS_serving_accounting`` (True): per-request cost attribution and
+  engine goodput accounting (``profiler/accounting.py``): each scheduler
+  step's wall time is apportioned across the concurrent requests in
+  proportion to the tokens they prefilled or decoded, kernel-build time
+  billed to the triggering request, re-prefill billed to the preemption;
+  0 holds the null accountant (every hook a no-op, ``handle.cost()``
+  None).
+- ``FLAGS_serving_spec`` (False): self-speculative decoding
+  (``serving/spec.py`` and ``Scheduler._decode_spec``): a prompt-lookup
+  n-gram proposer drafts up to ``FLAGS_serving_spec_tokens`` tokens per
+  request (no second model) and one batched multi-position paged sweep
+  verifies them, accepting the longest greedy-matching prefix and rolling
+  back rejected rows' blocks before the next step; greedy outputs equal
+  non-speculative decode's, and the tier engages only at temperature 0;
+  0 keeps the ``serving.spec.*`` counters silent.
+- ``FLAGS_serving_spec_tokens`` (4): the most draft tokens proposed per
+  request per speculative step (the verify sweep computes 1 + this many
+  positions per slot; min 1).
+- ``FLAGS_serving_spec_ngram`` (3): the longest trailing n-gram the
+  proposer matches against the request's own context (it falls back to
+  shorter n-grams down to 1 before giving up).
+
+Request tracing (``profiler/tracing.py``), read at each entry point
+(refreshed when ``epoch()`` moves):
+
+- ``FLAGS_trace_enable`` (True): record sampled spans (the serving
+  request lifecycle) into the in-process ring; off, every tracing entry
+  point is a single global read.
+- ``FLAGS_trace_sample`` (1.0): the fraction of root traces sampled
+  (decided once per trace at ``start_trace``); children of an unsampled
+  root cost the same as disabled tracing.
+- ``FLAGS_trace_ring`` (4096): span ring capacity; old spans age out, a
+  resize drops the buffered history.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 _DEFAULTS = {
     "FLAGS_paged_kernel": "auto",
@@ -70,6 +104,13 @@ _DEFAULTS = {
     "FLAGS_brownout_exit_steps": 6,
     "FLAGS_brownout_exit_pressure": 0.7,
     "FLAGS_brownout_clamp_tokens": 16,
+    "FLAGS_serving_accounting": True,
+    "FLAGS_serving_spec": False,
+    "FLAGS_serving_spec_tokens": 4,
+    "FLAGS_serving_spec_ngram": 3,
+    "FLAGS_trace_enable": True,
+    "FLAGS_trace_sample": 1.0,
+    "FLAGS_trace_ring": 4096,
 }
 
 
@@ -88,6 +129,17 @@ _values = {name: _parse(os.environ[name], default)
            for name, default in _DEFAULTS.items()}
 
 
+# bumped on every set_flags: readers that cache flag values (the tracing
+# gate) re-read them only when it moves
+_epoch = 0
+_epoch_lock = threading.Lock()
+
+
+def epoch():
+    """The settings epoch: moves on every ``set_flags``."""
+    return _epoch
+
+
 def flag(name):
     if name not in _values:
         raise ValueError(f"unknown flag {name!r}")
@@ -98,6 +150,9 @@ def set_flags(flags: dict):
     for name in flags:
         if name not in _values:
             raise ValueError(f"unknown flag {name!r}")
+    global _epoch
     for name, value in flags.items():
         _values[name] = _parse(value, _DEFAULTS[name])
+    with _epoch_lock:
+        _epoch += 1
 

@@ -28,6 +28,14 @@
   ``prepare_append`` copies a shared block before a decode append lands
   in it. Registered blocks whose refcount drops to 0 park in an LRU
   (``_cached_free``) and are evicted only when the free list is empty.
+- **Speculative decode.** ``prepare_append_range`` makes every position
+  of a verify sweep writable (growth, copy-on-write of each shared block
+  it touches; a failure rolls the slot's fresh growth back) and
+  ``truncate_blocks`` rolls rejected rows' blocks back.
+  ``paged_spec_write[_q]`` writes ``1 + k`` rows per slot and
+  ``paged_spec_attention_dense`` attends them causally by absolute
+  position; like the tail attention it has no Pallas kernel in the
+  reference and stays plain PyTorch.
   ``Llama.paged_prefill_extend`` computes only the uncovered tail
   (``paged_prefill_write_masked``, ``paged_prefix_attention_dense``; the
   latter has no Pallas kernel in the reference and stays plain PyTorch).
@@ -38,9 +46,7 @@
   plain version for CPU tensors; ``dense`` forces the plain version.
   ``ROUTE_COUNTS`` records each routing decision.
 
-Not ported yet: mesh capacity slices (``num_slices``), the speculative
-range helpers (``prepare_append_range``, ``truncate_blocks``,
-``paged_spec_write``, ``paged_spec_attention_dense``) and the
+Not ported yet: mesh capacity slices (``num_slices``) and the
 tensor-parallel decode attention.
 """
 
@@ -70,6 +76,8 @@ __all__ = ["PagedKVCache", "CapacityError", "ContinuousBatchingEngine",
            "paged_prefix_attention_dense",
            "paged_decode_write", "paged_decode_write_q",
            "paged_decode_attention", "paged_decode_attention_dense",
+           "paged_spec_write", "paged_spec_write_q",
+           "paged_spec_attention_dense", "kernel_route",
            "validate_request", "sized_num_blocks", "prefill_ids",
            "resolve_paged_kernel",
            "resolve_kv_dtype", "quant_block_ratio", "ROUTE_COUNTS"]
@@ -107,6 +115,17 @@ def resolve_paged_kernel(mode=None):
         raise ValueError(f"FLAGS_paged_kernel must be one of "
                          f"{_KERNEL_MODES}, got {mode!r}")
     return m
+
+
+def kernel_route(mode, device):
+    """Where a resolved mode's decode attention runs on ``device``, for
+    the ``serving.decode_step`` span: ``"cuda"`` (the CUDA kernels) or
+    ``"dense"`` (the plain version: forced, or CPU tensors), as the
+    reference names its own ``"pallas"`` and ``"dense"`` routes."""
+    if resolve_paged_kernel(mode) == "dense" or \
+            torch.device(device).type != "cuda":
+        return "dense"
+    return "cuda"
 
 
 def resolve_kv_dtype(kv_cache_dtype):
@@ -310,6 +329,17 @@ class PagedKVCache:
                 "shared": self.num_shared_blocks(),
                 "cached_free": cached, "free": free}
 
+    def pool_bytes(self):
+        """Device bytes of the K and V pools (fixed at construction);
+        int8 pools count their float32 scale rows too."""
+        item = 1 if self.quantized else \
+            torch.empty((), dtype=self.dtype).element_size()
+        rows = self.num_blocks * self.block_size * self.num_kv_heads
+        total = 2 * self.num_layers * rows * self.head_dim * item
+        if self.quantized:
+            total += 2 * self.num_layers * rows * 4
+        return total
+
     # -- block primitives --------------------------------------------------
 
     def _drop_cached(self, b):
@@ -413,20 +443,63 @@ class PagedKVCache:
         r = self.ensure_capacity(slot, new_len)
         if not r:
             return r
-        ci = (new_len - 1) // self.block_size
+        return self._own_block(slot, (new_len - 1) // self.block_size)
+
+    def _own_block(self, slot, ci, why=""):
+        """Copy-on-write: if the slot's block ``ci`` is shared, give the
+        slot a copy of it. True, or a falsy :class:`CapacityError` when no
+        block is left for the copy."""
         b = self._slot_blocks[slot][ci]
-        if self._refcount[b] > 1:
-            nb = self._take_block()
-            if nb is None:
-                return CapacityError(
-                    CapacityError.BLOCKS,
-                    f"pool exhausted copy-on-writing shared block {b}")
-            self._copy_block_rows(b, nb)
-            self._slot_blocks[slot][ci] = nb
-            self.block_tables[slot, ci] = nb
-            self._deref_block(b)
-            _PREFIX_COW.inc()
+        if self._refcount[b] <= 1:
+            return True
+        nb = self._take_block()
+        if nb is None:
+            return CapacityError(
+                CapacityError.BLOCKS,
+                f"pool exhausted copy-on-writing shared block {b}{why}")
+        self._copy_block_rows(b, nb)
+        self._slot_blocks[slot][ci] = nb
+        self.block_tables[slot, ci] = nb
+        self._deref_block(b)
+        _PREFIX_COW.inc()
         return True
+
+    def prepare_append_range(self, slot, new_len):
+        """Speculative form of :meth:`prepare_append`: make every
+        position in ``[seq_len, new_len)`` writable: grow the table to
+        ``ceil(new_len / block_size)`` blocks and copy each shared block
+        the range touches (a draft row must never land in a block
+        another slot reads). Returns True or a falsy
+        :class:`CapacityError`; on failure the slot's fresh growth is
+        rolled back (completed copies stay: they hold the same rows, and
+        the plain decode path would copy them anyway)."""
+        have0 = len(self._slot_blocks[slot])
+        r = self.ensure_capacity(slot, new_len)
+        if not r:
+            self.truncate_blocks(slot, have0)
+            return r
+        lo = int(self.seq_lens[slot]) // self.block_size
+        hi = (new_len - 1) // self.block_size
+        for ci in range(lo, hi + 1):
+            r = self._own_block(slot, ci, " for speculative range")
+            if not r:
+                self.truncate_blocks(slot, have0)
+                return r
+        return True
+
+    def truncate_blocks(self, slot, keep):
+        """Roll the slot's table back to its first ``keep`` blocks (the
+        speculative reject path): private blocks return to the free
+        list, registered ones park reclaimable. Rows written into kept
+        blocks past ``seq_lens`` need no scrub: every reader masks by
+        length and the next append overwrites them."""
+        blocks = self._slot_blocks[slot]
+        if keep >= len(blocks):
+            return
+        for b in reversed(blocks[keep:]):
+            self._deref_block(b)
+        del blocks[keep:]
+        self.block_tables[slot, keep:] = 0
 
     def free_slot(self, slot):
         for b in reversed(self._slot_blocks[slot]):
@@ -692,6 +765,87 @@ def paged_decode_write_q(k_pool, v_pool, k_scale, v_scale, block_tables,
                                          pool[blocks, offs])
         scales[blocks, offs] = torch.where(active[:, None], sc,
                                            scales[blocks, offs])
+
+
+def _spec_rows(block_tables, start_lens, n_inputs, active, s, bs):
+    """Validity and (block, offset) of each slot's ``s`` sweep rows at
+    ``start_lens[b] + i``: rows past ``n_inputs[b]`` and inactive slots
+    map to null block 0, row 0. Flattened to ``[B * s]``."""
+    steps = torch.arange(s, device=start_lens.device)
+    pos = start_lens.long()[:, None] + steps[None, :]
+    valid = active[:, None] & (steps[None, :] < n_inputs.long()[:, None])
+    zero = torch.zeros_like(pos)
+    rows = torch.arange(block_tables.shape[0], device=pos.device)[:, None]
+    blocks = torch.where(valid, block_tables[rows, torch.where(
+        valid, pos // bs, zero)].long(), zero)
+    offs = torch.where(valid, pos % bs, zero)
+    return valid.reshape(-1), blocks.reshape(-1), offs.reshape(-1)
+
+
+def paged_spec_write(k_pool, v_pool, block_tables, start_lens, k_new,
+                     v_new, n_inputs, active):
+    """Scatter a verify sweep's KV in place: ``k_new``/``v_new``
+    [B, S, Hk, D] land at positions ``start_lens[b] + i``. Only the first
+    ``n_inputs[b]`` rows of an active slot are real; the rest (draft
+    padding, inactive slots) write null block 0's old value back."""
+    b, s = k_new.shape[:2]
+    valid, blocks, offs = _spec_rows(block_tables, start_lens, n_inputs,
+                                     active, s, k_pool.shape[1])
+    keep = valid[:, None, None]
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        flat = new.reshape(b * s, *new.shape[2:]).to(pool.dtype)
+        pool[blocks, offs] = torch.where(keep, flat, pool[blocks, offs])
+
+
+def paged_spec_write_q(k_pool, v_pool, k_scale, v_scale, block_tables,
+                       start_lens, k_new, v_new, n_inputs, active):
+    """Quantized :func:`paged_spec_write`: rows quantize per (position,
+    kv head) (``quantize_rows``) on the way in, their scales into the
+    scale pools; masked rows keep null block 0's old row and scales. In
+    place."""
+    b, s = k_new.shape[:2]
+    valid, blocks, offs = _spec_rows(block_tables, start_lens, n_inputs,
+                                     active, s, k_pool.shape[1])
+    for pool, scales, new in ((k_pool, k_scale, k_new),
+                              (v_pool, v_scale, v_new)):
+        q, sc = quantize_rows(new.reshape(b * s, *new.shape[2:]))
+        pool[blocks, offs] = torch.where(valid[:, None, None], q,
+                                         pool[blocks, offs])
+        scales[blocks, offs] = torch.where(valid[:, None], sc,
+                                           scales[blocks, offs])
+
+
+def paged_spec_attention_dense(q, k_pool, v_pool, block_tables, start_lens,
+                               active, scale=None, k_scale=None,
+                               v_scale=None):
+    """Attention of a verify sweep: queries [B, S, Hq, D] at absolute
+    positions ``start_lens[b] + i`` attend each slot's whole paged
+    context causally by absolute position (``pos_k <= pos_q``), so query
+    ``i`` sees exactly the keys a sequential decode step there would.
+    Gather then attend, group-folded GQA, float32 logits, a -1e30 mask,
+    probabilities cast to V's dtype before P @ V (int8 pools dequantized
+    and rounded to q's dtype in the gather). Inactive slots give zeros;
+    padded draft rows give junk the caller never reads."""
+    b, s, hq, d = q.shape
+    _, bs, hk, _ = k_pool.shape
+    g = hq // hk
+    s_max = block_tables.shape[1] * bs
+    idx = block_tables.long()
+    k = _gather_kv(k_pool, idx, k_scale, q.dtype).reshape(b, s_max, hk, d)
+    v = _gather_kv(v_pool, idx, v_scale, q.dtype).reshape(b, s_max, hk, d)
+    sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, s, hk, g, d)
+    logits = torch.einsum("bsngd,btnd->bsngt", qg.float(), k.float()) \
+        * sm_scale
+    pos_q = start_lens.long()[:, None] + torch.arange(s, device=q.device)
+    pos_k = torch.arange(s_max, device=q.device)
+    mask = ((pos_k[None, None, :] <= pos_q[:, :, None])
+            & active[:, None, None])[:, :, None, None, :]
+    logits = logits.masked_fill(~mask, _NEG)
+    probs = torch.softmax(logits, dim=-1) * mask
+    out = torch.einsum("bsngt,btnd->bsngd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, s, hq, d).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,

@@ -10,6 +10,11 @@ C interface, loaded through ``ctypes``:
 so the build takes as long as the slowest file. ptxas's register and
 shared-memory report for each kernel lands in ``_build/<name>.log``.
 Nothing here runs at import: the CPU tests import every module.
+
+``thread_build_seconds()`` is the seconds the calling thread has spent
+waiting on ``nvcc`` (the serving accountant bills it as compile time, as
+the JAX package bills XLA compiles): 0 on the CPU, where nothing builds,
+and 0 more once every kernel is built.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -76,6 +83,12 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_built = threading.local()
+
+
+def thread_build_seconds():
+    """Cumulative seconds this thread has spent in ``build_all`` builds."""
+    return getattr(_built, "secs", 0.0)
 
 
 def nvcc_path():
@@ -114,6 +127,7 @@ def build_all(names=SOURCES):
     """Compile every stale source, one ``nvcc`` each, all at once.
     Raises ``RuntimeError`` with the compiler's output if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         if _stale(name):
@@ -126,6 +140,8 @@ def build_all(names=SOURCES):
         log.close()
         if rc != 0:
             failed.append((name, (BUILD_DIR / f"{name}.log").read_text()))
+    if procs:
+        _built.secs = thread_build_seconds() + time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {n} ---\n{text}" for n, text in failed))

@@ -13,7 +13,10 @@ samples at ``true_len - 1``; ``paged_prefill_extend`` computes only the
 tail a prefix-cache hit leaves uncovered, attending the cached blocks
 through ``paged_prefix_attention_dense``; ``paged_decode_step`` writes
 each live slot's new KV at ``seq_len`` and attends the paged cache with
-``seq_len + 1``. With an int8 cache the KV is quantized on its way into
+``seq_len + 1``. ``paged_spec_step`` (speculative decode) writes
+and attends ``1 + k`` positions per slot in one sweep, through
+``paged_spec_attention_dense``, and returns every position's greedy
+token. With an int8 cache the KV is quantized on its way into
 the pools and dequantized by the decode and the tail attention; the
 prompt's own attention in a cold prefill uses the exact KV.
 
@@ -372,6 +375,52 @@ class Llama(nn.Module):
         cache.seq_lens = np.where(act_np, cache.seq_lens + 1,
                                   cache.seq_lens).astype(np.int32)
         return nxt.cpu().numpy()
+
+    @torch.inference_mode()
+    def paged_spec_step(self, cache, last_tokens, draft_tokens, n_inputs,
+                        active):
+        """Speculative verify sweep: write the KV of ``1 + k`` candidate
+        tokens per active slot (``last_tokens[b]``, then
+        ``draft_tokens[b]``) at positions ``seq_lens[b] ..``, attend each
+        against the slot's paged context causally by absolute position
+        (``paged_spec_attention_dense``) and return [max_batch, 1 + k]
+        int64 numpy greedy tokens: ``out[b, i]`` is the token sequential
+        greedy decode would emit after consuming input ``i``.
+        ``n_inputs[b]`` (1 + the real drafts) masks padding writes. Pools
+        update in place; ``seq_lens`` do not advance: the caller
+        (``Scheduler._decode_spec``) accepts the longest matching prefix
+        and rolls rejected rows back. Greedy only."""
+        from ..inference.paged import (paged_spec_attention_dense,
+                                       paged_spec_write, paged_spec_write_q)
+
+        dev = self.device
+        cfg = self.config
+        toks = np.concatenate([np.asarray(last_tokens).reshape(-1, 1),
+                               np.asarray(draft_tokens)], axis=1)
+        toks = torch.as_tensor(toks, device=dev).long()
+        lens = torch.as_tensor(cache.seq_lens, device=dev)
+        n_in = torch.as_tensor(np.asarray(n_inputs), device=dev)
+        act = torch.as_tensor(np.asarray(active), device=dev)
+        tables = torch.as_tensor(cache.block_tables, device=dev)
+        b, s = toks.shape
+        x = self.embed_tokens(toks)
+        for i, blk in enumerate(self.layers):
+            attn = blk.self_attn
+            q, k, v = attn.qkv(blk.input_layernorm(x), position_offset=lens)
+            kp, vp = cache.k_pools[i], cache.v_pools[i]
+            if cache.quantized:
+                ks, vs = cache.k_scales[i], cache.v_scales[i]
+                paged_spec_write_q(kp, vp, ks, vs, tables, lens, k, v, n_in,
+                                   act)
+            else:
+                ks = vs = None
+                paged_spec_write(kp, vp, tables, lens, k, v, n_in, act)
+            out = paged_spec_attention_dense(q, kp, vp, tables, lens, act,
+                                             k_scale=ks, v_scale=vs)
+            x = x + attn.o_proj(out.reshape(b, s, cfg.hidden_size))
+            x = x + blk.mlp(blk.post_attention_layernorm(x))
+        logits = self.head(self.norm(x))
+        return torch.argmax(logits, dim=-1).cpu().numpy()
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -1,3 +1,3 @@
-from . import metrics
+from . import accounting, metrics, tracing
 
-__all__ = ["metrics"]
+__all__ = ["accounting", "metrics", "tracing"]

@@ -19,19 +19,42 @@ can compare the two registries' deltas name by name.
     metrics.histogram("my.latency_us").observe(dt)
     metrics.snapshot("serving.")   # {name: value | dict} plain data
 
-Not ported: histogram exemplars (there is no tracing layer yet), the
-HTTP exporter, replica identity, labeled gauges and JAX compile
-monitoring.
+Each histogram bucket keeps one exemplar: the largest observation made
+while a trace was active, with its trace id (``profiler/tracing.py``
+installs the trace-id source at import), so a tail bucket of
+``serving.ttft_us`` names a trace that ``tracing.export_trace`` renders.
+
+Not ported: the HTTP exporter (``profiler/export.py``), replica identity,
+labeled gauges and JAX compile monitoring (its counterpart, kernel-build
+seconds per thread, is ``kernels._build.thread_build_seconds``).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "counter",
            "gauge", "histogram", "snapshot", "registry",
            "cumulative_buckets", "percentile_from_buckets",
            "window_delta"]
+
+
+# -- histogram exemplars -----------------------------------------------------
+# profiler.tracing installs the ambient-trace probe at import; until then
+# an observation pays one call returning None. The hook lives here, not an
+# import of tracing, because tracing needs this module's counters.
+
+def _no_trace():
+    return None
+
+
+_trace_id_fn = _no_trace
+
+
+def _set_trace_id_source(fn):
+    global _trace_id_fn
+    _trace_id_fn = fn
 
 
 class Counter:
@@ -89,10 +112,12 @@ _DEFAULT_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 class Histogram:
     """Fixed-bucket distribution: bucket[i] counts observations
-    <= bounds[i]; one overflow bucket catches the rest."""
+    <= bounds[i]; one overflow bucket catches the rest. Each bucket keeps
+    an exemplar: (value, trace_id, wall time) of its largest observation
+    made inside a trace."""
 
     __slots__ = ("name", "bounds", "_buckets", "_count", "_sum", "_min",
-                 "_max", "_lock")
+                 "_max", "_exemplars", "_lock")
 
     def __init__(self, name, bounds=_DEFAULT_BOUNDS):
         self.name = name
@@ -103,8 +128,10 @@ class Histogram:
         self._sum = 0.0
         self._min = None
         self._max = None
+        self._exemplars = [None] * (len(self.bounds) + 1)
 
     def observe(self, v):
+        tid = _trace_id_fn()
         with self._lock:
             i = 0
             for b in self.bounds:
@@ -118,6 +145,10 @@ class Histogram:
                 self._min = v
             if self._max is None or v > self._max:
                 self._max = v
+            if tid is not None:
+                ex = self._exemplars[i]
+                if ex is None or v >= ex[0]:
+                    self._exemplars[i] = (v, tid, time.time())
 
     def _pct_locked(self, q):
         """The q-quantile (0..1) from the bucket counts: linear
@@ -143,6 +174,10 @@ class Histogram:
     def _snap(self):
         with self._lock:
             labels = [*map(str, self.bounds), "+inf"]
+            exemplars = {labels[i]: {"value": ex[0], "trace_id": ex[1],
+                                     "ts": ex[2]}
+                         for i, ex in enumerate(self._exemplars)
+                         if ex is not None}
             return {"count": self._count, "sum": self._sum,
                     "min": self._min, "max": self._max,
                     "avg": (self._sum / self._count) if self._count
@@ -150,7 +185,8 @@ class Histogram:
                     "p50": self._pct_locked(0.50),
                     "p95": self._pct_locked(0.95),
                     "p99": self._pct_locked(0.99),
-                    "buckets": dict(zip(labels, list(self._buckets)))}
+                    "buckets": dict(zip(labels, list(self._buckets))),
+                    "exemplars": exemplars}
 
 
 class Registry:

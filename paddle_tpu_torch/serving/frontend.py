@@ -15,11 +15,17 @@ threads:
   request ends ``TIMEOUT`` at the next step boundary.
 - a **lifecycle** ``WARMING -> READY -> DRAINING -> CLOSED``:
   ``submit()`` is accepted only in READY. ``warmup()`` runs every
-  prefill bucket (``bucket_lengths``) and the batched decode step against
-  throwaway slots, so on the GPU every kernel of the path is built and
-  first launched before live traffic, then flips WARMING -> READY.
+  prefill bucket (``bucket_lengths``), the batched decode step and, with
+  speculation armed, the verify sweep against throwaway slots, so on the
+  GPU every kernel of the path is built and first launched before live
+  traffic, then flips WARMING -> READY.
   ``drain()`` stops admission (``NotReadyError``), lets every in-flight
   request finish and flips to CLOSED.
+- **cost and traces**: ``RequestHandle.cost()`` is the request's
+  ``profiler.accounting.CostReport`` (None with accounting disarmed),
+  ``RequestHandle.trace_id`` its trace (``profiler.tracing.export_trace``
+  renders it); ``ServingEngine.accounting`` is the engine's accountant
+  (``engine_report()``, ``goodput_line()``).
 
 One re-entrant lock guards the scheduler, and the driver holds it for a
 whole scheduling iteration, so ``submit()``/``cancel()``/``tokens()`` may
@@ -28,9 +34,10 @@ methods run under ``torch.inference_mode()`` on whichever thread steps.
 If the driver thread dies, every live request ends ``ERROR`` and the
 cause re-raises from ``submit``/``result``.
 
-Not ported yet (ROADMAP.md §1): ``serve_metrics`` and the fleet registry,
-``submit_handoff`` and replica roles other than ``"mixed"``, the fleet
-cache publisher, request trace ids and cost reports.
+Not ported yet (ROADMAP.md §1): the SLO alerts (``alerts``) and the
+metrics endpoint (``serve_metrics``) of the telemetry slice, which raise
+``NotImplementedError``; the fleet registry, ``submit_handoff`` and
+replica roles other than ``"mixed"``; the fleet cache publisher.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 
 from ..core import resilience
 from ..profiler import metrics as _metrics
+from ..profiler import tracing as _tracing
 from .bucketing import bucket_lengths
 from .scheduler import (AdmissionRejected, QueueFullError, RequestStatus,
                         Scheduler)
@@ -107,10 +115,27 @@ class RequestHandle:
         is unprimed."""
         return self._req.retry_after_s
 
+    @property
+    def trace_id(self):
+        """This request's trace id (None when tracing is off or the trace
+        was not sampled); ``profiler.tracing.export_trace`` renders it
+        once the request is terminal."""
+        return self._req.trace_id
+
     def tokens(self):
         """Tokens generated so far (a stable snapshot)."""
         with self._engine._lock:
             return list(self._req.generated)
+
+    def cost(self):
+        """A detached copy of this request's ``CostReport``: the step
+        time attributed to it (prefill, decode, re-prefill, kernel
+        builds), its queue wait and TTFT, token, prefix-coverage and
+        speculation counts and, once terminal, ``deadline_met``. None
+        when accounting is disarmed (``FLAGS_serving_accounting=0``)."""
+        with self._engine._lock:
+            c = self._req.cost
+            return c.clone() if c is not None else None
 
     def cancel(self):
         self._engine.cancel(self)
@@ -154,8 +179,8 @@ class ServingEngine:
                  prefill_token_budget=None, max_queue=None,
                  bucket_cap=None, prefix_cache=None, accounting=None,
                  admission=None, brownout=None, kv_cache_dtype=None,
-                 spec=None, mesh=None, background=True, ready=True,
-                 role=None, paged_kernel=None, generator=None):
+                 spec=None, spec_tokens=None, mesh=None, background=True,
+                 ready=True, role=None, paged_kernel=None, generator=None):
         if role not in (None, "mixed"):
             raise NotImplementedError(
                 f"ServingEngine: role {role!r} is not ported yet "
@@ -170,8 +195,9 @@ class ServingEngine:
             max_queue=max_queue, bucket_cap=bucket_cap,
             prefix_cache=prefix_cache, accounting=accounting,
             admission=admission, brownout=brownout,
-            kv_cache_dtype=kv_cache_dtype, spec=spec, mesh=mesh,
-            paged_kernel=paged_kernel, generator=generator)
+            kv_cache_dtype=kv_cache_dtype, spec=spec,
+            spec_tokens=spec_tokens, mesh=mesh, paged_kernel=paged_kernel,
+            generator=generator)
         self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
         self._background = background
@@ -259,6 +285,24 @@ class ServingEngine:
     def cache(self):
         return self._sched.cache
 
+    @property
+    def accounting(self):
+        """The engine's cost accountant (``profiler/accounting.py``), the
+        null accountant when disarmed: ``engine_report()`` and
+        ``goodput_line()`` aggregate goodput."""
+        return self._sched.accounting
+
+    @property
+    def alerts(self):
+        raise NotImplementedError(
+            "ServingEngine.alerts is not ported yet (ROADMAP.md §1, the "
+            "telemetry slice: profiler/alerts.py)")
+
+    def serve_metrics(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ServingEngine.serve_metrics is not ported yet (ROADMAP.md "
+            "§1, the telemetry slice: profiler/export.py)")
+
     def step(self):
         """Run one scheduling iteration (foreground mode, or an extra
         nudge in background mode)."""
@@ -283,12 +327,13 @@ class ServingEngine:
 
     def warmup(self):
         """Run every prefill bucket the configuration can produce
-        (``bucket_lengths``) and the batched decode step once, against
-        throwaway slots (freed afterwards; no request exists yet), then
-        flip WARMING -> READY. On the GPU this builds and first-launches
-        every kernel of the path, so live traffic pays neither. Repeating
-        it in READY revisits the same shapes; it raises past DRAINING.
-        Returns the number of programs visited."""
+        (``bucket_lengths``), the batched decode step once and, with
+        speculation armed, the verify sweep once, against throwaway slots
+        (freed afterwards; no request exists yet), then flip WARMING ->
+        READY. On the GPU this builds and first-launches every kernel of
+        the path, so live traffic pays neither. Repeating it in READY
+        revisits the same shapes; it raises past DRAINING. Returns the
+        number of programs visited."""
         with self._lock:
             if self._state in (Lifecycle.DRAINING, Lifecycle.CLOSED):
                 raise RuntimeError(
@@ -301,34 +346,49 @@ class ServingEngine:
             t0 = time.perf_counter_ns()
             n = 0
             decoded = False
-            for b in buckets:
-                slot = cache.alloc_slot(b)
-                if slot is None:
-                    continue  # pool smaller than the ladder's tail
-                try:
-                    model.paged_prefill(cache, slot, np.zeros((b,), np.int64),
-                                        temperature=sched.temperature,
-                                        generator=sched.generator, pad_to=b)
-                    n += 1
-                    if not decoded:
-                        # the next-position write past the slot's blocks
-                        # lands in the null block, the bucketing convention
-                        active = np.zeros((cache.max_batch,), bool)
-                        active[slot] = True
-                        model.paged_decode_step(
-                            cache, np.zeros((cache.max_batch,), np.int64),
-                            active, temperature=sched.temperature,
-                            kernel_mode=sched.kernel_mode,
-                            generator=sched.generator)
-                        decoded = True
+            with _tracing.span("serving.warmup", buckets=len(buckets)):
+                for b in buckets:
+                    slot = cache.alloc_slot(b)
+                    if slot is None:
+                        continue  # pool smaller than the ladder's tail
+                    try:
+                        model.paged_prefill(
+                            cache, slot, np.zeros((b,), np.int64),
+                            temperature=sched.temperature,
+                            generator=sched.generator, pad_to=b)
                         n += 1
-                finally:
-                    cache.free_slot(slot)
+                        if not decoded:
+                            n += self._warm_decode(slot)
+                            decoded = True
+                    finally:
+                        cache.free_slot(slot)
             _c_warmup_programs.inc(n)
             _h_warmup_us.observe((time.perf_counter_ns() - t0) / 1000.0)
         if self._state == Lifecycle.WARMING:
             self.mark_ready()
         return n
+
+    def _warm_decode(self, slot):
+        """The decode step and, with speculation armed, the verify sweep,
+        on ``slot`` (writes past its blocks land in the null block, the
+        bucketing convention; the caller frees the slot). Returns the
+        number of programs run."""
+        sched = self._sched
+        cache = sched.cache
+        active = np.zeros((cache.max_batch,), bool)
+        active[slot] = True
+        sched.model.paged_decode_step(
+            cache, np.zeros((cache.max_batch,), np.int64), active,
+            temperature=sched.temperature, kernel_mode=sched.kernel_mode,
+            generator=sched.generator)
+        if not sched.spec:
+            return 1
+        k = sched.spec_tokens
+        sched.model.paged_spec_step(
+            cache, np.zeros((cache.max_batch,), np.int64),
+            np.zeros((cache.max_batch, k), np.int64),
+            np.full((cache.max_batch,), 1 + k, np.int64), active)
+        return 2
 
     def mark_ready(self):
         """WARMING -> READY (a no-op in READY; raises past that)."""
@@ -349,8 +409,12 @@ class ServingEngine:
         with self._cond:
             if self._state == Lifecycle.CLOSED:
                 return
-            if self._state != Lifecycle.DRAINING:
+            first = self._state != Lifecycle.DRAINING
+            if first:
                 _c_drain_started.inc()
+            span = _tracing.start_trace(
+                "serving.drain", inflight=self._sched.inflight()) \
+                if first else _tracing.NULL
             self._state = Lifecycle.DRAINING
             _g_lifecycle_ready.set(0)
             self._cond.notify_all()
@@ -360,6 +424,7 @@ class ServingEngine:
             with self._cond:
                 while self._sched.has_work and self._error is None:
                     if end is not None and time.monotonic() >= end:
+                        span.end("timeout")
                         raise TimeoutError(
                             f"drain: {self._sched.inflight()} requests "
                             f"still in flight after {timeout}s")
@@ -373,11 +438,16 @@ class ServingEngine:
             self._state = Lifecycle.CLOSED
             err = self._error
         if err is not None:
+            span.annotate(completed=False)
+            span.end("error")
             raise RuntimeError(
                 "drain: engine died before in-flight work could "
                 "finish") from err
         if not was_closed:  # a concurrent drain lost the race: one edge
             _c_drain_completed.inc()
+        # the first drainer's span, whichever thread closed the engine
+        span.annotate(completed=True)
+        span.end("CLOSED")
 
     def _drive(self):
         try:

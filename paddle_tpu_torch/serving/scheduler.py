@@ -22,17 +22,25 @@ point). Each ``step()`` is one scheduling iteration:
    writable (table growth, copy-on-write of a shared block; cold cached
    blocks are evicted before anyone is preempted). Pool exhaustion
    preempts a victim (its blocks freed, requeued at the front for a
-   re-prefill of prompt + generated) instead of truncating anyone.
+   re-prefill of prompt + generated) instead of truncating anyone. With
+   speculation armed (``FLAGS_serving_spec``, greedy only) the step
+   instead runs one batched verify sweep over prompt-lookup drafts
+   (``_decode_spec``, ``Llama.paged_spec_step``): several tokens per
+   request per step, the same greedy tokens, rejected rows rolled back.
 
 Every request ends in exactly one of ``DONE``, ``CANCELLED``,
 ``TIMEOUT``, ``SHED`` or ``ERROR``. The ``serving.*`` instruments of
-``profiler.metrics`` carry the reference's names.
+``profiler.metrics`` carry the reference's names. With accounting armed
+(``FLAGS_serving_accounting``, on by default) each step's measured time
+is apportioned across the requests that did work in it into per-request
+``CostReport``s and engine goodput (``profiler/accounting.py``). Each
+request is one trace (``profiler/tracing.py``): a root span from submit
+to its terminal status, with its queue wait, prefills, its share of each
+decode step, preemptions and the terminal status beneath.
 
-Not ported yet (ROADMAP.md §1, the next serving slices): cost accounting
-and alerts (``accounting=True``), speculative decode (``spec=True``),
-mesh-sharded serving (``mesh=``), disaggregated handoff
-(``admit_handoff``) and tracing spans. The port's scheduler behaves as
-the reference's does with ``accounting=False, spec=False``.
+Not ported yet (ROADMAP.md §1): the SLO burn-rate alerts that ride with
+accounting in the reference (``profiler/alerts.py``), mesh-sharded
+serving (``mesh=``) and disaggregated handoff (``admit_handoff``).
 """
 
 from __future__ import annotations
@@ -45,12 +53,16 @@ import torch
 
 from ..core import flags as flags_mod
 from ..core import resilience
-from ..inference.paged import (CapacityError, PagedKVCache, prefill_ids,
-                               quant_block_ratio, resolve_kv_dtype,
-                               resolve_paged_kernel, sized_num_blocks,
-                               validate_request)
+from ..inference.paged import (CapacityError, PagedKVCache, kernel_route,
+                               prefill_ids, quant_block_ratio,
+                               resolve_kv_dtype, resolve_paged_kernel,
+                               sized_num_blocks, validate_request)
+from ..kernels._build import thread_build_seconds
+from ..profiler import accounting as _accounting
 from ..profiler import metrics as _metrics
+from ..profiler import tracing as _tracing
 from . import overload as _overload
+from . import spec as _spec
 from .bucketing import bucket_length
 from .overload import AdmissionRejected
 
@@ -92,7 +104,7 @@ class ServingRequest:
                  "on_token", "on_finish", "status", "generated", "slot",
                  "preempts", "admit_seq", "submitted_at", "admitted_at",
                  "first_token_at", "last_token_at", "cancel_requested",
-                 "priority", "est_tokens", "retry_after_s")
+                 "span", "cost", "priority", "est_tokens", "retry_after_s")
 
     def __init__(self, rid, prompt, max_new_tokens, deadline=None,
                  on_token=None, on_finish=None,
@@ -113,12 +125,21 @@ class ServingRequest:
         self.first_token_at = None
         self.last_token_at = None
         self.cancel_requested = False
+        # the root span of this request's trace (submit to terminal
+        # status); the null span when tracing is off or unsampled
+        self.span = _tracing.NULL
+        # the CostReport the accountant binds at submit; None disarmed
+        self.cost = None
         # overload control: priority class (smaller = more important),
         # the estimated uncovered-prefill tokens, and the back-off hint
         # set when this request is shed
         self.priority = priority
         self.est_tokens = 0
         self.retry_after_s = None
+
+    @property
+    def trace_id(self):
+        return self.span.trace_id
 
     @property
     def done(self):
@@ -153,6 +174,16 @@ _g_util = _metrics.gauge("serving.kv.utilization")
 _m_prefix_computed = _metrics.counter("serving.prefix.computed_tokens")
 _g_shared = _metrics.gauge("serving.kv.shared_blocks")
 _g_cached = _metrics.gauge("serving.kv.cached_blocks")
+# speculative decode: draft tokens proposed, accepted and rejected by the
+# verify sweep, sweeps run, and each request's per-sweep acceptance rate;
+# silent with FLAGS_serving_spec off
+_m_spec_proposed = _metrics.counter("serving.spec.proposed")
+_m_spec_accepted = _metrics.counter("serving.spec.accepted")
+_m_spec_rejected = _metrics.counter("serving.spec.rejected")
+_m_spec_steps = _metrics.counter("serving.spec.steps")
+_h_spec_accept = _metrics.histogram(
+    "serving.spec.accept_rate",
+    bounds=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
 _g_kv_quant_bits = _metrics.gauge("serving.kv.quant.bits")
 _g_kv_quant_mult = _metrics.gauge(
     "serving.kv.quant.capacity_multiplier")
@@ -166,7 +197,9 @@ def _not_ported(what, item):
 class Scheduler:
     """See the module docstring. Not thread-safe: callers serialize.
     The cache lives on the model's device; ``generator`` (a
-    ``torch.Generator`` there) drives sampling at ``temperature > 0``."""
+    ``torch.Generator`` there) drives sampling at ``temperature > 0``.
+    ``accounting``, ``spec`` and ``spec_tokens`` default to their flags
+    (read once, here)."""
 
     def __init__(self, model, *, max_batch=8, block_size=16,
                  max_seq_len=2048, num_blocks=None, temperature=0.0,
@@ -174,13 +207,8 @@ class Scheduler:
                  prefill_token_budget=None, max_queue=None,
                  bucket_cap=None, prefix_cache=None, accounting=None,
                  admission=None, brownout=None, kv_cache_dtype=None,
-                 spec=None, mesh=None, paged_kernel=None, generator=None):
-        if accounting:
-            raise _not_ported("cost accounting",
-                              "the telemetry serving slice")
-        if spec:
-            raise _not_ported("speculative decode",
-                              "the speculative-decode serving slice")
+                 spec=None, spec_tokens=None, mesh=None, paged_kernel=None,
+                 generator=None):
         if mesh is not None:
             raise _not_ported("mesh-sharded serving",
                               "the long tail, serving/mesh.py")
@@ -195,6 +223,8 @@ class Scheduler:
             flags_mod.flag("FLAGS_kv_cache_dtype")
             if kv_cache_dtype is None else kv_cache_dtype)
         self.kernel_mode = resolve_paged_kernel(paged_kernel)
+        # the decode_step span's route attribute
+        self.kernel_route = kernel_route(self.kernel_mode, model.device)
         compute_dt = dtype if dtype is not None else torch.bfloat16
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
@@ -208,6 +238,17 @@ class Scheduler:
             _g_kv_quant_bits.set(8)
             _g_kv_quant_mult.set(round(
                 quant_block_ratio(cfg.head_dim, compute_dt), 4))
+        # self-speculative decode: greedy only (sampled decode has no
+        # cheap accept rule that keeps the distribution exact), so a
+        # temperature > 0 disarms it
+        armed_spec = (bool(flags_mod.flag("FLAGS_serving_spec"))
+                      if spec is None else bool(spec))
+        self.spec_tokens = max(int(
+            flags_mod.flag("FLAGS_serving_spec_tokens")
+            if spec_tokens is None else spec_tokens), 1)
+        self.spec_ngram = max(
+            int(flags_mod.flag("FLAGS_serving_spec_ngram")), 1)
+        self.spec = armed_spec and temperature == 0.0
         self.prefill_token_budget = (
             flags_mod.flag("FLAGS_serving_prefill_budget")
             if prefill_token_budget is None else int(prefill_token_budget))
@@ -221,6 +262,12 @@ class Scheduler:
         self.prefix_cache = (
             bool(flags_mod.flag("FLAGS_serving_prefix_cache"))
             if prefix_cache is None else bool(prefix_cache))
+        # cost attribution, read once like prefix_cache; disarmed, the
+        # null accountant's hooks do nothing
+        armed = (bool(flags_mod.flag("FLAGS_serving_accounting"))
+                 if accounting is None else bool(accounting))
+        self.accounting = _accounting.Accountant(
+            config=cfg, device=model.device) if armed else _accounting.NULL
         adm = (bool(flags_mod.flag("FLAGS_serving_admission"))
                if admission is None else bool(admission))
         brw = (bool(flags_mod.flag("FLAGS_serving_brownout"))
@@ -265,6 +312,10 @@ class Scheduler:
                              on_finish=on_finish, priority=pri)
         req.est_tokens = est
         self._next_rid += 1
+        req.span = _tracing.start_trace(
+            "serving.request", rid=req.rid, prompt_len=len(prompt),
+            max_new_tokens=int(max_new_tokens))
+        self.accounting.attach(req)
         self.queue.append(req)
         _g_queue.set(len(self.queue))
         return req
@@ -289,6 +340,7 @@ class Scheduler:
         """One iteration: sweep -> overload control -> admit -> decode.
         Returns the (rid, token) pairs emitted, prefill tokens included."""
         t0 = time.monotonic()
+        self.accounting.step_begin()
         self._sweep()
         # shed before admission, so a step never prefills work it is
         # about to shed
@@ -296,7 +348,11 @@ class Scheduler:
         out = self._admit()
         out += self._decode()
         _m_steps.inc()
-        _h_step.observe((time.monotonic() - t0) * 1e6)
+        step_us = (time.monotonic() - t0) * 1e6
+        _h_step.observe(step_us)
+        # apportion before the gauges, so the capacity view and the
+        # attribution agree on the step boundary
+        self.accounting.step_end(step_us)
         self._update_gauges()
         return out
 
@@ -326,6 +382,9 @@ class Scheduler:
         as the back-off hint. Running requests are untouched."""
         self.queue.remove(req)
         req.retry_after_s = retry_after_s
+        _tracing.record_span("serving.shed", req.span, 0.0,
+                             priority=req.priority,
+                             queue_depth=len(self.queue))
         resilience.degrade("serving.shed")
         self._finish(req, RequestStatus.SHED)
 
@@ -367,32 +426,55 @@ class Scheduler:
             now = time.monotonic()
             if req.admitted_at is None:
                 req.admitted_at = now
-                _h_queue_wait.observe((now - req.submitted_at) * 1e6)
+                wait_us = (now - req.submitted_at) * 1e6
+                with _tracing.attach(req.span):  # exemplar -> trace_id
+                    _h_queue_wait.observe(wait_us)
+                _tracing.record_span("serving.queue_wait", req.span,
+                                     wait_us)
+                self.accounting.note_queue_wait(req, wait_us)
             self.running[slot] = req
             _m_admitted.inc()
+            build0 = thread_build_seconds()  # builds bill to this request
             t_pf = time.perf_counter_ns()
             if covered:
                 tail_start = plan.tail_start
                 pad_to = bucket_length(ids_len - tail_start, bs,
                                        self.bucket_cap,
                                        max_len=self.max_seq_len)
-                tok = int(self.model.paged_prefill_extend(
-                    self.cache, slot, ids, tail_start, plan.write_start,
-                    temperature=self.temperature,
-                    generator=self.generator, pad_to=pad_to))
+                with _tracing.span("serving.prefill", parent=req.span,
+                                   tokens=ids_len, pad_to=pad_to,
+                                   reprefill=bool(req.generated),
+                                   covered=covered,
+                                   hit_blocks=plan.hit_blocks):
+                    tok = int(self.model.paged_prefill_extend(
+                        self.cache, slot, ids, tail_start,
+                        plan.write_start, temperature=self.temperature,
+                        generator=self.generator, pad_to=pad_to))
             else:
                 pad_to = bucket_length(ids_len, bs, self.bucket_cap,
                                        max_len=self.max_seq_len)
-                tok = int(self.model.paged_prefill(
-                    self.cache, slot, ids, temperature=self.temperature,
-                    generator=self.generator, pad_to=pad_to))
+                with _tracing.span("serving.prefill", parent=req.span,
+                                   tokens=ids_len, pad_to=pad_to,
+                                   reprefill=bool(req.generated),
+                                   covered=0, hit_blocks=0):
+                    tok = int(self.model.paged_prefill(
+                        self.cache, slot, ids,
+                        temperature=self.temperature,
+                        generator=self.generator, pad_to=pad_to))
             # int(tok) waited for the device: the host clock is the
             # prefill's time
             pf_us = (time.perf_counter_ns() - t_pf) / 1000.0
+            build_us = (thread_build_seconds() - build0) * 1e6
             if plan is not None:
                 _m_prefix_computed.inc(pad_to)
                 self.cache.commit_prefix(slot, plan)
-            self.overload.observe_prefill(pad_to, pf_us)
+            # covered prefix tokens are free; a re-prefill bills to the
+            # preemption
+            self.accounting.note_prefill(req, pad_to, covered, build_us,
+                                         reprefill=req.preempts > 0)
+            # the service-time model sees the build-free cost
+            self.overload.observe_prefill(pad_to,
+                                          max(pf_us - build_us, 0.0))
             self._last_tok[slot] = tok
             self._remaining[slot] = \
                 req.max_new_tokens - len(req.generated) - 1
@@ -417,9 +499,30 @@ class Scheduler:
                 return s
         return cands[0]
 
+    def _timed_decode_dispatch(self, dispatch):
+        """Run one batched decode program (plain step or verify sweep)
+        under one instrumentation contract: kernel builds billed through
+        the accountant, the build-free time fed to overload control.
+        Returns (the program's output, its host microseconds)."""
+        build0 = thread_build_seconds()
+        t_dec = time.perf_counter_ns()
+        out = dispatch()
+        # the tokens came back to the host: the step is done on the device
+        dec_us = (time.perf_counter_ns() - t_dec) / 1000.0
+        build_us = (thread_build_seconds() - build0) * 1e6
+        self.accounting.note_decode_compile(build_us)
+        self.overload.observe_decode(max(dec_us - build_us, 0.0))
+        return out, dec_us
+
     def _decode(self):
         if not self.running:
             return []
+        if self.spec:
+            out = self._decode_spec()
+            if out is not None:
+                return out
+            # nothing proposed, or no room for the draft rows: this step
+            # decodes plainly
         # make each slot's next position writable (growth, evicting cold
         # cached blocks first; copy-on-write of shared blocks); preempt
         # a victim on true pool exhaustion, never truncate
@@ -458,22 +561,119 @@ class Scheduler:
         active = np.zeros((self.cache.max_batch,), bool)
         for slot in self.running:
             active[slot] = True
-        t_dec = time.perf_counter_ns()
-        toks = self.model.paged_decode_step(
-            self.cache, self._last_tok, active,
-            temperature=self.temperature, kernel_mode=self.kernel_mode,
-            generator=self.generator)
-        # the tokens came back to the host: the step is done on the device
-        self.overload.observe_decode(
-            (time.perf_counter_ns() - t_dec) / 1000.0)
+        toks, dec_us = self._timed_decode_dispatch(
+            lambda: self.model.paged_decode_step(
+                self.cache, self._last_tok, active,
+                temperature=self.temperature, kernel_mode=self.kernel_mode,
+                generator=self.generator))
         out = []
         for slot, req in list(self.running.items()):
             t = int(toks[slot])
             self._last_tok[slot] = t
             self._remaining[slot] -= 1
+            # one batched program: each live request's trace gets the
+            # step's wall time
+            _tracing.record_span("serving.decode_step", req.span,
+                                 dec_us, token=len(req.generated),
+                                 batch=len(self.running),
+                                 route=self.kernel_route)
+            self.accounting.note_decode(req)
             self._emit(req, t)
             out.append((req.rid, t))
             self._maybe_finish(slot)
+        _m_decoded.inc(len(out))
+        return out
+
+    def _decode_spec(self):
+        """One speculative decode iteration: propose up to
+        ``spec_tokens`` drafts per running request from its own context
+        (``serving/spec.py``), verify all of them in one batched sweep
+        (``Llama.paged_spec_step``), accept the longest prefix that
+        matches the sweep's greedy tokens, and roll rejected rows' blocks
+        back. Every emitted token is the sweep's own argmax, so greedy
+        outputs equal plain decode's.
+
+        Returns the (rid, token) list, or None to decode plainly this
+        step: nothing proposed anywhere, or the pool cannot hold the
+        draft rows now (the plain path then evicts or preempts;
+        speculation re-engages when room returns)."""
+        k = self.spec_tokens
+        bs = self.cache.block_size
+        drafts = {}
+        for slot, req in self.running.items():
+            cap = min(k, int(self._remaining[slot]) - 1)
+            drafts[slot] = _spec.propose_draft(
+                prefill_ids(req), cap, self.spec_ngram) \
+                if cap > 0 else np.empty((0,), np.int64)
+        if not any(d.size for d in drafts.values()):
+            return None
+        # every slot needs positions [len, len + 1 + drafts) writable;
+        # a failure part-way rolls every grown slot back, so the plain
+        # path starts from untouched tables
+        grown = []
+        for slot in list(self.running):
+            old = len(self.cache._slot_blocks[slot])
+            need = int(self.cache.seq_lens[slot]) + 1 + int(drafts[slot].size)
+            if not self.cache.prepare_append_range(slot, need):
+                for s, n in grown:
+                    self.cache.truncate_blocks(s, n)
+                return None
+            grown.append((slot, old))
+        draft_mat = np.zeros((self.cache.max_batch, k), np.int64)
+        n_inputs = np.zeros((self.cache.max_batch,), np.int64)
+        active = np.zeros((self.cache.max_batch,), bool)
+        for slot, d in drafts.items():
+            active[slot] = True
+            n_inputs[slot] = 1 + d.size
+            draft_mat[slot, :d.size] = d
+        outs, dec_us = self._timed_decode_dispatch(
+            lambda: self.model.paged_spec_step(
+                self.cache, self._last_tok, draft_mat, n_inputs, active))
+        out = []
+        for slot, req in list(self.running.items()):
+            g = outs[slot]
+            proposed = int(drafts[slot].size)
+            # accept while each draft equals the sweep's argmax at the
+            # position before it: the emitted run g[0..m] is what m + 1
+            # sequential steps give
+            m = 0
+            while m < proposed and int(draft_mat[slot, m]) == int(g[m]):
+                m += 1
+            emitted = [int(g[i]) for i in range(m + 1)]
+            if self.eos_token_id is not None \
+                    and self.eos_token_id in emitted:
+                # sequential decode stops at eos: later rows never were
+                m = emitted.index(self.eos_token_id)
+                emitted = emitted[:m + 1]
+            # the inputs consumed (last token + m drafts) wrote exactly
+            # the rows sequential decode would have; the rest roll back
+            new_seq = int(self.cache.seq_lens[slot]) + len(emitted)
+            self.cache.seq_lens[slot] = new_seq
+            self.cache.truncate_blocks(slot, max(math.ceil(new_seq / bs), 1))
+            self._last_tok[slot] = emitted[-1]
+            self._remaining[slot] -= len(emitted)
+            _m_spec_proposed.inc(proposed)
+            _m_spec_accepted.inc(m)
+            _m_spec_rejected.inc(proposed - m)
+            if proposed:
+                with _tracing.attach(req.span):  # exemplar -> trace_id
+                    _h_spec_accept.observe(m / proposed)
+            _tracing.record_span("serving.decode_step", req.span,
+                                 dec_us, token=len(req.generated),
+                                 batch=len(self.running),
+                                 route=self.kernel_route,
+                                 spec_proposed=proposed,
+                                 spec_accepted=m)
+            if proposed:
+                self.accounting.note_spec(req, emitted=len(emitted),
+                                          proposed=proposed, accepted=m)
+            else:
+                self.accounting.note_decode(req)
+            for t in emitted:
+                self._emit(req, t)
+                out.append((req.rid, t))
+            self._maybe_finish(slot)
+        _m_spec_steps.inc()
         _m_decoded.inc(len(out))
         return out
 
@@ -487,16 +687,22 @@ class Scheduler:
         req.preempts += 1
         self.queue.insert(0, req)
         _m_preempt.inc()
+        _tracing.record_span("serving.preempt", req.span, 0.0,
+                             generated=len(req.generated),
+                             preempts=req.preempts)
         resilience.degrade("serving.preempt")
 
     def _emit(self, req, tok):
         req.generated.append(tok)
         now = time.monotonic()
-        if req.first_token_at is None:
-            req.first_token_at = now
-            _h_ttft.observe((now - req.submitted_at) * 1e6)
-        else:
-            _h_itl.observe((now - req.last_token_at) * 1e6)
+        # under the request's trace context, so the bucket's exemplar
+        # names this trace
+        with _tracing.attach(req.span):
+            if req.first_token_at is None:
+                req.first_token_at = now
+                _h_ttft.observe((now - req.submitted_at) * 1e6)
+            else:
+                _h_itl.observe((now - req.last_token_at) * 1e6)
         req.last_token_at = now
         if req.on_token is not None:
             try:
@@ -519,6 +725,12 @@ class Scheduler:
             self.running.pop(req.slot, None)
             req.slot = -1
         req.status = status
+        self.accounting.on_finish(req, status)
+        _tracing.record_span("serving.terminal", req.span, 0.0,
+                             terminal=status, tokens=len(req.generated))
+        req.span.annotate(terminal=status, tokens=len(req.generated),
+                          preempts=req.preempts)
+        req.span.end(status)
         self.finished[req.rid] = req
         {RequestStatus.DONE: _m_done,
          RequestStatus.CANCELLED: _m_cancelled,
@@ -552,3 +764,6 @@ class Scheduler:
         _g_util.set(round(used / usable, 4) if usable else 0.0)
         _g_shared.set(self.cache.num_shared_blocks())
         _g_cached.set(self.cache.num_cached_blocks())
+        # armed accounting keeps its occupancy gauges and the device
+        # memory sample fresh
+        self.accounting.update_capacity(self.cache)

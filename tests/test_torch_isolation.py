@@ -33,7 +33,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         for sub in ("optimizer", "jit", "models.gpt", "nn.fused_ce",
-                    "nn.clip", "serving.frontend", "inference.paged"):
+                    "nn.clip", "serving.frontend", "inference.paged",
+                    "serving.spec", "profiler.tracing",
+                    "profiler.accounting"):
             assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)

@@ -7,9 +7,10 @@ package on the CPU.
   and queue states give the same predictions, pressures, brownout
   stages, shed victims, clamps and rejections.
 - The port registers every ``serving.*`` instrument the reference's
-  scheduler, cache, overload control and frontend register, under the
-  same name and kind (speculative decode and the Pallas route counters
-  excepted: not ported).
+  scheduler, cache, overload control and frontend register, and every
+  instrument of its accounting and tracing modules, under the same name
+  and kind (the Pallas route counters and the JAX live-array count
+  excepted: the port has neither).
 - ``ServingEngine`` end to end (``LlamaConfig.tiny()``, float32, the JAX
   model's parameters converted, ``background=False``; the JAX engine with
   ``accounting=False, spec=False``): the same tokens, terminal statuses,
@@ -211,13 +212,15 @@ def test_registers_the_reference_serving_metrics():
     import paddle_tpu_torch.serving  # noqa: F401 — registers them
     names = {}
     for rel in ("serving/scheduler.py", "serving/overload.py",
-                "serving/frontend.py", "inference/paged.py"):
+                "serving/frontend.py", "inference/paged.py",
+                "profiler/accounting.py", "profiler/tracing.py"):
         with open(os.path.join(REPO, "paddle_tpu", rel)) as f:
             for kind, name in _REG.findall(f.read()):
-                if name.startswith(("serving.spec.", "serving.kernel.")):
-                    continue  # speculative decode; the Pallas routes
+                if name.startswith("serving.kernel.") or \
+                        name == "memory.live_arrays":
+                    continue  # the Pallas routes; JAX's live arrays
                 names[name] = kind
-    assert len(names) >= 35
+    assert len(names) >= 60
     kinds = tmetrics.registry.kinds()
     for name, kind in names.items():
         assert kinds.get(name) is _KINDS[kind], name
@@ -529,11 +532,20 @@ def test_background_driver_gives_foreground_tokens(models):
 
 def test_unported_options_raise(models):
     _, tm = models
-    for kw in (dict(accounting=True), dict(spec=True), dict(mesh="1x2"),
-               dict(role="prefill")):
+    kw = dict(max_batch=1, block_size=8, max_seq_len=32,
+              dtype=torch.float32, background=False)
+    for extra in (dict(mesh="1x2"), dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tm, max_batch=1, block_size=8, max_seq_len=32,
-                          dtype=torch.float32, background=False, **kw)
+            ServingEngine(tm, **kw, **extra)
+    # accounting and speculative decode are ported; the telemetry slice's
+    # alerts and metrics endpoint raise rather than return None
+    eng = ServingEngine(tm, accounting=True, spec=True, **kw)
+    assert eng.accounting.armed and eng.scheduler.spec
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.alerts
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.serve_metrics()
+    eng.close()
 
 
 def test_admission_rejects_unmeetable_deadline(models):
