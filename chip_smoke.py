@@ -127,6 +127,33 @@
    (counts zeroed before, read after: B1, B2 and B3 must move by 24 per
    step; the loss must stay finite and fall), and a profile of 2 steps
    (device time by kernel group, attention backward per step among them).
+   Then the reference's fp8 rung (``fp8_train``): first a route gate at
+   each of GPT-2 medium's four linear shapes (M 8192): the forward, dx and
+   dW products through ``amp.fp8.fp8_gemm`` (``torch._scaled_mm``, a
+   library call) against the plain version on the same fp8 operands
+   (relative 1e-3), each timed beside the plain version, the bf16 product
+   of the same shape and its bound at the fp8 peak (1,979 TFLOP/s), and
+   one fp8 layer forward + backward beside a bf16 one; then the same
+   model and batch (the same generator) built with ``use_fp8=True``,
+   trained by the same optimizer for the same steps: every loss finite
+   and falling and within 0.15 of the bf16 run's at the same step, B1-B3
+   24 a step and 288 fp8 products a step; tokens/s, MFU against both
+   peaks, peak memory, and a profile with the fp8 products, the
+   quantize/amax passes and the backward's transposed copies as groups.
+5b. ``llama_fp8`` (after the serving phase): Llama-3-8B with
+   ``use_fp8=True`` (seed 0), its delayed scales calibrated by one
+   training-mode forward over B's first prompt and frozen (eval), serves
+   B's prompts as engine B does: the teacher-forced check, B1 32 per
+   prefill, B4 32 per decode step and 224 fp8 products per prefill and
+   decode step, and a profile of its decode.
+5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
+   bf16: each of the 14 optimizers takes 3 steps from the same weights
+   under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
+   closure): losses finite, each step's rate the schedule's; then a
+   float32 model under ``amp.decorate(level="O2")`` + ``auto_cast`` +
+   ``GradScaler`` with AdamW for 4 steps, the third with an inf gradient:
+   the skipped step leaves the weights, the scale goes 65536, 131072,
+   65536, 65536 as its rules give.
 6. Prints one ``{"kernels": [...]}`` line (B1-B7 and the segment entries
    B1-seg, B2-seg, B3-seg at V1, every case beside) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
@@ -139,6 +166,7 @@ line.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -185,6 +213,19 @@ BWD_RTOL = 2e-2
 # GPT-2 medium, the training phase's shapes
 GPT_B, GPT_S, GPT_H, GPT_D, GPT_LAYERS = 8, 1024, 16, 64, 24
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 2
+# fp8 training (phase fp8_train): GPT-2 medium's block linears (name, N,
+# K) at M = 8 x 1024 tokens. The card's fp8 product and its plain version
+# multiply the same fp8 operands and differ in accumulation order only
+# (FP8_ROUTE_RTOL, relative to the largest |plain|); the fp8 run's loss
+# stays within the reference's own tolerance of the bf16 run's at every
+# step (tests/framework/test_fp8.py:241)
+FP8_LINEARS = (("qkv_proj", 3072, 1024), ("out_proj", 1024, 1024),
+               ("fc_in", 4096, 1024), ("fc_out", 1024, 4096))
+FP8_ROUTE_RTOL = 1e-3
+FP8_LOSS_RTOL = 0.15
+FP8_FLOPS_PER_S = 1979e12     # H100 SXM dense fp8 tensor core peak
+# optimizers phase: GPT-2 medium width at a reduced depth, a few steps each
+OPT_LAYERS, OPT_STEPS = 4, 3
 # kernel route vs plain route, one forward + backward of GPT-2 medium in
 # bf16: the two differ only in rounding inside attention
 GATE_LOSS_RTOL = 1e-2
@@ -194,6 +235,18 @@ GATE_MIN_COSINE = 0.99
 # too close to call in bf16 and are skipped
 GAP_TOL = 0.25
 MIN_CHECKED_SHARE = 0.10
+# fp8 engines: e4m3 rounds at 2^-3 of a value against bf16's 2^-7. A
+# bf16-level difference between the paged and the dense path flips an
+# e4m3 rounding of the element with odds ~1/16, and a flip moves it 16x
+# a bf16 step: sqrt(16) = 4x the bf16 noise in expectation, 16x if every
+# difference flipped. Measured on the card (PERF.md, PR 12): the fp8
+# engine's largest deficit 0.66-1.06, 5-11x the bf16 engines' and its
+# bf16 twin's (0.09-0.25). So at every position
+# the fp8 engine's token must have a dense logit within FP8_DEFICIT_TOL
+# (half of the 16x bound) of the largest: of 128256 random-weight logits
+# (std ~1.3) some 70 lie that close to the top, so a token off the path
+# fails at once
+FP8_DEFICIT_TOL = 8 * GAP_TOL
 # int8 weight matmul (B7): max |kernel - plain| / max |plain|. The kernel
 # multiplies the channel scale after the f32 sum, the plain version before
 # it; the two differ by f32 rounding, then by one bf16 rounding of y.
@@ -1203,7 +1256,10 @@ def kernel_phases(torch):
 
 def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count), and
-    the decode routing counters."""
+    the decode routing counters. ``fp8_gemm`` counts the fp8 route's
+    ``torch._scaled_mm`` products (a library call, not a kernel of this
+    repository)."""
+    from paddle_tpu_torch.amp.fp8 import fp8_gemm
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
@@ -1222,7 +1278,8 @@ def _counters():
             "paged_decode_q": (paged_decode_attention_kernel, "launches_q"),
             "paged_decode_split_q": (paged_decode_attention_chunked,
                                      "launches_q"),
-            "quant_matmul": (quant_matmul, "launches")}, ROUTE_COUNTS
+            "quant_matmul": (quant_matmul, "launches"),
+            "fp8_gemm": (fp8_gemm, "launches")}, ROUTE_COUNTS
 
 
 def zero_counts():
@@ -1359,7 +1416,8 @@ def _dense_logits(torch, model, ids, attention=None):
     return logits
 
 
-def teacher_forced(torch, model, engine, kv8=False, exact=None):
+def teacher_forced(torch, model, engine, kv8=False, exact=None,
+                   deficit_tol=None):
     """Dense forward over prompt + generated for every finished request;
     where the top-2 gap exceeds GAP_TOL the argmax must be the engine's
     token. Holds the paged-decode kernels against the flash kernel, and
@@ -1367,9 +1425,15 @@ def teacher_forced(torch, model, engine, kv8=False, exact=None):
     forward attends as the engine does (``kv8_attention``): queries before
     ``exact[rid]`` (default: the prompt's length) attend the exact KV, as
     a cold prefill computed them; later ones attend int8-rounded KV, as
-    decode steps and prefix-cache extends read the pools."""
-    checked = total = 0
+    decode steps and prefix-cache extends read the pools. With
+    ``deficit_tol`` (fp8 engines) the rule is instead that at every
+    position the engine's token has a dense logit within ``deficit_tol``
+    of the largest; every position is then checked. Records, for every
+    engine, the largest such deficit and the largest top-2 gap where the
+    two disagree."""
+    checked = total = disagree = 0
     min_gap_checked = float("inf")
+    max_gap_disagree = max_deficit = 0.0
     with torch.inference_mode():
         for req in engine.finished.values():
             ids = np.concatenate([req.prompt, np.asarray(req.generated)])
@@ -1382,13 +1446,29 @@ def teacher_forced(torch, model, engine, kv8=False, exact=None):
             top = logits[span].topk(2, dim=-1)
             gap = (top.values[:, 0] - top.values[:, 1]).cpu()
             arg = top.indices[:, 0].cpu()
-            sure = gap > GAP_TOL
-            bad = sure & (arg != gen)
+            deficit = (top.values[:, 0] - logits[span].gather(
+                -1, gen.to(logits.device)[:, None])[:, 0]).cpu()
+            max_deficit = max(max_deficit, float(deficit.max()))
+            differ = arg != gen
+            disagree += int(differ.sum())
+            if bool(differ.any()):
+                max_gap_disagree = max(max_gap_disagree,
+                                       float(gap[differ].max()))
+            if deficit_tol is None:
+                sure = gap > GAP_TOL
+                bad = sure & differ
+                what = f"gap {{:.3f}} > {GAP_TOL}"
+                size = gap
+            else:
+                sure = torch.ones_like(differ)
+                bad = deficit > deficit_tol
+                what = f"its logit {{:.3f}} below the largest > {deficit_tol}"
+                size = deficit
             if bool(bad.any()):
                 i = int(bad.nonzero()[0, 0])
                 fail(f"request {req.rid}: token {i} is {int(gen[i])}, the "
-                     f"dense forward says {int(arg[i])} (gap "
-                     f"{float(gap[i]):.3f} > {GAP_TOL})")
+                     f"dense forward says {int(arg[i])} ("
+                     + what.format(float(size[i])) + ")")
             checked += int(sure.sum())
             total += len(req.generated)
             if bool(sure.any()):
@@ -1396,10 +1476,14 @@ def teacher_forced(torch, model, engine, kv8=False, exact=None):
                                       float(gap[sure].min()))
     share = checked / max(total, 1)
     rec = dict(checked=checked, total=total, gap_tol=GAP_TOL,
-               min_gap_checked=min_gap_checked,
+               deficit_tol=deficit_tol, min_gap_checked=min_gap_checked,
+               disagree=disagree, max_gap_disagree=max_gap_disagree,
+               max_deficit=max_deficit,
                reference="int8-KV dense forward" if kv8 else "dense forward")
-    print(f"teacher-forced: {checked}/{total} positions above gap "
-          f"{GAP_TOL} agree (smallest checked gap {min_gap_checked:.3f}): "
+    rule = f"above gap {GAP_TOL}" if deficit_tol is None else \
+        f"within {deficit_tol} of the largest logit"
+    print(f"teacher-forced: {checked}/{total} positions {rule} agree "
+          f"(smallest checked gap {min_gap_checked:.3f}): "
           f"{json.dumps(rec)}", flush=True)
     if share < MIN_CHECKED_SHARE:
         fail(f"teacher-forced check covered only {checked}/{total} "
@@ -1594,9 +1678,11 @@ def profile_prefill(torch, model, prompt, label, prefix_len=0,
     return rec
 
 
-def run_engine(torch, inst, model, name, prompts, new_tokens, **kw):
+def run_engine(torch, inst, model, name, prompts, new_tokens, tf=None,
+               **kw):
     """Serve ``prompts`` on a fresh engine (counts zeroed just before,
-    read just after), then the teacher-forced check."""
+    read just after), then the teacher-forced check (``tf``: its
+    keyword arguments)."""
     from paddle_tpu_torch import ContinuousBatchingEngine
     engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
                                       temperature=0.0, **kw)
@@ -1604,7 +1690,8 @@ def run_engine(torch, inst, model, name, prompts, new_tokens, **kw):
     r = serve(torch, inst, engine, prompts, new_tokens)
     r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     r["teacher_forced"] = teacher_forced(torch, model, engine,
-                                         kv8=engine.cache.quantized)
+                                         kv8=engine.cache.quantized,
+                                         **(tf or {}))
     r["max_blocks_per_seq"] = engine.cache.max_blocks_per_seq
     r["num_blocks"] = engine.cache.num_blocks
     for req in engine.finished.values():
@@ -2372,7 +2459,7 @@ def slice_phase(torch):
         if results[name]["decode_steps"] == 0:
             fail(f"engine {name} ran no decode step")
     check_frontend_launches(results)
-    return results
+    return results, asked["B"]
 
 
 # ---------------------------------------------------------------------------
@@ -2426,21 +2513,48 @@ _TRAIN_GROUPS = (
     ("flash_bwd", "attention backward (port)"),
 ) + _MATMUL_GROUPS
 _OTHER = "elementwise, norms, reductions, copies (fwd/bwd)"
+# the fp8 step's own groups: record_function ranges around amp.fp8's
+# helpers (none calls another), each range's device time taken out of
+# the group its kernels' names fall in: the products (cuBLASLt's nvjet
+# kernels, and a memset) out of "matmul", the rest out of _OTHER
+_FP8_MM = "fp8 matmul (torch._scaled_mm, cuBLASLt)"
+_FP8_QUANT = "fp8 quantize/amax"
+_FP8_COPIES = "fp8 transposed copies (backward layouts)"
+_FP8_RANGES = {"fp8_gemm": _FP8_MM, "_update_scales": _FP8_QUANT,
+               "_grad_scale": _FP8_QUANT, "_quantize": _FP8_QUANT,
+               "_transposed": _FP8_COPIES, "_pad_rows": _FP8_COPIES}
 
 
-def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
+def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS, fp8=False):
     """torch.profiler over ``steps`` train steps: device busy time per step
     by kernel group, the optimizer's share (kernels launched inside its
     ``record_function`` range: clip + update + write-back), kernel
-    launches per step and the idle share of the window."""
+    launches per step and the idle share of the window. With ``fp8`` the
+    fp8 products, the quantize/amax passes and the transposed copies are
+    groups of their own (``_FP8_RANGES``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    import paddle_tpu_torch.amp.fp8 as fp8_mod
     update = opt._update_all
+    ranges = _FP8_RANGES if fp8 else {}
+    orig = {n: getattr(fp8_mod, n) for n in ranges}
+
+    def traced(f, rng):
+        # wraps: fp8_gemm counts into the attribute of whatever its module
+        # name holds, here the wrapper (launches while profiled are not
+        # the main path's and are read by no one)
+        @functools.wraps(f)
+        def run(*a, **k):
+            with record_function(rng):
+                return f(*a, **k)
+        return run
 
     def traced_update():
         with record_function("optimizer"):
             update()
 
     opt._update_all = traced_update
+    for n, f in orig.items():
+        setattr(fp8_mod, n, traced(f, ranges[n]))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2452,6 +2566,8 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
             wall_ms = (time.perf_counter() - t) * 1e3
     finally:
         del opt._update_all
+        for n, f in orig.items():
+            setattr(fp8_mod, n, f)
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     busy_us, n_kernels, groups, by_name = 0.0, 0, {}, {}
@@ -2465,13 +2581,20 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
                  _OTHER)
         groups[g] = groups.get(g, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-    opt_us = sum(getattr(e, "device_time_total", 0.0) for e in events
-                 if e.device_type != cuda and e.name == "optimizer")
+
+    def range_ms(name):
+        return sum(getattr(e, "device_time_total", 0.0) for e in events
+                   if e.device_type != cuda and e.name == name) / 1e3 / steps
+
     per_step = {g: us / 1e3 / steps for g, us in groups.items()}
-    if opt_us > 0:
-        per_step["optimizer (clip + AdamW + write-back)"] = \
-            opt_us / 1e3 / steps
-        per_step[_OTHER] = per_step.get(_OTHER, 0.0) - opt_us / 1e3 / steps
+    opt_ms = range_ms("optimizer")
+    if opt_ms > 0:
+        per_step["optimizer (clip + AdamW + write-back)"] = opt_ms
+        per_step[_OTHER] = per_step.get(_OTHER, 0.0) - opt_ms
+    for rng in sorted(set(ranges.values())):
+        per_step[rng] = range_ms(rng)
+        out_of = "matmul" if rng == _FP8_MM else _OTHER
+        per_step[out_of] = per_step.get(out_of, 0.0) - per_step[rng]
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     rec = dict(steps=steps, step_ms=wall_ms / steps,
@@ -2481,38 +2604,31 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS):
                idle_share=1.0 - busy_ms / wall_ms if busy_ms else None,
                kernels_per_step=n_kernels / steps,
                by_group_ms_per_step=per_step,
-               optimizer_measured=opt_us > 0,
+               optimizer_measured=opt_ms > 0,
                top=[dict(name=n[:90], ms_per_step=us / 1e3 / steps)
                     for n, us in top])
-    print(f"profile (GPT-2 medium, {steps} train steps): {json.dumps(rec)}",
-          flush=True)
+    label = "fp8" if fp8 else "bf16"
+    print(f"profile (GPT-2 medium {label}, {steps} train steps): "
+          f"{json.dumps(rec)}", flush=True)
     if busy_ms == 0.0:
         print("profile: the profiler saw no device time; busy share not "
               "measured", flush=True)
     return rec
 
 
-def train_phase(torch):
-    from paddle_tpu_torch import AdamW, GPT, GPTConfig, TrainStep
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = GPTConfig.gpt2_medium()
-    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads) != \
-            (GPT_LAYERS, GPT_H * GPT_D, GPT_H):
-        fail(f"GPTConfig.gpt2_medium() is not the shape this script "
-             f"times its kernels at: {cfg}")
-    t = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    model = GPT(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
-    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_S), device=DEVICE,
-                        generator=gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"GPT-2 medium: {n_params / 1e6:.1f}M params bf16, built in "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
-    gate = route_gate(torch, model, ids)
+def init_digest(model, ids):
+    """Sums of the embedding, the first qkv weight and the batch: equal
+    when two phases build the same model from the same generator."""
+    return [float(model.wte.weight.detach().float().sum()),
+            float(model.h[0].attn.qkv_proj.weight.detach().float().sum()),
+            int(ids.sum())]
 
+
+def timed_steps(torch, model, ids):
+    """AdamW 3e-4, clip 1.0, ``TrainStep`` on one batch: WARMUP_STEPS +
+    TIMED_STEPS steps, counts zeroed just before and read just after."""
+    from paddle_tpu_torch import AdamW, TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
     step = TrainStep(model, opt, lambda m, x: m.loss(x, x))
@@ -2526,34 +2642,480 @@ def train_phase(torch):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches, _ = read_counts()
-    losses = [float(x) for x in losses]
-    peak = torch.cuda.max_memory_allocated()
-    steps = WARMUP_STEPS + TIMED_STEPS
     tok_s = GPT_B * GPT_S * TIMED_STEPS / secs
     flops_tok = model.flops_per_token(GPT_S)
-    rec = dict(config="gpt2_medium", batch=GPT_B, seq=GPT_S, steps=steps,
-               losses=losses, step_ms=secs / TIMED_STEPS * 1e3,
-               tokens_per_s=tok_s, flops_per_token=flops_tok,
+    rec = dict(config="gpt2_medium", batch=GPT_B, seq=GPT_S,
+               steps=WARMUP_STEPS + TIMED_STEPS,
+               losses=[float(x) for x in losses],
+               step_ms=secs / TIMED_STEPS * 1e3, tokens_per_s=tok_s,
+               flops_per_token=flops_tok,
                mfu=flops_tok * tok_s / BF16_FLOPS_PER_S,
-               peak_mem_gib=peak / 2**30, launches=launches, gate=gate)
-    shown = {k: v for k, v in rec.items() if k != "gate"}
-    print(f"train: {json.dumps(shown)}", flush=True)
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches)
+    return rec, step, opt
+
+
+def check_train(name, rec, fp8_per_step=0):
+    """Finite losses that fall on the repeated batch; B1, B2 and B3 24
+    times a step, ``fp8_per_step`` fp8 products a step, nothing else."""
+    losses, launches = rec["losses"], rec["launches"]
     if not all(math.isfinite(x) for x in losses):
-        fail(f"train: a loss is not finite: {losses}")
+        fail(f"{name}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall on a repeated batch: {losses}")
+        fail(f"{name}: the loss did not fall on a repeated batch: {losses}")
     want = dict.fromkeys(launches, 0)
+    steps = rec["steps"]
     want.update(flash_fwd=GPT_LAYERS * steps,
                 flash_bwd_dq=GPT_LAYERS * steps,
-                flash_bwd_dkv=GPT_LAYERS * steps)
+                flash_bwd_dkv=GPT_LAYERS * steps,
+                fp8_gemm=fp8_per_step * steps)
     for k, n in want.items():
         if launches[k] != n:
-            fail(f"train: {k} launched {launches[k]} times, expected {n}")
+            fail(f"{name}: {k} launched {launches[k]} times, expected {n}")
+
+
+def gpt2_medium(torch, use_fp8=False):
+    from paddle_tpu_torch import GPT, GPTConfig
+    cfg = GPTConfig.gpt2_medium()
+    if (cfg.num_layers, cfg.hidden_size, cfg.num_heads) != \
+            (GPT_LAYERS, GPT_H * GPT_D, GPT_H):
+        fail(f"GPTConfig.gpt2_medium() is not the shape this script "
+             f"times its kernels at: {cfg}")
+    cfg.use_fp8 = use_fp8
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = GPT(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_S), device=DEVICE,
+                        generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"GPT-2 medium{' fp8' if use_fp8 else ''}: {n_params / 1e6:.1f}M "
+          f"params bf16, built in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return model, ids
+
+
+def train_phase(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ids = gpt2_medium(torch)
+    digest = init_digest(model, ids)
+    gate = route_gate(torch, model, ids)
+    rec, step, opt = timed_steps(torch, model, ids)
+    rec.update(gate=gate, init_digest=digest)
+    shown = {k: v for k, v in rec.items() if k != "gate"}
+    print(f"train: {json.dumps(shown)}", flush=True)
+    check_train("train", rec)
     rec["profile"] = profile_train(torch, step, opt, ids)
     del step, opt, model
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# fp8 training phase: the reference's gpt_345m_fp8_train rung
+# ---------------------------------------------------------------------------
+
+def fp8_operands(torch, m, n, k, seed):
+    """One linear's fp8 operands as amp.fp8 quantizes them: x [m, k] and
+    W [n, k] (N(0, 0.02)) in e4m3, a gradient [m, n] in e5m2, the
+    current-amax scales, and the bf16 tensors they came from."""
+    from paddle_tpu_torch.amp import fp8
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    x, w, g = randn(m, k), randn(n, k) * 0.02, randn(m, n)
+    sx = fp8._amax(x) / fp8.E4M3_MAX
+    sw = fp8._amax(w) / fp8.E4M3_MAX
+    sg = fp8._grad_scale(g.float())
+    q = dict(xq=fp8._quantize(x, sx, fp8.E4M3_MAX, torch.float8_e4m3fn),
+             wq=fp8._quantize(w, sw, fp8.E4M3_MAX, torch.float8_e4m3fn),
+             gq=fp8._quantize(g.float(), sg, fp8.E5M2_MAX,
+                              torch.float8_e5m2))
+    return q, (sx, sw, sg), (x, w, g)
+
+
+def fp8_route_phase(torch, timer):
+    """At each of GPT-2 medium's linear shapes (M 8192): the forward, dx
+    and dW products through the card's route (``fp8_gemm``:
+    torch._scaled_mm) against the plain version on the same fp8 operands
+    (FP8_ROUTE_RTOL), timed beside the plain version, the bf16 product of
+    the same shape (``F.linear`` / ``torch.matmul``) and the bound at the
+    fp8 peak; then one FP8Linear forward + backward (quantize and amax
+    included) against a bf16 Linear's."""
+    from paddle_tpu_torch.amp import fp8
+    from paddle_tpu_torch.nn import Linear
+    F = torch.nn.functional
+    m = GPT_B * GPT_S
+    shapes = []
+    for i, (lname, n, k) in enumerate(FP8_LINEARS):
+        q, (sx, sw, sg), (x, w, g) = fp8_operands(torch, m, n, k, 4000 + i)
+        xq, wq, gq = q["xq"], q["wq"], q["gq"]
+        products = {
+            # name: (fp8_gemm arguments, the bf16 product, (M, N, K))
+            "fwd": ((xq, wq.t(), sx, sw), lambda: F.linear(x, w),
+                    (m, n, k)),
+            "dx": ((gq, fp8._transposed(wq).t(), sg, sw),
+                   lambda: torch.matmul(g, w), (m, k, n)),
+            "dw": ((fp8._transposed(gq), fp8._transposed(xq).t(), sg, sx),
+                   lambda: torch.matmul(g.t(), x), (n, k, m)),
+        }
+        rec = dict(name=lname, M=m, N=n, K=k)
+        for pname, (args, bf16_fn, (pm, pn, pk)) in products.items():
+            out = fp8.fp8_gemm(*args)
+            ref = fp8.fp8_gemm_plain(*args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max() / ref.abs().max())
+            flops = 2.0 * pm * pn * pk
+            t_ops = flops / FP8_FLOPS_PER_S * 1e3
+            t_bytes = (pm * pk + pk * pn + 4 * pm * pn) / HBM_BYTES_PER_S \
+                * 1e3
+            rec[pname] = dict(
+                rel_err=err, ms=timer(lambda: fp8.fp8_gemm(*args)),
+                plain_ms=timer(lambda: fp8.fp8_gemm_plain(*args), iters=5),
+                bf16_ms=timer(bf16_fn),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+            rec[pname]["tflops"] = flops / rec[pname]["ms"] / 1e9
+            if not err <= FP8_ROUTE_RTOL:
+                fail(f"fp8 route {lname} {pname}: card vs plain relative "
+                     f"error {err:.3e} > {FP8_ROUTE_RTOL}")
+        # the whole layer, forward + backward, quantize and amax included
+        kw = dict(bias=True, device=DEVICE, dtype=torch.bfloat16,
+                  requires_grad=True)
+        layers = {"fp8": fp8.FP8Linear(k, n, **kw), "bf16": Linear(k, n,
+                                                                  **kw)}
+        xin = x.reshape(GPT_B, GPT_S, k).detach().requires_grad_()
+        for key, layer in layers.items():
+            def fwd_bwd(layer=layer):
+                layer(xin).backward(g.reshape(GPT_B, GPT_S, n))
+            rec[f"layer_{key}_ms"] = timer(fwd_bwd, iters=10)
+        shapes.append(rec)
+        del q, x, w, g, layers, xin
+        print(f"fp8 route {lname} (M {m}, N {n}, K {k}): " + ", ".join(
+            f"{p} {rec[p]['ms']:.4f} ms (bf16 {rec[p]['bf16_ms']:.4f}, "
+            f"bound {rec[p]['bound_ms']:.4f}, err {rec[p]['rel_err']:.1e})"
+            for p in products) + f"; layer fwd+bwd fp8 "
+            f"{rec['layer_fp8_ms']:.4f} ms, bf16 {rec['layer_bf16_ms']:.4f}",
+            flush=True)
+    torch.cuda.empty_cache()
+    return dict(shapes=shapes, tolerance=FP8_ROUTE_RTOL)
+
+
+def fp8_train_phase(torch, bf16):
+    """The reference's gpt_345m_fp8_train rung: GPT-2 medium with
+    ``use_fp8=True`` from the bf16 phase's generator seed (the same
+    weights and batch), the same optimizer and steps. Gates: the route
+    gate per shape, finite and falling losses within FP8_LOSS_RTOL of the
+    bf16 run's at every step, B1-B3 24 times a step and the fp8 route
+    24 x 4 x 3 products a step."""
+    from paddle_tpu_torch.amp.fp8 import FP8Linear
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    route = fp8_route_phase(torch, timer)
+    del timer
+    model, ids = gpt2_medium(torch, use_fp8=True)
+    digest = init_digest(model, ids)
+    if digest != bf16["init_digest"]:
+        fail(f"fp8_train: the model or batch differs from the bf16 "
+             f"phase's: {digest} vs {bf16['init_digest']}")
+    n8 = sum(isinstance(mod, FP8Linear) for mod in model.modules())
+    if n8 != 4 * GPT_LAYERS:
+        fail(f"fp8_train: {n8} FP8Linear layers, expected {4 * GPT_LAYERS}")
+    rec, step, opt = timed_steps(torch, model, ids)
+    dev = [abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                bf16["losses"])]
+    rec.update(route=route, init_digest=digest,
+               mfu_vs_bf16_peak=rec.pop("mfu"),
+               mfu_vs_fp8_peak=rec["flops_per_token"] * rec["tokens_per_s"]
+               / FP8_FLOPS_PER_S,
+               loss_rel_dev_vs_bf16=dev, loss_rtol=FP8_LOSS_RTOL,
+               step_ms_ratio_vs_bf16=rec["step_ms"] / bf16["step_ms"],
+               tokens_per_s_ratio_vs_bf16=rec["tokens_per_s"]
+               / bf16["tokens_per_s"])
+    shown = {k: v for k, v in rec.items() if k != "route"}
+    print(f"fp8_train: {json.dumps(shown)}", flush=True)
+    check_train("fp8_train", rec, fp8_per_step=GPT_LAYERS * 4 * 3)
+    if not max(dev) < FP8_LOSS_RTOL:
+        fail(f"fp8_train: loss deviates from bf16's by {max(dev):.3f} "
+             f"(limit {FP8_LOSS_RTOL}): {rec['losses']} vs "
+             f"{bf16['losses']}")
+    rec["profile"] = profile_train(torch, step, opt, ids, fp8=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# llama_fp8 phase: Llama-3-8B with fp8 projections, served
+# ---------------------------------------------------------------------------
+
+def llama_fp8_phase(torch, prompts, new_tokens):
+    """Llama-3-8B with ``use_fp8=True`` (seed 0: engine B's weights),
+    its scales calibrated by one training-mode forward over the first
+    prompt and frozen (eval), serving engine B's prompts with B's
+    settings, after the same traffic with fp8 off (``fp8_autocast``: the
+    bf16 twin whose teacher-forced deficits show the bf16 noise). Gates:
+    run_engine's (the teacher-forced check against the dense forward,
+    which uses the same frozen scales, at FP8_DEFICIT_TOL), no buffer
+    moved while serving, no fp8 product with fp8 off, and B1 32 per
+    prefill, B4 32 per decode step, 224 fp8 products per prefill and
+    decode step (every projection; the LM head stays bf16)."""
+    from paddle_tpu_torch import Llama, LlamaConfig
+    from paddle_tpu_torch.amp.fp8 import FP8Linear, fp8_autocast
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama3_8b()
+    cfg.use_fp8 = True
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = Llama(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    n8 = sum(isinstance(mod, FP8Linear) for mod in model.modules())
+    if n8 != 7 * LAYERS:
+        fail(f"llama_fp8: {n8} FP8Linear layers, expected {7 * LAYERS}")
+    model.train()
+    with torch.no_grad():
+        model(torch.as_tensor(prompts[0][None], device=DEVICE))
+    model.eval()
+    torch.cuda.synchronize()
+    print(f"Llama-3-8B fp8: {n8} fp8 layers, built and calibrated in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    frozen = {n: b.clone() for n, b in model.named_buffers()}
+    inst = Instrumented(torch, model)
+    # the same model and traffic with every fp8 layer on F.linear: the
+    # bf16 noise between the paged and the dense path, beside fp8's
+    with fp8_autocast(enabled=False):
+        off = run_engine(torch, inst, model, "B-fp8 (fp8 off)", prompts,
+                         new_tokens, max_seq_len=240)
+    r = run_engine(torch, inst, model, "B-fp8", prompts, new_tokens,
+                   tf=dict(deficit_tol=FP8_DEFICIT_TOL),
+                   max_seq_len=240)
+    inst.restore()
+    r["fp8_off"] = {k: off[k] for k in ("decode_tok_per_s", "ttft_median_s",
+                                        "teacher_forced", "launches")}
+    if off["launches"]["fp8_gemm"] != 0:
+        fail("engine B-fp8 (fp8 off) launched fp8 products")
+    moved = [n for n, b in model.named_buffers()
+             if not torch.equal(b, frozen[n])]
+    if moved:
+        fail(f"engine B-fp8: eval-mode serving moved fp8 buffers {moved[:4]}")
+    want = dict.fromkeys(r["launches"], 0)
+    want.update(flash_fwd=r["prefills"] * LAYERS,
+                paged_decode=r["decode_steps"] * LAYERS,
+                fp8_gemm=(r["prefills"] + r["decode_steps"]) * 7 * LAYERS)
+    for k, n in want.items():
+        if r["launches"][k] != n:
+            fail(f"engine B-fp8: {k} launched {r['launches'][k]} times, "
+                 f"expected {n}")
+    r["profile"] = profile_decode(torch, model, prompts, 8, label="B-fp8",
+                                  max_seq_len=240)
+    del inst, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
+# optimizers phase: every optimizer under a schedule, then O2 + GradScaler
+# ---------------------------------------------------------------------------
+
+def _schedule():
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=OPT_STEPS),
+                           warmup_steps=2, start_lr=3e-5, end_lr=3e-4)
+
+
+def _optimizers():
+    """name -> (scheduler, parameters) -> optimizer, all 14."""
+    from paddle_tpu_torch import optimizer as O
+    no_decay = ("bias", "ln_", "wpe")
+    return {
+        "SGD": lambda s, ps: O.SGD(s, parameters=ps),
+        "Momentum": lambda s, ps: O.Momentum(s, parameters=ps,
+                                             use_nesterov=True),
+        "Adagrad": lambda s, ps: O.Adagrad(s, parameters=ps),
+        "Adadelta": lambda s, ps: O.Adadelta(s, parameters=ps),
+        "RMSProp": lambda s, ps: O.RMSProp(s, parameters=ps, centered=True),
+        "Rprop": lambda s, ps: O.Rprop(s, parameters=ps),
+        "ASGD": lambda s, ps: O.ASGD(s, parameters=ps),
+        "Adam": lambda s, ps: O.Adam(s, parameters=ps, amsgrad=True),
+        "AdamW": lambda s, ps: O.AdamW(
+            s, parameters=ps, apply_decay_param_fun=lambda n: not any(
+                k in n for k in no_decay)),
+        "Adamax": lambda s, ps: O.Adamax(s, parameters=ps),
+        "NAdam": lambda s, ps: O.NAdam(s, parameters=ps),
+        "RAdam": lambda s, ps: O.RAdam(s, parameters=ps),
+        "Lamb": lambda s, ps: O.Lamb(s, parameters=ps),
+        "LBFGS": lambda s, ps: O.LBFGS(s, max_iter=4, parameters=ps),
+    }
+
+
+def _rate_spy(opt, rates, lbfgs=False):
+    """Records the rate each step hands its first parameter's update (for
+    LBFGS: the rate its step reads)."""
+    if lbfgs:
+        get = opt.get_lr
+
+        def read():
+            rates.append(get())
+            return rates[-1]
+        opt.get_lr = read
+        return
+    apply = opt._apply_param
+    first = opt._parameter_list[0]
+
+    def spy(p32, g32, state, lr, group, t, param=None):
+        if param is first:
+            rates.append(lr)
+        return apply(p32, g32, state, lr, group, t, param)
+    opt._apply_param = spy
+
+
+def optimizers_phase(torch):
+    """GPT-2 medium width at OPT_LAYERS layers (reduced depth), bf16
+    parameters, batch 8 x 1024: each of the 14 optimizers takes OPT_STEPS
+    steps from the same weights under LinearWarmup(CosineAnnealingDecay)
+    (LBFGS through a closure); then a float32 model under
+    decorate(level="O2") + auto_cast() + GradScaler with AdamW, 4 steps,
+    the third with an inf gradient. Gates: finite losses, each step's
+    rate equal to the schedule's, the skipped step leaving the weights,
+    the scaler's state as its rules give, B1-B3 4 per evaluation."""
+    from paddle_tpu_torch import GPT, GPTConfig, amp
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.nn import LayerNorm
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = GPTConfig.gpt2_medium()
+    cfg.num_layers = OPT_LAYERS
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = GPT(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_S), device=DEVICE,
+                        generator=gen)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    expect = _schedule()
+    expected = []
+    for _ in range(OPT_STEPS):
+        expected.append(expect.last_lr)
+        expect.step()
+    runs, evals = {}, 0
+    zero_counts()
+    for name, make in _optimizers().items():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        sched = _schedule()
+        opt = make(sched, list(model.named_parameters()))
+        rates, losses, secs = [], [], []
+        _rate_spy(opt, rates, lbfgs=name == "LBFGS")
+
+        def closure():
+            loss = model.loss(ids, ids)
+            loss.backward()
+            return loss
+
+        for _ in range(OPT_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "LBFGS":
+                loss = opt.step(closure)
+            else:
+                loss = closure()
+                opt.step()
+                opt.clear_grad()
+                evals += 1
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(float(loss.detach()))
+            sched.step()
+        if name == "LBFGS":
+            evals += opt._n_evals
+            opt.clear_grad()
+        runs[name] = dict(losses=losses, rates=rates,
+                          step_ms=[x * 1e3 for x in secs])
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"optimizers: {name}: a loss is not finite: {losses}")
+        if rates != expected:
+            fail(f"optimizers: {name}: rates {rates}, the schedule says "
+                 f"{expected}")
+        del opt
+    launches, _ = read_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=OPT_LAYERS * evals, flash_bwd_dq=OPT_LAYERS * evals,
+                flash_bwd_dkv=OPT_LAYERS * evals)
+    for k, n in want.items():
+        if launches[k] != n:
+            fail(f"optimizers: {k} launched {launches[k]} times, expected "
+                 f"{n} ({evals} evaluations)")
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # O2: a float32 model decorated to bf16 (LayerNorm kept float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = GPT(cfg, device=DEVICE, dtype=torch.float32, generator=gen)
+    sched = _schedule()
+    opt = O.AdamW(sched, parameters=model.parameters(),
+                  multi_precision=False)
+    model, opt = amp.decorate(model, opt, level="O2")
+    for mod in model.modules():
+        for p in mod.parameters(recurse=False):
+            want_dt = torch.float32 if isinstance(mod, LayerNorm) \
+                else torch.bfloat16
+            if p.dtype != want_dt:
+                fail(f"optimizers: decorate O2 left a {p.dtype} parameter "
+                     f"in {type(mod).__name__}")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 16,
+                            incr_every_n_steps=2)
+    rates, losses, scales, skipped_ok = [], [], [], None
+    _rate_spy(opt, rates)
+    o2_expected = []  # the schedule's rates at the steps that ran
+    expect = _schedule()
+    for i in range(4):
+        with amp.auto_cast(level="O2"):
+            loss = model.loss(ids, ids)
+        scaler.scale(loss).backward()
+        if i == 2:  # an overflow: the step is skipped, the scale halves
+            w = model.h[0].mlp.fc_in.weight
+            w.grad.view(-1)[0] = float("inf")
+            before = w.detach().clone()
+        else:
+            o2_expected.append(expect.last_lr)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        if i == 2:
+            skipped_ok = bool(torch.equal(w.detach(), before))
+        losses.append(float(loss.detach()))
+        scales.append(scaler.state_dict()["scale"])
+        sched.step()
+        expect.step()
+    state = scaler.state_dict()
+    o2 = dict(losses=losses, scales=scales, state=state, rates=rates,
+              skipped_step_left_weights=skipped_ok)
+    runs["O2+GradScaler"] = o2
+    print(f"optimizers ({OPT_LAYERS} layers at GPT-2 medium width, "
+          f"{OPT_STEPS} steps each): {json.dumps(runs)}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"optimizers: O2: a loss is not finite: {losses}")
+    if not skipped_ok:
+        fail("optimizers: O2: the step with an inf gradient moved a weight")
+    if rates != o2_expected:
+        fail(f"optimizers: O2: rates {rates}, the schedule says "
+             f"{o2_expected}")
+    if scales != [2.0 ** 16, 2.0 ** 17, 2.0 ** 16, 2.0 ** 16] or \
+            (state["good_steps"], state["bad_steps"]) != (1, 0):
+        fail(f"optimizers: O2: scaler state {state}, scales {scales}; its "
+             f"rules give 65536, 131072, 65536, 65536 and 1 good step")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, launches=launches, evaluations=evals)
 
 
 KERNELS = (
@@ -2652,8 +3214,17 @@ def main():
 
     phases = kernel_phases(torch)
     varlen = varlen_phase(torch)
-    served = slice_phase(torch)
+    served, b_traffic = slice_phase(torch)
+    llama8 = llama_fp8_phase(torch, *b_traffic)
     trained = train_phase(torch)
+    fp8_trained = fp8_train_phase(torch, trained)
+    optimizers = optimizers_phase(torch)
+    print(f"fp8 vs bf16 training step (GPT-2 medium, 8 x 1024, same call): "
+          f"{fp8_trained['step_ms']:.2f} vs {trained['step_ms']:.2f} ms, "
+          f"{fp8_trained['tokens_per_s']:.0f} vs "
+          f"{trained['tokens_per_s']:.0f} tokens/s, peak "
+          f"{fp8_trained['peak_mem_gib']:.2f} vs "
+          f"{trained['peak_mem_gib']:.2f} GiB", flush=True)
 
     records = []
     for name, source, replaces in KERNELS:
@@ -2664,7 +3235,8 @@ def main():
             + sum(served[e]["launches"][name] + served[e]["plain"][
                 "launches"][name] for e in ("S-spec", "S8-spec", "R-spec",
                                             "R8-spec")) \
-            + trained["launches"][name]
+            + trained["launches"][name] + fp8_trained["launches"][name] \
+            + llama8["launches"][name] + optimizers["launches"][name]
         paths = {}
         if name == "quant_matmul":  # decode (above) and prefill
             pre = next(r for r in phases[name] if r["M"] > 8)
@@ -2694,7 +3266,8 @@ def main():
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
         "phases": phases, "varlen": varlen, "served": served,
-        "trained": trained}), flush=True)
+        "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
+        "optimizers": optimizers}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,14 @@ paged KV cache, bf16 or int8, with bf16 or int8 weights through
 ``serving.ServingEngine`` with its scheduler, prefix cache, overload
 control, self-speculative decode, per-request cost accounting and
 tracing) and the GPT training path (``GPT`` trained by ``jit.TrainStep``
-with ``optimizer.AdamW`` and fp32 master weights), with hand-written
+with the ``optimizer`` family, its ``optimizer.lr`` schedulers and fp32
+master weights; mixed precision through ``amp`` (``auto_cast``,
+``decorate``, ``GradScaler``) and fp8 through ``amp.fp8`` or
+``use_fp8=True``), with hand-written
 Hopper (sm_90a) CUDA kernels for the flash-attention forward and
 backward, the paged-decode attention over bf16 and int8 pools and the
 int8 weight matmul. Its layout follows ``paddle_tpu`` (``core/``,
-``nn/``, ``models/``, ``optimizer/``, ``jit/``, ``inference/``,
+``nn/``, ``models/``, ``optimizer/``, ``amp/``, ``jit/``, ``inference/``,
 ``serving/``, ``profiler/``, ``quantization/``, ``kernels/``) so each
 module's counterpart is found under the same path.
 
@@ -19,6 +22,7 @@ on ``cuda`` unless the caller passes ``device="cpu"``; without a GPU and
 without an explicit device they raise.
 """
 
+from . import amp, optimizer
 from .inference.paged import ContinuousBatchingEngine, PagedKVCache
 from .jit import TrainStep
 from .models.gpt import GPT, GPTConfig
@@ -27,4 +31,5 @@ from .optimizer import AdamW
 from .serving import ServingEngine
 
 __all__ = ["AdamW", "ContinuousBatchingEngine", "GPT", "GPTConfig", "Llama",
-           "LlamaConfig", "PagedKVCache", "ServingEngine", "TrainStep"]
+           "LlamaConfig", "PagedKVCache", "ServingEngine", "TrainStep",
+           "amp", "optimizer"]

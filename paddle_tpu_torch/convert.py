@@ -21,12 +21,22 @@ JAX package's ``QAT(...).convert``: its parameters and its buffers, e.g.
 Each converted layer's ``w_int8`` [in, out] becomes the port's
 ``ConvertedInt8Linear.w_int8`` [out, in]; ``w_scales`` [out] is copied.
 Load the result into a port Llama converted by the port's ``QAT``.
+
+With ``config.use_fp8`` the fp8 layers' buffers come along too: pass the
+JAX model's parameters and buffers as above, and each converted layer's
+``fp8_amax_x``, ``fp8_amax_w`` ([history_len]) and ``fp8_scale_x``,
+``fp8_scale_w`` (0-d) are copied as they are, float32, transposing
+nothing, so both packages start from the same scaling state.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .amp.fp8 import DelayedScaling
+
+_FP8_BUFFERS = ("fp8_amax_x", "fp8_amax_w", "fp8_scale_x", "fp8_scale_w")
 
 
 def _is_linear(name):
@@ -56,6 +66,25 @@ def expected_shapes(config):
     return shapes
 
 
+def _is_fp8_buffer(name):
+    return name.rsplit(".", 1)[-1] in _FP8_BUFFERS
+
+
+def _with_fp8_buffers(shapes, config, is_linear):
+    """``shapes`` plus the four fp8 buffers of each block linear (every
+    Linear but the LM head) when ``config.use_fp8``."""
+    if not config.use_fp8:
+        return shapes
+    h = DelayedScaling().amax_history_len
+    out = dict(shapes)
+    for name in shapes:
+        if is_linear(name) and name != "lm_head.weight":
+            layer = name[:-len("weight")]
+            out.update({layer + "fp8_amax_x": (h,), layer + "fp8_amax_w": (h,),
+                        layer + "fp8_scale_x": (), layer + "fp8_scale_w": ()})
+    return out
+
+
 def _convert(what, named, want, is_linear, dtype):
     missing = sorted(set(want) - set(named))
     extra = sorted(set(named) - set(want))
@@ -70,7 +99,8 @@ def _convert(what, named, want, is_linear, dtype):
             raise ValueError(f"{name}: shape {tuple(a.shape)} after "
                              f"conversion, expected {want[name]}")
         t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
-        out[name] = t.to(dtype) if dtype is not None else t
+        keep = dtype is None or _is_fp8_buffer(name)  # buffers stay f32
+        out[name] = t if keep else t.to(dtype)
     return out
 
 
@@ -102,7 +132,8 @@ def llama_params_from_numpy(named, config, dtype=None):
     """JAX-package Llama parameters (numpy, [in, out] Linear weights) ->
     the port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
     return _convert("llama_params_from_numpy", named,
-                    expected_shapes(config), _is_linear, dtype)
+                    _with_fp8_buffers(expected_shapes(config), config,
+                                      _is_linear), _is_linear, dtype)
 
 
 _GPT_LINEARS = ("qkv_proj", "out_proj", "fc_in", "fc_out")
@@ -140,4 +171,5 @@ def gpt_params_from_numpy(named, config, dtype=None):
     """JAX-package GPT parameters (numpy, [in, out] Linear weights) -> the
     port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
     return _convert("gpt_params_from_numpy", named,
-                    gpt_expected_shapes(config), _is_gpt_linear, dtype)
+                    _with_fp8_buffers(gpt_expected_shapes(config), config,
+                                      _is_gpt_linear), _is_gpt_linear, dtype)

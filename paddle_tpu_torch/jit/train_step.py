@@ -5,9 +5,13 @@ donated XLA program. Here the step is eager PyTorch (no ``torch.compile``,
 no CUDA graph yet), in the same order: (1) the optimizer's global step
 advances, (2) ``step_fn(model, *batch)`` runs the forward, (3) ``backward``,
 (4) the grads are clipped in their own dtype, (5) the update runs on the
-float32 master (or on the float32 parameter), (6) ``master.to(param
-dtype)`` is written back into the parameter, (7) the grads are dropped,
-(8) the loss comes back as a tensor, with no host sync.
+float32 master (or on the float32 parameter) at the optimizer's
+``get_lr()`` of this call (a scheduler's ``last_lr``, as the JAX step
+passes ``lr`` in), (6) ``master.to(param dtype)`` is written back into
+the parameter, (7) the grads are dropped, (8) the loss comes back as a
+tensor, with no host sync. Buffers that the forward updates (the fp8
+layers' amax histories and scales) change in place, once per forward.
+The caller steps a scheduler between calls.
 """
 
 from __future__ import annotations

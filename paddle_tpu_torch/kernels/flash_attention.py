@@ -41,6 +41,8 @@ import math
 
 import torch
 
+from ..amp import _state as _AMP
+from ..amp import cast_args as _amp_cast
 from ..core import flags as _flags
 from ..nn.functional import dropout as _dropout
 from . import _build
@@ -559,7 +561,11 @@ def scaled_dot_product_attention(query, key, value, is_causal=False,
     CUDA tensors take the flash kernels, CPU tensors the plain pair; with
     no input requiring grad (serving) autograd records nothing. Dropout, as
     on the JAX package's route, drops entries of the attention output
-    (upscaled by 1/(1-p)), so the kernels stay on the path when p > 0."""
+    (upscaled by 1/(1-p)), so the kernels stay on the path when p > 0.
+    Under ``amp.auto_cast`` q, k and v go to the AMP dtype first (the
+    ``flash_attention`` entry of the white list)."""
+    if _AMP.enabled:
+        query, key, value = _amp_cast("flash_attention", query, key, value)
     out = FlashAttention.apply(query, key, value, bool(is_causal))
     if training and dropout_p > 0.0:
         out = _dropout(out, dropout_p, training=True, generator=generator)
@@ -575,7 +581,10 @@ def flash_attention(q, k, v, causal=False, scale=None, q_segment_ids=None,
     query sees only keys of its own segment and, if causal, of a position
     not after its own. Differentiable in q, k, v (``FlashAttention``).
     Returns O [B, Sq, Hq, D] and, with ``return_lse``, LSE float32
-    [B, Hq, Sq] (differentiable too)."""
+    [B, Hq, Sq] (differentiable too). Under ``amp.auto_cast`` q, k and v
+    go to the AMP dtype first."""
+    if _AMP.enabled:
+        q, k, v = _amp_cast("flash_attention", q, k, v)
     seg = _segments(q, k, q_segment_ids, kv_segment_ids, q_positions,
                     kv_positions) or (None,) * 4
     return FlashAttention.apply(q, k, v, bool(causal), scale, *seg,

@@ -7,7 +7,9 @@ backward CUDA kernels on the card. ``loss`` takes the blockwise fused
 LM-head cross entropy by default (``fused_head_ce``), so the [b, s, V]
 logits never exist. Parameter names equal the JAX package's
 (``convert.gpt_params_from_numpy`` maps them); ``Linear`` weights are
-stored [out, in].
+stored [out, in]. ``use_fp8`` re-classes the block linears (not the LM
+head) as ``amp.fp8.FP8Linear`` after every parameter is drawn, so a
+model's weights do not depend on it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import math
 import torch
 from torch import nn
 
+from ..amp.fp8 import convert_to_fp8
 from ..core.device import resolve_device
 from ..kernels.flash_attention import scaled_dot_product_attention
 from ..nn import Dropout, Embedding, LayerNorm, Linear
@@ -131,8 +134,6 @@ class GPT(nn.Module):
     def __init__(self, config: GPTConfig, device=None, dtype=None,
                  generator=None, requires_grad=True):
         super().__init__()
-        if config.use_fp8:
-            raise NotImplementedError("use_fp8 (amp/fp8) is not ported yet")
         device = resolve_device(device)
         dtype = dtype or torch.float32
         self.config = config
@@ -150,6 +151,9 @@ class GPT(nn.Module):
                               dtype=dtype, requires_grad=requires_grad)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             d, config.vocab_size, std=std, **kw)
+        if config.use_fp8:
+            # the block linears in fp8, the LM head not (loss fidelity)
+            convert_to_fp8(self, exclude=("lm_head",))
 
     def head_weight(self):
         """The LM head's [vocab, d] weight: ``wte``'s when tied."""

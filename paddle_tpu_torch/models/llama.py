@@ -23,6 +23,10 @@ prompt's own attention in a cold prefill uses the exact KV.
 ``QAT(...).convert`` (``paddle_tpu_torch.quantization``) turns every
 projection and the LM head into a ``ConvertedInt8Linear``: the model runs
 unchanged, its linear layers through the int8 weight matmul.
+``use_fp8`` re-classes the seven projections of every layer (not the LM
+head) as ``amp.fp8.FP8Linear``; the paged paths call the same modules, so
+serving runs them too, with frozen scales in eval mode. ``QAT`` takes an
+``FP8Linear`` as the ``Linear`` it is, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp.fp8 import convert_to_fp8
 from ..core.device import resolve_device
 from ..kernels.flash_attention import scaled_dot_product_attention
 from ..nn import Embedding, Linear, RMSNorm
@@ -53,6 +58,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    use_fp8: bool = False  # fp8 projections (amp.fp8 delayed scaling)
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -197,6 +203,8 @@ class Llama(nn.Module):
                             device=device, dtype=dtype)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, std=std, **kw)
+        if config.use_fp8:
+            convert_to_fp8(self, exclude=("lm_head",))
 
     @property
     def device(self):

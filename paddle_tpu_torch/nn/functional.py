@@ -4,6 +4,10 @@ Weights of ``linear`` are in PyTorch's [out, in] layout; ``convert.py``
 transposes the JAX package's [in, out] weights on the way in. The flash
 attention functions import ``kernels.flash_attention`` inside their
 bodies: that module imports ``dropout`` from here.
+
+Under ``amp.auto_cast`` the ops named in the AMP lists cast their inputs
+first (``amp.cast_args``): ``linear`` and ``matmul`` to the AMP dtype,
+``layer_norm``, ``rms_norm``, ``softmax`` and ``cross_entropy`` to float32.
 """
 
 from __future__ import annotations
@@ -11,15 +15,40 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..amp import _state as _AMP
+from ..amp import cast_args as _amp_cast
+
 
 def linear(x, weight, bias=None):
     """y = x @ weight.T + bias, ``weight`` [out, in]."""
+    if _AMP.enabled:
+        x, weight, bias = _amp_cast("linear", x, weight, bias)
     return F.linear(x, weight, bias)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False):
+    """x @ y, either operand transposed over its last two axes first."""
+    if _AMP.enabled:
+        x, y = _amp_cast("matmul", x, y)
+    if transpose_x:
+        x = x.transpose(-1, -2)
+    if transpose_y:
+        y = y.transpose(-1, -2)
+    return torch.matmul(x, y)
+
+
+def softmax(x, axis=-1):
+    """Softmax over ``axis`` in ``x``'s dtype."""
+    if _AMP.enabled:
+        (x,) = _amp_cast("softmax", x)
+    return torch.softmax(x, dim=axis)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm computed in float32 and cast back to ``x.dtype``
     (``paddle_tpu/nn/functional/common.py:143``)."""
+    if _AMP.enabled:
+        x, weight = _amp_cast("rms_norm", x, weight)
     xf = x.float()
     out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)
     if weight is not None:
@@ -31,6 +60,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the trailing ``normalized_shape`` dims: mean and
     biased variance in float32, output cast back to ``x.dtype``
     (``paddle_tpu/nn/functional/common.py:113``)."""
+    if _AMP.enabled:
+        x, weight, bias = _amp_cast("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     dims = tuple(range(x.dim() - len(normalized_shape), x.dim()))
@@ -71,6 +102,8 @@ def cross_entropy(logits, label, ignore_index=-100):
     """Hard-label softmax cross entropy over the last axis, in float32,
     averaged over the labels != ``ignore_index`` (at least 1)
     (``paddle_tpu/nn/functional/loss.py:34``)."""
+    if _AMP.enabled:
+        (logits,) = _amp_cast("cross_entropy", logits)
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = label != ignore_index
     safe = torch.where(valid, label, torch.zeros_like(label)).long()

@@ -1,4 +1,12 @@
-from .adam import Adam, AdamW, adam_update
-from .optimizer import Optimizer
+"""``optimizer`` (mirrors ``paddle_tpu/optimizer/__init__.py``)."""
 
-__all__ = ["Adam", "AdamW", "Optimizer", "adam_update"]
+from . import lr
+from .adam import Adam, Adamax, AdamW, Lamb, NAdam, RAdam
+from .lbfgs import LBFGS
+from .optimizer import (
+    ASGD, SGD, Adadelta, Adagrad, Momentum, Optimizer, RMSProp, Rprop,
+)
+
+__all__ = ["lr", "ASGD", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax",
+           "AdamW", "LBFGS", "Lamb", "Momentum", "NAdam", "Optimizer",
+           "RAdam", "RMSProp", "Rprop"]

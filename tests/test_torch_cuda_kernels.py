@@ -907,3 +907,72 @@ def test_dense_flash_outputs_are_bit_identical_to_the_recorded_ones(dev):
     spec.loader.exec_module(tool)
     from paddle_tpu_torch.kernels import flash_attention as fa
     assert tool.digests(fa) == _DENSE_DIGESTS
+
+
+# -- fp8 training's product (amp.fp8): torch._scaled_mm, not a kernel of
+# this repository, held against its plain version the same way. The two
+# multiply the same fp8 operands and differ only in accumulation order:
+# max |card - plain| / max |plain| <= 1e-3.
+FP8_RTOL = 1e-3
+
+
+def _fp8_operands(dev, m, n, k, seed=0):
+    from paddle_tpu_torch.amp import fp8
+    x = _randn(dev, m, k, seed=seed)
+    w = _randn(dev, n, k, seed=seed + 1) * 0.02
+    g = _randn(dev, m, n, seed=seed + 2)
+    sx = fp8._amax(x) / fp8.E4M3_MAX
+    sw = fp8._amax(w) / fp8.E4M3_MAX
+    sg = fp8._grad_scale(g.float())
+    return (fp8._quantize(x, sx, fp8.E4M3_MAX, torch.float8_e4m3fn),
+            fp8._quantize(w, sw, fp8.E4M3_MAX, torch.float8_e4m3fn),
+            fp8._quantize(g.float(), sg, fp8.E5M2_MAX, torch.float8_e5m2),
+            sx, sw, sg)
+
+
+@pytest.mark.parametrize("n,k", [(3072, 1024), (1024, 4096)])
+def test_fp8_products_match_plain(dev, n, k):
+    """The forward, dx and dW products of GPT-2 medium's linears (M 8192
+    tokens) through ``fp8_gemm``'s card route, one launch each."""
+    from paddle_tpu_torch.amp import fp8
+    xq, wq, gq, sx, sw, sg = _fp8_operands(dev, 8192, n, k)
+    products = {
+        "fwd": (xq, wq.t(), sx, sw),
+        "dx": (gq, fp8._transposed(wq).t(), sg, sw),
+        "dw": (fp8._transposed(gq), fp8._transposed(xq).t(), sg, sx)}
+    for name, args in products.items():
+        before = fp8.fp8_gemm.launches
+        out = fp8.fp8_gemm(*args)
+        assert fp8.fp8_gemm.launches == before + 1
+        ref = fp8.fp8_gemm_plain(*args)
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        assert err <= FP8_RTOL, (name, err)
+
+
+def test_fp8_linear_on_the_card_launches_three_products(dev):
+    """A bf16 FP8Linear forward + backward on the card: three products,
+    bf16 grads, the output as the plain product of the same operands
+    gives it; a shape ``_scaled_mm`` refuses raises (no fallback)."""
+    from paddle_tpu_torch.amp import fp8
+    lin = fp8.FP8Linear(1024, 3072, bias=True, device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+    x = _randn(dev, 4, 256, 1024).requires_grad_()
+    before = fp8.fp8_gemm.launches
+    y = lin(x)
+    y.float().square().mean().backward()
+    assert fp8.fp8_gemm.launches == before + 3
+    assert x.grad.dtype == lin.weight.grad.dtype == torch.bfloat16
+    sx, sw = lin.fp8_scale_x, lin.fp8_scale_w
+    ref = fp8.fp8_gemm_plain(
+        fp8._quantize(x.detach().reshape(-1, 1024), sx, fp8.E4M3_MAX,
+                      torch.float8_e4m3fn),
+        fp8._quantize(lin.weight.detach(), sw, fp8.E4M3_MAX,
+                      torch.float8_e4m3fn).t(), sx, sw)
+    ref = ref.to(torch.bfloat16).reshape(4, 256, 3072) + lin.bias.detach()
+    err = ((y.detach().float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert err <= 1e-2  # one bf16 rounding of y apart
+    bad = fp8.FP8Linear(24, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        bad(_randn(dev, 8, 24))

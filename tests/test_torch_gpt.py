@@ -213,7 +213,9 @@ def test_config_sizes_and_unported_options():
     assert m.num_params() == n - 64 * 64
     assert m.flops_per_token(40) == 6 * m.num_params() + 12 * 2 * 64 * 40
     assert all(p.requires_grad for p in m.parameters())
-    with pytest.raises(NotImplementedError):
-        tgpt.GPT(_port_cfg(use_fp8=True), device="cpu")
+    # use_fp8 is ported: the block linears become FP8Linear
+    from paddle_tpu_torch.amp.fp8 import FP8Linear
+    f8 = tgpt.GPT(_port_cfg(use_fp8=True), device="cpu")
+    assert isinstance(f8.h[0].attn.qkv_proj, FP8Linear)
     with pytest.raises(NotImplementedError):
         tgpt.GPT.tp_placement_rules(None)

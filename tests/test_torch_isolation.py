@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_and_builds_nothing():
         for sub in ("optimizer", "jit", "models.gpt", "nn.fused_ce",
                     "nn.clip", "serving.frontend", "inference.paged",
                     "serving.spec", "profiler.tracing",
-                    "profiler.accounting"):
+                    "profiler.accounting", "amp", "amp.fp8", "optimizer.lr",
+                    "optimizer.adam", "optimizer.lbfgs", "regularizer"):
             assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)
