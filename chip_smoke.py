@@ -16,10 +16,12 @@
    decode kernels' library calls too), and B2 and B3 report the share of
    their bound that the graph replay reaches.
    The flash forward (B1) runs at Llama-3-8B's serving shapes (Hq 32, Hk 8,
-   D 128) and at GPT-2 medium's (B 8, S 1024, H 16, D 64), held per query
-   row too and shown to fail without its last key tile; the flash
-   backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's and at Llama-3-8B's
-   (B 1, S 2048, Hq 32, Hk 8, D 128); the paged-decode kernels at the
+   D 128), at GPT-2 medium's (B 8, S 1024, H 16, D 64) and at ViT-L/16's
+   (B 32, S 197, H 16, D 64, non-causal: the last key tile holds 5
+   keys), held per query row too and shown to fail without its last key
+   tile; the flash backward kernels (B2 dQ, B3 dK/dV) at GPT-2 medium's,
+   at Llama-3-8B's (B 1, S 2048, Hq 32, Hk 8, D 128) and at ViT-L/16's
+   (with SDPA's backward as the yardstick); the paged-decode kernels at the
    serving path's, over bf16 pools (B4, B6) and int8 pools (B5, B6q), the
    per-page kernel timed beside the split route at its shape; the
    int8 weight matmul (B7) at decode (M 8) for each of Llama-3-8B's five
@@ -140,6 +142,21 @@
    24 a step and 288 fp8 products a step; tokens/s, MFU against both
    peaks, peak memory, and a profile with the fp8 products, the
    quantize/amax passes and the backward's transposed copies as groups.
+5a. ``vit_train`` (after ``fp8_train``): the reference's vit_l_train
+   rung. ViT-L/16 for 1000 classes (24 layers, hidden 1024, 16 heads,
+   MLP 4096, 304,326,632 parameters) in bf16 with fp32 masters from
+   generator seed 0, one batch of 32 random 224 x 224 images and labels
+   from the same generator: a route gate as the training phase's, with
+   a float32 copy of the model as the reference that says which layers'
+   q_proj grads bf16 resolves (``route_gate``), then AdamW 3e-4, clip
+   1.0, ``TrainStep``, 2
+   warm-up and 10 timed steps. Gates: finite, falling losses; B1, B2 and
+   B3 exactly 24 times a step, no segment, decode, int8 or fp8 launch and
+   no call of the masked SDPA route. Prints images/s, step ms (the
+   reference's names), MFU against 989 TFLOP/s (3 x the forward's
+   product flops, ``vit_flops_per_image``) and peak memory, and profiles
+   2 steps (busy, attention, matmuls with the patch convolution,
+   optimizer, kernels a step, idle share).
 5b. ``llama_fp8`` (after the serving phase): Llama-3-8B with
    ``use_fp8=True`` (seed 0), its delayed scales calibrated by one
    training-mode forward over B's first prompt and frozen (eval), serves
@@ -154,8 +171,9 @@
    ``GradScaler`` with AdamW for 4 steps, the third with an inf gradient:
    the skipped step leaves the weights, the scale goes 65536, 131072,
    65536, 65536 as its rules give.
-6. Prints one ``{"kernels": [...]}`` line (B1-B7 and the segment entries
-   B1-seg, B2-seg, B3-seg at V1, every case beside) and, last, the
+6. Prints one ``{"kernels": [...]}`` line (B1-B7, B1-B3 with their
+   ViT-L/16 case beside, and the segment entries B1-seg, B2-seg, B3-seg
+   at V1, every case beside) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -166,6 +184,7 @@ line.
 
 from __future__ import annotations
 
+import copy
 import functools
 import gc
 import json
@@ -213,6 +232,13 @@ BWD_RTOL = 2e-2
 # GPT-2 medium, the training phase's shapes
 GPT_B, GPT_S, GPT_H, GPT_D, GPT_LAYERS = 8, 1024, 16, 64, 24
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 2
+# ViT-L/16, the vit_train phase (the reference's vit_l_train rung,
+# bench.py:907): 32 images of 224 x 224, patch 16, so S = 1 + 14 x 14 =
+# 197 tokens (not a multiple of B1-B3's 64-row and 64-key tiles), 16
+# heads of 64 over 16 KV heads, non-causal; 1000 classes
+VIT_B, VIT_IMAGE, VIT_CLASSES = 32, 224, 1000
+VIT_S, VIT_H, VIT_D, VIT_LAYERS = 197, 16, 64, 24
+VIT_PARAMS = 304_326_632
 # fp8 training (phase fp8_train): GPT-2 medium's block linears (name, N,
 # K) at M = 8 x 1024 tokens. The card's fp8 product and its plain version
 # multiply the same fp8 operands and differ in accumulation order only
@@ -231,6 +257,9 @@ OPT_LAYERS, OPT_STEPS = 4, 3
 GATE_LOSS_RTOL = 1e-2
 GATE_NORM_RTOL = 2e-2
 GATE_MIN_COSINE = 0.99
+# with a float32 reference (ViT): a layer is resolved when its plain-route
+# grads are within half the cosine budget of float32's
+GATE_RESOLVED_COSINE = 1 - (1 - GATE_MIN_COSINE) / 2
 # teacher-forced check: positions whose top-2 logit gap is below this are
 # too close to call in bf16 and are skipped
 GAP_TOL = 0.25
@@ -400,16 +429,19 @@ def row_rel_err(out, ref):
     return (diff / scale).nan_to_num(nan=0.0).max().item()
 
 
-def dropped_tile(q, k, v, o_ref, lse_ref):
-    """The plain version (causal, Sq == Sk) with the last 64-key tile of
-    the last query block left out: the block's positions at or past that
-    tile's first key see only the keys before it."""
+def dropped_tile(q, k, v, o_ref, lse_ref, causal=True):
+    """The plain version (Sq == Sk) with the last 64-key tile of the last
+    query block left out: the block's positions (causal: those at or past
+    that tile's first key) see only the keys before it. At S 197 that
+    tile is ragged: keys 192-196."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_plain)
     S = q.shape[1]
     bq = FLASH_ROWS // (q.shape[2] // k.shape[2])
     t_last = (S - 1) // FLASH_KEYS * FLASH_KEYS
-    p0 = max((S - 1) // bq * bq, t_last)
+    p0 = (S - 1) // bq * bq
+    if causal:
+        p0 = max(p0, t_last)
     o, lse = o_ref.clone(), lse_ref.clone()
     o[:, p0:], lse[:, :, p0:] = flash_attention_plain(
         q[:, p0:], k[:, :t_last], v[:, :t_last], causal=False,
@@ -417,17 +449,18 @@ def dropped_tile(q, k, v, o_ref, lse_ref):
     return o, lse
 
 
-def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
+def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D, causal=True,
+                case=None):
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_plain, flash_fwd_cuda)
     g = torch.Generator(device=DEVICE).manual_seed(1000 + S + dh)
     mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
                                dtype=torch.bfloat16)
     q, k, v = mk(hq), mk(hk), mk(hk)
-    o, lse = flash_fwd_cuda(q, k, v, causal=True)
-    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
                                            return_lse=True)
-    o_cut, lse_cut = dropped_tile(q, k, v, o_ref, lse_ref)
+    o_cut, lse_cut = dropped_tile(q, k, v, o_ref, lse_ref, causal)
     torch.cuda.synchronize()
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_l = (lse - lse_ref).abs().max().item()
@@ -440,25 +473,27 @@ def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
     if cut_row <= ROW_RTOL or cut_l <= LSE_ATOL:
         fail(f"flash_fwd S={S}: the check cannot see a missing key tile "
              f"(row {cut_row} <= {ROW_RTOL} or LSE {cut_l} <= {LSE_ATOL})")
-    ms = timer(lambda: flash_fwd_cuda(q, k, v, causal=True))
-    graph_ms = timer.graph(lambda: flash_fwd_cuda(q, k, v, causal=True))
-    plain_ms = timer(lambda: flash_attention_plain(q, k, v, causal=True,
+    ms = timer(lambda: flash_fwd_cuda(q, k, v, causal=causal))
+    graph_ms = timer.graph(lambda: flash_fwd_cuda(q, k, v, causal=causal))
+    plain_ms = timer(lambda: flash_attention_plain(q, k, v, causal=causal,
                                                    return_lse=True))
     lib = sdpa_library(torch, q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), is_causal=True)
+                       v.transpose(1, 2), is_causal=causal)
     library_ms = timer(lib)
     library_graph_ms = timer.graph(lib)
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
         + lse.numel() * 4
     bms, by = bound(nbytes, 4 * B * hq * dh * pairs)
-    rec = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, max_abs_err=err_o,
+    rec = dict(case=case, B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=causal,
+               max_abs_err=err_o,
                lse_err=err_l, row_rel_err=err_row,
                missing_tile_row_rel_err=cut_row, missing_tile_lse_err=cut_l,
                ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
                library_ms=library_ms, library_graph_ms=library_graph_ms,
                bound_ms=bms, bound_by=by, ok=ok)
-    print(f"flash_fwd B={B} S={S} Hq={hq} Hk={hk} D={dh}: err O "
+    print(f"flash_fwd B={B} S={S} Hq={hq} Hk={hk} D={dh} causal={causal}: "
+          f"err O "
           f"{err_o:.3e} LSE {err_l:.3e} row {err_row:.3e} (a key tile "
           f"missing: row {cut_row:.3e} LSE {cut_l:.3e}) | kernel {ms:.4f} "
           f"ms (graph {graph_ms:.4f}) plain {plain_ms:.4f} ms sdpa "
@@ -471,21 +506,21 @@ def flash_phase(torch, timer, S, B=1, hq=HQ, hk=HK, dh=D):
     return rec
 
 
-def sdpa_backward_library(torch, q, k, v, do):
-    """The backward of one PyTorch SDPA call (causal) on [B, H, S, D]
-    views, through ``torch.autograd.grad``: the yardstick for B2 + B3
-    together (the port never calls it). KV is expanded for GQA where this
-    torch has no ``enable_gqa``."""
+def sdpa_backward_library(torch, q, k, v, do, causal=True):
+    """The backward of one PyTorch SDPA call on [B, H, S, D] views,
+    through ``torch.autograd.grad``: the yardstick for B2 + B3 together
+    (the port never calls it). KV is expanded for GQA where this torch has
+    no ``enable_gqa``."""
     F = torch.nn.functional
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     try:
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                              enable_gqa=True)
     except TypeError:
         g = q.shape[1] // k.shape[1]
         out = F.scaled_dot_product_attention(
             q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1),
-            is_causal=True)
+            is_causal=causal)
     return lambda: torch.autograd.grad(out, (q, k, v), do,
                                        retain_graph=True)
 
@@ -503,9 +538,10 @@ def bwd_bounds(q, k, lse, pairs, idb=0):
             "flash_bwd_dkv": bound(2 * qb + 4 * kvb + rows + idb, 4 * fl)}
 
 
-def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
-    """B2 and B3 against ``flash_attention_bwd_plain`` (causal), with the
-    forward's O and LSE from B1. Returns one record per kernel."""
+def flash_bwd_phase(torch, timer, B, S, hq, hk, dh, causal=True,
+                    case=None):
+    """B2 and B3 against ``flash_attention_bwd_plain``, with the forward's
+    O and LSE from B1. Returns one record per kernel."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
         flash_delta, flash_fwd_cuda)
@@ -513,11 +549,11 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
     mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
                                dtype=torch.bfloat16)
     q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
-    o, lse = flash_fwd_cuda(q, k, v, causal=True)
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
     delta = flash_delta(o, do)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True)
-    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
     errs = {}
     for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
@@ -527,20 +563,22 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
                       bool(torch.isfinite(out.float()).all()))
     del refs
     dq_call = lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                        causal=True)
+                                        causal=causal)
     dkv_call = lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                          causal=True)
+                                          causal=causal)
     times = {name: (timer(fn), timer.graph(fn))
              for name, fn in (("flash_bwd_dq", dq_call),
                               ("flash_bwd_dkv", dkv_call))}
     plain_ms = timer(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                       causal=True),
+                                                       causal=causal),
                      iters=20)
     lib = sdpa_backward_library(torch, q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), do.transpose(1, 2))
+                                v.transpose(1, 2), do.transpose(1, 2),
+                                causal)
     library_ms = timer(lib, iters=20)
-    bounds = bwd_bounds(q, k, lse, B * S * (S + 1) // 2)
-    shape = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh)
+    bounds = bwd_bounds(q, k, lse, B * (S * (S + 1) // 2 if causal
+                                        else S * S))
+    shape = dict(case=case, B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=causal)
     recs = {}
     for name, keys in (("flash_bwd_dq", ("dq",)),
                        ("flash_bwd_dkv", ("dk", "dv"))):
@@ -554,8 +592,8 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh):
                           library_ms=library_ms, bound_ms=bms, bound_by=by,
                           share_of_bound=bms / ms,
                           graph_share_of_bound=bms / graph_ms, ok=ok)
-        print(f"{name} B={B} S={S} Hq={hq} Hk={hk} D={dh}: err "
-              f"{abs_err:.3e} (rel {rel_err:.3e}) | kernel {ms:.4f} ms "
+        print(f"{name} B={B} S={S} Hq={hq} Hk={hk} D={dh} causal={causal}: "
+              f"err {abs_err:.3e} (rel {rel_err:.3e}) | kernel {ms:.4f} ms "
               f"(graph {graph_ms:.4f}) plain (whole backward) "
               f"{plain_ms:.4f} ms sdpa backward {library_ms:.4f} ms bound "
               f"{bms:.4f} ms ({by}; {bms / graph_ms:.1%} of it in the "
@@ -1185,10 +1223,15 @@ def kernel_phases(torch):
         paged_decode_attention_chunked, paged_decode_attention_kernel)
     timer = Timer(torch)
     gpt_shape = dict(B=GPT_B, hq=GPT_H, hk=GPT_H, dh=GPT_D)
+    vit_shape = dict(B=VIT_B, hq=VIT_H, hk=VIT_H, dh=VIT_D, causal=False,
+                     case="vit")
     flash = [flash_phase(torch, timer, GPT_S, **gpt_shape)] + \
-        [flash_phase(torch, timer, S) for S in (1024, 304, 300)]
+        [flash_phase(torch, timer, S) for S in (1024, 304, 300)] + \
+        [flash_phase(torch, timer, VIT_S, **vit_shape)]
     bwd = [flash_bwd_phase(torch, timer, GPT_B, GPT_S, GPT_H, GPT_H, GPT_D),
-           flash_bwd_phase(torch, timer, 1, 2048, HQ, HK, D)]
+           flash_bwd_phase(torch, timer, 1, 2048, HQ, HK, D),
+           flash_bwd_phase(torch, timer, VIT_B, VIT_S, VIT_H, VIT_H, VIT_D,
+                           causal=False, case="vit")]
     short = [0, 1, 16, 17, 100, 161, 239, 240]
     lens = np.linspace(1, 2048, 8).astype(np.int64)
     decode = {}
@@ -1258,11 +1301,13 @@ def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count), and
     the decode routing counters. ``fp8_gemm`` counts the fp8 route's
     ``torch._scaled_mm`` products (a library call, not a kernel of this
-    repository)."""
+    repository); ``sdpa_masked`` the calls of the plain masked SDPA route
+    (attention with ``attn_mask``), which no phase should reach."""
     from paddle_tpu_torch.amp.fp8 import fp8_gemm
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+        sdpa_masked_plain)
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel)
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
@@ -1279,7 +1324,8 @@ def _counters():
             "paged_decode_split_q": (paged_decode_attention_chunked,
                                      "launches_q"),
             "quant_matmul": (quant_matmul, "launches"),
-            "fp8_gemm": (fp8_gemm, "launches")}, ROUTE_COUNTS
+            "fp8_gemm": (fp8_gemm, "launches"),
+            "sdpa_masked": (sdpa_masked_plain, "calls")}, ROUTE_COUNTS
 
 
 def zero_counts():
@@ -2466,43 +2512,79 @@ def slice_phase(torch):
 # training phase: GPT-2 medium trained by TrainStep
 # ---------------------------------------------------------------------------
 
-def route_gate(torch, model, ids):
-    """One forward + backward on the kernel route and one on the plain
-    route (FLAGS_flash_kernel=plain), from the same weights and batch."""
+def route_gate(torch, model, batch, watched, label="qkv", reference=False):
+    """One forward + backward (``model.loss(*batch)``) on the kernel route
+    and one on the plain route (FLAGS_flash_kernel=plain), from the same
+    weights and batch: the loss, the global grad norm and the least
+    cosine between the two routes' grads of the parameters
+    ``watched(model)`` names, one per layer (GPT: every qkv_proj weight;
+    ViT: every q_proj weight).
+
+    With ``reference`` a third run, a float32 copy of the model on the
+    plain route, tells which layers' grads bf16 resolves: a layer whose
+    plain-route grads are within half the cosine budget of float32's
+    (GATE_RESOLVED_COSINE) must have the two routes within
+    GATE_MIN_COSINE of each other. Two correct bf16 routes, each that far
+    from the truth, stay within the budget of each other. Deeper layers,
+    where the two routes' own rounding moves the grads more than the
+    budget (ViT-L/16 at initialization: near-uniform attention, dP -
+    Delta cancelling), are recorded with all three cosines and held by the
+    loss and the global norm. At least one layer must be resolved."""
     from paddle_tpu_torch.core import set_flags
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    runs = {}
-    for mode in ("auto", "plain"):
+    cosine = torch.nn.functional.cosine_similarity
+
+    def run(m, args, mode):
         set_flags({"FLAGS_flash_kernel": mode})
         try:
-            model.zero_grad(set_to_none=True)
-            loss = model.loss(ids, ids)
+            m.zero_grad(set_to_none=True)
+            loss = m.loss(*args)
             loss.backward()
             norm = ClipGradByGlobalNorm.global_norm(
-                [p.grad for p in model.parameters()]).item()
-            qkv = [blk.attn.qkv_proj.weight.grad.float().flatten()
-                   for blk in model.h]
-            runs[mode] = (loss.item(), norm, qkv)
+                [p.grad for p in m.parameters()]).item()
+            return loss.item(), norm, [p.grad.float().flatten()
+                                       for p in watched(m)]
         finally:
             set_flags({"FLAGS_flash_kernel": "auto"})
-            model.zero_grad(set_to_none=True)
-    (lk, nk, gk), (lp, np_, gp) = runs["auto"], runs["plain"]
-    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-           for a, b in zip(gk, gp)]
-    rec = dict(loss_kernel=lk, loss_plain=lp,
-               loss_rel_diff=abs(lk - lp) / abs(lp), grad_norm_kernel=nk,
-               grad_norm_plain=np_, grad_norm_rel_diff=abs(nk - np_) / np_,
-               qkv_grad_min_cosine=min(cos),
-               tolerances=dict(loss_rtol=GATE_LOSS_RTOL,
-                               norm_rtol=GATE_NORM_RTOL,
-                               min_cosine=GATE_MIN_COSINE))
+            m.zero_grad(set_to_none=True)
+
+    (lk, nk, gk), (lp, np_, gp) = (run(model, batch, mode)
+                                   for mode in ("auto", "plain"))
+    cos = [cosine(a, b, dim=0).item() for a, b in zip(gk, gp)]
+    key = f"{label}_grad_min_cosine"
+    rec = {"loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_diff": abs(lk - lp) / abs(lp), "grad_norm_kernel": nk,
+           "grad_norm_plain": np_, "grad_norm_rel_diff": abs(nk - np_) / np_,
+           key: min(cos),
+           "tolerances": dict(loss_rtol=GATE_LOSS_RTOL,
+                              norm_rtol=GATE_NORM_RTOL,
+                              min_cosine=GATE_MIN_COSINE)}
+    if reference:
+        m32 = copy.deepcopy(model).float()
+        args32 = tuple(t.float() if t.is_floating_point() else t
+                       for t in batch)
+        l32, n32, g32 = run(m32, args32, "plain")
+        del m32
+        torch.cuda.empty_cache()
+        vs32 = {r: [cosine(a, b, dim=0).item() for a, b in zip(g, g32)]
+                for r, g in (("kernel", gk), ("plain", gp))}
+        resolved = [i for i, c in enumerate(vs32["plain"])
+                    if c >= GATE_RESOLVED_COSINE]
+        rec.update({
+            key: min((cos[i] for i in resolved), default=-1.0),
+            "resolved_layers": resolved, "loss_f32": l32,
+            "grad_norm_f32": n32,
+            "per_layer_cosine": dict(kernel_vs_plain=cos,
+                                     kernel_vs_f32=vs32["kernel"],
+                                     plain_vs_f32=vs32["plain"])})
+        rec["tolerances"]["resolved_cosine"] = GATE_RESOLVED_COSINE
     print(f"route gate (kernel vs plain, one fwd+bwd): {json.dumps(rec)}",
           flush=True)
     if not (math.isfinite(lk) and math.isfinite(nk)):
         fail("route gate: non-finite loss or grad norm on the kernel route")
     if rec["loss_rel_diff"] > GATE_LOSS_RTOL or \
             rec["grad_norm_rel_diff"] > GATE_NORM_RTOL or \
-            rec["qkv_grad_min_cosine"] < GATE_MIN_COSINE:
+            rec[key] < GATE_MIN_COSINE:
         fail(f"route gate: the kernel route disagrees with the plain "
              f"route: {rec}")
     return rec
@@ -2525,13 +2607,15 @@ _FP8_RANGES = {"fp8_gemm": _FP8_MM, "_update_scales": _FP8_QUANT,
                "_transposed": _FP8_COPIES, "_pad_rows": _FP8_COPIES}
 
 
-def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS, fp8=False):
-    """torch.profiler over ``steps`` train steps: device busy time per step
-    by kernel group, the optimizer's share (kernels launched inside its
-    ``record_function`` range: clip + update + write-back), kernel
-    launches per step and the idle share of the window. With ``fp8`` the
-    fp8 products, the quantize/amax passes and the transposed copies are
-    groups of their own (``_FP8_RANGES``)."""
+def profile_train(torch, step, opt, batch, steps=PROFILED_STEPS, fp8=False,
+                  label="GPT-2 medium", kernel_groups=_TRAIN_GROUPS):
+    """torch.profiler over ``steps`` train steps (``step(*batch)``):
+    device busy time per step by kernel group (``kernel_groups``), the
+    optimizer's share (kernels launched inside its ``record_function``
+    range: clip + update + write-back), kernel launches per step and the
+    idle share of the window. With ``fp8`` the fp8 products, the
+    quantize/amax passes and the transposed copies are groups of their own
+    (``_FP8_RANGES``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     import paddle_tpu_torch.amp.fp8 as fp8_mod
     update = opt._update_all
@@ -2561,7 +2645,7 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS, fp8=False):
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(steps):
-                step(ids)
+                step(*batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
     finally:
@@ -2577,7 +2661,7 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS, fp8=False):
         us = e.time_range.end - e.time_range.start
         busy_us += us
         n_kernels += 1
-        g = next((lab for key, lab in _TRAIN_GROUPS if key in e.name),
+        g = next((lab for key, lab in kernel_groups if key in e.name),
                  _OTHER)
         groups[g] = groups.get(g, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -2607,9 +2691,8 @@ def profile_train(torch, step, opt, ids, steps=PROFILED_STEPS, fp8=False):
                optimizer_measured=opt_ms > 0,
                top=[dict(name=n[:90], ms_per_step=us / 1e3 / steps)
                     for n, us in top])
-    label = "fp8" if fp8 else "bf16"
-    print(f"profile (GPT-2 medium {label}, {steps} train steps): "
-          f"{json.dumps(rec)}", flush=True)
+    print(f"profile ({label} {'fp8' if fp8 else 'bf16'}, {steps} train "
+          f"steps): {json.dumps(rec)}", flush=True)
     if busy_ms == 0.0:
         print("profile: the profiler saw no device time; busy share not "
               "measured", flush=True)
@@ -2624,29 +2707,37 @@ def init_digest(model, ids):
             int(ids.sum())]
 
 
-def timed_steps(torch, model, ids):
+def run_steps(torch, model, batch, step_fn):
     """AdamW 3e-4, clip 1.0, ``TrainStep`` on one batch: WARMUP_STEPS +
-    TIMED_STEPS steps, counts zeroed just before and read just after."""
+    TIMED_STEPS steps, counts zeroed just before and read just after.
+    Returns (losses, seconds of the timed steps, launches, step, opt)."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
-    step = TrainStep(model, opt, lambda m, x: m.loss(x, x))
+    step = TrainStep(model, opt, step_fn)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    losses = [step(ids) for _ in range(WARMUP_STEPS)]
+    losses = [step(*batch) for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(TIMED_STEPS):
-        losses.append(step(ids))
+        losses.append(step(*batch))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches, _ = read_counts()
+    return [float(x) for x in losses], secs, launches, step, opt
+
+
+def timed_steps(torch, model, ids):
+    """GPT-2 medium's ``run_steps`` (next-token loss on ``ids``) and its
+    record: tokens/s, MFU, peak memory, launches."""
+    losses, secs, launches, step, opt = run_steps(
+        torch, model, (ids,), lambda m, x: m.loss(x, x))
     tok_s = GPT_B * GPT_S * TIMED_STEPS / secs
     flops_tok = model.flops_per_token(GPT_S)
     rec = dict(config="gpt2_medium", batch=GPT_B, seq=GPT_S,
-               steps=WARMUP_STEPS + TIMED_STEPS,
-               losses=[float(x) for x in losses],
+               steps=WARMUP_STEPS + TIMED_STEPS, losses=losses,
                step_ms=secs / TIMED_STEPS * 1e3, tokens_per_s=tok_s,
                flops_per_token=flops_tok,
                mfu=flops_tok * tok_s / BF16_FLOPS_PER_S,
@@ -2655,9 +2746,10 @@ def timed_steps(torch, model, ids):
     return rec, step, opt
 
 
-def check_train(name, rec, fp8_per_step=0):
-    """Finite losses that fall on the repeated batch; B1, B2 and B3 24
-    times a step, ``fp8_per_step`` fp8 products a step, nothing else."""
+def check_train(name, rec, fp8_per_step=0, layers=GPT_LAYERS):
+    """Finite losses that fall on the repeated batch; B1, B2 and B3
+    ``layers`` times a step, ``fp8_per_step`` fp8 products a step, nothing
+    else (no segment launch, no decode or int8 kernel, no masked SDPA)."""
     losses, launches = rec["losses"], rec["launches"]
     if not all(math.isfinite(x) for x in losses):
         fail(f"{name}: a loss is not finite: {losses}")
@@ -2665,9 +2757,9 @@ def check_train(name, rec, fp8_per_step=0):
         fail(f"{name}: the loss did not fall on a repeated batch: {losses}")
     want = dict.fromkeys(launches, 0)
     steps = rec["steps"]
-    want.update(flash_fwd=GPT_LAYERS * steps,
-                flash_bwd_dq=GPT_LAYERS * steps,
-                flash_bwd_dkv=GPT_LAYERS * steps,
+    want.update(flash_fwd=layers * steps,
+                flash_bwd_dq=layers * steps,
+                flash_bwd_dkv=layers * steps,
                 fp8_gemm=fp8_per_step * steps)
     for k, n in want.items():
         if launches[k] != n:
@@ -2700,13 +2792,14 @@ def train_phase(torch):
     torch.cuda.empty_cache()
     model, ids = gpt2_medium(torch)
     digest = init_digest(model, ids)
-    gate = route_gate(torch, model, ids)
+    gate = route_gate(torch, model, (ids, ids),
+                      lambda m: [blk.attn.qkv_proj.weight for blk in m.h])
     rec, step, opt = timed_steps(torch, model, ids)
     rec.update(gate=gate, init_digest=digest)
     shown = {k: v for k, v in rec.items() if k != "gate"}
     print(f"train: {json.dumps(shown)}", flush=True)
     check_train("train", rec)
-    rec["profile"] = profile_train(torch, step, opt, ids)
+    rec["profile"] = profile_train(torch, step, opt, (ids,))
     del step, opt, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2845,7 +2938,103 @@ def fp8_train_phase(torch, bf16):
         fail(f"fp8_train: loss deviates from bf16's by {max(dev):.3f} "
              f"(limit {FP8_LOSS_RTOL}): {rec['losses']} vs "
              f"{bf16['losses']}")
-    rec["profile"] = profile_train(torch, step, opt, ids, fp8=True)
+    rec["profile"] = profile_train(torch, step, opt, (ids,), fp8=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# vit_train phase: the reference's vit_l_train rung
+# ---------------------------------------------------------------------------
+
+# cuDNN's convolution kernels (the patch embedding's forward and its two
+# backward products) count as matmul work
+_VIT_GROUPS = _TRAIN_GROUPS + tuple(
+    (key, "matmul") for key in ("fprop", "dgrad", "wgrad", "conv2d",
+                                "convolve", "cudnn"))
+
+
+def vit_flops_per_image(cfg):
+    """Forward flops of one image in its products: the patch convolution
+    (a [patches, 3 p^2] x [3 p^2, d] product), per layer the q/k/v/out and
+    the two MLP products over S tokens and the two attention products over
+    S x S pairs, and the head on the class token. A training step makes
+    three times as many."""
+    d, p = cfg.hidden_size, cfg.patch_size
+    n = (cfg.image_size // p) ** 2
+    s, f = n + 1, int(d * cfg.mlp_ratio)
+    layer = 2 * s * d * (4 * d + 2 * f) + 4 * s * s * d
+    return 2 * n * 3 * p * p * d + cfg.num_layers * layer \
+        + 2 * d * cfg.num_classes
+
+
+def vit_l16(torch):
+    """ViT-L/16 for 1000 classes in bf16 on the card from generator seed
+    0, and one batch (images N(0, 1), labels uniform) from the same
+    generator."""
+    from paddle_tpu_torch.vision.models import vit_l_16
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = vit_l_16(num_classes=VIT_CLASSES, device=DEVICE,
+                     dtype=torch.bfloat16, generator=gen)
+    cfg = model.config
+    shape = (cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+             (cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.image_size)
+    if shape != (VIT_LAYERS, VIT_H, VIT_D, VIT_S, VIT_IMAGE):
+        fail(f"vit_l_16() is not the shape this script times its kernels "
+             f"at: {cfg}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VIT_PARAMS:
+        fail(f"vit_l_16 has {n_params} parameters, expected {VIT_PARAMS}")
+    x = torch.randn(VIT_B, 3, VIT_IMAGE, VIT_IMAGE, generator=gen,
+                    device=DEVICE, dtype=torch.bfloat16)
+    y = torch.randint(0, VIT_CLASSES, (VIT_B,), generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"ViT-L/16: {n_params} params bf16, built in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return model, x, y
+
+
+def vit_train_phase(torch):
+    """The reference's vit_l_train rung (``bench_vit_train(vit_l_16, 32,
+    10)``): a route gate on the q_proj grads, then AdamW 3e-4 with clip
+    1.0 through ``TrainStep``, 2 warm-up and 10 timed steps on one batch.
+    Gates: finite and falling losses, B1-B3 24 times a step and nothing
+    else of the port's kernels, no masked SDPA call. Then a profile of 2
+    steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, x, y = vit_l16(torch)
+    gate = route_gate(torch, model, (x, y),
+                      lambda m: [blk.self_attention.q_proj.weight
+                                 for blk in m.encoder],
+                      label="q_proj", reference=True)
+    losses, secs, launches, step, opt = run_steps(
+        torch, model, (x, y), lambda m, a, b: m.loss(a, b))
+    img_s = VIT_B * TIMED_STEPS / secs
+    flops = 3 * vit_flops_per_image(model.config)
+    rec = dict(config="vit_l_16", batch=VIT_B, image=VIT_IMAGE, seq=VIT_S,
+               params=VIT_PARAMS, steps=WARMUP_STEPS + TIMED_STEPS,
+               losses=losses, step_time_ms=secs / TIMED_STEPS * 1e3,
+               images_per_s=img_s, flops_per_image=flops,
+               mfu=flops * img_s / BF16_FLOPS_PER_S,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, gate=gate)
+    shown = {k: v for k, v in rec.items() if k != "gate"}
+    print(f"vit_train: {json.dumps(shown)}", flush=True)
+    check_train("vit_train", rec, layers=VIT_LAYERS)
+    prof = profile_train(torch, step, opt, (x, y), label="ViT-L/16",
+                         kernel_groups=_VIT_GROUPS)
+    groups = prof["by_group_ms_per_step"]
+    attn = groups.get("attention forward (port)", 0.0) + \
+        groups.get("attention backward (port)", 0.0)
+    busy = prof["device_busy_ms_per_step"]
+    prof.update(attention_ms_per_step=attn,
+                attention_share_of_busy=attn / busy if busy else None,
+                matmul_ms_per_step=groups.get("matmul", 0.0))
+    rec["profile"] = prof
     del step, opt, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3218,6 +3407,7 @@ def main():
     llama8 = llama_fp8_phase(torch, *b_traffic)
     trained = train_phase(torch)
     fp8_trained = fp8_train_phase(torch, trained)
+    vit = vit_train_phase(torch)
     optimizers = optimizers_phase(torch)
     print(f"fp8 vs bf16 training step (GPT-2 medium, 8 x 1024, same call): "
           f"{fp8_trained['step_ms']:.2f} vs {trained['step_ms']:.2f} ms, "
@@ -3225,6 +3415,10 @@ def main():
           f"{trained['tokens_per_s']:.0f} tokens/s, peak "
           f"{fp8_trained['peak_mem_gib']:.2f} vs "
           f"{trained['peak_mem_gib']:.2f} GiB", flush=True)
+    print(f"ViT-L/16 training ({VIT_B} x {VIT_IMAGE}^2): "
+          f"{vit['step_time_ms']:.2f} ms a step, "
+          f"{vit['images_per_s']:.1f} images/s, MFU {vit['mfu']:.3f}, peak "
+          f"{vit['peak_mem_gib']:.2f} GiB", flush=True)
 
     records = []
     for name, source, replaces in KERNELS:
@@ -3236,7 +3430,8 @@ def main():
                 "launches"][name] for e in ("S-spec", "S8-spec", "R-spec",
                                             "R8-spec")) \
             + trained["launches"][name] + fp8_trained["launches"][name] \
-            + llama8["launches"][name] + optimizers["launches"][name]
+            + vit["launches"][name] + llama8["launches"][name] \
+            + optimizers["launches"][name]
         paths = {}
         if name == "quant_matmul":  # decode (above) and prefill
             pre = next(r for r in phases[name] if r["M"] > 8)
@@ -3248,6 +3443,14 @@ def main():
             paths["decode_step"] = phases["quant_matmul_decode_step"]
             paths["decode_layer"] = phases["quant_matmul_decode_layer"]
             paths["verify"] = phases["quant_matmul_verify"]
+        vit_case = next((r for r in phases[name] if r.get("case") == "vit"),
+                        None)
+        if vit_case is not None:  # B1-B3 at ViT-L/16's shape
+            paths["vit"] = {k: vit_case[k] for k in (
+                "B", "S", "Hq", "Hk", "D", "causal", "max_abs_err", "ms",
+                "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if k in vit_case}
+            paths["vit"]["launches"] = vit["launches"][name]
         # device-only times (CUDA-graph replays) where the phase took them,
         # and B7's second library yardstick
         graphs = {k: main_rec[k] for k in (
@@ -3267,7 +3470,7 @@ def main():
         "card": card, "torch": torch.__version__, "build_s": build_s,
         "phases": phases, "varlen": varlen, "served": served,
         "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
-        "optimizers": optimizers}), flush=True)
+        "vit_trained": vit, "optimizers": optimizers}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Parameter conversion from the JAX package's Llama and GPT.
+"""Parameter conversion from the JAX package's Llama, GPT and ViT.
 
 ``llama_params_from_numpy`` and ``gpt_params_from_numpy`` take the JAX
 model's parameters as numpy arrays under their own names, e.g.
@@ -8,8 +8,10 @@ model's parameters as numpy arrays under their own names, e.g.
 and returns the port's ``state_dict``. Names are kept as they are. The one
 layout change: ``paddle_tpu``'s ``Linear.weight`` is [in, out], the port's
 is PyTorch's [out, in], so every Linear weight (Llama's ``*_proj.weight``;
-GPT's ``qkv_proj``, ``out_proj``, ``fc_in``, ``fc_out``; ``lm_head``) is
-transposed. Biases, embeddings and norm weights are copied as they are. A
+GPT's ``qkv_proj``, ``out_proj``, ``fc_in``, ``fc_out``; ``lm_head``;
+ViT's q/k/v/out projections, ``mlp.0``, ``mlp.3`` and ``heads``) is
+transposed. ViT's ``conv_proj.weight`` is a 4-d kernel [out, in, kh, kw]
+in the same layout on both sides and is copied as it is. Biases, embeddings and norm weights are copied as they are. A
 missing, extra or mis-shaped name raises.
 
 ``llama_int8_params_from_numpy`` takes a Llama converted to int8 by the
@@ -173,3 +175,43 @@ def gpt_params_from_numpy(named, config, dtype=None):
     return _convert("gpt_params_from_numpy", named,
                     _with_fp8_buffers(gpt_expected_shapes(config), config,
                                       _is_gpt_linear), _is_gpt_linear, dtype)
+
+
+_VIT_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+
+def _is_vit_linear(name):
+    """The 2-d ``Linear`` weights of a ViT; not ``conv_proj.weight``,
+    whose name ends in ``_proj.weight`` too."""
+    parts = name.split(".")
+    return parts[-1] == "weight" and (
+        name == "heads.weight" or parts[-2] in _VIT_LINEARS or
+        parts[-3:-1] in (["mlp", "0"], ["mlp", "3"]))
+
+
+def vit_expected_shapes(config):
+    """The port's ViT parameter names and shapes for ``config``."""
+    d, c, p = config.hidden_size, config.num_classes, config.patch_size
+    f = int(d * config.mlp_ratio)
+    n = (config.image_size // p) ** 2 + 1
+    shapes = {"class_token": (1, 1, d), "pos_embedding": (1, n, d),
+              "conv_proj.weight": (d, 3, p, p), "conv_proj.bias": (d,),
+              "ln.weight": (d,), "ln.bias": (d,),
+              "heads.weight": (c, d), "heads.bias": (c,)}
+    for i in range(config.num_layers):
+        b = f"encoder.{i}."
+        shapes.update({b + "ln_1.weight": (d,), b + "ln_1.bias": (d,),
+                       b + "ln_2.weight": (d,), b + "ln_2.bias": (d,),
+                       b + "mlp.0.weight": (f, d), b + "mlp.0.bias": (f,),
+                       b + "mlp.3.weight": (d, f), b + "mlp.3.bias": (d,)})
+        for proj in _VIT_LINEARS:
+            a = b + "self_attention." + proj
+            shapes.update({a + ".weight": (d, d), a + ".bias": (d,)})
+    return shapes
+
+
+def vit_params_from_numpy(named, config, dtype=None):
+    """JAX-package ViT parameters (numpy, [in, out] Linear weights) -> the
+    port's ``state_dict`` (torch CPU tensors, [out, in] weights)."""
+    return _convert("vit_params_from_numpy", named,
+                    vit_expected_shapes(config), _is_vit_linear, dtype)

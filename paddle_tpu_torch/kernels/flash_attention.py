@@ -2,9 +2,10 @@
 ``paddle_tpu/kernels/flash_attention.py`` and the Pallas kernels with their
 custom VJP, ``paddle_tpu/kernels/pallas/flash_attention.py:581-850``).
 
-Entry points: ``scaled_dot_product_attention`` (the dense route of GPT and
-Llama), ``flash_attention`` (Pallas :753: a caller's scale, segment ids
-and positions, LSE), ``flash_attn_varlen`` (Pallas :836: packed sequences
+Entry points: ``scaled_dot_product_attention`` (the dense route of GPT,
+Llama and ViT; with a mask the plain ``sdpa_masked_plain``),
+``flash_attention`` (Pallas :753: a caller's scale, segment ids and
+positions, LSE), ``flash_attn_varlen`` (Pallas :836: packed sequences
 from ``cu_seqlens``) and ``flash_attn_unpadded`` (the kernels module's
 :69: output dropout and the cast to q's dtype). All have native GQA
 (Hq = G * Hk; KV heads are never expanded) and go through
@@ -49,6 +50,9 @@ from . import _build
 
 _NEG = -1e30
 _BIG = 1e30
+# the head dims the kernels are built for; ``FlashAttention`` zero-pads
+# any other D up to the last to the next of these (``padded_head_dim``)
+_KERNEL_DIMS = (64, 128)
 _MODES = ("auto", "plain")
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
@@ -234,8 +238,10 @@ def _check_qkv(what, q, k, v, extra=()):
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
                              f"shaped as q {tuple(q.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"{what}: head_dim {D} not in (64, 128)")
+    if D not in _KERNEL_DIMS:
+        raise ValueError(f"{what}: head_dim {D} not in {_KERNEL_DIMS} "
+                         f"(FlashAttention pads head dims up to "
+                         f"{_KERNEL_DIMS[-1]} to these)")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
@@ -485,6 +491,29 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
     return dq, dk, dv
 
 
+# -- head-dim padding ---------------------------------------------------------
+
+def padded_head_dim(D):
+    """The head dim the kernels run a head dim D at: the smallest of
+    ``_KERNEL_DIMS`` not below it. Raises above the largest, which the
+    kernels do not take (Pallas pads any D to a multiple of 128)."""
+    for dp in _KERNEL_DIMS:
+        if D <= dp:
+            return dp
+    raise ValueError(f"head_dim {D} is above {_KERNEL_DIMS[-1]}, the "
+                     f"largest the flash kernels take")
+
+
+def pad_head_dim(t, dp):
+    """``t`` [..., D] zero-padded to [..., dp] (``t`` itself when D ==
+    dp). Zero columns of q and k add nothing to q . k and zero columns of
+    v give zero columns of O, so the first D columns of every result and
+    LSE are those of the unpadded inputs, at the scale of the true D
+    (Pallas :793-802 pads and slices the same way)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
 # -- routing and autograd ---------------------------------------------------
 
 def use_kernel(t):
@@ -511,8 +540,11 @@ class FlashAttention(torch.autograd.Function):
     kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
-    B3. The route is chosen once, in the forward, by ``use_kernel``; on
-    the plain route the forward runs ``flash_attention_plain`` (with
+    B3. The route is chosen once, in the forward, by ``use_kernel``. On
+    the kernel route a head dim other than 64 or 128 (up to 128) is
+    zero-padded to the next of them for each launch, at the true D's
+    scale, and O, dQ, dK and dV are sliced back to D (``pad_head_dim``);
+    on the plain route the forward runs ``flash_attention_plain`` (with
     autograd off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
 
@@ -525,7 +557,13 @@ class FlashAttention(torch.autograd.Function):
                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
                   kv_positions=kv_positions)
         if kernel:
-            o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+            D = q.shape[-1]
+            dp = padded_head_dim(D)
+            kw["scale"] = _scale(scale, D)
+            o, lse = flash_fwd_cuda(*(pad_head_dim(t, dp) for t in (q, k, v)),
+                                    causal, **kw)
+            if dp != D:
+                o = o[..., :D].contiguous()
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            return_lse=True, **kw)
@@ -545,28 +583,75 @@ class FlashAttention(torch.autograd.Function):
             do = torch.zeros_like(o)
         kw = dict(zip(_SEG_NAMES, seg), scale=ctx.scale, dlse=dlse)
         if ctx.kernel:
-            dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, _kernel_layout(do),
-                                        ctx.causal, **kw)
+            D = q.shape[-1]
+            dp = padded_head_dim(D)
+            kw["scale"] = _scale(ctx.scale, D)
+            dq, dk, dv = flash_bwd_cuda(
+                *(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+                _kernel_layout(pad_head_dim(do, dp)), ctx.causal, **kw)
+            if dp != D:
+                dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                    ctx.causal, **kw)
         return (dq, dk, dv) + (None,) * 7
 
 
-def scaled_dot_product_attention(query, key, value, is_causal=False,
-                                 dropout_p=0.0, training=True,
-                                 generator=None):
+def sdpa_masked_plain(q, k, v, attn_mask, causal=False, scale=None):
+    """Attention with a mask, in plain PyTorch: the JAX package's
+    ``sdpa_xla`` (``paddle_tpu/kernels/flash_attention.py:42``), which it
+    computes instead of Pallas whenever a mask is given. q [B, Sq, Hq, D],
+    k/v [B, Sk, Hk, D] (KV heads repeated for GQA); float32 logits at
+    scale 1/sqrt(D); causal bottom-right; a bool mask (True = visible)
+    becomes 0 / -inf, a float mask is added; softmax; P cast to q's dtype
+    before P @ V. A row with every key masked is NaN, as there. Counts
+    its calls in ``calls``: no path of the port that the kernels serve
+    should reach it."""
+    sdpa_masked_plain.calls += 1
+    G = q.shape[2] // k.shape[2]
+    if G != 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    logits = torch.einsum("bsnd,btnd->bnst", q.float(), k.float()) \
+        * _scale(scale, q.shape[-1])
+    if causal:
+        logits = logits.masked_fill(
+            ~_valid_mask(q.shape[1], k.shape[1], True, q.device),
+            float("-inf"))
+    if attn_mask.dtype == torch.bool:
+        bias = torch.zeros(attn_mask.shape, device=q.device).masked_fill(
+            ~attn_mask, float("-inf"))
+    else:
+        bias = attn_mask.float()
+    probs = torch.softmax(logits + bias, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+sdpa_masked_plain.calls = 0
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
     """SDPA on [batch, seq, heads, head_dim] with scale 1/sqrt(head_dim);
-    key/value may have fewer heads (GQA). Goes through ``FlashAttention``:
-    CUDA tensors take the flash kernels, CPU tensors the plain pair; with
-    no input requiring grad (serving) autograd records nothing. Dropout, as
-    on the JAX package's route, drops entries of the attention output
-    (upscaled by 1/(1-p)), so the kernels stay on the path when p > 0.
-    Under ``amp.auto_cast`` q, k and v go to the AMP dtype first (the
-    ``flash_attention`` entry of the white list)."""
+    key/value may have fewer heads (GQA). Without ``attn_mask`` it goes
+    through ``FlashAttention``: CUDA tensors take the flash kernels, CPU
+    tensors the plain pair; with no input requiring grad (serving)
+    autograd records nothing. With ``attn_mask`` (bool, True = visible, or
+    float, added to the logits; broadcastable against [B, H, Sq, Sk]) it
+    computes ``sdpa_masked_plain``, as the JAX package leaves Pallas for
+    ``sdpa_xla`` then. Dropout, as on the JAX package's route, drops
+    entries of the attention output (upscaled by 1/(1-p)), so the kernels
+    stay on the path when p > 0. Under ``amp.auto_cast`` q, k and v go to
+    the AMP dtype first (the ``flash_attention`` entry of the white
+    list)."""
     if _AMP.enabled:
         query, key, value = _amp_cast("flash_attention", query, key, value)
-    out = FlashAttention.apply(query, key, value, bool(is_causal))
+    if attn_mask is None:
+        out = FlashAttention.apply(query, key, value, bool(is_causal))
+    else:
+        out = sdpa_masked_plain(query, key, value, attn_mask,
+                                causal=is_causal)
     if training and dropout_p > 0.0:
         out = _dropout(out, dropout_p, training=True, generator=generator)
     return out

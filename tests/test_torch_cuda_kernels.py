@@ -99,6 +99,9 @@ def _row_rel_err(out, ref):
     # q/k/v as strided views of one [B, S, 3, H, D] projection
     (2, 300, 300, 4, 4, 64, True, True),
     (2, 129, 129, 2, 2, 128, True, True),
+    # ViT-L/16's attention at a smaller batch: S 197 (5 live keys in the
+    # last tile), G 1, non-causal
+    (2, 197, 197, 16, 16, 64, False, False),
 ])
 def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal, fused):
     if fused:
@@ -521,6 +524,8 @@ def _rel_err(out, ref):
     # S 2048 at G 4: the balanced dK/dV grid (Llama-3-8B's shape)
     (1, 2048, 2048, 32, 8, 128, True),
     (1, 2048, 2048, 16, 4, 64, True),
+    # ViT-L/16's attention at a smaller batch
+    (2, 197, 197, 16, 16, 64, False),
 ])
 def test_flash_bwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
     q = _randn(dev, B, Sq, Hq, D, seed=1)
@@ -654,6 +659,45 @@ def test_flash_autograd_on_strided_views_matches_plain_route(dev):
             set_flags({"FLAGS_flash_kernel": "auto"})
     torch.cuda.synchronize()
     assert _rel_err(grads["auto"], grads["plain"]) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("D,causal", [(80, False), (80, True),
+                                      (40, False)])
+def test_flash_autograd_pads_other_head_dims(dev, D, causal):
+    """A head dim other than 64 or 128 (D 80 is ViT-H/14's): the kernel
+    route pads it to the next of them and slices back; its output and
+    gradients agree with the plain route's (FLAGS_flash_kernel=plain)."""
+    b, s, hq, hk = 2, 197, 16, 16 if not causal else 4
+    shapes = ((b, s, hq, D), (b, s, hk, D), (b, s, hk, D))
+    do = _randn(dev, b, s, hq, D, seed=14)
+    outs, grads = {}, {}
+    for mode in ("auto", "plain"):
+        set_flags({"FLAGS_flash_kernel": mode})
+        try:
+            ts = [_randn(dev, *sh, seed=11 + i).requires_grad_()
+                  for i, sh in enumerate(shapes)]
+            before = flash_fwd_cuda.launches
+            out = scaled_dot_product_attention(*ts, is_causal=causal)
+            out.backward(do)
+            assert flash_fwd_cuda.launches - before == (mode == "auto")
+            outs[mode], grads[mode] = out, [t.grad for t in ts]
+        finally:
+            set_flags({"FLAGS_flash_kernel": "auto"})
+    torch.cuda.synchronize()
+    assert outs["auto"].shape == (b, s, hq, D)
+    assert (outs["auto"].float() - outs["plain"].float()).abs().max() \
+        .item() <= ATOL
+    assert _row_rel_err(outs["auto"], outs["plain"]) <= ROW_RTOL
+    for name, a, r in zip(("dq", "dk", "dv"), grads["auto"],
+                          grads["plain"]):
+        assert a.shape == r.shape, name
+        assert _rel_err(a, r) <= BWD_RTOL, name
+
+
+def test_flash_autograd_refuses_head_dims_above_128(dev):
+    q = _randn(dev, 1, 64, 2, 160, seed=1)
+    with pytest.raises(ValueError, match="above 128"):
+        scaled_dot_product_attention(q, q, q)
 
 
 def _packed_seg(dev, cu_q, cu_k):

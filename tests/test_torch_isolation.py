@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch import GPT, GPTConfig, Llama, LlamaConfig
+from paddle_tpu_torch import nn
 from paddle_tpu_torch.core import resolve_device
+from paddle_tpu_torch.vision.models import vit_l_16
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,7 +38,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                     "nn.clip", "serving.frontend", "inference.paged",
                     "serving.spec", "profiler.tracing",
                     "profiler.accounting", "amp", "amp.fp8", "optimizer.lr",
-                    "optimizer.adam", "optimizer.lbfgs", "regularizer"):
+                    "optimizer.adam", "optimizer.lbfgs", "regularizer",
+                    "nn.initializer", "nn.conv", "nn.transformer",
+                    "vision.models.vit"):
             assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)
@@ -56,3 +60,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_layers_and_vit_default_to_cuda(monkeypatch):
+    """A layer or a ViT built without a device is a CUDA one: without a
+    GPU it raises instead of landing on the CPU; ``device="cpu"`` asks
+    for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: nn.Linear(4, 4), lambda: nn.Embedding(4, 4),
+                  lambda: nn.LayerNorm(4), lambda: nn.RMSNorm(4),
+                  lambda: nn.Conv2D(3, 4, 2),
+                  lambda: nn.MultiHeadAttention(8, 2),
+                  lambda: vit_l_16(num_classes=1000)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert nn.Linear(4, 4, device="cpu").weight.device.type == "cpu"
+    assert nn.Conv2D(3, 4, 2, device="cpu").weight.device.type == "cpu"
