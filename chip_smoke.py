@@ -163,6 +163,46 @@
    B's prompts as engine B does: the teacher-forced check, B1 32 per
    prefill, B4 32 per decode step and 224 fp8 products per prefill and
    decode step, and a profile of its decode.
+5d. ``llama_train`` (after ``vit_train``): the Llama training slice at
+   Llama-3-8B width (vocab 128256, d 4096, MLP 14336, Hq 32, Hk 8, D 128,
+   theta 5e5) cut to 4 layers (1,923,125,248 parameters; the 32-layer
+   state with fp32 masters and moments would not fit one card), bf16
+   with fp32 masters from generator seed 0, one batch of 2 x 2048 random
+   ids: a route gate (kernel route vs plain route vs a float32 copy on
+   the plain route, every layer's q_proj and k_proj grads), then
+   ``TrainStep(lambda m, ids: m.loss(ids, ids))`` under AdamW 1e-3 with
+   clip 1.0 (examples/hybrid_llama.py:64-68), 2 + 10 steps. Gates:
+   finite, falling losses; B1, B2 and B3 exactly 4 times a step, no
+   other kernel of the port, no call of the plain flash pair. Prints step
+   ms, tokens/s, MFU (``flops_per_token(2048)`` x 4096 tokens a step /
+   989 TFLOP/s), peak memory and a profile of 2 steps (busy, idle,
+   kernels a step, the optimizer's range), the fused LM head's forward +
+   backward at the step's shape; then the tensor checker
+   (``amp.debugging``) on one forward (every hooked op checked, none
+   flagged; a NaN weight raises naming ``linear``; checked vs unchecked
+   time) and ``profiler.Profiler(scheduler=(1, 3))`` around 4 steps,
+   whose exported device trace must name B1, B2 and B3's kernels.
+5e. In the serving phase, before the int8 conversion: ``generate``,
+   ``model.generate`` (greedy, contiguous cache, plain cached attention,
+   no kernel of the port) on 4 prompts of 128 tokens, 32 new each,
+   against ``ContinuousBatchingEngine`` on the same prompts: tokens
+   equal up to a near-tie (``spec_divergence``), an eos case (rows run
+   free up to their first eos and emit only eos after), tokens/s of
+   both; and ``telemetry``, engine S's traffic on a ``ServingEngine``
+   with ``serve_metrics(port=0)`` on 127.0.0.1: every route scraped with
+   urllib (``/metrics`` counters equal to the registry's, ``/healthz``,
+   ``/readyz``, ``/alerts`` with the five rules, ``/summary``'s
+   sections, ``/traces/<worst TTFT exemplar>``), then a second window
+   with the TTFT budget at 1 ms: ``slo.ttft_burn`` fires once with a
+   trace id that resolves, one ``alert.slo.ttft_burn`` flight record,
+   listed under "Recent incidents", resolved once the budget is
+   restored; ``maybe_evaluate``'s host cost and the engine's decode
+   tokens/s beside engine S's.
+5f. Kernel cases above head dim 128: B1, B2 and B3 at D 256 (the
+   mma.sync kernels) and D 160 (zero-padded to 256), B 1, Hq 16, Hk 4,
+   S 2048 causal and S 197 non-causal, against the plain pair at the true
+   D, with times, bounds and SDPA's times; and at the llama_train shape
+   (B 2, S 2048, Hq 32, Hk 8, D 128).
 5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
    bf16: each of the 14 optimizers takes 3 steps from the same weights
    under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
@@ -172,8 +212,9 @@
    the skipped step leaves the weights, the scale goes 65536, 131072,
    65536, 65536 as its rules give.
 6. Prints one ``{"kernels": [...]}`` line (B1-B7, B1-B3 with their
-   ViT-L/16 case beside, and the segment entries B1-seg, B2-seg, B3-seg
-   at V1, every case beside) and, last, the
+   ViT-L/16 case, their llama_train path and their head-dim-160/256
+   cases (``d256``) beside, and the segment entries B1-seg, B2-seg,
+   B3-seg at V1, every case beside) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -193,6 +234,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -319,9 +361,33 @@ QMM_VERIFY_M = 8 * (1 + SPEC_TOKENS)  # B7's rows in a verify sweep
 REPEAT_EMBED_STD = 16.0
 # every accounted step closes: attributed + build + idle = step time
 CLOSURE_RTOL = 1e-6
+# llama_train (the Llama training slice): Llama-3-8B width at 4 layers (a
+# reduced depth: the 32-layer state would not fit one card with fp32
+# masters and moments), batch 2 x 2048, AdamW 1e-3 and clip 1.0 as
+# examples/hybrid_llama.py:64-66
+LT_LAYERS, LT_B, LT_S, LT_LR = 4, 2, 2048, 1e-3
+LT_PARAMS = 1_923_125_248
+LT_PROFILER_STEPS = 4          # steps under profiler.Profiler(scheduler=(1, 3))
+# generate: greedy model.generate against ContinuousBatchingEngine on the
+# same prompts (examples/serve_llm.py:276-288 at full width)
+GEN_PROMPTS, GEN_LEN, GEN_NEW, GEN_SEED = 4, 128, 32, 14
+# telemetry: the second window's TTFT budget, below every measured TTFT
+# (each is a prefill of 500-700 tokens behind a queue: tens of ms at least)
+TELE_BUDGET_US = 1000
+# the endpoint's A/B: front traffic on two engines built alike, one with
+# serve_metrics attached, in this order (each engine once cold, once warm)
+AB_ORDER = ("bare", "attached", "attached", "bare")
+# B1-B3 above head dim 128: (S, D, causal) at B 1, Hq 16, Hk 4; D 160
+# runs zero-padded to the kernels' 256
+WIDE_CASES = ((2048, 256, True), (197, 256, False), (2048, 160, True),
+              (197, 160, False))
+WIDE_B, WIDE_HQ, WIDE_HK = 1, 16, 4
 V1_TOKENS, V1_LONGEST = 8192, 2048
 V2_TOKENS, V2_LONGEST = 4096, 1024
 V3_SEQ = 2048
+# V4: Gemma-2 9B's attention widths (Hq 16, Hk 8, D 256), the segment
+# branch of the D 256 kernels
+V4_TOKENS, V4_LONGEST, V4_HQ, V4_HK, V4_D = 4096, 1024, 16, 8, 256
 
 
 def fail(msg, code=1):
@@ -605,6 +671,107 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh, causal=True,
     return recs
 
 
+def wide_phase(torch, timer, S, dh, causal):
+    """B1, B2 and B3 at a head dim above 128 (B 1, Hq 16, Hk 4): at D 256
+    the mma.sync kernels as they are, at D 160 zero-padded to 256 as
+    ``FlashAttention`` pads it (the scale the true D's; the padding copies
+    are outside the timed calls), against the plain pair at the true D;
+    times (events and graph replays), bounds over the true D's work, the
+    plain pair's and SDPA's (where it takes the shape). Returns one record
+    per kernel."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain,
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_delta, flash_fwd_cuda,
+        pad_head_dim, padded_head_dim)
+    B, hq, hk = WIDE_B, WIDE_HQ, WIDE_HK
+    dp = padded_head_dim(dh)
+    scale = 1.0 / math.sqrt(dh)
+    g = torch.Generator(device=DEVICE).manual_seed(4000 + S + dh)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
+                               dtype=torch.bfloat16)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    qp, kp, vp, dop = (pad_head_dim(t, dp).contiguous()
+                       for t in (q, k, v, do))
+    fwd = lambda: flash_fwd_cuda(qp, kp, vp, causal=causal, scale=scale)
+    o_p, lse = fwd()
+    o = o_p[..., :dh]
+    delta = flash_delta(o_p, dop)
+    dq_call = lambda: flash_bwd_dq_cuda(qp, kp, vp, dop, lse, delta,
+                                        causal=causal, scale=scale)
+    dkv_call = lambda: flash_bwd_dkv_cuda(qp, kp, vp, dop, lse, delta,
+                                          causal=causal, scale=scale)
+    dq = dq_call()[..., :dh]
+    dk, dv = (t[..., :dh] for t in dkv_call())
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    err_row = row_rel_err(o, o_ref)
+    errs = {}
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        diff = (out.float() - ref.float()).abs().max().item()
+        errs[name] = (diff, diff / max(ref.float().abs().max().item(), 1e-6),
+                      bool(torch.isfinite(out.float()).all()))
+    del refs
+    ok_fwd = err_o <= O_ATOL and err_l <= LSE_ATOL and \
+        err_row <= ROW_RTOL and bool(torch.isfinite(o.float()).all())
+    times = {n: (timer(f), timer.graph(f)) for n, f in (
+        ("flash_fwd", fwd), ("flash_bwd_dq", dq_call),
+        ("flash_bwd_dkv", dkv_call))}
+    plain_fwd = timer(lambda: flash_attention_plain(
+        q, k, v, causal=causal, return_lse=True), iters=10)
+    plain_bwd = timer(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal), iters=10)
+    lib_fwd = lib_bwd = None
+    try:
+        lib = sdpa_library(torch, q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), is_causal=causal)
+        lib_fwd = timer(lib)
+        lib_bwd = timer(sdpa_backward_library(
+            torch, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            do.transpose(1, 2), causal), iters=20)
+    except RuntimeError as e:  # SDPA may not take this head dim
+        print(f"sdpa at D {dh}: {e}", flush=True)
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    nbytes = (q.numel() + k.numel() + v.numel() + o.numel()) * 2 \
+        + lse.numel() * 4
+    bounds = dict(bwd_bounds(q, k, lse, pairs),
+                  flash_fwd=bound(nbytes, 4 * hq * dh * pairs))
+    shape = dict(case=f"d{dh}", B=B, S=S, Hq=hq, Hk=hk, D=dh,
+                 padded_to=dp, causal=causal)
+    recs = {}
+    for name, keys in (("flash_fwd", None), ("flash_bwd_dq", ("dq",)),
+                       ("flash_bwd_dkv", ("dk", "dv"))):
+        ms, graph_ms = times[name]
+        bms, by = bounds[name]
+        if keys is None:
+            rec = dict(shape, max_abs_err=err_o, lse_err=err_l,
+                       row_rel_err=err_row, ok=ok_fwd, plain_ms=plain_fwd,
+                       library_ms=lib_fwd)
+        else:
+            rel = max(errs[k][1] for k in keys)
+            rec = dict(shape, max_abs_err=max(errs[k][0] for k in keys),
+                       rel_err=rel, plain_ms=plain_bwd, library_ms=lib_bwd,
+                       ok=rel <= BWD_RTOL and all(errs[k][2] for k in keys))
+        rec.update(ms=ms, graph_ms=graph_ms, bound_ms=bms, bound_by=by,
+                   graph_share_of_bound=bms / graph_ms)
+        recs[name] = rec
+        print(f"{name} D={dh} (run at {dp}) B={B} S={S} Hq={hq} Hk={hk} "
+              f"causal={causal}: err {rec['max_abs_err']:.3e}"
+              + (f" row {err_row:.3e} LSE {err_l:.3e}" if keys is None
+                 else f" (rel {rec['rel_err']:.3e})")
+              + f" | kernel {ms:.4f} ms (graph {graph_ms:.4f}) plain "
+              f"{rec['plain_ms']:.4f} ms sdpa {rec['library_ms']} ms bound "
+              f"{bms:.4f} ms ({by}; {bms / graph_ms:.1%} of it)",
+              flush=True)
+        if not rec["ok"]:
+            fail(f"{name} at head dim {dh} disagrees with its plain "
+                 f"version: {rec}")
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # varlen phase: packed sequences through the segment branch of B1-B3
 # ---------------------------------------------------------------------------
@@ -866,8 +1033,10 @@ def varlen_cases(torch):
     tokens whose queries are each sequence's last min(L, 64) tokens, one
     sequence with none (the bottom-right shift); V3: ``flash_attention``
     with segment ids at B 2, S 2048, GPT-2 medium width, causal, ids
-    (pos // 96) % 3 on both sides and one query id no key has. V1 and V2
-    go through ``nn.functional.flash_attn_unpadded``, V3 through
+    (pos // 96) % 3 on both sides and one query id no key has; V4: V1's
+    layout at Gemma-2 9B's attention widths (Hq 16, Hk 8, D 256), a packed
+    row of 4096 tokens of lengths 1..1024. V1, V2 and V4 go through
+    ``nn.functional.flash_attn_unpadded``, V3 through
     ``kernels.flash_attention.flash_attention``, bf16."""
     from paddle_tpu_torch.kernels.flash_attention import (
         _segments, flash_attention, varlen_segments)
@@ -924,6 +1093,10 @@ def varlen_cases(torch):
         q=q, k=k, v=v, do=do, causal=True, scale=1.0 / math.sqrt(GPT_D),
         seg=_segments(q, k, q_ids, kv_ids, q_pos, None), call=call,
         longest=(0, 96))
+    del q, k, v, do
+
+    lens = varlen_lengths(8, V4_TOKENS, V4_LONGEST)
+    yield "V4", packed("V4", lens, lens, V4_HQ, V4_HK, V4_D)
 
 
 def varlen_phase(torch):
@@ -1232,6 +1405,15 @@ def kernel_phases(torch):
            flash_bwd_phase(torch, timer, 1, 2048, HQ, HK, D),
            flash_bwd_phase(torch, timer, VIT_B, VIT_S, VIT_H, VIT_H, VIT_D,
                            causal=False, case="vit")]
+    # B1-B3 at the llama_train shape, and above head dim 128
+    flash.append(flash_phase(torch, timer, LT_S, B=LT_B,
+                             case="llama_train"))
+    bwd.append(flash_bwd_phase(torch, timer, LT_B, LT_S, HQ, HK, D,
+                               case="llama_train"))
+    for S, dh, causal in WIDE_CASES:
+        recs = wide_phase(torch, timer, S, dh, causal)
+        flash.append(recs["flash_fwd"])
+        bwd.append(recs)
     short = [0, 1, 16, 17, 100, 161, 239, 240]
     lens = np.linspace(1, 2048, 8).astype(np.int64)
     decode = {}
@@ -1359,6 +1541,7 @@ class Instrumented:
     def reset(self):
         self.calls = {k: 0 for k in self.KINDS}
         self.secs = {k: 0.0 for k in self.KINDS}
+        self.steps = {k: [] for k in self.KINDS}
 
     def _wrap(self, fn, kind):
         def run(*a, **kw):
@@ -1366,7 +1549,9 @@ class Instrumented:
             t = time.perf_counter()
             r = fn(*a, **kw)
             self.torch.cuda.synchronize()
-            self.secs[kind] += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            self.secs[kind] += dt
+            self.steps[kind].append(dt)
             self.calls[kind] += 1
             return r
         return run
@@ -2429,6 +2614,9 @@ def slice_phase(torch):
         torch, model, ext_prompt, "S, extend", prefix_len=FRONT_SYSTEM)
     results["S-spec"]["verify_profile"] = profile_verify(
         torch, model, spec_prompts, "S-spec")
+    results["generate"] = generate_phase(torch, model, cfg.vocab_size)
+    results["telemetry"] = telemetry_phase(
+        torch, model, front, results["S"]["decode_tok_per_s"])
 
     # engines R-spec and R8-spec: the same traffic on a model whose greedy
     # output repeats itself, bf16 and then int8 weights + KV
@@ -2507,6 +2695,325 @@ def slice_phase(torch):
     check_frontend_launches(results)
     return results, asked["B"]
 
+
+# ---------------------------------------------------------------------------
+# generate phase: dense generation against the paged engine
+# ---------------------------------------------------------------------------
+
+def generate_phase(torch, model, vocab):
+    """``model.generate`` (greedy, the contiguous cache, plain cached
+    attention as in the JAX package) on GEN_PROMPTS prompts of GEN_LEN
+    tokens, GEN_NEW new each, against ``ContinuousBatchingEngine`` on the
+    same prompts (examples/serve_llm.py:276-288): tokens equal up to each
+    request's first divergence, where the teacher-forced top-2 gap must
+    lie within GAP_TOL (``spec_divergence``); and every generated token
+    whose teacher-forced gap exceeds GAP_TOL equal to the dense
+    forward's argmax (``teacher_forced``). Then one eos case: eos set
+    to the token row 0 emits at its 6th new position: every row keeps its
+    free-running tokens up to its first eos and emits only eos after.
+    The dense path launches no kernel of the port; the engine's launches
+    are counted."""
+    from paddle_tpu_torch import ContinuousBatchingEngine
+    rng = np.random.default_rng(GEN_SEED)
+    prompts = rng.integers(0, vocab, (GEN_PROMPTS, GEN_LEN)).astype(np.int64)
+    model.generate(prompts[:1, :16], max_new_tokens=2)  # first-call setup
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    out = model.generate(prompts, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    gen_launches, _ = read_counts()
+    if any(gen_launches.values()):
+        fail(f"generate launched kernels of the port: {gen_launches}")
+    gen = out[:, GEN_LEN:].cpu().numpy()
+    if out.shape != (GEN_PROMPTS, GEN_LEN + GEN_NEW):
+        fail(f"generate returned {tuple(out.shape)}")
+
+    engine = ContinuousBatchingEngine(model, max_batch=8, block_size=16,
+                                      max_seq_len=256, temperature=0.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rids = [engine.add_request(p, GEN_NEW) for p in prompts]
+    while engine.has_work:
+        engine.step()
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t
+    eng_launches, _ = read_counts()
+    paged = [list(map(int, engine.finished[r].generated)) for r in rids]
+    del engine
+    divergences = spec_divergence(torch, model, list(prompts), paged,
+                                  [list(map(int, row)) for row in gen])
+    equal = sum(a == list(map(int, b)) for a, b in zip(paged, gen))
+    # generate's own tokens against the dense forward (B1) over prompt +
+    # generated, every position where the top-2 gap is beyond GAP_TOL
+    ran = types.SimpleNamespace(finished={
+        i: types.SimpleNamespace(rid=i, prompt=p, generated=list(map(
+            int, row))) for i, (p, row) in enumerate(zip(prompts, gen))})
+    forced = teacher_forced(torch, model, ran)
+
+    eos = int(gen[0, 5])
+    with_eos = model.generate(prompts, max_new_tokens=GEN_NEW,
+                              eos_token_id=eos)[:, GEN_LEN:].cpu().numpy()
+    for i, (free, row) in enumerate(zip(gen, with_eos)):
+        # up to its first eos a row runs free; from there on, only eos
+        first = int(np.argmax(free == eos)) if (free == eos).any() \
+            else GEN_NEW
+        if not (row[:first] == free[:first]).all() or \
+                not (row[first:] == eos).all():
+            fail(f"generate with eos {eos}: row {i} {row.tolist()} against "
+                 f"free-running {free.tolist()}")
+    rec = dict(prompts=GEN_PROMPTS, prompt_len=GEN_LEN, new=GEN_NEW,
+               generate_s=gen_s,
+               generate_tok_per_s=GEN_PROMPTS * GEN_NEW / gen_s,
+               engine_s=eng_s, engine_tok_per_s=GEN_PROMPTS * GEN_NEW / eng_s,
+               equal_requests=equal, divergences=divergences, eos=eos,
+               teacher_forced=forced,
+               engine=dict(launches=eng_launches))
+    print(f"generate: {json.dumps(rec)}", flush=True)
+    print(f"generate (greedy, {GEN_PROMPTS} x {GEN_LEN} + {GEN_NEW}): "
+          f"{rec['generate_tok_per_s']:.1f} tokens/s against the paged "
+          f"engine's {rec['engine_tok_per_s']:.1f} (prefill included); "
+          f"{equal} of {GEN_PROMPTS} requests equal", flush=True)
+    if eng_launches["flash_fwd"] != GEN_PROMPTS * LAYERS:
+        fail(f"generate's engine: {eng_launches['flash_fwd']} B1 launches "
+             f"for {GEN_PROMPTS} prefills")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# telemetry phase: a serving engine's alerts and metrics endpoint
+# ---------------------------------------------------------------------------
+
+def _scrape(url, expect=200):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    if code != expect:
+        fail(f"telemetry: GET {url} gave {code}, expected {expect}: "
+             f"{body[:300]}")
+    return body
+
+
+def _ttft_burn_records():
+    from paddle_tpu_torch.distributed import watchdog
+    return [r for r in watchdog.flight_recorder().records()
+            if r["tag"] == "alert.slo.ttft_burn"]
+
+
+def telemetry_phase(torch, model, prompts, s_decode):
+    """Engine S's traffic (``front_traffic``) on a ``ServingEngine`` with
+    ``serve_metrics(port=0)`` attached, two windows:
+
+    1. default flags; then every route is scraped with urllib: the
+       ``serving.*`` counters of ``/metrics`` equal the registry's,
+       ``/healthz`` and ``/readyz`` 200, ``/alerts`` attached with the five
+       default rules, ``/summary`` with its sections, and the worst TTFT
+       exemplar's trace resolving at ``/traces/<id>``;
+    2. ``FLAGS_slo_ttft_budget_us`` below every TTFT: the traffic again
+       with the interval held long (no evaluation mid-window), then
+       interval 0, so the ``/alerts`` scrape's nudge evaluates the whole
+       window: ``slo.ttft_burn`` fires once, its trace resolves, the ring
+       holds one ``alert.slo.ttft_burn`` record, the summary lists it;
+       with the budget restored the next scrape resolves it into history.
+
+    Flags are restored; the endpoint is gone after ``close()``. Prints
+    ``maybe_evaluate``'s host cost when not due and of one evaluation,
+    and the engine's decode tokens/s beside engine S's; then
+    ``endpoint_ab``."""
+    import urllib.error
+    import urllib.request
+    from paddle_tpu_torch.core import get_flags, set_flags
+    from paddle_tpu_torch.profiler import export, metrics
+    from paddle_tpu_torch.serving import ServingEngine
+    names = ("FLAGS_slo_ttft_budget_us", "FLAGS_alert_interval_s")
+    saved = get_flags(list(names))
+    inst = Instrumented(torch, model)
+    engine = ServingEngine(model, max_batch=8, block_size=16,
+                           max_seq_len=2048, temperature=0.0,
+                           background=False)
+    srv = engine.serve_metrics(port=0)
+    rec = dict(port=srv.port)
+    # the latency histograms restart: exemplars never age, and an earlier
+    # engine's larger TTFTs would hold every bucket with traces the ring
+    # has rotated out
+    for name in ("serving.ttft_us", "serving.itl_us",
+                 "serving.queue_wait_us"):
+        metrics.reset(name)
+    try:
+        # window 1: default flags
+        zero_counts()
+        inst.reset()
+        for p in prompts:
+            engine.submit(p, max_new_tokens=FRONT_NEW)
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        launches, _ = read_counts()
+        decoded = len(prompts) * (FRONT_NEW - 1)
+        rec.update(launches=launches, decode_steps=inst.calls["decode"],
+                   decode_tok_per_s=decoded / max(inst.secs["decode"],
+                                                  1e-9))
+        parsed = export.parse_prometheus(_scrape(srv.url("/metrics")))
+        snap = metrics.snapshot("serving.")
+        kinds = metrics.registry.kinds("serving.")
+        counters = {n: v for n, v in snap.items()
+                    if kinds[n] is metrics.Counter}
+        off = {n: (v, parsed.get(export._pname(n), {}).get("value"))
+               for n, v in counters.items()
+               if parsed.get(export._pname(n), {}).get("value") != v}
+        if off:
+            fail(f"telemetry: /metrics disagrees with the registry: {off}")
+        hz = json.loads(_scrape(srv.url("/healthz")))
+        rz = json.loads(_scrape(srv.url("/readyz")))
+        al = json.loads(_scrape(srv.url("/alerts")))
+        if not al["attached"] or len(al["rules"]) != 5:
+            fail(f"telemetry: /alerts {al}")
+        summary = _scrape(srv.url("/summary"))
+        sections = ("Serving / SLO View", "Slow requests", "Capacity View",
+                    "Goodput")
+        missing = [x for x in sections if x not in summary]
+        if missing:
+            fail(f"telemetry: /summary lacks {missing}")
+        ex = snap["serving.ttft_us"]["exemplars"]
+        worst = max(ex.values(), key=lambda e: e["value"])
+        trace = json.loads(_scrape(srv.url(f"/traces/{worst['trace_id']}")))
+        _scrape(srv.url("/traces/no-such-trace"), expect=404)
+        json.loads(_scrape(srv.url("/traces")))
+        json.loads(_scrape(srv.url("/metrics/delta")))
+        rec.update(counters_checked=len(counters), healthz=hz["status"],
+                   ready=rz["ready"], rules=[r["name"] for r in al["rules"]],
+                   window1_incidents=[i["rule"] for i in al["active"]],
+                   worst_ttft_us=worst["value"],
+                   worst_trace_events=len(trace["traceEvents"]))
+
+        # maybe_evaluate's host cost: not due, and one evaluation
+        set_flags({"FLAGS_alert_interval_s": 3600.0})
+        mgr = engine.alerts
+        mgr.evaluate()
+        n = 20000
+        t = time.perf_counter()
+        for _ in range(n):
+            mgr.maybe_evaluate()
+        rec["maybe_evaluate_not_due_us"] = \
+            (time.perf_counter() - t) / n * 1e6
+        t = time.perf_counter()
+        for _ in range(50):
+            mgr.evaluate()
+        rec["evaluate_ms"] = (time.perf_counter() - t) / 50 * 1e3
+
+        # window 2: the budget below every TTFT
+        set_flags({"FLAGS_slo_ttft_budget_us": TELE_BUDGET_US})
+        before = len(_ttft_burn_records())
+        fired0 = metrics.counter("alerts.fired").value
+        hist0 = sum(i["rule"] == "slo.ttft_burn" for i in mgr.history())
+        mgr.evaluate()  # the window opens here
+        for p in prompts:
+            engine.submit(p, max_new_tokens=FRONT_NEW)
+        engine.run_until_idle()
+        if any(i["rule"] == "slo.ttft_burn" for i in mgr.active()):
+            fail("telemetry: slo.ttft_burn evaluated mid-window")
+        set_flags({"FLAGS_alert_interval_s": 0.0})
+        al = json.loads(_scrape(srv.url("/alerts")))
+        burn = [i for i in al["active"] if i["rule"] == "slo.ttft_burn"]
+        if len(burn) != 1 or not burn[0].get("trace_id"):
+            fail(f"telemetry: slo.ttft_burn did not fire once with a trace "
+                 f"id: {al}")
+        inc = burn[0]
+        trace = json.loads(_scrape(srv.url(f"/traces/{inc['trace_id']}")))
+        recs = _ttft_burn_records()
+        if len(recs) != before + 1 or recs[-1].get("trace") != \
+                inc["trace_id"]:
+            fail(f"telemetry: the flight ring holds {len(recs) - before} "
+                 f"new alert.slo.ttft_burn records: {recs[-2:]}")
+        summary = _scrape(srv.url("/summary"))
+        if "Recent incidents" not in summary or \
+                "alert.slo.ttft_burn" not in summary:
+            fail("telemetry: the summary lacks the incident")
+        set_flags({"FLAGS_slo_ttft_budget_us":
+                   saved["FLAGS_slo_ttft_budget_us"]})
+        al = json.loads(_scrape(srv.url("/alerts")))
+        resolved = [i for i in al["history"]
+                    if i["rule"] == "slo.ttft_burn" and "resolved" in i]
+        if any(i["rule"] == "slo.ttft_burn" for i in al["active"]) or \
+                len(resolved) != hist0 + 1:
+            fail(f"telemetry: slo.ttft_burn did not resolve: {al}")
+        rec.update(burn=dict(value=inc["value"], detail=inc["detail"],
+                             trace_events=len(trace["traceEvents"])),
+                   fired_all_rules=metrics.counter("alerts.fired").value
+                   - fired0, ttft_burn_fired=len(recs) - before,
+                   ttft_burn_resolved=len(resolved) - hist0)
+    finally:
+        set_flags(saved)
+        inst.restore()
+        engine.close()
+    try:
+        urllib.request.urlopen(srv.url("/healthz"), timeout=5)
+    except urllib.error.URLError:
+        pass
+    else:
+        fail("telemetry: the endpoint answers after close()")
+    print(f"telemetry: {json.dumps(rec)}", flush=True)
+    print(f"telemetry: maybe_evaluate {rec['maybe_evaluate_not_due_us']:.3f}"
+          f" us a step when not due, one evaluation "
+          f"{rec['evaluate_ms']:.3f} ms; decode {rec['decode_tok_per_s']:.1f}"
+          f" tokens/s with alerts and the endpoint (engine S this run "
+          f"{s_decode:.1f})", flush=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["endpoint_ab"] = endpoint_ab(torch, model, prompts)
+    return rec
+
+
+def endpoint_ab(torch, model, prompts):
+    """The endpoint's cost on decode: ``prompts`` on two engines built
+    alike (alerts armed on both), one with ``serve_metrics(port=0)``
+    attached, in AB_ORDER, so that each is once cold and once warm (its
+    prefix cache full). Returns each run's decode tokens/s and median
+    decode step (host clock, synchronized)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    inst = Instrumented(torch, model)
+    engines = {label: ServingEngine(model, max_batch=8, block_size=16,
+                                    max_seq_len=2048, temperature=0.0,
+                                    background=False)
+               for label in ("bare", "attached")}
+    engines["attached"].serve_metrics(port=0)
+    runs = []
+    try:
+        for label in AB_ORDER:
+            inst.reset()
+            for p in prompts:
+                engines[label].submit(p, max_new_tokens=FRONT_NEW)
+            engines[label].run_until_idle()
+            torch.cuda.synchronize()
+            steps = inst.steps["decode"]
+            runs.append(dict(
+                engine=label, decode_steps=len(steps),
+                decode_tok_per_s=len(prompts) * (FRONT_NEW - 1)
+                / max(sum(steps), 1e-9),
+                decode_step_median_ms=float(np.median(steps)) * 1e3))
+    finally:
+        inst.restore()
+        for e in engines.values():
+            e.close()
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    by = {label: [r for r in runs if r["engine"] == label]
+          for label in ("bare", "attached")}
+    fmt = lambda key, f: " / ".join(
+        f"{label} " + ", ".join(f.format(r[key]) for r in rs)
+        for label, rs in by.items())
+    print(f"telemetry A/B: {json.dumps(runs)}", flush=True)
+    print(f"telemetry A/B (cold, warm): decode tokens/s "
+          f"{fmt('decode_tok_per_s', '{:.1f}')}; median decode step ms "
+          f"{fmt('decode_step_median_ms', '{:.2f}')}", flush=True)
+    return runs
 
 # ---------------------------------------------------------------------------
 # training phase: GPT-2 medium trained by TrainStep
@@ -2707,13 +3214,13 @@ def init_digest(model, ids):
             int(ids.sum())]
 
 
-def run_steps(torch, model, batch, step_fn):
-    """AdamW 3e-4, clip 1.0, ``TrainStep`` on one batch: WARMUP_STEPS +
+def run_steps(torch, model, batch, step_fn, lr=3e-4):
+    """AdamW ``lr``, clip 1.0, ``TrainStep`` on one batch: WARMUP_STEPS +
     TIMED_STEPS steps, counts zeroed just before and read just after.
     Returns (losses, seconds of the timed steps, launches, step, opt)."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
     step = TrainStep(model, opt, step_fn)
     torch.cuda.reset_peak_memory_stats()
@@ -3040,6 +3547,229 @@ def vit_train_phase(torch):
     torch.cuda.empty_cache()
     return rec
 
+
+# ---------------------------------------------------------------------------
+# llama_train phase: Llama-3-8B width trained by TrainStep
+# ---------------------------------------------------------------------------
+
+def llama_train_model(torch):
+    """Llama-3-8B's widths (vocab 128256, d 4096, MLP 14336, Hq 32, Hk 8,
+    D 128, theta 5e5) at LT_LAYERS layers, bf16 and trainable, from
+    generator seed 0, and one batch of LT_B x LT_S random ids from the
+    same generator (examples/hybrid_llama.py:72-75 trains on random ids)."""
+    from paddle_tpu_torch import Llama, LlamaConfig
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_layers = LT_LAYERS
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = Llama(cfg, device=DEVICE, dtype=torch.bfloat16, generator=gen,
+                  requires_grad=True)
+    ids = torch.randint(0, cfg.vocab_size, (LT_B, LT_S), device=DEVICE,
+                        generator=gen)
+    torch.cuda.synchronize()
+    n = model.num_params()
+    if n != LT_PARAMS or (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) \
+            != (HQ, HK, D):
+        fail(f"llama_train: {n} parameters (expected {LT_PARAMS}), {cfg}")
+    print(f"Llama-3-8B x {LT_LAYERS} layers: {n} params bf16, built in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return model, ids
+
+
+class _PlainCalls:
+    """Counts calls of the flash pair's plain versions while it is
+    entered: the kernel route's main path must make none."""
+
+    def __enter__(self):
+        import paddle_tpu_torch.kernels.flash_attention as fa
+        self.fa, self.calls = fa, 0
+        self.orig = (fa.flash_attention_plain, fa.flash_attention_bwd_plain)
+
+        def counted(f):
+            def run(*a, **k):
+                self.calls += 1
+                return f(*a, **k)
+            return run
+        fa.flash_attention_plain, fa.flash_attention_bwd_plain = \
+            (counted(f) for f in self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention_plain, self.fa.flash_attention_bwd_plain = \
+            self.orig
+        return False
+
+
+def tensor_checker_check(torch, model, ids):
+    """The tensor checker (``amp.debugging``) on one llama_train forward:
+    armed, the hooked ops' outputs are checked and none flagged; one NaN
+    weight raises ``FloatingPointError`` naming the op; the checked
+    forward's time beside the unchecked one's."""
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.profiler import metrics
+
+    def forward():
+        with torch.no_grad():
+            loss = model.loss(ids, ids)
+        torch.cuda.synchronize()
+        return loss
+
+    forward()
+    t = time.perf_counter()
+    forward()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    c_checked = metrics.counter("amp.check_naninf.checked")
+    c_flagged = metrics.counter("amp.check_naninf.flagged")
+    n0, f0 = c_checked.value, c_flagged.value
+    debugging.enable_tensor_checker(debugging.TensorCheckerConfig())
+    try:
+        t = time.perf_counter()
+        forward()
+        checked_ms = (time.perf_counter() - t) * 1e3
+        checked, flagged = c_checked.value - n0, c_flagged.value - f0
+        w = model.layers[0].self_attn.q_proj.weight
+        keep = w[0, 0].item()
+        with torch.no_grad():
+            w[0, 0] = float("nan")
+        try:
+            forward()
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raised = None
+        finally:
+            with torch.no_grad():
+                w[0, 0] = keep
+    finally:
+        debugging.disable_tensor_checker()
+    rec = dict(checked=checked, flagged=flagged, raised=raised,
+               unchecked_forward_ms=plain_ms, checked_forward_ms=checked_ms)
+    print(f"tensor checker: {json.dumps(rec)}", flush=True)
+    if checked <= 0 or flagged != 0:
+        fail(f"tensor checker: {checked} checked, {flagged} flagged")
+    if raised is None or "'linear'" not in raised:
+        fail(f"tensor checker: a NaN q_proj weight raised {raised!r}")
+    return rec
+
+
+_FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel")
+
+
+def profiler_check(torch, step, ids):
+    """``profiler.Profiler(scheduler=(1, 3))`` around LT_PROFILER_STEPS
+    train steps with ``on_trace_ready=export_chrome_tracing``: the first
+    window's exported device trace names B1, B2 and B3's kernels, its host
+    trace the hooked ops."""
+    import tempfile
+    from paddle_tpu_torch import profiler
+    with tempfile.TemporaryDirectory() as out:
+        prof = profiler.Profiler(scheduler=(1, 3),
+                                 on_trace_ready=profiler.
+                                 export_chrome_tracing(out, "llama"))
+        with prof:
+            for _ in range(LT_PROFILER_STEPS):
+                step(ids)
+                prof.step()
+        host = profiler.load_profiler_result(
+            os.path.join(out, "llama_t0.json"))
+        if host["device_trace"] is None:
+            fail("profiler: the recording window exported no device trace")
+        device = profiler.load_profiler_result(host["device_trace"])
+        files = sorted(os.listdir(out))
+    names = {e.get("name", "") for e in device.get("traceEvents", [])}
+    found = {k: sum(k in n for n in names) > 0 for k in _FLASH_KERNELS}
+    ops = sorted({e["name"] for e in host["traceEvents"]
+                  if e.get("cat") == "Operator"})
+    rec = dict(files=files, device_events=len(device.get("traceEvents",
+                                                         [])),
+               kernels_named=found, host_ops=ops)
+    print(f"profiler: {json.dumps(rec)}", flush=True)
+    if not all(found.values()):
+        fail(f"profiler: the device trace lacks flash kernels: {found}")
+    return rec
+
+
+def fused_ce_time(torch, model, ids):
+    """One fused LM-head cross entropy forward + backward at the step's
+    shape ([LT_B x (LT_S - 1), 4096] against the [128256, 4096] head,
+    float32 chunk products), CUDA events, median of 5."""
+    from paddle_tpu_torch.nn import fused_linear_cross_entropy
+    x = torch.randn(LT_B, LT_S - 1, model.config.hidden_size,
+                    device=DEVICE, dtype=torch.bfloat16, requires_grad=True)
+    w = model.lm_head.weight
+
+    def run():
+        loss = fused_linear_cross_entropy(x, w, ids[:, 1:],
+                                          transpose_weight=True)
+        torch.autograd.grad(loss, (x, w))
+    return Timer(torch)(run, iters=5, warmup=1)
+
+
+def llama_train_phase(torch):
+    """Llama training at Llama-3-8B width (LT_LAYERS layers): a route gate
+    (kernel vs plain vs a float32 copy, every layer's q_proj and k_proj
+    grads), then ``TrainStep`` with ``lambda m, ids: m.loss(ids, ids)``
+    under AdamW(1e-3) with clip 1.0 and fp32 masters, 2 + 10 steps on one
+    batch. Gates: finite and falling losses; B1, B2 and B3 exactly
+    LT_LAYERS times a step, nothing else of the port's kernels, and no
+    call of the plain flash pair. Then the profile of 2 steps, the fused
+    head's time, the tensor checker on one forward and the Profiler
+    around 4 steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ids = llama_train_model(torch)
+    gate = route_gate(
+        torch, model, (ids, ids),
+        lambda m: [p for blk in m.layers for p in
+                   (blk.self_attn.q_proj.weight, blk.self_attn.k_proj.weight)],
+        label="qk_proj", reference=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _PlainCalls() as plain:
+        losses, secs, launches, step, opt = run_steps(
+            torch, model, (ids,), lambda m, x: m.loss(x, x), lr=LT_LR)
+    tok_s = LT_B * LT_S * TIMED_STEPS / secs
+    flops_tok = model.flops_per_token(LT_S)
+    # 6 N counts the untied embedding table as matmul work; it is a gather
+    flops_gather = 0 if model.config.tie_word_embeddings else \
+        6 * model.embed_tokens.weight.numel()
+    rec = dict(config="llama3_8b", layers=LT_LAYERS, params=LT_PARAMS,
+               batch=LT_B, seq=LT_S, steps=WARMUP_STEPS + TIMED_STEPS,
+               losses=losses, step_ms=secs / TIMED_STEPS * 1e3,
+               tokens_per_s=tok_s, flops_per_token=flops_tok,
+               flops_per_step=flops_tok * LT_B * LT_S,
+               mfu=flops_tok * tok_s / BF16_FLOPS_PER_S,
+               mfu_without_embedding=(flops_tok - flops_gather) * tok_s
+               / BF16_FLOPS_PER_S,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, plain_flash_calls=plain.calls, gate=gate)
+    shown = {k: v for k, v in rec.items() if k != "gate"}
+    print(f"llama_train: {json.dumps(shown)}", flush=True)
+    check_train("llama_train", rec, layers=LT_LAYERS)
+    if plain.calls:
+        fail(f"llama_train: the plain flash pair ran {plain.calls} times")
+    prof = profile_train(torch, step, opt, (ids,), label="Llama-3-8B x4")
+    groups = prof["by_group_ms_per_step"]
+    prof["attention_ms_per_step"] = \
+        groups.get("attention forward (port)", 0.0) + \
+        groups.get("attention backward (port)", 0.0)
+    rec["profile"] = prof
+    rec["fused_ce_fwd_bwd_ms"] = fused_ce_time(torch, model, ids)
+    rec["checker"] = tensor_checker_check(torch, model, ids)
+    rec["profiler"] = profiler_check(torch, step, ids)
+    print(f"llama_train (Llama-3-8B x {LT_LAYERS}, {LT_B} x {LT_S}): "
+          f"{rec['step_ms']:.2f} ms a step, {tok_s:.0f} tokens/s, MFU "
+          f"{rec['mfu']:.4f} ({rec['mfu_without_embedding']:.4f} without the "
+          f"embedding gather), peak {rec['peak_mem_gib']:.2f} GiB; fused "
+          f"head fwd+bwd {rec['fused_ce_fwd_bwd_ms']:.2f} ms, optimizer "
+          f"{groups.get('optimizer (clip + AdamW + write-back)')} ms, "
+          f"device busy {prof['device_busy_ms_per_step']:.2f} ms a step",
+          flush=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 # ---------------------------------------------------------------------------
 # llama_fp8 phase: Llama-3-8B with fp8 projections, served
@@ -3408,6 +4138,7 @@ def main():
     trained = train_phase(torch)
     fp8_trained = fp8_train_phase(torch, trained)
     vit = vit_train_phase(torch)
+    llama_train = llama_train_phase(torch)
     optimizers = optimizers_phase(torch)
     print(f"fp8 vs bf16 training step (GPT-2 medium, 8 x 1024, same call): "
           f"{fp8_trained['step_ms']:.2f} vs {trained['step_ms']:.2f} ms, "
@@ -3431,7 +4162,10 @@ def main():
                                             "R8-spec")) \
             + trained["launches"][name] + fp8_trained["launches"][name] \
             + vit["launches"][name] + llama8["launches"][name] \
-            + optimizers["launches"][name]
+            + optimizers["launches"][name] \
+            + llama_train["launches"][name] \
+            + served["generate"]["engine"]["launches"][name] \
+            + served["telemetry"]["launches"][name]
         paths = {}
         if name == "quant_matmul":  # decode (above) and prefill
             pre = next(r for r in phases[name] if r["M"] > 8)
@@ -3451,6 +4185,22 @@ def main():
                 "graph_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms") if k in vit_case}
             paths["vit"]["launches"] = vit["launches"][name]
+        lt_case = next((r for r in phases[name]
+                        if r.get("case") == "llama_train"), None)
+        if lt_case is not None:  # B1-B3 at the llama_train shape
+            paths["llama_train"] = {k: lt_case[k] for k in (
+                "B", "S", "Hq", "Hk", "D", "causal", "max_abs_err", "ms",
+                "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if k in lt_case}
+            paths["llama_train"]["launches"] = \
+                llama_train["launches"][name]
+        wide = [r for r in phases[name]
+                if str(r.get("case", "")).startswith("d")]
+        if wide:  # B1-B3 above head dim 128
+            paths["d256"] = [{k: r[k] for k in (
+                "case", "B", "S", "Hq", "Hk", "D", "padded_to", "causal",
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms") if k in r} for r in wide]
         # device-only times (CUDA-graph replays) where the phase took them,
         # and B7's second library yardstick
         graphs = {k: main_rec[k] for k in (
@@ -3470,7 +4220,8 @@ def main():
         "card": card, "torch": torch.__version__, "build_s": build_s,
         "phases": phases, "varlen": varlen, "served": served,
         "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
-        "vit_trained": vit, "optimizers": optimizers}), flush=True)
+        "vit_trained": vit, "llama_trained": llama_train,
+        "optimizers": optimizers}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
 from .device import resolve_device
-from .flags import flag, set_flags
+from .flags import flag, get_flags, set_flags
 
-__all__ = ["resolve_device", "flag", "set_flags"]
+__all__ = ["resolve_device", "flag", "get_flags", "set_flags"]

@@ -78,6 +78,33 @@ Request tracing (``profiler/tracing.py``), read at each entry point
   root cost the same as disabled tracing.
 - ``FLAGS_trace_ring`` (4096): span ring capacity; old spans age out, a
   resize drops the buffered history.
+
+SLO alerts (``profiler/alerts.py``), read at each evaluation:
+
+- ``FLAGS_slo_ttft_budget_us`` (500000): TTFT SLO budget in
+  microseconds (burn-rate rule ``slo.ttft_burn``): observations above
+  this bucket boundary burn the error budget.
+- ``FLAGS_slo_itl_budget_us`` (100000): inter-token-latency SLO budget in
+  microseconds (rule ``slo.itl_burn``).
+- ``FLAGS_slo_target`` (0.99): SLO target fraction (0.99 = 99 % of
+  requests within budget); the burn rate is bad-fraction / (1 - target).
+- ``FLAGS_alert_burn_threshold`` (1.0): burn-rate level at which the
+  ``slo.*_burn`` alerts fire (1.0 = consuming the whole error budget at
+  exactly the rate that exhausts it over the SLO window).
+- ``FLAGS_alert_interval_s`` (10.0): least seconds between automatic
+  alert evaluations (``AlertManager.maybe_evaluate``: the scheduler calls
+  it every step, the ``/alerts`` endpoint too); each interval is one
+  rolling delta window.
+- ``FLAGS_alert_queue_depth`` (8): the ``queue.growth`` floor: the
+  admission queue must be at least this deep (and growing) to fire.
+
+Numerics (``amp/debugging.py``), read by the functional ops' post hook
+(``core/dispatch.py``, refreshed on every ``set_flags``):
+
+- ``FLAGS_check_nan_inf`` (False): check every hooked op's output for
+  NaN/Inf.
+- ``FLAGS_check_nan_inf_level`` (0): 0 raises ``FloatingPointError`` on
+  NaN/Inf; any other level warns.
 """
 
 from __future__ import annotations
@@ -111,6 +138,14 @@ _DEFAULTS = {
     "FLAGS_trace_enable": True,
     "FLAGS_trace_sample": 1.0,
     "FLAGS_trace_ring": 4096,
+    "FLAGS_slo_ttft_budget_us": 500000,
+    "FLAGS_slo_itl_budget_us": 100000,
+    "FLAGS_slo_target": 0.99,
+    "FLAGS_alert_burn_threshold": 1.0,
+    "FLAGS_alert_interval_s": 10.0,
+    "FLAGS_alert_queue_depth": 8,
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_check_nan_inf_level": 0,
 }
 
 
@@ -133,6 +168,14 @@ _values = {name: _parse(os.environ[name], default)
 # gate) re-read them only when it moves
 _epoch = 0
 _epoch_lock = threading.Lock()
+# called after every set_flags: state that must follow a flag at once
+# (the op post hook's armed bit) registers here
+_listeners = []
+
+
+def on_set(fn):
+    """Call ``fn()`` after every ``set_flags``."""
+    _listeners.append(fn)
 
 
 def epoch():
@@ -155,4 +198,13 @@ def set_flags(flags: dict):
         _values[name] = _parse(value, _DEFAULTS[name])
     with _epoch_lock:
         _epoch += 1
+    for fn in _listeners:
+        fn()
+
+
+def get_flags(names):
+    """{name: value} of the named flags (one name or a list)."""
+    if isinstance(names, str):
+        names = [names]
+    return {name: flag(name) for name in names}
 

@@ -4,10 +4,10 @@
 - ``Deadline``: an absolute time budget on the monotonic clock; the
   serving scheduler sweeps ``expired()`` at step boundaries and the
   overload controller reads ``remaining()``.
-- ``degrade(domain)``: records that a fallback path ran, as the
-  ``resilience.degrade.<domain>`` counter of the metrics registry. The
-  reference also appends a flight record (the detail, the error) to its
-  watchdog ring, which the port does not have.
+- ``degrade(domain, detail, exc)``: records that a fallback path ran, as
+  the ``resilience.degrade.<domain>`` counter of the metrics registry and
+  a ``degrade/<domain>`` record in the flight ring
+  (``distributed/watchdog.py``), stamped with the active trace id.
 
 Not ported: retry policies, leases and circuit breakers.
 """
@@ -17,6 +17,7 @@ from __future__ import annotations
 import time
 
 from ..profiler import metrics as _metrics
+from ..profiler import tracing as _tracing
 
 __all__ = ["Deadline", "degrade"]
 
@@ -44,6 +45,23 @@ class Deadline:
         return f"Deadline(remaining={self.remaining():.3f}s)"
 
 
-def degrade(domain):
-    """A fallback path ran: count ``resilience.degrade.<domain>``."""
+def degrade(domain, detail=None, exc=None):
+    """A fallback path ran: count ``resilience.degrade.<domain>`` and
+    append a ``degrade/<domain>`` flight record (the detail, the error,
+    the active trace id). Never raises: the degraded path is already
+    handling a failure."""
     _metrics.counter(f"resilience.degrade.{domain}").inc()
+    meta = {}
+    if detail:
+        meta["detail"] = str(detail)
+    if exc is not None:
+        meta["error"] = f"{type(exc).__name__}: {exc}"
+    tid = _tracing.current_trace_id()
+    if tid is not None:
+        meta["trace"] = tid
+    try:
+        from ..distributed import watchdog
+        watchdog.record_event(f"degrade/{domain}", meta or None,
+                              status="degraded")
+    except Exception:  # noqa: BLE001 - telemetry must not mask recovery
+        pass

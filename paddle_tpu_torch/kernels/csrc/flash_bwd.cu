@@ -12,7 +12,8 @@
 // Inputs: q/dO [B, Sq, Hq, D], k/v [B, Sk, Hk, D] bf16, read through their
 // batch, sequence and head strides (the head dim contiguous, the others
 // multiples of 8 elements); LSE and Delta f32 [B, Hq, Sq]. Outputs dQ
-// [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16, contiguous. D is 64 or 128;
+// [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16, contiguous. D is 64, 128 or
+// 256 (the wrapper zero-pads any other D up to 256 to the next of these);
 // Hq = G * Hk with G dividing 64. Causal masking is bottom-right aligned
 // (query i sees keys j <= i + Sk - Sq); a fully masked row (LSE = +1e30)
 // gets P = 0 and zero gradients. With segment ids (the Pallas bodies'
@@ -98,6 +99,24 @@
 // - Not yet: TMA, a producer warp, and overlap of one sub-step's products
 //   with the next one's softmax recompute inside a CTA (the two CTAs that
 //   share an SM overlap each other).
+//
+// Head dim 256 (`flash_bwd_dq_wide_kernel`, `flash_bwd_dkv_wide_kernel`):
+// the JAX package pads any D to a multiple of 128, so it attends at D
+// 160-256 (Gemma's heads are 256 wide). At this width a warp's 16 rows of
+// one f32 accumulator are 128 registers a thread, so:
+// - every product runs on mma.sync m16n8k16 from padded-row tiles
+//   (ldmatrix, ldmatrix.trans), and the A fragments of Q, dO, K and V are
+//   read from shared memory at each use instead of kept in registers;
+// - dK and dV would need 256 accumulator registers together, so one CTA
+//   computes one of them: the dK/dV grid is doubled, the dV CTA of a key
+//   tile recomputes S^T = K Q^T and accumulates P^T dO, the dK CTA
+//   recomputes S^T and dP^T = V dO^T and accumulates dS^T Q. That is five
+//   products per (query, key) pair instead of four, and no cluster;
+// - the tiles (Q, dO and a two-stage ring of 64-row K/V or Q/dO tiles,
+//   rows padded by 16 bytes) take 198 KiB, one CTA an SM.
+// The segment branch is the same kernels' kSeg instantiation (the pair
+// lists of the narrower kernels). A first version that is right; wgmma at
+// this width is later work.
 
 #include <cooperative_groups.h>
 
@@ -113,6 +132,7 @@ using tiles::cp_async4;
 using tiles::cp_async_commit;
 using tiles::cp_async_wait;
 using tiles::ldsm_x4;
+using tiles::ldsm_x4_trans;
 
 constexpr int kBQ = 64;        // query rows per step of the dK/dV kernel
 constexpr int kStages = 2;     // ring depth
@@ -775,6 +795,481 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// head dim 256: mma.sync kernels over padded-row tiles
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WideSmem {
+  static constexpr int kStride = D + 8;          // bf16 per padded row
+  static constexpr int kTile = kBK * kStride;    // one 64-row tile (bf16)
+  // dQ: Q, dO, then the K ring and the V ring; dK/dV: K, V, then the Q
+  // ring and the dO ring (and [stage] LSE, Delta rows)
+  static constexpr int kBytes = 6 * kTile * 2;
+  static_assert(kBQ == kBK, "one tile shape for both sides");
+};
+
+// S (16 rows of `a_rows` x kNT*8 rows of `b_rows`, both padded-row tiles
+// [row][kStride], contracted over D): the A fragments read from shared
+// memory at each k step
+template <int D, int kNT>
+__device__ __forceinline__ void wide_product(float (&s)[kNT][4],
+                                             const __nv_bfloat16* a_rows,
+                                             const __nv_bfloat16* b_rows,
+                                             int lane) {
+  constexpr int kStride = D + 8;
+  #pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
+  #pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    ldsm_x4(a, a_rows + (lane & 15) * kStride + kc * 16 + 8 * (lane >> 4));
+    #pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b_rows + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kStride +
+                      kc * 16 + 8 * ((lane >> 3) & 1));
+      mma_bf16(s[2 * np], a, bf[0], bf[1]);
+      mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc [16 rows x D] += X (bf16 of the kNT*8-column C fragments `x`) @
+// `rows` (kNT*8 rows of a padded-row tile, the head dim along n)
+template <int D, int kNT>
+__device__ __forceinline__ void wide_accumulate(float (&acc)[D / 8][4],
+                                                const float (&x)[kNT][4],
+                                                const __nv_bfloat16* rows,
+                                                int lane) {
+  constexpr int kStride = D + 8;
+  #pragma unroll
+  for (int kc = 0; kc < kNT / 2; ++kc) {
+    uint32_t a[4];
+    acc_to_a(a, x[2 * kc], x[2 * kc + 1]);
+    #pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, rows + (kc * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                   kStride +
+                            dp * 16 + 8 * (lane >> 4));
+      mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
+      mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+// a warp's 16 rows of a [16 x D] f32 accumulator to bf16 rows `out_row(r)`
+// (r 0..15), through the warp's own 16 padded rows `stage`
+template <int D, typename OutRow>
+__device__ __forceinline__ void wide_store(const float (&acc)[D / 8][4],
+                                           __nv_bfloat16* stage, int lane,
+                                           OutRow out_row) {
+  constexpr int kStride = D + 8;
+  constexpr int kPieces = D / 8;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    __nv_bfloat16* row = stage + (gid + 8 * i) * kStride;
+    #pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+          pack_f32(acc[dt][i * 2], acc[dt][i * 2 + 1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kPieces; i += 32) {
+    __nv_bfloat16* dst = out_row(i / kPieces);
+    if (dst == nullptr) continue;
+    const int c = (i % kPieces) * 8;
+    *reinterpret_cast<uint4*>(dst + c) =
+        *reinterpret_cast<const uint4*>(stage + (i / kPieces) * kStride + c);
+  }
+}
+
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                         int Sk, int Hq, int Hk, int causal, float scale,
+                         float scale_log2, Strides qs, Strides ks,
+                         Strides vs, Strides dos, Seg seg) {
+  using L = WideSmem<D>;
+  constexpr int kStride = L::kStride;
+  constexpr int kDT = D / 8;
+  constexpr int kSub = 32;        // keys per sub-step
+  constexpr int kSNT = kSub / 8;
+  constexpr int kPieces = D / 8;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* sD = sQ + L::kTile;                // dO
+  __nv_bfloat16* sK = sD + L::kTile;                // [stage] K tiles
+  __nv_bfloat16* sV = sK + kStages * L::kTile;      // [stage] V tiles
+  int* sKseg = reinterpret_cast<int*>(wide_smem + L::kBytes);
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kSegScratch;
+
+  const int G = Hq / Hk;
+  const int bq = kRows / G;
+  const int nqb = (Sq + bq - 1) / bq;
+  const int hb = blockIdx.x % (Hk * B);
+  const int kvh = hb % Hk;
+  const int b = hb / Hk;
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / (Hk * B)) * bq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+
+  for (int i = tid; i < kRows * kPieces; i += kThreads) {
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 8;
+    const int pos = q0 + r % bq;
+    const int head = kvh * G + r / bq;
+    const bool ok = pos < Sq;
+    cp_async16(sQ + r * kStride + c, ok ? q + qs.at(b, pos, head) + c : q,
+               ok);
+    cp_async16(sD + r * kStride + c,
+               ok ? dout + dos.at(b, pos, head) + c : dout, ok);
+  }
+  cp_async_commit();
+
+  const int q_hi = min(q0 + bq, Sq) - 1;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
+                                   q_hi + 1 - q0, sScratch);
+    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+                              nkt, mine, causal, sList, sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    ntiles = (kend + kBK - 1) / kBK;
+  }
+  auto entry_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
+
+  auto load_kv = [&](int n, int st) {
+    const int t = entry_of(n) & (kFull - 1);
+    __nv_bfloat16* dk = sK + st * L::kTile;
+    __nv_bfloat16* dv = sV + st * L::kTile;
+    if constexpr (kSeg) {
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                ok);
+    }
+    for (int i = tid; i < kBK * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int key = t * kBK + r;
+      const bool ok = key < Sk;
+      cp_async16(dk + r * kStride + c, ok ? k + ks.at(b, key, kvh) + c : k,
+                 ok);
+      cp_async16(dv + r * kStride + c, ok ? v + vs.at(b, key, kvh) + c : v,
+                 ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  int pos[2], qid[2], qp[2];
+  float lse2[2], dlt[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    const int head = kvh * G + r / bq;
+    pos[i] = q0 + r % bq;
+    const bool live = pos[i] < Sq;
+    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos[i];
+    lse2[i] = live ? lse[row] * kLog2e : kBig;
+    dlt[i] = live ? delta[row] : 0.f;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (live) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
+  }
+  const __nv_bfloat16* my_q = sQ + warp * 16 * kStride;
+  const __nv_bfloat16* my_do = sD + warp * 16 * kStride;
+
+  float acc[kDT][4];
+  #pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    cp_async_wait<kStages - 2>();  // step n's tile (and Q, dO) have landed
+    __syncthreads();  // ... for every thread, and step n - 1's is consumed
+    if (n + 1 < ntiles) load_kv(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const __nv_bfloat16* tK = sK + st * L::kTile;
+    const __nv_bfloat16* tV = sV + st * L::kTile;
+    const int entry = entry_of(n);
+    const int t0 = (entry & (kFull - 1)) * kBK;
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = (entry & kFull) && t0 + kBK <= Sk;
+    else
+      full_tile = t0 + kBK <= Sk && !(causal && t0 + kBK - 1 > q0 + off);
+
+    #pragma unroll 1
+    for (int s0 = 0; s0 < kBK; s0 += kSub) {
+      if (!kSeg && (t0 + s0 >= Sk || (causal && t0 + s0 > q_hi + off)))
+        continue;
+      // S = Q K^T and dP = dO V^T for the warp's 16 rows x kSub keys
+      float s[kSNT][4], dp[kSNT][4];
+      wide_product<D>(s, my_q, tK + s0 * kStride, lane);
+      wide_product<D>(dp, my_do, tV + s0 * kStride, lane);
+      const bool masked =
+          !full_tile &&
+          (kSeg || t0 + s0 + kSub > Sk ||
+           (causal && t0 + s0 + kSub - 1 > q0 + off));
+      const int* tseg = sKseg + st * kBK;
+      const int* tpos = sKpos + st * kBK;
+      if (masked)
+        dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk, causal,
+                              off, scale_log2, scale, tig, tseg, tpos, qid,
+                              qp);
+      else
+        dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk,
+                               causal, off, scale_log2, scale, tig, tseg,
+                               tpos, qid, qp);
+      // dQ += dS(bf16) K
+      wide_accumulate<D>(acc, s, tK + s0 * kStride, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  // dQ through the warp's own 16 rows of sQ (only this warp read them)
+  const int r0 = warp * 16;
+  wide_store<D>(acc, sQ + r0 * kStride, lane, [&](int r) {
+    const int p = q0 + (r0 + r) % bq;
+    return p < Sq ? dq + ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G +
+                          (r0 + r) / bq) * D
+                  : nullptr;
+  });
+}
+
+// one CTA a (key tile, batch, kv head, which): which 0 accumulates dV, 1 dK
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                          int Sk, int Hq, int Hk, int causal, float scale,
+                          float scale_log2, Strides qs, Strides ks,
+                          Strides vs, Strides dos, Seg seg) {
+  using L = WideSmem<D>;
+  constexpr int kStride = L::kStride;
+  constexpr int kDT = D / 8;
+  constexpr int kQH = 32;  // queries per sub-step
+  constexpr int kQNT = kQH / 8;
+  constexpr int kPieces = D / 8;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(wide_smem);
+  __nv_bfloat16* sV = sK + L::kTile;
+  __nv_bfloat16* sQ = sV + L::kTile;            // [stage] Q tiles
+  __nv_bfloat16* sD = sQ + kStages * L::kTile;  // [stage] dO tiles
+  float* sL = reinterpret_cast<float*>(wide_smem + L::kBytes);  // [stage]
+  float* sDelta = sL + kStages * kBQ;
+  int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kBQ);
+  int* sQpos = sQseg + kStages * kBQ;
+  int* sScratch = sQpos + kStages * kBQ;
+  int* sList = sScratch + kSegScratch;
+
+  const int which = blockIdx.x & 1;  // 0: dV, 1: dK
+  const int rest = blockIdx.x >> 1;
+  const int kvh = rest % Hk;
+  const int b = (rest / Hk) % B;
+  const int kt = rest / (Hk * B);
+  const int k0 = kt * kBK;
+  const int G = Hq / Hk;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+  const int nqt = (Sq + kBQ - 1) / kBQ;
+
+  for (int i = tid; i < kBK * kPieces; i += kThreads) {
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 8;
+    const int key = k0 + r;
+    const bool ok = key < Sk;
+    cp_async16(sK + r * kStride + c, ok ? k + ks.at(b, key, kvh) + c : k,
+               ok);
+    if (which)
+      cp_async16(sV + r * kStride + c, ok ? v + vs.at(b, key, kvh) + c : v,
+                 ok);
+  }
+  cp_async_commit();
+
+  int qt0 = 0, ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const int4 mine =
+        bounds_at(seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, kt);
+    ntiles = live_pairs<false>(seg.qb + static_cast<size_t>(b) * 4 * nqt,
+                               nqt, mine, causal, sList, sScratch);
+  } else {
+    qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
+    ntiles = max(0, nqt - qt0);
+  }
+  const int nsteps = ntiles * G;
+  auto entry_of = [&](int t) {
+    if constexpr (kSeg) return sList[t];
+    else return qt0 + t;
+  };
+
+  // step n: query tile n / G, head kvh G + n % G
+  auto load_q = [&](int n, int st) {
+    const int q0 = (entry_of(n / G) & (kFull - 1)) * kBQ;
+    const int head = kvh * G + n % G;
+    __nv_bfloat16* dq_ = sQ + st * L::kTile;
+    __nv_bfloat16* dd = sD + st * L::kTile;
+    for (int i = tid; i < kBQ * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int pos = q0 + r;
+      const bool ok = pos < Sq;
+      cp_async16(dq_ + r * kStride + c,
+                 ok ? q + qs.at(b, pos, head) + c : q, ok);
+      cp_async16(dd + r * kStride + c,
+                 ok ? dout + dos.at(b, pos, head) + c : dout, ok);
+    }
+    const int r = tid % kBQ;
+    const int pos = q0 + r;
+    const bool ok = pos < Sq;
+    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
+    const float* src = tid < kBQ ? lse : delta;
+    cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
+              ok ? src + row : src, ok);
+    if constexpr (kSeg) {
+      const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
+      cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
+                ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+    }
+  };
+  if (nsteps > 0) load_q(0, 0);
+  cp_async_commit();
+
+  int key[2], kid[2], kp[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + warp * 16 + gid + 8 * i;
+    kid[i] = -1;
+    kp[i] = 0;
+    if constexpr (kSeg) {
+      if (key[i] < Sk) {
+        kid[i] = seg.kseg[static_cast<size_t>(b) * Sk + key[i]];
+        kp[i] = seg.kpos[static_cast<size_t>(b) * Sk + key[i]];
+      }
+    }
+  }
+  const __nv_bfloat16* my_k = sK + warp * 16 * kStride;
+  const __nv_bfloat16* my_v = sV + warp * 16 * kStride;
+
+  float acc[kDT][4];  // dV (which 0) or dK (which 1) of the warp's keys
+  #pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (n + 1 < nsteps) load_q(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const __nv_bfloat16* tQ = sQ + st * L::kTile;
+    const __nv_bfloat16* tD = sD + st * L::kTile;
+    const int entry = entry_of(n / G);
+    const int q0 = (entry & (kFull - 1)) * kBQ;
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = entry & kFull;
+    else
+      full_tile = !(causal && k0 + kBK - 1 > q0 + off);
+
+    #pragma unroll 1
+    for (int r0 = 0; r0 < kBQ; r0 += kQH) {
+      if (!kSeg && (q0 + r0 >= Sq ||
+                    (causal && q0 + r0 + kQH - 1 + off < k0)))
+        continue;
+      // S^T = K Q^T (and, for dK, dP^T = V dO^T): the warp's 16 keys x
+      // kQH queries
+      float s[kQNT][4], dp[kQNT][4];
+      wide_product<D>(s, my_k, tQ + r0 * kStride, lane);
+      if (which) {
+        wide_product<D>(dp, my_v, tD + r0 * kStride, lane);
+      } else {
+        #pragma unroll
+        for (int nt = 0; nt < kQNT; ++nt)
+          #pragma unroll
+          for (int c = 0; c < 4; ++c) dp[nt][c] = 0.f;
+      }
+      const bool masked =
+          !full_tile && (kSeg || (causal && k0 + kBK - 1 > q0 + r0 + off));
+      const float* tL = sL + st * kBQ + r0;
+      const float* tDl = sDelta + st * kBQ + r0;
+      const int* tseg = sQseg + st * kBQ + r0;
+      const int* tpos = sQpos + st * kBQ + r0;
+      if (masked)
+        dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
+                               kid, kp, causal, off, scale_log2, scale,
+                               tig);
+      else
+        dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
+                                kid, kp, causal, off, scale_log2, scale,
+                                tig);
+      // dV += P^T(bf16) dO, or dK += dS^T(bf16) Q
+      if (which)
+        wide_accumulate<D>(acc, dp, tQ + r0 * kStride, lane);
+      else
+        wide_accumulate<D>(acc, s, tD + r0 * kStride, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  // through the warp's own 16 rows of sK (only this warp read them)
+  const int r0 = warp * 16;
+  __nv_bfloat16* out = which ? dk : dv;
+  wide_store<D>(acc, sK + r0 * kStride, lane, [&](int r) {
+    const int kj = k0 + r0 + r;
+    return kj < Sk ? out + ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D
+                   : nullptr;
+  });
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -848,6 +1343,45 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D, bool kSeg>
+cudaError_t launch_dq_wide(const Args& a) {
+  static int allowed = 48 * 1024;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int smem = WideSmem<D>::kBytes +
+                   (kSeg ? (2 * kStages * kBK + kSegScratch + nkt) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dq_wide_kernel<D, kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const int bq = kRows / (a.Hq / a.Hk);
+  const long long ctas =
+      static_cast<long long>((a.Sq + bq - 1) / bq) * a.Hk * a.B;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_wide_kernel<D, kSeg><<<static_cast<unsigned>(ctas),
+                                      kThreads, smem, a.s>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Sq, a.Sk, a.Hq,
+      a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
+  return cudaGetLastError();
+}
+
+template <int D, bool kSeg>
+cudaError_t launch_dkv_wide(const Args& a) {
+  static int allowed = 48 * 1024;
+  const int nqt = (a.Sq + kBQ - 1) / kBQ;
+  const int smem = WideSmem<D>::kBytes + 2 * kStages * kBQ * 4 +
+                   (kSeg ? (2 * kStages * kBQ + kSegScratch + nqt) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dkv_wide_kernel<D, kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const long long ctas =
+      static_cast<long long>((a.Sk + kBK - 1) / kBK) * a.B * a.Hk * 2;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dkv_wide_kernel<D, kSeg><<<static_cast<unsigned>(ctas),
+                                       kThreads, smem, a.s>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
+  return cudaGetLastError();
+}
+
 bool bad_group(int Hq, int Hk) {
   return Hk <= 0 || Hq % Hk != 0 || kRows % (Hq / Hk) != 0;
 }
@@ -917,7 +1451,8 @@ extern "C" int flash_bwd_dq_bf16(
   if (bad_group(Hq, Hk) || bad_seg(a.seg, false))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0 || Hk <= 0) return static_cast<int>(cudaSuccess);
-  if (D != 128 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 256 && D != 128 && D != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (a.seg.qseg) {
     e = launch_bounds(Side{a.seg.kseg, a.seg.kpos,
@@ -925,7 +1460,10 @@ extern "C" int flash_bwd_dq_bf16(
                       Side{}, B, a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (D == 128)
+  if (D == 256)
+    e = a.seg.qseg ? launch_dq_wide<256, true>(a)
+                   : launch_dq_wide<256, false>(a);
+  else if (D == 128)
     e = a.seg.qseg ? launch_dq<128, true>(a) : launch_dq<128, false>(a);
   else if (D == 64)
     e = a.seg.qseg ? launch_dq<64, true>(a) : launch_dq<64, false>(a);
@@ -966,7 +1504,8 @@ extern "C" int flash_bwd_dkv_bf16(
       (Hq / Hk) % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sk <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
-  if (D != 128 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if ((D != 256 && D != 128 && D != 64) || (D == 256 && cluster != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (a.seg.qseg) {
     e = launch_bounds(
@@ -975,7 +1514,10 @@ extern "C" int flash_bwd_dkv_bf16(
         a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (D == 128)
+  if (D == 256)
+    e = a.seg.qseg ? launch_dkv_wide<256, true>(a)
+                   : launch_dkv_wide<256, false>(a);
+  else if (D == 128)
     e = a.seg.qseg ? launch_dkv<128, true>(a) : launch_dkv<128, false>(a);
   else if (D == 64)
     e = a.seg.qseg ? launch_dkv<64, true>(a) : launch_dkv<64, false>(a);

@@ -10,7 +10,8 @@
 // sequence and head strides; the head dim is contiguous), writing
 // O [B, Sq, Hq, D] bf16 and LSE [B, Hq, Sq] f32, both contiguous. Causal
 // masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq); a
-// fully masked row gives O = 0 and LSE = +1e30. D is 64 or 128.
+// fully masked row gives O = 0 and LSE = +1e30. D is 64, 128 or 256 (the
+// wrapper zero-pads any other D up to 256 to the next of these).
 //
 // With segment ids (the Pallas body's `has_seg` branch, :305, the mask of
 // `_block_mask` at :257) a query sees a key of its own segment and, if
@@ -54,6 +55,18 @@
 // - Not yet: wgmma and TMA for the dense branch; its products stay on
 //   mma.sync.
 //
+// Head dim 256 (the Pallas kernel pads any D to a multiple of 128, so the
+// JAX package attends at D 160-256; Gemma's heads are 256 wide): both
+// branches run the dense branch's mma.sync kernel, the segment branch as
+// its kSeg instantiation, which walks the compacted pair list of the
+// segment kernel below and masks by ids and positions. What it had to
+// give up: the f32 O accumulator of 16 rows x 256 is 128 registers a
+// thread, so Q's A fragments (64 more) are not kept in registers but read
+// from shared memory with ldmatrix at every key tile (16 more ldmatrix a
+// tile beside the 128 of K and V); Q and a two-stage K/V ring of 64-key
+// tiles padded rows take 165 KiB of shared memory, one CTA an SM. A
+// first version that is right; wgmma at this width (m64n256 accumulators
+// over two warpgroups) is later work.//
 // The segment branch is a kernel of its own, `flash_fwd_seg_kernel`:
 // - What held its first version back (1.46 ms at an 8192-token packed row
 //   of Llama-3-8B width, 3.9x `varlen_attn`): it skipped a key tile by id
@@ -124,12 +137,15 @@ struct FwdSmem {
 
 // mask (when kMask), scale and online softmax of one 64-key tile; s holds P
 // (unnormalized, f32) afterwards, acc and the running max/sum are rescaled.
-// The mask is the end of the keys and the bottom-right causal diagonal.
-template <bool kMask, int kDT>
+// The mask is the end of the keys and the bottom-right causal diagonal,
+// or with kSeg the tile's staged ids and positions (tseg, tpos) against
+// the rows' (qid, qp).
+template <bool kMask, bool kSeg, int kDT>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kBK / 8][4], float (&acc)[kDT][4], float (&m_run)[2],
     float (&l_run)[2], const int (&pos)[2], int t0, int Sk, int causal,
-    int off, float scale_log2, int tig) {
+    int off, float scale_log2, int tig, const int* tseg, const int* tpos,
+    const int (&qid)[2], const int (&qp)[2]) {
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx = m_run[i];
@@ -139,8 +155,15 @@ __device__ __forceinline__ void softmax_tile(
       for (int j = 0; j < 2; ++j) {
         float x = s[nt][i * 2 + j] * scale_log2;
         if (kMask) {
-          const int key = t0 + nt * 8 + tig * 2 + j;
-          if (key >= Sk || (causal && key > pos[i] + off)) x = kNeg;
+          const int kl = nt * 8 + tig * 2 + j;
+          const int key = t0 + kl;
+          bool out;
+          if constexpr (kSeg)
+            out = key >= Sk || tseg[kl] != qid[i] ||
+                  (causal && tpos[kl] > qp[i]);
+          else
+            out = key >= Sk || (causal && key > pos[i] + off);
+          if (out) x = kNeg;
         }
         s[nt][i * 2 + j] = x;
         mx = fmaxf(mx, x);
@@ -172,25 +195,34 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// the dense branch
-template <int D>
-__global__ void __launch_bounds__(kFThreads, 2)
+// the dense branch, and at D 256 the segment branch too (kSeg)
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(kFThreads, D > 128 ? 1 : 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hk, int causal,
-                 float scale_log2, Strides qs, Strides ks, Strides vs) {
+                 float scale_log2, Strides qs, Strides ks, Strides vs,
+                 Seg seg) {
   using L = FwdSmem<D>;
   constexpr int kStride = L::kStride;
   constexpr int kKC = D / 16;     // k-chunks of the QK^T product
   constexpr int kDT = D / 8;      // n-tiles of the PV product
   constexpr int kNT = kBK / 8;    // n-tiles of the QK^T product
   constexpr int kPieces = D / 8;  // 16-byte pieces per row
+  // Q's A fragments stay in registers up to D 128; at D 256 the O
+  // accumulator needs them, and each tile reads Q from shared memory
+  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + L::kQ;             // [stage][kBK][kStride]
   __nv_bfloat16* sV = sK + kStages * L::kKV;  // [stage][kBK][kStride]
+  // kSeg only: [stage][kBK] kv ids, then positions, scratch, pair list
+  int* sKseg = reinterpret_cast<int*>(smem_raw + L::kBytes);
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kSegScratch;
 
   const int G = Hq / Hk;
   const int bq = kFRows / G;  // query positions per CTA
@@ -215,14 +247,40 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  // keys this CTA can see: up to the diagonal of its last live row
+  // keys this CTA can see: up to the diagonal of its last live row; with
+  // segments, the compacted list of live (block, tile) pairs
   const int q_hi = min(q0 + bq, Sq) - 1;
-  const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
-  const int ntiles = (kend + kBK - 1) / kBK;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
+                                   q_hi + 1 - q0, sScratch);
+    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+                              nkt, mine, causal, sList, sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    ntiles = (kend + kBK - 1) / kBK;
+  }
+  // the list entry of the t-th step: the tile, flagged kFull if unmasked
+  auto entry_of = [&](int t) {
+    if constexpr (kSeg) return sList[t];
+    else return t;
+  };
 
-  auto load_kv = [&](int t, int st) {
+  auto load_kv = [&](int n, int st) {
+    const int t = entry_of(n) & (kFull - 1);
     __nv_bfloat16* dk = sK + st * L::kKV;
     __nv_bfloat16* dv = sV + st * L::kKV;
+    if constexpr (kSeg) {  // threads 0-63 copy the ids, 64-127 positions
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                ok);
+    }
     for (int i = tid; i < kBK * kPieces; i += kFThreads) {
       const int r = i / kPieces;
       const int c = (i % kPieces) * 8;
@@ -240,22 +298,34 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // the two rows this thread owns in the mma layout: gid and gid + 8
-  int pos[2], head[2];
+  // the two rows this thread owns in the mma layout: gid and gid + 8,
+  // with (kSeg) their query's segment id and position
+  int pos[2], head[2], qid[2], qp[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + gid + 8 * i;
     head[i] = kvh * G + r / bq;
     pos[i] = q0 + r % bq;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (pos[i] < Sq) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
   }
 
   cp_async_wait<kStages - 1>();  // Q has landed (tiles may be in flight)
   __syncthreads();
-  uint32_t qf[kKC][4];
-  #pragma unroll
-  for (int kc = 0; kc < kKC; ++kc)
-    ldsm_x4(qf[kc], sQ + (warp * 16 + (lane & 15)) * kStride + kc * 16 +
-                        8 * (lane >> 4));
+  const __nv_bfloat16* qrow =
+      sQ + (warp * 16 + (lane & 15)) * kStride + 8 * (lane >> 4);
+  uint32_t qf[kQRegs ? kKC : 1][4];
+  if constexpr (kQRegs) {
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
+  }
 
   float acc[kDT][4];
   #pragma unroll
@@ -274,6 +344,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = t % kStages;
     const __nv_bfloat16* tK = sK + st * L::kKV;
     const __nv_bfloat16* tV = sV + st * L::kKV;
+    const int entry = entry_of(t);
+    const int t0 = (entry & (kFull - 1)) * kBK;
 
     // S = Q K^T for this warp's 16 rows x 64 keys; one ldmatrix.x4 gives
     // the B fragments of two 8-key n-tiles
@@ -284,25 +356,34 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
     #pragma unroll
     for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t qa[4];
+      if constexpr (!kQRegs) ldsm_x4(qa, qrow + kc * 16);
+      const uint32_t* a = kQRegs ? qf[kQRegs ? kc : 0] : qa;
       #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t bf[4];
         ldsm_x4(bf, tK + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kStride +
                         kc * 16 + 8 * ((lane >> 3) & 1));
-        mma_bf16(s[2 * np], qf[kc], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], bf[2], bf[3]);
+        mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
-    // only tiles that reach past Sk or above the first row's diagonal need
-    // the mask
-    const int t0 = t * kBK;
-    if (t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off))
-      softmax_tile<true>(s, acc, m_run, l_run, pos, t0, Sk, causal, off,
-                         scale_log2, tig);
+    // only tiles that reach past Sk or above the first row's diagonal (or,
+    // kSeg, pairs not classed full) need the mask
+    bool masked;
+    if constexpr (kSeg)
+      masked = !(entry & kFull) || t0 + kBK > Sk;
     else
-      softmax_tile<false>(s, acc, m_run, l_run, pos, t0, Sk, causal, off,
-                          scale_log2, tig);
+      masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
+    const int* tseg = sKseg + st * kBK;
+    const int* tpos = sKpos + st * kBK;
+    if (masked)
+      softmax_tile<true, kSeg>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                               off, scale_log2, tig, tseg, tpos, qid, qp);
+    else
+      softmax_tile<false, kSeg>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                                off, scale_log2, tig, tseg, tpos, qid, qp);
 
     // O += P V: the S accumulator layout of n-tiles 2kc and 2kc+1 is the
     // A-operand layout of k-chunk kc; ldmatrix.trans gives the B fragments
@@ -677,18 +758,27 @@ struct Args {
   cudaStream_t s;
 };
 
-template <int D>
+// the mma.sync kernel: the dense branch at every D, and at D 256 (kSeg)
+// the segment branch, after one launch of the key tiles' bounds
+template <int D, bool kSeg>
 cudaError_t launch_dense(const Args& a) {
   static int allowed = 0;
-  const int bytes = FwdSmem<D>::kBytes;
-  const cudaError_t e =
-      allow_dynamic_smem(flash_fwd_kernel<D>, bytes, allowed);
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int bytes = FwdSmem<D>::kBytes +
+                    (kSeg ? (2 * kStages * kBK + kSegScratch + nkt) * 4 : 0);
+  cudaError_t e =
+      allow_dynamic_smem(flash_fwd_kernel<D, kSeg>, bytes, allowed);
   if (e != cudaSuccess) return e;
+  if (kSeg) {
+    e = launch_bounds(Side{a.seg.kseg, a.seg.kpos, a.kv_bounds, a.Sk},
+                      Side{}, a.B, a.s);
+    if (e != cudaSuccess) return e;
+  }
   const int bq = kFRows / (a.Hq / a.Hk);
   const dim3 grid((a.Sq + bq - 1) / bq, a.Hk, a.B);
-  flash_fwd_kernel<D><<<grid, kFThreads, bytes, a.s>>>(
+  flash_fwd_kernel<D, kSeg><<<grid, kFThreads, bytes, a.s>>>(
       a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.sl2,
-      a.qs, a.ks, a.vs);
+      a.qs, a.ks, a.vs, a.seg);
   return cudaGetLastError();
 }
 
@@ -757,12 +847,15 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   const bool segmented = a.seg.qseg != nullptr;
   if (segmented && !(a.seg.kseg && a.seg.qpos && a.seg.kpos && a.kv_bounds))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D != 128 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 256 && D != 128 && D != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   cudaError_t e;
-  if (D == 128)
-    e = segmented ? launch_seg<128>(a) : launch_dense<128>(a);
+  if (D == 256)
+    e = segmented ? launch_dense<256, true>(a) : launch_dense<256, false>(a);
+  else if (D == 128)
+    e = segmented ? launch_seg<128>(a) : launch_dense<128, false>(a);
   else
-    e = segmented ? launch_seg<64>(a) : launch_dense<64>(a);
+    e = segmented ? launch_seg<64>(a) : launch_dense<64, false>(a);
   return static_cast<int>(e);
 }

@@ -45,14 +45,18 @@ import torch
 from ..amp import _state as _AMP
 from ..amp import cast_args as _amp_cast
 from ..core import flags as _flags
+from ..core.dispatch import op_hook
 from ..nn.functional import dropout as _dropout
 from . import _build
 
 _NEG = -1e30
 _BIG = 1e30
 # the head dims the kernels are built for; ``FlashAttention`` zero-pads
-# any other D up to the last to the next of these (``padded_head_dim``)
-_KERNEL_DIMS = (64, 128)
+# any other D up to the last to the next of these (``padded_head_dim``).
+# 64 and 128 run the wgmma kernels, 256 the mma.sync ones (the Pallas
+# kernel pads any D to a multiple of 128, so the JAX package attends at D
+# 160-256, Gemma's 256 among them)
+_KERNEL_DIMS = (64, 128, 256)
 _MODES = ("auto", "plain")
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
@@ -333,15 +337,17 @@ def pair_classes(q_bounds, k_bounds, causal):
     return torch.where(full, FULL, torch.where(live, MASKED, SKIP))
 
 
-def dkv_cluster(B, Hk, G, Sk):
+def dkv_cluster(B, Hk, G, Sk, D=128):
     """Cluster size C of B3 (dK/dV): the C CTAs of a cluster share one
     64-key tile and take G / C query heads each, their partial sums meeting
     in distributed shared memory. 2 when G is even and the grid has fewer
-    than ``_DKV_SPLIT_BELOW`` CTAs, else 1. On the H100, C 2 beat C 1 and
+    than ``_DKV_SPLIT_BELOW`` CTAs, else 1; always 1 at D 256, whose
+    kernel takes no cluster. On the H100, C 2 beat C 1 and
     C 4 at Llama-3-8B's B 1, S 2048 (256 CTAs) and at the 8192-token
     packed row (1024 CTAs) (``tools/torch_flash_bwd_ab.py .@1 .@2 .@4``;
     PERF.md)."""
-    split = G % 2 == 0 and B * Hk * -(-Sk // 64) < _DKV_SPLIT_BELOW
+    split = D <= 128 and G % 2 == 0 and \
+        B * Hk * -(-Sk // 64) < _DKV_SPLIT_BELOW
     return 2 if split else 1
 
 
@@ -370,7 +376,7 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
                    kv_positions=None):
     """Launch ``flash_fwd_bf16``. Returns (O, LSE), both contiguous.
     Takes bf16 [B, S, H, D] tensors (strided as ``_check_qkv`` says) with
-    D in {64, 128} and a GQA group G dividing 64, and for the segment
+    D in {64, 128, 256} and a GQA group G dividing 64, and for the segment
     branch all four id and position tensors (``_check_seg``); raises on
     anything else. Counts ``launches`` (dense) and ``seg_launches``
     apart."""
@@ -466,7 +472,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
-        dkv_cluster(B, Hk, Hq // Hk, Sk), _scale(scale, D),
+        dkv_cluster(B, Hk, Hq // Hk, Sk, D), _scale(scale, D),
         *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dkv_bf16")
     _count(flash_bwd_dkv_cuda, seg)
@@ -495,13 +501,15 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
 
 def padded_head_dim(D):
     """The head dim the kernels run a head dim D at: the smallest of
-    ``_KERNEL_DIMS`` not below it. Raises above the largest, which the
-    kernels do not take (Pallas pads any D to a multiple of 128)."""
+    ``_KERNEL_DIMS`` not below it (65-128 run at 128, 129-256 at 256).
+    Raises above the largest, 256, which the kernels do not take (Pallas
+    pads any D to a multiple of 128; the plain route computes any D)."""
     for dp in _KERNEL_DIMS:
         if D <= dp:
             return dp
     raise ValueError(f"head_dim {D} is above {_KERNEL_DIMS[-1]}, the "
-                     f"largest the flash kernels take")
+                     f"largest the flash kernels take (the plain route, "
+                     f"FLAGS_flash_kernel=plain, computes any head dim)")
 
 
 def pad_head_dim(t, dp):
@@ -541,7 +549,7 @@ class FlashAttention(torch.autograd.Function):
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
     B3. The route is chosen once, in the forward, by ``use_kernel``. On
-    the kernel route a head dim other than 64 or 128 (up to 128) is
+    the kernel route a head dim other than 64, 128 or 256 (up to 256) is
     zero-padded to the next of them for each launch, at the true D's
     scale, and O, dQ, dK and dV are sliced back to D (``pad_head_dim``);
     on the plain route the forward runs ``flash_attention_plain`` (with
@@ -630,6 +638,7 @@ def sdpa_masked_plain(q, k, v, attn_mask, causal=False, scale=None):
 sdpa_masked_plain.calls = 0
 
 
+@op_hook("flash_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
@@ -657,6 +666,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return out
 
 
+@op_hook("flash_attention")
 def flash_attention(q, k, v, causal=False, scale=None, q_segment_ids=None,
                     kv_segment_ids=None, q_positions=None,
                     kv_positions=None, return_lse=False):

@@ -6,6 +6,22 @@ forward kernel on CUDA), SwiGLU is two matmuls and silu(gate) * up.
 Parameter names equal the JAX package's (``convert.py`` maps them);
 ``Linear`` weights are stored [out, in].
 
+Training: ``loss(input_ids, labels)`` is the next-token cross entropy,
+through the blockwise fused LM-head CE (``nn/fused_ce.py``) with
+``fused_head_ce`` (the default), else ``F.cross_entropy`` on the logits;
+``flops_per_token(seq_len)`` is 6 N + 12 L d S. ``jit.TrainStep`` with
+``lambda m, ids: m.loss(ids, ids)`` trains it.
+
+Dense generation: ``forward(ids, caches=..., position_offset=p)`` with
+the contiguous caches of ``init_cache`` ([b, max_s, Hk, D] per layer)
+writes the new positions' K/V at ``p`` and attends every cached position
+not after the query's in plain PyTorch (the JAX package's
+``cached_attention`` is a plain einsum too, no Pallas kernel): float32
+logits, masked to -1e30, softmax, P cast to q's dtype, KV heads repeated
+for GQA. It returns ``(logits, caches)``; the caches are written in
+place (JAX's are new arrays), so a caller keeps one set per sequence.
+``generate`` (``models/generation.py``) drives it.
+
 Serving: ``paged_prefill`` runs the dense causal forward over the prompt
 padded with token 0 to a block multiple (or to a bucket, ``pad_to``),
 writes every padded position's KV into the slot's pool blocks and
@@ -42,6 +58,7 @@ from ..core.device import resolve_device
 from ..kernels.flash_attention import scaled_dot_product_attention
 from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
+from ..nn.fused_ce import fused_linear_cross_entropy
 from .generation import sample_token
 
 
@@ -59,6 +76,8 @@ class LlamaConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
     use_fp8: bool = False  # fp8 projections (amp.fp8 delayed scaling)
+    # loss() uses the blockwise fused LM-head CE (nn/fused_ce.py)
+    fused_head_ce: bool = True
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -77,6 +96,14 @@ class LlamaConfig:
         return LlamaConfig(vocab_size=128256, hidden_size=4096,
                            intermediate_size=14336, num_layers=32,
                            num_heads=32, num_kv_heads=8,
+                           max_position_embeddings=8192,
+                           rope_theta=500000.0)
+
+    @staticmethod
+    def llama3_70b():
+        return LlamaConfig(vocab_size=128256, hidden_size=8192,
+                           intermediate_size=28672, num_layers=80,
+                           num_heads=64, num_kv_heads=8,
                            max_position_embeddings=8192,
                            rope_theta=500000.0)
 
@@ -142,13 +169,44 @@ class LlamaAttention(nn.Module):
                           position_offset=position_offset)
         return q, k, v
 
-    def forward(self, x, kv_sink=None):
+    def forward(self, x, cache=None, position_offset=0, kv_sink=None):
+        """Causal self-attention over ``x`` [b, s, d]. With ``cache``
+        (k_cache, v_cache) [b, max_s, Hk, D]: this block's K/V are written
+        at ``position_offset`` (in place) and every cached position not
+        after the query's is attended; returns (out, (k_cache,
+        v_cache))."""
         b, s, d = x.shape
-        q, k, v = self.qkv(x)
+        q, k, v = self.qkv(x, position_offset=position_offset)
         if kv_sink is not None:  # paged prefill captures post-rope KV
             kv_sink.append((k, v))
-        out = scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(out.reshape(b, s, d))
+        if cache is None:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+            return self.o_proj(out.reshape(b, s, d))
+        k_cache, v_cache = cache
+        off = int(position_offset)
+        k_cache[:, off:off + s] = k.to(k_cache.dtype)
+        v_cache[:, off:off + s] = v.to(v_cache.dtype)
+        out = cached_attention(q, k_cache, v_cache, off)
+        return self.o_proj(out.reshape(b, s, d)), (k_cache, v_cache)
+
+
+def cached_attention(q, k_cache, v_cache, position_offset):
+    """q [b, s, Hq, D] at positions ``position_offset ..`` against the
+    contiguous caches [b, max_s, Hk, D]: float32 logits at 1/sqrt(D),
+    cached positions after the query's masked to -1e30, softmax, P cast
+    to q's dtype, KV heads repeated for GQA (``paddle_tpu/models/
+    llama.py:180-206``). Plain PyTorch, as there."""
+    s, max_s = q.shape[1], k_cache.shape[1]
+    rep = q.shape[2] // k_cache.shape[2]
+    kf = k_cache.repeat_interleave(rep, dim=2) if rep > 1 else k_cache
+    vf = v_cache.repeat_interleave(rep, dim=2) if rep > 1 else v_cache
+    logits = torch.einsum("bsnd,btnd->bnst", q.float(), kf.float()) \
+        * (1.0 / q.shape[-1] ** 0.5)
+    pos_q = position_offset + torch.arange(s, device=q.device)
+    pos_k = torch.arange(max_s, device=q.device)
+    logits = logits.masked_fill(pos_k[None, :] > pos_q[:, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, vf.to(q.dtype))
 
 
 class LlamaMLP(nn.Module):
@@ -166,41 +224,53 @@ class LlamaMLP(nn.Module):
 
 class LlamaBlock(nn.Module):
     def __init__(self, config: LlamaConfig, *, device=None, dtype=None,
-                 generator=None):
+                 generator=None, requires_grad=False):
         super().__init__()
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  requires_grad=requires_grad)
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, eps,
-                                       device=device, dtype=dtype)
+        norm_kw = dict(device=device, dtype=dtype,
+                       requires_grad=requires_grad)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, **norm_kw)
         self.self_attn = LlamaAttention(config, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device=device, dtype=dtype)
+                                                **norm_kw)
         self.mlp = LlamaMLP(config, **kw)
 
-    def forward(self, x, kv_sink=None):
-        x = x + self.self_attn(self.input_layernorm(x), kv_sink=kv_sink)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, cache=None, position_offset=0, kv_sink=None):
+        if cache is None:
+            x = x + self.self_attn(self.input_layernorm(x), kv_sink=kv_sink)
+            return x + self.mlp(self.post_attention_layernorm(x))
+        attn_out, new_cache = self.self_attn(
+            self.input_layernorm(x), cache=cache,
+            position_offset=position_offset)
+        x = x + attn_out
+        return x + self.mlp(self.post_attention_layernorm(x)), new_cache
 
 
 class Llama(nn.Module):
     """Llama decoder. Parameters are made on ``device`` (default ``cuda``;
     raises without a GPU) in ``dtype`` (default float32), drawn N(0,
-    initializer_range) from ``generator``, which must live on ``device``."""
+    initializer_range) from ``generator``, which must live on ``device``.
+    They are frozen (the serving paths') unless ``requires_grad=True``,
+    which training passes."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None,
-                 generator=None):
+                 generator=None, requires_grad=False):
         super().__init__()
         device = resolve_device(device)
         dtype = dtype or torch.float32
         self.config = config
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  requires_grad=requires_grad)
         std = config.initializer_range
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       std=std, **kw)
         self.layers = nn.ModuleList([LlamaBlock(config, **kw)
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
-                            device=device, dtype=dtype)
+                            device=device, dtype=dtype,
+                            requires_grad=requires_grad)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, std=std, **kw)
         if config.use_fp8:
@@ -224,9 +294,60 @@ class Llama(nn.Module):
             x = block(x, kv_sink=kv_sink)
         return self.norm(x)
 
-    def forward(self, input_ids, kv_sink=None):
-        """Dense causal forward: ids [b, s] -> logits [b, s, vocab]."""
-        return self.head(self.forward_hidden(input_ids, kv_sink=kv_sink))
+    def forward(self, input_ids, caches=None, position_offset=0,
+                kv_sink=None):
+        """Dense causal forward: ids [b, s] -> logits [b, s, vocab]; with
+        ``caches`` (``init_cache``) the tokens sit at ``position_offset
+        ..`` and it returns (logits, caches)."""
+        if caches is None:
+            return self.head(self.forward_hidden(input_ids,
+                                                 kv_sink=kv_sink))
+        x = self.embed_tokens(input_ids)
+        new_caches = []
+        for block, cache in zip(self.layers, caches):
+            x, c = block(x, cache=cache, position_offset=position_offset)
+            new_caches.append(c)
+        return self.head(self.norm(x)), new_caches
+
+    def init_cache(self, batch_size, max_seq_len, dtype=None):
+        """Empty contiguous KV caches: per layer (k, v) of [b, max_s,
+        Hk, D] zeros on the model's device, in ``dtype`` (default the
+        embedding's)."""
+        dt = dtype or self.embed_tokens.weight.dtype
+        shape = (batch_size, max_seq_len, self.config.num_kv_heads,
+                 self.config.head_dim)
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device))
+                for _ in range(self.config.num_layers)]
+
+    def generate(self, input_ids, max_new_tokens=32, **kwargs):
+        """``models.generation.generate`` on this model."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens=max_new_tokens,
+                        **kwargs)
+
+    # -- training ---------------------------------------------------------
+
+    def loss(self, input_ids, labels):
+        """Next-token cross entropy of ``labels`` (aligned with
+        ``input_ids``, shifted here). The fused head slices the hidden
+        states, not the logits; the head's weight is [vocab, d] whether
+        tied (the embedding) or not (a port ``Linear``), so the fused CE
+        always takes it transposed."""
+        if self.config.fused_head_ce:
+            x = self.forward_hidden(input_ids)[:, :-1, :]
+            w = self.embed_tokens.weight if self.lm_head is None \
+                else self.lm_head.weight
+            return fused_linear_cross_entropy(x, w, labels[:, 1:],
+                                              transpose_weight=True)
+        logits = self(input_ids)
+        return F.cross_entropy(logits[:, :-1, :], labels[:, 1:])
+
+    def flops_per_token(self, seq_len):
+        """Training flops a token (forward + backward): 6 N + 12 L d S."""
+        n = self.num_params()
+        l, d = self.config.num_layers, self.config.hidden_size
+        return 6 * n + 12 * l * d * seq_len
 
     # -- paged (block) KV-cache serving -----------------------------------
 

@@ -8,6 +8,11 @@ bodies: that module imports ``dropout`` from here.
 Under ``amp.auto_cast`` the ops named in the AMP lists cast their inputs
 first (``amp.cast_args``): ``linear`` and ``matmul`` to the AMP dtype,
 ``layer_norm``, ``rms_norm``, ``softmax`` and ``cross_entropy`` to float32.
+The ops named like the JAX package's dispatched ops (``linear``,
+``matmul``, ``softmax``, ``rms_norm``, ``layer_norm``, ``swiglu``,
+``gelu``, ``cross_entropy``, ``conv2d``, ``embedding``) carry its per-op
+post hook (``core.dispatch.op_hook``: profiler span, op stats, NaN/Inf
+check), one attribute read when disarmed.
 """
 
 from __future__ import annotations
@@ -17,8 +22,10 @@ import torch.nn.functional as F
 
 from ..amp import _state as _AMP
 from ..amp import cast_args as _amp_cast
+from ..core.dispatch import op_hook
 
 
+@op_hook("linear")
 def linear(x, weight, bias=None):
     """y = x @ weight.T + bias, ``weight`` [out, in]."""
     if _AMP.enabled:
@@ -26,6 +33,7 @@ def linear(x, weight, bias=None):
     return F.linear(x, weight, bias)
 
 
+@op_hook("matmul")
 def matmul(x, y, transpose_x=False, transpose_y=False):
     """x @ y, either operand transposed over its last two axes first."""
     if _AMP.enabled:
@@ -37,6 +45,7 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return torch.matmul(x, y)
 
 
+@op_hook("softmax")
 def softmax(x, axis=-1):
     """Softmax over ``axis`` in ``x``'s dtype."""
     if _AMP.enabled:
@@ -44,6 +53,7 @@ def softmax(x, axis=-1):
     return torch.softmax(x, dim=axis)
 
 
+@op_hook("rms_norm")
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm computed in float32 and cast back to ``x.dtype``
     (``paddle_tpu/nn/functional/common.py:143``)."""
@@ -56,6 +66,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out.to(x.dtype)
 
 
+@op_hook("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the trailing ``normalized_shape`` dims: mean and
     biased variance in float32, output cast back to ``x.dtype``
@@ -76,11 +87,19 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out.to(x.dtype)
 
 
+@op_hook("embedding")
+def embedding(ids, weight):
+    """Rows of ``weight`` [vocab, d] at ``ids``."""
+    return F.embedding(ids, weight)
+
+
+@op_hook("swiglu")
 def swiglu(gate, up):
     """silu(gate) * up (``paddle_tpu/nn/functional/activation.py:178``)."""
     return F.silu(gate) * up
 
 
+@op_hook("gelu")
 def gelu(x, approximate=False):
     """GELU; ``approximate=True`` is the tanh form of ``jax.nn.gelu``,
     the one GPT uses (``paddle_tpu/nn/functional/activation.py:28``)."""
@@ -108,6 +127,7 @@ def _reduce(out, reduction):
     raise ValueError(f"unknown reduction {reduction!r}")
 
 
+@op_hook("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -207,6 +227,7 @@ def _padding_pairs(padding, n, kernel, dilation, in_sizes=None, stride=None):
     raise ValueError(f"bad padding {padding!r} for {n} spatial dims")
 
 
+@op_hook("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     """2-d convolution (``paddle_tpu/nn/functional/conv.py:105``): x in

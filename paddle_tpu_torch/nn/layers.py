@@ -79,7 +79,7 @@ class Embedding(nn.Module):
                               dtype, generator, requires_grad)
 
     def forward(self, ids):
-        return TF.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight)
 
 
 class RMSNorm(nn.Module):

@@ -24,20 +24,56 @@ while a trace was active, with its trace id (``profiler/tracing.py``
 installs the trace-id source at import), so a tail bucket of
 ``serving.ttft_us`` names a trace that ``tracing.export_trace`` renders.
 
-Not ported: the HTTP exporter (``profiler/export.py``), replica identity,
-labeled gauges and JAX compile monitoring (its counterpart, kernel-build
-seconds per thread, is ``kernels._build.thread_build_seconds``).
+``replica_identity()`` names the process (``<host>-<pid>``, host, pid,
+start time): ``profiler/export.py`` renders it as the ``replica_info``
+series of every full scrape. The label escaping both sides share lives
+here too (``_esc_label_value``, ``_label_body``).
+
+Not ported: labeled gauges, ``set_replica_id`` (the fleet registry's) and
+JAX compile monitoring (its counterpart, kernel-build seconds per thread,
+is ``kernels._build.thread_build_seconds``).
 """
 
 from __future__ import annotations
 
+import os
+import socket
 import threading
 import time
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "counter",
            "gauge", "histogram", "snapshot", "registry",
            "cumulative_buckets", "percentile_from_buckets",
-           "window_delta"]
+           "window_delta", "replica_identity", "reset"]
+
+
+def _esc_label_value(v):
+    """Label-value escaping of the exposition format (backslash, double
+    quote, newline)."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _label_body(labels):
+    """Sorted-key, escaped ``k="v",...`` body of a label block."""
+    return ",".join(f'{k}="{_esc_label_value(v)}"'
+                    for k, v in sorted(labels.items()))
+
+
+# -- replica identity --------------------------------------------------------
+
+_START_TS = time.time()
+try:
+    _HOST = socket.gethostname()
+except Exception:  # noqa: BLE001 - identity must never break import
+    _HOST = "localhost"
+
+
+def replica_identity():
+    """This process's identity: ``{replica_id, host, pid, start_ts}``."""
+    pid = os.getpid()
+    return {"replica_id": f"{_HOST}-{pid}", "host": _HOST, "pid": pid,
+            "start_ts": _START_TS}
 
 
 # -- histogram exemplars -----------------------------------------------------
@@ -78,6 +114,10 @@ class Counter:
     def _snap(self):
         return self._value
 
+    def _reset(self):
+        with self._lock:
+            self._value = 0
+
 
 class Gauge:
     """Last-write-wins level (queue depth, blocks in use, ...)."""
@@ -103,6 +143,10 @@ class Gauge:
 
     def _snap(self):
         return self._value
+
+    def _reset(self):
+        with self._lock:
+            self._value = 0
 
 
 # default bounds: small counts and microsecond-scale latencies —
@@ -189,6 +233,16 @@ class Histogram:
                     "exemplars": exemplars}
 
 
+    def _reset(self):
+        with self._lock:
+            self._buckets = [0] * (len(self.bounds) + 1)
+            self._count = 0
+            self._sum = 0.0
+            self._min = None
+            self._max = None
+            self._exemplars = [None] * (len(self.bounds) + 1)
+
+
 class Registry:
     """Name -> instrument. Get-or-create is locked; call sites keep the
     returned objects, so the steady-state cost is one ``inc``."""
@@ -227,6 +281,17 @@ class Registry:
         return {name: m._snap() for name, m in items
                 if prefix is None or name.startswith(prefix)}
 
+    def reset(self, prefix=None):
+        """Zero every registered metric (or one ``prefix`` family; between
+        benchmark runs). Instruments stay valid: call sites keep their
+        references. A histogram loses its exemplars too: they never age,
+        so a restart is the way to read only the traces that follow."""
+        with self._lock:
+            items = [m for n, m in self._metrics.items()
+                     if prefix is None or n.startswith(prefix)]
+        for m in items:
+            m._reset()
+
     def kinds(self, prefix=None):
         """{name: instrument class} of the registered metrics."""
         with self._lock:
@@ -240,6 +305,7 @@ counter = registry.counter
 gauge = registry.gauge
 histogram = registry.histogram
 snapshot = registry.snapshot
+reset = registry.reset
 
 
 # -- snapshot arithmetic -----------------------------------------------------

@@ -26,6 +26,12 @@ threads:
   ``RequestHandle.trace_id`` its trace (``profiler.tracing.export_trace``
   renders it); ``ServingEngine.accounting`` is the engine's accountant
   (``engine_report()``, ``goodput_line()``).
+- **telemetry**: ``ServingEngine.alerts`` is the scheduler's SLO
+  ``AlertManager`` (``profiler/alerts.py``; None with accounting
+  disarmed), and ``serve_metrics(port=0)`` attaches one
+  ``profiler.export.MetricsServer`` on 127.0.0.1 (``/metrics``,
+  ``/healthz``, ``/readyz``, ``/alerts``, ``/summary``, ``/traces``),
+  closed with the engine.
 
 One re-entrant lock guards the scheduler, and the driver holds it for a
 whole scheduling iteration, so ``submit()``/``cancel()``/``tokens()`` may
@@ -34,10 +40,10 @@ methods run under ``torch.inference_mode()`` on whichever thread steps.
 If the driver thread dies, every live request ends ``ERROR`` and the
 cause re-raises from ``submit``/``result``.
 
-Not ported yet (ROADMAP.md §1): the SLO alerts (``alerts``) and the
-metrics endpoint (``serve_metrics``) of the telemetry slice, which raise
-``NotImplementedError``; the fleet registry, ``submit_handoff`` and
-replica roles other than ``"mixed"``; the fleet cache publisher.
+Not ported yet (ROADMAP.md §1): the fleet registry
+(``serve_metrics(store=...)`` raises ``NotImplementedError``),
+``submit_handoff`` and replica roles other than ``"mixed"``; the fleet
+cache publisher.
 """
 
 from __future__ import annotations
@@ -204,6 +210,7 @@ class ServingEngine:
         self._thread = None
         self._closed = False
         self._error = None
+        self._metrics_server = None
         # ready=False holds the engine in WARMING: submit() raises
         # NotReadyError until warmup() (or mark_ready()) flips READY
         if ready:
@@ -294,14 +301,9 @@ class ServingEngine:
 
     @property
     def alerts(self):
-        raise NotImplementedError(
-            "ServingEngine.alerts is not ported yet (ROADMAP.md §1, the "
-            "telemetry slice: profiler/alerts.py)")
-
-    def serve_metrics(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ServingEngine.serve_metrics is not ported yet (ROADMAP.md "
-            "§1, the telemetry slice: profiler/export.py)")
+        """The engine's ``AlertManager`` (None when accounting is
+        disarmed); also served from the metrics endpoint's ``/alerts``."""
+        return self._sched.alerts
 
     def step(self):
         """Run one scheduling iteration (foreground mode, or an extra
@@ -464,7 +466,64 @@ class ServingEngine:
             with self._cond:
                 self._error = e
                 self._sched.fail_all()
-            resilience.degrade("serving.engine")
+            resilience.degrade("serving.engine", exc=e)
+
+    # -- telemetry export ----------------------------------------------
+
+    def serve_metrics(self, port=0, host="127.0.0.1", store=None,
+                      replica_id=None):
+        """Attach a scrapeable telemetry endpoint to this engine
+        (idempotent; closed with the engine) and return it: ``/metrics``
+        (OpenMetrics text), ``/metrics/delta`` (per-second rates),
+        ``/healthz`` (SLO gauges and engine liveness: 503 once the driver
+        died or the engine closed), ``/readyz`` (the drain lifecycle: 503
+        unless READY), ``/alerts`` (this engine's SLO incidents),
+        ``/summary``, ``/traces`` and ``/traces/<id>``. ``port=0`` binds
+        an ephemeral port: read the bound one from ``.port`` /
+        ``.url()``. ``store`` (the fleet registry, ``profiler/fleet.py``)
+        is not ported and raises ``NotImplementedError``."""
+        if store is not None:
+            raise NotImplementedError(
+                "serve_metrics(store=...) registers the replica with the "
+                "fleet registry (profiler/fleet.py), which is not ported "
+                "yet (ROADMAP.md)")
+        with self._lock:
+            if self._metrics_server is None:
+                from ..profiler.export import MetricsServer
+                self._metrics_server = MetricsServer(
+                    port=port, host=host, health_extra=self._health_view,
+                    alerts=self._sched.alerts, ready=self._ready_view)
+            return self._metrics_server
+
+    def _health_view(self):
+        with self._lock:
+            alive = self._error is None and not self._closed
+            view = {"engine": {
+                "closed": self._closed,
+                "lifecycle": self._state,
+                "queue": len(self._sched.queue),
+                "running": len(self._sched.running)}}
+            if self._error is not None:
+                view["engine"]["error"] = \
+                    f"{type(self._error).__name__}: {self._error}"
+        if not alive:
+            view["status"] = "draining" if self._error is None \
+                else "dead"
+        return view
+
+    def _ready_view(self):
+        """/readyz body: routability, apart from /healthz liveness: a
+        DRAINING engine is alive but must receive no new traffic."""
+        with self._lock:
+            state = self._state
+            body = {"ready": state == Lifecycle.READY
+                    and self._error is None,
+                    "state": state, "attached": True,
+                    "inflight": self._sched.inflight()}
+            if self._error is not None:
+                body["error"] = \
+                    f"{type(self._error).__name__}: {self._error}"
+        return body
 
     def close(self, cancel_pending=True, timeout=60):
         """Stop serving. ``cancel_pending=True`` (default) cancels every
@@ -488,6 +547,9 @@ class ServingEngine:
             if self._error is None:
                 while self._sched.has_work:
                     self._sched.step()
+            server, self._metrics_server = self._metrics_server, None
+        if server is not None:
+            server.close()
 
     def __enter__(self):
         return self

@@ -250,8 +250,8 @@ class OverloadController:
                 wait_us, ttft_us = self.model.predict(
                     self._queued_tokens(sched), len(sched.queue), est)
                 _h_pred_ttft.observe(ttft_us)
-            except Exception:  # noqa: BLE001 — fail open
-                resilience.degrade("serving.admission")
+            except Exception as e:  # noqa: BLE001 — fail open
+                resilience.degrade("serving.admission", exc=e)
                 wait_us = ttft_us = None
         floor = HIGH if stage >= 3 else (NORMAL if stage >= 2 else None)
         if floor is not None and priority > floor:

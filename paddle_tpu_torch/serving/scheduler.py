@@ -36,11 +36,13 @@ is apportioned across the requests that did work in it into per-request
 ``CostReport``s and engine goodput (``profiler/accounting.py``). Each
 request is one trace (``profiler/tracing.py``): a root span from submit
 to its terminal status, with its queue wait, prefills, its share of each
-decode step, preemptions and the terminal status beneath.
+decode step, preemptions and the terminal status beneath. The SLO
+burn-rate alerts ride with accounting: an armed scheduler holds an
+``AlertManager`` (``profiler/alerts.py``) and nudges its rate-limited
+``maybe_evaluate()`` at every step boundary.
 
-Not ported yet (ROADMAP.md §1): the SLO burn-rate alerts that ride with
-accounting in the reference (``profiler/alerts.py``), mesh-sharded
-serving (``mesh=``) and disaggregated handoff (``admit_handoff``).
+Not ported yet (ROADMAP.md §1): mesh-sharded serving (``mesh=``) and
+disaggregated handoff (``admit_handoff``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from ..inference.paged import (CapacityError, PagedKVCache, kernel_route,
                                sized_num_blocks, validate_request)
 from ..kernels._build import thread_build_seconds
 from ..profiler import accounting as _accounting
+from ..profiler import alerts as _alerts
 from ..profiler import metrics as _metrics
 from ..profiler import tracing as _tracing
 from . import overload as _overload
@@ -268,6 +271,10 @@ class Scheduler:
                  if accounting is None else bool(accounting))
         self.accounting = _accounting.Accountant(
             config=cfg, device=model.device) if armed else _accounting.NULL
+        # SLO burn-rate alerts ride with accounting: evaluated at step
+        # boundaries (rate-limited by FLAGS_alert_interval_s), served from
+        # /alerts when serve_metrics attaches
+        self.alerts = _alerts.AlertManager() if armed else None
         adm = (bool(flags_mod.flag("FLAGS_serving_admission"))
                if admission is None else bool(admission))
         brw = (bool(flags_mod.flag("FLAGS_serving_brownout"))
@@ -354,6 +361,8 @@ class Scheduler:
         # attribution agree on the step boundary
         self.accounting.step_end(step_us)
         self._update_gauges()
+        if self.alerts is not None:
+            self.alerts.maybe_evaluate()
         return out
 
     # -- internals -----------------------------------------------------
@@ -373,7 +382,10 @@ class Scheduler:
                 self._expire(req)
 
     def _expire(self, req):
-        resilience.degrade("serving.deadline")
+        with _tracing.attach(req.span):  # the flight record's trace id
+            resilience.degrade("serving.deadline",
+                               detail=f"rid={req.rid} "
+                                      f"tokens={len(req.generated)}")
         self._finish(req, RequestStatus.TIMEOUT)
 
     def shed(self, req, retry_after_s=None):
@@ -385,7 +397,11 @@ class Scheduler:
         _tracing.record_span("serving.shed", req.span, 0.0,
                              priority=req.priority,
                              queue_depth=len(self.queue))
-        resilience.degrade("serving.shed")
+        with _tracing.attach(req.span):  # the flight record's trace id
+            resilience.degrade(
+                "serving.shed",
+                detail=f"rid={req.rid} priority={req.priority} "
+                       f"queue={len(self.queue)}")
         self._finish(req, RequestStatus.SHED)
 
     def _admit(self):
@@ -690,7 +706,11 @@ class Scheduler:
         _tracing.record_span("serving.preempt", req.span, 0.0,
                              generated=len(req.generated),
                              preempts=req.preempts)
-        resilience.degrade("serving.preempt")
+        with _tracing.attach(req.span):  # the flight record's trace id
+            resilience.degrade(
+                "serving.preempt",
+                detail=f"rid={req.rid} "
+                       f"len={len(req.prompt) + len(req.generated)}")
 
     def _emit(self, req, tok):
         req.generated.append(tok)

@@ -78,3 +78,40 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                for _ in range(3))
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("D,causal", [(256, True), (256, False),
+                                      (160, True)])
+def test_plain_pair_at_wide_head_dims_matches_pallas(D, causal):
+    """Head dims the kernels run at 256 (Gemma's 256; 160 pads to it):
+    the plain pair the D-256 kernels are held to on the card, forward and
+    backward through ``FlashAttention`` on CPU tensors, against the Pallas
+    kernels in interpret mode (which pad D to a multiple of 128)."""
+    import jax
+    rng = np.random.default_rng(D + causal)
+    q, k, v, do = (rng.standard_normal((1, 24, h, D)).astype(np.float32)
+                   for h in (4, 2, 2, 4))
+    o_ref, vjp = jax.vjp(
+        lambda q_, k_, v_: pallas_flash(q_, k_, v_, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = scaled_dot_product_attention(*ts, is_causal=causal)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(o_ref),
+                               atol=ATOL)
+    for name, t, r in zip(("dq", "dk", "dv"), ts, refs):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=ATOL, err_msg=name)
+
+
+def test_padded_head_dim_maps_up_to_256_and_raises_above():
+    from paddle_tpu_torch.kernels.flash_attention import padded_head_dim
+    assert [padded_head_dim(d) for d in (64, 65, 128, 129, 192, 256)] == \
+        [64, 128, 128, 256, 256, 256]
+    for d in (257, 512):
+        with pytest.raises(ValueError, match="above 256"):
+            padded_head_dim(d)
+    # the plain route still computes any head dim
+    q = torch.randn(1, 5, 2, 288)
+    assert flash_attention_plain(q, q, q, causal=True).shape == q.shape

@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax_and_builds_nothing():
                     "profiler.accounting", "amp", "amp.fp8", "optimizer.lr",
                     "optimizer.adam", "optimizer.lbfgs", "regularizer",
                     "nn.initializer", "nn.conv", "nn.transformer",
-                    "vision.models.vit"):
+                    "vision.models.vit", "profiler.alerts",
+                    "profiler.export", "amp.debugging", "core.dispatch",
+                    "distributed.watchdog", "models.generation"):
             assert "paddle_tpu_torch." + sub in names, sub
         print(len(names))
     """)
@@ -76,3 +78,18 @@ def test_layers_and_vit_default_to_cuda(monkeypatch):
             build()
     assert nn.Linear(4, 4, device="cpu").weight.device.type == "cpu"
     assert nn.Conv2D(3, 4, 2, device="cpu").weight.device.type == "cpu"
+
+
+def test_telemetry_and_checker_modules_start_nothing():
+    """Importing the telemetry slice starts no server, no thread and no
+    device trace, and leaves the op hook disarmed."""
+    import threading
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.amp import debugging  # noqa: F401
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.distributed import watchdog  # noqa: F401
+    from paddle_tpu_torch.profiler import alerts, export  # noqa: F401
+    assert not dispatch.HOOKS.armed
+    assert not profiler._recorder.enabled
+    assert not [t for t in threading.enumerate()
+                if t.name == "paddle-tpu-torch-metrics-http"]

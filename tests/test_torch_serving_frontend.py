@@ -537,14 +537,14 @@ def test_unported_options_raise(models):
     for extra in (dict(mesh="1x2"), dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(tm, **kw, **extra)
-    # accounting and speculative decode are ported; the telemetry slice's
-    # alerts and metrics endpoint raise rather than return None
+    # accounting, speculative decode, the alerts and the metrics endpoint
+    # are ported; the fleet registry behind serve_metrics(store=) raises
     eng = ServingEngine(tm, accounting=True, spec=True, **kw)
     assert eng.accounting.armed and eng.scheduler.spec
+    assert eng.alerts is eng.scheduler.alerts is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.alerts
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.serve_metrics()
+        eng.serve_metrics(store={})
+    assert eng._metrics_server is None
     eng.close()
 
 
