@@ -198,11 +198,16 @@
    listed under "Recent incidents", resolved once the budget is
    restored; ``maybe_evaluate``'s host cost and the engine's decode
    tokens/s beside engine S's.
-5f. Kernel cases above head dim 128: B1, B2 and B3 at D 256 (the
-   mma.sync kernels) and D 160 (zero-padded to 256), B 1, Hq 16, Hk 4,
-   S 2048 causal and S 197 non-causal, against the plain pair at the true
-   D, with times, bounds and SDPA's times; and at the llama_train shape
-   (B 2, S 2048, Hq 32, Hk 8, D 128).
+5f. Kernel cases above head dim 128: B1, B2 and B3 at D 256 (B1 on
+   mma.sync, B2 and B3 on two warpgroups' wgmma), D 160 (zero-padded to
+   256), and D 384 and 512 (the streamed kernels above 256), B 1, Hq 16,
+   Hk 4, S 2048 causal and S 197 non-causal, against the plain pair at
+   the true D, with times, bounds and SDPA's times (null where SDPA
+   refuses the head dim); and at the llama_train shape (B 2, S 2048, Hq
+   32, Hk 8, D 128). Then the path above 256: ``FlashAttention`` at D 288
+   (padded to 384), forward and backward, counts zeroed just before and
+   read just after (B1-B3 once each, ``xl_launches``), against the plain
+   route.
 5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
    bf16: each of the 14 optimizers takes 3 steps from the same weights
    under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
@@ -213,8 +218,10 @@
    65536, 65536 as its rules give.
 6. Prints one ``{"kernels": [...]}`` line (B1-B7, B1-B3 with their
    ViT-L/16 case, their llama_train path and their head-dim-160/256
-   cases (``d256``) beside, and the segment entries B1-seg, B2-seg,
-   B3-seg at V1, every case beside) and, last, the
+   cases (``d256``) beside, the segment entries B1-seg, B2-seg, B3-seg
+   at V1, every case beside, and B1-xl, B2-xl, B3-xl: the kernels above
+   head dim 256 at D 384, S 2048, every case and the D 288 path beside)
+   and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -378,9 +385,14 @@ TELE_BUDGET_US = 1000
 # serve_metrics attached, in this order (each engine once cold, once warm)
 AB_ORDER = ("bare", "attached", "attached", "bare")
 # B1-B3 above head dim 128: (S, D, causal) at B 1, Hq 16, Hk 4; D 160
-# runs zero-padded to the kernels' 256
+# runs zero-padded to the kernels' 256; 384 and 512 run the streamed
+# kernels above 256
 WIDE_CASES = ((2048, 256, True), (197, 256, False), (2048, 160, True),
-              (197, 160, False))
+              (197, 160, False), (2048, 384, True), (197, 384, False),
+              (2048, 512, True), (197, 512, False))
+# the path above head dim 256: FlashAttention at D 288 (padded to 384),
+# B 1, S 2048, Hq 16, Hk 4, causal, forward and backward
+XL_D, XL_S = 288, 2048
 WIDE_B, WIDE_HQ, WIDE_HK = 1, 16, 4
 V1_TOKENS, V1_LONGEST = 8192, 2048
 V2_TOKENS, V2_LONGEST = 4096, 1024
@@ -770,6 +782,62 @@ def wide_phase(torch, timer, S, dh, causal):
             fail(f"{name} at head dim {dh} disagrees with its plain "
                  f"version: {rec}")
     return recs
+
+
+def xl_path_phase(torch):
+    """The kernels above head dim 256 on the path a user takes:
+    ``scaled_dot_product_attention`` (``FlashAttention``) at head dim
+    ``XL_D``, which the kernel route zero-pads to the next multiple of
+    128, forward and backward, every count set to 0 just before and read
+    just after (B1-B3 once each, all of them above 256), against the plain
+    route (``FLAGS_flash_kernel=plain``) at the true D."""
+    from paddle_tpu_torch.core import set_flags
+    from paddle_tpu_torch.kernels.flash_attention import (
+        padded_head_dim, scaled_dot_product_attention)
+    B, hq, hk = WIDE_B, WIDE_HQ, WIDE_HK
+    g = torch.Generator(device=DEVICE).manual_seed(4500)
+    mk = lambda h: torch.randn(B, XL_S, h, XL_D, generator=g, device=DEVICE,
+                               dtype=torch.bfloat16)
+    base = [mk(hq), mk(hk), mk(hk)]
+    do = mk(hq)
+    outs, grads, counts = {}, {}, None
+    for mode in ("plain", "auto"):
+        set_flags({"FLAGS_flash_kernel": mode})
+        try:
+            ts = [t.clone().requires_grad_() for t in base]
+            if mode == "auto":
+                zero_counts()
+            out = scaled_dot_product_attention(*ts, is_causal=True)
+            out.backward(do)
+            torch.cuda.synchronize()
+            if mode == "auto":
+                counts = read_counts()[0]
+            outs[mode], grads[mode] = out.detach(), [t.grad for t in ts]
+        finally:
+            set_flags({"FLAGS_flash_kernel": "auto"})
+    err_o = (outs["auto"].float() - outs["plain"].float()).abs().max().item()
+    err_row = row_rel_err(outs["auto"], outs["plain"])
+    rel = {}
+    for name, a, r in zip(("dq", "dk", "dv"), grads["auto"], grads["plain"]):
+        rel[name] = ((a.float() - r.float()).abs().max() /
+                     r.float().abs().max().clamp_min(1e-6)).item()
+    launches = {n: counts[n] for n in ("B1-xl", "B2-xl", "B3-xl",
+                                       "flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    rec = dict(D=XL_D, padded_to=padded_head_dim(XL_D), B=B, S=XL_S, Hq=hq,
+               Hk=hk, causal=True, max_abs_err=err_o, row_rel_err=err_row,
+               grad_rel_err=rel, launches=launches)
+    print(f"xl path (FlashAttention at D {XL_D}, run at "
+          f"{rec['padded_to']}): O err {err_o:.3e} row {err_row:.3e} "
+          f"grads {rel} launches {launches}", flush=True)
+    if launches != {"B1-xl": 1, "B2-xl": 1, "B3-xl": 1, "flash_fwd": 1,
+                    "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        fail(f"the D {XL_D} path did not launch B1-B3 above 256 once each: "
+             f"{launches}")
+    if not (err_o <= O_ATOL and err_row <= ROW_RTOL and
+            max(rel.values()) <= BWD_RTOL):
+        fail(f"the D {XL_D} path disagrees with the plain route: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1499,6 +1567,9 @@ def _counters():
             "B1-seg": (flash_fwd_cuda, "seg_launches"),
             "B2-seg": (flash_bwd_dq_cuda, "seg_launches"),
             "B3-seg": (flash_bwd_dkv_cuda, "seg_launches"),
+            "B1-xl": (flash_fwd_cuda, "xl_launches"),
+            "B2-xl": (flash_bwd_dq_cuda, "xl_launches"),
+            "B3-xl": (flash_bwd_dkv_cuda, "xl_launches"),
             "paged_decode": (paged_decode_attention_kernel, "launches"),
             "paged_decode_split": (paged_decode_attention_chunked,
                                    "launches"),
@@ -4104,6 +4175,44 @@ def seg_records(varlen):
     return records
 
 
+# B1-B3 above head dim 256: (name, key of the kernel phases, source, the
+# Pallas body it replaces, which pads D to a multiple of 128)
+XL_KERNELS = (
+    ("B1-xl", "flash_fwd", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("B2-xl", "flash_bwd_dq", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
+    ("B3-xl", "flash_bwd_dkv", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:408"),
+)
+
+
+def xl_records(phases, xl_path):
+    """The ``kernels`` entries of B1-B3 above head dim 256: launches from
+    the D 288 path run (``xl_path_phase``), times, bound, plain and SDPA's
+    time (null where SDPA refuses the shape) at the first case above 256
+    in ``WIDE_CASES`` (S 2048, D 384, causal), every case beside."""
+    records = []
+    for name, key, source, replaces in XL_KERNELS:
+        cases = [{k: r[k] for k in (
+            "case", "B", "S", "Hq", "Hk", "D", "padded_to", "causal",
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "graph_share_of_bound") if k in r}
+                 for r in phases[key] if r.get("padded_to", 0) > 256]
+        main_rec = cases[0]
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=xl_path["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in cases),
+            ms=main_rec["ms"], kernel_ms=main_rec["ms"],
+            graph_ms=main_rec["graph_ms"], plain_ms=main_rec["plain_ms"],
+            bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
+            library_ms=main_rec["library_ms"],
+            graph_share_of_bound=main_rec["graph_share_of_bound"],
+            cases=cases, path=xl_path))
+    return records
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4132,6 +4241,7 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
 
     phases = kernel_phases(torch)
+    xl_path = xl_path_phase(torch)
     varlen = varlen_phase(torch)
     served, b_traffic = slice_phase(torch)
     llama8 = llama_fp8_phase(torch, *b_traffic)
@@ -4195,8 +4305,9 @@ def main():
             paths["llama_train"]["launches"] = \
                 llama_train["launches"][name]
         wide = [r for r in phases[name]
-                if str(r.get("case", "")).startswith("d")]
-        if wide:  # B1-B3 above head dim 128
+                if str(r.get("case", "")).startswith("d") and
+                r["padded_to"] <= 256]
+        if wide:  # B1-B3 above head dim 128, up to 256
             paths["d256"] = [{k: r[k] for k in (
                 "case", "B", "S", "Hq", "Hk", "D", "padded_to", "causal",
                 "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
@@ -4216,9 +4327,11 @@ def main():
             bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"]))
     records += seg_records(varlen)
+    records += xl_records(phases, xl_path)
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
-        "phases": phases, "varlen": varlen, "served": served,
+        "phases": phases, "xl_path": xl_path, "varlen": varlen,
+        "served": served,
         "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
         "vit_trained": vit, "llama_trained": llama_train,
         "optimizers": optimizers}), flush=True)

@@ -12,8 +12,9 @@
 // Inputs: q/dO [B, Sq, Hq, D], k/v [B, Sk, Hk, D] bf16, read through their
 // batch, sequence and head strides (the head dim contiguous, the others
 // multiples of 8 elements); LSE and Delta f32 [B, Hq, Sq]. Outputs dQ
-// [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16, contiguous. D is 64, 128 or
-// 256 (the wrapper zero-pads any other D up to 256 to the next of these);
+// [B, Sq, Hq, D], dK/dV [B, Sk, Hk, D] bf16, contiguous. D is 64, 128,
+// 256 or a multiple of 128 above 256 (the wrapper zero-pads any other D to
+// the next of these, as the Pallas kernel pads D to a multiple of 128);
 // Hq = G * Hk with G dividing 64. Causal masking is bottom-right aligned
 // (query i sees keys j <= i + Sk - Sq); a fully masked row (LSE = +1e30)
 // gets P = 0 and zero gradients. With segment ids (the Pallas bodies'
@@ -100,24 +101,56 @@
 //   with the next one's softmax recompute inside a CTA (the two CTAs that
 //   share an SM overlap each other).
 //
-// Head dim 256 (`flash_bwd_dq_wide_kernel`, `flash_bwd_dkv_wide_kernel`):
-// the JAX package pads any D to a multiple of 128, so it attends at D
-// 160-256 (Gemma's heads are 256 wide). At this width a warp's 16 rows of
-// one f32 accumulator are 128 registers a thread, so:
-// - every product runs on mma.sync m16n8k16 from padded-row tiles
-//   (ldmatrix, ldmatrix.trans), and the A fragments of Q, dO, K and V are
-//   read from shared memory at each use instead of kept in registers;
-// - dK and dV would need 256 accumulator registers together, so one CTA
-//   computes one of them: the dK/dV grid is doubled, the dV CTA of a key
-//   tile recomputes S^T = K Q^T and accumulates P^T dO, the dK CTA
-//   recomputes S^T and dP^T = V dO^T and accumulates dS^T Q. That is five
-//   products per (query, key) pair instead of four, and no cluster;
-// - the tiles (Q, dO and a two-stage ring of 64-row K/V or Q/dO tiles,
-//   rows padded by 16 bytes) take 198 KiB, one CTA an SM.
-// The segment branch is the same kernels' kSeg instantiation (the pair
-// lists of the narrower kernels). A first version that is right; wgmma at
-// this width is later work.
-
+// Head dim 256 (`flash_bwd_dq_256_kernel`, `flash_bwd_dkv_256_kernel`;
+// Gemma's heads are 256 wide, and the wrapper pads D 129-255 to it). A
+// warp's 16 rows of one f32 accumulator 256 wide are 128 registers a
+// thread, so one warpgroup cannot hold dQ beside S and dP, nor dK and dV
+// together. Each CTA runs two warpgroups (256 threads) and splits the
+// head dim's accumulators between them by columns:
+// - B2: one CTA owns 64 folded rows as at D 64/128. Q and dO are staged
+//   once (swizzled, 64 KiB), K/V tiles stream through a two-stage ring
+//   (128 KiB). Warpgroup w computes S and dP for keys 32w .. 32w + 31 of
+//   the tile over all 64 rows (m64n32, both operands from shared memory),
+//   P and dS in registers, and writes dS as bf16 into a swizzled [64][64]
+//   tile (8 KiB); after one barrier each warpgroup runs dQ[:, 128w ..] +=
+//   dS K[:, 128w ..] (m64n128, A the whole dS from shared memory, B the K
+//   tile MN-major): 64 accumulator registers a thread.
+// - B3: one CTA owns one 64-key tile and both dK and dV: four products a
+//   (query, key) pair and S^T once. K and V stay staged (64 KiB), (query
+//   tile, head) steps stream Q and dO through the ring (128 KiB);
+//   warpgroup w computes S^T and dP^T for queries 32w .. 32w + 31, P^T
+//   and dS^T go to shared memory as bf16
+//   (8 KiB each), and each warpgroup accumulates the 128-column half w of
+//   both dV += P^T dO and dK += dS^T Q: 128 accumulator registers.
+// The key (or query) split keeps the two warpgroups' work equal in every
+// phase and passes only what the products read (P and dS in bf16, each
+// rounded once, from f32 P and dP as at D 64/128); splitting S and dP
+// between the warpgroups instead would pass P or dP across before dS
+// could be formed. 200 KiB (B2) and 209 KiB (B3) of shared memory: one CTA
+// an SM. B3 takes the cluster of the narrower kernel (C ranks split the
+// group's heads; the f32 partial sums, 132 KiB, land over the drained
+// rings and meet in distributed shared memory in rank order): at B 1,
+// Hk 4, S 2048 its grid is 128 CTAs, one wave, and without the split the
+// first key tile's CTA walks twice the mean's steps. With C 1 the sums
+// leave as bf16 rows instead (the f32 path read 8 % slower at a
+// 512-CTA packed row on the H100). The segment branch
+// is the kSeg instantiation (the pair lists of the kernels above, reduced
+// over 256 threads).
+//
+// Head dims above 256 (`flash_bwd_dq_xl_kernel`, `flash_bwd_dkv_xl_kernel`;
+// D a multiple of 128, as the Pallas kernel pads it): whole 64-row tiles
+// of D 512 do not fit (Q 64 KiB, a two-stage K ring 128 KiB, V more), so
+// the contraction over the head dim streams in chunks. Each CTA owns one
+// slice of the output's columns (128 of dQ; 64 of dK and dV, whose two
+// accumulators and S^T, dP^T then fit one warpgroup) and walks its tiles
+// chunk by chunk: a ring stage holds one chunk of each operand (Q, dO, K,
+// V; 64 KiB for B2, 32 KiB for B3), S and dP (S^T, dP^T) sum over the
+// chunks in wgmma accumulators, and the slice's own chunk comes last, so
+// the products into the slice read its K (Q, dO) chunk from the stage it
+// is already in. The CTAs of one row block (key tile) recompute S and dP
+// each, identically: D / 128 (D / 64) times the products of S and dP,
+// and no atomics. A first version that is right, not a fast one.
+//
 #include <cooperative_groups.h>
 
 #include "async_tiles.cuh"
@@ -132,7 +165,6 @@ using tiles::cp_async4;
 using tiles::cp_async_commit;
 using tiles::cp_async_wait;
 using tiles::ldsm_x4;
-using tiles::ldsm_x4_trans;
 
 constexpr int kBQ = 64;        // query rows per step of the dK/dV kernel
 constexpr int kStages = 2;     // ring depth
@@ -795,126 +827,98 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// head dim 256: mma.sync kernels over padded-row tiles
+// head dim 256: two warpgroups, every product on wgmma
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct WideSmem {
-  static constexpr int kStride = D + 8;          // bf16 per padded row
-  static constexpr int kTile = kBK * kStride;    // one 64-row tile (bf16)
-  // dQ: Q, dO, then the K ring and the V ring; dK/dV: K, V, then the Q
-  // ring and the dO ring (and [stage] LSE, Delta rows)
-  static constexpr int kBytes = 6 * kTile * 2;
-  static_assert(kBQ == kBK, "one tile shape for both sides");
-};
+constexpr int kT2 = 2 * kThreads;              // two warpgroups
+constexpr int kScratch2 = seg_scratch<kT2>();  // block_bounds, live_pairs
 
-// S (16 rows of `a_rows` x kNT*8 rows of `b_rows`, both padded-row tiles
-// [row][kStride], contracted over D): the A fragments read from shared
-// memory at each k step
-template <int D, int kNT>
-__device__ __forceinline__ void wide_product(float (&s)[kNT][4],
-                                             const __nv_bfloat16* a_rows,
-                                             const __nv_bfloat16* b_rows,
-                                             int lane) {
-  constexpr int kStride = D + 8;
+// the 4-byte pair of bf16 at (row, col), col even, of a swizzled tile of
+// 64-column rows
+__device__ __forceinline__ uint32_t* swz_pair(unsigned char* tile, int row,
+                                              int col) {
+  return reinterpret_cast<uint32_t*>(
+      tile + tiles::sw128_offset(row, col >> 3) + (col & 7) * 2);
+}
+
+// a warp's C fragments of kNT 8-column n-tiles (its 16 rows from row0),
+// rounded to bf16, into a swizzled [64][64] tile at column c0: where the
+// other warpgroup's products read them
+template <int kNT>
+__device__ __forceinline__ void put_pairs(unsigned char* tile,
+                                          const float (&x)[kNT][4], int row0,
+                                          int c0, int gid, int tig) {
   #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
     #pragma unroll
-    for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
-  #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    ldsm_x4(a, a_rows + (lane & 15) * kStride + kc * 16 + 8 * (lane >> 4));
-    #pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b_rows + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kStride +
-                      kc * 16 + 8 * ((lane >> 3) & 1));
-      mma_bf16(s[2 * np], a, bf[0], bf[1]);
-      mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
-    }
-  }
+    for (int i = 0; i < 2; ++i)
+      *swz_pair(tile, row0 + gid + 8 * i, c0 + nt * 8 + 2 * tig) =
+          pack_f32(x[nt][2 * i], x[nt][2 * i + 1]);
 }
 
-// acc [16 rows x D] += X (bf16 of the kNT*8-column C fragments `x`) @
-// `rows` (kNT*8 rows of a padded-row tile, the head dim along n)
-template <int D, int kNT>
-__device__ __forceinline__ void wide_accumulate(float (&acc)[D / 8][4],
-                                                const float (&x)[kNT][4],
-                                                const __nv_bfloat16* rows,
-                                                int lane) {
-  constexpr int kStride = D + 8;
-  #pragma unroll
-  for (int kc = 0; kc < kNT / 2; ++kc) {
-    uint32_t a[4];
-    acc_to_a(a, x[2 * kc], x[2 * kc + 1]);
-    #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, rows + (kc * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                   kStride +
-                            dp * 16 + 8 * (lane >> 4));
-      mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-      mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
-    }
-  }
-}
-
-// a warp's 16 rows of a [16 x D] f32 accumulator to bf16 rows `out_row(r)`
-// (r 0..15), through the warp's own 16 padded rows `stage`
-template <int D, typename OutRow>
-__device__ __forceinline__ void wide_store(const float (&acc)[D / 8][4],
-                                           __nv_bfloat16* stage, int lane,
-                                           OutRow out_row) {
-  constexpr int kStride = D + 8;
-  constexpr int kPieces = D / 8;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
+// a warpgroup's [64 x 128] f32 accumulator (m64n128: warp w's 16 rows)
+// into columns c0 .. c0 + 127 of a padded bf16 staging area [64][kSS]
+template <int kSS>
+__device__ __forceinline__ void stage_half(__nv_bfloat16* stage,
+                                           const float (&acc)[16][4],
+                                           int warp, int c0, int gid,
+                                           int tig) {
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    __nv_bfloat16* row = stage + (gid + 8 * i) * kStride;
+    __nv_bfloat16* row = stage + (warp * 16 + gid + 8 * i) * kSS + c0;
     #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt)
+    for (int dt = 0; dt < 16; ++dt)
       *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
-          pack_f32(acc[dt][i * 2], acc[dt][i * 2 + 1]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kPieces; i += 32) {
-    __nv_bfloat16* dst = out_row(i / kPieces);
-    if (dst == nullptr) continue;
-    const int c = (i % kPieces) * 8;
-    *reinterpret_cast<uint4*>(dst + c) =
-        *reinterpret_cast<const uint4*>(stage + (i / kPieces) * kStride + c);
+          pack_f32(acc[dt][2 * i], acc[dt][2 * i + 1]);
   }
 }
 
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int B, int Sq,
-                         int Sk, int Hq, int Hk, int causal, float scale,
-                         float scale_log2, Strides qs, Strides ks,
-                         Strides vs, Strides dos, Seg seg) {
-  using L = WideSmem<D>;
-  constexpr int kStride = L::kStride;
-  constexpr int kDT = D / 8;
-  constexpr int kSub = 32;        // keys per sub-step
-  constexpr int kSNT = kSub / 8;
-  constexpr int kPieces = D / 8;
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(wide_smem);
-  __nv_bfloat16* sD = sQ + L::kTile;                // dO
-  __nv_bfloat16* sK = sD + L::kTile;                // [stage] K tiles
-  __nv_bfloat16* sV = sK + kStages * L::kTile;      // [stage] V tiles
-  int* sKseg = reinterpret_cast<int*>(wide_smem + L::kBytes);
+struct Dq256Smem {
+  static constexpr int D = 256;
+  static constexpr int kTile = kBK * D * 2;  // a swizzled [64][256] tile
+  // Q, dO, the K ring, the V ring, then dS (a swizzled [64][64]); all
+  // 1024-byte aligned
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kTile;
+  static constexpr int kK = 2 * kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kDS = kV + kStages * kTile;
+  static constexpr int kBytes = kDS + kBK * 128;
+  // the segment branch's ints after those: each stage's kv ids and
+  // positions, scratch, then the list of live key tiles
+  static constexpr int kSegInts = 2 * kStages * kBK + kScratch2;
+  // dQ leaves through padded bf16 rows over the K ring
+  static constexpr int kSS = D + 8;
+  static_assert(kRows * kSS * 2 <= kStages * kTile, "room for dQ");
+};
+
+template <bool kSeg>
+__global__ void __launch_bounds__(kT2, 1)
+flash_bwd_dq_256_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                        int Sk, int Hq, int Hk, int causal, float scale,
+                        float scale_log2, Strides qs, Strides ks,
+                        Strides vs, Strides dos, Seg seg) {
+  using L = Dq256Smem;
+  constexpr int D = L::D;
+  constexpr int kKC = D / 16;     // k steps of S and dP
+  constexpr int kHalf = kBK / 2;  // keys of one warpgroup's S and dP
+  constexpr int kPieces = D / 8;  // 16-byte pieces per row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + L::kQ;
+  unsigned char* sD = smem_raw + L::kDo;
+  unsigned char* sK = smem_raw + L::kK;  // [stage] swizzled [kBK][D]
+  unsigned char* sV = smem_raw + L::kV;
+  unsigned char* sDS = smem_raw + L::kDS;
+  int* sKseg = reinterpret_cast<int*>(smem_raw + L::kBytes);
   int* sKpos = sKseg + kStages * kBK;
   int* sScratch = sKpos + kStages * kBK;
-  int* sList = sScratch + kSegScratch;
+  int* sList = sScratch + kScratch2;
 
   const int G = Hq / Hk;
   const int bq = kRows / G;
@@ -924,24 +928,574 @@ flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = hb / Hk;
   const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / (Hk * B)) * bq;
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;           // warpgroup
+  const int warp = (tid >> 5) & 3;   // warp of the warpgroup: 16 rows
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+  const int kofs = wg * kHalf;       // this warpgroup's keys of a tile
+
+  // stage Q and dO, swizzled: folded row r is (head kvh G + r / bq,
+  // position q0 + r % bq)
+  for (int i = tid; i < kRows * kPieces; i += kT2) {
+    const int r = i / kPieces;
+    const int c8 = i % kPieces;
+    const int pos = q0 + r % bq;
+    const int head = kvh * G + r / bq;
+    const bool ok = pos < Sq;
+    cp_async16(sQ + swz<kRows>(r, c8),
+               ok ? q + qs.at(b, pos, head) + 8 * c8 : q, ok);
+    cp_async16(sD + swz<kRows>(r, c8),
+               ok ? dout + dos.at(b, pos, head) + 8 * c8 : dout, ok);
+  }
+  cp_async_commit();
+
+  const int q_hi = min(q0 + bq, Sq) - 1;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds<kT2>(seg.qseg + at, seg.qpos + at,
+                                        q_hi + 1 - q0, sScratch);
+    ntiles = live_pairs<true, false, kT2>(
+        seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, mine, causal, sList,
+        sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    ntiles = (kend + kBK - 1) / kBK;
+  }
+  auto entry_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
+
+  auto load_kv = [&](int n, int st) {
+    const int t = entry_of(n) & (kFull - 1);
+    unsigned char* dk = sK + st * L::kTile;
+    unsigned char* dv = sV + st * L::kTile;
+    if (kSeg && tid < 2 * kBK) {  // threads 0-63 the ids, 64-127 positions
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                ok);
+    }
+    for (int i = tid; i < kBK * kPieces; i += kT2) {
+      const int r = i / kPieces;
+      const int c8 = i % kPieces;
+      const int key = t * kBK + r;
+      const bool ok = key < Sk;
+      cp_async16(dk + swz<kBK>(r, c8),
+                 ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
+      cp_async16(dv + swz<kBK>(r, c8),
+                 ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // the two rows this thread owns in the wgmma layout (the same in both
+  // warpgroups), with their LSE (log2 domain), Delta, id and position
+  int pos[2], qid[2], qp[2];
+  float lse2[2], dlt[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    const int head = kvh * G + r / bq;
+    pos[i] = q0 + r % bq;
+    const bool live = pos[i] < Sq;
+    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos[i];
+    lse2[i] = live ? lse[row] * kLog2e : kBig;
+    dlt[i] = live ? delta[row] : 0.f;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (live) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
+  }
+
+  // dQ[:, 128 wg .. 128 wg + 127], written by wgmma only
+  float acc[16][4];
+  bool started = false;
+
+  for (int n = 0; n < ntiles; ++n) {
+    cp_async_wait<kStages - 2>();  // step n's tile (and Q, dO) landed
+    tiles::fence_proxy_async();    // ... where wgmma reads it
+    // ... for every thread; step n - 1's tile and dS are consumed
+    __syncthreads();
+    if (n + 1 < ntiles) load_kv(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const unsigned char* tK = sK + st * L::kTile;
+    const unsigned char* tV = sV + st * L::kTile;
+    const int entry = entry_of(n);
+    const int t0 = (entry & (kFull - 1)) * kBK;
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = (entry & kFull) && t0 + kBK <= Sk;
+    else
+      full_tile = t0 + kBK <= Sk && !(causal && t0 + kBK - 1 > q0 + off);
+
+    // S = Q K^T and dP = dO V^T for the 64 rows x this warpgroup's 32
+    // keys: both operands from shared memory
+    float s[kHalf / 8][4], dp[kHalf / 8][4];
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n32(flat(s), kstep_desc<kRows>(sQ, 0, kc),
+                   kstep_desc<kBK>(tK, kofs, kc), kc);
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n32(flat(dp), kstep_desc<kRows>(sD, 0, kc),
+                   kstep_desc<kBK>(tV, kofs, kc), kc);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+
+    const bool masked =
+        !full_tile && (kSeg || t0 + kofs + kHalf > Sk ||
+                       (causal && t0 + kofs + kHalf - 1 > q0 + off));
+    const int* tseg = sKseg + st * kBK;
+    const int* tpos = sKpos + st * kBK;
+    if (masked)
+      dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0 + kofs, kofs, Sk,
+                            causal, off, scale_log2, scale, tig, tseg, tpos,
+                            qid, qp);
+    else
+      dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0 + kofs, kofs, Sk,
+                             causal, off, scale_log2, scale, tig, tseg, tpos,
+                             qid, qp);
+    // dS (bf16) of both halves meets in shared memory
+    put_pairs(sDS, s, warp * 16, kofs, gid, tig);
+    tiles::fence_proxy_async();
+    __syncthreads();
+
+    // dQ[:, 128 wg ..] += dS(bf16) K[:, 128 wg ..]: A the whole dS
+    // (keys along k), B the tile's two 64-column blocks of this half read
+    // MN-major
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc)
+      wgmma_ss_t_n128(flat(acc), kstep_desc<kRows>(sDS, 0, kc),
+                      desc_mn_sw128(tK + 2 * wg * kBK * 128 + 16 * kc * 128,
+                                    kBK * 128),
+                      started || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(acc));
+    started = true;
+  }
+  if (!started)  // no key tile: dQ is 0
+    #pragma unroll
+    for (int dt = 0; dt < 16; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(sK);
+  stage_half<L::kSS>(stage, acc, warp, 128 * wg, gid, tig);
+  __syncthreads();
+  for (int i = tid; i < kRows * kPieces; i += kT2) {
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 8;
+    const int p = q0 + r % bq;
+    if (p >= Sq) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+    *reinterpret_cast<uint4*>(dq + base + c) =
+        *reinterpret_cast<const uint4*>(stage + r * L::kSS + c);
+  }
+}
+
+struct Dkv256Smem {
+  static constexpr int D = 256;
+  static constexpr int kTile = kBK * D * 2;  // a swizzled [64][256] tile
+  // K, V, the Q ring, the dO ring, P^T and dS^T (swizzled [64][64] each),
+  // all 1024-byte aligned, then [stage] LSE and Delta rows
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kQ = 2 * kTile;
+  static constexpr int kDo = kQ + kStages * kTile;
+  static constexpr int kPT = kDo + kStages * kTile;
+  static constexpr int kDST = kPT + kBK * 128;
+  static constexpr int kRowsAt = kDST + kBK * 128;
+  static constexpr int kBytes = kRowsAt + 2 * kStages * kBQ * 4;
+  // the segment branch's ints after those: each stage's query ids and
+  // positions, scratch, then the list of live query tiles
+  static constexpr int kSegInts = 2 * kStages * kBQ + kScratch2;
+  // the f32 dK, dV of the tile ([64][D + 8] each) over the drained rings,
+  // P^T, dS^T and the rows
+  static constexpr int kAccStride = D + 8;
+  static_assert(2 * kBK * kAccStride * 4 <= kBytes - kQ, "room for dK, dV");
+};
+
+// one CTA a (key tile, batch, kv head, cluster rank): dK and dV together,
+// each warpgroup a 128-column half of both, over G / C of the group's
+// heads; the C ranks' partial sums meet in distributed shared memory as
+// at D 64/128
+template <bool kSeg>
+__global__ void __launch_bounds__(kT2, 1)
+flash_bwd_dkv_256_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                         int Sk, int Hq, int Hk, int causal, float scale,
+                         float scale_log2, Strides qs, Strides ks,
+                         Strides vs, Strides dos, Seg seg) {
+  using L = Dkv256Smem;
+  constexpr int D = L::D;
+  constexpr int kKC = D / 16;
+  constexpr int kQH = kBQ / 2;  // queries of one warpgroup's S^T and dP^T
+  constexpr int kPieces = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* sK = smem + L::kK;
+  unsigned char* sV = smem + L::kV;
+  unsigned char* sQ = smem + L::kQ;    // [stage] swizzled [kBQ][D]
+  unsigned char* sD = smem + L::kDo;   // [stage] dO
+  unsigned char* sPT = smem + L::kPT;  // P^T, [key][query]
+  unsigned char* sDST = smem + L::kDST;
+  float* sL = reinterpret_cast<float*>(smem + L::kRowsAt);  // [stage]
+  float* sDelta = sL + kStages * kBQ;
+  int* sQseg = reinterpret_cast<int*>(smem + L::kBytes);
+  int* sQpos = sQseg + kStages * kBQ;
+  int* sScratch = sQpos + kStages * kBQ;
+  int* sList = sScratch + kScratch2;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = Hq / Hk;
+  const int Gc = G / C;  // heads of this rank: g0 .. g0 + Gc - 1
+  const int g0 = rank * Gc;
+  // 1-d grid: cluster rank fastest, then kv head, batch, key tile
+  const int rest = blockIdx.x / C;
+  const int kvh = rest % Hk;
+  const int b = (rest / Hk) % B;
+  const int kt = rest / (Hk * B);
+  const int k0 = kt * kBK;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+  const int nqt = (Sq + kBQ - 1) / kBQ;
+  const int qofs = wg * kQH;  // this warpgroup's queries of a step
+
+  for (int i = tid; i < kBK * kPieces; i += kT2) {
+    const int r = i / kPieces;
+    const int c8 = i % kPieces;
+    const int key = k0 + r;
+    const bool ok = key < Sk;
+    cp_async16(sK + swz<kBK>(r, c8),
+               ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
+    cp_async16(sV + swz<kBK>(r, c8),
+               ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
+  }
+  cp_async_commit();
+
+  int qt0 = 0, ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const int4 mine =
+        bounds_at(seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, kt);
+    ntiles = live_pairs<false, false, kT2>(
+        seg.qb + static_cast<size_t>(b) * 4 * nqt, nqt, mine, causal, sList,
+        sScratch);
+  } else {
+    qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
+    ntiles = max(0, nqt - qt0);
+  }
+  const int nsteps = ntiles * Gc;
+  auto entry_of = [&](int t) {
+    if constexpr (kSeg) return sList[t];
+    else return qt0 + t;
+  };
+
+  // step n: query tile n / Gc, head kvh G + g0 + n % Gc
+  auto load_q = [&](int n, int st) {
+    const int q0 = (entry_of(n / Gc) & (kFull - 1)) * kBQ;
+    const int head = kvh * G + g0 + n % Gc;
+    unsigned char* dq_ = sQ + st * L::kTile;
+    unsigned char* dd = sD + st * L::kTile;
+    for (int i = tid; i < kBQ * kPieces; i += kT2) {
+      const int r = i / kPieces;
+      const int c8 = i % kPieces;
+      const int pos = q0 + r;
+      const bool ok = pos < Sq;
+      cp_async16(dq_ + swz<kBQ>(r, c8),
+                 ok ? q + qs.at(b, pos, head) + 8 * c8 : q, ok);
+      cp_async16(dd + swz<kBQ>(r, c8),
+                 ok ? dout + dos.at(b, pos, head) + 8 * c8 : dout, ok);
+    }
+    // threads 0-63 copy LSE, 64-127 Delta (0 past Sq); on the segment
+    // branch also the rows' ids and positions
+    if (tid < 2 * kBQ) {
+      const int r = tid % kBQ;
+      const int pos = q0 + r;
+      const bool ok = pos < Sq;
+      const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
+      const float* src = tid < kBQ ? lse : delta;
+      cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
+                ok ? src + row : src, ok);
+      if constexpr (kSeg) {
+        const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
+        cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
+                  ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+      }
+    }
+  };
+  if (nsteps > 0) load_q(0, 0);
+  cp_async_commit();
+
+  // the two keys this thread owns (the same in both warpgroups)
+  int key[2], kid[2], kp[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + warp * 16 + gid + 8 * i;
+    kid[i] = -1;
+    kp[i] = 0;
+    if constexpr (kSeg) {
+      if (key[i] < Sk) {
+        kid[i] = seg.kseg[static_cast<size_t>(b) * Sk + key[i]];
+        kp[i] = seg.kpos[static_cast<size_t>(b) * Sk + key[i]];
+      }
+    }
+  }
+
+  // dK, dV [:, 128 wg .. 128 wg + 127], written by wgmma only
+  float dka[16][4], dva[16][4];
+  bool started = false;
+
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait<kStages - 2>();
+    tiles::fence_proxy_async();
+    __syncthreads();
+    if (n + 1 < nsteps) load_q(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const unsigned char* tQ = sQ + st * L::kTile;
+    const unsigned char* tD = sD + st * L::kTile;
+    const int entry = entry_of(n / Gc);
+    const int q0 = (entry & (kFull - 1)) * kBQ;
+    bool full_tile;
+    if constexpr (kSeg)
+      full_tile = entry & kFull;
+    else
+      full_tile = !(causal && k0 + kBK - 1 > q0 + off);
+
+    // S^T = K Q^T and dP^T = V dO^T: the tile's 64 keys x this
+    // warpgroup's 32 queries, both operands from shared memory
+    float s[kQH / 8][4], dp[kQH / 8][4];
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n32(flat(s), kstep_desc<kBK>(sK, 0, kc),
+                   kstep_desc<kBQ>(tQ, qofs, kc), kc);
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n32(flat(dp), kstep_desc<kBK>(sV, 0, kc),
+                   kstep_desc<kBQ>(tD, qofs, kc), kc);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+
+    const bool masked =
+        !full_tile && (kSeg || (causal && k0 + kBK - 1 > q0 + qofs + off));
+    const float* tL = sL + st * kBQ + qofs;
+    const float* tDl = sDelta + st * kBQ + qofs;
+    const int* tseg = sQseg + st * kBQ + qofs;
+    const int* tpos = sQpos + st * kBQ + qofs;
+    if (masked)
+      dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + qofs, key,
+                             kid, kp, causal, off, scale_log2, scale, tig);
+    else
+      dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + qofs, key,
+                              kid, kp, causal, off, scale_log2, scale, tig);
+    // P^T and dS^T (bf16) of both halves meet in shared memory
+    put_pairs(sPT, s, warp * 16, qofs, gid, tig);
+    put_pairs(sDST, dp, warp * 16, qofs, gid, tig);
+    tiles::fence_proxy_async();
+    __syncthreads();
+
+    // dV[:, 128 wg ..] += P^T(bf16) dO[:, 128 wg ..] and dK[:, 128 wg ..]
+    // += dS^T(bf16) Q[:, 128 wg ..]: A the whole P^T / dS^T (queries
+    // along k), B the staged rows' two 64-column blocks of this half read
+    // MN-major
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kBQ / 16; ++kc) {
+      const int at = 2 * wg * kBQ * 128 + 16 * kc * 128;
+      wgmma_ss_t_n128(flat(dva), kstep_desc<kBK>(sPT, 0, kc),
+                      desc_mn_sw128(tD + at, kBQ * 128), started || kc > 0);
+      wgmma_ss_t_n128(flat(dka), kstep_desc<kBK>(sDST, 0, kc),
+                      desc_mn_sw128(tQ + at, kBQ * 128), started || kc > 0);
+    }
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(dka));
+    tiles::fence_regs(flat(dva));
+    started = true;
+  }
+  if (!started)  // no query row: dK = dV = 0
+    #pragma unroll
+    for (int dt = 0; dt < 16; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dka[dt][c] = 0.f;
+        dva[dt][c] = 0.f;
+      }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the rings, P^T and dS^T
+
+  if (C == 1) {  // the whole group's sums: bf16 rows over the rings
+    constexpr int kSS = D + 8;
+    __nv_bfloat16* stK = reinterpret_cast<__nv_bfloat16*>(sQ);
+    __nv_bfloat16* stV = stK + kBK * kSS;
+    stage_half<kSS>(stK, dka, warp, 128 * wg, gid, tig);
+    stage_half<kSS>(stV, dva, warp, 128 * wg, gid, tig);
+    __syncthreads();
+    for (int i = tid; i < 2 * kBK * kPieces; i += kT2) {
+      const int which = i / (kBK * kPieces);  // 0: dK, 1: dV
+      const int r = (i % (kBK * kPieces)) / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int kj = k0 + r;
+      if (kj >= Sk) continue;
+      __nv_bfloat16* out =
+          (which ? dv : dk) +
+          ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D + c;
+      *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(
+          (which ? stV : stK) + r * kSS + c);
+    }
+    return;
+  }
+
+  // the tile's f32 dK, dV (this rank's heads), row-major over the rings
+  constexpr int kAS = L::kAccStride;
+  float* fK = reinterpret_cast<float*>(sQ);
+  float* fV = fK + kBK * kAS;
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + gid + 8 * i;
+    #pragma unroll
+    for (int dt = 0; dt < 16; ++dt) {
+      const int col = 128 * wg + dt * 8 + tig * 2;
+      *reinterpret_cast<float2*>(fK + row * kAS + col) =
+          make_float2(dka[dt][i * 2], dka[dt][i * 2 + 1]);
+      *reinterpret_cast<float2*>(fV + row * kAS + col) =
+          make_float2(dva[dt][i * 2], dva[dt][i * 2 + 1]);
+    }
+  }
+  if (C > 1)
+    cluster.sync();  // every rank's partial sums are in place
+  else
+    __syncthreads();
+
+  // rank r sums keys [r 64/C, (r + 1) 64/C) over the ranks, in rank order,
+  // and stores them 8 bytes (4 bf16) at a time
+  const int rows = kBK / C;
+  constexpr int kQuads = D / 4;
+  for (int i = tid; i < 2 * rows * kQuads; i += kT2) {
+    const int which = i / (rows * kQuads);  // 0: dK, 1: dV
+    const int row = rank * rows + (i % (rows * kQuads)) / kQuads;
+    const int col = (i % kQuads) * 4;
+    const int kj = k0 + row;
+    if (kj >= Sk) continue;
+    const float* mine = (which ? fV : fK) + row * kAS + col;
+    float4 sum = *reinterpret_cast<const float4*>(
+        C > 1 ? cluster.map_shared_rank(mine, 0) : mine);
+    for (int rr = 1; rr < C; ++rr) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(mine, rr));
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    __nv_bfloat16* out = (which ? dv : dk) +
+                         ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
+                         col;
+    *reinterpret_cast<uint2*>(out) =
+        make_uint2(pack_f32(sum.x, sum.y), pack_f32(sum.z, sum.w));
+  }
+  if (C > 1) cluster.sync();  // no rank leaves while another reads it
+}
+
+// ---------------------------------------------------------------------------
+// head dims above 256: the contraction over the head dim streamed in chunks
+// ---------------------------------------------------------------------------
+
+constexpr int kXWq = 128;  // dQ columns a CTA of B2 owns: one chunk
+constexpr int kXWkv = 64;  // dK and dV columns a CTA of B3 owns: one chunk
+
+// B2: a ring stage holds one chunk of Q and dO (the CTA's 64 folded rows)
+// and of K and V (a key tile), each a swizzled [64][kXWq]
+struct DqXlSmem {
+  static constexpr int kChunk = kBK * kXWq * 2;
+  static constexpr int kStage = 4 * kChunk;
+  static constexpr int kBytes = kStages * kStage;
+  static constexpr int kSegInts = 2 * kStages * kBK + kSegScratch;
+  static constexpr int kSS = kXWq + 8;  // dQ's padded staging rows
+};
+
+template <bool kSeg>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_xl_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                       int Sk, int Hq, int Hk, int D, int causal,
+                       float scale, float scale_log2, Strides qs,
+                       Strides ks, Strides vs, Strides dos, Seg seg) {
+  using L = DqXlSmem;
+  constexpr int kKC = kXWq / 16;     // k steps of S and dP in a chunk
+  constexpr int kCP = kXWq / 8;      // 16-byte pieces of a chunk's row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  int* sKseg = reinterpret_cast<int*>(smem_raw + L::kBytes);
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kSegScratch;
+
+  const int nch = D / kXWq;
+  const int G = Hq / Hk;
+  const int bq = kRows / G;
+  const int nqb = (Sq + bq - 1) / bq;
+  // 1-d grid: slice fastest, then (kv head, batch), query blocks from the
+  // last
+  const int sl = blockIdx.x % nch;
+  const int rest = blockIdx.x / nch;
+  const int hb = rest % (Hk * B);
+  const int kvh = hb % Hk;
+  const int b = hb / Hk;
+  const int q0 = (nqb - 1 - rest / (Hk * B)) * bq;
+  const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int off = Sk - Sq;
-
-  for (int i = tid; i < kRows * kPieces; i += kThreads) {
-    const int r = i / kPieces;
-    const int c = (i % kPieces) * 8;
-    const int pos = q0 + r % bq;
-    const int head = kvh * G + r / bq;
-    const bool ok = pos < Sq;
-    cp_async16(sQ + r * kStride + c, ok ? q + qs.at(b, pos, head) + c : q,
-               ok);
-    cp_async16(sD + r * kStride + c,
-               ok ? dout + dos.at(b, pos, head) + c : dout, ok);
-  }
-  cp_async_commit();
 
   const int q_hi = min(q0 + bq, Sq) - 1;
   int ntiles;
@@ -960,12 +1514,16 @@ flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (kSeg) return sList[n];
     else return n;
   };
+  const int nitems = ntiles * nch;
 
-  auto load_kv = [&](int n, int st) {
-    const int t = entry_of(n) & (kFull - 1);
-    __nv_bfloat16* dk = sK + st * L::kTile;
-    __nv_bfloat16* dv = sV + st * L::kTile;
-    if constexpr (kSeg) {
+  // item n: chunk (sl + 1 + n % nch) % nch of key tile n / nch, so the
+  // slice's own chunk comes last: its K chunk is the one dQ needs
+  auto load = [&](int n, int st) {
+    const int t = entry_of(n / nch) & (kFull - 1);
+    const int j = n % nch;
+    const int c0 = ((sl + 1 + j) % nch) * kXWq;
+    unsigned char* base = smem_raw + st * L::kStage;
+    if (kSeg && j == nch - 1) {  // the tile's ids and positions
       const int i = tid % kBK;
       const int key = t * kBK + i;
       const bool ok = key < Sk;
@@ -974,18 +1532,27 @@ flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
                 ok);
     }
-    for (int i = tid; i < kBK * kPieces; i += kThreads) {
-      const int r = i / kPieces;
-      const int c = (i % kPieces) * 8;
+    for (int i = tid; i < kBK * kCP; i += kThreads) {
+      const int r = i / kCP;
+      const int c8 = i % kCP;
+      const int o = swz<kBK>(r, c8);
+      const int pos = q0 + r % bq;
+      const int head = kvh * G + r / bq;
+      const bool okq = pos < Sq;
+      cp_async16(base + o, okq ? q + qs.at(b, pos, head) + c0 + 8 * c8 : q,
+                 okq);
+      cp_async16(base + L::kChunk + o,
+                 okq ? dout + dos.at(b, pos, head) + c0 + 8 * c8 : dout,
+                 okq);
       const int key = t * kBK + r;
-      const bool ok = key < Sk;
-      cp_async16(dk + r * kStride + c, ok ? k + ks.at(b, key, kvh) + c : k,
-                 ok);
-      cp_async16(dv + r * kStride + c, ok ? v + vs.at(b, key, kvh) + c : v,
-                 ok);
+      const bool okk = key < Sk;
+      cp_async16(base + 2 * L::kChunk + o,
+                 okk ? k + ks.at(b, key, kvh) + c0 + 8 * c8 : k, okk);
+      cp_async16(base + 3 * L::kChunk + o,
+                 okk ? v + vs.at(b, key, kvh) + c0 + 8 * c8 : v, okk);
     }
   };
-  if (ntiles > 0) load_kv(0, 0);
+  if (nitems > 0) load(0, 0);
   cp_async_commit();
 
   int pos[2], qid[2], qp[2];
@@ -1009,103 +1576,141 @@ flash_bwd_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  const __nv_bfloat16* my_q = sQ + warp * 16 * kStride;
-  const __nv_bfloat16* my_do = sD + warp * 16 * kStride;
 
-  float acc[kDT][4];
-  #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-    #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  // S and dP sum over a tile's chunks; dQ[:, slice] is written by wgmma
+  // only; dS's A fragments live until the product that reads them retires
+  float s[kBK / 8][4], dp[kBK / 8][4], acc[kXWq / 8][4];
+  uint32_t a_ds[kBK / 16][4];
+  bool started = false;
 
-  for (int n = 0; n < ntiles; ++n) {
-    cp_async_wait<kStages - 2>();  // step n's tile (and Q, dO) have landed
-    __syncthreads();  // ... for every thread, and step n - 1's is consumed
-    if (n + 1 < ntiles) load_kv(n + 1, (n + 1) % kStages);
+  for (int n = 0; n < nitems; ++n) {
+    cp_async_wait<kStages - 2>();
+    tiles::fence_proxy_async();
+    __syncthreads();
+    if (n + 1 < nitems) load(n + 1, (n + 1) % kStages);
     cp_async_commit();
     const int st = n % kStages;
-    const __nv_bfloat16* tK = sK + st * L::kTile;
-    const __nv_bfloat16* tV = sV + st * L::kTile;
-    const int entry = entry_of(n);
+    const int j = n % nch;
+    const unsigned char* tQ = smem_raw + st * L::kStage;
+    const unsigned char* tD = tQ + L::kChunk;
+    const unsigned char* tK = tD + L::kChunk;
+    const unsigned char* tV = tK + L::kChunk;
+
+    // S += Q_c K_c^T and dP += dO_c V_c^T over this chunk's columns
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(s), kstep_desc<kBK>(tQ, 0, kc),
+                   kstep_desc<kBK>(tK, 0, kc), j > 0 || kc > 0);
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(dp), kstep_desc<kBK>(tD, 0, kc),
+                   kstep_desc<kBK>(tV, 0, kc), j > 0 || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    if (j != nch - 1) continue;
+
+    const int entry = entry_of(n / nch);
     const int t0 = (entry & (kFull - 1)) * kBK;
-    bool full_tile;
+    bool masked;
     if constexpr (kSeg)
-      full_tile = (entry & kFull) && t0 + kBK <= Sk;
+      masked = !(entry & kFull) || t0 + kBK > Sk;
     else
-      full_tile = t0 + kBK <= Sk && !(causal && t0 + kBK - 1 > q0 + off);
+      masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
+    const int* tseg = sKseg + st * kBK;
+    const int* tpos = sKpos + st * kBK;
+    if (masked)
+      dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0, 0, Sk, causal, off,
+                            scale_log2, scale, tig, tseg, tpos, qid, qp);
+    else
+      dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0, 0, Sk, causal, off,
+                             scale_log2, scale, tig, tseg, tpos, qid, qp);
 
-    #pragma unroll 1
-    for (int s0 = 0; s0 < kBK; s0 += kSub) {
-      if (!kSeg && (t0 + s0 >= Sk || (causal && t0 + s0 > q_hi + off)))
-        continue;
-      // S = Q K^T and dP = dO V^T for the warp's 16 rows x kSub keys
-      float s[kSNT][4], dp[kSNT][4];
-      wide_product<D>(s, my_q, tK + s0 * kStride, lane);
-      wide_product<D>(dp, my_do, tV + s0 * kStride, lane);
-      const bool masked =
-          !full_tile &&
-          (kSeg || t0 + s0 + kSub > Sk ||
-           (causal && t0 + s0 + kSub - 1 > q0 + off));
-      const int* tseg = sKseg + st * kBK;
-      const int* tpos = sKpos + st * kBK;
-      if (masked)
-        dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk, causal,
-                              off, scale_log2, scale, tig, tseg, tpos, qid,
-                              qp);
-      else
-        dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk,
-                               causal, off, scale_log2, scale, tig, tseg,
-                               tpos, qid, qp);
-      // dQ += dS(bf16) K
-      wide_accumulate<D>(acc, s, tK + s0 * kStride, lane);
-    }
+    // dQ[:, slice] += dS(bf16) K_slice: the slice's chunk is this item's
+    #pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc)
+      acc_to_a(a_ds[kc], s[2 * kc], s[2 * kc + 1]);
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kBK / 16; ++kc)
+      wgmma_rs_t_n128(flat(acc), a_ds[kc],
+                      desc_mn_sw128(tK + 16 * kc * 128, kBK * 128),
+                      started || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(acc));
+    fence_frags(a_ds);
+    started = true;
   }
+  if (!started)
+    #pragma unroll
+    for (int dt = 0; dt < kXWq / 8; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   cp_async_wait<0>();
+  __syncthreads();
 
-  // dQ through the warp's own 16 rows of sQ (only this warp read them)
-  const int r0 = warp * 16;
-  wide_store<D>(acc, sQ + r0 * kStride, lane, [&](int r) {
-    const int p = q0 + (r0 + r) % bq;
-    return p < Sq ? dq + ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G +
-                          (r0 + r) / bq) * D
-                  : nullptr;
-  });
+  // the slice through the warp's own 16 padded rows over the ring
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  stage_half<L::kSS>(stage, acc, warp, 0, gid, tig);
+  __syncwarp();
+  for (int i = lane; i < 16 * kCP; i += 32) {
+    const int r = warp * 16 + i / kCP;
+    const int c = (i % kCP) * 8;
+    const int p = q0 + r % bq;
+    if (p >= Sq) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D +
+        sl * kXWq;
+    *reinterpret_cast<uint4*>(dq + base + c) =
+        *reinterpret_cast<const uint4*>(stage + r * L::kSS + c);
+  }
 }
 
-// one CTA a (key tile, batch, kv head, which): which 0 accumulates dV, 1 dK
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int B, int Sq,
-                          int Sk, int Hq, int Hk, int causal, float scale,
-                          float scale_log2, Strides qs, Strides ks,
-                          Strides vs, Strides dos, Seg seg) {
-  using L = WideSmem<D>;
-  constexpr int kStride = L::kStride;
-  constexpr int kDT = D / 8;
-  constexpr int kQH = 32;  // queries per sub-step
-  constexpr int kQNT = kQH / 8;
-  constexpr int kPieces = D / 8;
-  extern __shared__ __align__(16) unsigned char wide_smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(wide_smem);
-  __nv_bfloat16* sV = sK + L::kTile;
-  __nv_bfloat16* sQ = sV + L::kTile;            // [stage] Q tiles
-  __nv_bfloat16* sD = sQ + kStages * L::kTile;  // [stage] dO tiles
-  float* sL = reinterpret_cast<float*>(wide_smem + L::kBytes);  // [stage]
+// B3: a ring stage holds one chunk of K and V (the CTA's key tile) and of
+// Q and dO (a step's 64 rows), each a swizzled [64][kXWkv], then the
+// stage's LSE and Delta rows
+struct DkvXlSmem {
+  static constexpr int kChunk = kBK * kXWkv * 2;
+  static constexpr int kStage = 4 * kChunk;
+  static constexpr int kRowsAt = kStages * kStage;
+  static constexpr int kBytes = kRowsAt + 2 * kStages * kBQ * 4;
+  static constexpr int kSegInts = 2 * kStages * kBQ + kSegScratch;
+  static constexpr int kSS = kXWkv + 8;  // dK, dV's padded staging rows
+};
+
+template <bool kSeg>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                        int Sk, int Hq, int Hk, int D, int causal,
+                        float scale, float scale_log2, Strides qs,
+                        Strides ks, Strides vs, Strides dos, Seg seg) {
+  using L = DkvXlSmem;
+  constexpr int kKC = kXWkv / 16;
+  constexpr int kCP = kXWkv / 8;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* sL = reinterpret_cast<float*>(smem + L::kRowsAt);  // [stage]
   float* sDelta = sL + kStages * kBQ;
-  int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kBQ);
+  int* sQseg = reinterpret_cast<int*>(smem + L::kBytes);
   int* sQpos = sQseg + kStages * kBQ;
   int* sScratch = sQpos + kStages * kBQ;
   int* sList = sScratch + kSegScratch;
 
-  const int which = blockIdx.x & 1;  // 0: dV, 1: dK
-  const int rest = blockIdx.x >> 1;
+  const int nch = D / kXWkv;
+  // 1-d grid: slice fastest, then kv head, batch, key tile
+  const int sl = blockIdx.x % nch;
+  const int rest = blockIdx.x / nch;
   const int kvh = rest % Hk;
   const int b = (rest / Hk) % B;
   const int kt = rest / (Hk * B);
@@ -1119,19 +1724,6 @@ flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const int off = Sk - Sq;
   const int nqt = (Sq + kBQ - 1) / kBQ;
 
-  for (int i = tid; i < kBK * kPieces; i += kThreads) {
-    const int r = i / kPieces;
-    const int c = (i % kPieces) * 8;
-    const int key = k0 + r;
-    const bool ok = key < Sk;
-    cp_async16(sK + r * kStride + c, ok ? k + ks.at(b, key, kvh) + c : k,
-               ok);
-    if (which)
-      cp_async16(sV + r * kStride + c, ok ? v + vs.at(b, key, kvh) + c : v,
-                 ok);
-  }
-  cp_async_commit();
-
   int qt0 = 0, ntiles;
   if constexpr (kSeg) {
     const int nkt = (Sk + kBK - 1) / kBK;
@@ -1143,42 +1735,56 @@ flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
     qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
     ntiles = max(0, nqt - qt0);
   }
-  const int nsteps = ntiles * G;
   auto entry_of = [&](int t) {
     if constexpr (kSeg) return sList[t];
     else return qt0 + t;
   };
+  const int nitems = ntiles * G * nch;
 
-  // step n: query tile n / G, head kvh G + n % G
-  auto load_q = [&](int n, int st) {
-    const int q0 = (entry_of(n / G) & (kFull - 1)) * kBQ;
-    const int head = kvh * G + n % G;
-    __nv_bfloat16* dq_ = sQ + st * L::kTile;
-    __nv_bfloat16* dd = sD + st * L::kTile;
-    for (int i = tid; i < kBQ * kPieces; i += kThreads) {
-      const int r = i / kPieces;
-      const int c = (i % kPieces) * 8;
+  // item n: chunk (sl + 1 + n % nch) % nch of step n / nch (query tile
+  // step / G, head kvh G + step % G); the slice's own chunk comes last,
+  // with the step's LSE, Delta (and ids and positions)
+  auto load = [&](int n, int st) {
+    const int step = n / nch;
+    const int j = n % nch;
+    const int c0 = ((sl + 1 + j) % nch) * kXWkv;
+    const int q0 = (entry_of(step / G) & (kFull - 1)) * kBQ;
+    const int head = kvh * G + step % G;
+    unsigned char* base = smem + st * L::kStage;
+    for (int i = tid; i < kBK * kCP; i += kThreads) {
+      const int r = i / kCP;
+      const int c8 = i % kCP;
+      const int o = swz<kBK>(r, c8);
+      const int key = k0 + r;
+      const bool okk = key < Sk;
+      cp_async16(base + o, okk ? k + ks.at(b, key, kvh) + c0 + 8 * c8 : k,
+                 okk);
+      cp_async16(base + L::kChunk + o,
+                 okk ? v + vs.at(b, key, kvh) + c0 + 8 * c8 : v, okk);
+      const int pos = q0 + r;
+      const bool okq = pos < Sq;
+      cp_async16(base + 2 * L::kChunk + o,
+                 okq ? q + qs.at(b, pos, head) + c0 + 8 * c8 : q, okq);
+      cp_async16(base + 3 * L::kChunk + o,
+                 okq ? dout + dos.at(b, pos, head) + c0 + 8 * c8 : dout,
+                 okq);
+    }
+    if (j == nch - 1) {
+      const int r = tid % kBQ;
       const int pos = q0 + r;
       const bool ok = pos < Sq;
-      cp_async16(dq_ + r * kStride + c,
-                 ok ? q + qs.at(b, pos, head) + c : q, ok);
-      cp_async16(dd + r * kStride + c,
-                 ok ? dout + dos.at(b, pos, head) + c : dout, ok);
-    }
-    const int r = tid % kBQ;
-    const int pos = q0 + r;
-    const bool ok = pos < Sq;
-    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
-    const float* src = tid < kBQ ? lse : delta;
-    cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
-              ok ? src + row : src, ok);
-    if constexpr (kSeg) {
-      const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
-      cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
-                ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+      const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
+      const float* src = tid < kBQ ? lse : delta;
+      cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
+                ok ? src + row : src, ok);
+      if constexpr (kSeg) {
+        const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
+        cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
+                  ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+      }
     }
   };
-  if (nsteps > 0) load_q(0, 0);
+  if (nitems > 0) load(0, 0);
   cp_async_commit();
 
   int key[2], kid[2], kp[2];
@@ -1194,79 +1800,127 @@ flash_bwd_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  const __nv_bfloat16* my_k = sK + warp * 16 * kStride;
-  const __nv_bfloat16* my_v = sV + warp * 16 * kStride;
 
-  float acc[kDT][4];  // dV (which 0) or dK (which 1) of the warp's keys
-  #pragma unroll
-  for (int dt = 0; dt < kDT; ++dt)
-    #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  float s[kBQ / 8][4], dp[kBQ / 8][4];
+  float dka[kXWkv / 8][4], dva[kXWkv / 8][4];
+  uint32_t a_p[kBQ / 16][4], a_ds[kBQ / 16][4];
+  bool started = false;
 
-  for (int n = 0; n < nsteps; ++n) {
+  for (int n = 0; n < nitems; ++n) {
     cp_async_wait<kStages - 2>();
+    tiles::fence_proxy_async();
     __syncthreads();
-    if (n + 1 < nsteps) load_q(n + 1, (n + 1) % kStages);
+    if (n + 1 < nitems) load(n + 1, (n + 1) % kStages);
     cp_async_commit();
     const int st = n % kStages;
-    const __nv_bfloat16* tQ = sQ + st * L::kTile;
-    const __nv_bfloat16* tD = sD + st * L::kTile;
-    const int entry = entry_of(n / G);
+    const int j = n % nch;
+    const unsigned char* tK = smem + st * L::kStage;
+    const unsigned char* tV = tK + L::kChunk;
+    const unsigned char* tQ = tV + L::kChunk;
+    const unsigned char* tD = tQ + L::kChunk;
+
+    // S^T += K_c Q_c^T and dP^T += V_c dO_c^T over this chunk's columns
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(s), kstep_desc<kBK>(tK, 0, kc),
+                   kstep_desc<kBQ>(tQ, 0, kc), j > 0 || kc > 0);
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(dp), kstep_desc<kBK>(tV, 0, kc),
+                   kstep_desc<kBQ>(tD, 0, kc), j > 0 || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+    tiles::fence_regs(flat(dp));
+    if (j != nch - 1) continue;
+
+    const int entry = entry_of(n / nch / G);
     const int q0 = (entry & (kFull - 1)) * kBQ;
     bool full_tile;
     if constexpr (kSeg)
       full_tile = entry & kFull;
     else
       full_tile = !(causal && k0 + kBK - 1 > q0 + off);
+    const bool masked = !full_tile;
+    const float* tL = sL + st * kBQ;
+    const float* tDl = sDelta + st * kBQ;
+    const int* tseg = sQseg + st * kBQ;
+    const int* tpos = sQpos + st * kBQ;
+    if (masked)
+      dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0, key, kid, kp,
+                             causal, off, scale_log2, scale, tig);
+    else
+      dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0, key, kid, kp,
+                              causal, off, scale_log2, scale, tig);
 
-    #pragma unroll 1
-    for (int r0 = 0; r0 < kBQ; r0 += kQH) {
-      if (!kSeg && (q0 + r0 >= Sq ||
-                    (causal && q0 + r0 + kQH - 1 + off < k0)))
-        continue;
-      // S^T = K Q^T (and, for dK, dP^T = V dO^T): the warp's 16 keys x
-      // kQH queries
-      float s[kQNT][4], dp[kQNT][4];
-      wide_product<D>(s, my_k, tQ + r0 * kStride, lane);
-      if (which) {
-        wide_product<D>(dp, my_v, tD + r0 * kStride, lane);
-      } else {
-        #pragma unroll
-        for (int nt = 0; nt < kQNT; ++nt)
-          #pragma unroll
-          for (int c = 0; c < 4; ++c) dp[nt][c] = 0.f;
+    // dV[:, slice] += P^T(bf16) dO_slice and dK[:, slice] += dS^T(bf16)
+    // Q_slice: the slice's chunks are this item's
+    #pragma unroll
+    for (int kc = 0; kc < kBQ / 16; ++kc) {
+      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+      acc_to_a(a_ds[kc], dp[2 * kc], dp[2 * kc + 1]);
+    }
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kBQ / 16; ++kc) {
+      wgmma_rs_t_n64(flat(dva), a_p[kc],
+                     desc_mn_sw128(tD + 16 * kc * 128, kBQ * 128),
+                     started || kc > 0);
+      wgmma_rs_t_n64(flat(dka), a_ds[kc],
+                     desc_mn_sw128(tQ + 16 * kc * 128, kBQ * 128),
+                     started || kc > 0);
+    }
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(dka));
+    tiles::fence_regs(flat(dva));
+    fence_frags(a_p);
+    fence_frags(a_ds);
+    started = true;
+  }
+  if (!started)
+    #pragma unroll
+    for (int dt = 0; dt < kXWkv / 8; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dka[dt][c] = 0.f;
+        dva[dt][c] = 0.f;
       }
-      const bool masked =
-          !full_tile && (kSeg || (causal && k0 + kBK - 1 > q0 + r0 + off));
-      const float* tL = sL + st * kBQ + r0;
-      const float* tDl = sDelta + st * kBQ + r0;
-      const int* tseg = sQseg + st * kBQ + r0;
-      const int* tpos = sQpos + st * kBQ + r0;
-      if (masked)
-        dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
-                               kid, kp, causal, off, scale_log2, scale,
-                               tig);
-      else
-        dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
-                                kid, kp, causal, off, scale_log2, scale,
-                                tig);
-      // dV += P^T(bf16) dO, or dK += dS^T(bf16) Q
-      if (which)
-        wide_accumulate<D>(acc, dp, tQ + r0 * kStride, lane);
-      else
-        wide_accumulate<D>(acc, s, tD + r0 * kStride, lane);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the slices through the warp's own 16 padded rows of each, over the
+  // ring
+  __nv_bfloat16* stK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stV = stK + kBK * L::kSS;
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + gid + 8 * i;
+    #pragma unroll
+    for (int dt = 0; dt < kXWkv / 8; ++dt) {
+      const int col = dt * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(stK + row * L::kSS + col) =
+          pack_f32(dka[dt][2 * i], dka[dt][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(stV + row * L::kSS + col) =
+          pack_f32(dva[dt][2 * i], dva[dt][2 * i + 1]);
     }
   }
-  cp_async_wait<0>();
-
-  // through the warp's own 16 rows of sK (only this warp read them)
-  const int r0 = warp * 16;
-  __nv_bfloat16* out = which ? dk : dv;
-  wide_store<D>(acc, sK + r0 * kStride, lane, [&](int r) {
-    const int kj = k0 + r0 + r;
-    return kj < Sk ? out + ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D
-                   : nullptr;
-  });
+  __syncwarp();
+  for (int i = lane; i < 2 * 16 * kCP; i += 32) {
+    const int which = i / (16 * kCP);  // 0: dK, 1: dV
+    const int r = warp * 16 + (i % (16 * kCP)) / kCP;
+    const int c = (i % kCP) * 8;
+    const int kj = k0 + r;
+    if (kj >= Sk) continue;
+    __nv_bfloat16* out = (which ? dv : dk) +
+                         ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
+                         sl * kXWkv + c;
+    *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(
+        (which ? stV : stK) + r * L::kSS + c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1277,7 +1931,7 @@ struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
   const float *lse, *delta;
   __nv_bfloat16 *dq, *dk, *dv;
-  int B, Sq, Sk, Hq, Hk, causal, cluster;
+  int B, Sq, Sk, Hq, Hk, D, causal, cluster;
   float scale, sl2;
   Strides qs, ks, vs, dos;
   Seg seg;
@@ -1343,43 +1997,109 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
-cudaError_t launch_dq_wide(const Args& a) {
+template <bool kSeg>
+cudaError_t launch_dq_256(const Args& a) {
   static int allowed = 48 * 1024;
+  using L = Dq256Smem;
   const int nkt = (a.Sk + kBK - 1) / kBK;
-  const int smem = WideSmem<D>::kBytes +
-                   (kSeg ? (2 * kStages * kBK + kSegScratch + nkt) * 4 : 0);
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nkt) * 4 : 0);
   const cudaError_t e =
-      allow_dynamic_smem(flash_bwd_dq_wide_kernel<D, kSeg>, smem, allowed);
+      allow_dynamic_smem(flash_bwd_dq_256_kernel<kSeg>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int bq = kRows / (a.Hq / a.Hk);
   const long long ctas =
       static_cast<long long>((a.Sq + bq - 1) / bq) * a.Hk * a.B;
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dq_wide_kernel<D, kSeg><<<static_cast<unsigned>(ctas),
-                                      kThreads, smem, a.s>>>(
+  flash_bwd_dq_256_kernel<kSeg><<<static_cast<unsigned>(ctas), kT2, smem,
+                                  a.s>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Sq, a.Sk, a.Hq,
       a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
-cudaError_t launch_dkv_wide(const Args& a) {
+template <bool kSeg>
+cudaError_t launch_dkv_256(const Args& a) {
   static int allowed = 48 * 1024;
+  using L = Dkv256Smem;
   const int nqt = (a.Sq + kBQ - 1) / kBQ;
-  const int smem = WideSmem<D>::kBytes + 2 * kStages * kBQ * 4 +
-                   (kSeg ? (2 * kStages * kBQ + kSegScratch + nqt) * 4 : 0);
-  const cudaError_t e =
-      allow_dynamic_smem(flash_bwd_dkv_wide_kernel<D, kSeg>, smem, allowed);
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nqt) * 4 : 0);
+  auto kern = flash_bwd_dkv_256_kernel<kSeg>;
+  const cudaError_t e = allow_dynamic_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
-  const long long ctas =
-      static_cast<long long>((a.Sk + kBK - 1) / kBK) * a.B * a.Hk * 2;
+  const long long ctas = static_cast<long long>((a.Sk + kBK - 1) / kBK) *
+                         a.B * a.Hk * a.cluster;
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dkv_wide_kernel<D, kSeg><<<static_cast<unsigned>(ctas),
-                                       kThreads, smem, a.s>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
-      a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
+  if (a.cluster == 1) {
+    kern<<<static_cast<unsigned>(ctas), kT2, smem, a.s>>>(
+        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
+        a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos,
+        a.seg);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(kT2);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, kern, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B,
+      a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs,
+      a.dos, a.seg);
+  if (le != cudaSuccess) return le;
   return cudaGetLastError();
+}
+
+template <bool kSeg>
+cudaError_t launch_dq_xl(const Args& a) {
+  static int allowed = 48 * 1024;
+  using L = DqXlSmem;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nkt) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dq_xl_kernel<kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const int bq = kRows / (a.Hq / a.Hk);
+  const long long ctas = static_cast<long long>((a.Sq + bq - 1) / bq) *
+                         a.Hk * a.B * (a.D / kXWq);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dq_xl_kernel<kSeg><<<static_cast<unsigned>(ctas), kThreads,
+                                 smem, a.s>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Sq, a.Sk, a.Hq,
+      a.Hk, a.D, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
+  return cudaGetLastError();
+}
+
+template <bool kSeg>
+cudaError_t launch_dkv_xl(const Args& a) {
+  static int allowed = 48 * 1024;
+  using L = DkvXlSmem;
+  const int nqt = (a.Sq + kBQ - 1) / kBQ;
+  const int smem = L::kBytes + (kSeg ? (L::kSegInts + nqt) * 4 : 0);
+  const cudaError_t e =
+      allow_dynamic_smem(flash_bwd_dkv_xl_kernel<kSeg>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  const long long ctas = static_cast<long long>((a.Sk + kBK - 1) / kBK) *
+                         a.B * a.Hk * (a.D / kXWkv);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_bwd_dkv_xl_kernel<kSeg><<<static_cast<unsigned>(ctas), kThreads,
+                                  smem, a.s>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.D, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos,
+      a.seg);
+  return cudaGetLastError();
+}
+
+// the head dims the kernels take: 64, 128, 256, and multiples of 128
+// above 256 (the contraction streamed in chunks)
+bool bad_dim(int D) {
+  return !(D == 64 || D == 128 || D == 256 || (D > 256 && D % kXWq == 0));
 }
 
 bool bad_group(int Hq, int Hk) {
@@ -1396,7 +2116,7 @@ bool bad_seg(const Seg& seg, bool need_qb) {
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, int B, int Sq, int Sk,
-               int Hq, int Hk, int causal, float scale, long long qsb,
+               int Hq, int Hk, int D, int causal, float scale, long long qsb,
                long long qss, long long qsh, long long ksb, long long kss,
                long long ksh, long long vsb, long long vss, long long vsh,
                long long dsb, long long dss, long long dsh, void* stream) {
@@ -1412,6 +2132,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   a.Sk = Sk;
   a.Hq = Hq;
   a.Hk = Hk;
+  a.D = D;
   a.causal = causal;
   a.cluster = 1;
   a.scale = scale;
@@ -1439,9 +2160,9 @@ extern "C" int flash_bwd_dq_bf16(
     long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long dsb, long long dss,
     long long dsh, void* stream) {
-  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, causal,
-                     scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb,
-                     dss, dsh, stream);
+  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, D,
+                     causal, scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, dsb, dss, dsh, stream);
   a.dq = static_cast<__nv_bfloat16*>(dq);
   a.seg = Seg{static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg),
@@ -1451,8 +2172,7 @@ extern "C" int flash_bwd_dq_bf16(
   if (bad_group(Hq, Hk) || bad_seg(a.seg, false))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0 || Hk <= 0) return static_cast<int>(cudaSuccess);
-  if (D != 256 && D != 128 && D != 64)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_dim(D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (a.seg.qseg) {
     e = launch_bounds(Side{a.seg.kseg, a.seg.kpos,
@@ -1460,9 +2180,10 @@ extern "C" int flash_bwd_dq_bf16(
                       Side{}, B, a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (D == 256)
-    e = a.seg.qseg ? launch_dq_wide<256, true>(a)
-                   : launch_dq_wide<256, false>(a);
+  if (D > 256)
+    e = a.seg.qseg ? launch_dq_xl<true>(a) : launch_dq_xl<false>(a);
+  else if (D == 256)
+    e = a.seg.qseg ? launch_dq_256<true>(a) : launch_dq_256<false>(a);
   else if (D == 128)
     e = a.seg.qseg ? launch_dq<128, true>(a) : launch_dq<128, false>(a);
   else if (D == 64)
@@ -1487,9 +2208,9 @@ extern "C" int flash_bwd_dkv_bf16(
     long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long dsb, long long dss, long long dsh,
     void* stream) {
-  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, causal,
-                     scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb,
-                     dss, dsh, stream);
+  Args a = make_args(q, k, v, dout, lse, delta, B, Sq, Sk, Hq, Hk, D,
+                     causal, scale, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                     vsh, dsb, dss, dsh, stream);
   a.dk = static_cast<__nv_bfloat16*>(dk);
   a.dv = static_cast<__nv_bfloat16*>(dv);
   a.cluster = cluster;
@@ -1504,7 +2225,7 @@ extern "C" int flash_bwd_dkv_bf16(
       (Hq / Hk) % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sk <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
-  if ((D != 256 && D != 128 && D != 64) || (D == 256 && cluster != 1))
+  if (bad_dim(D) || (D > 256 && cluster != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (a.seg.qseg) {
@@ -1514,9 +2235,10 @@ extern "C" int flash_bwd_dkv_bf16(
         a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (D == 256)
-    e = a.seg.qseg ? launch_dkv_wide<256, true>(a)
-                   : launch_dkv_wide<256, false>(a);
+  if (D > 256)
+    e = a.seg.qseg ? launch_dkv_xl<true>(a) : launch_dkv_xl<false>(a);
+  else if (D == 256)
+    e = a.seg.qseg ? launch_dkv_256<true>(a) : launch_dkv_256<false>(a);
   else if (D == 128)
     e = a.seg.qseg ? launch_dkv<128, true>(a) : launch_dkv<128, false>(a);
   else if (D == 64)

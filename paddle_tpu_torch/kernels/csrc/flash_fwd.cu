@@ -10,8 +10,9 @@
 // sequence and head strides; the head dim is contiguous), writing
 // O [B, Sq, Hq, D] bf16 and LSE [B, Hq, Sq] f32, both contiguous. Causal
 // masking is bottom-right aligned (query i sees keys j <= i + Sk - Sq); a
-// fully masked row gives O = 0 and LSE = +1e30. D is 64, 128 or 256 (the
-// wrapper zero-pads any other D up to 256 to the next of these).
+// fully masked row gives O = 0 and LSE = +1e30. D is 64, 128, 256 or a
+// multiple of 128 above 256 (the wrapper zero-pads any other D to the next
+// of these, as the Pallas kernel pads D to a multiple of 128).
 //
 // With segment ids (the Pallas body's `has_seg` branch, :305, the mask of
 // `_block_mask` at :257) a query sees a key of its own segment and, if
@@ -55,18 +56,29 @@
 // - Not yet: wgmma and TMA for the dense branch; its products stay on
 //   mma.sync.
 //
-// Head dim 256 (the Pallas kernel pads any D to a multiple of 128, so the
-// JAX package attends at D 160-256; Gemma's heads are 256 wide): both
-// branches run the dense branch's mma.sync kernel, the segment branch as
-// its kSeg instantiation, which walks the compacted pair list of the
-// segment kernel below and masks by ids and positions. What it had to
+// Head dim 256 (Gemma's heads are 256 wide; the wrapper pads D 129-255 to
+// it): both branches run the dense branch's mma.sync kernel, the segment
+// branch as its kSeg instantiation, which walks the compacted pair list of
+// the segment kernel below and masks by ids and positions. What it had to
 // give up: the f32 O accumulator of 16 rows x 256 is 128 registers a
 // thread, so Q's A fragments (64 more) are not kept in registers but read
 // from shared memory with ldmatrix at every key tile (16 more ldmatrix a
 // tile beside the 128 of K and V); Q and a two-stage K/V ring of 64-key
-// tiles padded rows take 165 KiB of shared memory, one CTA an SM. A
-// first version that is right; wgmma at this width (m64n256 accumulators
-// over two warpgroups) is later work.//
+// tiles padded rows take 165 KiB of shared memory, one CTA an SM. Not yet
+// redesigned: wgmma at this width (m64n256 accumulators over two
+// warpgroups) is later work.
+//
+// Head dims above 256 (`flash_fwd_xl_kernel`, both branches; D a multiple
+// of 128): whole 64-row tiles do not fit (at D 512 Q is 64 KiB and a
+// two-stage K/V ring 256 KiB), so each CTA owns one 128-column slice of O
+// and S = Q K^T streams through the ring one 128-column chunk of Q and K
+// at a time, summing in a wgmma accumulator (m64n64, both operands from
+// shared memory); the slice's own chunk comes last and brings V's slice,
+// for O += P V after the dense kernel's softmax step. The CTAs of a row
+// block compute the same S, m and l (D / 128 times the products of S);
+// the first slice writes LSE. A first version that is right, not a fast
+// one.
+//
 // The segment branch is a kernel of its own, `flash_fwd_seg_kernel`:
 // - What held its first version back (1.46 ms at an 8192-token packed row
 //   of Llama-3-8B width, 3.9x `varlen_attn`): it skipped a key tile by id
@@ -743,6 +755,254 @@ flash_fwd_seg_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// head dims above 256
+// ---------------------------------------------------------------------------
+
+constexpr int kXW = 128;  // O columns a CTA owns: one chunk of the head dim
+
+// a ring stage: one chunk of Q (the CTA's 64 folded rows) and of K (a key
+// tile), and V's chunk of the CTA's slice (filled on a tile's last item
+// only), each a swizzled [64][kXW]
+struct XlSmem {
+  static constexpr int kChunk = kBK * kXW * 2;
+  static constexpr int kStage = 3 * kChunk;
+  static constexpr int kBytes = kStages * kStage;
+  static constexpr int kInts = 2 * kStages * kBK + kSegScratch;
+  static constexpr int kSS = kXW + 8;  // O's padded staging rows
+  static_assert(kFRows == kBK, "one tile shape for Q and K chunks");
+};
+
+// D a multiple of kXW above 256. Whole 64-row tiles do not fit at D 512,
+// so the contraction S = Q K^T streams through the ring one chunk of
+// kXW columns at a time (items: a key tile's chunks, the slice's own
+// last), summing in the wgmma accumulator; after the last chunk the
+// online softmax runs as in the dense kernel and O[:, slice] += P V_slice
+// (RS form, V MN-major). Every CTA of a row block computes the same S, m
+// and l; the first slice's writes LSE.
+template <bool kSeg>
+__global__ void __launch_bounds__(kFThreads, 2)
+flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int B, int Sq, int Sk, int Hq, int Hk, int D, int causal,
+                    float scale_log2, Strides qs, Strides ks, Strides vs,
+                    Seg seg) {
+  using L = XlSmem;
+  constexpr int kKC = kXW / 16;  // k steps of S in a chunk
+  constexpr int kNT = kBK / 8;   // 8-key n-tiles of S
+  constexpr int kDT = kXW / 8;   // n-tiles of the slice of O
+  constexpr int kPC = kBK / 16;  // k steps of P V
+  constexpr int kCP = kXW / 8;   // 16-byte pieces of a chunk's row
+  extern __shared__ __align__(1024) unsigned char xl_smem[];
+  int* sKseg = reinterpret_cast<int*>(xl_smem + L::kBytes);  // [stage][kBK]
+  int* sKpos = sKseg + kStages * kBK;
+  int* sScratch = sKpos + kStages * kBK;
+  int* sList = sScratch + kSegScratch;
+
+  const int nch = D / kXW;
+  const int G = Hq / Hk;
+  const int bq = kFRows / G;
+  const int nqb = (Sq + bq - 1) / bq;
+  // 1-d grid: slice fastest, then (kv head, batch), query blocks from the
+  // last
+  const int sl = blockIdx.x % nch;
+  const int rest = blockIdx.x / nch;
+  const int hb = rest % (Hk * B);
+  const int kvh = hb % Hk;
+  const int b = hb / Hk;
+  const int q0 = (nqb - 1 - rest / (Hk * B)) * bq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+
+  const int q_hi = min(q0 + bq, Sq) - 1;
+  int ntiles;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
+                                   q_hi + 1 - q0, sScratch);
+    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+                              nkt, mine, causal, sList, sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    ntiles = (kend + kBK - 1) / kBK;
+  }
+  auto entry_of = [&](int t) {
+    if constexpr (kSeg) return sList[t];
+    else return t;
+  };
+  const int nitems = ntiles * nch;
+
+  // item n: chunk (sl + 1 + n % nch) % nch of key tile n / nch
+  auto load = [&](int n, int st) {
+    const int t = entry_of(n / nch) & (kFull - 1);
+    const int j = n % nch;
+    const int c0 = ((sl + 1 + j) % nch) * kXW;
+    const bool last = j == nch - 1;
+    unsigned char* base = xl_smem + st * L::kStage;
+    if (kSeg && last) {  // threads 0-63 copy the ids, 64-127 positions
+      const int i = tid % kBK;
+      const int key = t * kBK + i;
+      const bool ok = key < Sk;
+      const int* src = tid < kBK ? seg.kseg : seg.kpos;
+      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
+      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                ok);
+    }
+    for (int i = tid; i < kBK * kCP; i += kFThreads) {
+      const int r = i / kCP;
+      const int c8 = i % kCP;
+      const int so = swz<kBK>(r, c8);
+      const int pos = q0 + r % bq;
+      const bool okq = pos < Sq;
+      cp_async16(base + so,
+                 okq ? q + qs.at(b, pos, kvh * G + r / bq) + c0 + 8 * c8 : q,
+                 okq);
+      const int key = t * kBK + r;
+      const bool okk = key < Sk;
+      cp_async16(base + L::kChunk + so,
+                 okk ? k + ks.at(b, key, kvh) + c0 + 8 * c8 : k, okk);
+      if (last)  // c0 is the slice's own chunk
+        cp_async16(base + 2 * L::kChunk + so,
+                   okk ? v + vs.at(b, key, kvh) + c0 + 8 * c8 : v, okk);
+    }
+  };
+  if (nitems > 0) load(0, 0);
+  cp_async_commit();
+
+  int pos[2], head[2], qid[2], qp[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    head[i] = kvh * G + r / bq;
+    pos[i] = q0 + r % bq;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (pos[i] < Sq) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
+  }
+
+  float acc[kDT][4];  // O[:, slice], unnormalized
+  #pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  float m_run[2] = {kNeg, kNeg};
+  float l_run[2] = {0.f, 0.f};
+  float s[kNT][4];       // S, summed over a tile's chunks by wgmma
+  uint32_t a_p[kPC][4];  // P's A fragments, live until P V retires
+
+  for (int n = 0; n < nitems; ++n) {
+    cp_async_wait<kStages - 2>();  // item n has landed
+    tiles::fence_proxy_async();    // ... where wgmma reads it
+    __syncthreads();  // ... for every thread, and item n - 1 is consumed
+    if (n + 1 < nitems) load(n + 1, (n + 1) % kStages);
+    cp_async_commit();
+    const int st = n % kStages;
+    const int j = n % nch;
+    const unsigned char* tQ = xl_smem + st * L::kStage;
+    const unsigned char* tK = tQ + L::kChunk;
+    const unsigned char* tV = tK + L::kChunk;
+
+    tiles::fence_regs(flat(s));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(s), kstep_desc<kBK>(tQ, 0, kc),
+                   kstep_desc<kBK>(tK, 0, kc), j > 0 || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+    if (j != nch - 1) continue;
+
+    const int entry = entry_of(n / nch);
+    const int t0 = (entry & (kFull - 1)) * kBK;
+    bool masked;
+    if constexpr (kSeg)
+      masked = !(entry & kFull) || t0 + kBK > Sk;
+    else
+      masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
+    const int* tseg = sKseg + st * kBK;
+    const int* tpos = sKpos + st * kBK;
+    // the dense kernel's softmax step; it rescales its accumulator by
+    // alpha, here a [1][4] of ones that comes back as alpha of row gid
+    // ([0][0]) and of row gid + 8 ([0][2])
+    float alpha[1][4] = {{1.f, 1.f, 1.f, 1.f}};
+    if (masked)
+      softmax_tile<true, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk, causal,
+                               off, scale_log2, tig, tseg, tpos, qid, qp);
+    else
+      softmax_tile<false, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk, causal,
+                                off, scale_log2, tig, tseg, tpos, qid, qp);
+
+    // PV = P(bf16) V_slice into a fresh accumulator, then O = O alpha + PV
+    #pragma unroll
+    for (int kc = 0; kc < kPC; ++kc)
+      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+    float pv[kDT][4];
+    tiles::fence_regs(flat(pv));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kPC; ++kc)
+      wgmma_rs_t_n128(flat(pv), a_p[kc],
+                      desc_mn_sw128(tV + 16 * kc * 128, kBK * 128), kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(pv));
+    fence_frags(a_p);
+    #pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[dt][c] = fmaf(acc[dt][c], alpha[0][c & 2], pv[dt][c]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // normalize into the warp's own 16 padded rows over the ring; LSE from
+  // the first slice
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(xl_smem);
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    __nv_bfloat16* row = stage + (warp * 16 + gid + 8 * i) * L::kSS;
+    #pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+          pack_f32(acc[dt][i * 2] * inv, acc[dt][i * 2 + 1] * inv);
+    if (sl == 0 && tig == 0 && pos[i] < Sq) {
+      lse[(static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i]] =
+          l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : kBig;
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kCP; i += 32) {
+    const int r = warp * 16 + i / kCP;
+    const int c = (i % kCP) * 8;
+    const int p = q0 + r % bq;
+    if (p >= Sq) continue;
+    const size_t base =
+        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D +
+        sl * kXW;
+    *reinterpret_cast<uint4*>(o + base + c) =
+        *reinterpret_cast<const uint4*>(stage + r * L::kSS + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -750,7 +1010,7 @@ struct Args {
   const __nv_bfloat16 *q, *k, *v;
   __nv_bfloat16* o;
   float* lse;
-  int B, Sq, Sk, Hq, Hk, causal;
+  int B, Sq, Sk, Hq, Hk, D, causal;
   float sl2;
   Strides qs, ks, vs;
   Seg seg;
@@ -804,6 +1064,32 @@ cudaError_t launch_seg(const Args& a) {
   return cudaGetLastError();
 }
 
+// above head dim 256: one launch of the key tiles' bounds (kSeg), then
+// one CTA a (row block, slice)
+template <bool kSeg>
+cudaError_t launch_xl(const Args& a) {
+  static int allowed = 0;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int bytes = XlSmem::kBytes + (kSeg ? (XlSmem::kInts + nkt) * 4 : 0);
+  cudaError_t e = allow_dynamic_smem(flash_fwd_xl_kernel<kSeg>, bytes,
+                                     allowed);
+  if (e != cudaSuccess) return e;
+  if (kSeg) {
+    e = launch_bounds(Side{a.seg.kseg, a.seg.kpos, a.kv_bounds, a.Sk},
+                      Side{}, a.B, a.s);
+    if (e != cudaSuccess) return e;
+  }
+  const int bq = kFRows / (a.Hq / a.Hk);
+  const long long ctas = static_cast<long long>((a.Sq + bq - 1) / bq) *
+                         a.Hk * a.B * (a.D / kXW);
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_xl_kernel<kSeg><<<static_cast<unsigned>(ctas), kFThreads, bytes,
+                              a.s>>>(
+      a.q, a.k, a.v, a.o, a.lse, a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal,
+      a.sl2, a.qs, a.ks, a.vs, a.seg);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q_seg, kv_seg, q_pos, kv_pos and kv_bounds are NULL on the dense branch;
@@ -832,6 +1118,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   a.Sk = Sk;
   a.Hq = Hq;
   a.Hk = Hk;
+  a.D = D;
   a.causal = causal;
   a.sl2 = scale * kLog2e;
   a.qs = Strides{qsb, qss, qsh};
@@ -847,11 +1134,13 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   const bool segmented = a.seg.qseg != nullptr;
   if (segmented && !(a.seg.kseg && a.seg.qpos && a.seg.kpos && a.kv_bounds))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D != 256 && D != 128 && D != 64)
+  if (!(D == 64 || D == 128 || D == 256 || (D > 256 && D % kXW == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   cudaError_t e;
-  if (D == 256)
+  if (D > 256)
+    e = segmented ? launch_xl<true>(a) : launch_xl<false>(a);
+  else if (D == 256)
     e = segmented ? launch_dense<256, true>(a) : launch_dense<256, false>(a);
   else if (D == 128)
     e = segmented ? launch_seg<128>(a) : launch_dense<128, false>(a);

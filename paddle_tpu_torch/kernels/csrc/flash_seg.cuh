@@ -23,8 +23,12 @@
 
 namespace flash {
 
-// shared ints of `block_bounds` and `live_pairs`
-constexpr int kSegScratch = 4 * kWarps;
+// shared ints of `block_bounds` and `live_pairs` in a CTA of kT threads
+template <int kT>
+constexpr int seg_scratch() {
+  return 4 * (kT / 32);
+}
+constexpr int kSegScratch = seg_scratch<kThreads>();
 // a list entry's flags: the pair needs no mask; the pair (masked) holds
 // one id on both sides, so only positions need comparing (`live_pairs`
 // sets it only when asked)
@@ -65,10 +69,12 @@ __device__ __forceinline__ int pair_class(int4 q, int4 k, int causal) {
 }
 
 // (id min, id max, position min, position max) of ids/pos[0, n),
-// 1 <= n <= kThreads, to every thread of the CTA
+// 1 <= n <= kT, to every thread of the CTA (of kT threads)
+template <int kT = kThreads>
 __device__ __forceinline__ int4 block_bounds(const int* __restrict__ ids,
                                              const int* __restrict__ pos,
                                              int n, int* scratch) {
+  constexpr int kWarps = kT / 32;
   const int warp = threadIdx.x >> 5;
   int a = INT_MAX, b = INT_MIN, c = INT_MAX, d = INT_MIN;
   if (threadIdx.x < n) {
@@ -102,16 +108,17 @@ __device__ __forceinline__ int4 block_bounds(const int* __restrict__ ids,
 // with `mine` (the query side when kMineIsQ), in order, into `list` as
 // t | kFull (no mask needed) or t, with kMarkOneId also | kOneId on a
 // masked pair whose block and tile hold one id between them; returns
-// their count to every thread. Called by all kThreads threads; the list
-// is complete and visible when it returns.
-template <bool kMineIsQ, bool kMarkOneId = false>
+// their count to every thread. Called by all kT threads of the CTA; the
+// list is complete and visible when it returns.
+template <bool kMineIsQ, bool kMarkOneId = false, int kT = kThreads>
 __device__ __forceinline__ int live_pairs(const int* __restrict__ bounds,
                                           int n, int4 mine, int causal,
                                           int* list, int* scratch) {
+  constexpr int kWarps = kT / 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int count = 0;
-  for (int base = 0; base < n; base += kThreads) {
+  for (int base = 0; base < n; base += kT) {
     const int t = base + threadIdx.x;
     int cls = kSkip;
     int flags = 0;

@@ -51,12 +51,14 @@ from . import _build
 
 _NEG = -1e30
 _BIG = 1e30
-# the head dims the kernels are built for; ``FlashAttention`` zero-pads
-# any other D up to the last to the next of these (``padded_head_dim``).
-# 64 and 128 run the wgmma kernels, 256 the mma.sync ones (the Pallas
-# kernel pads any D to a multiple of 128, so the JAX package attends at D
-# 160-256, Gemma's 256 among them)
+# the head dims the kernels are built for up to 256; ``FlashAttention``
+# zero-pads any other D up to 256 to the next of these, and a D above 256
+# to the next multiple of 128, as the Pallas kernel pads it
+# (``padded_head_dim``). 64 and 128 run the wgmma kernels of one
+# warpgroup; at 256 B1 runs on mma.sync, B2 and B3 on two warpgroups;
+# above 256 each kernel streams the head dim through its ring in chunks
 _KERNEL_DIMS = (64, 128, 256)
+_WIDE_STEP = 128
 _MODES = ("auto", "plain")
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
@@ -242,10 +244,11 @@ def _check_qkv(what, q, k, v, extra=()):
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
                              f"shaped as q {tuple(q.shape)}")
-    if D not in _KERNEL_DIMS:
-        raise ValueError(f"{what}: head_dim {D} not in {_KERNEL_DIMS} "
-                         f"(FlashAttention pads head dims up to "
-                         f"{_KERNEL_DIMS[-1]} to these)")
+    if not kernel_head_dim(D):
+        raise ValueError(f"{what}: head_dim {D} not in {_KERNEL_DIMS} nor "
+                         f"a multiple of {_WIDE_STEP} above "
+                         f"{_KERNEL_DIMS[-1]} (FlashAttention pads any head "
+                         f"dim to one of these)")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
@@ -290,8 +293,10 @@ def _check_seg(what, q, k, seg):
 # branch (``pair_classes``; flash_seg.cuh ``pair_class``)
 SKIP, MASKED, FULL = 0, 1, 2
 # B3 (dK/dV) splits a GQA group over a cluster of two CTAs when its grid
-# has fewer CTAs than this (``dkv_cluster``)
+# has fewer CTAs than this (``dkv_cluster``); at D 256 (one CTA an SM)
+# below two waves of the H100's 132 SMs
 _DKV_SPLIT_BELOW = 2048
+_DKV_SPLIT_BELOW_256 = 2 * 132
 
 
 def tile_bounds(ids, pos, block=64):
@@ -341,14 +346,19 @@ def dkv_cluster(B, Hk, G, Sk, D=128):
     """Cluster size C of B3 (dK/dV): the C CTAs of a cluster share one
     64-key tile and take G / C query heads each, their partial sums meeting
     in distributed shared memory. 2 when G is even and the grid has fewer
-    than ``_DKV_SPLIT_BELOW`` CTAs, else 1; always 1 at D 256, whose
-    kernel takes no cluster. On the H100, C 2 beat C 1 and
-    C 4 at Llama-3-8B's B 1, S 2048 (256 CTAs) and at the 8192-token
-    packed row (1024 CTAs) (``tools/torch_flash_bwd_ab.py .@1 .@2 .@4``;
-    PERF.md)."""
-    split = D <= 128 and G % 2 == 0 and \
-        B * Hk * -(-Sk // 64) < _DKV_SPLIT_BELOW
-    return 2 if split else 1
+    than ``_DKV_SPLIT_BELOW`` CTAs (D 64, 128) or ``_DKV_SPLIT_BELOW_256``
+    (D 256), else 1. On the H100, C 2 beat C 1 and C 4 at Llama-3-8B's
+    B 1, S 2048 (256 CTAs) and at the 8192-token packed row (1024 CTAs)
+    (``tools/torch_flash_bwd_ab.py .@1 .@2 .@4``; PERF.md). At D 256 (one
+    CTA an SM) B 1, Hk 4, S 2048 is 128 CTAs whose first walks twice the
+    mean's steps: C 2 took B3 from 0.370 to 0.207 ms; at V4's 512 CTAs
+    (four waves, already balanced) it cost 0.266 -> 0.290 ms. Above D 256
+    the kernels take no cluster: each CTA owns a column slice of dK and
+    dV for the whole group."""
+    if D > 256 or G % 2:
+        return 1
+    limit = _DKV_SPLIT_BELOW if D <= 128 else _DKV_SPLIT_BELOW_256
+    return 2 if B * Hk * -(-Sk // 64) < limit else 1
 
 
 def _bounds_workspace(B, S, device):
@@ -364,11 +374,15 @@ def _seg_ptrs(seg, *bounds):
             for t in (seg or (None,) * 4) + bounds]
 
 
-def _count(fn, seg):
+def _count(fn, seg, D):
+    """One launch of ``fn``: dense or segment branch, and apart from
+    either, the kernels above head dim 256 (``xl_launches``)."""
     if seg is None:
         fn.launches += 1
     else:
         fn.seg_launches += 1
+    if D > _KERNEL_DIMS[-1]:
+        fn.xl_launches += 1
 
 
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
@@ -376,10 +390,11 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
                    kv_positions=None):
     """Launch ``flash_fwd_bf16``. Returns (O, LSE), both contiguous.
     Takes bf16 [B, S, H, D] tensors (strided as ``_check_qkv`` says) with
-    D in {64, 128, 256} and a GQA group G dividing 64, and for the segment
+    D in {64, 128, 256} or a multiple of 128 above 256
+    (``kernel_head_dim``) and a GQA group G dividing 64, and for the segment
     branch all four id and position tensors (``_check_seg``); raises on
     anything else. Counts ``launches`` (dense) and ``seg_launches``
-    apart."""
+    apart, and above D 256 ``xl_launches`` too."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v)
     seg = _check_seg("flash_fwd", q, k, (q_segment_ids, kv_segment_ids,
                                         q_positions, kv_positions))
@@ -394,12 +409,13 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
                              int(bool(causal)), _scale(scale, D),
                              *_strides(q, k, v), stream)
     _build.check(err, "flash_fwd_bf16")
-    _count(flash_fwd_cuda, seg)
+    _count(flash_fwd_cuda, seg, D)
     return out, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.seg_launches = 0
+flash_fwd_cuda.xl_launches = 0
 
 
 def flash_delta(o, do, dlse=None):
@@ -441,12 +457,13 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
         *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
         _scale(scale, D), *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dq_bf16")
-    _count(flash_bwd_dq_cuda, seg)
+    _count(flash_bwd_dq_cuda, seg, D)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.seg_launches = 0
+flash_bwd_dq_cuda.xl_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
@@ -475,12 +492,13 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
         dkv_cluster(B, Hk, Hq // Hk, Sk, D), _scale(scale, D),
         *_strides(q, k, v, do), stream)
     _build.check(err, "flash_bwd_dkv_bf16")
-    _count(flash_bwd_dkv_cuda, seg)
+    _count(flash_bwd_dkv_cuda, seg, D)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.seg_launches = 0
+flash_bwd_dkv_cuda.xl_launches = 0
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
@@ -499,17 +517,21 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
 
 # -- head-dim padding ---------------------------------------------------------
 
+def kernel_head_dim(D):
+    """True for the head dims the kernels are built for: 64, 128, 256 and
+    every multiple of 128 above 256."""
+    return D in _KERNEL_DIMS or (D > _KERNEL_DIMS[-1] and D % _WIDE_STEP == 0)
+
+
 def padded_head_dim(D):
     """The head dim the kernels run a head dim D at: the smallest of
-    ``_KERNEL_DIMS`` not below it (65-128 run at 128, 129-256 at 256).
-    Raises above the largest, 256, which the kernels do not take (Pallas
-    pads any D to a multiple of 128; the plain route computes any D)."""
+    ``_KERNEL_DIMS`` not below it up to 256 (65-128 run at 128, 129-256 at
+    256), and above 256 the next multiple of 128, as the Pallas kernel pads
+    D (288 runs at 384, 512 at 512, 640 at 640). Defined for every D >= 1."""
     for dp in _KERNEL_DIMS:
         if D <= dp:
             return dp
-    raise ValueError(f"head_dim {D} is above {_KERNEL_DIMS[-1]}, the "
-                     f"largest the flash kernels take (the plain route, "
-                     f"FLAGS_flash_kernel=plain, computes any head dim)")
+    return -(-D // _WIDE_STEP) * _WIDE_STEP
 
 
 def pad_head_dim(t, dp):
@@ -549,9 +571,10 @@ class FlashAttention(torch.autograd.Function):
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
     B3. The route is chosen once, in the forward, by ``use_kernel``. On
-    the kernel route a head dim other than 64, 128 or 256 (up to 256) is
-    zero-padded to the next of them for each launch, at the true D's
-    scale, and O, dQ, dK and dV are sliced back to D (``pad_head_dim``);
+    the kernel route any head dim the kernels are not built for is
+    zero-padded to ``padded_head_dim`` (64, 128 or 256 up to 256, the next
+    multiple of 128 above it) for each launch, at the true D's scale, and
+    O, dQ, dK and dV are sliced back to D (``pad_head_dim``);
     on the plain route the forward runs ``flash_attention_plain`` (with
     autograd off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""

@@ -108,6 +108,12 @@ def _row_rel_err(out, ref):
     (1, 37, 200, 8, 2, 256, True, False),
     (2, 200, 37, 4, 1, 256, True, False),       # fully masked rows
     (2, 129, 129, 2, 2, 256, True, True),
+    # above 256 (the streamed kernel: one CTA a 128-column slice of O)
+    (1, 2048, 2048, 16, 4, 384, True, False),
+    (2, 197, 197, 8, 8, 512, False, False),
+    (1, 37, 200, 8, 2, 512, True, False),
+    (2, 200, 37, 4, 1, 384, True, False),       # fully masked rows
+    (2, 129, 129, 2, 2, 640, True, True),
 ])
 def test_flash_fwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal, fused):
     if fused:
@@ -532,12 +538,22 @@ def _rel_err(out, ref):
     (1, 2048, 2048, 16, 4, 64, True),
     # ViT-L/16's attention at a smaller batch
     (2, 197, 197, 16, 16, 64, False),
-    # D 256 (the mma.sync kernels: dK and dV from separate CTAs)
+    # D 256 (two warpgroups: dK and dV from one CTA)
     (1, 2048, 2048, 16, 4, 256, True),
     (2, 197, 197, 8, 8, 256, False),
     (1, 37, 200, 8, 2, 256, True),
     (2, 200, 37, 4, 1, 256, True),
     (1, 333, 333, 32, 8, 256, True),
+    (1, 100, 333, 8, 8, 256, False),   # G 1, Sk not a multiple of 64
+    (2, 250, 250, 4, 4, 256, True),    # G 1, causal, ragged ends
+    (1, 161, 161, 64, 1, 256, True),   # G 64: one position per CTA
+    # above 256 (streamed: a CTA owns 128 columns of dQ, 64 of dK and dV)
+    (1, 2048, 2048, 16, 4, 384, True),
+    (1, 2048, 2048, 16, 4, 512, True),
+    (2, 197, 197, 8, 8, 512, False),
+    (1, 37, 200, 8, 2, 384, True),
+    (2, 200, 37, 4, 1, 512, True),
+    (1, 333, 333, 16, 8, 640, True),
 ])
 def test_flash_bwd_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, causal):
     q = _randn(dev, B, Sq, Hq, D, seed=1)
@@ -582,6 +598,28 @@ def test_flash_bwd_cluster_sizes_match_plain(dev, monkeypatch, cluster, seg):
         assert _rel_err(out, ref) <= BWD_RTOL, name
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("seg", [False, True])
+def test_flash_bwd_256_cluster_sizes_match_plain(dev, monkeypatch, cluster,
+                                                 seg):
+    """B3 at D 256 (two warpgroups) with its GQA group split over a cluster
+    of 1, 2 or 4 CTAs gives the plain gradients, dense and segment."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "dkv_cluster",
+                        lambda B, Hk, G, Sk, D=128: cluster)
+    if seg:
+        q, k, v, do, causal, kw = _seg_inputs(dev, "ragged-g4-d256")
+    else:
+        q, k, v, do = _dense_inputs(dev, 1, 500, 16, 4, 256)
+        causal, kw = True, {}
+    dq, dk, dv = _bwd_calls(q, k, v, do, causal, kw)()
+    o, lse = flash_fwd_cuda(q, k, v, causal, **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal, **kw)
+    torch.cuda.synchronize()
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert _rel_err(out, ref) <= BWD_RTOL, name
+
+
 def _bwd_calls(q, k, v, do, causal, kw):
     """B2 and B3 on the forward's O and LSE: a function of no arguments
     returning (dQ, dK, dV)."""
@@ -601,15 +639,28 @@ def _dense_inputs(dev, B, S, Hq, Hk, D):
 
 
 @pytest.mark.parametrize("case", ["dense-g4-d128", "dense-g1-d64",
-                                  "ragged-g4-d128", "nonmono-g4-d128"])
+                                  "ragged-g4-d128", "nonmono-g4-d128",
+                                  "dense-g4-d256", "dense-g1-d256",
+                                  "ragged-g4-d256", "dense-g4-d512",
+                                  "ragged-g4-d512"])
 def test_flash_bwd_is_deterministic(dev, case):
     """Two launches on the same inputs give the same bits: no atomics, and
-    the cluster's partial sums meet in a fixed order."""
+    the cluster's partial sums meet in a fixed order (at D 256 and above
+    the column slices of one tile sum nothing across CTAs)."""
     if case == "dense-g4-d128":
         q, k, v, do = _dense_inputs(dev, 1, 2048, 32, 8, 128)
         causal, kw = True, {}
     elif case == "dense-g1-d64":
         q, k, v, do = _dense_inputs(dev, 2, 1000, 16, 16, 64)
+        causal, kw = True, {}
+    elif case == "dense-g4-d256":
+        q, k, v, do = _dense_inputs(dev, 1, 2048, 16, 4, 256)
+        causal, kw = True, {}
+    elif case == "dense-g1-d256":
+        q, k, v, do = _dense_inputs(dev, 2, 333, 8, 8, 256)
+        causal, kw = False, {}
+    elif case == "dense-g4-d512":
+        q, k, v, do = _dense_inputs(dev, 1, 1000, 16, 4, 512)
         causal, kw = True, {}
     else:
         q, k, v, do, causal, kw = _seg_inputs(dev, case)
@@ -744,12 +795,42 @@ def test_flash_autograd_runs_head_dims_up_to_256(dev, D, causal):
         assert _rel_err(a, r) <= BWD_RTOL, name
 
 
-def test_flash_autograd_refuses_head_dims_above_128(dev):
-    """Since D 256 was added the limit is 256: a CUDA tensor of a wider
-    head raises on the kernel route (no plain fallback), naming it."""
-    q = _randn(dev, 1, 64, 2, 288, seed=1)
-    with pytest.raises(ValueError, match="above 256"):
-        scaled_dot_product_attention(q, q, q)
+@pytest.mark.parametrize("D,causal", [(288, True), (384, False),
+                                      (512, True)])
+def test_flash_autograd_refuses_head_dims_above_128(dev, D, causal):
+    """Above 256 (the name is the rule before the kernels took every head
+    dim): the kernel route pads D to the next multiple of 128 (288 to
+    384), runs B1-B3 once each on CUDA tensors, and agrees with the plain
+    route within the limits D 256 uses."""
+    b, s, hq, hk = 1, 300, 8, 2
+    shapes = ((b, s, hq, D), (b, s, hk, D), (b, s, hk, D))
+    do = _randn(dev, b, s, hq, D, seed=34)
+    outs, grads = {}, {}
+    for mode in ("auto", "plain"):
+        set_flags({"FLAGS_flash_kernel": mode})
+        try:
+            ts = [_randn(dev, *sh, seed=31 + i).requires_grad_()
+                  for i, sh in enumerate(shapes)]
+            before = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+                      flash_bwd_dkv_cuda.launches)
+            out = scaled_dot_product_attention(*ts, is_causal=causal)
+            out.backward(do)
+            after = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+                     flash_bwd_dkv_cuda.launches)
+            want = 1 if mode == "auto" else 0
+            assert [a - b_ for a, b_ in zip(after, before)] == [want] * 3
+            outs[mode], grads[mode] = out, [t.grad for t in ts]
+        finally:
+            set_flags({"FLAGS_flash_kernel": "auto"})
+    torch.cuda.synchronize()
+    assert outs["auto"].shape == (b, s, hq, D)
+    assert (outs["auto"].float() - outs["plain"].float()).abs().max() \
+        .item() <= ATOL
+    assert _row_rel_err(outs["auto"], outs["plain"]) <= ROW_RTOL
+    for name, a, r in zip(("dq", "dk", "dv"), grads["auto"],
+                          grads["plain"]):
+        assert a.shape == r.shape, name
+        assert _rel_err(a, r) <= BWD_RTOL, name
 
 
 def _packed_seg(dev, cu_q, cu_k):
@@ -803,6 +884,10 @@ _SEG_CASES = {
     "nokeys-g2-d256": (1, 8, 4, 256, True, ("cu", [0, 30, 60, 90],
                                             [0, 40, 40, 120])),
     "runs-g2-d256": (2, 8, 4, 256, False, ("runs", 600, True)),
+    # above 256: the streamed kernels' segment branch
+    "ragged-g4-d512": (1, 16, 4, 512, True, ("cu", [0, 1, 70, 71, 200, 333],
+                                            None)),
+    "runs-g2-d384": (2, 8, 4, 384, False, ("runs", 600, True)),
 }
 
 
@@ -944,10 +1029,10 @@ def _bf16_ulp(x):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 384])
 @pytest.mark.parametrize("Hq,Hk", [(8, 8), (16, 4), (16, 2)])
 def test_flash_segment_forward_matches_plain(dev, Hq, Hk, D, causal):
-    """B1-seg at G 1, 4 and 8, D 64, 128 and 256, causal or not, on a
+    """B1-seg at G 1, 4 and 8, D 64, 128, 256 and 384, causal or not, on a
     packed row whose (query block, key tile) pairs reach every class at
     the forward's blocks of 64 / G positions: O and LSE against the plain
     version, O 0 and LSE +1e30 on rows that see no key, one launch a call,

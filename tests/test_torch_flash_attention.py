@@ -81,12 +81,15 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("D,causal", [(256, True), (256, False),
-                                      (160, True)])
+                                      (160, True), (288, True),
+                                      (384, False), (512, True)])
 def test_plain_pair_at_wide_head_dims_matches_pallas(D, causal):
-    """Head dims the kernels run at 256 (Gemma's 256; 160 pads to it):
-    the plain pair the D-256 kernels are held to on the card, forward and
-    backward through ``FlashAttention`` on CPU tensors, against the Pallas
-    kernels in interpret mode (which pad D to a multiple of 128)."""
+    """Head dims above 128: the kernels run 160 and 256 at 256 (Gemma's
+    256), and above 256 at the next multiple of 128 (288 at 384; 384 and
+    512 as they are). The plain pair the kernels are held to on the card,
+    forward and backward through ``FlashAttention`` on CPU tensors,
+    against the Pallas kernels in interpret mode (which pad D to a
+    multiple of 128)."""
     import jax
     rng = np.random.default_rng(D + causal)
     q, k, v, do = (rng.standard_normal((1, 24, h, D)).astype(np.float32)
@@ -105,13 +108,53 @@ def test_plain_pair_at_wide_head_dims_matches_pallas(D, causal):
                                    atol=ATOL, err_msg=name)
 
 
+def test_plain_pair_with_segments_at_head_dim_384_matches_pallas():
+    """The segment branch above head dim 256 (``has_seg`` in Pallas): D
+    384, G 2, causal, three packed sequences with boundaries inside the
+    rows and a caller's scale; O, LSE and the gradients of q, k, v
+    through ``flash_attention`` on CPU tensors (the plain pair) against
+    the Pallas kernels in interpret mode."""
+    import jax
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    D, S = 384, 40
+    rng = np.random.default_rng(384)
+    q, k, v, do = (rng.standard_normal((1, S, h, D)).astype(np.float32)
+                   for h in (4, 2, 2, 4))
+    ids = (np.searchsorted([0, 7, 23, S], np.arange(S), side="right") - 1
+           ).astype(np.int32)[None]
+    (o_ref, lse_ref), vjp = jax.vjp(
+        lambda q_, k_, v_: pallas_flash(q_, k_, v_, causal=True, scale=0.05,
+                                        q_segment_ids=jnp.asarray(ids),
+                                        return_lse=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp((jnp.asarray(do), jnp.zeros_like(lse_ref)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out, lse = flash_attention(*ts, causal=True, scale=0.05,
+                               q_segment_ids=torch.from_numpy(ids),
+                               return_lse=True)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(o_ref),
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_ref),
+                               atol=ATOL, rtol=1e-6)
+    for name, t, r in zip(("dq", "dk", "dv"), ts, refs):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=ATOL, err_msg=name)
+
+
 def test_padded_head_dim_maps_up_to_256_and_raises_above():
-    from paddle_tpu_torch.kernels.flash_attention import padded_head_dim
-    assert [padded_head_dim(d) for d in (64, 65, 128, 129, 192, 256)] == \
-        [64, 128, 128, 256, 256, 256]
-    for d in (257, 512):
-        with pytest.raises(ValueError, match="above 256"):
-            padded_head_dim(d)
-    # the plain route still computes any head dim
+    """The kernels' head dims: 64, 128 and 256 up to 256, and above 256 the
+    next multiple of 128, as the Pallas kernel pads D. Since the kernels
+    took every multiple of 128 above 256 no D raises (the name is the
+    earlier rule's)."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        kernel_head_dim, padded_head_dim)
+    dims = (1, 64, 65, 128, 129, 192, 256, 257, 288, 384, 385, 512, 640)
+    assert [padded_head_dim(d) for d in dims] == \
+        [64, 64, 128, 128, 256, 256, 256, 384, 384, 384, 512, 512, 640]
+    assert all(kernel_head_dim(padded_head_dim(d)) for d in range(1, 1100))
+    assert [kernel_head_dim(d) for d in (64, 96, 256, 288, 384, 512)] == \
+        [True, False, True, False, True, True]
+    # the plain route computes any head dim
     q = torch.randn(1, 5, 2, 288)
     assert flash_attention_plain(q, q, q, causal=True).shape == q.shape

@@ -184,6 +184,18 @@ def test_dkv_cluster(B, Hk, G, Sk, want):
     assert fa.dkv_cluster(B, Hk, G, Sk) == want
 
 
+@pytest.mark.parametrize("B,Hk,G,Sk,D,want", [
+    (1, 4, 4, 2048, 256, 2),   # D 256, B 1, S 2048: 128 CTAs -> 256
+    (1, 8, 2, 4096, 256, 1),   # V4 (Gemma-2 9B's heads): 512, 4 waves
+    (1, 8, 2, 2048, 256, 2),   # 256 CTAs: below two waves
+    (1, 8, 1, 2048, 256, 1),   # no group to split
+    (1, 4, 4, 2048, 384, 1),   # above 256: column slices, no cluster
+    (1, 4, 4, 2048, 512, 1),
+])
+def test_dkv_cluster_by_head_dim(B, Hk, G, Sk, D, want):
+    assert fa.dkv_cluster(B, Hk, G, Sk, D) == want
+
+
 @pytest.mark.parametrize("block", [1, 8, 16, 64])
 @pytest.mark.parametrize("name", ["V2", "random-cross", "random-ids"])
 def test_forward_block_bounds_ignore_rows_past_sq(name, block):

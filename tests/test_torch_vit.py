@@ -219,13 +219,14 @@ def test_head_dim_padding_keeps_the_results(D, causal):
 
 
 def test_head_dim_above_128_raises():
-    """Head dims 129-256 run at the kernels' 256 since D 256 was added;
-    above 256 the kernel route raises."""
+    """Head dims 129-256 run at the kernels' 256; above 256 the kernel
+    route pads to the next multiple of 128, as the Pallas kernel does, and
+    raises for no D any more (the name is the earlier rule's)."""
     assert fa.pad_head_dim(torch.ones(2, 64), 64).shape == (2, 64)
     assert [fa.padded_head_dim(d) for d in (1, 64, 65, 128, 129, 160, 256)] \
         == [64, 64, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="above 256"):
-        fa.padded_head_dim(257)
+    assert [fa.padded_head_dim(d) for d in (257, 288, 512, 513)] == \
+        [384, 384, 512, 640]
 
 
 def test_masked_route_counts_and_the_flash_route_does_not():

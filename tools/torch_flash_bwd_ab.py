@@ -11,7 +11,7 @@ first and last (old, new, new, old) so drift on the card shows. ``DIR@C``
 runs DIR with B3's cluster size forced to C (capped by the GQA group) in
 place of ``dkv_cluster``'s choice, where the checkout has one. A run
 builds that checkout's ``flash_fwd`` and ``flash_bwd`` sources and, at
-five shapes, times ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` as
+seven shapes, times ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` as
 CUDA events around the wrapper (``ms``: where the wrapper's host work
 outlasts the kernel, the host), as CUDA-graph replays (``graph_ms``: the
 device alone) and as the wrapper's host time per call, back to back
@@ -20,7 +20,10 @@ device alone) and as the wrapper's host time per call, back to back
 - GPT: GPT-2 medium, B 8, S 1024, H 16, D 64, causal (the training main
   path);
 - Llama: Llama-3-8B, B 1, S 2048, Hq 32, Hk 8, D 128, causal;
-- V1, V2, V3: ``chip_smoke.py``'s packed varlen cases (segment branch).
+- D256: ``chip_smoke.py``'s head-dim-256 case, B 1, S 2048, Hq 16, Hk 4,
+  D 256, causal (Gemma's head width);
+- V1, V2, V3, V4: ``chip_smoke.py``'s packed varlen cases (segment
+  branch; V4 at Gemma-2 9B's Hq 16, Hk 8, D 256).
 
 Each shape also gets the relative error of dQ, dK, dV against
 ``flash_attention_bwd_plain`` (max |kernel - plain| / max |plain|), the
@@ -56,7 +59,9 @@ def cases(torch, cs):
     """(name, q, k, v, do, segment kwargs, library call) of each shape."""
     for name, B, S, hq, hk, dh in (("GPT", cs.GPT_B, cs.GPT_S, cs.GPT_H,
                                     cs.GPT_H, cs.GPT_D),
-                                   ("Llama", 1, 2048, cs.HQ, cs.HK, cs.D)):
+                                   ("Llama", 1, 2048, cs.HQ, cs.HK, cs.D),
+                                   ("D256", cs.WIDE_B, 2048, cs.WIDE_HQ,
+                                    cs.WIDE_HK, 256)):
         g = torch.Generator(device=cs.DEVICE).manual_seed(2000 + S + dh)
         mk = lambda h: torch.randn(B, S, h, dh, generator=g,
                                    device=cs.DEVICE, dtype=torch.bfloat16)
@@ -90,7 +95,7 @@ def one(spec):
     if cluster:
         if not hasattr(fa, "dkv_cluster"):
             raise RuntimeError(f"{root} has no B3 cluster to force")
-        fa.dkv_cluster = lambda B, Hk, G, Sk: min(int(cluster), G)
+        fa.dkv_cluster = lambda B, Hk, G, Sk, D=128: min(int(cluster), G)
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all(["flash_fwd", "flash_bwd"])
     timer = cs.Timer(torch)
