@@ -198,9 +198,11 @@
    listed under "Recent incidents", resolved once the budget is
    restored; ``maybe_evaluate``'s host cost and the engine's decode
    tokens/s beside engine S's.
-5f. Kernel cases above head dim 128: B1, B2 and B3 at D 256 (B1 on
-   mma.sync, B2 and B3 on two warpgroups' wgmma), D 160 (zero-padded to
-   256), and D 384 and 512 (the streamed kernels above 256), B 1, Hq 16,
+5f. Kernel cases above head dim 128: B1, B2 and B3 at D 256 (B1 a TMA
+   producer and two wgmma consumers, B2 and B3 two warpgroups' wgmma),
+   D 160 (zero-padded to 256), and D 384, 512 and 640 (B1 and B2 streaming
+   the head dim a chunk at a time, B3 in slices of up to 256 columns
+   over two warpgroups), B 1, Hq 16,
    Hk 4, S 2048 causal and S 197 non-causal, against the plain pair at
    the true D, with times, bounds and SDPA's times (null where SDPA
    refuses the head dim); and at the llama_train shape (B 2, S 2048, Hq
@@ -208,6 +210,29 @@
    (padded to 384), forward and backward, counts zeroed just before and
    read just after (B1-B3 once each, ``xl_launches``), against the plain
    route.
+5g. ``faults`` (after the path above 256): calls the tensor-core kernels
+   do not take, each sent to a route decided before any launch and
+   counted there, counts zeroed before and read after.
+   ``FlashAttention`` forward + backward at the llama_train shape in
+   float32 and fp16 (route ``simt``: ``flash_simt.cu``'s forward, dQ and
+   dK/dV once each, against the plain pair within SIMT_RTOL /
+   SIMT_BWD_RTOL) and in bf16 at Hq 24 / Hk 8, G 3 (route ``expanded``:
+   B1-B3 once each on K and V expanded 3 times, within B1-B3's limits),
+   read from ``kernels.flash_attention.ROUTE_COUNTS``;
+   ``paged_decode_attention`` at D 256 (G 2), D 80, G 16 and with float32
+   and fp16 queries and pools, bf16 and int8 pools (``simt`` in the decode
+   ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cu``, against the
+   dense version); ``ConvertedInt8Linear`` with float32 and fp16 x and
+   with K 4100 (``simt`` in ``kernels.quant_matmul.ROUTE_COUNTS``: one
+   launch of ``quant_matmul_simt.cu``, against ``quant_matmul_plain``);
+   and a float32 Llama at Llama-3-8B width cut to 2 layers serving 2
+   requests of 8 new tokens through ``ContinuousBatchingEngine``, with a
+   float32 cache and again converted to int8 weights with an int8 cache:
+   greedy tokens equal to the same model's with every route forced
+   plain, and only the CUDA cores' kernels launched (each at least once).
+   Then each of those six kernels is timed at one shape in float32
+   against its plain version, one PyTorch call and its bound at the
+   float32 peak outside the tensor cores (67 TFLOP/s).
 5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
    bf16: each of the 14 optimizers takes 3 steps from the same weights
    under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
@@ -220,8 +245,10 @@
    ViT-L/16 case, their llama_train path and their head-dim-160/256
    cases (``d256``) beside, the segment entries B1-seg, B2-seg, B3-seg
    at V1, every case beside, and B1-xl, B2-xl, B3-xl: the kernels above
-   head dim 256 at D 384, S 2048, every case and the D 288 path beside)
-   and, last, the
+   head dim 256 at D 384, S 2048, every case and the D 288 path beside,
+   and the CUDA cores' kernels of the faults phase: flash_simt_fwd,
+   flash_simt_dq, flash_simt_dkv, paged_decode_simt(_q) and
+   quant_matmul_simt) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -233,6 +260,7 @@ line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import gc
 import json
@@ -278,6 +306,16 @@ DECODE_RTOL = 2e-2
 # backward kernels: max |kernel - plain| / max |plain| (dK and dV sum over
 # the sequence; P and dS round to bf16 at slightly different points)
 BWD_RTOL = 2e-2
+# the CUDA cores' kernels (flash_simt.cu, paged_decode_simt.cu,
+# quant_matmul_simt.cu): max |kernel - plain| / max |plain| (per row for
+# flash O, per slot for decode). In float32 both sides make the same
+# float32 products, summed in another order; in fp16 both round at the
+# same points (the kernels the unnormalized P, the plain versions the
+# normalized one: an fp16 ulp is 2^-11 of the value); bf16 decode as
+# DECODE_RTOL.
+SIMT_RTOL = {"float32": 1e-4, "float16": 5e-3, "bfloat16": DECODE_RTOL}
+SIMT_BWD_RTOL = {"float32": 2e-4, "float16": 1e-2}
+F32_FLOPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # GPT-2 medium, the training phase's shapes
 GPT_B, GPT_S, GPT_H, GPT_D, GPT_LAYERS = 8, 1024, 16, 64, 24
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 2
@@ -385,11 +423,11 @@ TELE_BUDGET_US = 1000
 # serve_metrics attached, in this order (each engine once cold, once warm)
 AB_ORDER = ("bare", "attached", "attached", "bare")
 # B1-B3 above head dim 128: (S, D, causal) at B 1, Hq 16, Hk 4; D 160
-# runs zero-padded to the kernels' 256; 384 and 512 run the streamed
-# kernels above 256
+# runs zero-padded to the kernels' 256; 384, 512 and 640 run the kernels
+# above 256 (at 640 B3's last 256-column slice lies half past D)
 WIDE_CASES = ((2048, 256, True), (197, 256, False), (2048, 160, True),
               (197, 160, False), (2048, 384, True), (197, 384, False),
-              (2048, 512, True), (197, 512, False))
+              (2048, 512, True), (197, 512, False), (197, 640, False))
 # the path above head dim 256: FlashAttention at D 288 (padded to 384),
 # B 1, S 2048, Hq 16, Hk 4, causal, forward and backward
 XL_D, XL_S = 288, 2048
@@ -400,6 +438,14 @@ V3_SEQ = 2048
 # V4: Gemma-2 9B's attention widths (Hq 16, Hk 8, D 256), the segment
 # branch of the D 256 kernels
 V4_TOKENS, V4_LONGEST, V4_HQ, V4_HK, V4_D = 4096, 1024, 16, 8, 256
+# the faults phase: paged decode at (Hq, Hk, D, dtype, pages) the decode
+# kernels do not take (D 256 at G 2, D 80, G 16, a float32 model); the
+# float32 Llama at Llama-3-8B width cut to 2 layers, 2 requests
+FAULT_DECODE = ((16, 8, 256, "bfloat16", 8), (32, 8, 80, "bfloat16", 32),
+                (64, 4, 128, "bfloat16", 32), (32, 8, 128, "float32", 8),
+                (32, 8, 128, "float16", 32))
+FAULT_LAYERS, FAULT_REQUESTS, FAULT_NEW = 2, 2, 8
+FAULT_PROMPTS = (100, 300)
 
 
 def fail(msg, code=1):
@@ -416,9 +462,12 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
+    """The least time (ms) for moving ``nbytes`` and doing ``flops`` at
+    ``peak`` (the bf16 tensor cores' unless given), and which of the two
+    sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -685,7 +734,7 @@ def flash_bwd_phase(torch, timer, B, S, hq, hk, dh, causal=True,
 
 def wide_phase(torch, timer, S, dh, causal):
     """B1, B2 and B3 at a head dim above 128 (B 1, Hq 16, Hk 4): at D 256
-    the mma.sync kernels as they are, at D 160 zero-padded to 256 as
+    and above the kernels as they are, at D 160 zero-padded to 256 as
     ``FlashAttention`` pads it (the scale the true D's; the padding copies
     are outside the timed calls), against the plain pair at the true D;
     times (events and graph replays), bounds over the true D's work, the
@@ -736,11 +785,15 @@ def wide_phase(torch, timer, S, dh, causal):
         q, k, v, causal=causal, return_lse=True), iters=10)
     plain_bwd = timer(lambda: flash_attention_bwd_plain(
         q, k, v, o, lse, do, causal=causal), iters=10)
-    lib_fwd = lib_bwd = None
+    # B1's wrapper on the host alone (checks, allocation, ctypes, launch):
+    # where it outlasts the kernel, the event time measures the host
+    host_fwd = timer.host(fwd)
+    lib_fwd = lib_bwd = lib_fwd_graph = None
     try:
         lib = sdpa_library(torch, q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), is_causal=causal)
         lib_fwd = timer(lib)
+        lib_fwd_graph = timer.graph(lib)
         lib_bwd = timer(sdpa_backward_library(
             torch, q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             do.transpose(1, 2), causal), iters=20)
@@ -761,7 +814,8 @@ def wide_phase(torch, timer, S, dh, causal):
         if keys is None:
             rec = dict(shape, max_abs_err=err_o, lse_err=err_l,
                        row_rel_err=err_row, ok=ok_fwd, plain_ms=plain_fwd,
-                       library_ms=lib_fwd)
+                       library_ms=lib_fwd, library_graph_ms=lib_fwd_graph,
+                       host_ms=host_fwd)
         else:
             rel = max(errs[k][1] for k in keys)
             rec = dict(shape, max_abs_err=max(errs[k][0] for k in keys),
@@ -772,7 +826,8 @@ def wide_phase(torch, timer, S, dh, causal):
         recs[name] = rec
         print(f"{name} D={dh} (run at {dp}) B={B} S={S} Hq={hq} Hk={hk} "
               f"causal={causal}: err {rec['max_abs_err']:.3e}"
-              + (f" row {err_row:.3e} LSE {err_l:.3e}" if keys is None
+              + (f" row {err_row:.3e} LSE {err_l:.3e} host {host_fwd:.4f} "
+                 f"ms sdpa graph {lib_fwd_graph} ms" if keys is None
                  else f" (rel {rec['rel_err']:.3e})")
               + f" | kernel {ms:.4f} ms (graph {graph_ms:.4f}) plain "
               f"{rec['plain_ms']:.4f} ms sdpa {rec['library_ms']} ms bound "
@@ -838,6 +893,487 @@ def xl_path_phase(torch):
             max(rel.values()) <= BWD_RTOL):
         fail(f"the D {XL_D} path disagrees with the plain route: {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# faults phase: shapes and dtypes the tensor-core kernels do not take,
+# routed above them to the CUDA cores' kernels (bf16 flash at a group not
+# dividing 64: B1-B3 on expanded K and V)
+# ---------------------------------------------------------------------------
+
+# the CUDA cores' kernels: (name, source, the Pallas kernel it replaces)
+SIMT_KERNELS = (
+    ("flash_simt_fwd", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_simt_dq", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
+    ("flash_simt_dkv", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:408"),
+    ("paged_decode_simt",
+     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cu",
+     "paddle_tpu/kernels/pallas/paged_attention.py:133"),
+    ("paged_decode_simt_q",
+     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cu",
+     "paddle_tpu/kernels/pallas/paged_attention.py:156"),
+    ("quant_matmul_simt",
+     "paddle_tpu_torch/kernels/csrc/quant_matmul_simt.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+)
+
+
+def _route_deltas(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _route_state():
+    """(flash routes, decode routes, kernel launch counts, B7 routes) as
+    plain dicts."""
+    from paddle_tpu_torch.kernels.flash_attention import ROUTE_COUNTS
+    from paddle_tpu_torch.kernels.quant_matmul import ROUTE_COUNTS as QMM
+    counts, decode = read_counts()
+    return dict(ROUTE_COUNTS), decode, counts, dict(QMM)
+
+
+def _dt(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def fault_flash(torch, dtype, hq, hk, route):
+    """``FlashAttention`` forward + backward at the llama_train shape (B 2,
+    S 2048, D 128) in ``dtype`` over hq / hk heads: one count of
+    ``route`` and its three kernels launched once each, no other
+    (``flash_simt.cu`` on ``simt``, B1-B3 on K and V expanded 3 times on
+    ``expanded``), against the plain pair on the same inputs within those
+    kernels' limits."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain,
+        scaled_dot_product_attention)
+    g = torch.Generator(device=DEVICE).manual_seed(4600 + hq)
+    mk = lambda h: torch.randn(LT_B, LT_S, h, D, generator=g, device=DEVICE,
+                               dtype=dtype)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = _route_state()
+    out = scaled_dot_product_attention(*ts, is_causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = _route_state()
+    routes = _route_deltas(before[0], after[0])
+    launches = _route_deltas(before[2], after[2])
+    o_ref, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=True)
+    torch.cuda.synchronize()
+    err_o = (out.float() - o_ref.float()).abs().max().item()
+    rel = {n: rel_err(t.grad, r)[0]
+           for n, t, r in zip(("dq", "dk", "dv"), ts, refs)}
+    rec = dict(dtype=_dt(dtype), B=LT_B, S=LT_S, Hq=hq, Hk=hk, D=D,
+               routes=routes, launches=launches, max_abs_err=err_o,
+               row_rel_err=row_rel_err(out, o_ref), grad_rel_err=rel)
+    print(f"fault flash {rec}", flush=True)
+    names = ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv") \
+        if route == "simt" else ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")
+    if routes != {route: 1} or launches != dict.fromkeys(names, 1):
+        fail(f"FlashAttention in {dtype} at {hq}/{hk} heads did not take "
+             f"the {route} route once: {rec}")
+    if route == "simt":
+        ok = rec["row_rel_err"] <= SIMT_RTOL[_dt(dtype)] and \
+            max(rel.values()) <= SIMT_BWD_RTOL[_dt(dtype)]
+    else:
+        ok = err_o <= O_ATOL and rec["row_rel_err"] <= ROW_RTOL and \
+            max(rel.values()) <= BWD_RTOL
+    if not (ok and bool(torch.isfinite(out.float()).all())):
+        fail(f"the {route} route disagrees with the plain pair: {rec}")
+    return rec
+
+
+def fault_decode(torch, hq, hk, dh, dtype, quantized, mbps):
+    """``paged_decode_attention`` at a shape or dtype B4-B6q do not take:
+    one ``simt`` count and one launch of ``paged_decode_simt.cu``, no
+    other, against the dense version within SIMT_RTOL a slot."""
+    from paddle_tpu_torch.inference.paged import paged_decode_attention
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention_dense)
+    from paddle_tpu_torch.quantization import quantize_rows
+    B, bs = 8, 16
+    g = torch.Generator(device=DEVICE).manual_seed(4700 + dh + hq)
+    kp = torch.randn(B * mbps + 1, bs, hk, dh, generator=g, device=DEVICE,
+                     dtype=dtype)
+    vp = torch.randn(B * mbps + 1, bs, hk, dh, generator=g, device=DEVICE,
+                     dtype=dtype)
+    q = torch.randn(B, hq, dh, generator=g, device=DEVICE, dtype=dtype)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    tbl = (1 + torch.arange(B * mbps, device=DEVICE, dtype=torch.int32)
+           ).view(B, mbps)
+    sl = torch.linspace(0, bs * mbps, B, device=DEVICE).to(torch.int32)
+    before = _route_state()
+    out = paged_decode_attention(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    after = _route_state()
+    routes = _route_deltas(before[1], after[1])
+    launches = _route_deltas(before[2], after[2])
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    rec = dict(Hq=hq, Hk=hk, D=dh, dtype=_dt(dtype),
+               pools="int8" if quantized else "float", pages=mbps,
+               routes=routes, launches=launches,
+               slot_rel_err=slot_rel_err(out, ref),
+               max_abs_err=(out.float() - ref.float()).abs().max().item())
+    print(f"fault decode {rec}", flush=True)
+    name = "paged_decode_simt_q" if quantized else "paged_decode_simt"
+    if routes != {"simt": 1} or launches != {name: 1}:
+        fail(f"paged_decode_attention did not route {rec} to {name}")
+    if rec["slot_rel_err"] > SIMT_RTOL[_dt(dtype)] or \
+            not bool(torch.isfinite(out.float()).all()):
+        fail(f"{name} disagrees with the dense version: {rec}")
+    return rec
+
+
+def fault_int8_linear(torch, dtype, K, M=64, N=4096):
+    """``ConvertedInt8Linear`` with an x the tensor-core kernel does not
+    take (not bf16, or K not a multiple of 16): one ``simt`` count in
+    ``quant_matmul.ROUTE_COUNTS`` and one launch of
+    ``quant_matmul_simt.cu``, no other, in x's dtype, against
+    ``quant_matmul_plain`` within SIMT_RTOL."""
+    from paddle_tpu_torch import quantization as TQ
+    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_plain
+    from paddle_tpu_torch.nn import Linear
+    qat = lambda: TQ.QAT(TQ.QuantConfig(
+        activation=None, weight=TQ.FakeQuanterWithAbsMaxObserver))
+    layer = qat().convert(qat().quantize(torch.nn.Sequential(
+        Linear(K, N, bias=False, device=DEVICE))))[0]
+    g = torch.Generator(device=DEVICE).manual_seed(4800 + K)
+    x = torch.randn(M, K, generator=g, device=DEVICE).to(dtype)
+    before = _route_state()
+    out = layer(x)
+    torch.cuda.synchronize()
+    after = _route_state()
+    rel, diff = rel_err(out, quant_matmul_plain(x, layer.w_int8,
+                                                layer.w_scales_f32))
+    rec = dict(dtype=_dt(dtype), M=M, N=N, K=K,
+               routes=_route_deltas(before[3], after[3]),
+               launches=_route_deltas(before[2], after[2]),
+               out_dtype=_dt(out.dtype), rel_err=rel, max_abs_err=diff)
+    print(f"fault int8 linear {rec}", flush=True)
+    if rec["routes"] != {"simt": 1} or \
+            rec["launches"] != {"quant_matmul_simt": 1} or \
+            out.dtype != dtype or rel > SIMT_RTOL[_dt(dtype)]:
+        fail(f"ConvertedInt8Linear did not route {rec} to "
+             f"quant_matmul_simt, or disagrees with the plain version")
+    return rec
+
+
+def _serve_tokens(torch, model, prompts, plain, **engine_kw):
+    """Greedy tokens of ``prompts`` (``FAULT_NEW`` each) through
+    ``ContinuousBatchingEngine``; with ``plain`` every route forced to
+    the plain versions (FLAGS_flash_kernel=plain, FLAGS_paged_kernel=dense
+    for the engine and each int8 layer). Returns (tokens, seconds, flash,
+    decode and B7 route deltas, launch deltas)."""
+    from paddle_tpu_torch import ContinuousBatchingEngine
+    from paddle_tpu_torch.core import set_flags
+    from paddle_tpu_torch.quantization import ConvertedInt8Linear
+    int8 = [m for m in model.modules() if isinstance(m, ConvertedInt8Linear)]
+    if plain:
+        set_flags({"FLAGS_flash_kernel": "plain",
+                   "FLAGS_paged_kernel": "dense"})
+    for m in int8:
+        m.kernel_mode = "dense" if plain else "auto"
+    try:
+        engine = ContinuousBatchingEngine(
+            model, max_batch=FAULT_REQUESTS, block_size=16, max_seq_len=512,
+            temperature=0.0, dtype=torch.float32, **engine_kw)
+        before = _route_state()
+        rids = [engine.add_request(p, FAULT_NEW) for p in prompts]
+        t = time.perf_counter()
+        out = engine.run_to_completion()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = _route_state()
+    finally:
+        set_flags({"FLAGS_flash_kernel": "auto",
+                   "FLAGS_paged_kernel": "auto"})
+        for m in int8:
+            m.kernel_mode = "auto"
+    del engine
+    return ([list(map(int, out[r])) for r in rids], secs,
+            _route_deltas(before[0], after[0]),
+            _route_deltas(before[1], after[1]),
+            _route_deltas(before[3], after[3]),
+            _route_deltas(before[2], after[2]))
+
+
+def fault_llama(torch):
+    """A float32 Llama at Llama-3-8B width cut to ``FAULT_LAYERS`` layers
+    serves ``FAULT_REQUESTS`` requests of ``FAULT_NEW`` new tokens through
+    ``ContinuousBatchingEngine``: with a float32 cache (every prefill
+    attention on ``simt``: B1 on the CUDA cores; every decode attention on
+    ``simt``), then converted to int8 weights (the port's QAT) with an
+    int8 cache (the linear layers on ``quant_matmul_simt``, decode on the
+    int8-pool kernel). Each run's greedy tokens equal those of the same
+    model with every route forced to the plain versions, and launch only
+    the CUDA cores' kernels named."""
+    from paddle_tpu_torch import Llama, LlamaConfig
+    from paddle_tpu_torch.quantization import (
+        QAT, FakeQuanterWithAbsMaxObserver, QuantConfig)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              num_layers=FAULT_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = Llama(cfg, device=DEVICE, dtype=torch.float32, generator=gen)
+    rng = np.random.default_rng(46)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in FAULT_PROMPTS]
+    recs = {}
+    for name, kv, want in (
+            ("float32", None, {"flash_simt_fwd", "paged_decode_simt"}),
+            ("w8_kv8", "int8", {"flash_simt_fwd", "paged_decode_simt_q",
+                                "quant_matmul_simt"})):
+        if kv == "int8":
+            qat = QAT(QuantConfig(activation=None,
+                                  weight=FakeQuanterWithAbsMaxObserver))
+            qat.convert(qat.quantize(model, inplace=True), inplace=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref = _serve_tokens(torch, model, prompts, True, kv_cache_dtype=kv)
+        run = _serve_tokens(torch, model, prompts, False, kv_cache_dtype=kv)
+        tokens, secs, flash, decode, qmm, launches = run
+        rec = dict(layers=FAULT_LAYERS, prompts=list(FAULT_PROMPTS),
+                   new_tokens=FAULT_NEW, seconds=secs, plain_seconds=ref[1],
+                   flash_routes=flash, decode_routes=decode,
+                   int8_linear_routes=qmm, launches=launches,
+                   generated=[len(t) for t in tokens],
+                   equal_to_plain=tokens == ref[0])
+        print(f"fault llama {name} {rec}", flush=True)
+        if rec["generated"] != [FAULT_NEW] * FAULT_REQUESTS or \
+                set(launches) != want or min(launches.values()) < 1 or \
+                set(flash) != {"simt"} or set(decode) != {"simt"} or \
+                decode["simt"] % FAULT_LAYERS or \
+                set(qmm) != ({"simt"} if kv else set()) or \
+                not rec["equal_to_plain"]:
+            fail(f"the {name} Llama did not serve on the CUDA cores' "
+                 f"kernels as the plain routes do: {rec}")
+        recs[name] = rec
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
+    """``flash_simt.cu``'s three kernels in float32 at the llama_train
+    shape, causal, against the plain pair: errors, times (CUDA events; the
+    backward kernels on the plain pair's O and LSE), the plain pair's
+    (the whole backward for both backward kernels) and one float32 SDPA
+    call's forward and backward (the library yardstick; the port never
+    calls it), bounds at the float32 peak outside the tensor cores."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain, flash_delta,
+        flash_simt_dkv_cuda, flash_simt_dq_cuda, flash_simt_fwd_cuda)
+    g = torch.Generator(device=DEVICE).manual_seed(4900)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    o, _ = flash_simt_fwd_cuda(q, k, v, causal=True)
+    o_ref, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = flash_delta(o_ref, do)
+    calls = {
+        "flash_simt_fwd": lambda: flash_simt_fwd_cuda(q, k, v, causal=True),
+        "flash_simt_dq": lambda: flash_simt_dq_cuda(q, k, v, do, lse, delta,
+                                                    causal=True),
+        "flash_simt_dkv": lambda: flash_simt_dkv_cuda(q, k, v, do, lse,
+                                                      delta, causal=True)}
+    dq = calls["flash_simt_dq"]()
+    dk, dv = calls["flash_simt_dkv"]()
+    refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = {"flash_simt_fwd": (row_rel_err(o, o_ref),
+                               rel_err(o, o_ref)[1]),
+            "flash_simt_dq": rel_err(dq, refs[0]),
+            "flash_simt_dkv": max(rel_err(dk, refs[1]),
+                                  rel_err(dv, refs[2]))}
+    del o, dq, dk, dv, refs
+    plain = {"fwd": timer(lambda: flash_attention_plain(
+        q, k, v, causal=True, return_lse=True), iters=10),
+        "bwd": timer(lambda: flash_attention_bwd_plain(
+            q, k, v, o_ref, lse, do, causal=True), iters=10)}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = {"fwd": timer(sdpa_library(torch, qt, kt, vt, is_causal=True),
+                            iters=10),
+               "bwd": timer(sdpa_backward_library(
+                   torch, qt, kt, vt, do.transpose(1, 2), True), iters=10)}
+    fl = 2 * dh * hq * (B * S * (S + 1) // 2)  # one product over the pairs
+    qb, kvb, rows = q.numel() * 4, k.numel() * 4, lse.numel() * 4
+    bounds = {"flash_simt_fwd": bound(2 * qb + 2 * kvb + rows, 2 * fl,
+                                      F32_FLOPS_PER_S),
+              "flash_simt_dq": bound(3 * qb + 2 * kvb + 2 * rows, 3 * fl,
+                                     F32_FLOPS_PER_S),
+              "flash_simt_dkv": bound(2 * qb + 4 * kvb + 2 * rows, 4 * fl,
+                                      F32_FLOPS_PER_S)}
+    recs = {}
+    for name, fn in calls.items():
+        side = "fwd" if name == "flash_simt_fwd" else "bwd"
+        rel, diff = errs[name]
+        limit = SIMT_RTOL if side == "fwd" else SIMT_BWD_RTOL
+        ms = timer(fn, iters=10)
+        bms, by = bounds[name]
+        recs[name] = dict(dtype="float32", B=B, S=S, Hq=hq, Hk=hk, D=dh,
+                          causal=True, max_abs_err=diff, rel_err=rel, ms=ms,
+                          plain_ms=plain[side], library_ms=library[side],
+                          library="F.scaled_dot_product_attention, float32",
+                          bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+        print(f"{name} float32 B={B} S={S} Hq={hq} Hk={hk} D={dh} causal: "
+              f"err {diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms plain "
+              f"{plain[side]:.4f} ms sdpa {library[side]:.4f} ms bound "
+              f"{bms:.4f} ms ({by}, float32 peak)", flush=True)
+        if rel > limit["float32"]:
+            fail(f"{name} disagrees with the plain pair: {recs[name]}")
+    return recs
+
+
+def simt_decode_phase(torch, timer, quantized, B=8, mbps=16, seed=4950):
+    """``paged_decode_simt.cu`` on float32 queries over float32 (or int8)
+    pools at Llama-3-8B's heads, B 8, 16-page tables, lengths 1 to 256,
+    against the dense version; library: SDPA over the gathered float32
+    rows (dequantized outside the timed call). Cold L2, as decode_phase."""
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention_dense, paged_decode_attention_simt)
+    from paddle_tpu_torch.quantization import quantize_rows
+    lens = np.linspace(1, 16 * mbps, B).astype(np.int64)
+    q, kp, vp, tbl, sl = decode_inputs(torch, B, mbps, lens, seed)
+    q, kp, vp = q.float(), kp.float(), vp.float()
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    run = lambda: paged_decode_attention_simt(q, kp, vp, tbl, sl, **scales)
+    dense = lambda: paged_decode_attention_dense(q, kp, vp, tbl, sl,
+                                                 **scales)
+    out, ref = run(), dense()
+    torch.cuda.synchronize()
+    rel = slot_rel_err(out, ref)
+    diff = (out.float() - ref.float()).abs().max().item()
+    bs = kp.shape[1]
+    idx = tbl.long()
+
+    def gathered(pool, scale):
+        g = pool[idx].float()
+        if scale is not None:
+            g = g * scale[idx][..., None]
+        return g.reshape(B, mbps * bs, HK, D).transpose(1, 2)
+
+    kg = gathered(kp, scales.get("k_scale"))
+    vg = gathered(vp, scales.get("v_scale"))
+    mask = (torch.arange(mbps * bs, device=DEVICE)[None, :]
+            < sl[:, None])[:, None, None, :]
+    name = "paged_decode_simt_q" if quantized else "paged_decode_simt"
+    ms = timer(run, cold=True)
+    plain_ms = timer(dense, cold=True)
+    library_ms = timer(sdpa_library(torch, q[:, :, None, :], kg, vg,
+                                    attn_mask=mask), cold=True)
+    total = int(np.sum(lens))
+    row_bytes = D + 4 if quantized else D * 4  # int8 row + its f32 scale
+    nbytes = 2 * q.numel() * 4 + total * HK * row_bytes * 2 \
+        + tbl.numel() * 4 + sl.numel() * 4
+    bms, by = bound(nbytes, 4 * HQ * D * total, F32_FLOPS_PER_S)
+    rec = dict(dtype="float32", pools="int8" if quantized else "float32",
+               B=B, Hq=HQ, Hk=HK, D=D, mbps=mbps, lens=[int(x) for x in lens],
+               max_abs_err=diff, rel_err=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               library="F.scaled_dot_product_attention over the gathered "
+                       "float32 rows", bound_ms=bms, bound_by=by,
+               share_of_bound=bms / ms)
+    print(f"{name} float32 B={B} pages={mbps}: err {diff:.3e} (slot rel "
+          f"{rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
+          f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    if rel > SIMT_RTOL["float32"]:
+        fail(f"{name} disagrees with the dense version: {rec}")
+    return rec
+
+
+def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
+                   seed=4980):
+    """``quant_matmul_simt.cu`` with float32 x at the float32 Llama's
+    prefill gate/up shape against ``quant_matmul_plain``; library:
+    ``F.linear`` on a float32 copy of w * s made outside the timed call
+    (TF32 off). Cold L2."""
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul_plain,
+                                                       quant_matmul_simt)
+    x, w, s = qmm_inputs(torch, M, N, K, seed)
+    x = x.float()
+    run = lambda: quant_matmul_simt(x, w, s)
+    rel, diff = rel_err(run(), quant_matmul_plain(x, w, s))
+    ms = timer(run, cold=True, iters=10)
+    plain_ms = timer(lambda: quant_matmul_plain(x, w, s), cold=True,
+                     iters=10)
+    wf = w.float() * s[:, None]
+    library_ms = timer(lambda: torch.nn.functional.linear(x, wf), cold=True,
+                       iters=10)
+    del wf
+    nbytes = M * K * 4 + N * K + N * 4 + M * N * 4
+    bms, by = bound(nbytes, 2 * M * N * K, F32_FLOPS_PER_S)
+    rec = dict(dtype="float32", M=M, N=N, K=K, max_abs_err=diff,
+               rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               library="F.linear on a float32 copy of w*s", bound_ms=bms,
+               bound_by=by, share_of_bound=bms / ms)
+    print(f"quant_matmul_simt float32 M={M} N={N} K={K}: err {diff:.3e} "
+          f"(rel {rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"F.linear {library_ms:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
+    if rel > SIMT_RTOL["float32"]:
+        fail(f"quant_matmul_simt disagrees with the plain version: {rec}")
+    return rec
+
+
+def faults_phase(torch):
+    """The three route faults: calls the tensor-core kernels do not take,
+    each sent to its route before any launch and counted there. The
+    counts are zeroed before the calls and read after (``launches``: the
+    CUDA cores' kernels' launches on these paths); then each of those
+    kernels is timed at one shape (``timed``), launches not counted."""
+    zero_counts()
+    flash = [fault_flash(torch, torch.float32, HQ, HK, "simt"),
+             fault_flash(torch, torch.float16, HQ, HK, "simt"),
+             fault_flash(torch, torch.bfloat16, 24, HK, "expanded")]
+    decode = [fault_decode(torch, hq, hk, dh, getattr(torch, dt),
+                           quantized, pages)
+              for hq, hk, dh, dt, pages in FAULT_DECODE
+              for quantized in (False, True)]
+    linear = [fault_int8_linear(torch, torch.float32, 4096),
+              fault_int8_linear(torch, torch.float16, 4096),
+              fault_int8_linear(torch, torch.bfloat16, 4100)]
+    llama = fault_llama(torch)
+    launches, _ = read_counts()
+    missing = [n for n, _, _ in SIMT_KERNELS if launches[n] < 1]
+    if missing:
+        fail(f"the faults paths never launched {missing}: {launches}")
+    timer = Timer(torch)
+    timed = simt_flash_phase(torch, timer)
+    timed["paged_decode_simt"] = simt_decode_phase(torch, timer, False)
+    timed["paged_decode_simt_q"] = simt_decode_phase(torch, timer, True)
+    timed["quant_matmul_simt"] = simt_qmm_phase(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    return dict(flash=flash, decode=decode, int8_linear=linear, llama=llama,
+                launches={n: launches[n] for n, _, _ in SIMT_KERNELS},
+                timed=timed)
+
+
+def simt_records(faults):
+    """The ``kernels`` entries of the CUDA cores' kernels: launches from
+    the faults paths, times and bounds from their timed shapes."""
+    records = []
+    for name, source, replaces in SIMT_KERNELS:
+        r = faults["timed"][name]
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=faults["launches"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], timed_at={k: r[k] for k in r if k in (
+                "dtype", "pools", "B", "S", "Hq", "Hk", "D", "M", "N", "K",
+                "mbps", "causal")}))
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -1557,10 +2093,13 @@ def _counters():
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
+        flash_simt_dkv_cuda, flash_simt_dq_cuda, flash_simt_fwd_cuda,
         sdpa_masked_plain)
     from paddle_tpu_torch.kernels.paged_attention import (
-        paged_decode_attention_chunked, paged_decode_attention_kernel)
-    from paddle_tpu_torch.kernels.quant_matmul import quant_matmul
+        paged_decode_attention_chunked, paged_decode_attention_kernel,
+        paged_decode_attention_simt)
+    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
+                                                       quant_matmul_simt)
     return {"flash_fwd": (flash_fwd_cuda, "launches"),
             "flash_bwd_dq": (flash_bwd_dq_cuda, "launches"),
             "flash_bwd_dkv": (flash_bwd_dkv_cuda, "launches"),
@@ -1577,6 +2116,13 @@ def _counters():
             "paged_decode_split_q": (paged_decode_attention_chunked,
                                      "launches_q"),
             "quant_matmul": (quant_matmul, "launches"),
+            "flash_simt_fwd": (flash_simt_fwd_cuda, "launches"),
+            "flash_simt_dq": (flash_simt_dq_cuda, "launches"),
+            "flash_simt_dkv": (flash_simt_dkv_cuda, "launches"),
+            "paged_decode_simt": (paged_decode_attention_simt, "launches"),
+            "paged_decode_simt_q": (paged_decode_attention_simt,
+                                    "launches_q"),
+            "quant_matmul_simt": (quant_matmul_simt, "launches"),
             "fp8_gemm": (fp8_gemm, "launches"),
             "sdpa_masked": (sdpa_masked_plain, "calls")}, ROUTE_COUNTS
 
@@ -4242,6 +4788,7 @@ def main():
 
     phases = kernel_phases(torch)
     xl_path = xl_path_phase(torch)
+    faults = faults_phase(torch)
     varlen = varlen_phase(torch)
     served, b_traffic = slice_phase(torch)
     llama8 = llama_fp8_phase(torch, *b_traffic)
@@ -4310,8 +4857,9 @@ def main():
         if wide:  # B1-B3 above head dim 128, up to 256
             paths["d256"] = [{k: r[k] for k in (
                 "case", "B", "S", "Hq", "Hk", "D", "padded_to", "causal",
-                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms") if k in r} for r in wide]
+                "max_abs_err", "ms", "graph_ms", "host_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_graph_ms")
+                if k in r} for r in wide]
         # device-only times (CUDA-graph replays) where the phase took them,
         # and B7's second library yardstick
         graphs = {k: main_rec[k] for k in (
@@ -4328,9 +4876,11 @@ def main():
             library_ms=main_rec["library_ms"]))
     records += seg_records(varlen)
     records += xl_records(phases, xl_path)
+    records += simt_records(faults)
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
-        "phases": phases, "xl_path": xl_path, "varlen": varlen,
+        "phases": phases, "xl_path": xl_path, "faults": faults,
+        "varlen": varlen,
         "served": served,
         "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
         "vit_trained": vit, "llama_trained": llama_train,

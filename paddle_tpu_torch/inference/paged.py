@@ -41,10 +41,13 @@
   latter has no Pallas kernel in the reference and stays plain PyTorch).
 - ``paged_decode_attention`` is the routing point of the decode attention
   (``FLAGS_paged_kernel``): ``auto``/``kernel`` launch the CUDA kernels for
-  CUDA tensors -- the split-KV kernel when the table has at least
-  ``_CHUNK_MIN_PAGES`` pages, the per-page kernel below -- and take their
-  plain version for CPU tensors; ``dense`` forces the plain version.
-  ``ROUTE_COUNTS`` records each routing decision.
+  CUDA tensors they take (``decode_kernel_takes``) -- the split-KV kernel
+  when the table has at least ``_CHUNK_MIN_PAGES`` pages, the per-page
+  kernel below -- and the rest (other head dims or groups, queries or
+  pools not bf16) on the CUDA cores' kernel
+  (``paged_decode_attention_simt``); CPU tensors take the plain version,
+  and ``dense`` forces it. ``decode_route`` decides before any launch,
+  and ``ROUTE_COUNTS`` records each decision.
 
 Not ported yet: mesh capacity slices (``num_slices``) and the
 tensor-parallel decode attention.
@@ -65,9 +68,11 @@ from ..core.device import resolve_device
 from ..profiler import metrics as _metrics
 from ..quantization import quantize_rows
 from ..kernels.paged_attention import (_NEG, _gather_kv,
+                                       decode_kernel_takes,
                                        paged_decode_attention_chunked,
                                        paged_decode_attention_dense,
-                                       paged_decode_attention_kernel)
+                                       paged_decode_attention_kernel,
+                                       paged_decode_attention_simt)
 
 __all__ = ["PagedKVCache", "CapacityError", "ContinuousBatchingEngine",
            "PrefixPlan", "chunk_digests",
@@ -77,7 +82,7 @@ __all__ = ["PagedKVCache", "CapacityError", "ContinuousBatchingEngine",
            "paged_decode_write", "paged_decode_write_q",
            "paged_decode_attention", "paged_decode_attention_dense",
            "paged_spec_write", "paged_spec_write_q",
-           "paged_spec_attention_dense", "kernel_route",
+           "paged_spec_attention_dense", "kernel_route", "decode_route",
            "validate_request", "sized_num_blocks", "prefill_ids",
            "resolve_paged_kernel",
            "resolve_kv_dtype", "quant_block_ratio", "ROUTE_COUNTS"]
@@ -96,13 +101,14 @@ _KERNEL_MODES = ("auto", "kernel", "dense")
 # tables at least this many pages long route to the split-KV kernel
 _CHUNK_MIN_PAGES = 16
 
-# decode-attention routing decisions: ``kernel`` (the per-page kernel's
-# wrapper) or ``split`` (the split-KV kernel's wrapper) whatever the
-# device; ``plain`` additionally when that wrapper will take its plain
-# version because the tensors lie on the CPU; ``dense`` when
-# FLAGS_paged_kernel=dense forces the plain version. The kernels' own
-# ``launches`` counts move only on CUDA launches.
-ROUTE_COUNTS = {"kernel": 0, "split": 0, "plain": 0, "dense": 0}
+# decode-attention routing decisions (``decode_route``), one a call:
+# ``kernel`` (the per-page kernel) or ``split`` (the split-KV kernel) for
+# CUDA tensors those kernels take; ``simt`` (the CUDA cores' kernel) for
+# the other CUDA tensors; ``plain`` for CPU tensors (the plain version);
+# ``dense`` when FLAGS_paged_kernel=dense forces the plain version. The
+# kernels' own ``launches`` counts move only on CUDA launches.
+ROUTE_COUNTS = {"kernel": 0, "split": 0, "simt": 0, "plain": 0,
+                "dense": 0}
 
 
 def resolve_paged_kernel(mode=None):
@@ -853,18 +859,34 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens,
     """Masked decode attention over the paged cache; q [B, Hq, D] ->
     [B, Hq, D]. Int8 pools pass their ``k_scale``/``v_scale``. See the
     module docstring for the routes."""
-    mode = resolve_paged_kernel(kernel_mode)
+    route = decode_route(resolve_paged_kernel(kernel_mode), q.device.type,
+                         decode_kernel_takes(q, k_pool, v_pool, k_scale),
+                         block_tables.shape[1])
+    ROUTE_COUNTS[route] += 1
     args = (q, k_pool, v_pool, block_tables, seq_lens, k_scale, v_scale)
-    if mode == "dense":
-        ROUTE_COUNTS["dense"] += 1
-        return paged_decode_attention_dense(*args)
-    if q.device.type == "cpu":
-        ROUTE_COUNTS["plain"] += 1
-    if block_tables.shape[1] >= _CHUNK_MIN_PAGES:
-        ROUTE_COUNTS["split"] += 1
+    if route == "split":
         return paged_decode_attention_chunked(*args)
-    ROUTE_COUNTS["kernel"] += 1
-    return paged_decode_attention_kernel(*args)
+    if route == "kernel":
+        return paged_decode_attention_kernel(*args)
+    if route == "simt":
+        return paged_decode_attention_simt(*args)
+    return paged_decode_attention_dense(*args)
+
+
+def decode_route(mode, device_type, takes, pages):
+    """The decode attention's route from a resolved mode, the tensors'
+    device type, whether the kernels take their dtypes and shapes
+    (``decode_kernel_takes``) and the table's pages: ``dense`` (forced),
+    ``plain`` (CPU tensors), ``simt`` (CUDA tensors those kernels do not
+    take), ``split`` (at least ``_CHUNK_MIN_PAGES`` pages) or ``kernel``.
+    Pure: decided before any launch."""
+    if mode == "dense":
+        return "dense"
+    if device_type == "cpu":
+        return "plain"
+    if not takes:
+        return "simt"
+    return "split" if pages >= _CHUNK_MIN_PAGES else "kernel"
 
 
 # ---------------------------------------------------------------------------

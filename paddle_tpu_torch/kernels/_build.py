@@ -31,7 +31,8 @@ _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_split",
-           "quant_matmul")
+           "quant_matmul", "flash_simt", "paged_decode_simt",
+           "quant_matmul_simt")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +80,32 @@ SIGNATURES = {
         "quant_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
         # x, w_int8, w_scales, y, M, N, K, cluster size, stream (M <= 8)
         "quant_matmul_decode_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    },
+    "flash_simt": {
+        # dtype (0 float32, 1 float16), q, k, v, o, lse, q_seg, kv_seg,
+        # q_pos, kv_pos (NULL on the dense branch), B, Sq, Sk, Hq, Hk, D,
+        # causal, scale, (batch, seq, head) strides of q, k, v, stream
+        "flash_simt_fwd": [_I] + [_P] * 9 + [_I] * 7 + [_F] + [_L] * 9
+        + [_P],
+        # dtype, q, k, v, do, lse, delta, dq, the four segment pointers,
+        # B, Sq, Sk, Hq, Hk, D, causal, scale, strides of q, k, v, do,
+        # stream
+        "flash_simt_dq": [_I] + [_P] * 11 + [_I] * 7 + [_F] + [_L] * 12
+        + [_P],
+        # as flash_simt_dq with dk, dv in place of dq
+        "flash_simt_dkv": [_I] + [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
+        + [_P],
+    },
+    "paged_decode_simt": {
+        # dtype (0 float32, 1 float16, 2 bfloat16), quantized, q, k_pool,
+        # v_pool, k_scale, v_scale (NULL for float pools), tables, lens,
+        # out, B, Hq, Hk, D, bs, mbps, scale, stream
+        "paged_decode_simt": [_I] * 2 + [_P] * 8 + [_I] * 6 + [_F, _P],
+    },
+    "quant_matmul_simt": {
+        # dtype (0 float32, 1 float16, 2 bfloat16), x, w_int8, w_scales,
+        # y, M, N, K, stream
+        "quant_matmul_simt": [_I] + [_P] * 4 + [_I] * 3 + [_P],
     },
 }
 

@@ -2,7 +2,9 @@
 // prefill path of quant_matmul.cu): asynchronous 16-byte copies from global
 // to shared memory (cp.async, Ampere and later), ldmatrix loads of
 // mma.sync fragments, and warpgroup products (wgmma, sm_90a) with A from
-// registers and B from shared memory.
+// registers and B from shared memory; for the warp-specialized kernels
+// (B1 at head dim 256, the int8 matmul at decode) TMA copies behind
+// mbarriers, `setmaxnreg` and named barriers.
 //
 // A ring of S stages is filled with cp.async: each stage's copies form one
 // commit group, `cp_async_wait<S - 2>()` plus a barrier makes the oldest
@@ -16,6 +18,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,6 +174,113 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// --- TMA, mbarriers, warp specialization (sm_90) -------------------------
+
+// shared-memory barriers (mbarrier): a ring's full barrier completes when a
+// stage's bytes have landed (the producer's one arrive with the byte count,
+// then the copies' own), its empty barrier when its consumers have read it
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// mbarrier initialization made visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime (no link against libcuda),
+// looked up once in each library that includes this header (static: the
+// lookup's own static stays inside the library)
+static inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// boxes of a tensor map (a CUtensorMap in parameter, constant or global
+// memory) into dst, completing on bar: 1-d at (x), 2-d at (inner, outer),
+// 4-d at (x0, x1, x2, x3), innermost first
+__device__ __forceinline__ void tma_1d(void* dst, const void* map, int x,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const void* map, int inner,
+                                       int outer, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_4d(void* dst, const void* map, int x0,
+                                       int x1, int x2, int x3,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(x1), "r"(x2),
+      "r"(x3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a warpgroup's register budget, raised (consumers) or lowered (a
+// producer) from the launch's even share; every thread of the warpgroup
+// executes it
+template <int kRegs>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// a barrier of `threads` threads on named barrier `id` (1-15; 0 is
+// __syncthreads'): wait for the others, or only add this warp's arrival
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- thread-block clusters ---------------------------------------------

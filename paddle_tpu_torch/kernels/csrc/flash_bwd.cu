@@ -140,16 +140,28 @@
 // Head dims above 256 (`flash_bwd_dq_xl_kernel`, `flash_bwd_dkv_xl_kernel`;
 // D a multiple of 128, as the Pallas kernel pads it): whole 64-row tiles
 // of D 512 do not fit (Q 64 KiB, a two-stage K ring 128 KiB, V more), so
-// the contraction over the head dim streams in chunks. Each CTA owns one
-// slice of the output's columns (128 of dQ; 64 of dK and dV, whose two
-// accumulators and S^T, dP^T then fit one warpgroup) and walks its tiles
-// chunk by chunk: a ring stage holds one chunk of each operand (Q, dO, K,
-// V; 64 KiB for B2, 32 KiB for B3), S and dP (S^T, dP^T) sum over the
-// chunks in wgmma accumulators, and the slice's own chunk comes last, so
-// the products into the slice read its K (Q, dO) chunk from the stage it
-// is already in. The CTAs of one row block (key tile) recompute S and dP
-// each, identically: D / 128 (D / 64) times the products of S and dP,
-// and no atomics. A first version that is right, not a fast one.
+// the contraction over the head dim streams in chunks.
+// - B2: each CTA owns one 128-column slice of dQ and walks its key tiles
+//   chunk by chunk: a ring stage holds one chunk of Q, dO, K and V (64
+//   KiB), S and dP sum over the chunks in wgmma accumulators, and the
+//   slice's own chunk comes last, so dQ += dS K reads its K chunk from the
+//   stage it is already in. The CTAs of one row block recompute S and dP
+//   each, identically: D / 128 times the products of S and dP, and no
+//   atomics. A first version that is right, not a fast one.
+// - B3 applies the D 256 kernel's layout to wider slices: a CTA of two
+//   warpgroups owns a slice of up to 256 columns of dK and dV (a multiple
+//   of 64; 192 + 192 at D 384, 256 + 256 at D 512, three of 256 at D 640,
+//   the last half past D), so S^T and dP^T are recomputed ceil(D / 256)
+//   times, not D / 64 as when a CTA owned 64 columns (1.717 ms at D 384,
+//   2.779 at D 512 on the H100). Per step S^T and dP^T are computed once
+//   a CTA, split between the warpgroups by queries; their contraction
+//   over D takes the chunks outside the slice through the ring (K, V, Q
+//   and dO, 32 KiB a stage) and then the slice's own from the key tile's
+//   K/V slices, resident, and the step's Q/dO slices, loaded while the
+//   step's first chunks are worked on. Only bf16 P^T and dS^T cross
+//   between the warpgroups; warpgroup 0 accumulates dV and warpgroup 1 dK
+//   over the whole slice (m64n192 or m64n256, both operands from shared
+//   memory). 208 KiB of shared memory at W 256: one CTA an SM.
 //
 #include <cooperative_groups.h>
 
@@ -1445,7 +1457,7 @@ flash_bwd_dkv_256_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int kXWq = 128;  // dQ columns a CTA of B2 owns: one chunk
-constexpr int kXWkv = 64;  // dK and dV columns a CTA of B3 owns: one chunk
+constexpr int kXWkv = 64;  // columns of one chunk of B3's ring
 
 // B2: a ring stage holds one chunk of Q and dO (the CTA's 64 folded rows)
 // and of K and V (a key tile), each a swizzled [64][kXWq]
@@ -1671,20 +1683,51 @@ flash_bwd_dq_xl_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// B3: a ring stage holds one chunk of K and V (the CTA's key tile) and of
-// Q and dO (a step's 64 rows), each a swizzled [64][kXWkv], then the
-// stage's LSE and Delta rows
-struct DkvXlSmem {
-  static constexpr int kChunk = kBK * kXWkv * 2;
-  static constexpr int kStage = 4 * kChunk;
-  static constexpr int kRowsAt = kStages * kStage;
-  static constexpr int kBytes = kRowsAt + 2 * kStages * kBQ * 4;
-  static constexpr int kSegInts = 2 * kStages * kBQ + kSegScratch;
-  static constexpr int kSS = kXWkv + 8;  // dK, dV's padded staging rows
+// B3: a CTA owns a slice of W columns (W up to 256, a multiple of 64) of dK
+// and dV; kXWkv-column chunks stream through the ring
+struct DkvXlChunks {
+  static constexpr int kBlk = kBK * kXWkv * 2;  // a swizzled [64][64] chunk
+  static constexpr int kStage = 4 * kBlk;       // K, V, Q and dO chunks
 };
 
-template <bool kSeg>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int W>
+struct DkvXlSmem {
+  static constexpr int kBlk = DkvXlChunks::kBlk;
+  static constexpr int kSlice = W / kXWkv * kBlk;  // a swizzled [64][W]
+  // the key tile's K and V slices (resident), the step's Q and dO slices,
+  // the ring of other chunks, P^T and dS^T; all 1024-byte aligned; then
+  // the step's LSE and Delta rows
+  static constexpr int kKs = 0;
+  static constexpr int kVs = kKs + kSlice;
+  static constexpr int kQs = kVs + kSlice;
+  static constexpr int kDs = kQs + kSlice;
+  static constexpr int kRing = kDs + kSlice;
+  static constexpr int kPT = kRing + kStages * DkvXlChunks::kStage;
+  static constexpr int kDST = kPT + kBlk;
+  static constexpr int kRowsAt = kDST + kBlk;
+  static constexpr int kBytes = kRowsAt + 2 * kBQ * 4;
+  // the segment branch's ints after those: the step's query ids and
+  // positions, scratch, then the list of live query tiles
+  static constexpr int kSegInts = 2 * kBQ + kScratch2;
+  // dV (warpgroup 0) and dK (1) leave as padded bf16 rows over the Q and
+  // dO slices and the ring
+  static constexpr int kSS = W + 8;
+  static_assert(2 * kBK * kSS * 2 <= kPT - kQs, "room for dK, dV");
+};
+
+// One CTA a (slice of W columns, key tile, batch, kv head), over the
+// whole group; two warpgroups. Per (query tile, head) step, S^T and dP^T
+// (64 keys x 64 queries) are computed once and split by queries: each
+// warpgroup takes 32 (m64n32, both operands from shared memory), summing
+// over the head dim's chunks: first the chunks outside the slice, which
+// stream through the ring, then the slice's own from the resident K/V
+// slice and the step's Q/dO slice. P^T and dS^T then cross as bf16
+// through two swizzled tiles, and warpgroup 0 runs dV[:, slice] += P^T dO
+// and warpgroup 1 dK[:, slice] += dS^T Q (m64nW, both from shared memory,
+// the slices MN-major). A slice past D (the last one, where W does not
+// divide D) is zero-filled there and not written.
+template <int W, bool kSeg>
+__global__ void __launch_bounds__(kT2, 1)
 flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
@@ -1696,41 +1739,58 @@ flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
                         int Sk, int Hq, int Hk, int D, int causal,
                         float scale, float scale_log2, Strides qs,
                         Strides ks, Strides vs, Strides dos, Seg seg) {
-  using L = DkvXlSmem;
-  constexpr int kKC = kXWkv / 16;
-  constexpr int kCP = kXWkv / 8;
+  using L = DkvXlSmem<W>;
+  constexpr int kWC = W / kXWkv;     // chunks of a slice
+  constexpr int kCP = kXWkv / 8;     // 16-byte pieces of a chunk's row
+  constexpr int kSP = W / 8;         // 16-byte pieces of a slice's row
+  constexpr int kKC = kXWkv / 16;    // k steps of a chunk
+  constexpr int kQH = kBQ / 2;       // queries of one warpgroup's S^T
   extern __shared__ __align__(1024) unsigned char smem[];
-  float* sL = reinterpret_cast<float*>(smem + L::kRowsAt);  // [stage]
-  float* sDelta = sL + kStages * kBQ;
+  unsigned char* sKs = smem + L::kKs;
+  unsigned char* sVs = smem + L::kVs;
+  unsigned char* sQs = smem + L::kQs;
+  unsigned char* sDs = smem + L::kDs;
+  unsigned char* sRing = smem + L::kRing;  // [stage] K, V, Q, dO chunks
+  unsigned char* sPT = smem + L::kPT;      // P^T, [key][query]
+  unsigned char* sDST = smem + L::kDST;
+  float* sL = reinterpret_cast<float*>(smem + L::kRowsAt);
+  float* sDelta = sL + kBQ;
   int* sQseg = reinterpret_cast<int*>(smem + L::kBytes);
-  int* sQpos = sQseg + kStages * kBQ;
-  int* sScratch = sQpos + kStages * kBQ;
-  int* sList = sScratch + kSegScratch;
+  int* sQpos = sQseg + kBQ;
+  int* sScratch = sQpos + kBQ;
+  int* sList = sScratch + kScratch2;
 
   const int nch = D / kXWkv;
+  const int nsl = (D + W - 1) / W;
   // 1-d grid: slice fastest, then kv head, batch, key tile
-  const int sl = blockIdx.x % nch;
-  const int rest = blockIdx.x / nch;
+  const int sl = blockIdx.x % nsl;
+  const int rest = blockIdx.x / nsl;
   const int kvh = rest % Hk;
   const int b = (rest / Hk) % B;
   const int kt = rest / (Hk * B);
   const int k0 = kt * kBK;
+  const int c_lo = sl * kWC;                // the slice's first chunk
+  const int c_n = min(kWC, nch - c_lo);     // its chunks before D
+  const int nf = nch - c_n;                 // chunks outside it, > 0
   const int G = Hq / Hk;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int off = Sk - Sq;
   const int nqt = (Sq + kBQ - 1) / kBQ;
+  const int qofs = wg * kQH;  // this warpgroup's queries of a step
 
   int qt0 = 0, ntiles;
   if constexpr (kSeg) {
     const int nkt = (Sk + kBK - 1) / kBK;
     const int4 mine =
         bounds_at(seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, kt);
-    ntiles = live_pairs<false>(seg.qb + static_cast<size_t>(b) * 4 * nqt,
-                               nqt, mine, causal, sList, sScratch);
+    ntiles = live_pairs<false, false, kT2>(
+        seg.qb + static_cast<size_t>(b) * 4 * nqt, nqt, mine, causal, sList,
+        sScratch);
   } else {
     qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
     ntiles = max(0, nqt - qt0);
@@ -1739,19 +1799,22 @@ flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (kSeg) return sList[t];
     else return qt0 + t;
   };
-  const int nitems = ntiles * G * nch;
+  // step n: query tile n / G, head kvh G + n % G
+  const int nsteps = ntiles * G;
+  const int nitems = nsteps * nf;  // chunks through the ring
+  auto step_q0 = [&](int n) {
+    return (entry_of(n / G) & (kFull - 1)) * kBQ;
+  };
 
-  // item n: chunk (sl + 1 + n % nch) % nch of step n / nch (query tile
-  // step / G, head kvh G + step % G); the slice's own chunk comes last,
-  // with the step's LSE, Delta (and ids and positions)
-  auto load = [&](int n, int st) {
-    const int step = n / nch;
-    const int j = n % nch;
-    const int c0 = ((sl + 1 + j) % nch) * kXWkv;
-    const int q0 = (entry_of(step / G) & (kFull - 1)) * kBQ;
-    const int head = kvh * G + step % G;
-    unsigned char* base = smem + st * L::kStage;
-    for (int i = tid; i < kBK * kCP; i += kThreads) {
+  // item f: the f % nf-th chunk outside the slice, of step f / nf
+  auto load_chunk = [&](int f, int st) {
+    const int n = f / nf;
+    const int j = f % nf;
+    const int c0 = (j < c_lo ? j : j + c_n) * kXWkv;
+    const int q0 = step_q0(n);
+    const int head = kvh * G + n % G;
+    unsigned char* base = sRing + st * DkvXlChunks::kStage;
+    for (int i = tid; i < kBK * kCP; i += kT2) {
       const int r = i / kCP;
       const int c8 = i % kCP;
       const int o = swz<kBK>(r, c8);
@@ -1759,34 +1822,70 @@ flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
       const bool okk = key < Sk;
       cp_async16(base + o, okk ? k + ks.at(b, key, kvh) + c0 + 8 * c8 : k,
                  okk);
-      cp_async16(base + L::kChunk + o,
+      cp_async16(base + L::kBlk + o,
                  okk ? v + vs.at(b, key, kvh) + c0 + 8 * c8 : v, okk);
       const int pos = q0 + r;
       const bool okq = pos < Sq;
-      cp_async16(base + 2 * L::kChunk + o,
+      cp_async16(base + 2 * L::kBlk + o,
                  okq ? q + qs.at(b, pos, head) + c0 + 8 * c8 : q, okq);
-      cp_async16(base + 3 * L::kChunk + o,
+      cp_async16(base + 3 * L::kBlk + o,
                  okq ? dout + dos.at(b, pos, head) + c0 + 8 * c8 : dout,
                  okq);
     }
-    if (j == nch - 1) {
+  };
+  // step n's Q and dO slices, LSE and Delta (0 past Sq), and on the
+  // segment branch the rows' ids and positions
+  auto load_slice = [&](int n) {
+    const int q0 = step_q0(n);
+    const int head = kvh * G + n % G;
+    for (int i = tid; i < kBQ * kSP; i += kT2) {
+      const int r = i / kSP;
+      const int c8 = i % kSP;
+      const int col = sl * W + 8 * c8;
+      const int pos = q0 + r;
+      const bool ok = pos < Sq && col < D;
+      cp_async16(sQs + swz<kBQ>(r, c8),
+                 ok ? q + qs.at(b, pos, head) + col : q, ok);
+      cp_async16(sDs + swz<kBQ>(r, c8),
+                 ok ? dout + dos.at(b, pos, head) + col : dout, ok);
+    }
+    if (tid < 2 * kBQ) {  // threads 0-63 LSE, 64-127 Delta
       const int r = tid % kBQ;
       const int pos = q0 + r;
       const bool ok = pos < Sq;
       const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
       const float* src = tid < kBQ ? lse : delta;
-      cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
-                ok ? src + row : src, ok);
+      cp_async4((tid < kBQ ? sL : sDelta) + r, ok ? src + row : src, ok);
       if constexpr (kSeg) {
         const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
-        cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
+        cp_async4((tid < kBQ ? sQseg : sQpos) + r,
                   ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
       }
     }
   };
-  if (nitems > 0) load(0, 0);
+  // commit groups, in order: the first chunk; the K/V slices with step 0's
+  // slice; then one a ring item (the next chunk, which after a step's
+  // last chunk is the next step's first) and one after each step's
+  // products (the next step's slice). A step's first chunk is the newest
+  // group but one (its slice came after it); every later chunk the
+  // newest; the slice the newest but one.
+  if (nitems > 0) load_chunk(0, 0);
+  cp_async_commit();
+  for (int i = tid; i < kBK * kSP; i += kT2) {
+    const int r = i / kSP;
+    const int c8 = i % kSP;
+    const int col = sl * W + 8 * c8;
+    const int key = k0 + r;
+    const bool ok = key < Sk && col < D;
+    cp_async16(sKs + swz<kBK>(r, c8), ok ? k + ks.at(b, key, kvh) + col : k,
+               ok);
+    cp_async16(sVs + swz<kBK>(r, c8), ok ? v + vs.at(b, key, kvh) + col : v,
+               ok);
+  }
+  if (nsteps > 0) load_slice(0);
   cp_async_commit();
 
+  // the two keys this thread owns (the same in both warpgroups)
   int key[2], kid[2], kp[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1801,125 +1900,138 @@ flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float s[kBQ / 8][4], dp[kBQ / 8][4];
-  float dka[kXWkv / 8][4], dva[kXWkv / 8][4];
-  uint32_t a_p[kBQ / 16][4], a_ds[kBQ / 16][4];
+  // warpgroup 0: dV[:, slice]; 1: dK[:, slice]; written by wgmma only
+  float acc[W / 8][4];
   bool started = false;
+  int f = 0;  // the ring item
 
-  for (int n = 0; n < nitems; ++n) {
-    cp_async_wait<kStages - 2>();
+  for (int n = 0; n < nsteps; ++n) {
+    // S^T and dP^T: the tile's 64 keys x this warpgroup's 32 queries,
+    // summed over the chunks outside the slice
+    float s[kQH / 8][4], dp[kQH / 8][4];
+    for (int j = 0; j < nf; ++j, ++f) {
+      if (j == 0)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      tiles::fence_proxy_async();
+      __syncthreads();  // item f is visible; item f - 1 is consumed
+      if (f + 1 < nitems) load_chunk(f + 1, (f + 1) % kStages);
+      cp_async_commit();
+      const unsigned char* tK = sRing + (f % kStages) * DkvXlChunks::kStage;
+      const unsigned char* tV = tK + L::kBlk;
+      const unsigned char* tQ = tV + L::kBlk;
+      const unsigned char* tD = tQ + L::kBlk;
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_ss_n32(flat(s), kstep_desc<kBK>(tK, 0, kc),
+                     kstep_desc<kBQ>(tQ, qofs, kc), j > 0 || kc > 0);
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc)
+        wgmma_ss_n32(flat(dp), kstep_desc<kBK>(tV, 0, kc),
+                     kstep_desc<kBQ>(tD, qofs, kc), j > 0 || kc > 0);
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(s));
+      tiles::fence_regs(flat(dp));
+    }
+
+    // ... and over the slice's own chunks
+    cp_async_wait<1>();  // the step's slice (the next chunk may fly)
     tiles::fence_proxy_async();
     __syncthreads();
-    if (n + 1 < nitems) load(n + 1, (n + 1) % kStages);
-    cp_async_commit();
-    const int st = n % kStages;
-    const int j = n % nch;
-    const unsigned char* tK = smem + st * L::kStage;
-    const unsigned char* tV = tK + L::kChunk;
-    const unsigned char* tQ = tV + L::kChunk;
-    const unsigned char* tD = tQ + L::kChunk;
-
-    // S^T += K_c Q_c^T and dP^T += V_c dO_c^T over this chunk's columns
     tiles::fence_regs(flat(s));
     tiles::fence_regs(flat(dp));
     tiles::wgmma_fence();
     #pragma unroll
-    for (int kc = 0; kc < kKC; ++kc)
-      wgmma_ss_n64(flat(s), kstep_desc<kBK>(tK, 0, kc),
-                   kstep_desc<kBQ>(tQ, 0, kc), j > 0 || kc > 0);
+    for (int kc = 0; kc < kWC * kKC; ++kc)
+      wgmma_ss_n32(flat(s), kstep_desc<kBK>(sKs, 0, kc),
+                   kstep_desc<kBQ>(sQs, qofs, kc), 1);
     #pragma unroll
-    for (int kc = 0; kc < kKC; ++kc)
-      wgmma_ss_n64(flat(dp), kstep_desc<kBK>(tV, 0, kc),
-                   kstep_desc<kBQ>(tD, 0, kc), j > 0 || kc > 0);
+    for (int kc = 0; kc < kWC * kKC; ++kc)
+      wgmma_ss_n32(flat(dp), kstep_desc<kBK>(sVs, 0, kc),
+                   kstep_desc<kBQ>(sDs, qofs, kc), 1);
     tiles::wgmma_commit();
     tiles::wgmma_wait<0>();
     tiles::fence_regs(flat(s));
     tiles::fence_regs(flat(dp));
-    if (j != nch - 1) continue;
 
-    const int entry = entry_of(n / nch / G);
+    const int entry = entry_of(n / G);
     const int q0 = (entry & (kFull - 1)) * kBQ;
-    bool full_tile;
+    bool masked;
     if constexpr (kSeg)
-      full_tile = entry & kFull;
+      masked = !(entry & kFull);
     else
-      full_tile = !(causal && k0 + kBK - 1 > q0 + off);
-    const bool masked = !full_tile;
-    const float* tL = sL + st * kBQ;
-    const float* tDl = sDelta + st * kBQ;
-    const int* tseg = sQseg + st * kBQ;
-    const int* tpos = sQpos + st * kBQ;
+      masked = causal && k0 + kBK - 1 > q0 + qofs + off;
     if (masked)
-      dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0, key, kid, kp,
-                             causal, off, scale_log2, scale, tig);
+      dkv_scores<true, kSeg>(s, dp, sL + qofs, sDelta + qofs, sQseg + qofs,
+                             sQpos + qofs, q0 + qofs, key, kid, kp, causal,
+                             off, scale_log2, scale, tig);
     else
-      dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0, key, kid, kp,
-                              causal, off, scale_log2, scale, tig);
+      dkv_scores<false, kSeg>(s, dp, sL + qofs, sDelta + qofs,
+                              sQseg + qofs, sQpos + qofs, q0 + qofs, key,
+                              kid, kp, causal, off, scale_log2, scale, tig);
+    // P^T and dS^T (bf16) of both halves meet in shared memory
+    put_pairs(sPT, s, warp * 16, qofs, gid, tig);
+    put_pairs(sDST, dp, warp * 16, qofs, gid, tig);
+    tiles::fence_proxy_async();
+    __syncthreads();
 
-    // dV[:, slice] += P^T(bf16) dO_slice and dK[:, slice] += dS^T(bf16)
-    // Q_slice: the slice's chunks are this item's
-    #pragma unroll
-    for (int kc = 0; kc < kBQ / 16; ++kc) {
-      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
-      acc_to_a(a_ds[kc], dp[2 * kc], dp[2 * kc + 1]);
-    }
+    // dV[:, slice] += P^T dO_slice (warpgroup 0), dK[:, slice] += dS^T
+    // Q_slice (1): A the whole P^T / dS^T (queries along k), B the slice
+    // read MN-major
+    const unsigned char* tA = wg ? sDST : sPT;
+    const unsigned char* tB = wg ? sQs : sDs;
     tiles::wgmma_fence();
     #pragma unroll
-    for (int kc = 0; kc < kBQ / 16; ++kc) {
-      wgmma_rs_t_n64(flat(dva), a_p[kc],
-                     desc_mn_sw128(tD + 16 * kc * 128, kBQ * 128),
-                     started || kc > 0);
-      wgmma_rs_t_n64(flat(dka), a_ds[kc],
-                     desc_mn_sw128(tQ + 16 * kc * 128, kBQ * 128),
-                     started || kc > 0);
-    }
+    for (int kc = 0; kc < kBQ / 16; ++kc)
+      wgmma_ss_t<W>(flat(acc), kstep_desc<kBK>(tA, 0, kc),
+                    desc_mn_sw128(tB + 16 * kc * 128, kBQ * 128),
+                    started || kc > 0);
     tiles::wgmma_commit();
     tiles::wgmma_wait<0>();
-    tiles::fence_regs(flat(dka));
-    tiles::fence_regs(flat(dva));
-    fence_frags(a_p);
-    fence_frags(a_ds);
+    tiles::fence_regs(flat(acc));
     started = true;
+    __syncthreads();  // the slices, P^T and dS^T are consumed
+    if (n + 1 < nsteps) load_slice(n + 1);
+    cp_async_commit();
   }
-  if (!started)
+  if (!started)  // no query row: dK = dV = 0
     #pragma unroll
-    for (int dt = 0; dt < kXWkv / 8; ++dt)
+    for (int dt = 0; dt < W / 8; ++dt)
       #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        dka[dt][c] = 0.f;
-        dva[dt][c] = 0.f;
-      }
+      for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   cp_async_wait<0>();
-  __syncthreads();
+  __syncthreads();  // every warp is done with the slices and the ring
 
-  // the slices through the warp's own 16 padded rows of each, over the
-  // ring
-  __nv_bfloat16* stK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* stV = stK + kBK * L::kSS;
+  // dV (warpgroup 0) and dK (1) as bf16 rows, then out 16 bytes a store,
+  // none past Sk or D
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(sQs);
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = warp * 16 + gid + 8 * i;
+    __nv_bfloat16* row =
+        stage + (wg * kBK + warp * 16 + gid + 8 * i) * L::kSS;
     #pragma unroll
-    for (int dt = 0; dt < kXWkv / 8; ++dt) {
-      const int col = dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(stK + row * L::kSS + col) =
-          pack_f32(dka[dt][2 * i], dka[dt][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(stV + row * L::kSS + col) =
-          pack_f32(dva[dt][2 * i], dva[dt][2 * i + 1]);
-    }
+    for (int dt = 0; dt < W / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+          pack_f32(acc[dt][2 * i], acc[dt][2 * i + 1]);
   }
-  __syncwarp();
-  for (int i = lane; i < 2 * 16 * kCP; i += 32) {
-    const int which = i / (16 * kCP);  // 0: dK, 1: dV
-    const int r = warp * 16 + (i % (16 * kCP)) / kCP;
-    const int c = (i % kCP) * 8;
+  __syncthreads();
+  for (int i = tid; i < 2 * kBK * kSP; i += kT2) {
+    const int which = i / (kBK * kSP);  // 0: dV, 1: dK
+    const int r = (i % (kBK * kSP)) / kSP;
+    const int c = (i % kSP) * 8;
     const int kj = k0 + r;
-    if (kj >= Sk) continue;
-    __nv_bfloat16* out = (which ? dv : dk) +
+    const int col = sl * W + c;
+    if (kj >= Sk || col >= D) continue;
+    __nv_bfloat16* out = (which ? dk : dv) +
                          ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
-                         sl * kXWkv + c;
+                         col;
     *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(
-        (which ? stV : stK) + r * L::kSS + c);
+        stage + (which * kBK + r) * L::kSS + c);
   }
 }
 
@@ -2076,24 +2188,41 @@ cudaError_t launch_dq_xl(const Args& a) {
   return cudaGetLastError();
 }
 
-template <bool kSeg>
+// the slice width of B3 above head dim 256: ceil(D / 256) slices, each
+// the least multiple of 64 that covers D in that many (192 at D 384, 256
+// at D 512 and 640, whose last slice is half past D)
+inline int dkv_xl_width(int D) {
+  const int nsl = (D + 255) / 256;
+  return kXWkv * ((D / kXWkv + nsl - 1) / nsl);
+}
+
+template <int W, bool kSeg>
 cudaError_t launch_dkv_xl(const Args& a) {
   static int allowed = 48 * 1024;
-  using L = DkvXlSmem;
+  using L = DkvXlSmem<W>;
   const int nqt = (a.Sq + kBQ - 1) / kBQ;
   const int smem = L::kBytes + (kSeg ? (L::kSegInts + nqt) * 4 : 0);
   const cudaError_t e =
-      allow_dynamic_smem(flash_bwd_dkv_xl_kernel<kSeg>, smem, allowed);
+      allow_dynamic_smem(flash_bwd_dkv_xl_kernel<W, kSeg>, smem, allowed);
   if (e != cudaSuccess) return e;
   const long long ctas = static_cast<long long>((a.Sk + kBK - 1) / kBK) *
-                         a.B * a.Hk * (a.D / kXWkv);
+                         a.B * a.Hk * ((a.D + W - 1) / W);
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dkv_xl_kernel<kSeg><<<static_cast<unsigned>(ctas), kThreads,
-                                  smem, a.s>>>(
+  flash_bwd_dkv_xl_kernel<W, kSeg><<<static_cast<unsigned>(ctas), kT2,
+                                     smem, a.s>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
       a.Hq, a.Hk, a.D, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos,
       a.seg);
   return cudaGetLastError();
+}
+
+template <bool kSeg>
+cudaError_t launch_dkv_xl(const Args& a) {
+  switch (dkv_xl_width(a.D)) {
+    case 192: return launch_dkv_xl<192, kSeg>(a);
+    case 256: return launch_dkv_xl<256, kSeg>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // the head dims the kernels take: 64, 128, 256, and multiples of 128

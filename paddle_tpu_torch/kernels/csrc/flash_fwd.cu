@@ -53,20 +53,33 @@
 //   the end of the keys; tiles above the diagonal are never loaded.
 // - The grid walks query blocks from the last (most keys under causal
 //   masking) to the first, so the longest CTAs start first.
-// - Not yet: wgmma and TMA for the dense branch; its products stay on
-//   mma.sync.
+// - Not yet: wgmma and TMA for the dense branch at D 64/128; its products
+//   stay on mma.sync (D 256 runs `flash_fwd_256_kernel`, below).
 //
 // Head dim 256 (Gemma's heads are 256 wide; the wrapper pads D 129-255 to
-// it): both branches run the dense branch's mma.sync kernel, the segment
-// branch as its kSeg instantiation, which walks the compacted pair list of
-// the segment kernel below and masks by ids and positions. What it had to
-// give up: the f32 O accumulator of 16 rows x 256 is 128 registers a
-// thread, so Q's A fragments (64 more) are not kept in registers but read
-// from shared memory with ldmatrix at every key tile (16 more ldmatrix a
-// tile beside the 128 of K and V); Q and a two-stage K/V ring of 64-key
-// tiles padded rows take 165 KiB of shared memory, one CTA an SM. Not yet
-// redesigned: wgmma at this width (m64n256 accumulators over two
-// warpgroups) is later work.
+// it): `flash_fwd_256_kernel`, both branches (the segment branch as its
+// kSeg instantiation, which walks the compacted pair list of the segment
+// kernel below and masks by ids and positions). What it is built around:
+// a warp's 16 rows of a 256-wide f32 O accumulator are 128 registers a
+// thread, so the mma.sync kernel of D 64/128 could not also keep Q's
+// fragments and re-read Q with ldmatrix at every tile, and at 64 rows a
+// CTA (one CTA an SM) each staged K/V tile served only 64 rows (0.2038 ms
+// at B 1, S 2048, Hq 16, Hk 4, causal, on the H100).
+// - 128 folded rows a block over two consumer warpgroups, each owning 64
+//   rows and their whole m64n256 O; S on SS-form wgmma (Q staged once,
+//   swizzled), P V on RS-form (P from registers, V MN-major).
+// - A producer warpgroup feeds a K ring and a V ring by TMA behind
+//   mbarriers and hands its registers to the consumers (setmaxnreg 24 /
+//   240). Taking the loads off the consumers' path and the barrier they
+//   met at every tile out of it took the kernel from 0.159 to 0.108 ms.
+// - Each consumer issues S(n + 1) with P(n) V(n) and runs the softmax of
+//   S(n + 1) under P(n) V(n); the consumers take turns at the tensor
+//   cores (named barriers), FA3's schedule. Loops are peeled so that no
+//   wgmma sits in a divergent path (ptxas serialized them there, C7518).
+// - Causal without segments, each CTA walks two blocks, the j-th from the
+//   end and the j-th from the start: every CTA walks about as many tiles
+//   and the grid is one wave (0.108 -> 0.075 ms; non-causal read 51 % of
+//   its bound while causal read 32 % before the pairing).
 //
 // Head dims above 256 (`flash_fwd_xl_kernel`, both branches; D a multiple
 // of 128): whole 64-row tiles do not fit (at D 512 Q is 64 KiB and a
@@ -121,6 +134,8 @@
 // - Tried on the H100 and not kept: three and four ring stages, 32-key
 //   steps, and 128 rows a CTA as two warpgroups sharing each tile (one
 //   CTA an SM, warpgroups in lock step, 255 registers): none was faster.
+
+#include <mutex>
 
 #include "async_tiles.cuh"
 #include "flash_seg.cuh"
@@ -207,34 +222,26 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
-// the dense branch, and at D 256 the segment branch too (kSeg)
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(kFThreads, D > 128 ? 1 : 2)
+// the dense branch at D 64 and 128
+template <int D>
+__global__ void __launch_bounds__(kFThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Sk, int Hq, int Hk, int causal,
-                 float scale_log2, Strides qs, Strides ks, Strides vs,
-                 Seg seg) {
+                 float scale_log2, Strides qs, Strides ks, Strides vs) {
+  static_assert(D <= 128, "D 256 runs flash_fwd_256_kernel");
   using L = FwdSmem<D>;
   constexpr int kStride = L::kStride;
   constexpr int kKC = D / 16;     // k-chunks of the QK^T product
   constexpr int kDT = D / 8;      // n-tiles of the PV product
   constexpr int kNT = kBK / 8;    // n-tiles of the QK^T product
   constexpr int kPieces = D / 8;  // 16-byte pieces per row
-  // Q's A fragments stay in registers up to D 128; at D 256 the O
-  // accumulator needs them, and each tile reads Q from shared memory
-  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + L::kQ;             // [stage][kBK][kStride]
   __nv_bfloat16* sV = sK + kStages * L::kKV;  // [stage][kBK][kStride]
-  // kSeg only: [stage][kBK] kv ids, then positions, scratch, pair list
-  int* sKseg = reinterpret_cast<int*>(smem_raw + L::kBytes);
-  int* sKpos = sKseg + kStages * kBK;
-  int* sScratch = sKpos + kStages * kBK;
-  int* sList = sScratch + kSegScratch;
 
   const int G = Hq / Hk;
   const int bq = kFRows / G;  // query positions per CTA
@@ -259,40 +266,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
 
-  // keys this CTA can see: up to the diagonal of its last live row; with
-  // segments, the compacted list of live (block, tile) pairs
+  // keys this CTA can see: up to the diagonal of its last live row
   const int q_hi = min(q0 + bq, Sq) - 1;
-  int ntiles;
-  if constexpr (kSeg) {
-    const int nkt = (Sk + kBK - 1) / kBK;
-    const size_t at = static_cast<size_t>(b) * Sq + q0;
-    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
-                                   q_hi + 1 - q0, sScratch);
-    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
-                              nkt, mine, causal, sList, sScratch);
-  } else {
-    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
-    ntiles = (kend + kBK - 1) / kBK;
-  }
-  // the list entry of the t-th step: the tile, flagged kFull if unmasked
-  auto entry_of = [&](int t) {
-    if constexpr (kSeg) return sList[t];
-    else return t;
-  };
+  const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+  const int ntiles = (kend + kBK - 1) / kBK;
 
-  auto load_kv = [&](int n, int st) {
-    const int t = entry_of(n) & (kFull - 1);
+  auto load_kv = [&](int t, int st) {
     __nv_bfloat16* dk = sK + st * L::kKV;
     __nv_bfloat16* dv = sV + st * L::kKV;
-    if constexpr (kSeg) {  // threads 0-63 copy the ids, 64-127 positions
-      const int i = tid % kBK;
-      const int key = t * kBK + i;
-      const bool ok = key < Sk;
-      const int* src = tid < kBK ? seg.kseg : seg.kpos;
-      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
-      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
-                ok);
-    }
     for (int i = tid; i < kBK * kPieces; i += kFThreads) {
       const int r = i / kPieces;
       const int c = (i % kPieces) * 8;
@@ -310,34 +291,23 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  // the two rows this thread owns in the mma layout: gid and gid + 8,
-  // with (kSeg) their query's segment id and position
-  int pos[2], head[2], qid[2], qp[2];
+  // the two rows this thread owns in the mma layout: gid and gid + 8
+  int pos[2], head[2];
+  const int qid[2] = {0, 0}, qp[2] = {0, 0};  // (the segment branch's)
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + gid + 8 * i;
     head[i] = kvh * G + r / bq;
     pos[i] = q0 + r % bq;
-    qid[i] = -2;
-    qp[i] = 0;
-    if constexpr (kSeg) {
-      if (pos[i] < Sq) {
-        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
-        qid[i] = seg.qseg[at];
-        qp[i] = seg.qpos[at];
-      }
-    }
   }
 
   cp_async_wait<kStages - 1>();  // Q has landed (tiles may be in flight)
   __syncthreads();
   const __nv_bfloat16* qrow =
       sQ + (warp * 16 + (lane & 15)) * kStride + 8 * (lane >> 4);
-  uint32_t qf[kQRegs ? kKC : 1][4];
-  if constexpr (kQRegs) {
-    #pragma unroll
-    for (int kc = 0; kc < kKC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
-  }
+  uint32_t qf[kKC][4];
+  #pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) ldsm_x4(qf[kc], qrow + kc * 16);
 
   float acc[kDT][4];
   #pragma unroll
@@ -356,8 +326,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = t % kStages;
     const __nv_bfloat16* tK = sK + st * L::kKV;
     const __nv_bfloat16* tV = sV + st * L::kKV;
-    const int entry = entry_of(t);
-    const int t0 = (entry & (kFull - 1)) * kBK;
+    const int t0 = t * kBK;
 
     // S = Q K^T for this warp's 16 rows x 64 keys; one ldmatrix.x4 gives
     // the B fragments of two 8-key n-tiles
@@ -368,34 +337,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
     #pragma unroll
     for (int kc = 0; kc < kKC; ++kc) {
-      uint32_t qa[4];
-      if constexpr (!kQRegs) ldsm_x4(qa, qrow + kc * 16);
-      const uint32_t* a = kQRegs ? qf[kQRegs ? kc : 0] : qa;
       #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t bf[4];
         ldsm_x4(bf, tK + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * kStride +
                         kc * 16 + 8 * ((lane >> 3) & 1));
-        mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        mma_bf16(s[2 * np], qf[kc], bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], bf[2], bf[3]);
       }
     }
 
-    // only tiles that reach past Sk or above the first row's diagonal (or,
-    // kSeg, pairs not classed full) need the mask
-    bool masked;
-    if constexpr (kSeg)
-      masked = !(entry & kFull) || t0 + kBK > Sk;
-    else
-      masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
-    const int* tseg = sKseg + st * kBK;
-    const int* tpos = sKpos + st * kBK;
+    // only tiles that reach past Sk or above the first row's diagonal
+    // need the mask
+    const bool masked =
+        t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
     if (masked)
-      softmax_tile<true, kSeg>(s, acc, m_run, l_run, pos, t0, Sk, causal,
-                               off, scale_log2, tig, tseg, tpos, qid, qp);
+      softmax_tile<true, false>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                                off, scale_log2, tig, nullptr, nullptr, qid,
+                                qp);
     else
-      softmax_tile<false, kSeg>(s, acc, m_run, l_run, pos, t0, Sk, causal,
-                                off, scale_log2, tig, tseg, tpos, qid, qp);
+      softmax_tile<false, false>(s, acc, m_run, l_run, pos, t0, Sk, causal,
+                                 off, scale_log2, tig, nullptr, nullptr, qid,
+                                 qp);
 
     // O += P V: the S accumulator layout of n-tiles 2kc and 2kc+1 is the
     // A-operand layout of k-chunk kc; ldmatrix.trans gives the B fragments
@@ -447,6 +410,399 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     *reinterpret_cast<uint4*>(o + base + c) =
         *reinterpret_cast<const uint4*>(sQ + r * kStride + c);
   }
+}
+
+// ---------------------------------------------------------------------------
+// head dim 256: a TMA producer and two wgmma consumers, both branches
+// ---------------------------------------------------------------------------
+
+constexpr int kT3 = 3 * kFThreads;             // producer + two consumers
+constexpr int kRows2 = 2 * kFRows;             // folded rows per CTA
+constexpr int kScratch3 = seg_scratch<kT3>();  // block_bounds, live_pairs
+constexpr int kConsumerRegs = 240;             // setmaxnreg budgets
+constexpr int kProducerRegs = 24;
+
+struct Fwd256Smem {
+  static constexpr int D = 256;
+  static constexpr int kBlk = kBK * 64 * 2;   // a swizzled [64][64] box
+  static constexpr int kTile = kBK * D * 2;   // a K or V tile: 4 boxes
+  // Q ([128][256], swizzled), the K ring, the V ring, each V stage's kv
+  // ids and positions (kSeg), then the rings' barriers: full and empty of
+  // each K stage, then of each V stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kRows2 * D * 2;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kIds = kV + kStages * kTile;
+  static constexpr int kBars = kIds + 2 * kStages * kBK * 4;
+  static constexpr int kBytes = kBars + 4 * kStages * 8;
+  // the ints after those (kSeg): scratch, then the list of live pairs
+  static constexpr int kInts = kScratch3;
+};
+
+// A CTA of three warpgroups owns blocks of 128 folded rows (the G query
+// heads of a kv head x 128 / G positions): one block, or under causal
+// masking without segments two, the j-th from the end and the j-th from
+// the start, so every CTA walks about as many key tiles and the grid is
+// one wave where one CTA a block was two of unequal CTAs. Warpgroup 0 is
+// the producer: one thread keeps a two-stage K ring and a two-stage V
+// ring of 64-key tiles filled by TMA (four 64-column boxes a tile,
+// 128-byte swizzle; keys past Sk zero-filled), each stage behind a full
+// and an empty mbarrier, and gives its registers to the consumers
+// (setmaxnreg). Consumer warpgroup c owns rows 64 c .. 64 c + 63 of a
+// block, stages them with cp.async, and keeps their whole m64n256 O (128
+// registers a thread). Per tile n it issues S(n + 1) = Q K^T (SS-form
+// wgmma m64n64, K K-major) and O += P(n) V(n) (RS-form m64n256: P's bf16
+// A fragments from registers, V MN-major) in one turn, then runs the
+// online softmax of S(n + 1) under P(n) V(n). The consumers take turns
+// at the tensor cores on two named barriers, so one's softmax runs under
+// the other's products; each releases a stage to the producer once its
+// products have read it. kSeg walks the compacted pair list
+// (flash_seg.cuh) and masks by the ids and positions that ride in each V
+// stage.
+template <bool kSeg>
+__global__ void __launch_bounds__(kT3, 1)
+flash_fwd_256_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap idmap,
+                     const __grid_constant__ CUtensorMap posmap,
+                     const __nv_bfloat16* __restrict__ q,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Sk, int Hq, int Hk, int causal,
+                     float scale_log2, Strides qs, Seg seg) {
+  using L = Fwd256Smem;
+  constexpr int D = L::D;
+  constexpr int kKC = D / 16;     // k steps of S over the head dim
+  constexpr int kNT = kBK / 8;    // 8-key n-tiles of S
+  constexpr int kPC = kBK / 16;   // k steps of P V
+  constexpr int kPieces = D / 8;  // 16-byte pieces per row
+  extern __shared__ __align__(1024) unsigned char f256_smem[];
+  unsigned char* sQ = f256_smem + L::kQ;
+  unsigned char* sK = f256_smem + L::kK;  // [stage] K tile
+  unsigned char* sV = f256_smem + L::kV;  // [stage] V tile
+  int* sIds = reinterpret_cast<int*>(f256_smem + L::kIds);  // [stage][64]
+  int* sPos = sIds + kStages * kBK;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(f256_smem + L::kBars);
+  uint64_t* kempty = kfull + kStages;
+  uint64_t* vfull = kempty + kStages;
+  uint64_t* vempty = vfull + kStages;
+  int* sScratch = reinterpret_cast<int*>(f256_smem + L::kBytes);
+  int* sList = sScratch + kScratch3;
+
+  const int G = Hq / Hk;
+  const int bq = kRows2 / G;  // query positions a block
+  const int nqb = (Sq + bq - 1) / bq;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // 0: the producer; 1, 2: consumers
+  const int off = Sk - Sq;
+  // this CTA's blocks: the last but blockIdx.x, and (paired) the
+  // blockIdx.x-th, when that is another one
+  const bool paired = !kSeg && causal;
+  const int x = blockIdx.x;
+  const int j0 = nqb - 1 - x;
+  const int units = paired && x < j0 ? 2 : 1;
+  auto block_of = [&](int u) { return u == 0 ? j0 : x; };
+  // the key tiles block j walks: up to the diagonal of its last live row,
+  // or (kSeg) the compacted list of live (block, tile) pairs
+  auto tiles_of = [&](int j) {
+    const int q_hi = min((j + 1) * bq, Sq) - 1;
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    return (kend + kBK - 1) / kBK;
+  };
+
+  if (tid == 0) {
+    #pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      tiles::mbar_init(kfull + i, 1);
+      tiles::mbar_init(vfull + i, 1);
+      tiles::mbar_init(kempty + i, 2 * kWarps);  // every consumer warp
+      tiles::mbar_init(vempty + i, 2 * kWarps);
+    }
+    tiles::mbar_init_fence();
+  }
+  int seg_tiles = 0;
+  if constexpr (kSeg) {
+    const int q0 = j0 * bq;
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds<kT3>(seg.qseg + at, seg.qpos + at,
+                                        min(q0 + bq, Sq) - q0, sScratch);
+    seg_tiles = live_pairs<true, false, kT3>(
+        seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt, mine, causal, sList,
+        sScratch);
+  }
+  __syncthreads();  // the barriers and the list are in place
+  auto ntiles_of = [&](int j) {
+    if constexpr (kSeg) return seg_tiles;
+    else return tiles_of(j);
+  };
+  auto tile_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
+
+  if (wg == 0) {
+    tiles::regs_dec<kProducerRegs>();
+    if (tid != 0) return;
+    // ring item g (over the CTA's blocks, in order) fills stage g % 2 of
+    // each ring once the consumers have released item g - 2 there
+    int g = 0;
+    for (int u = 0; u < units; ++u) {
+      const int ntiles = ntiles_of(block_of(u));
+      for (int n = 0; n < ntiles; ++n, ++g) {
+        const int st = g % kStages;
+        const uint32_t ph = (g / kStages) & 1;
+        const int t = tile_of(n) & (kFull - 1);
+        if (g >= kStages) tiles::mbar_wait(kempty + st, ph ^ 1);
+        tiles::mbar_expect(kfull + st, L::kTile);
+        #pragma unroll
+        for (int bx = 0; bx < D / 64; ++bx)
+          tiles::tma_4d(sK + st * L::kTile + bx * L::kBlk, &kmap, 64 * bx,
+                        kvh, t * kBK, b, kfull + st);
+        if (g >= kStages) tiles::mbar_wait(vempty + st, ph ^ 1);
+        tiles::mbar_expect(vfull + st, L::kTile + (kSeg ? 2 * kBK * 4 : 0));
+        #pragma unroll
+        for (int bx = 0; bx < D / 64; ++bx)
+          tiles::tma_4d(sV + st * L::kTile + bx * L::kBlk, &vmap, 64 * bx,
+                        kvh, t * kBK, b, vfull + st);
+        if constexpr (kSeg) {
+          tiles::tma_1d(sIds + st * kBK, &idmap, b * Sk + t * kBK,
+                        vfull + st);
+          tiles::tma_1d(sPos + st * kBK, &posmap, b * Sk + t * kBK,
+                        vfull + st);
+        }
+      }
+    }
+    return;
+  }
+  tiles::regs_inc<kConsumerRegs>();
+
+  const int c = wg - 1;  // this consumer's 64 rows of a block
+  const int ctid = tid - kFThreads * wg;
+  const int warp = ctid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+
+  float acc[D / 8][4];  // O, unnormalized
+  float m_run[2], l_run[2];  // l: per-thread partial sums
+  float s[kNT][4];           // S, then P
+  uint32_t a_p[kPC][4];      // P's bf16 A fragments, live until P V retires
+  float alpha[1][4];
+  int pos[2], head[2], qid[2], qp[2];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) tiles::mbar_arrive(bar);
+  };
+  // the consumers take turns at the tensor cores (named barriers 3 and 4,
+  // both warpgroups): each issues its products of a turn, then passes the
+  // turn on, so one's softmax runs under the other's products
+  auto my_turn = [&]() { tiles::named_sync(3 + c, 2 * kFThreads); };
+  auto pass_turn = [&]() { tiles::named_arrive(4 - c, 2 * kFThreads); };
+  auto s_product = [&](int g) {
+    const int st = g % kStages;
+    tiles::mbar_wait(kfull + st, (g / kStages) & 1);
+    tiles::fence_regs(flat(s));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      wgmma_ss_n64(flat(s), kstep_desc<kRows2>(sQ, kFRows * c, kc),
+                   kstep_desc<kBK>(sK + st * L::kTile, 0, kc), kc > 0);
+    tiles::wgmma_commit();
+  };
+  auto pv_product = [&](int g) {
+    tiles::fence_regs(flat(acc));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int kc = 0; kc < kPC; ++kc)
+      wgmma_rs_t_n256(flat(acc), a_p[kc],
+                      desc_mn_sw128(sV + (g % kStages) * L::kTile +
+                                        16 * kc * 128,
+                                    kBK * 128),
+                      1);
+    tiles::wgmma_commit();
+  };
+  auto to_p = [&]() {
+    #pragma unroll
+    for (int kc = 0; kc < kPC; ++kc)
+      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+  };
+
+  if (c == 1) pass_turn();  // consumer 0 takes the first turn
+  int g0 = 0;  // ring items of the blocks before this one
+  for (int u = 0; u < units; ++u) {
+    const int q0 = block_of(u) * bq;
+    const int q_hi = min(q0 + bq, Sq) - 1;
+    const int ntiles = ntiles_of(block_of(u));
+    // stage this consumer's rows of Q: folded row r is (head kvh G + r /
+    // bq, position q0 + r % bq); the rows of the block before are out
+    if (u > 0) tiles::named_sync(1 + c, kFThreads);
+    for (int i = ctid; i < kFRows * kPieces; i += kFThreads) {
+      const int r = kFRows * c + i / kPieces;
+      const int c8 = i % kPieces;
+      const int p = q0 + r % bq;
+      const bool ok = p < Sq;
+      cp_async16(sQ + swz<kRows2>(r, c8),
+                 ok ? q + qs.at(b, p, kvh * G + r / bq) + 8 * c8 : q, ok);
+    }
+    cp_async_commit();
+    // the two rows this thread owns in the wgmma layout: gid and gid + 8
+    // of its warp's 16, with (kSeg) their query's segment id and position
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = kFRows * c + warp * 16 + gid + 8 * i;
+      head[i] = kvh * G + r / bq;
+      pos[i] = q0 + r % bq;
+      qid[i] = -2;
+      qp[i] = 0;
+      if constexpr (kSeg) {
+        if (pos[i] < Sq) {
+          const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+          qid[i] = seg.qseg[at];
+          qp[i] = seg.qpos[at];
+        }
+      }
+    }
+    // at G 1 the consumers hold 64 positions each: the first computes no
+    // tile past its own last row's diagonal (it still releases them), and
+    // tiles past its first row's need the mask
+    const int c_q0 = bq > kFRows ? q0 + kFRows * c : q0;
+    int c_tiles = ntiles;
+    if (!kSeg && causal && bq > kFRows) {
+      const int c_hi = min(c_q0 + kFRows - 1, q_hi);
+      c_tiles = min(ntiles,
+                    (max(min(Sk, c_hi + off + 1), 0) + kBK - 1) / kBK);
+    }
+    #pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    m_run[0] = m_run[1] = kNeg;
+    l_run[0] = l_run[1] = 0.f;
+    cp_async_wait<0>();
+    tiles::fence_proxy_async();           // Q where wgmma reads it
+    tiles::named_sync(1 + c, kFThreads);  // ... for the whole warpgroup
+
+    // masks, scales and exponentiates S of tile n (its ids and positions
+    // ride in V stage g0 + n) into P, returning each row's alpha
+    auto softmax = [&](int n) {
+      const int g = g0 + n;
+      const int st = g % kStages;
+      tiles::mbar_wait(vfull + st, (g / kStages) & 1);
+      const int t0 = (tile_of(n) & (kFull - 1)) * kBK;
+      bool masked;
+      if constexpr (kSeg)
+        masked = !(tile_of(n) & kFull) || t0 + kBK > Sk;
+      else
+        masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > c_q0 + off);
+      // the mma.sync kernel's softmax step; it rescales its accumulator by
+      // alpha, here a [1][4] of ones that comes back as alpha of row gid
+      // ([0][0]) and of row gid + 8 ([0][2])
+      alpha[0][0] = alpha[0][1] = alpha[0][2] = alpha[0][3] = 1.f;
+      if (masked)
+        softmax_tile<true, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk, causal,
+                                 off, scale_log2, tig, sIds + st * kBK,
+                                 sPos + st * kBK, qid, qp);
+      else
+        softmax_tile<false, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk,
+                                  causal, off, scale_log2, tig,
+                                  sIds + st * kBK, sPos + st * kBK, qid, qp);
+    };
+
+    // tile 0's S and softmax; then per tile n: S(n + 1) and P(n) V(n)
+    // issued in one turn, the softmax of S(n + 1) under P(n) V(n); the last
+    // tile's P V alone
+    my_turn();
+    if (c_tiles > 0) {
+      s_product(g0);
+      pass_turn();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(s));
+      release(kempty + g0 % kStages);
+      softmax(0);
+      to_p();
+    } else {
+      pass_turn();
+    }
+    for (int n = 0; n + 1 < c_tiles; ++n) {
+      my_turn();
+      s_product(g0 + n + 1);
+      pv_product(g0 + n);
+      pass_turn();
+      tiles::wgmma_wait<1>();  // S(n + 1) is done; P(n) V(n) may still run
+      tiles::fence_regs(flat(s));
+      release(kempty + (g0 + n + 1) % kStages);
+      softmax(n + 1);
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(acc));
+      fence_frags(a_p);
+      release(vempty + (g0 + n) % kStages);
+      to_p();
+      #pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[0][e & 2];
+    }
+    if (c_tiles > 0) {
+      my_turn();
+      pv_product(g0 + c_tiles - 1);
+      pass_turn();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(acc));
+      fence_frags(a_p);
+      release(vempty + (g0 + c_tiles - 1) % kStages);
+    }
+    // tiles past this consumer's rows: released unread, turns passed on
+    // (one turn a tile, as above)
+    for (int n = c_tiles; n < ntiles; ++n) {
+      const int g = g0 + n;
+      my_turn();
+      pass_turn();
+      tiles::mbar_wait(kfull + g % kStages, (g / kStages) & 1);
+      release(kempty + g % kStages);
+      tiles::mbar_wait(vfull + g % kStages, (g / kStages) & 1);
+      release(vempty + g % kStages);
+    }
+    g0 += ntiles;
+
+    // normalize into this consumer's own rows of the Q tile (swizzled;
+    // only it reads them), LSE from the owning threads, then the rows out
+    // 16 bytes a lane
+    const int row0 = kFRows * c + warp * 16;
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = l_run[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const int r = row0 + gid + 8 * i;
+      #pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const int col = dt * 8 + tig * 2;
+        *reinterpret_cast<uint32_t*>(sQ + swz<kRows2>(r, col >> 3) +
+                                     (col & 7) * 2) =
+            pack_f32(acc[dt][i * 2] * inv, acc[dt][i * 2 + 1] * inv);
+      }
+      if (tig == 0 && pos[i] < Sq) {
+        lse[(static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i]] =
+            l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : kBig;
+      }
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * kPieces; i += 32) {
+      const int r = row0 + i / kPieces;
+      const int c8 = i % kPieces;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+      *reinterpret_cast<uint4*>(o + base + 8 * c8) =
+          *reinterpret_cast<const uint4*>(sQ + swz<kRows2>(r, c8));
+    }
+  }
+  if (c == 0) my_turn();  // consumer 1's last pass
 }
 
 // ---------------------------------------------------------------------------
@@ -1018,27 +1374,143 @@ struct Args {
   cudaStream_t s;
 };
 
-// the mma.sync kernel: the dense branch at every D, and at D 256 (kSeg)
-// the segment branch, after one launch of the key tiles' bounds
-template <int D, bool kSeg>
+// the mma.sync kernel: the dense branch at D 64 and 128
+template <int D>
 cudaError_t launch_dense(const Args& a) {
   static int allowed = 0;
-  const int nkt = (a.Sk + kBK - 1) / kBK;
-  const int bytes = FwdSmem<D>::kBytes +
-                    (kSeg ? (2 * kStages * kBK + kSegScratch + nkt) * 4 : 0);
-  cudaError_t e =
-      allow_dynamic_smem(flash_fwd_kernel<D, kSeg>, bytes, allowed);
+  const int bytes = FwdSmem<D>::kBytes;
+  cudaError_t e = allow_dynamic_smem(flash_fwd_kernel<D>, bytes, allowed);
   if (e != cudaSuccess) return e;
+  const int bq = kFRows / (a.Hq / a.Hk);
+  const dim3 grid((a.Sq + bq - 1) / bq, a.Hk, a.B);
+  flash_fwd_kernel<D><<<grid, kFThreads, bytes, a.s>>>(
+      a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.sl2,
+      a.qs, a.ks, a.vs);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled (async_tiles.cuh)
+using tiles::encode_tiled;
+
+// Tensor maps encoded so far, by all that a map encodes (base address,
+// dims, strides; the box and swizzle follow from `kind`): a map found here
+// is the one the call would encode, and cuTensorMapEncodeTiled costs
+// microseconds of host time a call, more than a short launch. PyTorch's
+// caching allocator hands the same buffers back call after call, so a
+// training step's or a server's maps are found after the first call.
+struct MapKey {
+  const void* base;
+  long long kind;  // 0: kv_map, 1: int_map
+  long long dims[4];
+  long long strides[3];
+  bool operator==(const MapKey& o) const {
+    if (base != o.base || kind != o.kind) return false;
+    for (int i = 0; i < 4; ++i)
+      if (dims[i] != o.dims[i]) return false;
+    for (int i = 0; i < 3; ++i)
+      if (strides[i] != o.strides[i]) return false;
+    return true;
+  }
+};
+
+struct MapCache {
+  static constexpr int kSize = 32;  // entries, replaced round robin
+  std::mutex mu;
+  MapKey keys[kSize];
+  CUtensorMap maps[kSize];
+  int n = 0, next = 0;
+};
+
+// *map for key: from the cache, or encoded by encode(map) and kept
+template <typename Encode>
+bool cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
+  static MapCache cache;
+  std::lock_guard<std::mutex> lock(cache.mu);
+  for (int i = 0; i < cache.n; ++i)
+    if (cache.keys[i] == key) {
+      *map = cache.maps[i];
+      return true;
+    }
+  if (!encode(map)) return false;
+  cache.keys[cache.next] = key;
+  cache.maps[cache.next] = *map;
+  cache.next = (cache.next + 1) % MapCache::kSize;
+  if (cache.n < MapCache::kSize) ++cache.n;
+  return true;
+}
+
+// a [B, S, H, 256] bf16 operand read through its strides as 4-d boxes of
+// 64 columns x 1 head x 64 positions x 1 batch row, 128-byte swizzle, zeros
+// past S
+bool kv_map(CUtensorMap* map, const void* base, int B, int S, int H,
+            const Strides& st) {
+  const MapKey key = {base, 0, {256, H, S, B}, {st.h, st.s, st.b}};
+  return cached_map(map, key, [&](CUtensorMap* m) {
+    const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[4] = {256, static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(S),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                                   static_cast<cuuint64_t>(st.s) * 2,
+                                   static_cast<cuuint64_t>(st.b) * 2};
+    const cuuint32_t box[4] = {64, 1, kBK, 1};
+    const cuuint32_t estrides[4] = {1, 1, 1, 1};
+    return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+              const_cast<void*>(base), dims, strides, box, estrides,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
+}
+
+// n int32 values as 1-d boxes of 64
+bool int_map(CUtensorMap* map, const int* base, long long n) {
+  const MapKey key = {base, 1, {n, 0, 0, 0}, {0, 0, 0}};
+  return cached_map(map, key, [&](CUtensorMap* m) {
+    const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+    const cuuint64_t strides[1] = {0};
+    const cuuint32_t box[1] = {kBK};
+    const cuuint32_t estrides[1] = {1};
+    return fn(m, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<int*>(base),
+              dims, strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
+}
+
+// head dim 256, both branches (kSeg after one launch of the key tiles'
+// bounds): 128 folded rows a CTA, K and V through TMA tensor maps
+template <bool kSeg>
+cudaError_t launch_256(const Args& a) {
+  static int allowed = 0;
+  using L = Fwd256Smem;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int bytes = L::kBytes + (kSeg ? (L::kInts + nkt) * 4 : 0);
+  cudaError_t e =
+      allow_dynamic_smem(flash_fwd_256_kernel<kSeg>, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  CUtensorMap kmap, vmap, idmap = {}, posmap = {};
+  if (!kv_map(&kmap, a.k, a.B, a.Sk, a.Hk, a.ks) ||
+      !kv_map(&vmap, a.v, a.B, a.Sk, a.Hk, a.vs))
+    return cudaErrorInvalidValue;
   if (kSeg) {
+    if (!int_map(&idmap, a.seg.kseg, static_cast<long long>(a.B) * a.Sk) ||
+        !int_map(&posmap, a.seg.kpos, static_cast<long long>(a.B) * a.Sk))
+      return cudaErrorInvalidValue;
     e = launch_bounds(Side{a.seg.kseg, a.seg.kpos, a.kv_bounds, a.Sk},
                       Side{}, a.B, a.s);
     if (e != cudaSuccess) return e;
   }
-  const int bq = kFRows / (a.Hq / a.Hk);
-  const dim3 grid((a.Sq + bq - 1) / bq, a.Hk, a.B);
-  flash_fwd_kernel<D, kSeg><<<grid, kFThreads, bytes, a.s>>>(
-      a.q, a.k, a.v, a.o, a.lse, a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.sl2,
-      a.qs, a.ks, a.vs, a.seg);
+  // causal without segments: two blocks a CTA (the j-th from each end)
+  const int bq = kRows2 / (a.Hq / a.Hk);
+  const int nqb = (a.Sq + bq - 1) / bq;
+  const dim3 grid(!kSeg && a.causal ? (nqb + 1) / 2 : nqb, a.Hk, a.B);
+  flash_fwd_256_kernel<kSeg><<<grid, kT3, bytes, a.s>>>(
+      kmap, vmap, idmap, posmap, a.q, a.o, a.lse, a.Sq, a.Sk, a.Hq, a.Hk,
+      a.causal, a.sl2, a.qs, a.seg);
   return cudaGetLastError();
 }
 
@@ -1141,10 +1613,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (D > 256)
     e = segmented ? launch_xl<true>(a) : launch_xl<false>(a);
   else if (D == 256)
-    e = segmented ? launch_dense<256, true>(a) : launch_dense<256, false>(a);
+    e = segmented ? launch_256<true>(a) : launch_256<false>(a);
   else if (D == 128)
-    e = segmented ? launch_seg<128>(a) : launch_dense<128, false>(a);
+    e = segmented ? launch_seg<128>(a) : launch_dense<128>(a);
   else
-    e = segmented ? launch_seg<64>(a) : launch_dense<64, false>(a);
+    e = segmented ? launch_seg<64>(a) : launch_dense<64>(a);
   return static_cast<int>(e);
 }

@@ -121,8 +121,6 @@
 //   re-reads), a producer warp, a persistent grid.
 
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cudaTypedefs.h>
 
 #include "async_tiles.cuh"
 #include "flash_common.cuh"
@@ -207,37 +205,15 @@ __device__ __forceinline__ uint4 lds128(const unsigned char* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// shared-memory barriers (mbarrier): the ring's full barrier completes when
-// a stage's bytes have landed (the producer's one arrive with the byte
-// count, then the copies' own), its empty barrier when the kW consumer warps
-// have read the stage
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   tiles::smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   tiles::smem_addr(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   tiles::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// a 2-d box of `map` at (inner, outer) into dst, completing on bar
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int inner, int outer, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(tiles::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer),
-      "r"(tiles::smem_addr(bar))
-      : "memory");
-}
+// the ring's full barrier completes when a stage's bytes have landed (the
+// producer's one arrive with the byte count, then the copies' own), its
+// empty barrier when the kW consumer warps have read the stage
+using tiles::mbar_arrive;
+using tiles::mbar_expect;
+using tiles::mbar_init;
+using tiles::mbar_wait;
+using tiles::tma_2d;
+
 // programmatic dependent launch: wait until the kernel before this one has
 // finished and its writes are visible (at once when it was not launched as
 // a dependent); let the kernel after this one start launching
@@ -247,18 +223,6 @@ __device__ __forceinline__ void grid_dependency_wait() {
 __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(tiles::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // mma row g of a warp's 16-row tile (and g + 8) reads weight row pi(g): the
 // 128-byte swizzle puts 16-byte piece p of row r at p ^ (r & 7), and rows
 // pi(g), pi(g + 1) of one quarter of a warp then differ in bit 2 of (r & 7):
@@ -417,20 +381,7 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-// cuTensorMapEncodeTiled through the runtime (no link against libcuda),
-// looked up once
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
+using tiles::encode_tiled;
 
 // a row-major [rows, cols] tensor of `elem`-byte values as 2-d boxes of
 // box_cols x box_rows, 128-byte swizzle, zeros out of bounds

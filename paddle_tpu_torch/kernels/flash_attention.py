@@ -8,7 +8,8 @@ Llama and ViT; with a mask the plain ``sdpa_masked_plain``),
 positions, LSE), ``flash_attn_varlen`` (Pallas :836: packed sequences
 from ``cu_seqlens``) and ``flash_attn_unpadded`` (the kernels module's
 :69: output dropout and the cast to q's dtype). All have native GQA
-(Hq = G * Hk; KV heads are never expanded) and go through
+(Hq = G * Hk; KV heads are expanded only for a bf16 group that does not
+divide 64, the ``expanded`` route) and go through
 ``FlashAttention``. Its forward is ``flash_fwd.cu``, the Hopper
 counterpart of the Pallas ``_fwd_kernel`` (:281 there); its backward
 computes Delta = rowsum(dO * O) in PyTorch and then launches
@@ -18,8 +19,14 @@ each kernel takes its segment branch (the Pallas bodies' ``has_seg``).
 CPU tensors take the plain pair, ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``: the same math in plain PyTorch.
 ``FLAGS_flash_kernel=plain`` (read at each call) sends CUDA tensors to the
-plain pair too. There is no fallback: a CUDA tensor the kernels do not
-take raises.
+plain pair too. The route is decided before any launch, from the device,
+the dtype and the GQA group alone (``flash_route``), and counted in
+``ROUTE_COUNTS``: bf16 takes the tensor-core kernels (K and V expanded
+along the head axis where the group does not divide 64); float32 and
+fp16 take ``flash_simt.cu`` (``flash_simt_fwd_cuda``,
+``flash_simt_bwd_cuda``): the same three kernels on the CUDA cores, every
+product in float32, any head dim and group. There is no fallback: a
+kernel wrapper handed a tensor its kernel does not take raises.
 
 The kernels read q/k/v/dO through their strides (the innermost one must be
 1 and the others multiples of 8 elements), so the non-contiguous q/k/v
@@ -60,6 +67,17 @@ _BIG = 1e30
 _KERNEL_DIMS = (64, 128, 256)
 _WIDE_STEP = 128
 _MODES = ("auto", "plain")
+# the kernels fold the G query heads of a kv head into 64-row CTAs
+_FOLD = 64
+# ``FlashAttention``'s routing decisions (``flash_route``), one a call:
+# ``kernel`` (B1-B3 as they are), ``expanded`` (B1-B3 on K and V expanded
+# along the head axis), ``simt`` (``flash_simt.cu`` for float32 and fp16),
+# ``forced`` (FLAGS_flash_kernel=plain: the plain pair) and ``cpu`` (CPU
+# tensors take the plain pair)
+ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "simt": 0, "forced": 0,
+                "cpu": 0}
+# the dtypes ``flash_simt.cu`` takes, by their code in its C entry points
+_SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
 # packed lengths of thousands the whole logits tensor would not fit
@@ -515,6 +533,139 @@ def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
     return dq, dk, dv
 
 
+# -- float32 and fp16: flash_simt.cu -----------------------------------------
+
+def _check_simt(what, q, k, v, extra=()):
+    """Shapes, dtype and layout ``flash_simt.cu`` takes: 4-d float32 or
+    fp16 CUDA tensors of one dtype with a unit innermost stride, any head
+    dim and GQA group; returns (B, Sq, Sk, Hq, Hk, D)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+        if not t.is_cuda or t.dtype not in _SIMT_DTYPES or \
+                t.dtype != q.dtype or t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(
+                f"{what}: {name} must be a 4-d float32 or float16 CUDA "
+                f"tensor of q's dtype with unit innermost stride, got "
+                f"{t.dtype} on {t.device} with strides {tuple(t.stride())}")
+    for name, t in extra:
+        if t.shape != q.shape:
+            raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
+                             f"shaped as q {tuple(q.shape)}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or \
+            Hk <= 0 or Hq % Hk:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    return B, Sq, Sk, Hq, Hk, D
+
+
+def _simt_count(fn, seg):
+    if seg is None:
+        fn.launches += 1
+    else:
+        fn.seg_launches += 1
+
+
+def flash_simt_fwd_cuda(q, k, v, causal=False, scale=None,
+                        q_segment_ids=None, kv_segment_ids=None,
+                        q_positions=None, kv_positions=None):
+    """Launch ``flash_simt_fwd``: (O, LSE) as ``flash_fwd_cuda`` returns
+    them, for float32 or fp16 q/k/v (``_check_simt``) and segments as
+    ``_check_seg`` takes them. Counts ``launches`` (dense) and
+    ``seg_launches``."""
+    B, Sq, Sk, Hq, Hk, D = _check_simt("flash_simt_fwd", q, k, v)
+    seg = _check_seg("flash_simt_fwd", q, k, (q_segment_ids, kv_segment_ids,
+                                             q_positions, kv_positions))
+    out = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
+    lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
+    lib = _build.load("flash_simt")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_simt_fwd(_SIMT_DTYPES[q.dtype], q.data_ptr(),
+                             k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             lse.data_ptr(), *_seg_ptrs(seg), B, Sq, Sk, Hq,
+                             Hk, D, int(bool(causal)), _scale(scale, D),
+                             *_strides(q, k, v), stream)
+    _build.check(err, "flash_simt_fwd")
+    _simt_count(flash_simt_fwd_cuda, seg)
+    return out, lse
+
+
+flash_simt_fwd_cuda.launches = 0
+flash_simt_fwd_cuda.seg_launches = 0
+
+
+def flash_simt_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                       q_segment_ids=None, kv_segment_ids=None,
+                       q_positions=None, kv_positions=None):
+    """Launch ``flash_simt_dq``: dQ [B, Sq, Hq, D] in q's dtype."""
+    B, Sq, Sk, Hq, Hk, D = _check_simt("flash_simt_dq", q, k, v,
+                                       (("do", do),))
+    _check_rowstats("flash_simt_dq", B, Hq, Sq, ("lse", lse),
+                    ("delta", delta))
+    seg = _check_seg("flash_simt_dq", q, k, (q_segment_ids, kv_segment_ids,
+                                            q_positions, kv_positions))
+    dq = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
+    lib = _build.load("flash_simt")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_simt_dq(
+        _SIMT_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_seg_ptrs(seg), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        _scale(scale, D), *_strides(q, k, v, do), stream)
+    _build.check(err, "flash_simt_dq")
+    _simt_count(flash_simt_dq_cuda, seg)
+    return dq
+
+
+flash_simt_dq_cuda.launches = 0
+flash_simt_dq_cuda.seg_launches = 0
+
+
+def flash_simt_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
+                        q_segment_ids=None, kv_segment_ids=None,
+                        q_positions=None, kv_positions=None):
+    """Launch ``flash_simt_dkv``: (dK, dV) [B, Sk, Hk, D] in k's dtype,
+    each summed over the G query heads of its group."""
+    B, Sq, Sk, Hq, Hk, D = _check_simt("flash_simt_dkv", q, k, v,
+                                       (("do", do),))
+    _check_rowstats("flash_simt_dkv", B, Hq, Sq, ("lse", lse),
+                    ("delta", delta))
+    seg = _check_seg("flash_simt_dkv", q, k, (q_segment_ids, kv_segment_ids,
+                                             q_positions, kv_positions))
+    dk = torch.empty((B, Sk, Hk, D), device=q.device, dtype=k.dtype)
+    dv = torch.empty((B, Sk, Hk, D), device=q.device, dtype=v.dtype)
+    lib = _build.load("flash_simt")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_simt_dkv(
+        _SIMT_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_seg_ptrs(seg), B, Sq, Sk, Hq, Hk, D,
+        int(bool(causal)), _scale(scale, D), *_strides(q, k, v, do), stream)
+    _build.check(err, "flash_simt_dkv")
+    _simt_count(flash_simt_dkv_cuda, seg)
+    return dk, dv
+
+
+flash_simt_dkv_cuda.launches = 0
+flash_simt_dkv_cuda.seg_launches = 0
+
+
+def flash_simt_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
+                        q_segment_ids=None, kv_segment_ids=None,
+                        q_positions=None, kv_positions=None, dlse=None):
+    """The backward on ``flash_simt.cu``: Delta, then dQ and dK/dV."""
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = flash_delta(o, do, dlse)
+    kw = dict(scale=scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+              kv_positions=kv_positions)
+    dq = flash_simt_dq_cuda(q, k, v, do, lse, delta, causal, **kw)
+    dk, dv = flash_simt_dkv_cuda(q, k, v, do, lse, delta, causal, **kw)
+    return dq, dk, dv
+
+
 # -- head-dim padding ---------------------------------------------------------
 
 def kernel_head_dim(D):
@@ -546,14 +697,61 @@ def pad_head_dim(t, dp):
 
 # -- routing and autograd ---------------------------------------------------
 
-def use_kernel(t):
-    """True when ``t`` goes to the CUDA kernels: it lies on a GPU and
-    ``FLAGS_flash_kernel`` is not ``plain``."""
-    mode = str(_flags.flag("FLAGS_flash_kernel")).strip().lower()
-    if mode not in _MODES:
+def _flash_mode(mode):
+    """A ``FLAGS_flash_kernel`` value normalized; raises on an unknown
+    value."""
+    m = str(mode).strip().lower()
+    if m not in _MODES:
         raise ValueError(f"FLAGS_flash_kernel must be one of {_MODES}, got "
                          f"{mode!r}")
-    return t.device.type != "cpu" and mode != "plain"
+    return m
+
+
+def expand_factor(G):
+    """The least r that divides the GQA group G and leaves G / r dividing
+    64: K and V expanded r times along the head axis give the kernels a
+    group they take (G 3 -> 3, G 12 -> 3, G 128 -> 2; 1 where G divides
+    64)."""
+    return next(r for r in range(1, G + 1)
+                if G % r == 0 and _FOLD % (G // r) == 0)
+
+
+def flash_route(device, dtype, Hq, Hk, mode):
+    """Where ``FlashAttention`` computes q [B, S, Hq, D] of ``dtype`` on
+    ``device`` over Hk kv heads under ``FLAGS_flash_kernel`` = ``mode``:
+    ``cpu`` (CPU tensors: the plain pair), ``forced`` (mode ``plain``),
+    ``simt`` (float32 or fp16: ``flash_simt.cu``, which takes float32
+    whole as the reference's Pallas path does), ``kernel`` (any other
+    dtype, which the bf16 kernels refuse unless it is bf16, with G = Hq /
+    Hk dividing 64 or Hq not a multiple of Hk) or ``expanded`` (bf16 with
+    any other G: K and V expanded ``expand_factor(G)`` times). Pure:
+    decided before any launch from these alone."""
+    mode = _flash_mode(mode)
+    if torch.device(device).type == "cpu":
+        return "cpu"
+    if mode == "plain":
+        return "forced"
+    if dtype in _SIMT_DTYPES:
+        return "simt"
+    if dtype != torch.bfloat16 or Hk <= 0 or Hq % Hk or \
+            _FOLD % (Hq // Hk) == 0:
+        return "kernel"
+    return "expanded"
+
+
+def expand_kv(t, r):
+    """``t`` [B, S, Hk, D] with each kv head repeated r times in place
+    ([B, S, Hk r, D]): query head h of a group G / r then reads copy
+    h // (G / r) of kv head h // G, the values it read before."""
+    return t if r == 1 else t.repeat_interleave(r, dim=2)
+
+
+def reduce_expanded(t, r, dtype):
+    """The gradient of ``expand_kv``: the r copies' [B, S, Hk r, D]
+    summed in float32 into [B, S, Hk, D], cast to ``dtype``."""
+    if r == 1:
+        return t
+    return t.unflatten(2, (-1, r)).float().sum(3).to(dtype)
 
 
 def _kernel_layout(t):
@@ -570,20 +768,30 @@ class FlashAttention(torch.autograd.Function):
     kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
-    B3. The route is chosen once, in the forward, by ``use_kernel``. On
-    the kernel route any head dim the kernels are not built for is
-    zero-padded to ``padded_head_dim`` (64, 128 or 256 up to 256, the next
-    multiple of 128 above it) for each launch, at the true D's scale, and
-    O, dQ, dK and dV are sliced back to D (``pad_head_dim``);
-    on the plain route the forward runs ``flash_attention_plain`` (with
-    autograd off, as inside every ``Function.forward``) and the backward
+    B3. The route is chosen once, in the forward, by ``flash_route`` and
+    counted in ``ROUTE_COUNTS``. On the kernel routes any head dim the
+    kernels are not built for is zero-padded to ``padded_head_dim`` (64,
+    128 or 256 up to 256, the next multiple of 128 above it) for each
+    launch, at the true D's scale, and O, dQ, dK and dV are sliced back to
+    D (``pad_head_dim``); on ``expanded`` K and V are also expanded r =
+    ``expand_factor(G)`` times along the head axis (``expand_kv``) for
+    each launch, which leaves the forward exact, and the r copies' dK and
+    dV are summed in float32 (``reduce_expanded``). On ``simt`` (float32,
+    fp16) ``flash_simt.cu`` runs at the true D and group. On ``cpu`` and
+    ``forced`` the forward runs ``flash_attention_plain`` (with autograd
+    off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale=None, q_segment_ids=None,
                 kv_segment_ids=None, q_positions=None, kv_positions=None,
                 return_lse=False):
-        kernel = use_kernel(q)
+        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2],
+                            _flags.flag("FLAGS_flash_kernel"))
+        ROUTE_COUNTS[route] += 1
+        kernel = route in ("kernel", "expanded")
+        r = expand_factor(q.shape[2] // k.shape[2]) \
+            if route == "expanded" else 1
         kw = dict(scale=scale, q_segment_ids=q_segment_ids,
                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
                   kv_positions=kv_positions)
@@ -591,10 +799,14 @@ class FlashAttention(torch.autograd.Function):
             D = q.shape[-1]
             dp = padded_head_dim(D)
             kw["scale"] = _scale(scale, D)
-            o, lse = flash_fwd_cuda(*(pad_head_dim(t, dp) for t in (q, k, v)),
-                                    causal, **kw)
+            o, lse = flash_fwd_cuda(
+                *(pad_head_dim(t, dp) for t in (q, expand_kv(k, r),
+                                                expand_kv(v, r))),
+                causal, **kw)
             if dp != D:
                 o = o[..., :D].contiguous()
+        elif route == "simt":
+            o, lse = flash_simt_fwd_cuda(q, k, v, causal, **kw)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            return_lse=True, **kw)
@@ -603,6 +815,8 @@ class FlashAttention(torch.autograd.Function):
         ctx.causal = bool(causal)
         ctx.scale = scale
         ctx.kernel = kernel
+        ctx.simt = route == "simt"
+        ctx.expand = r
         ctx.set_materialize_grads(False)
         return (o, lse) if return_lse else o
 
@@ -616,12 +830,19 @@ class FlashAttention(torch.autograd.Function):
         if ctx.kernel:
             D = q.shape[-1]
             dp = padded_head_dim(D)
+            r = ctx.expand
             kw["scale"] = _scale(ctx.scale, D)
             dq, dk, dv = flash_bwd_cuda(
-                *(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+                *(pad_head_dim(t, dp) for t in (q, expand_kv(k, r),
+                                                expand_kv(v, r), o)), lse,
                 _kernel_layout(pad_head_dim(do, dp)), ctx.causal, **kw)
             if dp != D:
                 dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
+            dk = reduce_expanded(dk, r, k.dtype)
+            dv = reduce_expanded(dv, r, v.dtype)
+        elif ctx.simt:
+            dq, dk, dv = flash_simt_bwd_cuda(q, k, v, o, lse, do, ctx.causal,
+                                             **kw)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                    ctx.causal, **kw)

@@ -28,7 +28,16 @@ float32, one scale per (row, kv head): a row is dequantized as
 
 Both wrappers take the plain version for CPU tensors; for CUDA tensors
 they launch their kernel or raise. Each counts its bf16-pool launches in
-``launches`` and its int8-pool launches in ``launches_q``.
+``launches`` and its int8-pool launches in ``launches_q``. The kernels
+take bf16 queries over bf16 pools (int8 pools with their scales), head
+dims 64 and 128 and GQA groups 1, 2, 4 and 8 (``decode_kernel_takes``,
+which ``inference.paged.paged_decode_attention`` routes by).
+
+``paged_decode_attention_simt`` launches ``csrc/paged_decode_simt.cu``
+(the CUDA cores, float32 logits and sums) for the rest: float32, fp16
+and bf16 queries over pools of their dtype or int8, any GQA group and
+head dims up to ``SIMT_MAX_HEAD_DIM`` (the JAX package's wrappers check
+none of these). It counts as the two wrappers above.
 """
 
 from __future__ import annotations
@@ -92,24 +101,53 @@ def paged_decode_attention_dense(q, k_pool, v_pool, block_tables, seq_lens,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+# what the decode kernels are built for (``decode_kernel_takes``)
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_GROUPS = (1, 2, 4, 8)
+
+
+def decode_kernel_takes(q, k_pool, v_pool, k_scale=None):
+    """True when the decode kernels (B4-B6q) take these operands by dtype
+    and shape: q bf16 [B, Hq, D], pools [NB, bs, Hk, D] of one shape, bf16
+    or (with ``k_scale``) int8, D in ``KERNEL_HEAD_DIMS`` and Hq a multiple
+    of Hk by a group in ``KERNEL_GROUPS``. Pure: the router and the
+    wrappers' checks (``_check_cuda_args``) share it."""
+    pool_dtype = torch.int8 if k_scale is not None else torch.bfloat16
+    d, hq, hk = q.shape[-1], q.shape[1], k_pool.shape[2]
+    return (q.dtype == torch.bfloat16 and k_pool.dtype == pool_dtype
+            and v_pool.dtype == pool_dtype and d in KERNEL_HEAD_DIMS
+            and k_pool.shape[-1] == d and v_pool.shape == k_pool.shape
+            and hk > 0 and hq % hk == 0 and hq // hk in KERNEL_GROUPS)
+
+
+# what ``paged_decode_attention_simt`` takes: query dtypes by their code
+# in its C entry point, and head dims up to this
+_SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+SIMT_MAX_HEAD_DIM = 1024
+
+
 def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens,
                      k_scale, v_scale):
     """Validate a CUDA launch; returns (quantized, B, Hq, Hk, D, bs,
     MBPS)."""
     b, hq, d = q.shape
-    nb, bs, hk, dk = k_pool.shape
+    nb, bs, hk, _ = k_pool.shape
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: give both k_scale and v_scale or "
                          f"neither")
     quantized = k_scale is not None
     pool_dtype = torch.int8 if quantized else torch.bfloat16
-    for name, t, dt in (("q", q, torch.bfloat16),
-                        ("k_pool", k_pool, pool_dtype),
-                        ("v_pool", v_pool, pool_dtype)):
-        if not t.is_cuda or t.dtype != dt or \
-                not t.is_contiguous() or t.data_ptr() % 16:
+    if not decode_kernel_takes(q, k_pool, v_pool, k_scale):
+        raise ValueError(
+            f"{what}: the kernels take bfloat16 queries over {pool_dtype} "
+            f"pools, head_dim in {KERNEL_HEAD_DIMS} and GQA groups in "
+            f"{KERNEL_GROUPS}; got q {q.dtype} {tuple(q.shape)}, pools "
+            f"{k_pool.dtype} {tuple(k_pool.shape)} / {v_pool.dtype} "
+            f"{tuple(v_pool.shape)}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be a contiguous, 16-byte "
-                             f"aligned {dt} CUDA tensor, got {t.dtype} "
+                             f"aligned CUDA tensor, got {t.dtype} "
                              f"on {t.device}")
     if quantized:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -126,12 +164,6 @@ def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens,
                 not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous int32 "
                              f"CUDA tensor, got {t.dtype} on {t.device}")
-    if d not in (64, 128) or dk != d or v_pool.shape != k_pool.shape:
-        raise ValueError(f"{what}: head_dim {d} (pool {dk}) must match "
-                         f"and be 64 or 128")
-    if hq % hk or hq // hk not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: GQA group {hq}/{hk} must be 1, 2, 4 "
-                         f"or 8")
     if block_tables.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / "
                          f"lens {tuple(seq_lens.shape)} vs batch {b}")
@@ -332,3 +364,73 @@ def paged_decode_attention_chunked(q, k_pool, v_pool, block_tables,
 
 paged_decode_attention_chunked.launches = 0
 paged_decode_attention_chunked.launches_q = 0
+
+
+def paged_decode_attention_simt(q, k_pool, v_pool, block_tables, seq_lens,
+                                k_scale=None, v_scale=None):
+    """Decode on the CUDA cores: grid (B, Hq), one CTA per slot and query
+    head, its warps taking 32 keys at a time. q [B, Hq, D] float32, fp16
+    or bf16; pools [NB, bs, Hk, D] of q's dtype, or int8 with
+    ``k_scale``/``v_scale`` [NB, bs, Hk] float32; any group Hq / Hk; D up
+    to ``SIMT_MAX_HEAD_DIM``. Raises on anything else; CPU tensors take
+    the plain version."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
+                                            seq_lens, k_scale, v_scale)
+    what = "paged_decode_simt"
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: give both k_scale and v_scale or "
+                         f"neither")
+    quantized = k_scale is not None
+    b, hq, d = q.shape
+    nb, bs, hk, _ = k_pool.shape
+    pool_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _SIMT_DTYPES:
+        raise ValueError(f"{what}: q must be float32, float16 or bfloat16, "
+                         f"got {q.dtype}")
+    for name, t, dt in (("q", q, q.dtype), ("k_pool", k_pool, pool_dtype),
+                        ("v_pool", v_pool, pool_dtype)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    tensors = [("block_tables", block_tables, torch.int32),
+               ("seq_lens", seq_lens, torch.int32)]
+    if quantized:
+        tensors += [("k_scale", k_scale, torch.float32),
+                    ("v_scale", v_scale, torch.float32)]
+    for name, t, dt in tensors:
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"CUDA tensor, got {t.dtype} on {t.device}")
+    if quantized and (tuple(k_scale.shape) != (nb, bs, hk) or
+                      v_scale.shape != k_scale.shape):
+        raise ValueError(f"{what}: scales must be [{nb}, {bs}, {hk}]")
+    if k_pool.shape[-1] != d or v_pool.shape != k_pool.shape or \
+            d > SIMT_MAX_HEAD_DIM or hk <= 0 or hq % hk:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}: "
+                         f"head dims must match and be at most "
+                         f"{SIMT_MAX_HEAD_DIM}, Hq a multiple of Hk")
+    if block_tables.shape[0] != b or seq_lens.shape != (b,):
+        raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / "
+                         f"lens {tuple(seq_lens.shape)} vs batch {b}")
+    out = torch.empty_like(q)
+    lib = _build.load("paged_decode_simt")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized \
+        else (None, None)
+    err = lib.paged_decode_simt(
+        _SIMT_DTYPES[q.dtype], int(quantized), q.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, hq,
+        hk, d, bs, block_tables.shape[1], float(1.0 / math.sqrt(d)), stream)
+    _build.check(err, what)
+    if quantized:
+        paged_decode_attention_simt.launches_q += 1
+    else:
+        paged_decode_attention_simt.launches += 1
+    return out
+
+
+paged_decode_attention_simt.launches = 0
+paged_decode_attention_simt.launches_q = 0

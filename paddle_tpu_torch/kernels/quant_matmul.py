@@ -10,6 +10,15 @@ y [..., N] = x [..., K] @ (w_int8 [N, K] * w_scales [N, 1]).T in
   plain version for CPU tensors.
 - ``quant_matmul_plain`` is the Pallas body's numerics: dequantize the
   weight to float32 (w * s), then a float32 product.
+- ``quant_matmul_simt`` launches ``csrc/quant_matmul_simt.cu`` (the CUDA
+  cores, float32 sums) for the activations the tensor-core kernel does
+  not take: float32, fp16, and bf16 with K not a multiple of 16 (the
+  reference's wrapper takes any dtype and K: it pads M and N, takes K
+  whole, and returns x's dtype).
+- ``int8_linear`` is the routing point of ``quantization.
+  ConvertedInt8Linear``: ``qmm_route`` decides from the mode, the device,
+  x's dtype and K alone, before any launch, and ``ROUTE_COUNTS`` counts
+  each decision.
 - ``prefill_plan`` picks the prefill kernel's token tile and split of K
   (M >= 9) so that every launch fills the card's SMs.
 - ``decode_plan`` picks the decode kernel's (M <= 8) split of K over a
@@ -101,6 +110,81 @@ def quant_matmul_plain(x, w_int8, w_scales):
     """``(x.float() @ (w.float() * s.float()[:, None]).T).to(x.dtype)``."""
     w = w_int8.float() * w_scales.float()[:, None]
     return (x.float() @ w.T).to(x.dtype)
+
+
+# ``int8_linear``'s routing decisions (``qmm_route``), one a call:
+# ``kernel`` (``quant_matmul``), ``simt`` (``quant_matmul_simt``), ``cpu``
+# (CPU tensors: the plain version) and ``dense`` (FLAGS_paged_kernel=dense
+# forces the plain version)
+ROUTE_COUNTS = {"kernel": 0, "simt": 0, "cpu": 0, "dense": 0}
+# x dtypes ``quant_matmul_simt`` takes, by their code in its C entry point
+_SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def qmm_route(mode, device_type, x_dtype, k):
+    """The route of an int8 linear layer's product from its resolved
+    ``FLAGS_paged_kernel`` mode, x's device type and dtype and the
+    contraction K: ``dense`` (forced: the plain version), ``cpu`` (the
+    plain version), ``kernel`` (bf16 x, K a multiple of 16) or ``simt``
+    (any other x on the card). Pure: decided before any launch."""
+    if mode == "dense":
+        return "dense"
+    if device_type == "cpu":
+        return "cpu"
+    if x_dtype == torch.bfloat16 and k % 16 == 0:
+        return "kernel"
+    return "simt"
+
+
+def int8_linear(x, w_int8, w_scales, mode):
+    """x [..., K] @ (w_int8 [N, K] * w_scales [N]).T in x's dtype, on the
+    route ``qmm_route`` picks (counted in ``ROUTE_COUNTS``)."""
+    route = qmm_route(mode, x.device.type, x.dtype, w_int8.shape[1])
+    ROUTE_COUNTS[route] += 1
+    if route == "kernel":
+        return quant_matmul(x, w_int8, w_scales)
+    if route == "simt":
+        return quant_matmul_simt(x, w_int8, w_scales)
+    return quant_matmul_plain(x, w_int8, w_scales)
+
+
+def quant_matmul_simt(x, w_int8, w_scales):
+    """Launch ``csrc/quant_matmul_simt.cu`` for CUDA tensors: x [..., K]
+    float32, fp16 or bf16 (made contiguous here), any K; w_int8 int8
+    [N, K] and w_scales float32 [N], contiguous. Returns [..., N] in x's
+    dtype; raises on anything else. CPU tensors take the plain version.
+    Counts ``launches``."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w_int8, w_scales)
+    n, k = w_int8.shape
+    if x.dtype not in _SIMT_DTYPES or not x.is_cuda:
+        raise ValueError(f"quant_matmul_simt: x must be a float32, float16 "
+                         f"or bfloat16 CUDA tensor, got {x.dtype} on "
+                         f"{x.device}")
+    for name, t, dt in (("w_int8", w_int8, torch.int8),
+                        ("w_scales", w_scales, torch.float32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"quant_matmul_simt: {name} must be a "
+                             f"contiguous {dt} CUDA tensor, got {t.dtype} "
+                             f"on {t.device}")
+    if x.shape[-1] != k or tuple(w_scales.shape) != (n,):
+        raise ValueError(f"quant_matmul_simt: x {tuple(x.shape)}, w "
+                         f"{(n, k)}, scales {tuple(w_scales.shape)}")
+    x2 = x.reshape(-1, k).contiguous()
+    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+    if x2.shape[0] == 0:
+        return out
+    lib = _build.load("quant_matmul_simt")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.quant_matmul_simt(_SIMT_DTYPES[x.dtype], x2.data_ptr(),
+                                w_int8.data_ptr(), w_scales.data_ptr(),
+                                out.data_ptr(), x2.shape[0], n, k, stream)
+    _build.check(err, "quant_matmul_simt")
+    quant_matmul_simt.launches += 1
+    return out
+
+
+quant_matmul_simt.launches = 0
 
 
 def quant_matmul(x, w_int8, w_scales):

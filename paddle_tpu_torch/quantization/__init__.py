@@ -248,7 +248,11 @@ class ConvertedInt8Linear(nn.Module):
     """Deployment form: ``w_int8`` [out, in] (K-contiguous, PyTorch's
     ``Linear`` layout; the JAX package stores [in, out]) and ``w_scales``
     [out] in the source weight's dtype, plus an optional static activation
-    scale. The route is ``FLAGS_paged_kernel``, read once here; the
+    scale. The route is ``FLAGS_paged_kernel``, read once here, and, per
+    call, ``kernels.quant_matmul.int8_linear``: bf16 x with K a multiple
+    of 16 takes the tensor-core kernel on the card, any other x the CUDA
+    cores' ``quant_matmul_simt`` (each call counted in that module's
+    ``ROUTE_COUNTS``); the
     float32 copy of the scales the kernel reads (``w_scales_f32``, not
     saved) is made here and remade from ``w_scales`` whenever those are
     loaded or moved (``load_state_dict``, ``.to()``). The output is in
@@ -278,13 +282,11 @@ class ConvertedInt8Linear(nn.Module):
         return self
 
     def forward(self, x):
-        from ..kernels.quant_matmul import quant_matmul, quant_matmul_plain
+        from ..kernels.quant_matmul import int8_linear
         if self.act_scale is not None:
             x = _act_fake_quant(x, self.act_scale)
-        if self.kernel_mode == "dense":
-            out = quant_matmul_plain(x, self.w_int8, self.w_scales_f32)
-        else:
-            out = quant_matmul(x, self.w_int8, self.w_scales_f32)
+        out = int8_linear(x, self.w_int8, self.w_scales_f32,
+                          self.kernel_mode)
         return out + self.bias if self.bias is not None else out
 
 

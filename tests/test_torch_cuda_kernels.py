@@ -23,6 +23,15 @@ boundary the two round differently. The segment branch of all three
 zeros where nothing is visible. The int8
 weight matmul too, at 1e-2: it multiplies the scale after the f32 sum,
 the plain version before, which moves the bf16 output by an ulp at most.
+
+The CUDA cores' kernels (``flash_simt.cu``, ``paged_decode_simt.cu``,
+``quant_matmul_simt.cu``) take float32 and fp16 operands (decode and the
+int8 matmul bf16 too): max |kernel - plain| / max |plain| (per row for
+flash O, per slot for decode) within 1e-4 in float32 (the same float32
+products summed in another order; 2e-4 for the flash gradients) and 5e-3
+in fp16 (1e-2 for the gradients: both sides round P and dS to fp16, at
+2^-11 of the value, at slightly different points); bf16 at the decode
+limits above.
 """
 
 import functools
@@ -1174,3 +1183,376 @@ def test_fp8_linear_on_the_card_launches_three_products(dev):
     bad = fp8.FP8Linear(24, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError):
         bad(_randn(dev, 8, 24))
+
+
+# -- the routes above the kernel wrappers: shapes and dtypes the
+# tensor-core kernels do not take go to a route decided before any launch,
+# and counted: the CUDA cores' kernels (``simt``) or, for bf16 flash at a
+# group not dividing 64, B1-B3 on expanded K and V
+def _flash_route_counts():
+    from paddle_tpu_torch.kernels.flash_attention import ROUTE_COUNTS
+    return dict(ROUTE_COUNTS)
+
+
+def _flash_launches():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    return [f.launches + f.seg_launches for f in (
+        fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda,
+        fa.flash_simt_fwd_cuda, fa.flash_simt_dq_cuda,
+        fa.flash_simt_dkv_cuda)]
+
+
+# the CUDA cores' kernels against the plain versions, both in float32 (the
+# same products, summed in another order) or both rounding to fp16 at the
+# same points (the kernels round the unnormalized P, the plain pair the
+# normalized one): max |kernel - plain| / max |plain|, per row for O
+SIMT_RTOL = {torch.float32: 1e-4, torch.float16: 5e-3,
+             torch.bfloat16: DECODE_RTOL}
+SIMT_BWD_RTOL = {torch.float32: 2e-4, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype,Hq,Hk,causal,route", [
+    (torch.float32, 32, 8, True, "simt"),
+    (torch.float16, 32, 8, True, "simt"),
+    (torch.float32, 8, 8, False, "simt"),
+    (torch.float32, 24, 8, True, "simt"),         # G 3 at float32
+    (torch.bfloat16, 24, 8, True, "expanded"),    # G 3
+    (torch.bfloat16, 24, 8, False, "expanded"),
+    (torch.bfloat16, 96, 8, True, "expanded"),    # G 12
+    (torch.bfloat16, 96, 8, False, "expanded"),
+])
+def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
+                                                        causal, route):
+    """``FlashAttention`` in float32 and fp16 (``flash_simt.cu``'s three
+    kernels once each) and at bf16 GQA groups 3 and 12 (B1-B3 once each
+    on K and V expanded 3 times along the head axis, dK and dV summed
+    over the copies), forward and backward: one route count, exactly the
+    launches it implies, and the result against the plain pair on the
+    same inputs."""
+    b, s, D = 2, 300, 64
+    g = torch.Generator(device=dev).manual_seed(Hq + causal)
+    mk = lambda h: torch.randn(b, s, h, D, generator=g, device=dev,
+                               dtype=dtype)
+    q, k, v, do = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = _flash_route_counts()
+    before = _flash_launches()
+    out = scaled_dot_product_attention(*ts, is_causal=causal)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = _flash_route_counts()
+    assert {n: after[n] - counts[n] for n in after} == \
+        {n: int(n == route) for n in after}
+    want = [1, 1, 1, 0, 0, 0] if route == "expanded" else [0, 0, 0, 1, 1, 1]
+    assert [x - y for x, y in zip(_flash_launches(), before)] == want
+    o_ref, lse = flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    if route == "simt":
+        assert _row_rel_err(out, o_ref) <= SIMT_RTOL[dtype]
+        for name, t, ref in zip(("dq", "dk", "dv"), ts, refs):
+            assert t.grad.dtype == dtype and t.grad.shape == ref.shape, name
+            assert _rel_err(t.grad, ref) <= SIMT_BWD_RTOL[dtype], name
+        return
+    assert (out.float() - o_ref.float()).abs().max().item() <= ATOL
+    assert _row_rel_err(out, o_ref) <= ROW_RTOL
+    for name, t, ref in zip(("dq", "dk", "dv"), ts, refs):
+        assert t.grad.dtype == dtype and t.grad.shape == ref.shape, name
+        assert _rel_err(t.grad, ref) <= BWD_RTOL, name
+
+
+_SIMT_SHAPES = [
+    (2, 197, 197, 8, 2, 64),     # ragged last tiles, G 4
+    (1, 300, 300, 24, 8, 80),    # G 3, a head dim that is no chunk multiple
+    (1, 130, 260, 4, 4, 128),    # Sk > Sq: bottom-right causal
+    (1, 260, 130, 4, 2, 128),    # Sq > Sk: the first rows see no key
+    (1, 64, 64, 2, 1, 256),
+    (1, 100, 100, 2, 2, 320),    # two forward slices, three dK/dV slices
+]
+
+
+# the segment branch on the shapes whose queries and keys share positions
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,seg", [
+    shape + (seg,) for shape in _SIMT_SHAPES for seg in (False, True)
+    if not seg or shape[1] == shape[2]])
+def test_flash_simt_matches_plain(dev, B, Sq, Sk, Hq, Hk, D, seg, dtype,
+                                  causal):
+    """``flash_simt.cu`` (forward, dQ, dK/dV) against the plain pair at the
+    true head dim and group, dense and segment branch: O, LSE (+1e30 and
+    O = 0 where a row sees nothing) and the three gradients."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_simt_bwd_cuda, flash_simt_fwd_cuda)
+    g = torch.Generator(device=dev).manual_seed(D + Sq + Hq)
+    mk = lambda s, h: torch.randn(B, s, h, D, generator=g, device=dev,
+                                  dtype=dtype)
+    q, k, v, do = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, Hq)
+    kw = dict(zip(_SEG_NAMES, _dense_seg(dev, B, Sq, True, run=40))) \
+        if seg else {}
+    o, lse = flash_simt_fwd_cuda(q, k, v, causal, **kw)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    assert _row_rel_err(o, o_ref) <= SIMT_RTOL[dtype]
+    unseen = lse_ref >= 1e29
+    assert torch.equal(lse >= 1e29, unseen)
+    assert (lse - lse_ref)[~unseen].abs().max().item() <= 1e-3
+    if bool(unseen.any()):
+        assert o.float().permute(0, 2, 1, 3)[unseen].abs().max().item() == 0
+    dq, dk, dv = flash_simt_bwd_cuda(q, k, v, o_ref, lse_ref, do, causal,
+                                     **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, causal,
+                                     **kw)
+    for name, t, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert t.dtype == dtype and t.shape == ref.shape, name
+        assert _rel_err(t, ref) <= SIMT_BWD_RTOL[dtype], name
+
+
+def test_flash_simt_rejects_what_it_does_not_take(dev):
+    """bf16 belongs to the tensor-core kernels, mixed dtypes and a
+    non-unit innermost stride to no kernel: the wrapper raises."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_simt_fwd_cuda
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="float32 or float16"):
+        flash_simt_fwd_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="float32 or float16"):
+        flash_simt_fwd_cuda(q, q.half(), q)
+    with pytest.raises(ValueError, match="innermost"):
+        flash_simt_fwd_cuda(q.transpose(-1, -2), q, q)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("Hq,Hk,D,dtype,mbps", [
+    (16, 8, 256, torch.bfloat16, 8),      # D 256, G 2 (Gemma-2's widths)
+    (16, 8, 256, torch.bfloat16, 32),
+    (32, 8, 80, torch.bfloat16, 8),       # D 80
+    (64, 4, 128, torch.bfloat16, 32),     # G 16
+    (32, 8, 128, torch.float32, 8),       # a float32 model
+    (32, 8, 128, torch.float32, 32),
+    (32, 8, 128, torch.float16, 8),
+    (24, 8, 64, torch.float32, 8),        # G 3
+])
+def test_paged_decode_routes_what_the_kernels_refuse(dev, quantized, Hq, Hk,
+                                                     D, dtype, mbps):
+    """``paged_decode_attention`` at shapes and dtypes B4-B6q do not take
+    goes to ``paged_decode_simt.cu`` (``simt`` in ``ROUTE_COUNTS``, one
+    launch of it and none of B4-B6q), bf16 or int8 pools, against the
+    dense version on the same inputs."""
+    from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS,
+                                                  paged_decode_attention)
+    lens = [0, 1, 17, 16 * mbps - 3]
+    q, kp, vp, tbl, sl, scales = _decode_case(dev, 4, Hq, Hk, D, 16, mbps,
+                                              lens, quantized, seed=D + Hq)
+    q = q.to(dtype)
+    if not quantized:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    wrappers = (paged_decode_attention_kernel, paged_decode_attention_chunked,
+                _pa.paged_decode_attention_simt)
+    counts = dict(ROUTE_COUNTS)
+    launches = [(w.launches, w.launches_q) for w in wrappers]
+    out = paged_decode_attention(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert {n: ROUTE_COUNTS[n] - counts[n] for n in ROUTE_COUNTS} == \
+        {n: int(n == "simt") for n in ROUTE_COUNTS}
+    moved = [(w.launches - a, w.launches_q - b_)
+             for w, (a, b_) in zip(wrappers, launches)]
+    assert moved == [(0, 0), (0, 0), (0, 1) if quantized else (1, 0)]
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    assert out[0].abs().max().item() == 0.0  # seq_len 0
+    err = ((out.float() - ref.float()).abs().amax((1, 2)) /
+           ref.float().abs().amax((1, 2)).clamp_min(1e-30))[1:]
+    assert err.max().item() <= SIMT_RTOL[dtype]
+
+
+def test_paged_decode_simt_rejects_what_it_does_not_take(dev):
+    q = torch.randn(2, 8, 64, device=dev)
+    kp = torch.randn(4, 16, 8, 64, device=dev)
+    tbl = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    sl = torch.ones(2, dtype=torch.int32, device=dev)
+    simt = _pa.paged_decode_attention_simt
+    with pytest.raises(ValueError, match="k_pool"):
+        simt(q, kp.half(), kp.half(), tbl, sl)
+    with pytest.raises(ValueError, match="float32, float16 or bfloat16"):
+        simt(q.double(), kp.double(), kp.double(), tbl, sl)
+    with pytest.raises(ValueError, match="both"):
+        simt(q, kp, kp, tbl, sl, k_scale=torch.ones(4, 16, 8, device=dev))
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 4096),
+                                     (torch.float16, 4096),
+                                     (torch.bfloat16, 4100),
+                                     (torch.float32, 4100)])
+@pytest.mark.parametrize("M", [4, 100])
+def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, M):
+    """``ConvertedInt8Linear`` with an x that is not bf16, or K 4100 (not a
+    multiple of 16): ``quant_matmul_simt`` (``simt`` + 1 in
+    ``quant_matmul.ROUTE_COUNTS``, one launch of it, none of B7), in x's
+    dtype, against ``quant_matmul_plain``; a bf16 x at K 4096 still
+    launches B7."""
+    from paddle_tpu_torch import quantization as TQ
+    from paddle_tpu_torch.nn import Linear
+    qat = lambda: TQ.QAT(TQ.QuantConfig(
+        activation=None, weight=TQ.FakeQuanterWithAbsMaxObserver))
+    holder = torch.nn.Sequential(Linear(K, 256, bias=False, device=dev))
+    layer = qat().convert(qat().quantize(holder))[0]
+    g = torch.Generator(device=dev).manual_seed(K + M)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    counts = dict(_qm.ROUTE_COUNTS)
+    before = (quant_matmul.launches, _qm.quant_matmul_simt.launches)
+    out = layer(x)
+    torch.cuda.synchronize()
+    assert {n: _qm.ROUTE_COUNTS[n] - counts[n] for n in counts} == \
+        {n: int(n == "simt") for n in counts}
+    assert (quant_matmul.launches, _qm.quant_matmul_simt.launches) == \
+        (before[0], before[1] + 1)
+    assert out.dtype == dtype
+    ref = quant_matmul_plain(x, layer.w_int8, layer.w_scales_f32)
+    assert _rel_err(out, ref) <= SIMT_RTOL[dtype]
+    if K % 16 == 0:
+        layer(x.bfloat16())
+        assert (quant_matmul.launches, _qm.quant_matmul_simt.launches) == \
+            (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("M,N,K", [(1, 64, 7), (4, 256, 4100),
+                                   (100, 300, 4096), (130, 70, 33)])
+def test_quant_matmul_simt_matches_plain(dev, dtype, M, N, K):
+    """``quant_matmul_simt`` against ``quant_matmul_plain`` at edges past
+    M, N and K (no multiple of 64 or 16 needed), in x's dtype."""
+    w, s = _qmm_weight(N, K)
+    x = torch.randn(M, K, device=dev).to(dtype)
+    w, s = w.to(dev), s.to(dev)
+    out = _qm.quant_matmul_simt(x, w, s)
+    ref = quant_matmul_plain(x, w, s)
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert _rel_err(out, ref) <= SIMT_RTOL[dtype]
+
+
+# -- B1 at D 160-256 (``flash_fwd_256_kernel``, two warpgroups on wgmma)
+# and B3 above D 256 (``flash_bwd_dkv_xl_kernel``, slices of up to 256
+# columns), dense and segment branch, against the plain versions at the
+# true D
+def _wide_inputs(dev, S, Hq, Hk, D, seg, Sk=None, seed=60):
+    Sk = Sk or S
+    q = _randn(dev, 1, S, Hq, D, seed=seed)
+    k = _randn(dev, 1, Sk, Hk, D, seed=seed + 1)
+    v = _randn(dev, 1, Sk, Hk, D, seed=seed + 2)
+    do = _randn(dev, 1, S, Hq, D, seed=seed + 3)
+    kw = {}
+    if seg:  # runs of 96 tokens, ids (pos // 96) % 3, 10 orphan queries
+        kw = dict(zip(_SEG_NAMES, _dense_seg(dev, 1, S, True, run=96)))
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [197, 2048])
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("Hq,Hk", [(16, 4), (8, 8)])
+def test_flash_fwd_256_matches_plain(dev, Hq, Hk, D, S, causal, seg):
+    """B1 at D 160 (zero-padded to 256 as ``FlashAttention`` pads it) and
+    256, G 4 and G 1 (whose two warpgroups hold 64 positions each), S 197
+    (a ragged last tile) and 2048, dense and segment branch (with query
+    rows whose id no key has): O per row within 2e-2 and elementwise
+    within ATOL or one bf16 ulp where |O| >= 4, LSE within 2e-3, O 0 and
+    LSE +1e30 on rows that see no key, one launch a call."""
+    from paddle_tpu_torch.kernels.flash_attention import pad_head_dim
+    q, k, v, _, kw = _wide_inputs(dev, S, Hq, Hk, D, seg)
+    scale = 1.0 / np.sqrt(D)
+    before = (flash_fwd_cuda.launches, flash_fwd_cuda.seg_launches)
+    o, lse = flash_fwd_cuda(*(pad_head_dim(t, 256) for t in (q, k, v)),
+                            causal, scale=scale, **kw)
+    o = o[..., :D]
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, scale=scale,
+                                           return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_fwd_cuda.seg_launches) == \
+        (before[0] + (not seg), before[1] + seg)
+    assert bool(torch.isfinite(o.float()).all())
+    limit = torch.clamp(_bf16_ulp(o_ref), min=ATOL)
+    assert bool(((o.float() - o_ref.float()).abs() <= limit).all())
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL
+    if seg:
+        rows, _ = _unseen(kw, causal)
+        assert bool(rows.any())
+        r = rows[..., None, None].expand_as(o)
+        assert o[r].abs().max().item() == 0.0
+        assert bool((lse.transpose(1, 2)[rows] == 1e30).all())
+
+
+@pytest.mark.parametrize("Hq,Hk", [(16, 4), (8, 8), (4, 4)])
+def test_flash_fwd_256_rows_that_see_no_key(dev, Hq, Hk):
+    """B1 at D 256, causal with Sq > Sk (bottom-right: the first Sq - Sk
+    rows see no key, across both warpgroups of a CTA at G 1): O 0 and LSE
+    +1e30 there, the plain version elsewhere."""
+    q, k, v, _, _ = _wide_inputs(dev, 300, Hq, Hk, 256, False, Sk=130)
+    o, lse = flash_fwd_cuda(q, k, v, True)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, True, return_lse=True)
+    torch.cuda.synchronize()
+    assert o[:, :170].abs().max().item() == 0.0
+    assert bool((lse[:, :, :170] == 1e30).all())
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL
+
+
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [288, 384, 512, 640])
+@pytest.mark.parametrize("Hq,Hk,S", [(16, 4, 2048), (8, 4, 333)])
+def test_flash_bwd_dkv_xl_matches_plain(dev, Hq, Hk, S, D, causal, seg):
+    """B3 above D 256 (D 288 zero-padded to 384; slices of 192 at D 384,
+    256 at 512 and 640, the last of 640's half past D), dense and segment
+    branch: dK and dV within 2e-2 of the plain version's largest value,
+    exact zeros for keys no row sees, one launch a call."""
+    from paddle_tpu_torch.kernels.flash_attention import (pad_head_dim,
+                                                          padded_head_dim)
+    q, k, v, do, kw = _wide_inputs(dev, S, Hq, Hk, D, seg, seed=70)
+    dp = padded_head_dim(D)
+    scale = 1.0 / np.sqrt(D)
+    qp, kp, vp, dop = (pad_head_dim(t, dp) for t in (q, k, v, do))
+    o, lse = flash_fwd_cuda(qp, kp, vp, causal, scale=scale, **kw)
+    delta = flash_delta(o, dop)
+    before = (flash_bwd_dkv_cuda.xl_launches, flash_bwd_dkv_cuda.launches,
+              flash_bwd_dkv_cuda.seg_launches)
+    dk, dv = flash_bwd_dkv_cuda(qp, kp, vp, dop, lse, delta, causal,
+                                scale=scale, **kw)
+    dk, dv = dk[..., :D], dv[..., :D]
+    refs = flash_attention_bwd_plain(q, k, v, o[..., :D], lse, do, causal,
+                                     scale=scale, **kw)[1:]
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkv_cuda.xl_launches, flash_bwd_dkv_cuda.launches,
+            flash_bwd_dkv_cuda.seg_launches) == \
+        (before[0] + 1, before[1] + (not seg), before[2] + seg)
+    for name, out, ref in zip(("dk", "dv"), (dk, dv), refs):
+        assert bool(torch.isfinite(out.float()).all()), name
+        assert _rel_err(out, ref) <= BWD_RTOL, name
+    if seg:
+        _, keys = _unseen(kw, causal)
+        if keys.any():
+            c = keys[..., None, None].expand_as(dk)
+            assert dk[c].abs().max().item() == 0.0
+            assert dv[c].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_256_reads_head_major_views(dev, causal):
+    """B1 at D 256 reads K and V by TMA through their strides: q/k/v as
+    [B, S, H, D] views of head-major [B, H, S, D] tensors (the head stride
+    above the sequence stride) give the plain version's O and LSE."""
+    B, S, Hq, Hk, D = 2, 333, 8, 2, 256
+    q = _randn(dev, B, Hq, S, D, seed=81).transpose(1, 2)
+    k = _randn(dev, B, Hk, S, D, seed=82).transpose(1, 2)
+    v = _randn(dev, B, Hk, S, D, seed=83).transpose(1, 2)
+    o, lse = flash_fwd_cuda(q, k, v, causal)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert (lse - lse_ref).abs().max().item() <= 2e-3
+    assert _row_rel_err(o, o_ref) <= ROW_RTOL

@@ -158,3 +158,78 @@ def test_padded_head_dim_maps_up_to_256_and_raises_above():
     # the plain route computes any head dim
     q = torch.randn(1, 5, 2, 288)
     assert flash_attention_plain(q, q, q, causal=True).shape == q.shape
+
+
+@pytest.mark.parametrize("device,dtype,Hq,Hk,mode,route", [
+    ("cuda", torch.bfloat16, 32, 8, "auto", "kernel"),     # G 4
+    ("cuda", torch.bfloat16, 16, 16, "auto", "kernel"),    # G 1
+    ("cuda", torch.bfloat16, 64, 1, "auto", "kernel"),     # G 64
+    ("cuda", torch.bfloat16, 24, 8, "auto", "expanded"),   # G 3
+    ("cuda", torch.bfloat16, 96, 8, "auto", "expanded"),   # G 12
+    ("cuda", torch.bfloat16, 128, 1, "auto", "expanded"),  # G 128
+    ("cuda", torch.float32, 32, 8, "auto", "simt"),
+    ("cuda", torch.float16, 32, 8, "auto", "simt"),
+    ("cuda", torch.float32, 24, 8, "auto", "simt"),       # G 3
+    ("cuda", torch.float16, 96, 8, "auto", "simt"),       # G 12
+    ("cuda", torch.float64, 32, 8, "auto", "kernel"),     # refused there
+    ("cuda", torch.bfloat16, 32, 8, "plain", "forced"),
+    ("cuda", torch.float32, 32, 8, " Plain ", "forced"),
+    ("cpu", torch.bfloat16, 32, 8, "auto", "cpu"),
+    ("cpu", torch.float32, 24, 8, "plain", "cpu"),
+])
+def test_flash_route_maps_dtype_and_group_to_a_route(device, dtype, Hq, Hk,
+                                                     mode, route):
+    """``FlashAttention``'s route from the device, dtype, group and
+    ``FLAGS_flash_kernel`` alone: bf16 takes the tensor-core kernels (K
+    and V expanded where G does not divide 64), float32 and fp16 the CUDA
+    cores' ``flash_simt.cu`` at any group; any other dtype goes to the
+    bf16 kernels' wrapper, which refuses it."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_route
+    assert flash_route(device, dtype, Hq, Hk, mode) == route
+    with pytest.raises(ValueError, match="FLAGS_flash_kernel"):
+        flash_route(device, dtype, Hq, Hk, "bogus")
+
+
+def test_expand_factor_is_the_least_that_leaves_a_divisor_of_64():
+    from paddle_tpu_torch.kernels.flash_attention import expand_factor
+    groups = (1, 2, 3, 4, 5, 6, 8, 12, 24, 64, 96, 128)
+    assert [expand_factor(g) for g in groups] == \
+        [1, 1, 3, 1, 5, 3, 1, 3, 3, 1, 3, 2]
+
+
+@pytest.mark.parametrize("Hq", [24, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_expanded_route_arithmetic_matches_pallas(Hq, causal):
+    """The ``expanded`` route's arithmetic (G 3 and G 12 over Hk 8, D 64,
+    S 128): K and V expanded ``expand_factor(G)`` times, the plain pair on
+    the expanded heads, the copies' dK and dV summed in float32
+    (``reduce_expanded``): O, dQ, dK and dV against the Pallas kernels in
+    interpret mode from the same numpy inputs, at this file's atol."""
+    import jax
+    from paddle_tpu_torch.kernels.flash_attention import (
+        expand_factor, expand_kv, flash_attention_bwd_plain,
+        reduce_expanded)
+    Hk, D, S = 8, 64, 128
+    rng = np.random.default_rng(Hq + causal)
+    q, k, v, do = (rng.standard_normal((1, S, h, D)).astype(np.float32)
+                   for h in (Hq, Hk, Hk, Hq))
+    o_ref, vjp = jax.vjp(
+        lambda q_, k_, v_: pallas_flash(q_, k_, v_, causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    refs = vjp(jnp.asarray(do))
+    r = expand_factor(Hq // Hk)
+    assert r == 3
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    kx, vx = expand_kv(kt, r), expand_kv(vt, r)
+    assert kx.shape == (1, S, Hk * r, D)
+    o, lse = flash_attention_plain(qt, kx, vx, causal=causal,
+                                   return_lse=True)
+    dq, dkx, dvx = flash_attention_bwd_plain(qt, kx, vx, o, lse, dot,
+                                             causal=causal)
+    dk = reduce_expanded(dkx, r, kt.dtype)
+    dv = reduce_expanded(dvx, r, vt.dtype)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    for name, g, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert g.shape == ref.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), atol=ATOL,
+                                   err_msg=name)

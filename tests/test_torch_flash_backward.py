@@ -121,11 +121,15 @@ def test_non_contiguous_views_and_dropout_on_output():
 
 def test_route_switch_is_read_at_call_time():
     q = torch.zeros(1, 4, 2, 64)
-    assert not fa.use_kernel(q)  # CPU tensors take the plain pair
+    before = dict(fa.ROUTE_COUNTS)
+    fa.scaled_dot_product_attention(q, q, q, is_causal=True)
+    # CPU tensors take the plain pair
+    assert {k: fa.ROUTE_COUNTS[k] - before[k] for k in before} == \
+        {k: int(k == "cpu") for k in before}
     set_flags({"FLAGS_flash_kernel": "bogus"})
     try:
         with pytest.raises(ValueError, match="FLAGS_flash_kernel"):
-            fa.use_kernel(q)
+            fa.scaled_dot_product_attention(q, q, q, is_causal=True)
     finally:
         set_flags({"FLAGS_flash_kernel": "auto"})
 

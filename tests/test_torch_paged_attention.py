@@ -21,7 +21,7 @@ from paddle_tpu import quantization as JQ
 from paddle_tpu.kernels.pallas.paged_attention import (
     paged_decode_attention_chunked as pallas_chunked,
     paged_decode_attention_kernel as pallas_kernel)
-from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS,
+from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS, decode_route,
                                               paged_decode_attention)
 from paddle_tpu_torch.kernels.paged_attention import (
     _SPLIT_CTAS_PER_SM, SMEM_PER_BLOCK, _gather_kv, decode_cluster_plan,
@@ -96,19 +96,22 @@ def test_wrappers_take_plain_version_on_cpu():
     assert paged_decode_attention_chunked.launches == n_split
 
 
-@pytest.mark.parametrize("mbps,mode,moved", [
-    (4, "auto", ("kernel", "plain")),
-    (16, "auto", ("split", "plain")),
-    (16, "kernel", ("split", "plain")),
-    (4, "dense", ("dense",)),
+@pytest.mark.parametrize("mbps,mode,moved,on_cuda", [
+    (4, "auto", "plain", "kernel"),
+    (16, "auto", "plain", "split"),
+    (16, "kernel", "plain", "split"),
+    (4, "dense", "dense", "dense"),
 ])
-def test_routing_on_cpu_moves_the_right_counter(mbps, mode, moved):
+def test_routing_on_cpu_moves_the_right_counter(mbps, mode, moved, on_cuda):
+    """A CPU call moves one counter (``plain``; ``dense`` when forced);
+    the same shapes on CUDA tensors would take ``on_cuda``."""
     q, kp, vp, tbl, sl = _case(2, 8, 2, 64, 4, mbps, [3, 4 * mbps])
     before = dict(ROUTE_COUNTS)
     out = paged_decode_attention(*_torch(q, kp, vp, tbl, sl),
                                  kernel_mode=mode)
     delta = {k: ROUTE_COUNTS[k] - before[k] for k in ROUTE_COUNTS}
-    assert delta == {k: int(k in moved) for k in ROUTE_COUNTS}
+    assert delta == {k: int(k == moved) for k in ROUTE_COUNTS}
+    assert decode_route(mode, "cuda", True, mbps) == on_cuda
     ref = paged_decode_attention_dense(*_torch(q, kp, vp, tbl, sl))
     assert torch.equal(out, ref)
 
@@ -357,3 +360,64 @@ def test_split_route_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
     the unsplit one, as for the per-page route."""
     test_cluster_split_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
                                            cluster, pools)
+
+
+@pytest.mark.parametrize("D,Hq,Hk,q_dtype,int8,pages,route", [
+    (128, 32, 8, torch.bfloat16, False, 8, "kernel"),
+    (128, 32, 8, torch.bfloat16, False, 128, "split"),
+    (64, 8, 8, torch.bfloat16, True, 8, "kernel"),
+    (128, 32, 8, torch.bfloat16, True, 128, "split"),
+    (256, 16, 8, torch.bfloat16, False, 8, "simt"),   # D 256, G 2
+    (256, 16, 8, torch.bfloat16, True, 128, "simt"),
+    (80, 32, 8, torch.bfloat16, False, 8, "simt"),    # D 80
+    (128, 64, 4, torch.bfloat16, False, 128, "simt"),  # G 16
+    (128, 64, 4, torch.bfloat16, True, 8, "simt"),
+    (128, 32, 8, torch.float32, False, 8, "simt"),    # float32
+    (128, 32, 8, torch.float32, True, 128, "simt"),
+    (128, 32, 8, torch.float16, False, 8, "simt"),
+])
+def test_decode_route_sends_what_the_kernels_refuse_to_simt(
+        D, Hq, Hk, q_dtype, int8, pages, route):
+    """The decode route from dtypes and shapes alone: the kernels for bf16
+    queries over bf16 (or int8, with scales) pools at D 64/128 and G 1, 2,
+    4, 8; ``simt`` (the CUDA cores' kernel) for every other dtype, head
+    dim or group on a CUDA tensor; the same tensors on the CPU take
+    ``plain``."""
+    from paddle_tpu_torch.kernels.paged_attention import decode_kernel_takes
+    q = torch.empty(2, Hq, D, dtype=q_dtype)
+    pool = torch.empty(4, 16, Hk, D,
+                       dtype=torch.int8 if int8 else torch.bfloat16)
+    scale = torch.empty(4, 16, Hk) if int8 else None
+    takes = decode_kernel_takes(q, pool, pool, scale)
+    assert takes == (route != "simt")
+    assert decode_route("auto", "cuda", takes, pages) == route
+    assert decode_route("kernel", "cuda", takes, pages) == route
+    assert decode_route("auto", "cpu", takes, pages) == "plain"
+    assert decode_route("dense", "cuda", takes, pages) == "dense"
+    # an int8 pool without scales is not what the kernels take
+    if int8:
+        assert not decode_kernel_takes(q, pool, pool)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_simt_wrapper_takes_plain_version_on_cpu(quantized):
+    """``paged_decode_attention_simt`` (the CUDA cores' kernel for what
+    B4-B6q do not take) on CPU tensors: the dense version, no launch
+    counted, at a head dim (80) and group (3) no tensor-core kernel
+    takes."""
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention_simt)
+    from paddle_tpu_torch.quantization import quantize_rows
+    q, kp, vp, tbl, sl = _torch(*_case(2, 12, 4, 80, 4, 4, [0, 13]))
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    n = (paged_decode_attention_simt.launches,
+         paged_decode_attention_simt.launches_q)
+    out = paged_decode_attention_simt(q, kp, vp, tbl, sl, **scales)
+    assert torch.equal(out, paged_decode_attention_dense(q, kp, vp, tbl, sl,
+                                                         **scales))
+    assert (paged_decode_attention_simt.launches,
+            paged_decode_attention_simt.launches_q) == n

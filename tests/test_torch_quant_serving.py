@@ -27,7 +27,9 @@ from paddle_tpu_torch import quantization as TQ
 from paddle_tpu_torch.convert import (llama_int8_params_from_numpy,
                                       llama_params_from_numpy)
 from paddle_tpu_torch.core.flags import set_flags
+from paddle_tpu_torch.kernels.paged_attention import decode_kernel_takes
 from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS, PagedKVCache,
+                                              decode_route,
                                               paged_decode_write_q,
                                               sized_num_blocks)
 
@@ -110,7 +112,21 @@ def _port(jm):
     return tm
 
 
-def _serve(jm, tm, route, **kw):
+def _card_routes(eng, cfg, dtype):
+    """(the decode route this engine's own query dtype and pools take on
+    the card, the route bf16 tensors of its table width would take):
+    ``decode_kernel_takes`` on a query of ``dtype`` over the engine's
+    layer-0 pools decides between the tensor-core kernels and ``simt``."""
+    c = eng.cache
+    q = torch.empty(1, cfg.num_heads, c.k_pools[0].shape[-1], dtype=dtype)
+    takes = decode_kernel_takes(q, c.k_pools[0], c.v_pools[0],
+                                c.k_scales[0] if c.quantized else None)
+    pages = c.block_tables.shape[1]
+    return (decode_route("auto", "cuda", takes, pages),
+            decode_route("auto", "cuda", True, pages))
+
+
+def _serve(jm, tm, bf16_route, **kw):
     kw = dict(max_batch=3, temperature=0.0, kv_cache_dtype="int8", **kw)
     ref = _drive(jpaged.ContinuousBatchingEngine(jm, dtype=jnp.float32,
                                                  **kw))
@@ -120,19 +136,25 @@ def _serve(jm, tm, route, **kw):
     out = _drive(eng)
     assert out == ref
     moved = {k for k in ROUTE_COUNTS if ROUTE_COUNTS[k] != before[k]}
-    assert moved == {route, "plain"}
+    assert moved == {"plain"}  # one count a CPU call
+    # on the card this float32 engine's int8 pools take the CUDA cores'
+    # kernel; a bf16 one of the same table width the tensor-core kernel
+    # named
+    assert _card_routes(eng, tm.config, torch.float32) == ("simt",
+                                                           bf16_route)
     assert not eng.running and not eng.waiting
     return eng
 
 
-@pytest.mark.parametrize("block_size,max_seq_len,num_blocks,route", [
-    (8, 64, None, "kernel"),   # 8 pages: per-page route (B5 on the card)
-    (4, 64, None, "split"),    # 16 pages: split route (B6q on the card)
+@pytest.mark.parametrize("block_size,max_seq_len,num_blocks,bf16_route", [
+    (8, 64, None, "kernel"),   # 8 pages: per-page route (B5 for bf16)
+    (4, 64, None, "split"),    # 16 pages: split route (B6q for bf16)
     (4, 64, 12, "split"),      # 11 usable blocks: forces preemption
 ])
 def test_int8_kv_engine_tokens_identical(jax_models, block_size,
-                                         max_seq_len, num_blocks, route):
-    eng = _serve(jax_models[0], _port(jax_models[0]), route,
+                                         max_seq_len, num_blocks,
+                                         bf16_route):
+    eng = _serve(jax_models[0], _port(jax_models[0]), bf16_route,
                  block_size=block_size, max_seq_len=max_seq_len,
                  num_blocks=num_blocks)
     if num_blocks is not None:

@@ -24,10 +24,11 @@ from paddle_tpu_torch import Llama, LlamaConfig
 from paddle_tpu_torch import quantization as TQ
 from paddle_tpu_torch.convert import llama_int8_params_from_numpy
 from paddle_tpu_torch.core.flags import set_flags
+from paddle_tpu_torch.kernels import quant_matmul as _qm
 from paddle_tpu_torch.kernels.quant_matmul import (
     CH_TILE, DEC_BK, DEC_CLUSTERS, DEC_GRANULES, DEC_MAX_M, DEC_CH,
     K_CHUNK, MIN_CHUNKS, SMEM_PER_BLOCK, SMS, TOK_TILE, decode_granule,
-    decode_plan, decode_shares, decode_smem_bytes, prefill_plan,
+    decode_plan, decode_shares, decode_smem_bytes, prefill_plan, qmm_route,
     quant_matmul, quant_matmul_plain)
 from paddle_tpu_torch.nn import Linear
 
@@ -307,3 +308,58 @@ def test_qat_convert_tiny_llama_names_match_jax():
     bad["layers.0.mlp.up_proj.w_scales"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="shape"):
         llama_int8_params_from_numpy(bad, JaxConfig.tiny())
+
+
+@pytest.mark.parametrize("mode,device,dtype,K,route", [
+    ("auto", "cuda", torch.bfloat16, 4096, "kernel"),
+    ("kernel", "cuda", torch.bfloat16, 14336, "kernel"),
+    ("auto", "cuda", torch.float32, 4096, "simt"),
+    ("auto", "cuda", torch.float16, 4096, "simt"),
+    ("auto", "cuda", torch.bfloat16, 4100, "simt"),      # K % 16 != 0
+    ("auto", "cuda", torch.float32, 4100, "simt"),
+    ("auto", "cpu", torch.float32, 4100, "cpu"),
+    ("auto", "cpu", torch.bfloat16, 4096, "cpu"),
+    ("dense", "cuda", torch.bfloat16, 4096, "dense"),
+    ("dense", "cuda", torch.float32, 4100, "dense"),
+])
+def test_qmm_route_sends_what_the_kernel_refuses_to_simt(mode, device,
+                                                         dtype, K, route):
+    """An int8 layer's route from the mode, x's device and dtype and K
+    alone: the tensor-core kernel takes bf16 x and K a multiple of 16,
+    the CUDA cores' ``quant_matmul_simt`` the rest (the reference takes
+    any dtype and K)."""
+    assert qmm_route(mode, device, dtype, K) == route
+
+
+def test_converted_linear_counts_one_cpu_route_on_the_cpu():
+    """On CPU tensors the layer takes the plain version, whatever x's
+    dtype or K: one ``cpu`` count in ``ROUTE_COUNTS`` a call and no
+    launch of either kernel."""
+    holder = torch.nn.Sequential(Linear(20, 8, bias=False, device="cpu"))
+    tl = _qat(TQ).convert(_qat(TQ).quantize(holder))[0]
+    before = (dict(_qm.ROUTE_COUNTS), quant_matmul.launches,
+              _qm.quant_matmul_simt.launches)
+    x = torch.randn(3, 20)
+    out = tl(x)
+    assert {k: _qm.ROUTE_COUNTS[k] - before[0][k] for k in before[0]} == \
+        {k: int(k == "cpu") for k in before[0]}
+    assert (quant_matmul.launches, _qm.quant_matmul_simt.launches) == \
+        before[1:]
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, quant_matmul_plain(x, tl.w_int8,
+                                                       tl.w_scales_f32))
+
+
+@pytest.mark.parametrize("dtype,K", [(torch.float32, 20), (torch.bfloat16, 20),
+                                     (torch.float16, 32)])
+def test_quant_matmul_simt_takes_plain_version_on_cpu(dtype, K):
+    """``quant_matmul_simt`` (the CUDA cores' kernel for any x dtype and
+    K) on CPU tensors: ``quant_matmul_plain`` in x's dtype, no launch
+    counted."""
+    w, s = TQ._quantize_weight(torch.randn(8, K), channel_axis=0)
+    x = torch.randn(3, 2, K).to(dtype)
+    n = _qm.quant_matmul_simt.launches
+    out = _qm.quant_matmul_simt(x, w, s.float())
+    assert out.dtype == dtype and out.shape == (3, 2, 8)
+    assert torch.equal(out, quant_matmul_plain(x, w, s.float()))
+    assert _qm.quant_matmul_simt.launches == n

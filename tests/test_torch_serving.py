@@ -21,7 +21,9 @@ from paddle_tpu.models import Llama as JaxLlama
 from paddle_tpu.models import LlamaConfig as JaxConfig
 from paddle_tpu_torch import ContinuousBatchingEngine, Llama, LlamaConfig
 from paddle_tpu_torch.convert import llama_params_from_numpy
-from paddle_tpu_torch.inference.paged import ROUTE_COUNTS, PagedKVCache
+from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS, PagedKVCache,
+                                              decode_route)
+from paddle_tpu_torch.kernels.paged_attention import decode_kernel_takes
 
 
 @pytest.fixture(scope="module")
@@ -58,13 +60,27 @@ def _drive(engine):
     return [list(map(int, out[r])) for r in rids]
 
 
-@pytest.mark.parametrize("block_size,max_seq_len,num_blocks,route", [
-    (8, 64, None, "kernel"),   # 8 pages: per-page route
-    (4, 64, None, "split"),    # 16 pages: split route
+def _card_routes(eng, cfg, dtype):
+    """(the decode route this engine's own query dtype and pools take on
+    the card, the route bf16 tensors of its table width would take):
+    ``decode_kernel_takes`` on a query of ``dtype`` over the engine's
+    layer-0 pools decides between the tensor-core kernels and ``simt``."""
+    c = eng.cache
+    q = torch.empty(1, cfg.num_heads, c.k_pools[0].shape[-1], dtype=dtype)
+    takes = decode_kernel_takes(q, c.k_pools[0], c.v_pools[0],
+                                c.k_scales[0] if c.quantized else None)
+    pages = c.block_tables.shape[1]
+    return (decode_route("auto", "cuda", takes, pages),
+            decode_route("auto", "cuda", True, pages))
+
+
+@pytest.mark.parametrize("block_size,max_seq_len,num_blocks,bf16_route", [
+    (8, 64, None, "kernel"),   # 8 pages: per-page route for bf16
+    (4, 64, None, "split"),    # 16 pages: split route for bf16
     (4, 64, 12, "split"),      # 11 usable blocks: forces preemption
 ])
 def test_engine_tokens_identical(models, block_size, max_seq_len,
-                                 num_blocks, route):
+                                 num_blocks, bf16_route):
     jm, tm = models
     kw = dict(max_batch=3, block_size=block_size, max_seq_len=max_seq_len,
               num_blocks=num_blocks, temperature=0.0)
@@ -74,7 +90,11 @@ def test_engine_tokens_identical(models, block_size, max_seq_len,
     out = _drive(eng)
     assert out == ref
     moved = {k for k in ROUTE_COUNTS if ROUTE_COUNTS[k] != before[k]}
-    assert moved == {route, "plain"}
+    assert moved == {"plain"}  # one count a CPU call
+    # on the card this float32 engine takes the CUDA cores' kernel; a bf16
+    # one of the same table width the tensor-core kernel named
+    assert _card_routes(eng, tm.config, torch.float32) == ("simt",
+                                                           bf16_route)
     if num_blocks is not None:
         assert eng.preemptions > 0
     assert not eng.running and not eng.waiting

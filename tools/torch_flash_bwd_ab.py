@@ -11,7 +11,7 @@ first and last (old, new, new, old) so drift on the card shows. ``DIR@C``
 runs DIR with B3's cluster size forced to C (capped by the GQA group) in
 place of ``dkv_cluster``'s choice, where the checkout has one. A run
 builds that checkout's ``flash_fwd`` and ``flash_bwd`` sources and, at
-seven shapes, times ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` as
+nine shapes, times ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` as
 CUDA events around the wrapper (``ms``: where the wrapper's host work
 outlasts the kernel, the host), as CUDA-graph replays (``graph_ms``: the
 device alone) and as the wrapper's host time per call, back to back
@@ -21,7 +21,8 @@ device alone) and as the wrapper's host time per call, back to back
   path);
 - Llama: Llama-3-8B, B 1, S 2048, Hq 32, Hk 8, D 128, causal;
 - D256: ``chip_smoke.py``'s head-dim-256 case, B 1, S 2048, Hq 16, Hk 4,
-  D 256, causal (Gemma's head width);
+  D 256, causal (Gemma's head width); D384 and D512 the same above 256
+  (the streamed kernels);
 - V1, V2, V3, V4: ``chip_smoke.py``'s packed varlen cases (segment
   branch; V4 at Gemma-2 9B's Hq 16, Hk 8, D 256).
 
@@ -61,7 +62,11 @@ def cases(torch, cs):
                                     cs.GPT_H, cs.GPT_D),
                                    ("Llama", 1, 2048, cs.HQ, cs.HK, cs.D),
                                    ("D256", cs.WIDE_B, 2048, cs.WIDE_HQ,
-                                    cs.WIDE_HK, 256)):
+                                    cs.WIDE_HK, 256),
+                                   ("D384", cs.WIDE_B, 2048, cs.WIDE_HQ,
+                                    cs.WIDE_HK, 384),
+                                   ("D512", cs.WIDE_B, 2048, cs.WIDE_HQ,
+                                    cs.WIDE_HK, 512)):
         g = torch.Generator(device=cs.DEVICE).manual_seed(2000 + S + dh)
         mk = lambda h: torch.randn(B, S, h, dh, generator=g,
                                    device=cs.DEVICE, dtype=torch.bfloat16)

@@ -16,7 +16,10 @@ back to back (``host_ms``):
 - GPT: GPT-2 medium, B 8, S 1024, H 16, D 64, causal (dense, control);
 - Llama: Llama-3-8B's prefill, B 1, S 1024, Hq 32, Hk 8, D 128, causal
   (dense, control);
-- V1, V2, V3: ``chip_smoke.py``'s packed varlen cases (segment branch).
+- D256, D256-S197: ``chip_smoke.py``'s head-dim-256 cases, B 1, Hq 16,
+  Hk 4, D 256, S 2048 causal and S 197 non-causal (Gemma's head width);
+- V1, V2, V3, V4: ``chip_smoke.py``'s packed varlen cases (segment
+  branch; V4 at Gemma-2 9B's Hq 16, Hk 8, D 256).
 
 Each shape also gets the forward's error against
 ``flash_attention_plain`` (per query row: max |kernel - plain| / max
@@ -51,25 +54,29 @@ def _chip_smoke():
 
 
 def cases(torch, cs):
-    """(name, q, k, v, segment kwargs, visible pairs, id bytes, library
-    forward, segment ids or None) of each shape."""
-    for name, B, S, hq, hk, dh in (("GPT", cs.GPT_B, cs.GPT_S, cs.GPT_H,
-                                    cs.GPT_H, cs.GPT_D),
-                                   ("Llama", 1, 1024, cs.HQ, cs.HK, cs.D)):
+    """(name, causal, q, k, v, segment kwargs, visible pairs, id bytes,
+    library forward, segment ids or None) of each shape."""
+    for name, B, S, hq, hk, dh, causal in (
+            ("GPT", cs.GPT_B, cs.GPT_S, cs.GPT_H, cs.GPT_H, cs.GPT_D, True),
+            ("Llama", 1, 1024, cs.HQ, cs.HK, cs.D, True),
+            ("D256", cs.WIDE_B, 2048, cs.WIDE_HQ, cs.WIDE_HK, 256, True),
+            ("D256-S197", cs.WIDE_B, 197, cs.WIDE_HQ, cs.WIDE_HK, 256,
+             False)):
         g = torch.Generator(device=cs.DEVICE).manual_seed(1000 + S + dh)
         mk = lambda h: torch.randn(B, S, h, dh, generator=g,
                                    device=cs.DEVICE, dtype=torch.bfloat16)
         q, k, v = mk(hq), mk(hk), mk(hk)
         lib = cs.sdpa_library(torch, *(t.transpose(1, 2) for t in (q, k, v)),
-                              is_causal=True)
-        yield name, q, k, v, {}, B * S * (S + 1) // 2, 0, lib, None
+                              is_causal=causal)
+        pairs = B * (S * (S + 1) // 2 if causal else S * S)
+        yield name, causal, q, k, v, {}, pairs, 0, lib, None
     for name, case in cs.varlen_cases(torch):
         seg = case["seg"]
         kw = dict(zip(("q_segment_ids", "kv_segment_ids", "q_positions",
                        "kv_positions"), seg), scale=case["scale"])
         _, lib, _ = cs.varlen_library(torch, case, case["q"], case["k"],
                                       case["v"], case["do"])
-        yield (name, case["q"], case["k"], case["v"], kw,
+        yield (name, True, case["q"], case["k"], case["v"], kw,
                cs.visible_pairs(torch, seg, True),
                sum(x.numel() for x in seg) * 4, lib, seg)
 
@@ -88,10 +95,11 @@ def one(root):
     _build.build_all(["flash_fwd"])
     timer = cs.Timer(torch)
     out = {"root": root}
-    for name, q, k, v, kw, pairs, idb, lib, seg in cases(torch, cs):
-        fwd = lambda: fa.flash_fwd_cuda(q, k, v, True, **kw)
+    for name, causal, q, k, v, kw, pairs, idb, lib, seg in cases(torch,
+                                                                   cs):
+        fwd = lambda: fa.flash_fwd_cuda(q, k, v, causal, **kw)
         o, lse = fwd()
-        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, True,
+        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
                                                   return_lse=True, **kw)
         torch.cuda.synchronize()
         B, Sq, Hq, dh = q.shape
