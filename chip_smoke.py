@@ -214,11 +214,16 @@
    do not take, each sent to a route decided before any launch and
    counted there, counts zeroed before and read after.
    ``FlashAttention`` forward + backward at the llama_train shape in
-   float32 and fp16 (route ``simt``: ``flash_simt.cu``'s forward, dQ and
-   dK/dV once each, against the plain pair within SIMT_RTOL /
-   SIMT_BWD_RTOL) and in bf16 at Hq 24 / Hk 8, G 3 (route ``expanded``:
-   B1-B3 once each on K and V expanded 3 times, within B1-B3's limits),
-   read from ``kernels.flash_attention.ROUTE_COUNTS``;
+   float32 and fp16 (forward route ``simt``: ``flash_simt.cu``'s forward;
+   backward route ``split``: four split passes, then B2 and B3 on three
+   bf16 pieces of every operand, or ``f16``: B2 and B3 on f16 wgmma), in
+   float32 at G 3, D 80 (``split`` on K, V expanded 3 times, D padded to
+   128), in float32 and fp16 at D 160, B 1, S 1024, Hq 16, Hk 4 (``simt``
+   both ways: ``flash_simt.cu``'s forward, dQ and dK/dV), all against the
+   plain pair within SIMT_RTOL / SIMT_BWD_RTOL, and in bf16 at Hq 24 / Hk
+   8, G 3 (route ``expanded``: B1-B3 once each on K and V expanded 3
+   times, within B1-B3's limits), read from
+   ``kernels.flash_attention.ROUTE_COUNTS`` and ``BWD_ROUTE_COUNTS``;
    ``paged_decode_attention`` at D 256 (G 2), D 80, G 16 and with float32
    and fp16 queries and pools, bf16 and int8 pools (``simt`` in the decode
    ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cu``, against the
@@ -230,9 +235,20 @@
    float32 cache and again converted to int8 weights with an int8 cache:
    greedy tokens equal to the same model's with every route forced
    plain, and only the CUDA cores' kernels launched (each at least once).
-   Then each of those six kernels is timed at one shape in float32
-   against its plain version, one PyTorch call and its bound at the
-   float32 peak outside the tensor cores (67 TFLOP/s).
+   Then each of those kernels is timed at one shape in float32 against
+   its plain version, one PyTorch call and its bound at the float32 peak
+   outside the tensor cores (67 TFLOP/s); the flash kernels at the
+   llama_train shape: B2/B3 on three bf16 pieces beside the CUDA cores'
+   dQ and dK/dV, bounds at 165 TFLOP/s (six bf16 products a float32 one)
+   and at 67, the split pass (bit-equal to its plain version), the whole
+   float32 backward call (Delta + split + dQ + dK/dV) beside SDPA's
+   float32 backward, and B2/B3 in fp16 beside the bf16 pair in the same
+   run, SDPA's fp16 backward and bounds at 989 TFLOP/s.
+5h. ``gpt_f32`` (after ``faults``): GPT at the port's default float32,
+   GPT-2 medium width cut to 2 layers, batch 8 x 1024, AdamW 3e-4, clip
+   1.0, 2 + 3 ``TrainStep``s: finite, falling losses; per layer a step
+   one ``flash_simt.cu`` forward, one float32 dQ and one dK/dV on the
+   tensor cores and four split passes, no other kernel; step ms.
 5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
    bf16: each of the 14 optimizers takes 3 steps from the same weights
    under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
@@ -246,9 +262,11 @@
    cases (``d256``) beside, the segment entries B1-seg, B2-seg, B3-seg
    at V1, every case beside, and B1-xl, B2-xl, B3-xl: the kernels above
    head dim 256 at D 384, S 2048, every case and the D 288 path beside,
-   and the CUDA cores' kernels of the faults phase: flash_simt_fwd,
-   flash_simt_dq, flash_simt_dkv, paged_decode_simt(_q) and
-   quant_matmul_simt) and, last, the
+   and the kernels of the faults phase: flash_simt_fwd, flash_simt_dq,
+   flash_simt_dkv, flash_bwd_dq_f32, flash_bwd_dkv_f32 (B2/B3 on three
+   bf16 pieces), flash_bwd_dq_f16, flash_bwd_dkv_f16, split_bf16x3,
+   paged_decode_simt(_q) and quant_matmul_simt, their launches from the
+   faults paths and ``gpt_f32``) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -316,6 +334,12 @@ BWD_RTOL = 2e-2
 SIMT_RTOL = {"float32": 1e-4, "float16": 5e-3, "bfloat16": DECODE_RTOL}
 SIMT_BWD_RTOL = {"float32": 2e-4, "float16": 1e-2}
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
+# float32 on the tensor cores as three bf16 pieces: six bf16 products for
+# each float32 product (B2, B3 at D 64/128 in float32)
+F32_SPLIT_FLOPS_PER_S = BF16_FLOPS_PER_S / 6
+# the float32 GPT phase: GPT-2 medium width at the port's default float32,
+# a reduced depth, batch 8 x 1024, AdamW, 2 + 3 steps
+F32_GPT_LAYERS, F32_GPT_TIMED = 2, 3
 # GPT-2 medium, the training phase's shapes
 GPT_B, GPT_S, GPT_H, GPT_D, GPT_LAYERS = 8, 1024, 16, 64, 24
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 2
@@ -901,7 +925,10 @@ def xl_path_phase(torch):
 # dividing 64: B1-B3 on expanded K and V)
 # ---------------------------------------------------------------------------
 
-# the CUDA cores' kernels: (name, source, the Pallas kernel it replaces)
+# the kernels of the dtypes and shapes the bf16 tensor-core kernels do
+# not take: the CUDA cores' and, for float32 and fp16 up to head dim 128,
+# B2/B3's other instantiations (name, source, the Pallas kernel it
+# replaces)
 SIMT_KERNELS = (
     ("flash_simt_fwd", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
@@ -909,6 +936,17 @@ SIMT_KERNELS = (
      "paddle_tpu/kernels/pallas/flash_attention.py:358"),
     ("flash_simt_dkv", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:408"),
+    ("flash_bwd_dq_f32", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
+    ("flash_bwd_dkv_f32", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:408"),
+    ("flash_bwd_dq_f16", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
+    ("flash_bwd_dkv_f16", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:408"),
+    # the float32 operands of the two above, split into bf16 pieces
+    ("split_bf16x3", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:358"),
     ("paged_decode_simt",
      "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cu",
      "paddle_tpu/kernels/pallas/paged_attention.py:133"),
@@ -926,30 +964,46 @@ def _route_deltas(before, after):
 
 
 def _route_state():
-    """(flash routes, decode routes, kernel launch counts, B7 routes) as
-    plain dicts."""
-    from paddle_tpu_torch.kernels.flash_attention import ROUTE_COUNTS
+    """(flash routes, decode routes, kernel launch counts, B7 routes, flash
+    backward routes) as plain dicts."""
+    from paddle_tpu_torch.kernels.flash_attention import (BWD_ROUTE_COUNTS,
+                                                          ROUTE_COUNTS)
     from paddle_tpu_torch.kernels.quant_matmul import ROUTE_COUNTS as QMM
     counts, decode = read_counts()
-    return dict(ROUTE_COUNTS), decode, counts, dict(QMM)
+    return dict(ROUTE_COUNTS), decode, counts, dict(QMM), \
+        dict(BWD_ROUTE_COUNTS)
 
 
 def _dt(dtype):
     return str(dtype).split(".")[-1]
 
 
-def fault_flash(torch, dtype, hq, hk, route):
-    """``FlashAttention`` forward + backward at the llama_train shape (B 2,
-    S 2048, D 128) in ``dtype`` over hq / hk heads: one count of
-    ``route`` and its three kernels launched once each, no other
-    (``flash_simt.cu`` on ``simt``, B1-B3 on K and V expanded 3 times on
-    ``expanded``), against the plain pair on the same inputs within those
-    kernels' limits."""
+# the launches of one FlashAttention forward + backward by (dtype, the
+# backward's route): float32 and fp16 up to head dim 128 on the tensor-core
+# B2/B3 (float32's four operands split first), above it on the CUDA cores;
+# bf16 at a group not dividing 64 on B1-B3 over expanded K and V
+FAULT_FLASH_LAUNCHES = {
+    "split": {"flash_simt_fwd": 1, "split_bf16x3": 4,
+              "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1},
+    "f16": {"flash_simt_fwd": 1, "flash_bwd_dq_f16": 1,
+            "flash_bwd_dkv_f16": 1},
+    "simt": {"flash_simt_fwd": 1, "flash_simt_dq": 1, "flash_simt_dkv": 1},
+    "expanded": {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+}
+
+
+def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
+    """``FlashAttention`` forward + backward (at the llama_train shape
+    unless given) in ``dtype`` over hq / hk heads: one count of the
+    forward's route (``simt`` for float32 and fp16) and one of the
+    backward's, ``route``, and the kernels of FAULT_FLASH_LAUNCHES[route]
+    launched that many times, no other, against the plain pair on the
+    same inputs within those kernels' limits."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain,
         scaled_dot_product_attention)
-    g = torch.Generator(device=DEVICE).manual_seed(4600 + hq)
-    mk = lambda h: torch.randn(LT_B, LT_S, h, D, generator=g, device=DEVICE,
+    g = torch.Generator(device=DEVICE).manual_seed(4600 + hq + dh - D)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
                                dtype=dtype)
     q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
     ts = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -959,6 +1013,7 @@ def fault_flash(torch, dtype, hq, hk, route):
     torch.cuda.synchronize()
     after = _route_state()
     routes = _route_deltas(before[0], after[0])
+    bwd_routes = _route_deltas(before[4], after[4])
     launches = _route_deltas(before[2], after[2])
     o_ref, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
     refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=True)
@@ -966,22 +1021,22 @@ def fault_flash(torch, dtype, hq, hk, route):
     err_o = (out.float() - o_ref.float()).abs().max().item()
     rel = {n: rel_err(t.grad, r)[0]
            for n, t, r in zip(("dq", "dk", "dv"), ts, refs)}
-    rec = dict(dtype=_dt(dtype), B=LT_B, S=LT_S, Hq=hq, Hk=hk, D=D,
-               routes=routes, launches=launches, max_abs_err=err_o,
-               row_rel_err=row_rel_err(out, o_ref), grad_rel_err=rel)
+    rec = dict(dtype=_dt(dtype), B=B, S=S, Hq=hq, Hk=hk, D=dh,
+               routes=routes, bwd_routes=bwd_routes, launches=launches,
+               max_abs_err=err_o, row_rel_err=row_rel_err(out, o_ref),
+               grad_rel_err=rel)
     print(f"fault flash {rec}", flush=True)
-    names = ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv") \
-        if route == "simt" else ("flash_fwd", "flash_bwd_dq",
-                                 "flash_bwd_dkv")
-    if routes != {route: 1} or launches != dict.fromkeys(names, 1):
-        fail(f"FlashAttention in {dtype} at {hq}/{hk} heads did not take "
-             f"the {route} route once: {rec}")
-    if route == "simt":
-        ok = rec["row_rel_err"] <= SIMT_RTOL[_dt(dtype)] and \
-            max(rel.values()) <= SIMT_BWD_RTOL[_dt(dtype)]
-    else:
+    fwd = "expanded" if route == "expanded" else "simt"
+    if routes != {fwd: 1} or bwd_routes != {route: 1} or \
+            launches != FAULT_FLASH_LAUNCHES[route]:
+        fail(f"FlashAttention in {dtype} at {hq}/{hk} heads, D {dh} did "
+             f"not take the {fwd} / {route} routes once: {rec}")
+    if route == "expanded":
         ok = err_o <= O_ATOL and rec["row_rel_err"] <= ROW_RTOL and \
             max(rel.values()) <= BWD_RTOL
+    else:
+        ok = rec["row_rel_err"] <= SIMT_RTOL[_dt(dtype)] and \
+            max(rel.values()) <= SIMT_BWD_RTOL[_dt(dtype)]
     if not (ok and bool(torch.isfinite(out.float()).all())):
         fail(f"the {route} route disagrees with the plain pair: {rec}")
     return rec
@@ -1160,30 +1215,77 @@ def fault_llama(torch):
     return recs
 
 
+def _bwd_recs(name, dtype, shape, errs, times, plain_ms, library_ms,
+              library, bounds, limit, **extra):
+    """The records of one backward pair (dQ, dK/dV) from its errors
+    {dq, dk, dv: (rel, abs)}, times {kernel: (events, graph)} and bounds
+    {kernel: (ms, by)}; fails when an error passes ``limit``."""
+    recs = {}
+    for kernel, keys in zip(name, (("dq",), ("dk", "dv"))):
+        rel = max(errs[k][0] for k in keys)
+        diff = max(errs[k][1] for k in keys)
+        ms, graph_ms = times[kernel]
+        bms, by = bounds[kernel]
+        recs[kernel] = dict(shape, dtype=dtype, max_abs_err=diff,
+                            rel_err=rel, ms=ms, graph_ms=graph_ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            library=library, bound_ms=bms, bound_by=by,
+                            share_of_bound=bms / ms,
+                            **{k: v[kernel] for k, v in extra.items()})
+        print(f"{kernel} {dtype} {shape}: err {diff:.3e} (rel {rel:.3e}) | "
+              f"kernel {ms:.4f} ms (graph {graph_ms:.4f}) plain (whole "
+              f"backward) {plain_ms:.4f} ms {library} {library_ms:.4f} ms "
+              f"bound {bms:.4f} ms ({by}; {bms / ms:.1%} of it)",
+              flush=True)
+        if not rel <= limit:
+            fail(f"{kernel} disagrees with the plain pair: {recs[kernel]}")
+    return recs
+
+
 def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
-    """``flash_simt.cu``'s three kernels in float32 at the llama_train
-    shape, causal, against the plain pair: errors, times (CUDA events; the
-    backward kernels on the plain pair's O and LSE), the plain pair's
-    (the whole backward for both backward kernels) and one float32 SDPA
-    call's forward and backward (the library yardstick; the port never
-    calls it), bounds at the float32 peak outside the tensor cores."""
+    """The float32 and fp16 flash kernels at the llama_train shape,
+    causal, against the plain pair (the backward kernels on the plain
+    pair's O and LSE): ``flash_simt.cu``'s forward and, in float32, its dQ
+    and dK/dV on the CUDA cores (which now serve head dims above 128
+    only); the tensor-core B2/B3 in float32 as three bf16 pieces (the
+    split pass and the whole backward call, Delta + split + dQ + dK/dV,
+    timed too) and in fp16 (beside the bf16 pair on the same shape, in
+    this run). Errors, times (CUDA events and graph replays), the plain
+    pair's (the whole backward for every backward kernel), one SDPA call
+    forward or backward in the same dtype (the library yardstick; the
+    port never calls it) and bounds: float32 at the CUDA cores' 67
+    TFLOP/s and, on the tensor cores, at 165 (six bf16 products a
+    float32 one); fp16 at 989."""
     from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_plain, flash_delta,
-        flash_simt_dkv_cuda, flash_simt_dq_cuda, flash_simt_fwd_cuda)
+        flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv_cuda,
+        flash_bwd_dkv_x3_cuda, flash_bwd_dq_cuda, flash_bwd_dq_x3_cuda,
+        flash_delta, flash_simt_dkv_cuda, flash_simt_dq_cuda,
+        flash_simt_fwd_cuda, flash_split_bwd_cuda, split_bf16x3_cuda,
+        split_bf16x3_plain)
     g = torch.Generator(device=DEVICE).manual_seed(4900)
     mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE)
     q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    shape = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=True)
+    sc = 1.0 / math.sqrt(dh)
     o, _ = flash_simt_fwd_cuda(q, k, v, causal=True)
     o_ref, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
     delta = flash_delta(o_ref, do)
+    pieces = [split_bf16x3_cuda(t) for t in (q, k, v, do)]
+    split_ok = torch.equal(pieces[0], split_bf16x3_plain(q))
     calls = {
         "flash_simt_fwd": lambda: flash_simt_fwd_cuda(q, k, v, causal=True),
         "flash_simt_dq": lambda: flash_simt_dq_cuda(q, k, v, do, lse, delta,
                                                     causal=True),
         "flash_simt_dkv": lambda: flash_simt_dkv_cuda(q, k, v, do, lse,
-                                                      delta, causal=True)}
+                                                      delta, causal=True),
+        "flash_bwd_dq_f32": lambda: flash_bwd_dq_x3_cuda(
+            *pieces, lse, delta, causal=True, scale=sc),
+        "flash_bwd_dkv_f32": lambda: flash_bwd_dkv_x3_cuda(
+            *pieces, lse, delta, causal=True, scale=sc)}
     dq = calls["flash_simt_dq"]()
     dk, dv = calls["flash_simt_dkv"]()
+    dq3 = calls["flash_bwd_dq_f32"]()
+    dk3, dv3 = calls["flash_bwd_dkv_f32"]()
     refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=True)
     torch.cuda.synchronize()
     errs = {"flash_simt_fwd": (row_rel_err(o, o_ref),
@@ -1191,7 +1293,9 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
             "flash_simt_dq": rel_err(dq, refs[0]),
             "flash_simt_dkv": max(rel_err(dk, refs[1]),
                                   rel_err(dv, refs[2]))}
-    del o, dq, dk, dv, refs
+    errs32 = dict(zip(("dq", "dk", "dv"), (rel_err(x, r) for x, r in zip(
+        (dq3, dk3, dv3), refs))))
+    del o, dq, dk, dv, dq3, dk3, dv3, refs
     plain = {"fwd": timer(lambda: flash_attention_plain(
         q, k, v, causal=True, return_lse=True), iters=10),
         "bwd": timer(lambda: flash_attention_bwd_plain(
@@ -1210,15 +1314,15 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
               "flash_simt_dkv": bound(2 * qb + 4 * kvb + 2 * rows, 4 * fl,
                                       F32_FLOPS_PER_S)}
     recs = {}
-    for name, fn in calls.items():
+    for name in ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv"):
         side = "fwd" if name == "flash_simt_fwd" else "bwd"
         rel, diff = errs[name]
         limit = SIMT_RTOL if side == "fwd" else SIMT_BWD_RTOL
-        ms = timer(fn, iters=10)
+        ms = timer(calls[name], iters=10)
         bms, by = bounds[name]
-        recs[name] = dict(dtype="float32", B=B, S=S, Hq=hq, Hk=hk, D=dh,
-                          causal=True, max_abs_err=diff, rel_err=rel, ms=ms,
-                          plain_ms=plain[side], library_ms=library[side],
+        recs[name] = dict(shape, dtype="float32", max_abs_err=diff,
+                          rel_err=rel, ms=ms, plain_ms=plain[side],
+                          library_ms=library[side],
                           library="F.scaled_dot_product_attention, float32",
                           bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
         print(f"{name} float32 B={B} S={S} Hq={hq} Hk={hk} D={dh} causal: "
@@ -1227,6 +1331,98 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
               f"{bms:.4f} ms ({by}, float32 peak)", flush=True)
         if rel > limit["float32"]:
             fail(f"{name} disagrees with the plain pair: {recs[name]}")
+
+    # float32 on the tensor cores: the pieces are 6 bytes an element
+    pair = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+    pb, pkv = q.numel() * 6, k.numel() * 6
+    times = {n: (timer(calls[n], iters=10), timer.graph(calls[n], iters=10))
+             for n in pair}
+    recs.update(_bwd_recs(
+        pair, "float32", shape, errs32, times, plain["bwd"], library["bwd"],
+        "F.scaled_dot_product_attention backward, float32 (B2 + B3)",
+        {pair[0]: bound(2 * pb + 2 * pkv + qb + 2 * rows, 3 * fl,
+                        F32_SPLIT_FLOPS_PER_S),
+         pair[1]: bound(2 * pb + 2 * pkv + 2 * kvb + 2 * rows, 4 * fl,
+                        F32_SPLIT_FLOPS_PER_S)},
+        SIMT_BWD_RTOL["float32"],
+        bound_cuda_cores_ms={pair[0]: bounds["flash_simt_dq"][0],
+                             pair[1]: bounds["flash_simt_dkv"][0]},
+        cuda_cores_ms={pair[0]: recs["flash_simt_dq"]["ms"],
+                       pair[1]: recs["flash_simt_dkv"]["ms"]}))
+    split_ms = timer(lambda: split_bf16x3_cuda(q), iters=10)
+    split_four_ms = timer(lambda: [split_bf16x3_cuda(t)
+                                   for t in (q, k, v, do)], iters=10)
+    bms, by = bound(q.numel() * 10, 0)
+    recs["split_bf16x3"] = dict(
+        shape, dtype="float32", operand="q", max_abs_err=0.0,
+        bit_equal_to_plain=split_ok, ms=split_ms, graph_ms=timer.graph(
+            lambda: split_bf16x3_cuda(q), iters=10),
+        four_ms=split_four_ms,
+        plain_ms=timer(lambda: split_bf16x3_plain(q), iters=10),
+        library_ms=None, bound_ms=bms, bound_by=by, share_of_bound=bms /
+        split_ms)
+    print(f"split_bf16x3 q {tuple(q.shape)}: bit-equal to the plain "
+          f"version {split_ok} | kernel {split_ms:.4f} ms, q k v dO "
+          f"{split_four_ms:.4f} ms, plain "
+          f"{recs['split_bf16x3']['plain_ms']:.4f} ms bound {bms:.4f} ms "
+          f"({by})", flush=True)
+    if not split_ok:
+        fail("split_bf16x3 differs from split_bf16x3_plain")
+    whole_ms = timer(lambda: flash_split_bwd_cuda(
+        q, k, v, o_ref, lse, do, True, scale=sc), iters=10)
+    whole = dict(ms=whole_ms, sdpa_backward_ms=library["bwd"],
+                 cuda_cores_ms=recs["flash_simt_dq"]["ms"] +
+                 recs["flash_simt_dkv"]["ms"],
+                 faster_than_sdpa=whole_ms < library["bwd"])
+    print(f"float32 backward call (Delta + split + dQ + dK/dV): "
+          f"{whole_ms:.4f} ms, SDPA float32 backward {library['bwd']:.4f} "
+          f"ms, the CUDA cores' dQ + dK/dV {whole['cuda_cores_ms']:.4f} ms",
+          flush=True)
+    del pieces, o_ref, lse, delta
+
+    # fp16 on f16 wgmma, beside bf16 on the same shape
+    h = {dt: [t.to(dt) for t in (q, k, v, do)]
+         for dt in (torch.float16, torch.bfloat16)}
+    del q, k, v, do
+    q, k, v, do = h[torch.float16]
+    o, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = flash_delta(o, do)
+    pair = ("flash_bwd_dq_f16", "flash_bwd_dkv_f16")
+    calls = {pair[0]: lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                causal=True),
+             pair[1]: lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 causal=True)}
+    outs = (calls[pair[0]](),) + calls[pair[1]]()
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs16 = dict(zip(("dq", "dk", "dv"), (rel_err(x, r) for x, r in zip(
+        outs, refs))))
+    del outs, refs
+    times = {n: (timer(calls[n]), timer.graph(calls[n])) for n in pair}
+    qb, kvb = q.numel() * 2, k.numel() * 2
+    bf = h[torch.bfloat16]
+    bf_calls = (lambda: flash_bwd_dq_cuda(*bf, lse, delta, causal=True),
+                lambda: flash_bwd_dkv_cuda(*bf, lse, delta, causal=True))
+    bf16 = {n: timer(c) for n, c in zip(pair, bf_calls)}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib16 = timer(sdpa_backward_library(torch, qt, kt, vt,
+                                        do.transpose(1, 2), True), iters=10)
+    recs.update(_bwd_recs(
+        pair, "float16", shape, errs16, times,
+        timer(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=True), iters=10),
+        lib16, "F.scaled_dot_product_attention backward, float16 (B2 + B3)",
+        {pair[0]: bound(3 * qb + 2 * kvb + 2 * rows, 3 * fl),
+         pair[1]: bound(2 * qb + 4 * kvb + 2 * rows, 4 * fl)},
+        SIMT_BWD_RTOL["float16"], bf16_ms=bf16))
+    f16_pair = times[pair[0]][0] + times[pair[1]][0]
+    bf16_pair = bf16[pair[0]] + bf16[pair[1]]
+    whole.update(f16_pair_ms=f16_pair, bf16_pair_ms=bf16_pair,
+                 f16_over_bf16=f16_pair / bf16_pair)
+    print(f"fp16 pair {f16_pair:.4f} ms against the bf16 pair "
+          f"{bf16_pair:.4f} ms in this run ({f16_pair / bf16_pair:.3f}x)",
+          flush=True)
+    recs["whole"] = whole
     return recs
 
 
@@ -1332,8 +1528,13 @@ def faults_phase(torch):
     CUDA cores' kernels' launches on these paths); then each of those
     kernels is timed at one shape (``timed``), launches not counted."""
     zero_counts()
-    flash = [fault_flash(torch, torch.float32, HQ, HK, "simt"),
-             fault_flash(torch, torch.float16, HQ, HK, "simt"),
+    flash = [fault_flash(torch, torch.float32, HQ, HK, "split"),
+             fault_flash(torch, torch.float16, HQ, HK, "f16"),
+             fault_flash(torch, torch.float32, 24, HK, "split", dh=80),
+             fault_flash(torch, torch.float32, WIDE_HQ, WIDE_HK, "simt",
+                         B=1, S=1024, dh=160),
+             fault_flash(torch, torch.float16, WIDE_HQ, WIDE_HK, "simt",
+                         B=1, S=1024, dh=160),
              fault_flash(torch, torch.bfloat16, 24, HK, "expanded")]
     decode = [fault_decode(torch, hq, hk, dh, getattr(torch, dt),
                            quantized, pages)
@@ -1359,20 +1560,25 @@ def faults_phase(torch):
                 timed=timed)
 
 
-def simt_records(faults):
-    """The ``kernels`` entries of the CUDA cores' kernels: launches from
-    the faults paths, times and bounds from their timed shapes."""
+def simt_records(faults, gpt32):
+    """The ``kernels`` entries of SIMT_KERNELS: launches from the faults
+    paths and the float32 GPT run, times and bounds from their timed
+    shapes."""
     records = []
     for name, source, replaces in SIMT_KERNELS:
         r = faults["timed"][name]
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=faults["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=faults["launches"][name] + gpt32["launches"][name],
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], timed_at={k: r[k] for k in r if k in (
                 "dtype", "pools", "B", "S", "Hq", "Hk", "D", "M", "N", "K",
-                "mbps", "causal")}))
+                "mbps", "causal")},
+            **{k: r[k] for k in ("graph_ms", "share_of_bound", "library",
+                                 "bound_cuda_cores_ms", "cuda_cores_ms",
+                                 "bf16_ms", "four_ms") if k in r}))
     return records
 
 
@@ -2092,9 +2298,10 @@ def _counters():
     from paddle_tpu_torch.amp.fp8 import fp8_gemm
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda,
-        flash_simt_dkv_cuda, flash_simt_dq_cuda, flash_simt_fwd_cuda,
-        sdpa_masked_plain)
+        flash_bwd_dkv_cuda, flash_bwd_dkv_x3_cuda, flash_bwd_dq_cuda,
+        flash_bwd_dq_x3_cuda, flash_fwd_cuda, flash_simt_dkv_cuda,
+        flash_simt_dq_cuda, flash_simt_fwd_cuda, sdpa_masked_plain,
+        split_bf16x3_cuda)
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel,
         paged_decode_attention_simt)
@@ -2119,6 +2326,11 @@ def _counters():
             "flash_simt_fwd": (flash_simt_fwd_cuda, "launches"),
             "flash_simt_dq": (flash_simt_dq_cuda, "launches"),
             "flash_simt_dkv": (flash_simt_dkv_cuda, "launches"),
+            "flash_bwd_dq_f32": (flash_bwd_dq_x3_cuda, "launches"),
+            "flash_bwd_dkv_f32": (flash_bwd_dkv_x3_cuda, "launches"),
+            "flash_bwd_dq_f16": (flash_bwd_dq_cuda, "f16_launches"),
+            "flash_bwd_dkv_f16": (flash_bwd_dkv_cuda, "f16_launches"),
+            "split_bf16x3": (split_bf16x3_cuda, "launches"),
             "paged_decode_simt": (paged_decode_attention_simt, "launches"),
             "paged_decode_simt_q": (paged_decode_attention_simt,
                                     "launches_q"),
@@ -3831,9 +4043,9 @@ def init_digest(model, ids):
             int(ids.sum())]
 
 
-def run_steps(torch, model, batch, step_fn, lr=3e-4):
+def run_steps(torch, model, batch, step_fn, lr=3e-4, timed=TIMED_STEPS):
     """AdamW ``lr``, clip 1.0, ``TrainStep`` on one batch: WARMUP_STEPS +
-    TIMED_STEPS steps, counts zeroed just before and read just after.
+    ``timed`` steps, counts zeroed just before and read just after.
     Returns (losses, seconds of the timed steps, launches, step, opt)."""
     from paddle_tpu_torch import AdamW, TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
@@ -3845,7 +4057,7 @@ def run_steps(torch, model, batch, step_fn, lr=3e-4):
     losses = [step(*batch) for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         losses.append(step(*batch))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
@@ -3927,6 +4139,55 @@ def train_phase(torch):
     del step, opt, model
     gc.collect()
     torch.cuda.empty_cache()
+    return rec
+
+
+def gpt_f32_phase(torch):
+    """GPT at the port's default float32 (``GPT(cfg)`` without a dtype), GPT-2
+    medium width cut to F32_GPT_LAYERS layers (a reduced depth: the path,
+    not the model, is under test), batch 8 x 1024, AdamW 3e-4, clip 1.0,
+    ``TrainStep``, 2 + F32_GPT_TIMED steps. Attention runs the float32
+    routes: ``flash_simt.cu``'s forward and, at head dim 64, the backward
+    on the tensor cores as three bf16 pieces. Gates: finite, falling
+    losses; per layer a step one forward, one dQ and one dK/dV and four
+    splits (q, k, v, dO), no other kernel of the port. Prints step ms."""
+    from paddle_tpu_torch import GPT, GPTConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(GPTConfig.gpt2_medium(),
+                              num_layers=F32_GPT_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = GPT(cfg, device=DEVICE, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (GPT_B, GPT_S), device=DEVICE,
+                        generator=gen)
+    dtypes = {str(p.dtype) for p in model.parameters()}
+    losses, secs, launches, step, opt = run_steps(
+        torch, model, (ids,), lambda m, x: m.loss(x, x),
+        timed=F32_GPT_TIMED)
+    steps = WARMUP_STEPS + F32_GPT_TIMED
+    rec = dict(config="gpt2_medium", layers=F32_GPT_LAYERS,
+               param_dtypes=sorted(dtypes), batch=GPT_B, seq=GPT_S,
+               steps=steps, losses=losses,
+               step_ms=secs / F32_GPT_TIMED * 1e3,
+               tokens_per_s=GPT_B * GPT_S * F32_GPT_TIMED / secs,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches)
+    print(f"gpt_f32: {json.dumps(rec)}", flush=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = F32_GPT_LAYERS * steps
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_simt_fwd=per, flash_bwd_dq_f32=per,
+                flash_bwd_dkv_f32=per, split_bf16x3=4 * per)
+    if dtypes != {"torch.float32"}:
+        fail(f"gpt_f32: the model is not float32: {dtypes}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"gpt_f32: the loss is not finite or did not fall: {losses}")
+    bad = {n: (launches[n], c) for n, c in want.items() if launches[n] != c}
+    if bad:
+        fail(f"gpt_f32: launches (counted, expected) {bad}")
     return rec
 
 
@@ -4789,6 +5050,7 @@ def main():
     phases = kernel_phases(torch)
     xl_path = xl_path_phase(torch)
     faults = faults_phase(torch)
+    gpt32 = gpt_f32_phase(torch)
     varlen = varlen_phase(torch)
     served, b_traffic = slice_phase(torch)
     llama8 = llama_fp8_phase(torch, *b_traffic)
@@ -4876,11 +5138,11 @@ def main():
             library_ms=main_rec["library_ms"]))
     records += seg_records(varlen)
     records += xl_records(phases, xl_path)
-    records += simt_records(faults)
+    records += simt_records(faults, gpt32)
     print("record " + json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s,
         "phases": phases, "xl_path": xl_path, "faults": faults,
-        "varlen": varlen,
+        "gpt_f32": gpt32, "varlen": varlen,
         "served": served,
         "llama_fp8": llama8, "trained": trained, "fp8_trained": fp8_trained,
         "vit_trained": vit, "llama_trained": llama_train,

@@ -49,16 +49,20 @@ SIGNATURES = {
         "flash_fwd_bf16": [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
     },
     "flash_bwd": {
-        # q, k, v, do, lse, delta, dq, q_seg, kv_seg, q_pos, kv_pos, kv
-        # tile bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, (batch, seq,
-        # head) strides of q, k, v, do, stream
-        "flash_bwd_dq_bf16": [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
+        # dtype (0 bf16, 1 float16, 2 float32 as three bf16 pieces), q, k,
+        # v, do, lse, delta, dq, q_seg, kv_seg, q_pos, kv_pos, kv tile
+        # bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, (batch, seq, head)
+        # strides of q, k, v, do, stream
+        "flash_bwd_dq": [_I] + [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
         + [_P],
-        # q, k, v, do, lse, delta, dk, dv, q_seg, kv_seg, q_pos, kv_pos, q
-        # tile bounds, kv tile bounds, B, Sq, Sk, Hq, Hk, D, causal,
-        # cluster size, then as above
-        "flash_bwd_dkv_bf16": [_P] * 14 + [_I] * 8 + [_F] + [_L] * 12
+        # dtype, q, k, v, do, lse, delta, dk, dv, q_seg, kv_seg, q_pos,
+        # kv_pos, q tile bounds, kv tile bounds, B, Sq, Sk, Hq, Hk, D,
+        # causal, cluster size, then as above
+        "flash_bwd_dkv": [_I] + [_P] * 14 + [_I] * 8 + [_F] + [_L] * 12
         + [_P],
+        # x, out, B, S, H, D, padded D, (batch, seq, head) strides of x,
+        # stream
+        "flash_split_bf16x3": [_P] * 2 + [_I] * 5 + [_L] * 3 + [_P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, tables, lens, out, B, Hq, Hk, D, bs, mbps,

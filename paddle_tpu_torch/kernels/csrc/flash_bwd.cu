@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, and dK/dV, bf16 in,
-// f32 accumulate.
+// Flash-attention backward for Hopper (sm_90a): dQ, and dK/dV, bf16 in
+// (at D 64/128 also fp16, and float32 as three bf16 pieces), f32
+// accumulate.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel`
 // (paddle_tpu/kernels/pallas/flash_attention.py:358, :408), the two halves
@@ -101,6 +102,33 @@
 //   with the next one's softmax recompute inside a CTA (the two CTAs that
 //   share an SM overlap each other).
 //
+// fp16 and float32 at D 64/128: the same two kernels, template arguments
+// T (element type) and P (pieces). fp16 (T = __half, P = 1) is the bf16
+// design on wgmma's `.f16` forms, P and dS rounded to fp16 (the Pallas
+// kernels cast P to dO's dtype and dS to q's). float32 (P = 3) takes each
+// operand as three bf16 pieces b0 = bf16(x), b1 = bf16(x - b0), b2 =
+// bf16(x - b0 - b1), whose sum is x (`split_bf16x3_kernel`, a
+// bytes-bound pass the wrapper runs on q, k, v and dO first: 4 bytes read
+// and 6 written an element). Each of S, dP, dQ, dK and dV is the six
+// products of pieces whose indices sum to at most 2, the small ones first
+// and b0 b0 last, into one f32 accumulator (the three dropped are ~2^-24
+// of the product); P and dS are split in registers where the bf16 kernels
+// round them; dQ, dK and dV leave in float32.
+// - What bounds it: the tensor cores at 989 / 6 = 165 TFLOP/s of float32
+//   products, 2.5x the CUDA cores' 67 (flash_simt.cu, which keeps the
+//   head dims above 128).
+// - Why bf16 pieces and not TF32 (3xTF32): wgmma reads an operand from
+//   shared memory transposed (MN-major) only for 16-bit types, and dQ +=
+//   dS K, dK += dS^T Q and dV += P^T dO read K, Q and dO MN-major, so tf32
+//   would need K-major copies of those tiles. The pieces keep the bf16
+//   layout and descriptors as they are.
+// - Three pieces triple every staged tile and A fragment: at P 3 dQ's Q
+//   and dO stay in shared memory and wgmma reads them there (SS), and a
+//   ring stage holds half a tile, 32 keys (dQ) or queries (dK/dV): 192
+//   KiB of shared memory at D 128 (one CTA an SM), 96 KiB at D 64 (two).
+//   The pair class, the masks and the cluster split of dK/dV are the bf16
+//   kernels'.
+//
 // Head dim 256 (`flash_bwd_dq_256_kernel`, `flash_bwd_dkv_256_kernel`;
 // Gemma's heads are 256 wide, and the wrapper pads D 129-255 to it). A
 // warp's 16 rows of one f32 accumulator 256 wide are 128 registers a
@@ -165,6 +193,8 @@
 //
 #include <cooperative_groups.h>
 
+#include <algorithm>
+
 #include "async_tiles.cuh"
 #include "flash_seg.cuh"
 
@@ -182,27 +212,48 @@ constexpr int kBQ = 64;        // query rows per step of the dK/dV kernel
 constexpr int kStages = 2;     // ring depth
 constexpr int kMaxCluster = 8;  // the portable cluster size
 
+// the element type of a kernel's outputs: the inputs' at P 1, float32 when
+// the inputs are three bf16 pieces of float32 operands
+template <typename T, int P>
+using OutT = std::conditional_t<P == 1, T, float>;
+
+// element strides between the P pieces of q, k, v and dO (0 at P 1): the
+// pieces of a float32 operand are [3, B, S, H, D] bf16, contiguous
+struct PieceStrides {
+  long long q, k, v, d;
+};
+
+// keys (dQ) or queries (dK/dV) a ring stage holds: a whole 64-row tile
+// at P 1, half of one at P 3 (three pieces of every tile would not fit two
+// stages beside the resident operands at D 128)
+template <int P>
+constexpr int kStageRows = P == 1 ? kBK : kBK / 2;
+
 // ---------------------------------------------------------------------------
 // dQ
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int P = 1>
 struct DqSmem {
-  static constexpr int kTile = kBK * D * 2;   // bytes of a swizzled K or V
-  static constexpr int kStride = D + 8;       // bf16 per padded Q/dO row
-  static constexpr int kQ = kRows * kStride;  // Q or dO, folded rows
+  static constexpr int kKeys = kStageRows<P>;   // keys a ring stage
+  static constexpr int kPiece = kKeys * D * 2;  // bytes of a swizzled piece
+  static constexpr int kTile = P * kPiece;      // a stage's K (or V) pieces
+  static constexpr int kStride = D + 8;         // P 1: elements a Q/dO row
+  // Q or dO, folded rows: padded rows at P 1 (read once into registers),
+  // P swizzled pieces at P 3 (wgmma reads them from shared memory)
+  static constexpr int kQ = P == 1 ? kRows * kStride : P * kRows * D;
   // the K ring, the V ring (1024-byte aligned), then Q and dO
   static constexpr int kBytes = 2 * kStages * kTile + 2 * kQ * 2;
   // the segment branch's ints after those: each stage's kv ids and
   // positions, scratch, then the list of live key tiles (one per tile)
-  static constexpr int kSegInts = 2 * kStages * kBK + kSegScratch;
+  static constexpr int kSegInts = 2 * kStages * kKeys + kSegScratch;
 };
 
 // P (masked when kMask), then dS = P (dP - Delta) scale into s, for one
-// sub-tile of kNT * 8 keys starting at key `key0` (tile-local `kl0`). kSeg
-// masks by the staged ids and positions (tseg, tpos: the tile's) against
-// the rows' (qid, qp); otherwise by the end of the keys and the
-// bottom-right diagonal.
+// sub-tile of kNT * 8 keys starting at key `key0` (`kl0` into the staged
+// ids and positions). kSeg masks by the staged ids and positions (tseg,
+// tpos: the stage's) against the rows' (qid, qp); otherwise by the end of
+// the keys and the bottom-right diagonal.
 template <bool kMask, bool kSeg, int kNT>
 __device__ __forceinline__ void dq_scores(
     float (&s)[kNT][4], const float (&dp)[kNT][4], const int (&pos)[2],
@@ -232,20 +283,23 @@ __device__ __forceinline__ void dq_scores(
   }
 }
 
-template <int D, bool kSeg>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+// T: the element type of q, k, v, dO (bf16 or fp16); P: 1, or 3 when they
+// are the three bf16 pieces of float32 operands (every product then the
+// six terms of first_term(3) .. 5, dS split in registers, dQ float32)
+template <typename T, int P, int D, bool kSeg>
+__global__ void __launch_bounds__(kThreads, P == 1 || D == 64 ? 2 : 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int B, int Sq, int Sk,
+                    OutT<T, P>* __restrict__ dq, int B, int Sq, int Sk,
                     int Hq, int Hk, int causal, float scale,
                     float scale_log2, Strides qs, Strides ks, Strides vs,
-                    Strides dos, Seg seg) {
-  using L = DqSmem<D>;
+                    Strides dos, PieceStrides pc, Seg seg) {
+  using L = DqSmem<D, P>;
   constexpr int kStride = L::kStride;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kHalves = kBK / kKeys;  // ring stages a key tile
   constexpr int kKC = D / 16;     // k-chunks over the head dim
   constexpr int kDT = D / 8;      // n-tiles over the head dim
   // keys per sub-step (S, dP m64n32): 64 at D 64 gave wrong dQ on every
@@ -253,17 +307,17 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kSub = 32;
   constexpr int kSNT = kSub / 8;  // n-tiles over a sub-step's keys
   constexpr int kPieces = D / 8;  // 16-byte pieces per row
+  constexpr int kT0 = first_term(P);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* sK = smem_raw;               // [stage] swizzled [kBK][D]
+  unsigned char* sK = smem_raw;               // [stage] K pieces
   unsigned char* sV = sK + kStages * L::kTile;
-  __nv_bfloat16* sQ =
-      reinterpret_cast<__nv_bfloat16*>(sV + kStages * L::kTile);
-  __nv_bfloat16* sD = sQ + L::kQ;             // dO
-  // segment branch only: [stage][kBK] kv ids, then positions, scratch and
-  // the live tile list
+  T* sQ = reinterpret_cast<T*>(sV + kStages * L::kTile);
+  T* sD = sQ + L::kQ;                         // dO
+  // segment branch only: [stage][kKeys] kv ids, then positions, scratch
+  // and the live tile list
   int* sKseg = reinterpret_cast<int*>(sD + L::kQ);
-  int* sKpos = sKseg + kStages * kBK;
-  int* sScratch = sKpos + kStages * kBK;
+  int* sKpos = sKseg + kStages * kKeys;
+  int* sScratch = sKpos + kStages * kKeys;
   int* sList = sScratch + kSegScratch;
 
   const int G = Hq / Hk;
@@ -282,66 +336,94 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int off = Sk - Sq;
 
   // stage Q and dO: folded row r is (head kvh G + r / bq, position
-  // q0 + r % bq)
-  for (int i = tid; i < kRows * kPieces; i += kThreads) {
-    const int r = i / kPieces;
-    const int c = (i % kPieces) * 8;
-    const int pos = q0 + r % bq;
-    const int head = kvh * G + r / bq;
-    const bool ok = pos < Sq;
-    cp_async16(sQ + r * kStride + c, ok ? q + qs.at(b, pos, head) + c : q,
-               ok);
-    cp_async16(sD + r * kStride + c,
-               ok ? dout + dos.at(b, pos, head) + c : dout, ok);
+  // q0 + r % bq); at P 3 each piece swizzled, piece p at p kRows D
+  if constexpr (P == 1) {
+    for (int i = tid; i < kRows * kPieces; i += kThreads) {
+      const int r = i / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int pos = q0 + r % bq;
+      const int head = kvh * G + r / bq;
+      const bool ok = pos < Sq;
+      cp_async16(sQ + r * kStride + c, ok ? q + qs.at(b, pos, head) + c : q,
+                 ok);
+      cp_async16(sD + r * kStride + c,
+                 ok ? dout + dos.at(b, pos, head) + c : dout, ok);
+    }
+  } else {
+    for (int i = tid; i < P * kRows * kPieces; i += kThreads) {
+      const int p = i / (kRows * kPieces);
+      const int r = (i / kPieces) % kRows;
+      const int c8 = i % kPieces;
+      const int pos = q0 + r % bq;
+      const int head = kvh * G + r / bq;
+      const bool ok = pos < Sq;
+      const int at = p * kRows * D * 2 + swz<kRows>(r, c8);
+      cp_async16(reinterpret_cast<unsigned char*>(sQ) + at,
+                 ok ? q + p * pc.q + qs.at(b, pos, head) + 8 * c8 : q, ok);
+      cp_async16(reinterpret_cast<unsigned char*>(sD) + at,
+                 ok ? dout + p * pc.d + dos.at(b, pos, head) + 8 * c8 : dout,
+                 ok);
+    }
   }
   cp_async_commit();
 
   // key tiles this CTA walks: up to the diagonal of its last live row;
-  // with segments, the list of live pairs (sList)
+  // with segments, the list of live pairs (sList); kHalves ring steps a
+  // tile (dense: none past the last key a row sees)
   const int q_hi = min(q0 + bq, Sq) - 1;
-  int ntiles;
+  int nsteps;
   if constexpr (kSeg) {
     const int nkt = (Sk + kBK - 1) / kBK;
     const size_t at = static_cast<size_t>(b) * Sq + q0;
     const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
                                    q_hi + 1 - q0, sScratch);
-    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+    nsteps = kHalves *
+             live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
                               nkt, mine, causal, sList, sScratch);
   } else {
     const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
-    ntiles = (kend + kBK - 1) / kBK;
+    nsteps = (kend + kKeys - 1) / kKeys;
   }
-  // the list entry of the n-th step (the tile, flagged kFull if unmasked)
+  // the list entry of the n-th tile (the tile, flagged kFull if unmasked)
   auto entry_of = [&](int n) {
     if constexpr (kSeg) return sList[n];
     else return n;
   };
+  // the first key of ring step n
+  auto key_of = [&](int n) {
+    return (entry_of(n / kHalves) & (kFull - 1)) * kBK +
+           (n % kHalves) * kKeys;
+  };
 
   auto load_kv = [&](int n, int st) {
-    const int t = entry_of(n) & (kFull - 1);
+    const int kb0 = key_of(n);
     unsigned char* dk = sK + st * L::kTile;
     unsigned char* dv = sV + st * L::kTile;
-    if constexpr (kSeg) {  // threads 0-63 copy the ids, 64-127 positions
-      const int i = tid % kBK;
-      const int key = t * kBK + i;
-      const bool ok = key < Sk;
-      const int* src = tid < kBK ? seg.kseg : seg.kpos;
-      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
-      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
-                ok);
+    if constexpr (kSeg) {  // threads 0 .. kKeys - 1 copy the ids, the
+      if (P == 1 || tid < 2 * kKeys) {  // next kKeys the positions
+        const int i = tid % kKeys;
+        const int key = kb0 + i;
+        const bool ok = key < Sk;
+        const int* src = tid < kKeys ? seg.kseg : seg.kpos;
+        int* dst = (tid < kKeys ? sKseg : sKpos) + st * kKeys;
+        cp_async4(dst + i,
+                  ok ? src + static_cast<size_t>(b) * Sk + key : src, ok);
+      }
     }
-    for (int i = tid; i < kBK * kPieces; i += kThreads) {
-      const int r = i / kPieces;
+    for (int i = tid; i < P * kKeys * kPieces; i += kThreads) {
+      const int p = P == 1 ? 0 : i / (kKeys * kPieces);
+      const int r = P == 1 ? i / kPieces : (i / kPieces) % kKeys;
       const int c8 = i % kPieces;
-      const int key = t * kBK + r;
+      const int key = kb0 + r;
       const bool ok = key < Sk;
-      cp_async16(dk + swz<kBK>(r, c8),
-                 ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
-      cp_async16(dv + swz<kBK>(r, c8),
-                 ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
+      const int at = p * L::kPiece + swz<kKeys>(r, c8);
+      cp_async16(dk + at, ok ? k + p * pc.k + ks.at(b, key, kvh) + 8 * c8 : k,
+                 ok);
+      cp_async16(dv + at, ok ? v + p * pc.v + vs.at(b, key, kvh) + 8 * c8 : v,
+                 ok);
     }
   };
-  if (ntiles > 0) load_kv(0, 0);
+  if (nsteps > 0) load_kv(0, 0);
   cp_async_commit();
 
   // the two rows this thread owns in the mma layout: gid and gid + 8,
@@ -370,33 +452,40 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<kStages - 1>();  // Q and dO have landed
   __syncthreads();
-  uint32_t qf[kKC][4], df[kKC][4];
-  #pragma unroll
-  for (int kc = 0; kc < kKC; ++kc) {
-    const int at = (warp * 16 + (lane & 15)) * kStride + kc * 16 +
-                   8 * (lane >> 4);
-    ldsm_x4(qf[kc], sQ + at);
-    ldsm_x4(df[kc], sD + at);
+  // P 1: each warp keeps its 16 rows' Q and dO fragments in registers, the
+  // A operands of S and dP (at P 3 wgmma reads them from shared memory)
+  uint32_t qf[P == 1 ? kKC : 1][4], df[P == 1 ? kKC : 1][4];
+  if constexpr (P == 1) {
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      const int at = (warp * 16 + (lane & 15)) * kStride + kc * 16 +
+                     8 * (lane >> 4);
+      ldsm_x4(qf[kc], sQ + at);
+      ldsm_x4(df[kc], sD + at);
+    }
   }
+  const unsigned char* pQ = reinterpret_cast<const unsigned char*>(sQ);
+  const unsigned char* pD = reinterpret_cast<const unsigned char*>(sD);
 
   // dQ, written by wgmma only (the first product starts it: a non-wgmma
   // write would make ptxas serialize the products), and the A fragments
-  // of dS, kept until the product that reads them retires
+  // of dS (each piece's), kept until the product that reads them retires
   float acc[kDT][4];
-  uint32_t a_ds[kSub / 16][4];
+  uint32_t a_ds[P][kSub / 16][4];
   bool started = false;
 
-  for (int n = 0; n < ntiles; ++n) {
+  for (int n = 0; n < nsteps; ++n) {
     cp_async_wait<kStages - 2>();  // step n's tile has landed
     tiles::fence_proxy_async();    // ... where wgmma reads it
     __syncthreads();  // ... for every thread, and step n - 1's is consumed
-    if (n + 1 < ntiles) load_kv(n + 1, (n + 1) % kStages);
+    if (n + 1 < nsteps) load_kv(n + 1, (n + 1) % kStages);
     cp_async_commit();
     const int st = n % kStages;
     const unsigned char* tK = sK + st * L::kTile;
     const unsigned char* tV = sV + st * L::kTile;
-    const int entry = entry_of(n);
+    const int entry = entry_of(n / kHalves);
     const int t0 = (entry & (kFull - 1)) * kBK;
+    const int kb0 = key_of(n);
     // a tile past the end of the keys is always masked
     bool full_tile;
     if constexpr (kSeg)
@@ -405,24 +494,49 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       full_tile = t0 + kBK <= Sk && !(causal && t0 + kBK - 1 > q0 + off);
 
     #pragma unroll
-    for (int s0 = 0; s0 < kBK; s0 += kSub) {
+    for (int s0 = 0; s0 < kKeys; s0 += kSub) {
+      const int key0 = kb0 + s0;
       // a dense sub-tile no row of the CTA sees adds nothing
-      if (!kSeg && (t0 + s0 >= Sk || (causal && t0 + s0 > q_hi + off)))
+      if (!kSeg && (key0 >= Sk || (causal && key0 > q_hi + off)))
         continue;
       // S = Q K^T and dP = dO V^T for the CTA's 64 rows x kSub keys: one
-      // warpgroup's wgmma, A (Q, dO) from the fragments in registers, B
-      // (K, V) from the swizzled tile; each warp gets its 16 rows back in
-      // mma.sync's C layout
+      // warpgroup's wgmma, A (Q, dO) from the fragments in registers (P
+      // 1) or the staged pieces (P 3), B (K, V) from the swizzled stage;
+      // each warp gets its 16 rows back in mma.sync's C layout
       float s[kSNT][4], dp[kSNT][4];
       tiles::fence_regs(flat(s));
       tiles::fence_regs(flat(dp));
       tiles::wgmma_fence();
-      #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        wgmma_rs_n32(flat(s), qf[kc], kstep_desc<kBK>(tK, s0, kc), kc);
-      #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        wgmma_rs_n32(flat(dp), df[kc], kstep_desc<kBK>(tV, s0, kc), kc);
+      if constexpr (P == 1) {
+        #pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          wgmma_rs_n32<T>(flat(s), qf[kc], kstep_desc<kBK>(tK, s0, kc), kc);
+        #pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          wgmma_rs_n32<T>(flat(dp), df[kc], kstep_desc<kBK>(tV, s0, kc),
+                          kc);
+      } else {
+        #pragma unroll
+        for (int t = kT0; t < 6; ++t)
+          #pragma unroll
+          for (int kc = 0; kc < kKC; ++kc)
+            wgmma_ss_n32(flat(s),
+                         kstep_desc<kRows>(pQ + term_a(t) * kRows * D * 2,
+                                           0, kc),
+                         kstep_desc<kKeys>(tK + term_b(t) * L::kPiece, s0,
+                                           kc),
+                         t > kT0 || kc > 0);
+        #pragma unroll
+        for (int t = kT0; t < 6; ++t)
+          #pragma unroll
+          for (int kc = 0; kc < kKC; ++kc)
+            wgmma_ss_n32(flat(dp),
+                         kstep_desc<kRows>(pD + term_a(t) * kRows * D * 2,
+                                           0, kc),
+                         kstep_desc<kKeys>(tV + term_b(t) * L::kPiece, s0,
+                                           kc),
+                         t > kT0 || kc > 0);
+      }
       tiles::wgmma_commit();
       tiles::wgmma_wait<0>();
       tiles::fence_regs(flat(s));
@@ -430,33 +544,37 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
       const bool masked =
           !full_tile &&
-          (kSeg || t0 + s0 + kSub > Sk ||
-           (causal && t0 + s0 + kSub - 1 > q0 + off));
-      const int* tseg = sKseg + st * kBK;
-      const int* tpos = sKpos + st * kBK;
+          (kSeg || key0 + kSub > Sk || (causal && key0 + kSub - 1 > q0 + off));
+      const int* tseg = sKseg + st * kKeys;
+      const int* tpos = sKpos + st * kKeys;
       if (masked)
-        dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk, causal,
+        dq_scores<true, kSeg>(s, dp, pos, lse2, dlt, key0, s0, Sk, causal,
                               off, scale_log2, scale, tig, tseg, tpos, qid,
                               qp);
       else
-        dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, t0 + s0, s0, Sk,
-                               causal, off, scale_log2, scale, tig, tseg,
-                               tpos, qid, qp);
+        dq_scores<false, kSeg>(s, dp, pos, lse2, dlt, key0, s0, Sk, causal,
+                               off, scale_log2, scale, tig, tseg, tpos, qid,
+                               qp);
 
-      // dQ += dS(bf16) K: the dS accumulators of n-tiles 2kc, 2kc+1 are
-      // the A fragment of k step kc; B is the K tile read MN-major (keys
-      // along k, the head dim along n). Retired before the sub-step ends:
-      // left in flight across the loop's back edge, its accumulators
-      // came out wrong (the compiler may move them there).
+      // dQ += dS K: the dS accumulators of n-tiles 2kc, 2kc+1 are the A
+      // fragment (each piece's) of k step kc; B is the K stage read
+      // MN-major (keys along k, the head dim along n). Retired before the
+      // sub-step ends: left in flight across the loop's back edge, its
+      // accumulators came out wrong (the compiler may move them there).
       #pragma unroll
       for (int kc = 0; kc < kSub / 16; ++kc)
-        acc_to_a(a_ds[kc], s[2 * kc], s[2 * kc + 1]);
+        acc_to_pieces<T>(a_ds, kc, s[2 * kc], s[2 * kc + 1]);
       tiles::wgmma_fence();
       #pragma unroll
-      for (int kc = 0; kc < kSub / 16; ++kc)
-        wgmma_rs_t<D>(flat(acc),  a_ds[kc],
-                      desc_mn_sw128(tK + (s0 + 16 * kc) * 128, kBK * 128),
-                      started || kc > 0);
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kSub / 16; ++kc)
+          wgmma_rs_t<D, T>(
+              flat(acc), a_ds[term_a(t)][kc],
+              desc_mn_sw128(tK + term_b(t) * L::kPiece +
+                                (s0 + 16 * kc) * 128,
+                            kKeys * 128),
+              started || t > kT0 || kc > 0);
       tiles::wgmma_commit();
       tiles::wgmma_wait<0>();
       tiles::fence_regs(flat(acc));
@@ -471,25 +589,53 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   cp_async_wait<0>();
 
-  // dQ through the warp's own 16 rows of sQ (only this warp read them)
-  #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    __nv_bfloat16* row = sQ + (warp * 16 + gid + 8 * i) * kStride;
+  if constexpr (P == 1) {
+    // dQ through the warp's own 16 rows of sQ (only this warp read them)
     #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
-          pack_f32(acc[dt][i * 2], acc[dt][i * 2 + 1]);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kPieces; i += 32) {
-    const int r = warp * 16 + i / kPieces;
-    const int c = (i % kPieces) * 8;
-    const int p = q0 + r % bq;
-    if (p >= Sq) continue;
-    const size_t base =
-        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
-    *reinterpret_cast<uint4*>(dq + base + c) =
-        *reinterpret_cast<const uint4*>(sQ + r * kStride + c);
+    for (int i = 0; i < 2; ++i) {
+      T* row = sQ + (warp * 16 + gid + 8 * i) * kStride;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+            pack2<T>(acc[dt][i * 2], acc[dt][i * 2 + 1]);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * kPieces; i += 32) {
+      const int r = warp * 16 + i / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+      *reinterpret_cast<uint4*>(dq + base + c) =
+          *reinterpret_cast<const uint4*>(sQ + r * kStride + c);
+    }
+  } else {
+    // float32 dQ rows over the drained K ring, then out 16 bytes a store
+    constexpr int kFS = D + 4;  // floats a staged row
+    static_assert(kRows * kFS * 4 <= kStages * L::kTile, "room for dQ");
+    float* f = reinterpret_cast<float*>(smem_raw);
+    __syncthreads();  // every warp is done with the ring
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = f + (warp * 16 + gid + 8 * i) * kFS;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) =
+            make_float2(acc[dt][i * 2], acc[dt][i * 2 + 1]);
+    }
+    __syncthreads();
+    constexpr int kQuads = D / 4;
+    for (int i = tid; i < kRows * kQuads; i += kThreads) {
+      const int r = i / kQuads;
+      const int c = (i % kQuads) * 4;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+      *reinterpret_cast<float4*>(dq + base + c) =
+          *reinterpret_cast<const float4*>(f + r * kFS + c);
+    }
   }
 }
 
@@ -497,21 +643,22 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 // dK / dV
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int P = 1>
 struct DkvSmem {
-  static constexpr int kKV = kBK * D * 2;  // bytes of the swizzled K or V
-  static constexpr int kQ = kBQ * D * 2;   // bytes of a swizzled Q or dO
-  // K, V, then the ring: [stage] Q tiles, [stage] dO tiles (all 1024-byte
-  // aligned); [stage] LSE, Delta rows
-  static constexpr int kTiles = 2 * kKV + 2 * kStages * kQ;
-  static constexpr int kBytes = kTiles + 2 * kStages * kBQ * 4;
+  static constexpr int kQs = kStageRows<P>;  // queries a ring stage
+  static constexpr int kKV = kBK * D * 2;    // bytes of a swizzled K or V piece
+  static constexpr int kQ = kQs * D * 2;     // ... of a Q or dO piece
+  // K, V (P pieces each), then the ring: [stage][piece] Q tiles, [stage]
+  // [piece] dO tiles (all 1024-byte aligned); [stage] LSE, Delta rows
+  static constexpr int kTiles = 2 * P * kKV + 2 * kStages * P * kQ;
+  static constexpr int kBytes = kTiles + 2 * kStages * kQs * 4;
   // the f32 dK, dV of the tile ([64][D + 8] each), over K, V and the
   // drained ring
   static constexpr int kAccStride = D + 8;
   static_assert(2 * kBK * kAccStride * 4 <= kTiles, "room for dK, dV");
   // the segment branch's ints after those: each stage's query ids and
   // positions, scratch, then the list of live query tiles
-  static constexpr int kSegInts = 2 * kStages * kBQ + kSegScratch;
+  static constexpr int kSegInts = 2 * kStages * kQs + kSegScratch;
 };
 
 // P^T into s and dS^T into dp for one sub-step of kNT * 8 queries (the
@@ -550,36 +697,40 @@ __device__ __forceinline__ void dkv_scores(
   }
 }
 
-template <int D, bool kSeg>
-// three CTAs an SM at D 64 (at most 168 registers a thread), two at 128
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 2)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
+// T, P as flash_bwd_dq_kernel's; at P 3 dK and dV are float32
+template <typename T, int P, int D, bool kSeg>
+// P 1: three CTAs an SM at D 64 (at most 168 registers a thread), two at
+// 128; P 3: two at D 64, one at 128 (197 KiB of shared memory)
+__global__ void __launch_bounds__(kThreads,
+                                  P == 1 ? (D == 64 ? 3 : 2)
+                                         : (D == 64 ? 2 : 1))
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int B, int Sq, int Sk,
-                     int Hq, int Hk, int causal, float scale,
-                     float scale_log2, Strides qs, Strides ks, Strides vs,
-                     Strides dos, Seg seg) {
-  using L = DkvSmem<D>;
+                     OutT<T, P>* __restrict__ dk, OutT<T, P>* __restrict__ dv,
+                     int B, int Sq, int Sk, int Hq, int Hk, int causal,
+                     float scale, float scale_log2, Strides qs, Strides ks,
+                     Strides vs, Strides dos, PieceStrides pc, Seg seg) {
+  using L = DkvSmem<D, P>;
+  constexpr int kQs = L::kQs;
+  constexpr int kHalves = kBQ / kQs;  // ring steps a (query tile, head)
   constexpr int kKC = D / 16;
   constexpr int kDT = D / 8;
   constexpr int kQH = 32;  // queries per sub-step (S^T, dP^T m64n32)
   constexpr int kQNT = kQH / 8;            // n-tiles over a sub-step
   constexpr int kPieces = D / 8;
+  constexpr int kT0 = first_term(P);
   extern __shared__ __align__(1024) unsigned char smem[];
-  unsigned char* sK = smem;                  // swizzled [kBK][D]
-  unsigned char* sV = sK + L::kKV;
-  unsigned char* sQ = sV + L::kKV;           // [stage] swizzled [kBQ][D]
-  unsigned char* sD = sQ + kStages * L::kQ;  // [stage] dO
-  float* sL = reinterpret_cast<float*>(sD + kStages * L::kQ);  // [stage]
-  float* sDelta = sL + kStages * kBQ;                          // [stage]
-  int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kBQ);  // segments
-  int* sQpos = sQseg + kStages * kBQ;
-  int* sScratch = sQpos + kStages * kBQ;
+  unsigned char* sK = smem;                      // P swizzled [kBK][D]
+  unsigned char* sV = sK + P * L::kKV;
+  unsigned char* sQ = sV + P * L::kKV;           // [stage][piece] [kQs][D]
+  unsigned char* sD = sQ + kStages * P * L::kQ;  // [stage][piece] dO
+  float* sL = reinterpret_cast<float*>(sD + kStages * P * L::kQ);  // [stage]
+  float* sDelta = sL + kStages * kQs;                              // [stage]
+  int* sQseg = reinterpret_cast<int*>(sDelta + kStages * kQs);  // segments
+  int* sQpos = sQseg + kStages * kQs;
+  int* sScratch = sQpos + kStages * kQs;
   int* sList = sScratch + kSegScratch;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -602,15 +753,17 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int off = Sk - Sq;
   const int nqt = (Sq + kBQ - 1) / kBQ;
 
-  for (int i = tid; i < kBK * kPieces; i += kThreads) {
-    const int r = i / kPieces;
+  for (int i = tid; i < P * kBK * kPieces; i += kThreads) {
+    const int p = P == 1 ? 0 : i / (kBK * kPieces);
+    const int r = P == 1 ? i / kPieces : (i / kPieces) % kBK;
     const int c8 = i % kPieces;
     const int key = k0 + r;
     const bool ok = key < Sk;
-    cp_async16(sK + swz<kBK>(r, c8),
-               ok ? k + ks.at(b, key, kvh) + 8 * c8 : k, ok);
-    cp_async16(sV + swz<kBK>(r, c8),
-               ok ? v + vs.at(b, key, kvh) + 8 * c8 : v, ok);
+    const int at = p * L::kKV + swz<kBK>(r, c8);
+    cp_async16(sK + at, ok ? k + p * pc.k + ks.at(b, key, kvh) + 8 * c8 : k,
+               ok);
+    cp_async16(sV + at, ok ? v + p * pc.v + vs.at(b, key, kvh) + 8 * c8 : v,
+               ok);
   }
   cp_async_commit();
 
@@ -627,41 +780,49 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     qt0 = (causal ? max(0, k0 - off) : 0) / kBQ;
     ntiles = max(0, nqt - qt0);
   }
-  const int nsteps = ntiles * Gc;
+  const int nsteps = ntiles * Gc * kHalves;
   auto entry_of = [&](int t) {
     if constexpr (kSeg) return sList[t];
     else return qt0 + t;
   };
 
-  // step n: query tile n / Gc, head kvh G + g0 + n % Gc
+  // step n: query tile n / (Gc kHalves), head kvh G + g0 + n / kHalves %
+  // Gc, its queries from n % kHalves kQs
   auto load_q = [&](int n, int st) {
-    const int q0 = (entry_of(n / Gc) & (kFull - 1)) * kBQ;
-    const int head = kvh * G + g0 + n % Gc;
-    unsigned char* dq_ = sQ + st * L::kQ;
-    unsigned char* dd = sD + st * L::kQ;
-    for (int i = tid; i < kBQ * kPieces; i += kThreads) {
-      const int r = i / kPieces;
+    const int m = n / kHalves;
+    const int qb0 = (entry_of(m / Gc) & (kFull - 1)) * kBQ +
+                    (n % kHalves) * kQs;
+    const int head = kvh * G + g0 + m % Gc;
+    unsigned char* dq_ = sQ + st * P * L::kQ;
+    unsigned char* dd = sD + st * P * L::kQ;
+    for (int i = tid; i < P * kQs * kPieces; i += kThreads) {
+      const int p = P == 1 ? 0 : i / (kQs * kPieces);
+      const int r = P == 1 ? i / kPieces : (i / kPieces) % kQs;
       const int c8 = i % kPieces;
-      const int pos = q0 + r;
+      const int pos = qb0 + r;
       const bool ok = pos < Sq;
-      cp_async16(dq_ + swz<kBQ>(r, c8),
-                 ok ? q + qs.at(b, pos, head) + 8 * c8 : q, ok);
-      cp_async16(dd + swz<kBQ>(r, c8),
-                 ok ? dout + dos.at(b, pos, head) + 8 * c8 : dout, ok);
+      const int at = p * L::kQ + swz<kQs>(r, c8);
+      cp_async16(dq_ + at,
+                 ok ? q + p * pc.q + qs.at(b, pos, head) + 8 * c8 : q, ok);
+      cp_async16(dd + at,
+                 ok ? dout + p * pc.d + dos.at(b, pos, head) + 8 * c8 : dout,
+                 ok);
     }
-    // threads 0-63 copy LSE, 64-127 Delta (0 past Sq); on the segment
-    // branch also the rows' ids and positions
-    const int r = tid % kBQ;
-    const int pos = q0 + r;
-    const bool ok = pos < Sq;
-    const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
-    const float* src = tid < kBQ ? lse : delta;
-    cp_async4((tid < kBQ ? sL : sDelta) + st * kBQ + r,
-              ok ? src + row : src, ok);
-    if constexpr (kSeg) {
-      const int* isrc = tid < kBQ ? seg.qseg : seg.qpos;
-      cp_async4((tid < kBQ ? sQseg : sQpos) + st * kBQ + r,
-                ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+    // threads 0 .. kQs - 1 copy LSE, the next kQs Delta (0 past Sq); on
+    // the segment branch also the rows' ids and positions
+    if (P == 1 || tid < 2 * kQs) {
+      const int r = tid % kQs;
+      const int pos = qb0 + r;
+      const bool ok = pos < Sq;
+      const size_t row = (static_cast<size_t>(b) * Hq + head) * Sq + pos;
+      const float* src = tid < kQs ? lse : delta;
+      cp_async4((tid < kQs ? sL : sDelta) + st * kQs + r,
+                ok ? src + row : src, ok);
+      if constexpr (kSeg) {
+        const int* isrc = tid < kQs ? seg.qseg : seg.qpos;
+        cp_async4((tid < kQs ? sQseg : sQpos) + st * kQs + r,
+                  ok ? isrc + static_cast<size_t>(b) * Sq + pos : isrc, ok);
+      }
     }
   };
   if (nsteps > 0) load_q(0, 0);
@@ -684,9 +845,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // dK, dV, written by wgmma only (as dQ above), and the A fragments of
-  // P^T and dS^T, kept until the products that read them retire
+  // P^T and dS^T (each piece's), kept until the products that read them
+  // retire
   float dka[kDT][4], dva[kDT][4];
-  uint32_t a_p[kQH / 16][4], a_ds[kQH / 16][4];
+  uint32_t a_p[P][kQH / 16][4], a_ds[P][kQH / 16][4];
   bool started = false;
 
   for (int n = 0; n < nsteps; ++n) {
@@ -696,10 +858,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     if (n + 1 < nsteps) load_q(n + 1, (n + 1) % kStages);
     cp_async_commit();
     const int st = n % kStages;
-    const unsigned char* tQ = sQ + st * L::kQ;
-    const unsigned char* tD = sD + st * L::kQ;
-    const int entry = entry_of(n / Gc);
+    const unsigned char* tQ = sQ + st * P * L::kQ;
+    const unsigned char* tD = sD + st * P * L::kQ;
+    const int entry = entry_of(n / kHalves / Gc);
     const int q0 = (entry & (kFull - 1)) * kBQ;
+    const int qb0 = q0 + (n % kHalves) * kQs;
     bool full_tile;
     if constexpr (kSeg)
       full_tile = entry & kFull;
@@ -707,11 +870,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       full_tile = !(causal && k0 + kBK - 1 > q0 + off);
 
     #pragma unroll 1
-    for (int r0 = 0; r0 < kBQ; r0 += kQH) {
+    for (int r0 = 0; r0 < kQs; r0 += kQH) {
+      const int qr = qb0 + r0;  // the sub-step's first query
       // a dense sub-step whose rows are all past Sq, or see no key of the
       // tile, adds nothing
-      if (!kSeg && (q0 + r0 >= Sq ||
-                    (causal && q0 + r0 + kQH - 1 + off < k0)))
+      if (!kSeg && (qr >= Sq || (causal && qr + kQH - 1 + off < k0)))
         continue;
       // S^T = K Q^T and dP^T = V dO^T for the tile's 64 keys x kQH rows:
       // one warpgroup's wgmma with both operands in shared memory (K, V
@@ -722,51 +885,64 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       tiles::fence_regs(flat(dp));
       tiles::wgmma_fence();
       #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        wgmma_ss_n32(flat(s), kstep_desc<kBK>(sK, 0, kc),
-                     kstep_desc<kBQ>(tQ, r0, kc), kc);
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          wgmma_ss_n32<T>(flat(s),
+                          kstep_desc<kBK>(sK + term_a(t) * L::kKV, 0, kc),
+                          kstep_desc<kQs>(tQ + term_b(t) * L::kQ, r0, kc),
+                          t > kT0 || kc > 0);
       #pragma unroll
-      for (int kc = 0; kc < kKC; ++kc)
-        wgmma_ss_n32(flat(dp), kstep_desc<kBK>(sV, 0, kc),
-                     kstep_desc<kBQ>(tD, r0, kc), kc);
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+          wgmma_ss_n32<T>(flat(dp),
+                          kstep_desc<kBK>(sV + term_a(t) * L::kKV, 0, kc),
+                          kstep_desc<kQs>(tD + term_b(t) * L::kQ, r0, kc),
+                          t > kT0 || kc > 0);
       tiles::wgmma_commit();
       tiles::wgmma_wait<0>();
       tiles::fence_regs(flat(s));
       tiles::fence_regs(flat(dp));
 
       const bool masked =
-          !full_tile && (kSeg || (causal && k0 + kBK - 1 > q0 + r0 + off));
-      const float* tL = sL + st * kBQ + r0;
-      const float* tDl = sDelta + st * kBQ + r0;
-      const int* tseg = sQseg + st * kBQ + r0;
-      const int* tpos = sQpos + st * kBQ + r0;
+          !full_tile && (kSeg || (causal && k0 + kBK - 1 > qr + off));
+      const float* tL = sL + st * kQs + r0;
+      const float* tDl = sDelta + st * kQs + r0;
+      const int* tseg = sQseg + st * kQs + r0;
+      const int* tpos = sQpos + st * kQs + r0;
       if (masked)
-        dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
-                               kid, kp, causal, off, scale_log2, scale,
-                               tig);
+        dkv_scores<true, kSeg>(s, dp, tL, tDl, tseg, tpos, qr, key, kid, kp,
+                               causal, off, scale_log2, scale, tig);
       else
-        dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, q0 + r0, key,
-                                kid, kp, causal, off, scale_log2, scale,
-                                tig);
+        dkv_scores<false, kSeg>(s, dp, tL, tDl, tseg, tpos, qr, key, kid,
+                                kp, causal, off, scale_log2, scale, tig);
 
-      // dV += P^T(bf16) dO and dK += dS^T(bf16) Q: A from the P^T and
-      // dS^T accumulators, B the staged dO and Q rows read MN-major
-      // (queries along k, the head dim along n); retired before the
-      // sub-step ends, as dQ's
+      // dV += P^T dO and dK += dS^T Q: A from the P^T and dS^T
+      // accumulators (each piece's), B the staged dO and Q rows read
+      // MN-major (queries along k, the head dim along n); retired before
+      // the sub-step ends, as dQ's
       #pragma unroll
       for (int kc = 0; kc < kQH / 16; ++kc) {
-        acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
-        acc_to_a(a_ds[kc], dp[2 * kc], dp[2 * kc + 1]);
+        acc_to_pieces<T>(a_p, kc, s[2 * kc], s[2 * kc + 1]);
+        acc_to_pieces<T>(a_ds, kc, dp[2 * kc], dp[2 * kc + 1]);
       }
       tiles::wgmma_fence();
       #pragma unroll
-      for (int kc = 0; kc < kQH / 16; ++kc) {
-        const int at = (r0 + 16 * kc) * 128;
-        wgmma_rs_t<D>(flat(dva), a_p[kc], desc_mn_sw128(tD + at, kBQ * 128),
-                      started || kc > 0);
-        wgmma_rs_t<D>(flat(dka), a_ds[kc],
-                      desc_mn_sw128(tQ + at, kBQ * 128), started || kc > 0);
-      }
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kQH / 16; ++kc) {
+          const int at = (r0 + 16 * kc) * 128;
+          const int go = started || t > kT0 || kc > 0;
+          wgmma_rs_t<D, T>(flat(dva), a_p[term_a(t)][kc],
+                           desc_mn_sw128(tD + term_b(t) * L::kQ + at,
+                                         kQs * 128),
+                           go);
+          wgmma_rs_t<D, T>(flat(dka), a_ds[term_a(t)][kc],
+                           desc_mn_sw128(tQ + term_b(t) * L::kQ + at,
+                                         kQs * 128),
+                           go);
+        }
       tiles::wgmma_commit();
       tiles::wgmma_wait<0>();
       tiles::fence_regs(flat(dka));
@@ -809,7 +985,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
   // rank r sums keys [r 64/C, (r + 1) 64/C) over the ranks, in rank order,
-  // and stores them 8 bytes (4 bf16) at a time
+  // and stores them 4 elements at a time
   const int rows = kBK / C;
   constexpr int kQuads = D / 4;
   for (int i = tid; i < 2 * rows * kQuads; i += kThreads) {
@@ -829,11 +1005,14 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       sum.z += x.z;
       sum.w += x.w;
     }
-    __nv_bfloat16* out = (which ? dv : dk) +
-                         ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
-                         col;
-    *reinterpret_cast<uint2*>(out) =
-        make_uint2(pack_f32(sum.x, sum.y), pack_f32(sum.z, sum.w));
+    OutT<T, P>* out = (which ? dv : dk) +
+                      ((static_cast<size_t>(b) * Sk + kj) * Hk + kvh) * D +
+                      col;
+    if constexpr (P == 1)
+      *reinterpret_cast<uint2*>(out) =
+          make_uint2(pack2<T>(sum.x, sum.y), pack2<T>(sum.z, sum.w));
+    else
+      *reinterpret_cast<float4*>(out) = sum;
   }
   if (C > 1) cluster.sync();  // no rank leaves while another reads it
 }
@@ -2036,9 +2215,47 @@ flash_bwd_dkv_xl_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// the split pass: float32 operands as three bf16 pieces
+// ---------------------------------------------------------------------------
+
+// x [B, S, H, D] float32, read through its (batch, seq, head) strides in
+// elements with a unit innermost stride -> out [3, B, S, H, Dp] bf16,
+// contiguous: piece p of every element (split_bf16x3), columns D .. Dp - 1
+// zero (the head dim padded as the bf16 route pads it). Two columns a
+// thread; bytes bound: 4 read and 6 written an element.
+__global__ void __launch_bounds__(256)
+split_bf16x3_kernel(const float* __restrict__ x,
+                    __nv_bfloat16* __restrict__ out, long long rows, int S,
+                    int H, int D, int Dp, Strides xs) {
+  const int pairs = Dp / 2;
+  const long long n = rows * pairs;
+  const long long piece = rows * Dp;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = i / pairs;
+    const int c = static_cast<int>(i - row * pairs) * 2;
+    const long long bs = row / H;
+    const float* src = x + xs.at(static_cast<int>(bs / S),
+                                 static_cast<int>(bs % S),
+                                 static_cast<int>(row % H));
+    __nv_bfloat16 e[3], o[3];
+    split_bf16x3(c < D ? src[c] : 0.f, e);
+    split_bf16x3(c + 1 < D ? src[c + 1] : 0.f, o);
+    __nv_bfloat16* dst = out + row * Dp + c;
+    #pragma unroll
+    for (int p = 0; p < 3; ++p)
+      *reinterpret_cast<__nv_bfloat162*>(dst + p * piece) =
+          __halves2bfloat162(e[p], o[p]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
+// q, k, v, dout and the outputs as the bf16 kernels take them; the fp16
+// and three-piece launches cast them to their own types
 struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -2046,47 +2263,55 @@ struct Args {
   int B, Sq, Sk, Hq, Hk, D, causal, cluster;
   float scale, sl2;
   Strides qs, ks, vs, dos;
+  PieceStrides pc;
   Seg seg;
   cudaStream_t s;
 };
 
-template <int D, bool kSeg>
+template <typename T, int P, int D, bool kSeg>
 cudaError_t launch_dq(const Args& a) {
   static int allowed = 48 * 1024;  // the default needs no opt-in
-  using L = DqSmem<D>;
+  using L = DqSmem<D, P>;
   const int nkt = (a.Sk + kBK - 1) / kBK;
   const int smem = L::kBytes + (kSeg ? (L::kSegInts + nkt) * 4 : 0);
-  const cudaError_t e =
-      allow_dynamic_smem(flash_bwd_dq_kernel<D, kSeg>, smem, allowed);
+  auto kern = flash_bwd_dq_kernel<T, P, D, kSeg>;
+  const cudaError_t e = allow_dynamic_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
   const int bq = kRows / (a.Hq / a.Hk);
   const long long ctas =
       static_cast<long long>((a.Sq + bq - 1) / bq) * a.Hk * a.B;
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<D, kSeg><<<static_cast<unsigned>(ctas), kThreads,
-                                 smem, a.s>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.B, a.Sq, a.Sk, a.Hq,
-      a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.seg);
+  kern<<<static_cast<unsigned>(ctas), kThreads, smem, a.s>>>(
+      reinterpret_cast<const T*>(a.q), reinterpret_cast<const T*>(a.k),
+      reinterpret_cast<const T*>(a.v), reinterpret_cast<const T*>(a.dout),
+      a.lse, a.delta, reinterpret_cast<OutT<T, P>*>(a.dq), a.B, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.pc,
+      a.seg);
   return cudaGetLastError();
 }
 
-template <int D, bool kSeg>
+template <typename T, int P, int D, bool kSeg>
 cudaError_t launch_dkv(const Args& a) {
   static int allowed = 48 * 1024;
-  using L = DkvSmem<D>;
+  using L = DkvSmem<D, P>;
   const int nqt = (a.Sq + kBQ - 1) / kBQ;
   const int smem = L::kBytes + (kSeg ? (L::kSegInts + nqt) * 4 : 0);
-  auto kern = flash_bwd_dkv_kernel<D, kSeg>;
+  auto kern = flash_bwd_dkv_kernel<T, P, D, kSeg>;
   const cudaError_t e = allow_dynamic_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
   const long long ctas = static_cast<long long>((a.Sk + kBK - 1) / kBK) *
                          a.B * a.Hk * a.cluster;
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  const T* q = reinterpret_cast<const T*>(a.q);
+  const T* k = reinterpret_cast<const T*>(a.k);
+  const T* v = reinterpret_cast<const T*>(a.v);
+  const T* dout = reinterpret_cast<const T*>(a.dout);
+  OutT<T, P>* dk = reinterpret_cast<OutT<T, P>*>(a.dk);
+  OutT<T, P>* dv = reinterpret_cast<OutT<T, P>*>(a.dv);
   if (a.cluster == 1) {
     kern<<<static_cast<unsigned>(ctas), kThreads, smem, a.s>>>(
-        a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B, a.Sq, a.Sk,
-        a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos,
-        a.seg);
+        q, k, v, dout, a.lse, a.delta, dk, dv, a.B, a.Sq, a.Sk, a.Hq, a.Hk,
+        a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.pc, a.seg);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -2102,11 +2327,37 @@ cudaError_t launch_dkv(const Args& a) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, kern, a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.B,
-      a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs,
-      a.dos, a.seg);
+      &cfg, kern, q, k, v, dout, a.lse, a.delta, dk, dv, a.B, a.Sq, a.Sk,
+      a.Hq, a.Hk, a.causal, a.scale, a.sl2, a.qs, a.ks, a.vs, a.dos, a.pc,
+      a.seg);
   if (le != cudaSuccess) return le;
   return cudaGetLastError();
+}
+
+// B2 and B3 at D 64 / 128 in element type T with P pieces, dense or
+// segment branch
+template <typename T, int P>
+cudaError_t launch_dq_tc(const Args& a) {
+  const bool sg = a.seg.qseg != nullptr;
+  if (a.D == 128)
+    return sg ? launch_dq<T, P, 128, true>(a)
+              : launch_dq<T, P, 128, false>(a);
+  if (a.D == 64)
+    return sg ? launch_dq<T, P, 64, true>(a)
+              : launch_dq<T, P, 64, false>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int P>
+cudaError_t launch_dkv_tc(const Args& a) {
+  const bool sg = a.seg.qseg != nullptr;
+  if (a.D == 128)
+    return sg ? launch_dkv<T, P, 128, true>(a)
+              : launch_dkv<T, P, 128, false>(a);
+  if (a.D == 64)
+    return sg ? launch_dkv<T, P, 64, true>(a)
+              : launch_dkv<T, P, 64, false>(a);
+  return cudaErrorInvalidValue;
 }
 
 template <bool kSeg>
@@ -2231,6 +2482,19 @@ bool bad_dim(int D) {
   return !(D == 64 || D == 128 || D == 256 || (D > 256 && D % kXWq == 0));
 }
 
+// the element types of the C entry points (0 bf16, 1 fp16, 2 float32 as
+// three bf16 pieces): fp16 and the pieces at D 64 and 128 only
+bool bad_type(int dtype, int D) {
+  return dtype < 0 || dtype > 2 || (dtype > 0 && D != 64 && D != 128);
+}
+
+// the strides between pieces of [3, B, S, H, D] operands whose piece-0
+// batch strides a holds
+PieceStrides pieces_of(const Args& a) {
+  return PieceStrides{a.qs.b * a.B, a.ks.b * a.B, a.vs.b * a.B,
+                      a.dos.b * a.B};
+}
+
 bool bad_group(int Hq, int Hk) {
   return Hk <= 0 || Hq % Hk != 0 || kRows % (Hq / Hk) != 0;
 }
@@ -2276,12 +2540,16 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// dtype: 0 bf16 (D 64, 128, 256 or a multiple of 128 above), 1 fp16 (D
+// 64, 128), 2 float32 as three bf16 pieces (D 64, 128): q, k, v and dout
+// then each point at [3, B, S, H, D] bf16, contiguous (split_bf16x3; the
+// strides are piece 0's), and the outputs are float32.
 // q_seg, kv_seg, q_pos, kv_pos and kv_bounds are NULL on the dense branch;
 // otherwise all five are given. kv_bounds is a workspace, int32
 // [B, 4, ceil(Sk / 64)], that a first launch fills with the rows id min,
 // id max, position min, position max of the 64-key tiles.
-extern "C" int flash_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
+extern "C" int flash_bwd_dq(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* q_seg,
     const void* kv_seg, const void* q_pos, const void* kv_pos,
     void* kv_bounds, int B, int Sq, int Sk, int Hq, int Hk, int D,
@@ -2298,7 +2566,7 @@ extern "C" int flash_bwd_dq_bf16(
                static_cast<const int*>(q_pos),
                static_cast<const int*>(kv_pos), nullptr,
                static_cast<const int*>(kv_bounds)};
-  if (bad_group(Hq, Hk) || bad_seg(a.seg, false))
+  if (bad_group(Hq, Hk) || bad_seg(a.seg, false) || bad_type(dtype, D))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0 || Hk <= 0) return static_cast<int>(cudaSuccess);
   if (bad_dim(D)) return static_cast<int>(cudaErrorInvalidValue);
@@ -2309,26 +2577,27 @@ extern "C" int flash_bwd_dq_bf16(
                       Side{}, B, a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (dtype == 1) return static_cast<int>(launch_dq_tc<__half, 1>(a));
+  if (dtype == 2) {
+    a.pc = pieces_of(a);
+    return static_cast<int>(launch_dq_tc<__nv_bfloat16, 3>(a));
+  }
   if (D > 256)
     e = a.seg.qseg ? launch_dq_xl<true>(a) : launch_dq_xl<false>(a);
   else if (D == 256)
     e = a.seg.qseg ? launch_dq_256<true>(a) : launch_dq_256<false>(a);
-  else if (D == 128)
-    e = a.seg.qseg ? launch_dq<128, true>(a) : launch_dq<128, false>(a);
-  else if (D == 64)
-    e = a.seg.qseg ? launch_dq<64, true>(a) : launch_dq<64, false>(a);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = launch_dq_tc<__nv_bfloat16, 1>(a);
   return static_cast<int>(e);
 }
 
-// as flash_bwd_dq_bf16, with the workspace q_bounds (NULL on the dense
-// branch; [B, 4, ceil(Sq / 64)]) before kv_bounds, both filled by one
-// first launch, and the cluster size C after causal: the C CTAs of a
-// cluster share one key tile and split the G query heads of its group (C
-// a power of two dividing G, at most 8)
-extern "C" int flash_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
+// as flash_bwd_dq (dK and dV as dQ there), with the workspace q_bounds
+// (NULL on the dense branch; [B, 4, ceil(Sq / 64)]) before kv_bounds, both
+// filled by one first launch, and the cluster size C after causal: the C
+// CTAs of a cluster share one key tile and split the G query heads of its
+// group (C a power of two dividing G, at most 8)
+extern "C" int flash_bwd_dkv(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const void* q_seg, const void* kv_seg, const void* q_pos,
     const void* kv_pos, void* q_bounds, void* kv_bounds, int B,
@@ -2349,7 +2618,8 @@ extern "C" int flash_bwd_dkv_bf16(
                static_cast<const int*>(kv_pos),
                static_cast<const int*>(q_bounds),
                static_cast<const int*>(kv_bounds)};
-  if (bad_group(Hq, Hk) || bad_seg(a.seg, true) || cluster <= 0 ||
+  if (bad_group(Hq, Hk) || bad_seg(a.seg, true) || bad_type(dtype, D) ||
+      cluster <= 0 ||
       cluster > kMaxCluster || (cluster & (cluster - 1)) ||
       (Hq / Hk) % cluster)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2364,15 +2634,35 @@ extern "C" int flash_bwd_dkv_bf16(
         a.s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (dtype == 1) return static_cast<int>(launch_dkv_tc<__half, 1>(a));
+  if (dtype == 2) {
+    a.pc = pieces_of(a);
+    return static_cast<int>(launch_dkv_tc<__nv_bfloat16, 3>(a));
+  }
   if (D > 256)
     e = a.seg.qseg ? launch_dkv_xl<true>(a) : launch_dkv_xl<false>(a);
   else if (D == 256)
     e = a.seg.qseg ? launch_dkv_256<true>(a) : launch_dkv_256<false>(a);
-  else if (D == 128)
-    e = a.seg.qseg ? launch_dkv<128, true>(a) : launch_dkv<128, false>(a);
-  else if (D == 64)
-    e = a.seg.qseg ? launch_dkv<64, true>(a) : launch_dkv<64, false>(a);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    e = launch_dkv_tc<__nv_bfloat16, 1>(a);
   return static_cast<int>(e);
+}
+
+// x [B, S, H, D] float32 (batch, seq, head strides in elements, unit
+// innermost) -> out [3, B, S, H, Dp] bf16, contiguous: the three pieces of
+// every element, the head dim zero-padded to Dp (even, >= D)
+extern "C" int flash_split_bf16x3(const void* x, void* out, int B, int S,
+                                  int H, int D, int Dp, long long sb,
+                                  long long ss, long long sh, void* stream) {
+  if (B < 0 || S < 0 || H < 0 || D < 0 || Dp < D || Dp % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * S * H;
+  const long long n = rows * (Dp / 2);
+  if (n == 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = std::min<long long>((n + 255) / 256, 132 * 16);
+  split_bf16x3_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(out), rows,
+      S, H, D, Dp, Strides{sb, ss, sh});
+  return static_cast<int>(cudaGetLastError());
 }

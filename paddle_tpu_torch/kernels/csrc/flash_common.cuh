@@ -14,14 +14,22 @@
 // k-chunk kc: a product's f32 result feeds the next product from
 // registers, rounded to bf16 (pack_f32).
 //
+// B2 and B3 at D 64/128 also take fp16 (the `.f16` forms of the wgmma
+// helpers below, T = __half) and float32 as three bf16 pieces each
+// (`split_bf16x3`): a product of two split operands keeps the six terms
+// whose pieces' indices sum to at most 2 (`term_a`, `term_b`).
+//
 // The segment branch's pair classification lives in flash_seg.cuh.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "async_tiles.cuh"
 
@@ -72,13 +80,81 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// true for fp16, whose wgmma forms are `.f16` (bf16 otherwise)
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// two floats -> a pair of T (bf16 or fp16), `lo` in the low half
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_f32(lo, hi);
+  }
+}
+
 // A fragment of k-chunk kc from the C fragments of n-tiles 2kc, 2kc+1
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
                                          const float hi[4]) {
-  a[0] = pack_f32(lo[0], lo[1]);
-  a[1] = pack_f32(lo[2], lo[3]);
-  a[2] = pack_f32(hi[0], hi[1]);
-  a[3] = pack_f32(hi[2], hi[3]);
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
+}
+
+// x as three bf16 pieces, each what the pieces before it leave of x,
+// rounded to nearest: b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 -
+// b1). Each difference is exact in float32 and the last one has at most
+// 8 significant bits, so b0 + b1 + b2 == x for every x whose last bit
+// lies above bf16's least subnormal (flash_attention.py's
+// `split_bf16x3_plain` is the same rule)
+__device__ __forceinline__ void split_bf16x3(float x,
+                                             __nv_bfloat16 (&b)[3]) {
+  b[0] = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(b[0]);
+  b[1] = __float2bfloat16_rn(r);
+  b[2] = __float2bfloat16_rn(r - __bfloat162float(b[1]));
+}
+
+// The terms of a product of two operands of P pieces, t = first_term(P)
+// .. 5: piece term_a(t) of A times piece term_b(t) of B. At P 3 the six
+// pairs whose indices sum to at most 2, the small ones first and b0 b0
+// last (the dropped terms are ~2^-24 of the product); at P 1 b0 b0 alone.
+__host__ __device__ constexpr int first_term(int P) { return P == 1 ? 5 : 0; }
+__host__ __device__ constexpr int term_a(int t) {
+  return t < 3 ? t : (t == 4 ? 1 : 0);
+}
+__host__ __device__ constexpr int term_b(int t) {
+  return t < 3 ? 2 - t : (t == 3 ? 1 : 0);
+}
+
+// the A fragments of k-chunk kc of each of the P pieces (a[p][kc]) from
+// the f32 C fragments of n-tiles 2kc, 2kc+1: rounded to T at P 1 (as
+// acc_to_a), split into three bf16 pieces at P 3
+template <typename T, int P, int N>
+__device__ __forceinline__ void acc_to_pieces(uint32_t (&a)[P][N][4],
+                                              int kc, const float lo[4],
+                                              const float hi[4]) {
+  if constexpr (P == 1) {
+    acc_to_a<T>(a[0][kc], lo, hi);
+  } else {
+    const float x[8] = {lo[0], lo[1], lo[2], lo[3],
+                        hi[0], hi[1], hi[2], hi[3]};
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      __nv_bfloat16 e[3], o[3];
+      split_bf16x3(x[2 * j], e);
+      split_bf16x3(x[2 * j + 1], o);
+      #pragma unroll
+      for (int p = 0; p < P; ++p) {
+        __nv_bfloat162 v = __halves2bfloat162(e[p], o[p]);
+        a[p][kc][j] = *reinterpret_cast<uint32_t*>(&v);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -104,29 +180,41 @@ __device__ __forceinline__ uint64_t kstep_desc(const unsigned char* tile,
                                  r0 * 128 + (kc & 3) * 32);
 }
 
+// The wgmma helpers that B2 and B3 at D 64/128 call take the element type
+// T (bf16 or fp16): the two forms differ only in the type names, so each
+// is one macro expanded with "bf16" or "f16".
+
 // d[16] (+)= A . B, m64n32k16: A (64 x 16 bf16) from registers in
 // mma.sync's A layout for each warp's 16 rows; B (32 x 16) K-major in
 // shared memory, 128-byte swizzle (descriptor b); accumulate == 0
 // ignores the old d
+#define FLASH_RS_N32(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), \
+        "r"(accumulate))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              const uint32_t (&a)[4],
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    FLASH_RS_N32("f16");
+  else
+    FLASH_RS_N32("bf16");
 }
+#undef FLASH_RS_N32
 
 // d[32] (+)= A . B, m64n64k16: as wgmma_rs_n32 over 64 columns of B
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -157,23 +245,31 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 
 // d[16] (+)= A . B, m64n32k16: A (64 x 16) and B (32 x 16) K-major in
 // shared memory, 128-byte swizzle (descriptors a, b)
+#define FLASH_SS_N32(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, " \
+      "%16, %17, p, 1, 1, 0, 0;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    FLASH_SS_N32("f16");
+  else
+    FLASH_SS_N32("bf16");
 }
+#undef FLASH_SS_N32
 
 // d[32] (+)= A . B, m64n64k16: A (64 x 16) and B (64 x 16) K-major in
 // shared memory, as wgmma_ss_n32
@@ -363,70 +459,86 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[W / 2], uint64_t a,
 
 // d[32] (+)= A . B, m64n64k16: A from registers as in wgmma_rs_n32; B
 // (16 x 64) MN-major, its N columns contiguous (desc_mn_sw128)
+#define FLASH_RS_T_N64(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), \
+        "r"(accumulate))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    FLASH_RS_T_N64("f16");
+  else
+    FLASH_RS_T_N64("bf16");
 }
+#undef FLASH_RS_T_N64
 
 // d[64] (+)= A . B, m64n128k16, as wgmma_rs_t_n64
+#define FLASH_RS_T_N128(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), \
+        "r"(accumulate))
+
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[64],
                                                const uint32_t (&a)[4],
                                                uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    FLASH_RS_T_N128("f16");
+  else
+    FLASH_RS_T_N128("bf16");
 }
+#undef FLASH_RS_T_N128
 
 // d[128] (+)= A . B, m64n256k16, as wgmma_rs_t_n64 (B1 at D 256: O += P V)
 __device__ __forceinline__ void wgmma_rs_t_n256(float (&d)[128],
@@ -505,12 +617,12 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(const void* p,
 
 // d (+)= A . B over N = D columns with B MN-major: the products that take
 // a tile transposed (dQ += dS K, dV += P^T dO, dK += dS^T Q)
-template <int D>
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[D / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t b, int accumulate) {
-  if constexpr (D == 64) wgmma_rs_t_n64(d, a, b, accumulate);
-  else wgmma_rs_t_n128(d, a, b, accumulate);
+  if constexpr (D == 64) wgmma_rs_t_n64<T>(d, a, b, accumulate);
+  else wgmma_rs_t_n128<T>(d, a, b, accumulate);
 }
 
 // keeps A fragments that an in-flight wgmma reads live until the wait
@@ -522,6 +634,13 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
   for (int i = 0; i < N; ++i)
     #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// fence_frags for every piece's fragments
+template <int P, int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[P][N][4]) {
+  #pragma unroll
+  for (int p = 0; p < P; ++p) fence_frags(a[p]);
 }
 
 // wgmma's m64nN accumulator, d[4 j + 2 h + e] = (row 16 w + gid + 8 h,

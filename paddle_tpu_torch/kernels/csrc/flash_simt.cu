@@ -21,8 +21,14 @@
 // rounded to the operands' dtype before P V and P^T dO, dS before dS K and
 // dS^T Q, as the bf16 kernels round to bf16 (a no-op for float32).
 //
+// Which calls reach it: the forward at every head dim; dQ and dK/dV only
+// above head dim 128. Up to 128 the backward runs on the tensor cores
+// (flash_bwd.cu: fp16 on f16 wgmma, float32 as three bf16 pieces of every
+// operand, six products a product, at 165 TFLOP/s of float32 work); a
+// wrapper called directly still takes any head dim here.
+//
 // What bounds it on this card: operations, on the CUDA cores' 67 TFLOP/s
-// of float32 (the tensor cores' TF32 would drop 13 bits of every
+// of float32 (TF32 on the tensor cores would drop 13 bits of every
 // operand). Design -- simple first:
 // - A CTA of 256 threads owns 64 query rows of one head (forward, dQ) or
 //   64 keys of one kv head (dK/dV); 4 threads share a row, each holding 8

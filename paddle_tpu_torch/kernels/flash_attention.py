@@ -23,10 +23,17 @@ plain pair too. The route is decided before any launch, from the device,
 the dtype and the GQA group alone (``flash_route``), and counted in
 ``ROUTE_COUNTS``: bf16 takes the tensor-core kernels (K and V expanded
 along the head axis where the group does not divide 64); float32 and
-fp16 take ``flash_simt.cu`` (``flash_simt_fwd_cuda``,
-``flash_simt_bwd_cuda``): the same three kernels on the CUDA cores, every
-product in float32, any head dim and group. There is no fallback: a
-kernel wrapper handed a tensor its kernel does not take raises.
+fp16 take ``flash_simt.cu``'s forward (``flash_simt_fwd_cuda``) on the
+CUDA cores. The backward's route is decided with the forward's, from the
+head dim too (``flash_bwd_route``), and counted in ``BWD_ROUTE_COUNTS``
+when it runs: up to head dim 128 float32 and fp16 take the tensor-core
+B2 and B3 as well, fp16 on f16 ``wgmma`` (``f16``), float32 as three bf16
+pieces of every operand (``split``: ``split_bf16x3_cuda``, then
+``flash_bwd_dq_x3_cuda`` and ``flash_bwd_dkv_x3_cuda``, each product the
+six terms of the pieces that keep float32's precision); above 128 both
+take ``flash_simt.cu``'s dQ and dK/dV (``flash_simt_bwd_cuda``), every
+product a float32 FMA. There is no fallback: a kernel wrapper handed a
+tensor its kernel does not take raises.
 
 The kernels read q/k/v/dO through their strides (the innermost one must be
 1 and the others multiples of 8 elements), so the non-contiguous q/k/v
@@ -76,8 +83,21 @@ _FOLD = 64
 # tensors take the plain pair)
 ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "simt": 0, "forced": 0,
                 "cpu": 0}
+# the backward's routes (``flash_bwd_route``), one a backward call: bf16's
+# ``kernel`` and ``expanded`` as the forward's, ``f16`` (fp16 on B2/B3),
+# ``split`` (float32 on B2/B3 as three bf16 pieces), ``simt`` (float32 and
+# fp16 above head dim 128: ``flash_simt.cu``), ``forced`` and ``cpu``
+BWD_ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "f16": 0, "split": 0,
+                    "simt": 0, "forced": 0, "cpu": 0}
 # the dtypes ``flash_simt.cu`` takes, by their code in its C entry points
 _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
+# the element types of ``flash_bwd.cu``'s C entry points: bf16, fp16, and
+# float32 as three bf16 pieces ([3, B, S, H, D])
+_BWD_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+_BWD_PIECES = 2
+# the head dims B2 and B3 take fp16 and float32 at (the wrapper pads any D
+# up to 128 to one of them)
+_TC_DIMS = (64, 128)
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
 # packed lengths of thousands the whole logits tensor would not fit
@@ -242,26 +262,50 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+def split_bf16x3_plain(x, dp=None):
+    """``x`` [..., D] float32 as three bf16 pieces, [3, ..., dp] (``dp``
+    defaults to D; columns D .. dp - 1 zero): b0 = bf16(x), b1 = bf16(x -
+    b0), b2 = bf16(x - b0 - b1), each rounded to nearest. The differences
+    are exact in float32 and the last has at most 8 significant bits, so
+    b0 + b1 + b2 == x wherever x's last bit lies above bf16's least
+    subnormal. The plain version of ``split_bf16x3_cuda`` (bit for bit)."""
+    x = x.float()
+    if dp is not None:
+        x = pad_head_dim(x, dp)
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    b2 = (r - b1.float()).to(torch.bfloat16)
+    return torch.stack([b0, b1, b2])
+
+
 # -- CUDA wrappers ----------------------------------------------------------
 
-def _check_qkv(what, q, k, v, extra=()):
-    """Shapes, dtype and layout the kernels take; returns (B, Sq, Sk, Hq,
-    Hk, D)."""
+def _check_qkv(what, q, k, v, extra=(), fp16=False):
+    """Shapes, dtype and layout the kernels take: bf16, or with ``fp16``
+    (B2, B3) also float16 at D 64 or 128, all of one dtype; returns (B,
+    Sq, Sk, Hq, Hk, D)."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
+    dtypes = (torch.bfloat16, torch.float16) if fp16 else (torch.bfloat16,)
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4 or \
-                t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if not t.is_cuda or t.dtype not in dtypes or t.dtype != q.dtype or \
+                t.dim() != 4 or t.stride(-1) != 1 or \
+                any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
-                f"{what}: {name} must be a 4-d bfloat16 CUDA tensor with "
-                f"unit innermost stride, other strides multiples of 8 and "
-                f"16-byte alignment, got {t.dtype} on {t.device} with "
-                f"strides {tuple(t.stride())}")
+                f"{what}: {name} must be a 4-d "
+                f"{' or '.join(str(d)[6:] for d in dtypes)} CUDA tensor of "
+                f"q's dtype with unit innermost stride, other strides "
+                f"multiples of 8 and 16-byte alignment, got {t.dtype} on "
+                f"{t.device} with strides {tuple(t.stride())}")
     for name, t in extra:
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
                              f"shaped as q {tuple(q.shape)}")
+    if q.dtype == torch.float16 and D not in _TC_DIMS:
+        raise ValueError(f"{what}: float16 takes head_dim {_TC_DIMS}, got "
+                         f"{D} (FlashAttention pads any head dim up to "
+                         f"{_TC_DIMS[-1]} to one of these)")
     if not kernel_head_dim(D):
         raise ValueError(f"{what}: head_dim {D} not in {_KERNEL_DIMS} nor "
                          f"a multiple of {_WIDE_STEP} above "
@@ -392,9 +436,13 @@ def _seg_ptrs(seg, *bounds):
             for t in (seg or (None,) * 4) + bounds]
 
 
-def _count(fn, seg, D):
+def _count(fn, seg, D, dtype=torch.bfloat16):
     """One launch of ``fn``: dense or segment branch, and apart from
-    either, the kernels above head dim 256 (``xl_launches``)."""
+    either, the kernels above head dim 256 (``xl_launches``); a float16
+    launch (B2, B3) counts in ``f16_launches`` alone, dense or segment."""
+    if dtype == torch.float16:
+        fn.f16_launches += 1
+        return
     if seg is None:
         fn.launches += 1
     else:
@@ -453,70 +501,231 @@ def _check_rowstats(what, B, Hq, Sq, *ts):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _bwd_dq(what, code, q, k, v, do, lse, delta, causal, scale, seg,
+            out_dtype):
+    """One ``flash_bwd_dq`` launch on checked operands (element type
+    ``code``; at ``_BWD_PIECES`` q, k, v, do are [3, B, S, H, D] pieces
+    and the shapes are piece 0's). Returns dQ [B, Sq, Hq, D] in
+    ``out_dtype``, contiguous."""
+    B, Sq, Hq, D = q.shape[-4:]
+    Sk, Hk = k.shape[-3], k.shape[-2]
+    bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
+    dq = torch.empty((B, Sq, Hq, D), device=q.device, dtype=out_dtype)
+    lib = _build.load("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_bwd_dq(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        _scale(scale, D), *_strides(*(t[0] if t.dim() == 5 else t
+                                      for t in (q, k, v, do))), stream)
+    _build.check(err, what)
+    return dq
+
+
+def _bwd_dkv(what, code, q, k, v, do, lse, delta, causal, scale, seg,
+             out_dtype):
+    """One ``flash_bwd_dkv`` launch, as ``_bwd_dq``: (dK, dV) [B, Sk, Hk,
+    D] in ``out_dtype``, summed over the G query heads of each group
+    (split over a cluster of ``dkv_cluster`` CTAs where the grid is
+    small)."""
+    B, Sq, Hq, D = q.shape[-4:]
+    Sk, Hk = k.shape[-3], k.shape[-2]
+    bounds = (None, None) if seg is None else (
+        _bounds_workspace(B, Sq, q.device),
+        _bounds_workspace(B, Sk, q.device))
+    dk = torch.empty((B, Sk, Hk, D), device=q.device, dtype=out_dtype)
+    dv = torch.empty((B, Sk, Hk, D), device=q.device, dtype=out_dtype)
+    lib = _build.load("flash_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_bwd_dkv(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
+        dkv_cluster(B, Hk, Hq // Hk, Sk, D), _scale(scale, D),
+        *_strides(*(t[0] if t.dim() == 5 else t for t in (q, k, v, do))),
+        stream)
+    _build.check(err, what)
+    return dk, dv
+
+
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
                       q_segment_ids=None, kv_segment_ids=None,
                       q_positions=None, kv_positions=None):
-    """Launch ``flash_bwd_dq_bf16`` (B2): dQ [B, Sq, Hq, D] in bf16,
-    contiguous. ``lse`` and ``delta`` are float32 [B, Hq, Sq]; segments
-    as ``flash_fwd_cuda`` takes them."""
+    """Launch ``flash_bwd_dq`` (B2): dQ [B, Sq, Hq, D] in q's dtype (bf16,
+    or float16 at D 64 and 128), contiguous. ``lse`` and ``delta`` are
+    float32 [B, Hq, Sq]; segments as ``flash_fwd_cuda`` takes them. Counts
+    as ``_count`` says."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_bwd_dq", q, k, v,
-                                      (("do", do),))
+                                      (("do", do),), fp16=True)
     _check_rowstats("flash_bwd_dq", B, Hq, Sq, ("lse", lse),
                     ("delta", delta))
     seg = _check_seg("flash_bwd_dq", q, k, (q_segment_ids, kv_segment_ids,
                                            q_positions, kv_positions))
-    bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
-    dq = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
-    lib = _build.load("flash_bwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_bwd_dq_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
-        _scale(scale, D), *_strides(q, k, v, do), stream)
-    _build.check(err, "flash_bwd_dq_bf16")
-    _count(flash_bwd_dq_cuda, seg, D)
+    dq = _bwd_dq("flash_bwd_dq", _BWD_DTYPES[q.dtype], q, k, v, do, lse,
+                 delta, causal, scale, seg, q.dtype)
+    _count(flash_bwd_dq_cuda, seg, D, q.dtype)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.seg_launches = 0
 flash_bwd_dq_cuda.xl_launches = 0
+flash_bwd_dq_cuda.f16_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False, scale=None,
                        q_segment_ids=None, kv_segment_ids=None,
                        q_positions=None, kv_positions=None):
-    """Launch ``flash_bwd_dkv_bf16`` (B3): (dK, dV) [B, Sk, Hk, D] in bf16,
-    contiguous, each summed over the G query heads of its group (split
-    over a cluster of ``dkv_cluster`` CTAs where the grid is small)."""
+    """Launch ``flash_bwd_dkv`` (B3): (dK, dV) [B, Sk, Hk, D] in k's dtype
+    (bf16, or float16 at D 64 and 128), contiguous, each summed over the G
+    query heads of its group."""
     B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_bwd_dkv", q, k, v,
-                                      (("do", do),))
+                                      (("do", do),), fp16=True)
     _check_rowstats("flash_bwd_dkv", B, Hq, Sq, ("lse", lse),
                     ("delta", delta))
     seg = _check_seg("flash_bwd_dkv", q, k, (q_segment_ids, kv_segment_ids,
                                             q_positions, kv_positions))
-    bounds = (None, None) if seg is None else (
-        _bounds_workspace(B, Sq, q.device),
-        _bounds_workspace(B, Sk, q.device))
-    dk = torch.empty((B, Sk, Hk, D), device=q.device, dtype=k.dtype)
-    dv = torch.empty((B, Sk, Hk, D), device=q.device, dtype=v.dtype)
-    lib = _build.load("flash_bwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_bwd_dkv_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D, int(bool(causal)),
-        dkv_cluster(B, Hk, Hq // Hk, Sk, D), _scale(scale, D),
-        *_strides(q, k, v, do), stream)
-    _build.check(err, "flash_bwd_dkv_bf16")
-    _count(flash_bwd_dkv_cuda, seg, D)
-    return dk, dv
+    out = _bwd_dkv("flash_bwd_dkv", _BWD_DTYPES[q.dtype], q, k, v, do, lse,
+                   delta, causal, scale, seg, q.dtype)
+    _count(flash_bwd_dkv_cuda, seg, D, q.dtype)
+    return out
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.seg_launches = 0
 flash_bwd_dkv_cuda.xl_launches = 0
+flash_bwd_dkv_cuda.f16_launches = 0
+
+
+# -- float32 on the tensor cores: three bf16 pieces ---------------------------
+
+def split_bf16x3_cuda(x, dp=None):
+    """Launch ``flash_split_bf16x3`` (``flash_bwd.cu``): ``x`` [B, S, H, D]
+    float32 CUDA tensor (unit innermost stride; other strides as they
+    are) -> [3, B, S, H, dp] bf16, contiguous, the three pieces of every
+    element with the head dim zero-padded to ``dp`` (even, >= D; default
+    D, which must then be even). ``split_bf16x3_plain`` gives the same
+    bits. Counts ``launches``."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 4 or \
+            x.stride(-1) != 1:
+        raise ValueError(f"split_bf16x3: x must be a 4-d float32 CUDA "
+                         f"tensor with unit innermost stride, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device} with strides "
+                         f"{tuple(x.stride())}")
+    B, S, H, D = x.shape
+    dp = D if dp is None else dp
+    if dp < D or dp % 2:
+        raise ValueError(f"split_bf16x3: padded head dim {dp} must be even "
+                         f"and at least {D}")
+    out = torch.empty((3, B, S, H, dp), device=x.device,
+                      dtype=torch.bfloat16)
+    lib = _build.load("flash_bwd")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.flash_split_bf16x3(x.data_ptr(), out.data_ptr(), B, S, H, D, dp,
+                           *x.stride()[:3], stream)
+    _build.check(err, "flash_split_bf16x3")
+    split_bf16x3_cuda.launches += 1
+    return out
+
+
+split_bf16x3_cuda.launches = 0
+
+
+def _check_pieces(what, q, k, v, do):
+    """The three-piece operands B2 and B3 take: [3, B, S, H, D] bf16 CUDA
+    tensors, contiguous (``split_bf16x3_cuda``), D 64 or 128, q and dO
+    alike, k and v alike, G = Hq / Hk dividing 64; returns (B, Sq, Sk, Hq,
+    Hk, D) of piece 0."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 5 or \
+                t.shape[0] != 3 or not t.is_contiguous() or \
+                t.shape[-1] not in _TC_DIMS:
+            raise ValueError(
+                f"{what}: {name} must be three bf16 pieces [3, B, S, H, D] "
+                f"on the card, contiguous, D in {_TC_DIMS} "
+                f"(split_bf16x3_cuda), got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    B, Sq, Hq, D = q.shape[1:]
+    Sk, Hk = k.shape[2], k.shape[3]
+    if do.shape != q.shape or v.shape != k.shape or k.shape[1] != B or \
+            k.shape[-1] != D:
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} do "
+                         f"{tuple(do.shape)}")
+    if Hq % Hk or 64 % (Hq // Hk):
+        raise ValueError(f"{what}: GQA group {Hq}/{Hk} must be an integer "
+                         f"dividing 64")
+    return B, Sq, Sk, Hq, Hk, D
+
+
+def flash_bwd_dq_x3_cuda(qp, kp, vp, dop, lse, delta, causal=False,
+                         scale=None, q_segment_ids=None, kv_segment_ids=None,
+                         q_positions=None, kv_positions=None):
+    """Launch ``flash_bwd_dq`` (B2) on float32 operands as three bf16
+    pieces each (``split_bf16x3_cuda``): dQ [B, Sq, Hq, D] float32,
+    contiguous, every product the six terms of the pieces whose indices
+    sum to at most 2. Counts ``launches`` (dense) and ``seg_launches``."""
+    B, Sq, Sk, Hq, Hk, D = _check_pieces("flash_bwd_dq_x3", qp, kp, vp,
+                                         dop)
+    _check_rowstats("flash_bwd_dq_x3", B, Hq, Sq, ("lse", lse),
+                    ("delta", delta))
+    seg = _check_seg("flash_bwd_dq_x3", qp[0], kp[0],
+                     (q_segment_ids, kv_segment_ids, q_positions,
+                      kv_positions))
+    dq = _bwd_dq("flash_bwd_dq_x3", _BWD_PIECES, qp, kp, vp, dop, lse,
+                 delta, causal, scale, seg, torch.float32)
+    _simt_count(flash_bwd_dq_x3_cuda, seg)
+    return dq
+
+
+flash_bwd_dq_x3_cuda.launches = 0
+flash_bwd_dq_x3_cuda.seg_launches = 0
+
+
+def flash_bwd_dkv_x3_cuda(qp, kp, vp, dop, lse, delta, causal=False,
+                          scale=None, q_segment_ids=None,
+                          kv_segment_ids=None, q_positions=None,
+                          kv_positions=None):
+    """Launch ``flash_bwd_dkv`` (B3) on three-piece operands: (dK, dV)
+    [B, Sk, Hk, D] float32, each summed over the G query heads of its
+    group. Counts as ``flash_bwd_dq_x3_cuda``."""
+    B, Sq, Sk, Hq, Hk, D = _check_pieces("flash_bwd_dkv_x3", qp, kp, vp,
+                                         dop)
+    _check_rowstats("flash_bwd_dkv_x3", B, Hq, Sq, ("lse", lse),
+                    ("delta", delta))
+    seg = _check_seg("flash_bwd_dkv_x3", qp[0], kp[0],
+                     (q_segment_ids, kv_segment_ids, q_positions,
+                      kv_positions))
+    out = _bwd_dkv("flash_bwd_dkv_x3", _BWD_PIECES, qp, kp, vp, dop, lse,
+                   delta, causal, scale, seg, torch.float32)
+    _simt_count(flash_bwd_dkv_x3_cuda, seg)
+    return out
+
+
+flash_bwd_dkv_x3_cuda.launches = 0
+flash_bwd_dkv_x3_cuda.seg_launches = 0
+
+
+def flash_split_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
+                         q_segment_ids=None, kv_segment_ids=None,
+                         q_positions=None, kv_positions=None, dlse=None,
+                         dp=None):
+    """The float32 backward on the tensor cores: Delta (from O and dO at
+    their own head dim), then q, k, v and dO split into three bf16 pieces
+    each with the head dim zero-padded to ``dp`` (64 or 128; default D),
+    then B2 and B3. Returns float32 (dQ, dK, dV) at ``dp`` columns; give
+    ``scale`` for the true head dim."""
+    do = do.to(q.dtype)
+    delta = flash_delta(o, do, dlse)
+    pieces = [split_bf16x3_cuda(t if t.stride(-1) == 1 else t.contiguous(),
+                                dp) for t in (q, k, v, do)]
+    kw = dict(scale=scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+              kv_positions=kv_positions)
+    dq = flash_bwd_dq_x3_cuda(*pieces, lse, delta, causal, **kw)
+    dk, dv = flash_bwd_dkv_x3_cuda(*pieces, lse, delta, causal, **kw)
+    return dq, dk, dv
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, causal=False, scale=None,
@@ -725,7 +934,8 @@ def flash_route(device, dtype, Hq, Hk, mode):
     dtype, which the bf16 kernels refuse unless it is bf16, with G = Hq /
     Hk dividing 64 or Hq not a multiple of Hk) or ``expanded`` (bf16 with
     any other G: K and V expanded ``expand_factor(G)`` times). Pure:
-    decided before any launch from these alone."""
+    decided before any launch from these alone. The backward's route also
+    reads the head dim: ``flash_bwd_route``."""
     mode = _flash_mode(mode)
     if torch.device(device).type == "cpu":
         return "cpu"
@@ -737,6 +947,25 @@ def flash_route(device, dtype, Hq, Hk, mode):
             _FOLD % (Hq // Hk) == 0:
         return "kernel"
     return "expanded"
+
+
+def flash_bwd_route(device, dtype, Hq, Hk, D, mode):
+    """Where ``FlashAttention``'s backward runs for q [B, S, Hq, D] of
+    ``dtype`` on ``device`` over Hk kv heads: ``cpu``, ``forced`` and, for
+    any dtype but float32 and fp16, ``kernel`` or ``expanded`` as
+    ``flash_route`` decides for the forward; float32 and fp16 up to head
+    dim 128 on the tensor-core B2 and B3, fp16 as one f16 piece (``f16``),
+    float32 as three bf16 pieces (``split``), D zero-padded to 64 or 128
+    and K, V expanded ``expand_factor(G)`` times where G does not divide
+    64; above 128 ``simt`` (``flash_simt.cu``'s dQ and dK/dV at the true D
+    and group). Pure: decided with the forward's route, before any
+    launch."""
+    route = flash_route(device, dtype, Hq, Hk, mode)
+    if route != "simt":
+        return route
+    if D > _TC_DIMS[-1]:
+        return "simt"
+    return "split" if dtype == torch.float32 else "f16"
 
 
 def expand_kv(t, r):
@@ -768,16 +997,21 @@ class FlashAttention(torch.autograd.Function):
     kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
-    B3. The route is chosen once, in the forward, by ``flash_route`` and
-    counted in ``ROUTE_COUNTS``. On the kernel routes any head dim the
-    kernels are not built for is zero-padded to ``padded_head_dim`` (64,
-    128 or 256 up to 256, the next multiple of 128 above it) for each
-    launch, at the true D's scale, and O, dQ, dK and dV are sliced back to
-    D (``pad_head_dim``); on ``expanded`` K and V are also expanded r =
-    ``expand_factor(G)`` times along the head axis (``expand_kv``) for
-    each launch, which leaves the forward exact, and the r copies' dK and
-    dV are summed in float32 (``reduce_expanded``). On ``simt`` (float32,
-    fp16) ``flash_simt.cu`` runs at the true D and group. On ``cpu`` and
+    B3. The routes are chosen once, in the forward: ``flash_route``
+    (counted in ``ROUTE_COUNTS`` there) and ``flash_bwd_route`` (counted
+    in ``BWD_ROUTE_COUNTS`` when the backward runs). On the kernel routes
+    any head dim the kernels are not built for is zero-padded to
+    ``padded_head_dim`` (64, 128 or 256 up to 256, the next multiple of
+    128 above it) for each launch, at the true D's scale, and O, dQ, dK
+    and dV are sliced back to D (``pad_head_dim``); on ``expanded`` K and
+    V are also expanded r = ``expand_factor(G)`` times along the head axis
+    (``expand_kv``) for each launch, which leaves the forward exact, and
+    the r copies' dK and dV are summed in float32 (``reduce_expanded``).
+    On ``simt`` (float32, fp16) the forward runs ``flash_simt.cu`` at the
+    true D and group; the backward's ``f16`` and ``split`` routes (D up
+    to 128) pad and expand as the kernel routes do (``split``: float32
+    dQ, dK, dV from ``flash_split_bwd_cuda``), its ``simt`` route runs
+    ``flash_simt.cu`` at the true D and group. On ``cpu`` and
     ``forced`` the forward runs ``flash_attention_plain`` (with autograd
     off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
@@ -786,8 +1020,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale=None, q_segment_ids=None,
                 kv_segment_ids=None, q_positions=None, kv_positions=None,
                 return_lse=False):
-        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2],
-                            _flags.flag("FLAGS_flash_kernel"))
+        mode = _flags.flag("FLAGS_flash_kernel")
+        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2], mode)
         ROUTE_COUNTS[route] += 1
         kernel = route in ("kernel", "expanded")
         r = expand_factor(q.shape[2] // k.shape[2]) \
@@ -814,9 +1048,10 @@ class FlashAttention(torch.autograd.Function):
                               kv_segment_ids, q_positions, kv_positions)
         ctx.causal = bool(causal)
         ctx.scale = scale
-        ctx.kernel = kernel
-        ctx.simt = route == "simt"
-        ctx.expand = r
+        ctx.bwd_route = flash_bwd_route(q.device, q.dtype, q.shape[2],
+                                        k.shape[2], q.shape[-1], mode)
+        ctx.expand = r if ctx.bwd_route not in ("f16", "split") else \
+            expand_factor(q.shape[2] // k.shape[2])
         ctx.set_materialize_grads(False)
         return (o, lse) if return_lse else o
 
@@ -827,20 +1062,26 @@ class FlashAttention(torch.autograd.Function):
         if do is None:  # only LSE was used
             do = torch.zeros_like(o)
         kw = dict(zip(_SEG_NAMES, seg), scale=ctx.scale, dlse=dlse)
-        if ctx.kernel:
+        route = ctx.bwd_route
+        BWD_ROUTE_COUNTS[route] += 1
+        if route in ("kernel", "expanded", "f16", "split"):
             D = q.shape[-1]
             dp = padded_head_dim(D)
             r = ctx.expand
             kw["scale"] = _scale(ctx.scale, D)
-            dq, dk, dv = flash_bwd_cuda(
-                *(pad_head_dim(t, dp) for t in (q, expand_kv(k, r),
-                                                expand_kv(v, r), o)), lse,
-                _kernel_layout(pad_head_dim(do, dp)), ctx.causal, **kw)
+            ke, ve = expand_kv(k, r), expand_kv(v, r)
+            if route == "split":
+                dq, dk, dv = flash_split_bwd_cuda(q, ke, ve, o, lse, do,
+                                                  ctx.causal, dp=dp, **kw)
+            else:
+                dq, dk, dv = flash_bwd_cuda(
+                    *(pad_head_dim(t, dp) for t in (q, ke, ve, o)), lse,
+                    _kernel_layout(pad_head_dim(do, dp)), ctx.causal, **kw)
             if dp != D:
                 dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
             dk = reduce_expanded(dk, r, k.dtype)
             dv = reduce_expanded(dv, r, v.dtype)
-        elif ctx.simt:
+        elif route == "simt":
             dq, dk, dv = flash_simt_bwd_cuda(q, k, v, o, lse, do, ctx.causal,
                                              **kw)
         else:

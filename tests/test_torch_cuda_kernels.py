@@ -31,7 +31,10 @@ flash O, per slot for decode) within 1e-4 in float32 (the same float32
 products summed in another order; 2e-4 for the flash gradients) and 5e-3
 in fp16 (1e-2 for the gradients: both sides round P and dS to fp16, at
 2^-11 of the value, at slightly different points); bf16 at the decode
-limits above.
+limits above. B2 and B3 at D 64/128 in float32 (three bf16 pieces of
+every operand, six products a product: ~2^-24 of each product dropped)
+and fp16 (f16 wgmma) are held to the same float32 and fp16 gradient
+limits; the split pass gives its plain version's bits.
 """
 
 import functools
@@ -1190,47 +1193,68 @@ def test_fp8_linear_on_the_card_launches_three_products(dev):
 # and counted: the CUDA cores' kernels (``simt``) or, for bf16 flash at a
 # group not dividing 64, B1-B3 on expanded K and V
 def _flash_route_counts():
-    from paddle_tpu_torch.kernels.flash_attention import ROUTE_COUNTS
-    return dict(ROUTE_COUNTS)
+    from paddle_tpu_torch.kernels.flash_attention import (BWD_ROUTE_COUNTS,
+                                                          ROUTE_COUNTS)
+    return dict(ROUTE_COUNTS), dict(BWD_ROUTE_COUNTS)
 
 
+# the flash wrappers' counts: B1-B3 (bf16), the CUDA cores' three, the
+# three-piece B2/B3 and the split pass (float32), B2/B3 in fp16
 def _flash_launches():
     from paddle_tpu_torch.kernels import flash_attention as fa
     return [f.launches + f.seg_launches for f in (
         fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda,
         fa.flash_simt_fwd_cuda, fa.flash_simt_dq_cuda,
-        fa.flash_simt_dkv_cuda)]
+        fa.flash_simt_dkv_cuda, fa.flash_bwd_dq_x3_cuda,
+        fa.flash_bwd_dkv_x3_cuda)] + [
+        fa.split_bf16x3_cuda.launches, fa.flash_bwd_dq_cuda.f16_launches,
+        fa.flash_bwd_dkv_cuda.f16_launches]
+
+
+# launches of one forward + backward by the backward's route, in
+# _flash_launches' order
+_ROUTE_LAUNCHES = {"expanded": [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0],
+                   "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0],
+                   "split": [0, 0, 0, 1, 0, 0, 1, 1, 4, 0, 0],
+                   "f16": [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 1]}
 
 
 # the CUDA cores' kernels against the plain versions, both in float32 (the
 # same products, summed in another order) or both rounding to fp16 at the
 # same points (the kernels round the unnormalized P, the plain pair the
-# normalized one): max |kernel - plain| / max |plain|, per row for O
+# normalized one): max |kernel - plain| / max |plain|, per row for O. The
+# tensor-core B2/B3 in float32 (three bf16 pieces, six terms a product:
+# ~2^-24 of each product dropped) and fp16 are held to the same limits.
 SIMT_RTOL = {torch.float32: 1e-4, torch.float16: 5e-3,
              torch.bfloat16: DECODE_RTOL}
 SIMT_BWD_RTOL = {torch.float32: 2e-4, torch.float16: 1e-2}
 
 
-@pytest.mark.parametrize("dtype,Hq,Hk,causal,route", [
-    (torch.float32, 32, 8, True, "simt"),
-    (torch.float16, 32, 8, True, "simt"),
-    (torch.float32, 8, 8, False, "simt"),
-    (torch.float32, 24, 8, True, "simt"),         # G 3 at float32
-    (torch.bfloat16, 24, 8, True, "expanded"),    # G 3
-    (torch.bfloat16, 24, 8, False, "expanded"),
-    (torch.bfloat16, 96, 8, True, "expanded"),    # G 12
-    (torch.bfloat16, 96, 8, False, "expanded"),
+@pytest.mark.parametrize("dtype,Hq,Hk,D,causal,bwd", [
+    (torch.float32, 32, 8, 64, True, "split"),
+    (torch.float16, 32, 8, 64, True, "f16"),
+    (torch.float32, 8, 8, 64, False, "split"),
+    (torch.float32, 24, 8, 64, True, "split"),    # G 3 at float32
+    (torch.float16, 24, 8, 80, False, "f16"),     # G 3, D 80 padded
+    (torch.float32, 8, 2, 160, True, "simt"),     # above head dim 128
+    (torch.float16, 8, 2, 160, False, "simt"),
+    (torch.bfloat16, 24, 8, 64, True, "expanded"),    # G 3
+    (torch.bfloat16, 24, 8, 64, False, "expanded"),
+    (torch.bfloat16, 96, 8, 64, True, "expanded"),    # G 12
+    (torch.bfloat16, 96, 8, 64, False, "expanded"),
 ])
 def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
-                                                        causal, route):
-    """``FlashAttention`` in float32 and fp16 (``flash_simt.cu``'s three
-    kernels once each) and at bf16 GQA groups 3 and 12 (B1-B3 once each
-    on K and V expanded 3 times along the head axis, dK and dV summed
-    over the copies), forward and backward: one route count, exactly the
-    launches it implies, and the result against the plain pair on the
-    same inputs."""
-    b, s, D = 2, 300, 64
-    g = torch.Generator(device=dev).manual_seed(Hq + causal)
+                                                        D, causal, bwd):
+    """``FlashAttention`` in float32 and fp16 (the forward on
+    ``flash_simt.cu``; the backward on the tensor-core B2/B3 up to head
+    dim 128, float32 as three bf16 pieces after four split passes, fp16
+    on f16 wgmma, on ``flash_simt.cu`` above 128) and at bf16 GQA groups
+    3 and 12 (B1-B3 once each on K and V expanded 3 times along the head
+    axis, dK and dV summed over the copies), forward and backward: one
+    count of each route, exactly the launches they imply, and the result
+    against the plain pair on the same inputs."""
+    b, s = 2, 300
+    g = torch.Generator(device=dev).manual_seed(Hq + causal + D)
     mk = lambda h: torch.randn(b, s, h, D, generator=g, device=dev,
                                dtype=dtype)
     q, k, v, do = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
@@ -1241,16 +1265,18 @@ def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
     out.backward(do)
     torch.cuda.synchronize()
     after = _flash_route_counts()
-    assert {n: after[n] - counts[n] for n in after} == \
-        {n: int(n == route) for n in after}
-    want = [1, 1, 1, 0, 0, 0] if route == "expanded" else [0, 0, 0, 1, 1, 1]
-    assert [x - y for x, y in zip(_flash_launches(), before)] == want
+    fwd = "expanded" if bwd == "expanded" else "simt"
+    for c0, c1, want in zip(counts, after, (fwd, bwd)):
+        assert {n: c1[n] - c0[n] for n in c1} == \
+            {n: int(n == want) for n in c1}
+    assert [x - y for x, y in zip(_flash_launches(), before)] == \
+        _ROUTE_LAUNCHES[bwd]
     o_ref, lse = flash_attention_plain(q, k, v, causal=causal,
                                        return_lse=True)
     refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=causal)
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out.float()).all())
-    if route == "simt":
+    if bwd != "expanded":
         assert _row_rel_err(out, o_ref) <= SIMT_RTOL[dtype]
         for name, t, ref in zip(("dq", "dk", "dv"), ts, refs):
             assert t.grad.dtype == dtype and t.grad.shape == ref.shape, name
@@ -1261,6 +1287,130 @@ def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
     for name, t, ref in zip(("dq", "dk", "dv"), ts, refs):
         assert t.grad.dtype == dtype and t.grad.shape == ref.shape, name
         assert _rel_err(t.grad, ref) <= BWD_RTOL, name
+
+
+# the tensor-core B2/B3 in float32 and fp16: (B, Sq, Sk, Hq, Hk, D, causal,
+# segments)
+_TC_CASES = [
+    (2, 197, 197, 8, 2, 64, True, False),      # G 4, ragged last tiles
+    (1, 300, 300, 24, 8, 80, True, False),     # G 3 (K, V expanded), D 80
+    (1, 130, 260, 4, 4, 128, True, False),     # Sk > Sq, G 1
+    (1, 260, 130, 4, 2, 128, True, False),     # Sq > Sk: rows see nothing
+    (2, 200, 200, 8, 2, 128, False, False),
+    (1, 1000, 1000, 32, 8, 128, True, False),  # Llama's heads, cluster 2
+    (1, 256, 256, 8, 8, 64, True, True),
+    (2, 300, 300, 8, 2, 128, False, True),
+    (1, 300, 300, 24, 8, 80, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal,seg", _TC_CASES)
+def test_flash_bwd_float32_and_fp16_match_plain(dev, dtype, B, Sq, Sk, Hq,
+                                                Hk, D, causal, seg):
+    """``flash_attention`` forward + backward in float32 (B2/B3 on three
+    bf16 pieces) and fp16 (B2/B3 on f16 wgmma), the head dim zero-padded
+    to 64 or 128 and K, V expanded at G 3: dQ, dK, dV against the plain
+    pair within SIMT_BWD_RTOL, exact zeros where a row sees no key."""
+    from paddle_tpu_torch.kernels.flash_attention import (BWD_ROUTE_COUNTS,
+                                                          flash_attention)
+    g = torch.Generator(device=dev).manual_seed(D + Sq + Hq)
+    mk = lambda n, h: torch.randn(B, n, h, D, generator=g, device=dev,
+                                  dtype=dtype)
+    q, k, v, do = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk), mk(Sq, Hq)
+    kw = dict(zip(_SEG_NAMES, _dense_seg(dev, B, Sq, True, run=40))) \
+        if seg else {}
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    route = "split" if dtype == torch.float32 else "f16"
+    before = BWD_ROUTE_COUNTS[route]
+    flash_attention(*ts, causal=causal, **kw).backward(do)
+    torch.cuda.synchronize()
+    assert BWD_ROUTE_COUNTS[route] == before + 1
+    o_ref, lse = flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True, **kw)
+    refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal, **kw)
+    for name, t, ref in zip(("dq", "dk", "dv"), ts, refs):
+        assert t.grad.dtype == dtype and t.grad.shape == ref.shape, name
+        assert bool(torch.isfinite(t.grad.float()).all()), name
+        assert _rel_err(t.grad, ref) <= SIMT_BWD_RTOL[dtype], name
+    if Sq > Sk and causal:  # the first Sq - Sk rows see no key
+        assert ts[0].grad[:, :Sq - Sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D,dp", [(80, 128), (128, 128), (64, 64)])
+def test_split_pass_matches_its_plain_version(dev, D, dp):
+    """``split_bf16x3_cuda`` on a strided view (q of a fused [B, S, 3, H,
+    D] projection) gives ``split_bf16x3_plain``'s bits, the head dim
+    zero-padded; a non-unit innermost stride is refused."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        split_bf16x3_cuda, split_bf16x3_plain)
+    g = torch.Generator(device=dev).manual_seed(D)
+    qkv = torch.randn(2, 77, 3, 5, D, generator=g, device=dev) * 3.0
+    x = qkv[:, :, 0]
+    assert not x.is_contiguous()
+    out = split_bf16x3_cuda(x, dp)
+    assert out.shape == (3, 2, 77, 5, dp) and out.is_contiguous()
+    assert torch.equal(out, split_bf16x3_plain(x, dp))
+    rebuilt = out.double().sum(0)[..., :D]
+    assert torch.equal(rebuilt, x.double())
+    with pytest.raises(ValueError, match="innermost"):
+        split_bf16x3_cuda(x.transpose(-1, -2).contiguous().transpose(-1, -2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_flash_bwd_float32_and_fp16_replay_in_a_cuda_graph(dev, dtype):
+    """The float32 backward (four splits, B2 and B3 on the pieces) and
+    the fp16 pair captured in a CUDA graph and replayed on new q and dO
+    give the eager result; two eager calls give the same bits (no
+    atomics; the 2-CTA cluster sums in a fixed order)."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_split_bwd_cuda
+    B, S, Hq, Hk, D = 1, 1000, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+    mk = lambda h: torch.randn(B, S, h, D, generator=g, device=dev,
+                               dtype=dtype)
+    q, k, v, do = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
+    o, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    if dtype == torch.float32:
+        call = lambda: flash_split_bwd_cuda(q, k, v, o, lse, do, True)
+    else:
+        delta = flash_delta(o, do)
+        call = lambda: (flash_bwd_dq_cuda(q, k, v, do, lse, delta, True),
+                        *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True))
+    first = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    q.copy_(torch.randn(q.shape, generator=g, device=dev, dtype=dtype))
+    do.copy_(torch.randn(do.shape, generator=g, device=dev, dtype=dtype))
+    graph.replay()
+    eager = call()
+    again = call()
+    torch.cuda.synchronize()
+    for name, a, b, c, d in zip(("dq", "dk", "dv"), outs, eager, again,
+                                first):
+        assert torch.equal(a, b), name
+        assert torch.equal(b, c), name
+        assert not torch.equal(b, d), name
+
+
+def test_flash_bwd_float32_and_fp16_wrappers_refuse(dev):
+    """fp16 only at D 64 and 128, one dtype for all four operands; the
+    three-piece wrappers take contiguous [3, B, S, H, D] bf16 pieces."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_bwd_dq_x3_cuda, split_bf16x3_cuda)
+    s = torch.zeros(1, 2, 64, device=dev)
+    h = torch.zeros(1, 64, 2, 256, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd_dq_cuda(h, h, h, h, s, s, causal=True)
+    h = h[..., :64]
+    with pytest.raises(ValueError, match="dtype"):
+        flash_bwd_dq_cuda(h, h.bfloat16(), h, h, s, s, causal=True)
+    p = split_bf16x3_cuda(torch.zeros(1, 64, 2, 64, device=dev))
+    with pytest.raises(ValueError, match="pieces"):
+        flash_bwd_dq_x3_cuda(p[:2], p, p, p, s, s, causal=True)
+    with pytest.raises(ValueError, match="pieces"):
+        flash_bwd_dq_x3_cuda(p.transpose(3, 4), p, p, p, s, s, causal=True)
 
 
 _SIMT_SHAPES = [
