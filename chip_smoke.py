@@ -214,41 +214,52 @@
    do not take, each sent to a route decided before any launch and
    counted there, counts zeroed before and read after.
    ``FlashAttention`` forward + backward at the llama_train shape in
-   float32 and fp16 (forward route ``simt``: ``flash_simt.cu``'s forward;
-   backward route ``split``: four split passes, then B2 and B3 on three
-   bf16 pieces of every operand, or ``f16``: B2 and B3 on f16 wgmma), in
-   float32 at G 3, D 80 (``split`` on K, V expanded 3 times, D padded to
-   128), in float32 and fp16 at D 160, B 1, S 1024, Hq 16, Hk 4 (``simt``
-   both ways: ``flash_simt.cu``'s forward, dQ and dK/dV), all against the
-   plain pair within SIMT_RTOL / SIMT_BWD_RTOL, and in bf16 at Hq 24 / Hk
-   8, G 3 (route ``expanded``: B1-B3 once each on K and V expanded 3
-   times, within B1-B3's limits), read from
+   float32 and fp16 (route ``split`` both ways: three split passes, B1 on
+   three bf16 pieces of q, k, v, then four split passes, B2 and B3 on
+   the pieces; or ``f16``: B1-B3 on f16 wgmma), in float32 at G 3, D 80
+   (``split`` on K, V expanded 3 times, D padded to 128), in float32 and
+   fp16 at D 160, B 1, S 1024, Hq 16, Hk 4 (``simt`` both ways:
+   ``flash_simt.cu``'s forward, dQ and dK/dV), all against the plain
+   pair within SIMT_RTOL / SIMT_BWD_RTOL, and in bf16 at Hq 24 / Hk 8,
+   G 3 (route ``expanded``: B1-B3 once each on K and V expanded 3 times,
+   within B1-B3's limits), read from
    ``kernels.flash_attention.ROUTE_COUNTS`` and ``BWD_ROUTE_COUNTS``;
    ``paged_decode_attention`` at D 256 (G 2), D 80, G 16 and with float32
    and fp16 queries and pools, bf16 and int8 pools (``simt`` in the decode
    ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cu``, against the
-   dense version); ``ConvertedInt8Linear`` with float32 and fp16 x and
-   with K 4100 (``simt`` in ``kernels.quant_matmul.ROUTE_COUNTS``: one
-   launch of ``quant_matmul_simt.cu``, against ``quant_matmul_plain``);
+   dense version); ``ConvertedInt8Linear`` with float32 and fp16 x at K
+   4096 (``split``: one split pass and B7 on three bf16 pieces of x;
+   ``f16``: B7 on f16 products) and with bf16 and fp16 x at K 4100
+   (``simt``: one launch of ``quant_matmul_simt.cu``), read from
+   ``kernels.quant_matmul.ROUTE_COUNTS``, against ``quant_matmul_plain``;
    and a float32 Llama at Llama-3-8B width cut to 2 layers serving 2
    requests of 8 new tokens through ``ContinuousBatchingEngine``, with a
    float32 cache and again converted to int8 weights with an int8 cache:
    greedy tokens equal to the same model's with every route forced
-   plain, and only the CUDA cores' kernels launched (each at least once).
-   Then each of those kernels is timed at one shape in float32 against
-   its plain version, one PyTorch call and its bound at the float32 peak
-   outside the tensor cores (67 TFLOP/s); the flash kernels at the
-   llama_train shape: B2/B3 on three bf16 pieces beside the CUDA cores'
-   dQ and dK/dV, bounds at 165 TFLOP/s (six bf16 products a float32 one)
-   and at 67, the split pass (bit-equal to its plain version), the whole
-   float32 backward call (Delta + split + dQ + dK/dV) beside SDPA's
-   float32 backward, and B2/B3 in fp16 beside the bf16 pair in the same
-   run, SDPA's fp16 backward and bounds at 989 TFLOP/s.
+   plain, and only the kernels of the float32 routes launched (B1 and B7
+   on three pieces, the split pass, the CUDA cores' decode attention;
+   each at least once). Then each of those kernels is timed at one shape
+   against its plain version, one PyTorch call and its bound (the CUDA
+   cores' at the float32 peak outside the tensor cores, 67 TFLOP/s); the
+   flash kernels at the llama_train shape: B1-B3 on three bf16 pieces
+   beside the CUDA cores' forward, dQ and dK/dV, bounds at 165 TFLOP/s
+   (six bf16 products a float32 one) and at 67, the split pass
+   (bit-equal to its plain version), the whole float32 forward call
+   (three splits + B1) beside SDPA's float32 forward and the whole
+   backward call (Delta + split + dQ + dK/dV) beside SDPA's float32
+   backward, and B1-B3 in fp16 beside the bf16 kernels in the same run,
+   the CUDA cores' fp16 forward, SDPA's fp16 forward and backward and
+   bounds at 989 TFLOP/s; the CUDA cores' dQ and dK/dV also at D 160
+   (B 1, S 1024, Hq 16, Hk 4) beside SDPA's float32 backward there; B7
+   for float32 x (bound at 330 TFLOP/s: three bf16 products a float32
+   one) and fp16 x at M 300 and M 8, beside the CUDA cores' kernel,
+   ``F.linear`` in x's dtype and bf16 B7 on the same shape; the CUDA
+   cores' kernel also at K 4100 with fp16 and bf16 x.
 5h. ``gpt_f32`` (after ``faults``): GPT at the port's default float32,
    GPT-2 medium width cut to 2 layers, batch 8 x 1024, AdamW 3e-4, clip
    1.0, 2 + 3 ``TrainStep``s: finite, falling losses; per layer a step
-   one ``flash_simt.cu`` forward, one float32 dQ and one dK/dV on the
-   tensor cores and four split passes, no other kernel; step ms.
+   one forward, one dQ and one dK/dV on the tensor cores on three bf16
+   pieces and seven split passes, no other kernel; step ms.
 5c. ``optimizers``: GPT-2 medium width at 4 layers (a reduced depth),
    bf16: each of the 14 optimizers takes 3 steps from the same weights
    under ``LinearWarmup(CosineAnnealingDecay)`` (LBFGS through a
@@ -262,11 +273,14 @@
    cases (``d256``) beside, the segment entries B1-seg, B2-seg, B3-seg
    at V1, every case beside, and B1-xl, B2-xl, B3-xl: the kernels above
    head dim 256 at D 384, S 2048, every case and the D 288 path beside,
-   and the kernels of the faults phase: flash_simt_fwd, flash_simt_dq,
-   flash_simt_dkv, flash_bwd_dq_f32, flash_bwd_dkv_f32 (B2/B3 on three
-   bf16 pieces), flash_bwd_dq_f16, flash_bwd_dkv_f16, split_bf16x3,
-   paged_decode_simt(_q) and quant_matmul_simt, their launches from the
-   faults paths and ``gpt_f32``) and, last, the
+   and the kernels of the faults phase: flash_fwd_f32, flash_fwd_f16
+   (B1 on three bf16 pieces and on f16 wgmma), flash_simt_fwd,
+   flash_simt_dq, flash_simt_dkv, flash_bwd_dq_f32, flash_bwd_dkv_f32
+   (B2/B3 on three bf16 pieces), flash_bwd_dq_f16, flash_bwd_dkv_f16,
+   split_bf16x3, paged_decode_simt(_q), quant_matmul_simt,
+   quant_matmul_f32 and quant_matmul_f16 (B7 on three bf16 pieces of x
+   and on f16 products), their launches from the faults paths and
+   ``gpt_f32``) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
 
@@ -337,6 +351,9 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
 # float32 on the tensor cores as three bf16 pieces: six bf16 products for
 # each float32 product (B2, B3 at D 64/128 in float32)
 F32_SPLIT_FLOPS_PER_S = BF16_FLOPS_PER_S / 6
+# B7 with float32 x: three bf16 pieces of x against the exact bf16 weight,
+# three bf16 products for each float32 one
+F32_QMM_FLOPS_PER_S = BF16_FLOPS_PER_S / 3
 # the float32 GPT phase: GPT-2 medium width at the port's default float32,
 # a reduced depth, batch 8 x 1024, AdamW, 2 + 3 steps
 F32_GPT_LAYERS, F32_GPT_TIMED = 2, 3
@@ -920,16 +937,22 @@ def xl_path_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# faults phase: shapes and dtypes the tensor-core kernels do not take,
-# routed above them to the CUDA cores' kernels (bf16 flash at a group not
-# dividing 64: B1-B3 on expanded K and V)
+# faults phase: shapes and dtypes the bf16 tensor-core kernels do not
+# take, routed above them: float32 and fp16 to the tensor-core kernels'
+# other instantiations where they take the shape, else to the CUDA cores'
+# kernels (bf16 flash at a group not dividing 64: B1-B3 on expanded K and
+# V)
 # ---------------------------------------------------------------------------
 
 # the kernels of the dtypes and shapes the bf16 tensor-core kernels do
-# not take: the CUDA cores' and, for float32 and fp16 up to head dim 128,
-# B2/B3's other instantiations (name, source, the Pallas kernel it
-# replaces)
+# not take: the CUDA cores' and, for float32 and fp16 up to head dim 128
+# and for B7 with K a multiple of 16, B1-B3's and B7's other
+# instantiations (name, source, the Pallas kernel it replaces)
 SIMT_KERNELS = (
+    ("flash_fwd_f32", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_fwd_f16", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
     ("flash_simt_fwd", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
     ("flash_simt_dq", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
@@ -944,7 +967,8 @@ SIMT_KERNELS = (
      "paddle_tpu/kernels/pallas/flash_attention.py:358"),
     ("flash_bwd_dkv_f16", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:408"),
-    # the float32 operands of the two above, split into bf16 pieces
+    # the float32 operands of B1-B3 and of B7's prefill, split into bf16
+    # pieces
     ("split_bf16x3", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:358"),
     ("paged_decode_simt",
@@ -955,6 +979,10 @@ SIMT_KERNELS = (
      "paddle_tpu/kernels/pallas/paged_attention.py:156"),
     ("quant_matmul_simt",
      "paddle_tpu_torch/kernels/csrc/quant_matmul_simt.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+    ("quant_matmul_f32", "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+    ("quant_matmul_f16", "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
      "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
 )
 
@@ -978,14 +1006,15 @@ def _dt(dtype):
     return str(dtype).split(".")[-1]
 
 
-# the launches of one FlashAttention forward + backward by (dtype, the
-# backward's route): float32 and fp16 up to head dim 128 on the tensor-core
-# B2/B3 (float32's four operands split first), above it on the CUDA cores;
-# bf16 at a group not dividing 64 on B1-B3 over expanded K and V
+# the launches of one FlashAttention forward + backward by its route:
+# float32 and fp16 up to head dim 128 on the tensor-core B1-B3 (float32's
+# q, k, v split for the forward, and q, k, v, dO again for the backward),
+# above it on the CUDA cores; bf16 at a group not dividing 64 on B1-B3
+# over expanded K and V
 FAULT_FLASH_LAUNCHES = {
-    "split": {"flash_simt_fwd": 1, "split_bf16x3": 4,
+    "split": {"flash_fwd_f32": 1, "split_bf16x3": 7,
               "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1},
-    "f16": {"flash_simt_fwd": 1, "flash_bwd_dq_f16": 1,
+    "f16": {"flash_fwd_f16": 1, "flash_bwd_dq_f16": 1,
             "flash_bwd_dkv_f16": 1},
     "simt": {"flash_simt_fwd": 1, "flash_simt_dq": 1, "flash_simt_dkv": 1},
     "expanded": {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
@@ -994,11 +1023,11 @@ FAULT_FLASH_LAUNCHES = {
 
 def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
     """``FlashAttention`` forward + backward (at the llama_train shape
-    unless given) in ``dtype`` over hq / hk heads: one count of the
-    forward's route (``simt`` for float32 and fp16) and one of the
-    backward's, ``route``, and the kernels of FAULT_FLASH_LAUNCHES[route]
-    launched that many times, no other, against the plain pair on the
-    same inputs within those kernels' limits."""
+    unless given) in ``dtype`` over hq / hk heads: one count of ``route``
+    forward and one backward, and the kernels of
+    FAULT_FLASH_LAUNCHES[route] launched that many times, no other,
+    against the plain pair on the same inputs within those kernels'
+    limits."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain,
         scaled_dot_product_attention)
@@ -1026,11 +1055,10 @@ def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
                max_abs_err=err_o, row_rel_err=row_rel_err(out, o_ref),
                grad_rel_err=rel)
     print(f"fault flash {rec}", flush=True)
-    fwd = "expanded" if route == "expanded" else "simt"
-    if routes != {fwd: 1} or bwd_routes != {route: 1} or \
+    if routes != {route: 1} or bwd_routes != {route: 1} or \
             launches != FAULT_FLASH_LAUNCHES[route]:
         fail(f"FlashAttention in {dtype} at {hq}/{hk} heads, D {dh} did "
-             f"not take the {fwd} / {route} routes once: {rec}")
+             f"not take the {route} route once each way: {rec}")
     if route == "expanded":
         ok = err_o <= O_ATOL and rec["row_rel_err"] <= ROW_RTOL and \
             max(rel.values()) <= BWD_RTOL
@@ -1087,12 +1115,20 @@ def fault_decode(torch, hq, hk, dh, dtype, quantized, mbps):
     return rec
 
 
-def fault_int8_linear(torch, dtype, K, M=64, N=4096):
-    """``ConvertedInt8Linear`` with an x the tensor-core kernel does not
-    take (not bf16, or K not a multiple of 16): one ``simt`` count in
-    ``quant_matmul.ROUTE_COUNTS`` and one launch of
-    ``quant_matmul_simt.cu``, no other, in x's dtype, against
-    ``quant_matmul_plain`` within SIMT_RTOL."""
+# the launches of one int8 linear layer at M 64 by its route
+FAULT_LINEAR_LAUNCHES = {"split": {"quant_matmul_f32": 1, "split_bf16x3": 1},
+                         "f16": {"quant_matmul_f16": 1},
+                         "simt": {"quant_matmul_simt": 1}}
+
+
+def fault_int8_linear(torch, dtype, K, route, M=64, N=4096):
+    """``ConvertedInt8Linear`` with an x the bf16 kernel does not take:
+    float32 or fp16 x with K a multiple of 16 (``split``: B7 on three bf16
+    pieces of x after one split pass; ``f16``), or K not a multiple of 16
+    (``simt``: ``quant_matmul_simt.cu``). One count of ``route`` in
+    ``quant_matmul.ROUTE_COUNTS`` and FAULT_LINEAR_LAUNCHES[route], no
+    other launch, in x's dtype, against ``quant_matmul_plain`` within
+    SIMT_RTOL."""
     from paddle_tpu_torch import quantization as TQ
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_plain
     from paddle_tpu_torch.nn import Linear
@@ -1113,11 +1149,11 @@ def fault_int8_linear(torch, dtype, K, M=64, N=4096):
                launches=_route_deltas(before[2], after[2]),
                out_dtype=_dt(out.dtype), rel_err=rel, max_abs_err=diff)
     print(f"fault int8 linear {rec}", flush=True)
-    if rec["routes"] != {"simt": 1} or \
-            rec["launches"] != {"quant_matmul_simt": 1} or \
+    if rec["routes"] != {route: 1} or \
+            rec["launches"] != FAULT_LINEAR_LAUNCHES[route] or \
             out.dtype != dtype or rel > SIMT_RTOL[_dt(dtype)]:
-        fail(f"ConvertedInt8Linear did not route {rec} to "
-             f"quant_matmul_simt, or disagrees with the plain version")
+        fail(f"ConvertedInt8Linear did not route {rec} to {route}, or "
+             f"disagrees with the plain version")
     return rec
 
 
@@ -1164,12 +1200,14 @@ def fault_llama(torch):
     """A float32 Llama at Llama-3-8B width cut to ``FAULT_LAYERS`` layers
     serves ``FAULT_REQUESTS`` requests of ``FAULT_NEW`` new tokens through
     ``ContinuousBatchingEngine``: with a float32 cache (every prefill
-    attention on ``simt``: B1 on the CUDA cores; every decode attention on
-    ``simt``), then converted to int8 weights (the port's QAT) with an
-    int8 cache (the linear layers on ``quant_matmul_simt``, decode on the
-    int8-pool kernel). Each run's greedy tokens equal those of the same
-    model with every route forced to the plain versions, and launch only
-    the CUDA cores' kernels named."""
+    attention on ``split``: B1 on three bf16 pieces after the split
+    passes; every decode attention on ``simt``), then converted to int8
+    weights (the port's QAT) with an int8 cache (the linear layers on
+    ``split``: B7 on three bf16 pieces of x, split by a pass at prefill
+    and inside the decode kernel; decode attention on the int8-pool
+    kernel). Each run's greedy tokens equal those of the same model with
+    every route forced to the plain versions, and launch only the kernels
+    named."""
     from paddle_tpu_torch import Llama, LlamaConfig
     from paddle_tpu_torch.quantization import (
         QAT, FakeQuanterWithAbsMaxObserver, QuantConfig)
@@ -1181,9 +1219,10 @@ def fault_llama(torch):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in FAULT_PROMPTS]
     recs = {}
     for name, kv, want in (
-            ("float32", None, {"flash_simt_fwd", "paged_decode_simt"}),
-            ("w8_kv8", "int8", {"flash_simt_fwd", "paged_decode_simt_q",
-                                "quant_matmul_simt"})):
+            ("float32", None, {"flash_fwd_f32", "split_bf16x3",
+                               "paged_decode_simt"}),
+            ("w8_kv8", "int8", {"flash_fwd_f32", "split_bf16x3",
+                                "paged_decode_simt_q", "quant_matmul_f32"})):
         if kv == "int8":
             qat = QAT(QuantConfig(activation=None,
                                   weight=FakeQuanterWithAbsMaxObserver))
@@ -1202,11 +1241,11 @@ def fault_llama(torch):
         print(f"fault llama {name} {rec}", flush=True)
         if rec["generated"] != [FAULT_NEW] * FAULT_REQUESTS or \
                 set(launches) != want or min(launches.values()) < 1 or \
-                set(flash) != {"simt"} or set(decode) != {"simt"} or \
+                set(flash) != {"split"} or set(decode) != {"simt"} or \
                 decode["simt"] % FAULT_LAYERS or \
-                set(qmm) != ({"simt"} if kv else set()) or \
+                set(qmm) != ({"split"} if kv else set()) or \
                 not rec["equal_to_plain"]:
-            fail(f"the {name} Llama did not serve on the CUDA cores' "
+            fail(f"the {name} Llama did not serve on the float32 routes' "
                  f"kernels as the plain routes do: {rec}")
         recs[name] = rec
     del model
@@ -1245,23 +1284,25 @@ def _bwd_recs(name, dtype, shape, errs, times, plain_ms, library_ms,
 def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
     """The float32 and fp16 flash kernels at the llama_train shape,
     causal, against the plain pair (the backward kernels on the plain
-    pair's O and LSE): ``flash_simt.cu``'s forward and, in float32, its dQ
-    and dK/dV on the CUDA cores (which now serve head dims above 128
-    only); the tensor-core B2/B3 in float32 as three bf16 pieces (the
-    split pass and the whole backward call, Delta + split + dQ + dK/dV,
-    timed too) and in fp16 (beside the bf16 pair on the same shape, in
-    this run). Errors, times (CUDA events and graph replays), the plain
-    pair's (the whole backward for every backward kernel), one SDPA call
-    forward or backward in the same dtype (the library yardstick; the
-    port never calls it) and bounds: float32 at the CUDA cores' 67
-    TFLOP/s and, on the tensor cores, at 165 (six bf16 products a
-    float32 one); fp16 at 989."""
+    pair's O and LSE): ``flash_simt.cu``'s forward (in float32 and fp16)
+    and, in float32, its dQ and dK/dV on the CUDA cores (which now serve
+    head dims above 128 only; also timed at D 160, B 1, S 1024, Hq 16,
+    Hk 4, beside SDPA's float32 backward there); the tensor-core B1-B3 in
+    float32 as three bf16 pieces (the split pass, the whole forward call
+    (three splits + B1) and the whole backward call (Delta + split + dQ +
+    dK/dV) timed too) and in fp16 (beside the bf16 kernels on the same
+    shape, in this run). Errors, times (CUDA events and graph replays),
+    the plain pair's (the whole backward for every backward kernel), one
+    SDPA call forward or backward in the same dtype (the library
+    yardstick; the port never calls it) and bounds: float32 at the CUDA
+    cores' 67 TFLOP/s and, on the tensor cores, at 165 (six bf16 products
+    a float32 one); fp16 at 989."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv_cuda,
         flash_bwd_dkv_x3_cuda, flash_bwd_dq_cuda, flash_bwd_dq_x3_cuda,
-        flash_delta, flash_simt_dkv_cuda, flash_simt_dq_cuda,
-        flash_simt_fwd_cuda, flash_split_bwd_cuda, split_bf16x3_cuda,
-        split_bf16x3_plain)
+        flash_delta, flash_fwd_cuda, flash_fwd_x3_cuda, flash_simt_dkv_cuda,
+        flash_simt_dq_cuda, flash_simt_fwd_cuda, flash_split_bwd_cuda,
+        flash_split_fwd_cuda, split_bf16x3_cuda, split_bf16x3_plain)
     g = torch.Generator(device=DEVICE).manual_seed(4900)
     mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE)
     q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
@@ -1281,7 +1322,10 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
         "flash_bwd_dq_f32": lambda: flash_bwd_dq_x3_cuda(
             *pieces, lse, delta, causal=True, scale=sc),
         "flash_bwd_dkv_f32": lambda: flash_bwd_dkv_x3_cuda(
-            *pieces, lse, delta, causal=True, scale=sc)}
+            *pieces, lse, delta, causal=True, scale=sc),
+        "flash_fwd_f32": lambda: flash_fwd_x3_cuda(*pieces[:3], causal=True,
+                                                   scale=sc)}
+    o3, lse3 = calls["flash_fwd_f32"]()
     dq = calls["flash_simt_dq"]()
     dk, dv = calls["flash_simt_dkv"]()
     dq3 = calls["flash_bwd_dq_f32"]()
@@ -1295,7 +1339,9 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
                                   rel_err(dv, refs[2]))}
     errs32 = dict(zip(("dq", "dk", "dv"), (rel_err(x, r) for x, r in zip(
         (dq3, dk3, dv3), refs))))
-    del o, dq, dk, dv, dq3, dk3, dv3, refs
+    err_f32 = (row_rel_err(o3, o_ref), rel_err(o3, o_ref)[1],
+               (lse3 - lse).abs().max().item())
+    del o, dq, dk, dv, dq3, dk3, dv3, refs, o3, lse3
     plain = {"fwd": timer(lambda: flash_attention_plain(
         q, k, v, causal=True, return_lse=True), iters=10),
         "bwd": timer(lambda: flash_attention_bwd_plain(
@@ -1331,6 +1377,33 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
               f"{bms:.4f} ms ({by}, float32 peak)", flush=True)
         if rel > limit["float32"]:
             fail(f"{name} disagrees with the plain pair: {recs[name]}")
+
+    # B1 in float32 on the tensor cores (three pieces of q, k, v: 6 bytes
+    # an element read, O float32 written), beside the CUDA cores' forward
+    name = "flash_fwd_f32"
+    ms, graph_ms = timer(calls[name], iters=10), timer.graph(calls[name],
+                                                             iters=10)
+    whole_fwd = timer(lambda: flash_split_fwd_cuda(q, k, v, True, scale=sc),
+                      iters=10)
+    bms, by = bound(q.numel() * 10 + k.numel() * 12 + rows, 2 * fl,
+                    F32_SPLIT_FLOPS_PER_S)
+    recs[name] = dict(
+        shape, dtype="float32", max_abs_err=err_f32[1], rel_err=err_f32[0],
+        lse_abs_err=err_f32[2], ms=ms, graph_ms=graph_ms,
+        whole_call_ms=whole_fwd, plain_ms=plain["fwd"],
+        library_ms=library["fwd"],
+        library="F.scaled_dot_product_attention, float32", bound_ms=bms,
+        bound_by=by, share_of_bound=bms / ms,
+        bound_cuda_cores_ms=bounds["flash_simt_fwd"][0],
+        cuda_cores_ms=recs["flash_simt_fwd"]["ms"])
+    print(f"{name} {shape}: err {err_f32[1]:.3e} (row rel {err_f32[0]:.3e}, "
+          f"LSE {err_f32[2]:.3e}) | kernel {ms:.4f} ms (graph "
+          f"{graph_ms:.4f}), with its three splits {whole_fwd:.4f} ms, CUDA "
+          f"cores {recs['flash_simt_fwd']['ms']:.4f} ms, plain "
+          f"{plain['fwd']:.4f} ms, sdpa {library['fwd']:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}; {bms / ms:.1%} of it)", flush=True)
+    if not err_f32[0] <= SIMT_RTOL["float32"]:
+        fail(f"{name} disagrees with the plain forward: {recs[name]}")
 
     # float32 on the tensor cores: the pieces are 6 bytes an element
     pair = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -1422,8 +1495,97 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
     print(f"fp16 pair {f16_pair:.4f} ms against the bf16 pair "
           f"{bf16_pair:.4f} ms in this run ({f16_pair / bf16_pair:.3f}x)",
           flush=True)
+
+    # B1 in fp16 on f16 wgmma, beside bf16 B1, the CUDA cores' fp16 forward
+    # and SDPA's fp16 forward
+    name = "flash_fwd_f16"
+    run16 = lambda: flash_fwd_cuda(q, k, v, True)
+    o16, _ = run16()
+    torch.cuda.synchronize()
+    e16 = (row_rel_err(o16, o), rel_err(o16, o)[1])
+    del o16
+    ms, graph_ms = timer(run16), timer.graph(run16)
+    bf16_fwd = timer(lambda: flash_fwd_cuda(*bf[:3], True))
+    simt16 = timer(lambda: flash_simt_fwd_cuda(q, k, v, True), iters=10)
+    sdpa16 = timer(sdpa_library(torch, qt, kt, vt, is_causal=True))
+    bms, by = bound(2 * qb + 2 * kvb + rows, 2 * fl)
+    recs[name] = dict(
+        shape, dtype="float16", max_abs_err=e16[1], rel_err=e16[0], ms=ms,
+        graph_ms=graph_ms, plain_ms=timer(lambda: flash_attention_plain(
+            q, k, v, causal=True, return_lse=True), iters=10),
+        library_ms=sdpa16, library="F.scaled_dot_product_attention, float16",
+        bound_ms=bms, bound_by=by, share_of_bound=bms / ms, bf16_ms=bf16_fwd,
+        cuda_cores_ms=simt16)
+    recs["flash_simt_fwd"].update(fp16_ms=simt16, sdpa_fp16_ms=sdpa16)
+    whole.update(fwd_f16_ms=ms, fwd_bf16_ms=bf16_fwd,
+                 fwd_f16_over_bf16=ms / bf16_fwd)
+    print(f"{name} {shape}: err {e16[1]:.3e} (row rel {e16[0]:.3e}) | "
+          f"kernel {ms:.4f} ms (graph {graph_ms:.4f}), bf16 B1 "
+          f"{bf16_fwd:.4f} ms ({ms / bf16_fwd:.3f}x), CUDA cores' fp16 "
+          f"forward {simt16:.4f} ms, sdpa fp16 {sdpa16:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})", flush=True)
+    if not e16[0] <= SIMT_RTOL["float16"]:
+        fail(f"{name} disagrees with the plain forward: {recs[name]}")
+    del q, k, v, do, h, bf, o, lse, delta, qt, kt, vt
+    for name, rec in simt_bwd_wide(torch, timer).items():
+        recs[name]["d160"] = rec
     recs["whole"] = whole
     return recs
+
+
+def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
+    """The CUDA cores' dQ and dK/dV in float32 at a head dim the
+    tensor-core kernels do not take (the faults' D 160, causal), on the
+    plain forward's O and LSE: errors against the plain backward, times,
+    SDPA's float32 backward at that shape, bounds at 67 TFLOP/s."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain, flash_delta,
+        flash_simt_dkv_cuda, flash_simt_dq_cuda)
+    g = torch.Generator(device=DEVICE).manual_seed(4960)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE)
+    q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
+    o, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = flash_delta(o, do)
+    calls = {"flash_simt_dq": lambda: (flash_simt_dq_cuda(
+        q, k, v, do, lse, delta, causal=True),),
+        "flash_simt_dkv": lambda: flash_simt_dkv_cuda(
+            q, k, v, do, lse, delta, causal=True)}
+    outs = {n: c() for n, c in calls.items()}
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    errs = {"flash_simt_dq": rel_err(outs["flash_simt_dq"][0], refs[0]),
+            "flash_simt_dkv": max(rel_err(outs["flash_simt_dkv"][0], refs[1]),
+                                  rel_err(outs["flash_simt_dkv"][1],
+                                          refs[2]))}
+    del outs, refs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = timer(sdpa_backward_library(torch, qt, kt, vt,
+                                          do.transpose(1, 2), True), iters=10)
+    fl = 2 * dh * hq * (B * S * (S + 1) // 2)
+    qb, kvb, rows = q.numel() * 4, k.numel() * 4, lse.numel() * 4
+    bounds = {"flash_simt_dq": bound(3 * qb + 2 * kvb + 2 * rows, 3 * fl,
+                                     F32_FLOPS_PER_S),
+              "flash_simt_dkv": bound(2 * qb + 4 * kvb + 2 * rows, 4 * fl,
+                                      F32_FLOPS_PER_S)}
+    out = {}
+    for name, call in calls.items():
+        rel, diff = errs[name]
+        ms = timer(call, iters=10)
+        bms, by = bounds[name]
+        out[name] = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=True,
+                         dtype="float32", rel_err=rel, max_abs_err=diff,
+                         ms=ms, library_ms=library,
+                         library="F.scaled_dot_product_attention backward, "
+                                 "float32 (B2 + B3)",
+                         bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+        print(f"{name} float32 D {dh} B={B} S={S} Hq={hq} Hk={hk} causal: "
+              f"err {diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms sdpa "
+              f"backward {library:.4f} ms bound {bms:.4f} ms ({by}, float32 "
+              f"peak)", flush=True)
+        if rel > SIMT_BWD_RTOL["float32"]:
+            fail(f"{name} at D {dh} disagrees with the plain pair: "
+                 f"{out[name]}")
+    return out
 
 
 def simt_decode_phase(torch, timer, quantized, B=8, mbps=16, seed=4950):
@@ -1489,44 +1651,128 @@ def simt_decode_phase(torch, timer, quantized, B=8, mbps=16, seed=4950):
 
 def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
                    seed=4980):
-    """``quant_matmul_simt.cu`` with float32 x at the float32 Llama's
-    prefill gate/up shape against ``quant_matmul_plain``; library:
-    ``F.linear`` on a float32 copy of w * s made outside the timed call
-    (TF32 off). Cold L2."""
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul_plain,
-                                                       quant_matmul_simt)
-    x, w, s = qmm_inputs(torch, M, N, K, seed)
-    x = x.float()
+    """B7 for float32 and fp16 x at the float32 Llama's prefill gate/up
+    shape (M 300) and at decode (M 8), against ``quant_matmul_plain``:
+    ``quant_matmul_x3`` (three bf16 pieces of x; at M 300 with its split
+    pass, also timed alone) and ``quant_matmul_f16``, each beside the CUDA
+    cores' ``quant_matmul_simt`` on the same x, ``F.linear`` on a copy of
+    w * s in x's dtype made outside the timed call (TF32 off), and bf16
+    B7 at the same shape, in this run; bounds at 330 TFLOP/s (float32:
+    three bf16 products a float32 one) and 989 (fp16). Also
+    ``quant_matmul_simt`` itself (float32 x, M 300: the record of the
+    CUDA cores' kernel) and at K 4100 (the shapes it keeps) with fp16 and
+    bf16 x. Cold L2. Returns the records by kernel name."""
+    from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_f16, quant_matmul_plain, quant_matmul_simt,
+        quant_matmul_x3)
+    F = torch.nn.functional
+    _, w, s = qmm_inputs(torch, M, N, K, seed)
+    # x in full float32 (a bf16 x's lower pieces would be zero)
+    x = torch.randn(M, K, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed))
+    xb = x.bfloat16()
     run = lambda: quant_matmul_simt(x, w, s)
     rel, diff = rel_err(run(), quant_matmul_plain(x, w, s))
     ms = timer(run, cold=True, iters=10)
     plain_ms = timer(lambda: quant_matmul_plain(x, w, s), cold=True,
                      iters=10)
     wf = w.float() * s[:, None]
-    library_ms = timer(lambda: torch.nn.functional.linear(x, wf), cold=True,
-                       iters=10)
-    del wf
+    library_ms = timer(lambda: F.linear(x, wf), cold=True, iters=10)
     nbytes = M * K * 4 + N * K + N * 4 + M * N * 4
     bms, by = bound(nbytes, 2 * M * N * K, F32_FLOPS_PER_S)
-    rec = dict(dtype="float32", M=M, N=N, K=K, max_abs_err=diff,
-               rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               library="F.linear on a float32 copy of w*s", bound_ms=bms,
-               bound_by=by, share_of_bound=bms / ms)
+    simt = dict(dtype="float32", M=M, N=N, K=K, max_abs_err=diff,
+                rel_err=rel, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library="F.linear on a float32 copy of w*s", bound_ms=bms,
+                bound_by=by, share_of_bound=bms / ms)
     print(f"quant_matmul_simt float32 M={M} N={N} K={K}: err {diff:.3e} "
           f"(rel {rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
           f"F.linear {library_ms:.4f} ms bound {bms:.4f} ms ({by})",
           flush=True)
     if rel > SIMT_RTOL["float32"]:
-        fail(f"quant_matmul_simt disagrees with the plain version: {rec}")
-    return rec
+        fail(f"quant_matmul_simt disagrees with the plain version: {simt}")
+    recs = {"quant_matmul_simt": simt}
+    for name, dtype, fn, peak in (
+            ("quant_matmul_f32", torch.float32, quant_matmul_x3,
+             F32_QMM_FLOPS_PER_S),
+            ("quant_matmul_f16", torch.float16, quant_matmul_f16,
+             BF16_FLOPS_PER_S)):
+        wd = wf.to(dtype)
+        cases = {}
+        for m in (M, 8):
+            xm = x[:m].to(dtype)
+            xbm = xb[:m].contiguous()
+            run = lambda: fn(xm, w, s)
+            rel, diff = rel_err(run(), quant_matmul_plain(xm, w, s))
+            lib = lambda: F.linear(xm, wd)
+            nb = xm.element_size()
+            bms, by = bound(m * K * nb + N * K + N * 4 + m * N * nb,
+                            2 * m * N * K, peak)
+            ms = timer(run, cold=True)
+            rec = dict(dtype=_dt(dtype), M=m, N=N, K=K, max_abs_err=diff,
+                       rel_err=rel, ms=ms,
+                       graph_ms=timer.graph(run, cold=True),
+                       library_ms=timer(lib, cold=True),
+                       library_graph_ms=timer.graph(lib, cold=True),
+                       library=f"F.linear on a {_dt(dtype)} copy of w*s",
+                       bf16_ms=timer(lambda: quant_matmul(xbm, w, s),
+                                     cold=True),
+                       bf16_graph_ms=timer.graph(
+                           lambda: quant_matmul(xbm, w, s), cold=True),
+                       cuda_cores_ms=timer(lambda: quant_matmul_simt(
+                           xm, w, s), cold=True, iters=10),
+                       bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+            if m == M:
+                rec["plain_ms"] = timer(lambda: quant_matmul_plain(xm, w, s),
+                                        cold=True, iters=10)
+                if dtype == torch.float32:
+                    rec["split_ms"] = timer(lambda: split_bf16x3_cuda(
+                        xm.view(1, m, 1, K)), cold=True)
+            print(f"{name} M={m} N={N} K={K}: err {diff:.3e} (rel "
+                  f"{rel:.3e}) | kernel {ms:.4f} ms (graph "
+                  f"{rec['graph_ms']:.4f}) bf16 B7 {rec['bf16_ms']:.4f} "
+                  f"(graph {rec['bf16_graph_ms']:.4f}) CUDA cores "
+                  f"{rec['cuda_cores_ms']:.4f} F.linear "
+                  f"{rec['library_ms']:.4f} (graph "
+                  f"{rec['library_graph_ms']:.4f}) bound {bms:.4f} ms ({by})"
+                  + (f" split {rec['split_ms']:.4f}" if "split_ms" in rec
+                     else ""), flush=True)
+            if rel > SIMT_RTOL[_dt(dtype)] or \
+                    not bool(torch.isfinite(run().float()).all()):
+                fail(f"{name} disagrees with the plain version: {rec}")
+            cases[m] = rec
+        recs[name] = dict(cases[M], decode=cases[8])
+        del wd
+    del wf
+    # the CUDA cores' kernel at the K it keeps (not a multiple of 16)
+    k2 = K + 4
+    x2, w2, s2 = qmm_inputs(torch, M, N, k2, seed + 1)
+    for dtype in (torch.float16, torch.bfloat16):
+        xd = x2.to(dtype)
+        run = lambda: quant_matmul_simt(xd, w2, s2)
+        rel, diff = rel_err(run(), quant_matmul_plain(xd, w2, s2))
+        nb = xd.element_size()
+        bms, by = bound(M * k2 * nb + N * k2 + N * 4 + M * N * nb,
+                        2 * M * N * k2, F32_FLOPS_PER_S)
+        ms = timer(run, cold=True, iters=10)
+        simt[f"k{k2}_{_dt(dtype)}"] = dict(M=M, N=N, K=k2, rel_err=rel,
+                                           max_abs_err=diff, ms=ms,
+                                           bound_ms=bms, bound_by=by)
+        print(f"quant_matmul_simt {_dt(dtype)} M={M} N={N} K={k2}: err "
+              f"{diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        if rel > SIMT_RTOL[_dt(dtype)]:
+            fail(f"quant_matmul_simt at K {k2} disagrees with the plain "
+                 f"version: {simt}")
+    return recs
 
 
 def faults_phase(torch):
-    """The three route faults: calls the tensor-core kernels do not take,
-    each sent to its route before any launch and counted there. The
+    """The three route faults: calls the bf16 tensor-core kernels do not
+    take, each sent to its route before any launch and counted there. The
     counts are zeroed before the calls and read after (``launches``: the
-    CUDA cores' kernels' launches on these paths); then each of those
-    kernels is timed at one shape (``timed``), launches not counted."""
+    SIMT_KERNELS' launches on these paths); then each of those kernels is
+    timed at one shape (``timed``), launches not counted."""
     zero_counts()
     flash = [fault_flash(torch, torch.float32, HQ, HK, "split"),
              fault_flash(torch, torch.float16, HQ, HK, "f16"),
@@ -1540,9 +1786,10 @@ def faults_phase(torch):
                            quantized, pages)
               for hq, hk, dh, dt, pages in FAULT_DECODE
               for quantized in (False, True)]
-    linear = [fault_int8_linear(torch, torch.float32, 4096),
-              fault_int8_linear(torch, torch.float16, 4096),
-              fault_int8_linear(torch, torch.bfloat16, 4100)]
+    linear = [fault_int8_linear(torch, torch.float32, 4096, "split"),
+              fault_int8_linear(torch, torch.float16, 4096, "f16"),
+              fault_int8_linear(torch, torch.bfloat16, 4100, "simt"),
+              fault_int8_linear(torch, torch.float16, 4100, "simt")]
     llama = fault_llama(torch)
     launches, _ = read_counts()
     missing = [n for n, _, _ in SIMT_KERNELS if launches[n] < 1]
@@ -1552,7 +1799,7 @@ def faults_phase(torch):
     timed = simt_flash_phase(torch, timer)
     timed["paged_decode_simt"] = simt_decode_phase(torch, timer, False)
     timed["paged_decode_simt_q"] = simt_decode_phase(torch, timer, True)
-    timed["quant_matmul_simt"] = simt_qmm_phase(torch, timer)
+    timed.update(simt_qmm_phase(torch, timer))
     del timer
     torch.cuda.empty_cache()
     return dict(flash=flash, decode=decode, int8_linear=linear, llama=llama,
@@ -1576,9 +1823,12 @@ def simt_records(faults, gpt32):
             library_ms=r["library_ms"], timed_at={k: r[k] for k in r if k in (
                 "dtype", "pools", "B", "S", "Hq", "Hk", "D", "M", "N", "K",
                 "mbps", "causal")},
-            **{k: r[k] for k in ("graph_ms", "share_of_bound", "library",
-                                 "bound_cuda_cores_ms", "cuda_cores_ms",
-                                 "bf16_ms", "four_ms") if k in r}))
+            **{k: r[k] for k in r if k in (
+                "graph_ms", "share_of_bound", "library",
+                "bound_cuda_cores_ms", "cuda_cores_ms", "bf16_ms",
+                "bf16_graph_ms", "four_ms", "whole_call_ms", "split_ms",
+                "library_graph_ms", "fp16_ms", "sdpa_fp16_ms", "decode",
+                "d160") or k.startswith("k4100")}))
     return records
 
 
@@ -2299,14 +2549,14 @@ def _counters():
     from paddle_tpu_torch.inference.paged import ROUTE_COUNTS
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_bwd_dkv_cuda, flash_bwd_dkv_x3_cuda, flash_bwd_dq_cuda,
-        flash_bwd_dq_x3_cuda, flash_fwd_cuda, flash_simt_dkv_cuda,
-        flash_simt_dq_cuda, flash_simt_fwd_cuda, sdpa_masked_plain,
-        split_bf16x3_cuda)
+        flash_bwd_dq_x3_cuda, flash_fwd_cuda, flash_fwd_x3_cuda,
+        flash_simt_dkv_cuda, flash_simt_dq_cuda, flash_simt_fwd_cuda,
+        sdpa_masked_plain, split_bf16x3_cuda)
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_chunked, paged_decode_attention_kernel,
         paged_decode_attention_simt)
-    from paddle_tpu_torch.kernels.quant_matmul import (quant_matmul,
-                                                       quant_matmul_simt)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_f16, quant_matmul_simt, quant_matmul_x3)
     return {"flash_fwd": (flash_fwd_cuda, "launches"),
             "flash_bwd_dq": (flash_bwd_dq_cuda, "launches"),
             "flash_bwd_dkv": (flash_bwd_dkv_cuda, "launches"),
@@ -2331,6 +2581,10 @@ def _counters():
             "flash_bwd_dq_f16": (flash_bwd_dq_cuda, "f16_launches"),
             "flash_bwd_dkv_f16": (flash_bwd_dkv_cuda, "f16_launches"),
             "split_bf16x3": (split_bf16x3_cuda, "launches"),
+            "flash_fwd_f32": (flash_fwd_x3_cuda, "launches"),
+            "flash_fwd_f16": (flash_fwd_cuda, "f16_launches"),
+            "quant_matmul_f32": (quant_matmul_x3, "launches"),
+            "quant_matmul_f16": (quant_matmul_f16, "launches"),
             "paged_decode_simt": (paged_decode_attention_simt, "launches"),
             "paged_decode_simt_q": (paged_decode_attention_simt,
                                     "launches_q"),
@@ -4147,10 +4401,11 @@ def gpt_f32_phase(torch):
     medium width cut to F32_GPT_LAYERS layers (a reduced depth: the path,
     not the model, is under test), batch 8 x 1024, AdamW 3e-4, clip 1.0,
     ``TrainStep``, 2 + F32_GPT_TIMED steps. Attention runs the float32
-    routes: ``flash_simt.cu``'s forward and, at head dim 64, the backward
-    on the tensor cores as three bf16 pieces. Gates: finite, falling
-    losses; per layer a step one forward, one dQ and one dK/dV and four
-    splits (q, k, v, dO), no other kernel of the port. Prints step ms."""
+    route at head dim 64: forward and backward on the tensor cores as
+    three bf16 pieces. Gates: finite, falling losses; per layer a step
+    one forward, one dQ and one dK/dV and seven splits (q, k, v for the
+    forward; q, k, v, dO for the backward), no other kernel of the port.
+    Prints step ms."""
     from paddle_tpu_torch import GPT, GPTConfig
     gc.collect()
     torch.cuda.empty_cache()
@@ -4178,8 +4433,8 @@ def gpt_f32_phase(torch):
     torch.cuda.empty_cache()
     per = F32_GPT_LAYERS * steps
     want = dict.fromkeys(launches, 0)
-    want.update(flash_simt_fwd=per, flash_bwd_dq_f32=per,
-                flash_bwd_dkv_f32=per, split_bf16x3=4 * per)
+    want.update(flash_fwd_f32=per, flash_bwd_dq_f32=per,
+                flash_bwd_dkv_f32=per, split_bf16x3=7 * per)
     if dtypes != {"torch.float32"}:
         fail(f"gpt_f32: the model is not float32: {dtypes}")
     if not all(math.isfinite(x) for x in losses) or \

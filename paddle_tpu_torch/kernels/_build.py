@@ -47,6 +47,10 @@ SIGNATURES = {
         # Hk, D, causal, scale, (batch, seq, head) strides of q, k, v,
         # stream
         "flash_fwd_bf16": [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
+        # dtype (1 float16, 2 float32 as three bf16 pieces), then as
+        # flash_fwd_bf16 (D 64 or 128)
+        "flash_fwd_tc": [_I] + [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9
+        + [_P],
     },
     "flash_bwd": {
         # dtype (0 bf16, 1 float16, 2 float32 as three bf16 pieces), q, k,
@@ -84,6 +88,11 @@ SIGNATURES = {
         "quant_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
         # x, w_int8, w_scales, y, M, N, K, cluster size, stream (M <= 8)
         "quant_matmul_decode_bf16": [_P] * 4 + [_I] * 4 + [_P],
+        # dtype (1 float16, 2 float32), then as quant_matmul_bf16 (x: the
+        # three bf16 pieces [3, M, K] of a float32 x) and
+        # quant_matmul_decode_bf16 (x: float32 itself)
+        "quant_matmul_tc": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+        "quant_matmul_decode_tc": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     },
     "flash_simt": {
         # dtype (0 float32, 1 float16), q, k, v, o, lse, q_seg, kv_seg,

@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// and of the int8 matmul's products (quant_matmul.cu).
 //
 // The dense forward's products at D 64/128 run on mma.sync m16n8k16 (bf16
 // in, f32 accumulate); the backward's, the segment forward's and the
@@ -14,7 +15,7 @@
 // k-chunk kc: a product's f32 result feeds the next product from
 // registers, rounded to bf16 (pack_f32).
 //
-// B2 and B3 at D 64/128 also take fp16 (the `.f16` forms of the wgmma
+// B1-B3 at D 64/128 also take fp16 (the `.f16` forms of the wgmma
 // helpers below, T = __half) and float32 as three bf16 pieces each
 // (`split_bf16x3`): a product of two split operands keeps the six terms
 // whose pieces' indices sum to at most 2 (`term_a`, `term_b`).
@@ -456,6 +457,54 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[W / 2], uint64_t a,
   if constexpr (W == 192) wgmma_ss_t_n192(d, a, b, accumulate);
   else wgmma_ss_t_n256(d, a, b, accumulate);
 }
+
+// d[64] (+)= A . B, m64n128k16: A from registers as in wgmma_rs_n32; B
+// (128 x 16) K-major in shared memory (B7's prefill: the token chunk)
+#define FLASH_RS_N128(TY) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+      "%8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, " \
+      "%24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, " \
+      "%40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, " \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), \
+        "r"(accumulate))
+
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  if constexpr (kIsHalf<T>)
+    FLASH_RS_N128("f16");
+  else
+    FLASH_RS_N128("bf16");
+}
+#undef FLASH_RS_N128
 
 // d[32] (+)= A . B, m64n64k16: A from registers as in wgmma_rs_n32; B
 // (16 x 64) MN-major, its N columns contiguous (desc_mn_sw128)

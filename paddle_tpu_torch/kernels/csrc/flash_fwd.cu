@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, f32 softmax.
+// Flash-attention forward for Hopper (sm_90a), bf16 in (at D 64/128 also
+// fp16, and float32 as three bf16 pieces), f32 softmax.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (paddle_tpu/kernels/pallas/flash_attention.py:281, with its causal
@@ -134,6 +135,32 @@
 // - Tried on the H100 and not kept: three and four ring stages, 32-key
 //   steps, and 128 rows a CTA as two warpgroups sharing each tile (one
 //   CTA an SM, warpgroups in lock step, 255 registers): none was faster.
+
+//
+// float32 and fp16 at D 64/128 (`flash_fwd_tc_kernel<T, P, D, kSeg>`,
+// both branches; the same Pallas body for q's other dtypes). What bounds
+// them: the products, as in bf16; on the CUDA cores (flash_simt.cu,
+// which keeps D above 128) float32 could not pass 67 TFLOP/s.
+// - fp16 (T __half, P 1): the segment kernel's layout above on the `.f16`
+//   forms of the wgmma helpers, dense and segment branch alike: Q's
+//   fragments in registers, 64-key stages, S in m64n32 halves, P rounded
+//   to fp16 before P V (the reference casts P to V's dtype). It leaves
+//   `flash_fwd_kernel` and the bf16 segment kernel as they were.
+// - float32 (P 3): q, k and v arrive as three bf16 pieces each (b0 =
+//   bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1), whose sum is x;
+//   flash_bwd.cu's split pass), S = Q K^T and O += P V each the six
+//   products of pieces whose indices sum to at most 2, small terms first
+//   and b0 b0 last, into one f32 accumulator: full float32 precision at
+//   989 / 6 = 165 TFLOP/s. P stays float32 (the reference's cast to V's
+//   dtype is none) and is split in registers (`acc_to_pieces`). Three
+//   pieces of Q as A fragments would take ~96 registers a thread at D 128
+//   beside O (64), S and P's pieces, so Q's pieces stay in shared memory
+//   (48 KiB at D 128) and S is SS-form wgmma; K and V stream in 32-key
+//   stages of three pieces each (48 KiB a stage at D 128): 144 KiB, one
+//   CTA an SM (D 64: 72 KiB, two). O leaves as float32 rows staged over
+//   the drained ring. The dense walk skips tiles above the causal
+//   diagonal and masks only diagonal and ragged steps, as the dense
+//   kernel; the segment walk takes the segment kernel's pair list.
 
 #include <mutex>
 
@@ -1359,6 +1386,415 @@ flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// float32 (three bf16 pieces) and fp16 at D 64/128, both branches
+// ---------------------------------------------------------------------------
+
+// element strides between the pieces of q, k, v (0 at P 1): the pieces of a
+// float32 operand are [3, B, S, H, D] bf16, contiguous
+struct PieceStrides {
+  long long q, k, v;
+};
+
+template <int D, int P>
+struct TcSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kKeys = P == 1 ? kBK : kBK / 2;  // keys a ring stage
+  static constexpr int kPiece = kKeys * D * 2;  // a swizzled piece of K or V
+  static constexpr int kTile = P * kPiece;      // a stage's K (or V) pieces
+  static constexpr int kStage = 2 * kTile;      // K, then V
+  static constexpr int kStride = D + 8;         // T a padded Q / O row (P 1)
+  // P 1: Q is staged in the last stage (read into registers before that
+  // stage's first tile lands) and O leaves through the first, as in the
+  // segment kernel; P 3: Q's pieces stay resident after the ring (wgmma
+  // reads them from shared memory) and O leaves as float32 rows over the
+  // drained ring
+  static_assert(P == 3 || kFRows * kStride * 2 <= kStage, "Q fits a stage");
+  static_assert(P == 1 || kFRows * (D + 4) * 4 <= kStages * kStage,
+                "float32 O fits the ring");
+  static constexpr int kQ = P == 1 ? 0 : P * kFRows * D * 2;
+  static constexpr int kBytes = kStages * kStage + kQ;
+  // the segment branch's ints after those: each stage's kv ids and
+  // positions, scratch, then the list of live pairs (one per key tile)
+  static constexpr int kInts = 2 * kStages * kKeys + kSegScratch;
+};
+
+// T: the element type of the staged operands (__half, or bf16 pieces);
+// P: 1, or 3 when q, k, v are the three bf16 pieces of float32 operands
+// (S and P V then the six terms of first_term(3) .. 5, P split in
+// registers, O float32)
+template <typename T, int P>
+using TcOut = std::conditional_t<P == 1, T, float>;
+
+template <typename T, int P, int D, bool kSeg>
+__global__ void __launch_bounds__(kFThreads, P == 1 || D == 64 ? 2 : 1)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, TcOut<T, P>* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Sk, int Hq, int Hk,
+                    int causal, float scale_log2, Strides qs, Strides ks,
+                    Strides vs, PieceStrides pc, Seg seg) {
+  using L = TcSmem<D, P>;
+  constexpr int kS = L::kStages;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kHalves = kBK / kKeys;  // ring steps a key tile
+  constexpr int kStride = L::kStride;
+  constexpr int kKC = D / 16;           // k steps of S over the head dim
+  constexpr int kDT = D / 8;            // n-tiles of O over the head dim
+  constexpr int kNT = kKeys / 8;        // 8-key n-tiles of a step's S
+  constexpr int kPC = kKeys / 16;       // k steps of P V
+  constexpr int kPieces = D / 8;        // 16-byte pieces per row
+  constexpr int kT0 = first_term(P);
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  unsigned char* smem_raw = tc_smem;
+  // stage st: K's pieces at smem_raw + st kStage, V's after them
+  T* sQ = P == 1 ? reinterpret_cast<T*>(smem_raw + (kS - 1) * L::kStage)
+                 : reinterpret_cast<T*>(smem_raw + kS * L::kStage);
+  int* sKseg = reinterpret_cast<int*>(smem_raw + L::kBytes);  // [stage][kKeys]
+  int* sKpos = sKseg + kS * kKeys;                            // [stage][kKeys]
+  int* sScratch = sKpos + kS * kKeys;
+  int* sList = sScratch + kSegScratch;
+
+  const int G = Hq / Hk;
+  const int bq = kFRows / G;  // query positions per CTA
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;  // last block first
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int off = Sk - Sq;
+
+  // stage Q: folded row r is (head kvh G + r / bq, position q0 + r % bq);
+  // padded rows at P 1, each piece swizzled at P 3 (piece p at p kFRows D)
+  for (int i = tid; i < P * kFRows * kPieces; i += kFThreads) {
+    const int p = i / (kFRows * kPieces);
+    const int r = (i / kPieces) % kFRows;
+    const int c8 = i % kPieces;
+    const int pos = q0 + r % bq;
+    const bool ok = pos < Sq;
+    const int at = P == 1 ? (r * kStride + 8 * c8) * 2
+                          : p * kFRows * D * 2 + swz<kFRows>(r, c8);
+    cp_async16(reinterpret_cast<unsigned char*>(sQ) + at,
+               ok ? q + p * pc.q + qs.at(b, pos, kvh * G + r / bq) + 8 * c8
+                  : q,
+               ok);
+  }
+  cp_async_commit();
+
+  // the key tiles this CTA walks, kHalves ring steps each: up to the
+  // diagonal of its last live row, or the list of live pairs (its block's
+  // bounds over its live positions against every key tile's)
+  const int q_hi = min(q0 + bq, Sq) - 1;
+  int nsteps;
+  if constexpr (kSeg) {
+    const int nkt = (Sk + kBK - 1) / kBK;
+    const size_t at = static_cast<size_t>(b) * Sq + q0;
+    const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
+                                   q_hi + 1 - q0, sScratch);
+    nsteps = kHalves *
+             live_pairs<true, true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
+                                    nkt, mine, causal, sList, sScratch);
+  } else {
+    const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
+    nsteps = (kend + kKeys - 1) / kKeys;
+  }
+  // the list entry of the n-th key tile (flagged kFull / kOneId) and the
+  // first key of ring step n
+  auto entry_of = [&](int n) {
+    if constexpr (kSeg) return sList[n];
+    else return n;
+  };
+  auto key_of = [&](int n) {
+    return (entry_of(n / kHalves) & (kOneId - 1)) * kBK +
+           (n % kHalves) * kKeys;
+  };
+
+  auto load_kv = [&](int n, int st) {
+    const int kb0 = key_of(n);
+    unsigned char* dk = smem_raw + st * L::kStage;
+    unsigned char* dv = dk + L::kTile;
+    if constexpr (kSeg) {  // threads 0 .. kKeys - 1 copy the ids, the next
+      if (tid < 2 * kKeys) {  // kKeys the positions
+        const int i = tid % kKeys;
+        const int key = kb0 + i;
+        const bool ok = key < Sk;
+        const int* src = tid < kKeys ? seg.kseg : seg.kpos;
+        int* dst = (tid < kKeys ? sKseg : sKpos) + st * kKeys;
+        cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                  ok);
+      }
+    }
+    for (int i = tid; i < P * kKeys * kPieces; i += kFThreads) {
+      const int p = i / (kKeys * kPieces);
+      const int r = (i / kPieces) % kKeys;
+      const int c8 = i % kPieces;
+      const int key = kb0 + r;
+      const bool ok = key < Sk;
+      const int at = p * L::kPiece + swz<kKeys>(r, c8);
+      cp_async16(dk + at, ok ? k + p * pc.k + ks.at(b, key, kvh) + 8 * c8 : k,
+                 ok);
+      cp_async16(dv + at, ok ? v + p * pc.v + vs.at(b, key, kvh) + 8 * c8 : v,
+                 ok);
+    }
+  };
+  #pragma unroll
+  for (int st = 0; st < kS - 1; ++st) {
+    if (st < nsteps) load_kv(st, st);
+    cp_async_commit();
+  }
+
+  // the two rows this thread owns in the mma layout: gid and gid + 8,
+  // with their query's segment id and position
+  int pos[2], head[2], qid[2], qp[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    head[i] = kvh * G + r / bq;
+    pos[i] = q0 + r % bq;
+    qid[i] = -2;
+    qp[i] = 0;
+    if constexpr (kSeg) {
+      if (pos[i] < Sq) {
+        const size_t at = static_cast<size_t>(b) * Sq + pos[i];
+        qid[i] = seg.qseg[at];
+        qp[i] = seg.qpos[at];
+      }
+    }
+  }
+
+  cp_async_wait<kS - 1>();  // Q has landed (tiles may be in flight)
+  __syncthreads();
+  // P 1: each warp keeps its 16 rows' Q fragments in registers (the A
+  // operand of S); at P 3 wgmma reads Q's pieces from shared memory
+  uint32_t qf[P == 1 ? kKC : 1][4];
+  if constexpr (P == 1) {
+    #pragma unroll
+    for (int kc = 0; kc < kKC; ++kc)
+      ldsm_x4(qf[kc], sQ + (warp * 16 + (lane & 15)) * kStride + kc * 16 +
+                          8 * (lane >> 4));
+  }
+  const unsigned char* pQ = reinterpret_cast<const unsigned char*>(sQ);
+
+  // O in plain registers (mma.sync's C layout: [dt][2 i + e] is row
+  // gid + 8 i, column 8 dt + 2 tig + e); each step's P V lands in a fresh
+  // wgmma accumulator first, as in the segment kernel
+  float acc[kDT][4];
+  #pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+    #pragma unroll
+    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
+  float m_run[2] = {kNeg, kNeg};
+  float l_run[2] = {0.f, 0.f};  // per-thread partial sums
+  uint32_t a_p[P][kPC][4];      // P's A fragments, live until P V retires
+
+  for (int n = 0; n < nsteps; ++n) {
+    cp_async_wait<kS - 2>();     // step n's keys have landed
+    tiles::fence_proxy_async();  // ... where wgmma reads them
+    // ... for every thread, step n - 1's are consumed and (n 0) every warp
+    // holds its Q fragments: the stage it leaves is refilled
+    __syncthreads();
+    if (n + kS - 1 < nsteps) load_kv(n + kS - 1, (n + kS - 1) % kS);
+    cp_async_commit();
+    const int st = n % kS;
+    const unsigned char* tK = smem_raw + st * L::kStage;
+    const unsigned char* tV = tK + L::kTile;
+    const int* tseg = sKseg + st * kKeys;
+    const int* tpos = sKpos + st * kKeys;
+    const int entry = entry_of(n / kHalves);
+    const int kb0 = key_of(n);
+    const int kvalid = Sk - kb0;  // keys of the step before Sk
+    // dense: a step that reaches past Sk or above the first row's diagonal
+    // is masked; segments: as the segment kernel (a FULL pair needs no
+    // mask unless it reaches past the keys; a masked pair of one id
+    // compares positions only)
+    bool by_pos, by_id, masked;
+    if constexpr (kSeg) {
+      by_pos = causal && !(entry & kFull);
+      by_id = !(entry & (kFull | kOneId));
+      masked = by_pos || by_id || kvalid < kKeys;
+    } else {
+      by_pos = by_id = false;
+      masked = kvalid < kKeys || (causal && kb0 + kKeys - 1 > q0 + off);
+    }
+
+    // S = Q K^T for the CTA's 64 rows x the step's keys, in m64n32 halves:
+    // A (Q) from the fragments in registers (P 1) or the staged pieces
+    // (P 3), B (K, each piece) K-major from the swizzled stage
+    float s[kNT][4];
+    tiles::fence_regs(flat(s));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int h = 0; h < kKeys / 32; ++h) {
+      float (&sh)[4][4] = *reinterpret_cast<float(*)[4][4]>(&s[4 * h]);
+      #pragma unroll
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kKC; ++kc) {
+          const uint64_t bk =
+              kstep_desc<kKeys>(tK + term_b(t) * L::kPiece, 32 * h, kc);
+          if constexpr (P == 1)
+            wgmma_rs_n32<T>(flat(sh), qf[kc], bk, kc);
+          else
+            wgmma_ss_n32(flat(sh),
+                         kstep_desc<kFRows>(pQ + term_a(t) * kFRows * D * 2,
+                                            0, kc),
+                         bk, t > kT0 || kc > 0);
+        }
+    }
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(s));
+
+    // scale and mask: [nt][2 i + j] is row gid + 8 i and key 8 nt + 2 tig
+    // + j of the step
+    #pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int kl = nt * 8 + tig * 2;
+      int2 kid = make_int2(0, 0), kps = make_int2(0, 0);
+      if (kSeg && by_id) kid = *reinterpret_cast<const int2*>(tseg + kl);
+      if (kSeg && by_pos) kps = *reinterpret_cast<const int2*>(tpos + kl);
+      #pragma unroll
+      for (int i = 0; i < 2; ++i)
+        #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float x = s[nt][i * 2 + j] * scale_log2;
+          if (masked) {
+            bool out = kl + j >= kvalid;
+            if constexpr (kSeg)
+              out = out || (by_id && (j ? kid.y : kid.x) != qid[i]) ||
+                    (by_pos && (j ? kps.y : kps.x) > qp[i]);
+            else
+              out = out || (causal && kb0 + kl + j > pos[i] + off);
+            if (out) x = kNeg;
+          }
+          s[nt][i * 2 + j] = x;
+        }
+    }
+
+    // online softmax of rows gid (i 0) and gid + 8 (i 1) over the step
+    float alpha[2];
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m_run[i];
+      #pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        #pragma unroll
+        for (int j = 0; j < 2; ++j) mx = fmaxf(mx, s[nt][i * 2 + j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = exp2f(m_run[i] - mx);
+      float rs = 0.f;
+      #pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        #pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float x = s[nt][i * 2 + j];
+          // a masked entry is exactly kNeg; in a row with no visible key
+          // yet mx is kNeg too, and exp2(0) must not count
+          const float p = (masked && x == kNeg) ? 0.f : exp2f(x - mx);
+          s[nt][i * 2 + j] = p;
+          rs += p;
+        }
+      l_run[i] = l_run[i] * alpha[i] + rs;
+      m_run[i] = mx;
+    }
+
+    // PV = P V: the C fragments of n-tiles 2kc, 2kc+1 are the A fragment
+    // of k step kc (rounded to fp16 at P 1, as the reference casts P to
+    // V's dtype; float32 P split into three pieces at P 3); B is each of
+    // V's pieces read MN-major (keys along k, the head dim along n)
+    #pragma unroll
+    for (int kc = 0; kc < kPC; ++kc)
+      acc_to_pieces<T, P>(a_p, kc, s[2 * kc], s[2 * kc + 1]);
+    float pv[kDT][4];
+    tiles::fence_regs(flat(pv));
+    tiles::wgmma_fence();
+    #pragma unroll
+    for (int t = kT0; t < 6; ++t)
+      #pragma unroll
+      for (int kc = 0; kc < kPC; ++kc)
+        wgmma_rs_t<D, T>(flat(pv), a_p[term_a(t)][kc],
+                         desc_mn_sw128(tV + term_b(t) * L::kPiece +
+                                           16 * kc * 128,
+                                       kKeys * 128),
+                         t > kT0 || kc > 0);
+    tiles::wgmma_commit();
+    tiles::wgmma_wait<0>();
+    tiles::fence_regs(flat(pv));
+    fence_frags(a_p);
+    #pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      #pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[dt][c] = fmaf(acc[dt][c], alpha[c >> 1], pv[dt][c]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // finalize: full row sums across the quad, LSE from the owning threads,
+  // normalized O through the first stage (P 1: the warp's own 16 rows of
+  // T; P 3: float32 rows of the whole CTA), then out 16 bytes a store
+  float inv[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = l > 0.f ? 1.f / l : 0.f;
+    if (tig == 0 && pos[i] < Sq) {
+      lse[(static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i]] =
+          l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : kBig;
+    }
+  }
+  if constexpr (P == 1) {
+    T* sO = reinterpret_cast<T*>(smem_raw);
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      T* row = sO + (warp * 16 + gid + 8 * i) * kStride;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+            pack2<T>(acc[dt][i * 2] * inv[i], acc[dt][i * 2 + 1] * inv[i]);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * kPieces; i += 32) {
+      const int r = warp * 16 + i / kPieces;
+      const int c = (i % kPieces) * 8;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+      *reinterpret_cast<uint4*>(o + base + c) =
+          *reinterpret_cast<const uint4*>(sO + r * kStride + c);
+    }
+  } else {
+    constexpr int kFS = D + 4;  // floats a staged row
+    float* f = reinterpret_cast<float*>(smem_raw);
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = f + (warp * 16 + gid + 8 * i) * kFS;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) = make_float2(
+            acc[dt][i * 2] * inv[i], acc[dt][i * 2 + 1] * inv[i]);
+    }
+    __syncthreads();
+    constexpr int kQuads = D / 4;
+    for (int i = tid; i < kFRows * kQuads; i += kFThreads) {
+      const int r = i / kQuads;
+      const int c = (i % kQuads) * 4;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D;
+      *reinterpret_cast<float4*>(o + base + c) =
+          *reinterpret_cast<const float4*>(f + r * kFS + c);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1562,6 +1998,82 @@ cudaError_t launch_xl(const Args& a) {
   return cudaGetLastError();
 }
 
+// the float32 (pieces) and fp16 kernel at D 64 / 128, dense or segment
+// branch (kSeg after one launch of the key tiles' bounds)
+template <typename T, int P, int D, bool kSeg>
+cudaError_t launch_tc(const Args& a, const PieceStrides& pc) {
+  static int allowed = 0;
+  using L = TcSmem<D, P>;
+  const int nkt = (a.Sk + kBK - 1) / kBK;
+  const int bytes = L::kBytes + (kSeg ? (L::kInts + nkt) * 4 : 0);
+  auto kern = flash_fwd_tc_kernel<T, P, D, kSeg>;
+  cudaError_t e = allow_dynamic_smem(kern, bytes, allowed);
+  if (e != cudaSuccess) return e;
+  if (kSeg) {
+    e = launch_bounds(Side{a.seg.kseg, a.seg.kpos, a.kv_bounds, a.Sk},
+                      Side{}, a.B, a.s);
+    if (e != cudaSuccess) return e;
+  }
+  const int bq = kFRows / (a.Hq / a.Hk);
+  const dim3 grid((a.Sq + bq - 1) / bq, a.Hk, a.B);
+  kern<<<grid, kFThreads, bytes, a.s>>>(
+      reinterpret_cast<const T*>(a.q), reinterpret_cast<const T*>(a.k),
+      reinterpret_cast<const T*>(a.v), reinterpret_cast<TcOut<T, P>*>(a.o),
+      a.lse, a.Sq, a.Sk, a.Hq, a.Hk, a.causal, a.sl2, a.qs, a.ks, a.vs, pc,
+      a.seg);
+  return cudaGetLastError();
+}
+
+template <typename T, int P>
+cudaError_t launch_tc(const Args& a, const PieceStrides& pc) {
+  const bool sg = a.seg.qseg != nullptr;
+  if (a.D == 128)
+    return sg ? launch_tc<T, P, 128, true>(a, pc)
+              : launch_tc<T, P, 128, false>(a, pc);
+  if (a.D == 64)
+    return sg ? launch_tc<T, P, 64, true>(a, pc)
+              : launch_tc<T, P, 64, false>(a, pc);
+  return cudaErrorInvalidValue;
+}
+
+// the C entry points' arguments; false when the segment pointers are
+// neither all NULL nor all given or the GQA group does not divide 64
+bool make_args(Args* a, const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* q_seg, const void* kv_seg,
+               const void* q_pos, const void* kv_pos, void* kv_bounds, int B,
+               int Sq, int Sk, int Hq, int Hk, int D, int causal, float scale,
+               long long qsb, long long qss, long long qsh, long long ksb,
+               long long kss, long long ksh, long long vsb, long long vss,
+               long long vsh, void* stream) {
+  if (Hk <= 0 || Hq % Hk != 0 || kFRows % (Hq / Hk) != 0) return false;
+  *a = Args{};
+  a->q = static_cast<const __nv_bfloat16*>(q);
+  a->k = static_cast<const __nv_bfloat16*>(k);
+  a->v = static_cast<const __nv_bfloat16*>(v);
+  a->o = static_cast<__nv_bfloat16*>(o);
+  a->lse = static_cast<float*>(lse);
+  a->B = B;
+  a->Sq = Sq;
+  a->Sk = Sk;
+  a->Hq = Hq;
+  a->Hk = Hk;
+  a->D = D;
+  a->causal = causal;
+  a->sl2 = scale * kLog2e;
+  a->qs = Strides{qsb, qss, qsh};
+  a->ks = Strides{ksb, kss, ksh};
+  a->vs = Strides{vsb, vss, vsh};
+  a->seg = Seg{static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg),
+               static_cast<const int*>(q_pos),
+               static_cast<const int*>(kv_pos), nullptr,
+               static_cast<const int*>(kv_bounds)};
+  a->kv_bounds = static_cast<int*>(kv_bounds);
+  a->s = static_cast<cudaStream_t>(stream);
+  return a->seg.qseg == nullptr ||
+         (a->seg.kseg && a->seg.qpos && a->seg.kpos && a->kv_bounds);
+}
+
 }  // namespace
 
 // q_seg, kv_seg, q_pos, kv_pos and kv_bounds are NULL on the dense branch;
@@ -1577,35 +2089,12 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               long long qss, long long qsh, long long ksb,
                               long long kss, long long ksh, long long vsb,
                               long long vss, long long vsh, void* stream) {
-  if (Hk <= 0 || Hq % Hk != 0 || kFRows % (Hq / Hk) != 0)
+  Args a;
+  if (!make_args(&a, q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos,
+                 kv_bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, qsb, qss,
+                 qsh, ksb, kss, ksh, vsb, vss, vsh, stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a = {};
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.lse = static_cast<float*>(lse);
-  a.B = B;
-  a.Sq = Sq;
-  a.Sk = Sk;
-  a.Hq = Hq;
-  a.Hk = Hk;
-  a.D = D;
-  a.causal = causal;
-  a.sl2 = scale * kLog2e;
-  a.qs = Strides{qsb, qss, qsh};
-  a.ks = Strides{ksb, kss, ksh};
-  a.vs = Strides{vsb, vss, vsh};
-  a.seg = Seg{static_cast<const int*>(q_seg),
-              static_cast<const int*>(kv_seg),
-              static_cast<const int*>(q_pos),
-              static_cast<const int*>(kv_pos), nullptr,
-              static_cast<const int*>(kv_bounds)};
-  a.kv_bounds = static_cast<int*>(kv_bounds);
-  a.s = static_cast<cudaStream_t>(stream);
   const bool segmented = a.seg.qseg != nullptr;
-  if (segmented && !(a.seg.kseg && a.seg.qpos && a.seg.kpos && a.kv_bounds))
-    return static_cast<int>(cudaErrorInvalidValue);
   if (!(D == 64 || D == 128 || D == 256 || (D > 256 && D % kXW == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
@@ -1619,4 +2108,30 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
   else
     e = segmented ? launch_seg<64>(a) : launch_dense<64>(a);
   return static_cast<int>(e);
+}
+
+// dtype 1: fp16 q, k, v and O; dtype 2: q, k and v each point at three
+// bf16 pieces [3, B, S, H, D], contiguous (flash_split_bf16x3; the strides
+// are piece 0's), and O is float32. D 64 or 128; otherwise as
+// flash_fwd_bf16.
+extern "C" int flash_fwd_tc(int dtype, const void* q, const void* k,
+                            const void* v, void* o, void* lse,
+                            const void* q_seg, const void* kv_seg,
+                            const void* q_pos, const void* kv_pos,
+                            void* kv_bounds, int B, int Sq, int Sk, int Hq,
+                            int Hk, int D, int causal, float scale,
+                            long long qsb, long long qss, long long qsh,
+                            long long ksb, long long kss, long long ksh,
+                            long long vsb, long long vss, long long vsh,
+                            void* stream) {
+  Args a;
+  if (!make_args(&a, q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos,
+                 kv_bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, qsb, qss,
+                 qsh, ksb, kss, ksh, vsb, vss, vsh, stream) ||
+      (dtype != 1 && dtype != 2) || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
+  if (dtype == 1) return static_cast<int>(launch_tc<__half, 1>(a, {}));
+  const PieceStrides pc = {qsb * B, ksb * B, vsb * B};
+  return static_cast<int>(launch_tc<__nv_bfloat16, 3>(a, pc));
 }

@@ -5,8 +5,8 @@
 // converted (int8) linear layer.
 //
 // y [M, N] bf16 = x [M, K] bf16 . (w [N, K] int8 * s [N] f32)^T, summed in
-// f32. w is PyTorch's Linear layout (K-contiguous); the TPU kernel takes
-// [K, N].
+// f32 (fp16 and float32 x likewise, y in x's dtype: at the end). w is
+// PyTorch's Linear layout (K-contiguous); the TPU kernel takes [K, N].
 //
 // What bounds it on this card: at decode (M <= 8 slot rows) bytes -- the
 // int8 weight is read once and each byte feeds M multiply-adds, far under
@@ -119,6 +119,26 @@
 //   (or the workspace's) are written coalesced.
 // - Not yet: TMA with multicast across a cluster (would cut the L2
 //   re-reads), a producer warp, a persistent grid.
+//
+// fp16 and float32 x (K a multiple of 16; the CUDA cores'
+// quant_matmul_simt.cu keeps any other K): both paths are templated on
+// x's type XT, the bf16 instantiation being the code above.
+// - fp16: the products in fp16 (`mma.sync` / `wgmma` `.f16`), the weight
+//   converted by `i8x4_f16` (exact, below), y fp16.
+// - float32: x as three bf16 pieces (split_bf16x3's rule: x0 + x1 + x2 ==
+//   x) against the bf16 weight, which int8 makes exact: each weight
+//   fragment meets the three pieces' fragments, x2 w and x1 w first and
+//   x0 w last, summed in f32, each product exact in f32; one rounding of
+//   y, which stays float32. What bounds it: three bf16 products for each
+//   float32 product (330 TFLOP/s of float32 work) against the same weight
+//   bytes. Prefill: a split pass (flash_bwd.cu `flash_split_bf16x3`, M x K
+//   viewed as [1, M, 1, K]) writes the pieces [3, M, K] first, ~10 bytes
+//   an element of x; a stage holds the three pieces' chunks (48 KiB) and
+//   the int8 chunk (20 KiB), so the ring is three stages deep (204 KiB)
+//   where bf16's is four. Decode: x is staged as float32 (four 32-wide
+//   boxes a stage) and each lane splits what it reads into fragments: one
+//   more launch a layer for a split pass would cost about as much as the
+//   product itself at M <= 8.
 
 #include <cooperative_groups.h>
 
@@ -136,8 +156,8 @@ using flash::pack_f32;
 // 2^23 + q + 128; subtracting 2^23 + 128 leaves q, whose f32 has its bf16
 // in the upper half (at most 8 significant bits): one byte permutation
 // packs two.
-__device__ __forceinline__ void i8x4(uint32_t word, uint32_t& lo,
-                                     uint32_t& hi) {
+__device__ __forceinline__ void i8x4_bf16(uint32_t word, uint32_t& lo,
+                                          uint32_t& hi) {
   const uint32_t u = word ^ 0x80808080u;
   constexpr float kMagic = 8388736.f;  // 2^23 + 128
   const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650));
@@ -150,6 +170,96 @@ __device__ __forceinline__ void i8x4(uint32_t word, uint32_t& lo,
                    0x7632);
 }
 
+// four int8 (one word) -> two fp16x2, exactly, laid out as i8x4_bf16's.
+// The same bias trick on fp16's exponent: (q + 128) as the low byte of
+// 1024's fp16 pattern (0x6400) is 1024 + q + 128, exact, since fp16's
+// 10-bit mantissa spaces the values in [1024, 2048) one apart; one f16x2
+// subtract of 1024 + 128 (0x6480) leaves q, exact again (|q| <= 128 fits
+// fp16's 11-bit significand). Two byte permutations and one subtract a
+// pair, no conversion instruction.
+__device__ __forceinline__ void i8x4_f16(uint32_t word, uint32_t& lo,
+                                         uint32_t& hi) {
+  const uint32_t u = word ^ 0x80808080u;
+  const uint32_t l = __byte_perm(u, 0x64646464u, 0x4140);
+  const uint32_t h = __byte_perm(u, 0x64646464u, 0x4342);
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(lo) : "r"(l), "r"(0x64806480u));
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(hi) : "r"(h), "r"(0x64806480u));
+}
+
+// the weight's conversion for products in T (bf16 or fp16): exact either
+// way
+template <typename T>
+__device__ __forceinline__ void i8x4(uint32_t word, uint32_t& lo,
+                                     uint32_t& hi) {
+  if constexpr (flash::kIsHalf<T>)
+    i8x4_f16(word, lo, hi);
+  else
+    i8x4_bf16(word, lo, hi);
+}
+
+// c (+)= A . B, mma.sync m16n8k16 in T (bf16 or fp16), f32 accumulate
+template <typename T>
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (flash::kIsHalf<T>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
+// The element types of a path: XT the x it stages (bf16, fp16 or float32)
+// and T the type its products take (fp16 for fp16 x, bf16 otherwise: a
+// float32 x enters the products as three bf16 pieces, P = 3), YT that of y
+// (x's own).
+template <typename XT>
+using ProdT = std::conditional_t<std::is_same<XT, __half>::value, __half,
+                                 __nv_bfloat16>;
+template <typename XT>
+constexpr int kPiecesOf = std::is_same<XT, float>::value ? 3 : 1;
+
+// y's element from its float32 value, rounded once
+template <typename YT>
+__device__ __forceinline__ YT to_y(float v) {
+  if constexpr (std::is_same<YT, float>::value) return v;
+  else if constexpr (std::is_same<YT, __half>::value) return __float2half_rn(v);
+  else return __float2bfloat16(v);
+}
+
+// four consecutive y values from float32, one store of 8 (16-bit y) or 16
+// bytes (float32 y); dst 8- or 16-byte aligned
+template <typename YT>
+__device__ __forceinline__ void store4(YT* dst, float a, float b, float c,
+                                       float d) {
+  if constexpr (std::is_same<YT, float>::value) {
+    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+  } else {
+    uint2 pk;
+    pk.x = flash::pack2<YT>(a, b);
+    pk.y = flash::pack2<YT>(c, d);
+    *reinterpret_cast<uint2*>(dst) = pk;
+  }
+}
+
+// x's two float32 values (lo, hi) as three bf16x2 pieces, split_bf16x3's
+// rule on both at once: one paired conversion (cvt.rn.bf16x2.f32) a piece
+// and two exact subtracts, half the conversions of one value at a time
+// (the conversion pipe is the decode kernel's narrowest at float32 x)
+__device__ __forceinline__ void split_pair(float lo, float hi,
+                                           uint32_t (&w)[3]) {
+  #pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    w[p] = *reinterpret_cast<const uint32_t*>(&v);
+    lo -= __low2float(v);
+    hi -= __high2float(v);
+  }
+}
+
 // --- decode path (M <= 8) --------------------------------------------------
 
 namespace dec {
@@ -160,12 +270,17 @@ constexpr int kStages = 4;         // ring depth
 constexpr int kGranules = 8;       // leaves of the fixed k tree
 constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kTok = 8;            // token rows of x staged (zeros past M)
-constexpr int kX = kTok * 2 * kBK;   // x's rows of a stage: two 64-wide boxes
 constexpr int kWarpRows = 16 * kBK;  // one warp's 16 weight rows of a stage
 constexpr int kW = 4;              // consumer warps a CTA (16 channels each)
 constexpr int kCh = 16 * kW;       // output channels a CTA
-constexpr int kStage = kX + kW * kWarpRows;  // x's 8 rows, then 64 of w's
+constexpr int kBox = kTok * 128;   // one box of x: 8 rows of 128 bytes
 static_assert(kBK == 128, "one 128-byte swizzle span a weight row");
+// x's 8 rows over a stage's 128 k in boxes of 128 bytes a row (two boxes
+// of 64 k for 16-bit x, four of 32 for float32 x), then 64 weight rows
+__host__ __device__ constexpr int x_bytes(int elem) { return kTok * kBK * elem; }
+__host__ __device__ constexpr int stage_bytes(int elem) {
+  return x_bytes(elem) + kW * kWarpRows;
+}
 
 // k per granule: K / 8 rounded up to a whole number of stages
 __host__ __device__ __forceinline__ int granule(int K) {
@@ -180,8 +295,8 @@ __host__ __device__ __forceinline__ size_t slot_bytes(int S) {
                      sizeof(float4)
                : 0;
 }
-__host__ __device__ __forceinline__ size_t smem_bytes(int S) {
-  return static_cast<size_t>(kStages) * kStage + slot_bytes(S) +
+__host__ __device__ __forceinline__ size_t smem_bytes(int S, int elem) {
+  return static_cast<size_t>(kStages) * stage_bytes(elem) + slot_bytes(S) +
          2 * kStages * sizeof(uint64_t);
 }
 
@@ -231,13 +346,24 @@ __device__ __forceinline__ int row_of(int g) { return ((g & 1) << 2) | (g >> 1);
 
 // 1-d grid of (N / 64) x S CTAs, clusters of S along x: cluster = channel
 // tile, rank = share of K. kW consumer warps (16 channels each) and one
-// producer warp. `wmap` boxes 128 bytes x 64 rows of w, `xmap` 64 x 8 of
-// x (zeros past N, K and M), both with the 128-byte swizzle.
+// producer warp. `wmap` boxes 128 bytes x 64 rows of w, `xmap` 128 bytes
+// x 8 rows of x (zeros past N, K and M), both with the 128-byte swizzle.
+// XT is x's (and y's) type: bf16 and fp16 multiply as they are; a float32
+// x is split into three bf16 pieces as each lane takes its fragments
+// (every warp splits the 8 rows it reads: no pass before the kernel, whose
+// launch would cost as much as the product at these sizes), and each
+// weight fragment meets the three, small pieces first.
+template <typename XT>
 __global__ void __launch_bounds__(32 * (kW + 1), 4)
 qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap xmap,
-                  const float* __restrict__ s, __nv_bfloat16* __restrict__ y,
+                  const float* __restrict__ s, XT* __restrict__ y,
                   int M, int N, int K) {
+  using T = ProdT<XT>;
+  constexpr int P = kPiecesOf<XT>;
+  constexpr int kX = x_bytes(sizeof(XT));
+  constexpr int kStage = stage_bytes(sizeof(XT));
+  constexpr int kBoxK = 128 / sizeof(XT);  // k a box of x spans
   extern __shared__ __align__(1024) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks());
@@ -281,8 +407,9 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
         unsigned char* xs = smem + slot * kStage;
         const int kb = k0 + st * kBK;
         mbar_expect(full + slot, kStage);
-        tma_2d(xs, &xmap, kb, 0, full + slot);
-        tma_2d(xs + kX / 2, &xmap, kb + 64, 0, full + slot);
+        #pragma unroll
+        for (int bx = 0; bx < kX / kBox; ++bx)
+          tma_2d(xs + bx * kBox, &xmap, kb + bx * kBoxK, 0, full + slot);
         tma_2d(xs + kX, &wmap, kb, c0, full + slot);
       }
       // every copy is issued: the next kernel may start launching
@@ -297,9 +424,10 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 
   // the consumers. Fragment reads: weight rows pi(gid) and pi(gid) + 8 of
-  // the warp's 16, piece 4 c + tig of 64-wide chunk c; x row gid of box c,
-  // pieces 2 tig and 2 tig + 1 (elements 16 tig .. 16 tig + 15 of the
-  // chunk)
+  // the warp's 16, piece 4 c + tig of 64-wide chunk c; x row gid of the
+  // chunk's boxes, elements 16 tig .. 16 tig + 15 of the chunk (16-bit x:
+  // pieces 2 tig and 2 tig + 1 of box c; float32 x: pieces 4 (tig % 2) ..
+  // 4 (tig % 2) + 3 of box 2 c + tig / 2)
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int n0 = c0 + 16 * warp;  // the warp's first channel
@@ -323,19 +451,42 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
         const int off = 16 * ((4 * c + tig) ^ wrow);
         const uint4 wa = lds128(ws + off);
         const uint4 wb = lds128(ws + 8 * kBK + off);
-        const uint4 x0 = lds128(xr + c * (kX / 2) + 16 * ((2 * tig) ^ gid));
-        const uint4 x1 =
-            lds128(xr + c * (kX / 2) + 16 * ((2 * tig + 1) ^ gid));
+        const unsigned char* xc = xr + c * (kX / 2);  // the chunk's boxes
+        // xb[p][i]: piece p of x's k 16 tig + 2 i, + 1 of the chunk
+        uint32_t xb[P][8];
+        if constexpr (P == 1) {
+          const uint4 x0 = lds128(xc + 16 * ((2 * tig) ^ gid));
+          const uint4 x1 = lds128(xc + 16 * ((2 * tig + 1) ^ gid));
+          const uint32_t w[8] = {x0.x, x0.y, x0.z, x0.w,
+                                 x1.x, x1.y, x1.z, x1.w};
+          #pragma unroll
+          for (int i = 0; i < 8; ++i) xb[0][i] = w[i];
+        } else {
+          const unsigned char* xq = xc + (tig >> 1) * kBox;
+          #pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float4 f = *reinterpret_cast<const float4*>(
+                xq + 16 * ((4 * (tig & 1) + h) ^ gid));
+            uint32_t lo[3], hi[3];
+            split_pair(f.x, f.y, lo);
+            split_pair(f.z, f.w, hi);
+            #pragma unroll
+            for (int p = 0; p < P; ++p) {
+              xb[p][2 * h] = lo[p];
+              xb[p][2 * h + 1] = hi[p];
+            }
+          }
+        }
         const uint32_t ra[4] = {wa.x, wa.y, wa.z, wa.w};
         const uint32_t rb[4] = {wb.x, wb.y, wb.z, wb.w};
-        const uint32_t xb[8] = {x0.x, x0.y, x0.z, x0.w,
-                                x1.x, x1.y, x1.z, x1.w};
         #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t a[4];
-          i8x4(ra[j], a[0], a[2]);
-          i8x4(rb[j], a[1], a[3]);
-          mma_bf16(acc, a, xb[2 * j], xb[2 * j + 1]);
+          i8x4<T>(ra[j], a[0], a[2]);
+          i8x4<T>(rb[j], a[1], a[3]);
+          #pragma unroll
+          for (int p = P - 1; p >= 0; --p)
+            mma16816<T>(acc, a, xb[p][2 * j], xb[p][2 * j + 1]);
         }
       }
     }
@@ -377,7 +528,7 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
     const int n = n0 + wrow + 8 * (e >> 1);
     const int m = 2 * tig + (e & 1);
     if (n < N && m < M)
-      y[static_cast<size_t>(m) * N + n] = __float2bfloat16(vals[e] * s[n]);
+      y[static_cast<size_t>(m) * N + n] = to_y<XT>(vals[e] * s[n]);
   }
 }
 
@@ -402,14 +553,22 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// x's tensor-map element type
+template <typename XT>
+constexpr CUtensorMapDataType kXMapType =
+    std::is_same<XT, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+    : std::is_same<XT, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+template <typename XT>
 int launch(const void* x, const void* w, const void* s, void* y, int M,
            int N, int K, int S, cudaStream_t st) {
-  const size_t smem = smem_bytes(S);
+  const size_t smem = smem_bytes(S, sizeof(XT));
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   static size_t opened = 0;  // dynamic shared memory allowed so far
   if (smem > opened) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        qmm_decode_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opened = smem;
@@ -417,8 +576,8 @@ int launch(const void* x, const void* w, const void* s, void* y, int M,
   CUtensorMap wmap, xmap;
   if (!tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K, kBK,
                   kCh) ||
-      !tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, 64,
-                  kTok))
+      !tensor_map(&xmap, kXMapType<XT>, sizeof(XT), x, M, K,
+                  128 / sizeof(XT), kTok))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>((N + kCh - 1) / kCh * S));
@@ -435,8 +594,8 @@ int launch(const void* x, const void* w, const void* s, void* y, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, qmm_decode_kernel, wmap, xmap, static_cast<const float*>(s),
-      static_cast<__nv_bfloat16*>(y), M, N, K);
+      &cfg, qmm_decode_kernel<XT>, wmap, xmap, static_cast<const float*>(s),
+      static_cast<XT*>(y), M, N, K);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -453,16 +612,27 @@ constexpr int kTok = 128;      // tokens per CTA
 constexpr int kCh = 256;       // output channels per CTA (64 per warpgroup)
 constexpr int kBK = 64;        // k per staged chunk
 constexpr int kKS = kBK / 16;  // wgmma k steps per chunk
-constexpr int kStages = 4;     // ring depth
 constexpr int kThreads = 512;  // four warpgroups
 constexpr int kW8Stride = kBK + 16;  // bytes per staged int8 weight row
-constexpr int kX = kTok * kBK * 2;   // bf16 token chunk (swizzled)
+constexpr int kX = kTok * kBK * 2;   // a 16-bit token chunk (swizzled)
 constexpr int kW8 = kCh * kW8Stride;  // int8 weight chunk
-constexpr int kStage = kX + kW8;
 constexpr int kOutStride = kCh + 4;  // floats per staged output row
 constexpr int kOut = kTok * kOutStride * 4;  // the f32 output tile
-constexpr int kSmem = kStages * kStage > kOut ? kStages * kStage : kOut;
-static_assert(kStage % tiles::kAtomBytes == 0, "stages keep atoms aligned");
+
+// A stage holds P token chunks (x's pieces: one for bf16 and fp16 x,
+// three for float32 x) and the int8 weight chunk. Four stages of one piece
+// (4 x 52 KiB) fit the 227 KiB a CTA may take; with three pieces a stage
+// is 68 KiB, so the ring is three stages deep (204 KiB): two would leave a
+// chunk's products waiting on the next chunk's copies.
+template <int P>
+struct Ring {
+  static constexpr int kStages = P == 1 ? 4 : 3;
+  static constexpr int kStage = P * kX + kW8;
+  static constexpr int kSmem =
+      kStages * kStage > kOut ? kStages * kStage : kOut;
+  static_assert(kStage % tiles::kAtomBytes == 0, "stages keep atoms aligned");
+  static_assert(kSmem <= 227 * 1024, "the ring fits a CTA");
+};
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -470,15 +640,24 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 
 // CTA (blockIdx.x, blockIdx.y, blockIdx.z) = (token tile, channel tile,
 // k split); the split covers chunks [z cps, (z + 1) cps), at least one.
-// With ws == null it writes y = bf16(sum * s); else the f32 sums to
+// With ws == null it writes y = YT(sum * s); else the f32 sums to
 // ws[z][M][N]. Warpgroup g computes channels 64 g .. 64 g + 63 x all 128
 // tokens (wgmma's M is the channel, N the token); warp w of the CTA owns
-// channel rows 16 w .. 16 w + 15 of the A operand.
+// channel rows 16 w .. 16 w + 15 of the A operand. XT is x's type: x
+// points at bf16 or fp16 [M, K], or for float32 x at its three bf16
+// pieces [3, M, K] (flash_split_bf16x3), and each weight fragment then
+// meets the three pieces' chunks, small pieces first, in one commit group
+// a k step.
+template <typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
-qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
+qmm_prefill_kernel(const ProdT<XT>* __restrict__ x,
                    const int8_t* __restrict__ w, const float* __restrict__ s,
-                   __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
-                   int M, int N, int K, int cps) {
+                   XT* __restrict__ y, float* __restrict__ ws, int M, int N,
+                   int K, int cps) {
+  using T = ProdT<XT>;
+  constexpr int P = kPiecesOf<XT>;
+  constexpr int kStages = Ring<P>::kStages;
+  constexpr int kStage = Ring<P>::kStage;
   extern __shared__ __align__(1024) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -491,21 +670,24 @@ qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
   const int c0 = blockIdx.z * cps;
   const int nloc = min(nck, c0 + cps) - c0;
 
-  // chunk c -> stage st: 128 token rows (128 bytes each, swizzled; eight
-  // threads copy one row) and 256 int8 weight rows (64 bytes each, padded
-  // to 80 so that the fragment reads are free of bank conflicts), in
-  // 16-byte pieces; K % 16 == 0, so a piece is all in range or all out
+  // chunk c -> stage st: each piece's 128 token rows (128 bytes each,
+  // swizzled; eight threads copy one row) and 256 int8 weight rows (64
+  // bytes each, padded to 80 so that the fragment reads are free of bank
+  // conflicts), in 16-byte pieces; K % 16 == 0, so a piece is all in range
+  // or all out
   auto load = [&](int c, int st) {
     unsigned char* xs = smem + st * kStage;
-    unsigned char* w8 = xs + kX;
+    unsigned char* w8 = xs + P * kX;
     const int k0 = c * kBK;
-    for (int i = tid; i < kTok * 8; i += kThreads) {
-      const int r = i >> 3;
-      const int p = i & 7;
-      const int k = k0 + 8 * p;
+    for (int i = tid; i < P * kTok * 8; i += kThreads) {
+      const int p = P == 1 ? 0 : i / (kTok * 8);
+      const int r = P == 1 ? i >> 3 : (i >> 3) % kTok;
+      const int q = i & 7;
+      const int k = k0 + 8 * q;
       const bool ok = m0 + r < M && k < K;
-      tiles::cp_async16(xs + sw128_offset(r, p),
-                        ok ? x + static_cast<size_t>(m0 + r) * K + k : x, ok);
+      const T* src = x + static_cast<size_t>(m0 + r) * K + k;
+      if constexpr (P > 1) src += static_cast<size_t>(p) * M * K;
+      tiles::cp_async16(xs + p * kX + sw128_offset(r, q), ok ? src : x, ok);
     }
     for (int i = tid; i < kCh * 4; i += kThreads) {
       const int r = i >> 2;
@@ -523,12 +705,12 @@ qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
   // row, one byte permutation picks the 4 bytes
   const uint32_t sel = (tig & 1) ? 0x7632u : 0x5410u;
   auto frag = [&](int st, int kk, uint32_t (&a)[4]) {
-    const unsigned char* r0 = smem + st * kStage + kX +
+    const unsigned char* r0 = smem + st * kStage + P * kX +
                               (crow + gid) * kW8Stride + 4 * (tig >> 1) +
                               16 * kk;
     const unsigned char* r1 = r0 + 8 * kW8Stride;
-    i8x4(__byte_perm(lds32(r0), lds32(r0 + 8), sel), a[0], a[2]);
-    i8x4(__byte_perm(lds32(r1), lds32(r1 + 8), sel), a[1], a[3]);
+    i8x4<T>(__byte_perm(lds32(r0), lds32(r0 + 8), sel), a[0], a[2]);
+    i8x4<T>(__byte_perm(lds32(r1), lds32(r1 + 8), sel), a[1], a[3]);
   };
 
   // no zero fill: the first product overwrites (a non-wgmma write to the
@@ -554,8 +736,11 @@ qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
     #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) {
       tiles::wgmma_fence();
-      tiles::wgmma_rs_n128(acc, a[kk], tiles::wgmma_desc_sw128(xs + 32 * kk),
-                           i > 0 || kk > 0);
+      #pragma unroll
+      for (int p = P - 1; p >= 0; --p)
+        flash::wgmma_rs_n128<T>(
+            acc, a[kk], tiles::wgmma_desc_sw128(xs + p * kX + 32 * kk),
+            i > 0 || kk > 0 || p < P - 1);
       tiles::wgmma_commit();
       tiles::wgmma_wait<kKS - 1>();
       if (kk + 1 < kKS) {
@@ -602,16 +787,13 @@ qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
         *reinterpret_cast<const float4*>(out + t * kOutStride + c);
     const float vals[4] = {v.x, v.y, v.z, v.w};
     if (ws == nullptr) {
-      __nv_bfloat16* dst = y + static_cast<size_t>(m) * N + n;
+      XT* dst = y + static_cast<size_t>(m) * N + n;
       if (vec) {
         const float4 sc = *reinterpret_cast<const float4*>(s + n);
-        uint2 pk;
-        pk.x = pack_f32(v.x * sc.x, v.y * sc.y);
-        pk.y = pack_f32(v.z * sc.z, v.w * sc.w);
-        *reinterpret_cast<uint2*>(dst) = pk;
+        store4(dst, v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
       } else {
         for (int e = 0; e < 4 && n + e < N; ++e)
-          dst[e] = __float2bfloat16(vals[e] * s[n + e]);
+          dst[e] = to_y<XT>(vals[e] * s[n + e]);
       }
     } else {
       float* dst = ws + (static_cast<size_t>(blockIdx.z) * M + m) * N + n;
@@ -624,44 +806,64 @@ qmm_prefill_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// y = bf16(s[n] * sum over splits of ws[split][m][n]), splits added in order
+// y = YT(s[n] * sum over splits of ws[split][m][n]), splits added in order
+template <typename YT>
 __global__ void qmm_reduce_kernel(const float* __restrict__ ws,
                                   const float* __restrict__ s,
-                                  __nv_bfloat16* __restrict__ y, int M, int N,
+                                  YT* __restrict__ y, int M, int N,
                                   int splits) {
   const size_t total = static_cast<size_t>(M) * N;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float sum = 0.f;
     for (int r = 0; r < splits; ++r) sum += ws[r * total + i];
-    y[i] = __float2bfloat16(sum * s[i % N]);
+    y[i] = to_y<YT>(sum * s[i % N]);
   }
 }
 
+template <typename XT>
 int launch(const void* x, const void* w, const void* s, void* y, void* ws,
            int M, int N, int K, int cps, cudaStream_t st) {
+  constexpr int kSmem = Ring<kPiecesOf<XT>>::kSmem;
   static bool smem_ok = false;
-  cudaError_t err = tiles::allow_smem(qmm_prefill_kernel, kSmem, smem_ok);
+  cudaError_t err = tiles::allow_smem(qmm_prefill_kernel<XT>, kSmem, smem_ok);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int splits = ((K + kBK - 1) / kBK + cps - 1) / cps;
   const dim3 grid((M + kTok - 1) / kTok, (N + kCh - 1) / kCh, splits);
   float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
-  qmm_prefill_kernel<<<grid, kThreads, kSmem, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), part, M,
-      N, K, cps);
+  qmm_prefill_kernel<XT><<<grid, kThreads, kSmem, st>>>(
+      static_cast<const ProdT<XT>*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), static_cast<XT*>(y), part, M, N, K, cps);
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(M) * N;
   const int blocks = static_cast<int>(
       total / 256 + 1 < 132 * 8 ? total / 256 + 1 : 132 * 8);
-  qmm_reduce_kernel<<<blocks, 256, 0, st>>>(
-      part, static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), M,
-      N, splits);
+  qmm_reduce_kernel<XT><<<blocks, 256, 0, st>>>(
+      part, static_cast<const float*>(s), static_cast<XT*>(y), M, N, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pf
+
+}  // namespace
+
+namespace {
+
+// the checks of the C entry points: the decode kernel (M <= 8) and the
+// prefill kernel (M >= 9, `cps` chunks a split, a workspace when split)
+bool bad_decode(int M, int N, int K, int cluster) {
+  return M < 0 || M > dec::kTok || N <= 0 || K <= 0 || K % 16 != 0 ||
+         cluster <= 0 || cluster > dec::kMaxCluster ||
+         (cluster & (cluster - 1)) != 0;
+}
+
+bool bad_prefill(const void* ws, int M, int N, int K, int cps) {
+  if (M <= 8 || N <= 0 || K <= 0 || K % 16 != 0) return true;
+  const int nck = (K + pf::kBK - 1) / pf::kBK;
+  return cps <= 0 || (cps < nck && ws == nullptr) ||
+         (N + pf::kCh - 1) / pf::kCh > 65535 || (nck + cps - 1) / cps > 65535;
+}
 
 }  // namespace
 
@@ -671,13 +873,11 @@ int launch(const void* x, const void* w, const void* s, void* y, void* ws,
 extern "C" int quant_matmul_decode_bf16(const void* x, const void* w,
                                         const void* s, void* y, int M, int N,
                                         int K, int cluster, void* stream) {
-  if (M < 0 || M > dec::kTok || N <= 0 || K <= 0 || K % 16 != 0 ||
-      cluster <= 0 || cluster > dec::kMaxCluster ||
-      (cluster & (cluster - 1)) != 0)
+  if (bad_decode(M, N, K, cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
-  return dec::launch(x, w, s, y, M, N, K, cluster,
-                     static_cast<cudaStream_t>(stream));
+  return dec::launch<__nv_bfloat16>(x, w, s, y, M, N, K, cluster,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // M >= 9: the prefill kernel with `cps` 64-wide k chunks per split; with
@@ -685,12 +885,36 @@ extern "C" int quant_matmul_decode_bf16(const void* x, const void* w,
 extern "C" int quant_matmul_bf16(const void* x, const void* w, const void* s,
                                  void* y, void* ws, int M, int N, int K,
                                  int cps, void* stream) {
-  if (M <= 8 || N <= 0 || K <= 0 || K % 16 != 0)
+  if (bad_prefill(ws, M, N, K, cps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return pf::launch<__nv_bfloat16>(x, w, s, y, ws, M, N, K, cps,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// As quant_matmul_decode_bf16 for x of dtype 1 (fp16: y fp16, products in
+// fp16) or 2 (float32: y float32, x split into three bf16 pieces inside the
+// kernel).
+extern "C" int quant_matmul_decode_tc(int dtype, const void* x,
+                                      const void* w, const void* s, void* y,
+                                      int M, int N, int K, int cluster,
+                                      void* stream) {
+  if (bad_decode(M, N, K, cluster) || (dtype != 1 && dtype != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? dec::launch<__half>(x, w, s, y, M, N, K, cluster, st)
+                    : dec::launch<float>(x, w, s, y, M, N, K, cluster, st);
+}
+
+// As quant_matmul_bf16 for dtype 1 (fp16 x and y) or 2 (x points at the
+// three bf16 pieces [3, M, K] of a float32 x, contiguous; y float32).
+extern "C" int quant_matmul_tc(int dtype, const void* x, const void* w,
+                               const void* s, void* y, void* ws, int M,
+                               int N, int K, int cps, void* stream) {
+  if (bad_prefill(ws, M, N, K, cps) || (dtype != 1 && dtype != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nck = (K + pf::kBK - 1) / pf::kBK;
-  if (cps <= 0 || (cps < nck && ws == nullptr) ||
-      (N + pf::kCh - 1) / pf::kCh > 65535 || (nck + cps - 1) / cps > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return pf::launch(x, w, s, y, ws, M, N, K, cps, st);
+  return dtype == 1
+             ? pf::launch<__half>(x, w, s, y, ws, M, N, K, cps, st)
+             : pf::launch<float>(x, w, s, y, ws, M, N, K, cps, st);
 }

@@ -20,20 +20,20 @@ CPU tensors take the plain pair, ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``: the same math in plain PyTorch.
 ``FLAGS_flash_kernel=plain`` (read at each call) sends CUDA tensors to the
 plain pair too. The route is decided before any launch, from the device,
-the dtype and the GQA group alone (``flash_route``), and counted in
-``ROUTE_COUNTS``: bf16 takes the tensor-core kernels (K and V expanded
-along the head axis where the group does not divide 64); float32 and
-fp16 take ``flash_simt.cu``'s forward (``flash_simt_fwd_cuda``) on the
-CUDA cores. The backward's route is decided with the forward's, from the
-head dim too (``flash_bwd_route``), and counted in ``BWD_ROUTE_COUNTS``
-when it runs: up to head dim 128 float32 and fp16 take the tensor-core
-B2 and B3 as well, fp16 on f16 ``wgmma`` (``f16``), float32 as three bf16
+the dtype, the GQA group and the head dim alone (``flash_route``; the
+backward takes the same route, ``flash_bwd_route``), and counted in
+``ROUTE_COUNTS`` (the forward) and ``BWD_ROUTE_COUNTS`` (the backward,
+when it runs): bf16 takes the tensor-core kernels (K and V expanded along
+the head axis where the group does not divide 64); up to head dim 128
+float32 and fp16 take tensor-core kernels too, fp16 on f16 ``wgmma``
+(``f16``: ``flash_fwd_cuda``, ``flash_bwd_cuda``), float32 as three bf16
 pieces of every operand (``split``: ``split_bf16x3_cuda``, then
-``flash_bwd_dq_x3_cuda`` and ``flash_bwd_dkv_x3_cuda``, each product the
-six terms of the pieces that keep float32's precision); above 128 both
-take ``flash_simt.cu``'s dQ and dK/dV (``flash_simt_bwd_cuda``), every
-product a float32 FMA. There is no fallback: a kernel wrapper handed a
-tensor its kernel does not take raises.
+``flash_fwd_x3_cuda``, and in the backward ``flash_bwd_dq_x3_cuda`` and
+``flash_bwd_dkv_x3_cuda``, each product the six terms of the pieces that
+keep float32's precision); above 128 both take ``flash_simt.cu``
+(``flash_simt_fwd_cuda``, ``flash_simt_bwd_cuda``), every product a
+float32 FMA on the CUDA cores. There is no fallback: a kernel wrapper
+handed a tensor its kernel does not take raises.
 
 The kernels read q/k/v/dO through their strides (the innermost one must be
 1 and the others multiples of 8 elements), so the non-contiguous q/k/v
@@ -76,26 +76,26 @@ _WIDE_STEP = 128
 _MODES = ("auto", "plain")
 # the kernels fold the G query heads of a kv head into 64-row CTAs
 _FOLD = 64
-# ``FlashAttention``'s routing decisions (``flash_route``), one a call:
-# ``kernel`` (B1-B3 as they are), ``expanded`` (B1-B3 on K and V expanded
-# along the head axis), ``simt`` (``flash_simt.cu`` for float32 and fp16),
-# ``forced`` (FLAGS_flash_kernel=plain: the plain pair) and ``cpu`` (CPU
-# tensors take the plain pair)
-ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "simt": 0, "forced": 0,
-                "cpu": 0}
-# the backward's routes (``flash_bwd_route``), one a backward call: bf16's
-# ``kernel`` and ``expanded`` as the forward's, ``f16`` (fp16 on B2/B3),
-# ``split`` (float32 on B2/B3 as three bf16 pieces), ``simt`` (float32 and
-# fp16 above head dim 128: ``flash_simt.cu``), ``forced`` and ``cpu``
+# ``FlashAttention``'s routing decisions (``flash_route``), one a forward
+# call: ``kernel`` (B1-B3 as they are), ``expanded`` (B1-B3 on K and V
+# expanded along the head axis), ``f16`` (fp16 on the tensor cores up to
+# head dim 128), ``split`` (float32 there, as three bf16 pieces), ``simt``
+# (``flash_simt.cu`` for float32 and fp16 above head dim 128), ``forced``
+# (FLAGS_flash_kernel=plain: the plain pair) and ``cpu`` (CPU tensors take
+# the plain pair)
+ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "f16": 0, "split": 0,
+                "simt": 0, "forced": 0, "cpu": 0}
+# the same routes, one a backward call
 BWD_ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "f16": 0, "split": 0,
                     "simt": 0, "forced": 0, "cpu": 0}
 # the dtypes ``flash_simt.cu`` takes, by their code in its C entry points
 _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
-# the element types of ``flash_bwd.cu``'s C entry points: bf16, fp16, and
-# float32 as three bf16 pieces ([3, B, S, H, D])
+# the element types of ``flash_bwd.cu``'s C entry points (and of
+# ``flash_fwd_tc``, which takes the last two): bf16, fp16, and float32 as
+# three bf16 pieces ([3, B, S, H, D])
 _BWD_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _BWD_PIECES = 2
-# the head dims B2 and B3 take fp16 and float32 at (the wrapper pads any D
+# the head dims B1-B3 take fp16 and float32 at (FlashAttention pads any D
 # up to 128 to one of them)
 _TC_DIMS = (64, 128)
 # the plain pair takes its query rows in chunks so that one float32
@@ -439,7 +439,7 @@ def _seg_ptrs(seg, *bounds):
 def _count(fn, seg, D, dtype=torch.bfloat16):
     """One launch of ``fn``: dense or segment branch, and apart from
     either, the kernels above head dim 256 (``xl_launches``); a float16
-    launch (B2, B3) counts in ``f16_launches`` alone, dense or segment."""
+    launch (B1-B3) counts in ``f16_launches`` alone, dense or segment."""
     if dtype == torch.float16:
         fn.f16_launches += 1
         return
@@ -454,16 +454,22 @@ def _count(fn, seg, D, dtype=torch.bfloat16):
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
                    kv_segment_ids=None, q_positions=None,
                    kv_positions=None):
-    """Launch ``flash_fwd_bf16``. Returns (O, LSE), both contiguous.
-    Takes bf16 [B, S, H, D] tensors (strided as ``_check_qkv`` says) with
-    D in {64, 128, 256} or a multiple of 128 above 256
-    (``kernel_head_dim``) and a GQA group G dividing 64, and for the segment
-    branch all four id and position tensors (``_check_seg``); raises on
-    anything else. Counts ``launches`` (dense) and ``seg_launches``
-    apart, and above D 256 ``xl_launches`` too."""
-    B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v)
+    """Launch ``flash_fwd_bf16`` or, for fp16, ``flash_fwd_tc``. Returns
+    (O, LSE), both contiguous. Takes bf16 [B, S, H, D] tensors (strided as
+    ``_check_qkv`` says) with D in {64, 128, 256} or a multiple of 128
+    above 256 (``kernel_head_dim``), or fp16 ones at D 64 or 128, and a
+    GQA group G dividing 64, and for the segment branch all four id and
+    position tensors (``_check_seg``); raises on anything else. Counts as
+    ``_count`` says: bf16 ``launches`` (dense) and ``seg_launches`` apart,
+    above D 256 ``xl_launches`` too; fp16 ``f16_launches``."""
+    B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v, fp16=True)
     seg = _check_seg("flash_fwd", q, k, (q_segment_ids, kv_segment_ids,
                                         q_positions, kv_positions))
+    if q.dtype == torch.float16:
+        out, lse = _fwd_tc("flash_fwd_tc", _BWD_DTYPES[q.dtype], q, k, v,
+                           causal, scale, seg, q.dtype)
+        _count(flash_fwd_cuda, seg, D, q.dtype)
+        return out, lse
     bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
     out = torch.empty((B, Sq, Hq, D), device=q.device, dtype=q.dtype)
     lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
@@ -482,6 +488,28 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.seg_launches = 0
 flash_fwd_cuda.xl_launches = 0
+flash_fwd_cuda.f16_launches = 0
+
+
+def _fwd_tc(what, code, q, k, v, causal, scale, seg, out_dtype):
+    """One ``flash_fwd_tc`` launch on checked operands (element type
+    ``code``; at ``_BWD_PIECES`` q, k, v are [3, B, S, H, D] pieces and
+    the shapes are piece 0's). Returns (O [B, Sq, Hq, D] in ``out_dtype``,
+    LSE), both contiguous."""
+    B, Sq, Hq, D = q.shape[-4:]
+    Sk, Hk = k.shape[-3], k.shape[-2]
+    bounds = (None if seg is None else _bounds_workspace(B, Sk, q.device),)
+    out = torch.empty((B, Sq, Hq, D), device=q.device, dtype=out_dtype)
+    lse = torch.empty((B, Hq, Sq), device=q.device, dtype=torch.float32)
+    lib = _build.load("flash_fwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_fwd_tc(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_seg_ptrs(seg, *bounds), B, Sq, Sk, Hq, Hk, D,
+        int(bool(causal)), _scale(scale, D),
+        *_strides(*(t[0] if t.dim() == 5 else t for t in (q, k, v))), stream)
+    _build.check(err, what)
+    return out, lse
 
 
 def flash_delta(o, do, dlse=None):
@@ -632,11 +660,13 @@ def split_bf16x3_cuda(x, dp=None):
 split_bf16x3_cuda.launches = 0
 
 
-def _check_pieces(what, q, k, v, do):
-    """The three-piece operands B2 and B3 take: [3, B, S, H, D] bf16 CUDA
+def _check_pieces(what, q, k, v, do=None):
+    """The three-piece operands B1-B3 take: [3, B, S, H, D] bf16 CUDA
     tensors, contiguous (``split_bf16x3_cuda``), D 64 or 128, q and dO
-    alike, k and v alike, G = Hq / Hk dividing 64; returns (B, Sq, Sk, Hq,
-    Hk, D) of piece 0."""
+    (B2, B3) alike, k and v alike, G = Hq / Hk dividing 64; returns (B, Sq,
+    Sk, Hq, Hk, D) of piece 0."""
+    if do is None:
+        do = q
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 5 or \
                 t.shape[0] != 3 or not t.is_contiguous() or \
@@ -657,6 +687,44 @@ def _check_pieces(what, q, k, v, do):
         raise ValueError(f"{what}: GQA group {Hq}/{Hk} must be an integer "
                          f"dividing 64")
     return B, Sq, Sk, Hq, Hk, D
+
+
+def flash_fwd_x3_cuda(qp, kp, vp, causal=False, scale=None,
+                      q_segment_ids=None, kv_segment_ids=None,
+                      q_positions=None, kv_positions=None):
+    """Launch ``flash_fwd_tc`` (B1) on float32 operands as three bf16
+    pieces each (``split_bf16x3_cuda``): (O [B, Sq, Hq, D] float32, LSE),
+    contiguous; S = Q K^T and O += P V each the six terms of the pieces
+    whose indices sum to at most 2, P split in registers. Counts
+    ``launches`` (dense) and ``seg_launches``."""
+    _check_pieces("flash_fwd_x3", qp, kp, vp)
+    seg = _check_seg("flash_fwd_x3", qp[0], kp[0],
+                     (q_segment_ids, kv_segment_ids, q_positions,
+                      kv_positions))
+    out = _fwd_tc("flash_fwd_x3", _BWD_PIECES, qp, kp, vp, causal, scale,
+                  seg, torch.float32)
+    _simt_count(flash_fwd_x3_cuda, seg)
+    return out
+
+
+flash_fwd_x3_cuda.launches = 0
+flash_fwd_x3_cuda.seg_launches = 0
+
+
+def flash_split_fwd_cuda(q, k, v, causal=False, scale=None,
+                         q_segment_ids=None, kv_segment_ids=None,
+                         q_positions=None, kv_positions=None, dp=None):
+    """The float32 forward on the tensor cores: q, k and v split into three
+    bf16 pieces each with the head dim zero-padded to ``dp`` (64 or 128;
+    default D), then B1. Returns (O float32 at ``dp`` columns, LSE); give
+    ``scale`` for the true head dim."""
+    pieces = [split_bf16x3_cuda(t if t.stride(-1) == 1 else t.contiguous(),
+                                dp) for t in (q, k, v)]
+    return flash_fwd_x3_cuda(*pieces, causal, scale=scale,
+                             q_segment_ids=q_segment_ids,
+                             kv_segment_ids=kv_segment_ids,
+                             q_positions=q_positions,
+                             kv_positions=kv_positions)
 
 
 def flash_bwd_dq_x3_cuda(qp, kp, vp, dop, lse, delta, causal=False,
@@ -925,47 +993,37 @@ def expand_factor(G):
                 if G % r == 0 and _FOLD % (G // r) == 0)
 
 
-def flash_route(device, dtype, Hq, Hk, mode):
+def flash_route(device, dtype, Hq, Hk, D, mode):
     """Where ``FlashAttention`` computes q [B, S, Hq, D] of ``dtype`` on
-    ``device`` over Hk kv heads under ``FLAGS_flash_kernel`` = ``mode``:
-    ``cpu`` (CPU tensors: the plain pair), ``forced`` (mode ``plain``),
-    ``simt`` (float32 or fp16: ``flash_simt.cu``, which takes float32
-    whole as the reference's Pallas path does), ``kernel`` (any other
-    dtype, which the bf16 kernels refuse unless it is bf16, with G = Hq /
-    Hk dividing 64 or Hq not a multiple of Hk) or ``expanded`` (bf16 with
-    any other G: K and V expanded ``expand_factor(G)`` times). Pure:
-    decided before any launch from these alone. The backward's route also
-    reads the head dim: ``flash_bwd_route``."""
+    ``device`` over Hk kv heads under ``FLAGS_flash_kernel`` = ``mode``,
+    forward and backward alike: ``cpu`` (CPU tensors: the plain pair),
+    ``forced`` (mode ``plain``); float32 and fp16 up to head dim 128 on the
+    tensor-core B1-B3, fp16 as one f16 piece (``f16``), float32 as three
+    bf16 pieces (``split``), D zero-padded to 64 or 128 and K, V expanded
+    ``expand_factor(G)`` times where G does not divide 64; above 128
+    ``simt`` (``flash_simt.cu`` at the true D and group, which takes
+    float32 whole as the reference's Pallas path does); ``kernel`` (any
+    other dtype, which the bf16 kernels refuse unless it is bf16, with G =
+    Hq / Hk dividing 64 or Hq not a multiple of Hk) or ``expanded`` (bf16
+    with any other G: K and V expanded ``expand_factor(G)`` times). Pure:
+    decided before any launch from these alone."""
     mode = _flash_mode(mode)
     if torch.device(device).type == "cpu":
         return "cpu"
     if mode == "plain":
         return "forced"
     if dtype in _SIMT_DTYPES:
-        return "simt"
+        if D > _TC_DIMS[-1]:
+            return "simt"
+        return "split" if dtype == torch.float32 else "f16"
     if dtype != torch.bfloat16 or Hk <= 0 or Hq % Hk or \
             _FOLD % (Hq // Hk) == 0:
         return "kernel"
     return "expanded"
 
 
-def flash_bwd_route(device, dtype, Hq, Hk, D, mode):
-    """Where ``FlashAttention``'s backward runs for q [B, S, Hq, D] of
-    ``dtype`` on ``device`` over Hk kv heads: ``cpu``, ``forced`` and, for
-    any dtype but float32 and fp16, ``kernel`` or ``expanded`` as
-    ``flash_route`` decides for the forward; float32 and fp16 up to head
-    dim 128 on the tensor-core B2 and B3, fp16 as one f16 piece (``f16``),
-    float32 as three bf16 pieces (``split``), D zero-padded to 64 or 128
-    and K, V expanded ``expand_factor(G)`` times where G does not divide
-    64; above 128 ``simt`` (``flash_simt.cu``'s dQ and dK/dV at the true D
-    and group). Pure: decided with the forward's route, before any
-    launch."""
-    route = flash_route(device, dtype, Hq, Hk, mode)
-    if route != "simt":
-        return route
-    if D > _TC_DIMS[-1]:
-        return "simt"
-    return "split" if dtype == torch.float32 else "f16"
+# the backward's route is the forward's: one table
+flash_bwd_route = flash_route
 
 
 def expand_kv(t, r):
@@ -997,21 +1055,22 @@ class FlashAttention(torch.autograd.Function):
     kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
-    B3. The routes are chosen once, in the forward: ``flash_route``
-    (counted in ``ROUTE_COUNTS`` there) and ``flash_bwd_route`` (counted
-    in ``BWD_ROUTE_COUNTS`` when the backward runs). On the kernel routes
-    any head dim the kernels are not built for is zero-padded to
-    ``padded_head_dim`` (64, 128 or 256 up to 256, the next multiple of
-    128 above it) for each launch, at the true D's scale, and O, dQ, dK
-    and dV are sliced back to D (``pad_head_dim``); on ``expanded`` K and
-    V are also expanded r = ``expand_factor(G)`` times along the head axis
-    (``expand_kv``) for each launch, which leaves the forward exact, and
-    the r copies' dK and dV are summed in float32 (``reduce_expanded``).
-    On ``simt`` (float32, fp16) the forward runs ``flash_simt.cu`` at the
-    true D and group; the backward's ``f16`` and ``split`` routes (D up
-    to 128) pad and expand as the kernel routes do (``split``: float32
-    dQ, dK, dV from ``flash_split_bwd_cuda``), its ``simt`` route runs
-    ``flash_simt.cu`` at the true D and group. On ``cpu`` and
+    B3. The route is chosen once, in the forward (``flash_route``,
+    counted in ``ROUTE_COUNTS`` there and in ``BWD_ROUTE_COUNTS`` when the
+    backward runs). On the kernel routes (``kernel``, ``expanded``,
+    ``f16``, ``split``) any head dim the kernels are not built for is
+    zero-padded to ``padded_head_dim`` (64, 128 or 256 up to 256, the next
+    multiple of 128 above it) for each launch, at the true D's scale, and
+    O, dQ, dK and dV are sliced back to D (``pad_head_dim``); on
+    ``expanded``, ``f16`` and ``split`` K and V are also expanded r =
+    ``expand_factor(G)`` times along the head axis (``expand_kv``; r is 1
+    where G divides 64) for each launch, which leaves the forward exact,
+    and the r copies' dK and dV are summed in float32
+    (``reduce_expanded``). ``split`` splits q, k and v into three bf16
+    pieces for the forward (``flash_split_fwd_cuda``) and splits them
+    again, with dO, in the backward (``flash_split_bwd_cuda``): no pieces
+    are held between the two. On ``simt`` (float32, fp16 above head dim
+    128) both run ``flash_simt.cu`` at the true D and group. On ``cpu`` and
     ``forced`` the forward runs ``flash_attention_plain`` (with autograd
     off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
@@ -1021,22 +1080,25 @@ class FlashAttention(torch.autograd.Function):
                 kv_segment_ids=None, q_positions=None, kv_positions=None,
                 return_lse=False):
         mode = _flags.flag("FLAGS_flash_kernel")
-        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2], mode)
+        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2],
+                            q.shape[-1], mode)
         ROUTE_COUNTS[route] += 1
-        kernel = route in ("kernel", "expanded")
         r = expand_factor(q.shape[2] // k.shape[2]) \
-            if route == "expanded" else 1
+            if route in ("expanded", "f16", "split") else 1
         kw = dict(scale=scale, q_segment_ids=q_segment_ids,
                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
                   kv_positions=kv_positions)
-        if kernel:
+        if route in ("kernel", "expanded", "f16", "split"):
             D = q.shape[-1]
             dp = padded_head_dim(D)
             kw["scale"] = _scale(scale, D)
-            o, lse = flash_fwd_cuda(
-                *(pad_head_dim(t, dp) for t in (q, expand_kv(k, r),
-                                                expand_kv(v, r))),
-                causal, **kw)
+            ke, ve = expand_kv(k, r), expand_kv(v, r)
+            if route == "split":
+                o, lse = flash_split_fwd_cuda(q, ke, ve, causal, dp=dp, **kw)
+            else:
+                o, lse = flash_fwd_cuda(
+                    *(pad_head_dim(t, dp) for t in (q, ke, ve)), causal,
+                    **kw)
             if dp != D:
                 o = o[..., :D].contiguous()
         elif route == "simt":
@@ -1048,10 +1110,8 @@ class FlashAttention(torch.autograd.Function):
                               kv_segment_ids, q_positions, kv_positions)
         ctx.causal = bool(causal)
         ctx.scale = scale
-        ctx.bwd_route = flash_bwd_route(q.device, q.dtype, q.shape[2],
-                                        k.shape[2], q.shape[-1], mode)
-        ctx.expand = r if ctx.bwd_route not in ("f16", "split") else \
-            expand_factor(q.shape[2] // k.shape[2])
+        ctx.bwd_route = route
+        ctx.expand = r
         ctx.set_materialize_grads(False)
         return (o, lse) if return_lse else o
 

@@ -10,11 +10,17 @@ y [..., N] = x [..., K] @ (w_int8 [N, K] * w_scales [N, 1]).T in
   plain version for CPU tensors.
 - ``quant_matmul_plain`` is the Pallas body's numerics: dequantize the
   weight to float32 (w * s), then a float32 product.
+- ``quant_matmul_f16`` and ``quant_matmul_x3`` launch the same two
+  kernels for fp16 x (products in fp16: int8 is exact in fp16 too) and
+  float32 x (three bf16 pieces of x against the exact bf16 weight, three
+  products summed in float32: at M >= 9 after the split pass
+  ``split_bf16x3_cuda``, at M <= 8 split inside the kernel); y in x's
+  dtype.
 - ``quant_matmul_simt`` launches ``csrc/quant_matmul_simt.cu`` (the CUDA
-  cores, float32 sums) for the activations the tensor-core kernel does
-  not take: float32, fp16, and bf16 with K not a multiple of 16 (the
-  reference's wrapper takes any dtype and K: it pads M and N, takes K
-  whole, and returns x's dtype).
+  cores, float32 sums) for the activations the tensor-core kernels do
+  not take: any x with K not a multiple of 16 (the reference's wrapper
+  takes any dtype and K: it pads M and N, takes K whole, and returns x's
+  dtype).
 - ``int8_linear`` is the routing point of ``quantization.
   ConvertedInt8Linear``: ``qmm_route`` decides from the mode, the device,
   x's dtype and K alone, before any launch, and ``ROUTE_COUNTS`` counts
@@ -76,14 +82,14 @@ def decode_shares(k, cluster):
             for r in range(cluster)]
 
 
-def decode_smem_bytes(cluster):
+def decode_smem_bytes(cluster, x_bytes=2):
     """Dynamic shared memory of one decode CTA: the ring (each stage x's 8
-    rows over 128 k and the CTA's 64 weight rows), with a cluster the
-    owner slots (one float4 a lane of each owned warp, from each rank),
-    and the ring's full and empty barriers."""
+    rows over 128 k, of ``x_bytes`` an element, and the CTA's 64 weight
+    rows), with a cluster the owner slots (one float4 a lane of each owned
+    warp, from each rank), and the ring's full and empty barriers."""
     warps = DEC_CH // 16
     slots = -(-warps // cluster) * cluster * 32 * 16 if cluster > 1 else 0
-    return DEC_STAGES * (DEC_MAX_M * 2 * DEC_BK + DEC_CH * DEC_BK) \
+    return DEC_STAGES * (DEC_MAX_M * x_bytes * DEC_BK + DEC_CH * DEC_BK) \
         + slots + 2 * DEC_STAGES * 8
 
 
@@ -113,26 +119,35 @@ def quant_matmul_plain(x, w_int8, w_scales):
 
 
 # ``int8_linear``'s routing decisions (``qmm_route``), one a call:
-# ``kernel`` (``quant_matmul``), ``simt`` (``quant_matmul_simt``), ``cpu``
-# (CPU tensors: the plain version) and ``dense`` (FLAGS_paged_kernel=dense
-# forces the plain version)
-ROUTE_COUNTS = {"kernel": 0, "simt": 0, "cpu": 0, "dense": 0}
+# ``kernel`` (``quant_matmul``: bf16 x), ``f16`` (``quant_matmul_f16``),
+# ``split`` (``quant_matmul_x3``: float32 x), ``simt``
+# (``quant_matmul_simt``), ``cpu`` (CPU tensors: the plain version) and
+# ``dense`` (FLAGS_paged_kernel=dense forces the plain version)
+ROUTE_COUNTS = {"kernel": 0, "f16": 0, "split": 0, "simt": 0, "cpu": 0,
+                "dense": 0}
 # x dtypes ``quant_matmul_simt`` takes, by their code in its C entry point
 _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# the tensor-core routes by x's dtype, and their codes in the C entry
+# points ``quant_matmul_tc`` / ``quant_matmul_decode_tc``
+_TC_ROUTES = {torch.bfloat16: "kernel", torch.float16: "f16",
+              torch.float32: "split"}
+_TC_CODES = {torch.float16: 1, torch.float32: 2}
 
 
 def qmm_route(mode, device_type, x_dtype, k):
     """The route of an int8 linear layer's product from its resolved
     ``FLAGS_paged_kernel`` mode, x's device type and dtype and the
     contraction K: ``dense`` (forced: the plain version), ``cpu`` (the
-    plain version), ``kernel`` (bf16 x, K a multiple of 16) or ``simt``
-    (any other x on the card). Pure: decided before any launch."""
+    plain version); on the card, with K a multiple of 16, ``kernel`` (bf16
+    x), ``f16`` (fp16 x) or ``split`` (float32 x), and ``simt`` for any
+    other x (an int8 weight row of K bytes has no 16-byte stride for TMA
+    or cp.async otherwise). Pure: decided before any launch."""
     if mode == "dense":
         return "dense"
     if device_type == "cpu":
         return "cpu"
-    if x_dtype == torch.bfloat16 and k % 16 == 0:
-        return "kernel"
+    if x_dtype in _TC_ROUTES and k % 16 == 0:
+        return _TC_ROUTES[x_dtype]
     return "simt"
 
 
@@ -143,6 +158,10 @@ def int8_linear(x, w_int8, w_scales, mode):
     ROUTE_COUNTS[route] += 1
     if route == "kernel":
         return quant_matmul(x, w_int8, w_scales)
+    if route == "f16":
+        return quant_matmul_f16(x, w_int8, w_scales)
+    if route == "split":
+        return quant_matmul_x3(x, w_int8, w_scales)
     if route == "simt":
         return quant_matmul_simt(x, w_int8, w_scales)
     return quant_matmul_plain(x, w_int8, w_scales)
@@ -187,6 +206,59 @@ def quant_matmul_simt(x, w_int8, w_scales):
 quant_matmul_simt.launches = 0
 
 
+def _check_tc(what, x, w_int8, w_scales, dtype):
+    """The operands the tensor-core kernels take: x ``dtype`` [..., K],
+    w_int8 int8 [N, K], w_scales float32 [N], all contiguous, on the card
+    and 16-byte aligned, K a multiple of 16. Returns (M, N, K)."""
+    n, k = w_int8.shape
+    for name, t, dt in (("x", x, dtype), ("w_int8", w_int8, torch.int8),
+                        ("w_scales", w_scales, torch.float32)):
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous() or \
+                t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be a contiguous, "
+                             f"16-byte aligned {dt} CUDA tensor, got "
+                             f"{t.dtype} on {t.device}")
+    if x.shape[-1] != k or k % 16 or tuple(w_scales.shape) != (n,):
+        raise ValueError(f"{what}: x {tuple(x.shape)}, w "
+                         f"{(n, k)}, scales {tuple(w_scales.shape)}: K "
+                         f"must match and be a multiple of 16")
+    return x.numel() // k, n, k
+
+
+def _launch_tc(x, xk, w_int8, w_scales, m, n, k, code):
+    """One launch of the decode kernel (m <= 8, on ``x``) or the prefill
+    kernel (on ``xk``: x itself, or float32 x's pieces) for element code
+    ``code`` (None: bf16); the prefill's split sums go to a float32
+    workspace [splits, M, N] allocated here. Returns y in x's dtype."""
+    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
+    if m == 0:
+        return out
+    lib = _build.load("quant_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if m <= DEC_MAX_M:
+        args = (x.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
+                out.data_ptr(), m, n, k, decode_plan(m, n, k), stream)
+        if code is None:
+            err, what = lib.quant_matmul_decode_bf16(*args), \
+                "quant_matmul_decode_bf16"
+        else:
+            err, what = lib.quant_matmul_decode_tc(code, *args), \
+                "quant_matmul_decode_tc"
+    else:
+        cps, splits = prefill_plan(m, n, k)
+        ws = torch.empty((splits, m, n), device=x.device,
+                         dtype=torch.float32) if splits > 1 else None
+        args = (xk.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
+                out.data_ptr(), None if ws is None else ws.data_ptr(), m, n,
+                k, cps, stream)
+        if code is None:
+            err, what = lib.quant_matmul_bf16(*args), "quant_matmul_bf16"
+        else:
+            err, what = lib.quant_matmul_tc(code, *args), "quant_matmul_tc"
+    _build.check(err, what)
+    return out
+
+
 def quant_matmul(x, w_int8, w_scales):
     """Launch ``csrc/quant_matmul.cu`` for CUDA tensors: x bf16 [..., K]
     (contiguous), w_int8 int8 [N, K], w_scales float32 [N], all contiguous
@@ -197,41 +269,53 @@ def quant_matmul(x, w_int8, w_scales):
     float32 workspace [splits, M, N] allocated here."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int8, w_scales)
-    n, k = w_int8.shape
-    for name, t, dt in (("x", x, torch.bfloat16), ("w_int8", w_int8,
-                                                   torch.int8),
-                        ("w_scales", w_scales, torch.float32)):
-        if not t.is_cuda or t.dtype != dt or not t.is_contiguous() or \
-                t.data_ptr() % 16:
-            raise ValueError(f"quant_matmul: {name} must be a contiguous, "
-                             f"16-byte aligned {dt} CUDA tensor, got "
-                             f"{t.dtype} on {t.device}")
-    if x.shape[-1] != k or k % 16 or tuple(w_scales.shape) != (n,):
-        raise ValueError(f"quant_matmul: x {tuple(x.shape)}, w "
-                         f"{(n, k)}, scales {tuple(w_scales.shape)}: K "
-                         f"must match and be a multiple of 16")
-    m = x.numel() // k
-    out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
-    if m == 0:
-        return out
-    lib = _build.load("quant_matmul")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if m <= DEC_MAX_M:
-        err = lib.quant_matmul_decode_bf16(
-            x.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
-            out.data_ptr(), m, n, k, decode_plan(m, n, k), stream)
-        _build.check(err, "quant_matmul_decode_bf16")
-    else:
-        cps, splits = prefill_plan(m, n, k)
-        ws = torch.empty((splits, m, n), device=x.device,
-                         dtype=torch.float32) if splits > 1 else None
-        err = lib.quant_matmul_bf16(x.data_ptr(), w_int8.data_ptr(),
-                                    w_scales.data_ptr(), out.data_ptr(),
-                                    None if ws is None else ws.data_ptr(),
-                                    m, n, k, cps, stream)
-        _build.check(err, "quant_matmul_bf16")
-    quant_matmul.launches += 1
+    m, n, k = _check_tc("quant_matmul", x, w_int8, w_scales, torch.bfloat16)
+    out = _launch_tc(x, x, w_int8, w_scales, m, n, k, None)
+    if m:
+        quant_matmul.launches += 1
     return out
 
 
 quant_matmul.launches = 0
+
+
+def quant_matmul_f16(x, w_int8, w_scales):
+    """``quant_matmul`` for fp16 x: the same two kernels with their
+    products in fp16 (each int8 weight is exact in fp16), summed in
+    float32, y fp16. Counts ``launches``."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w_int8, w_scales)
+    m, n, k = _check_tc("quant_matmul_f16", x, w_int8, w_scales,
+                        torch.float16)
+    out = _launch_tc(x, x, w_int8, w_scales, m, n, k, _TC_CODES[x.dtype])
+    if m:
+        quant_matmul_f16.launches += 1
+    return out
+
+
+quant_matmul_f16.launches = 0
+
+
+def quant_matmul_x3(x, w_int8, w_scales):
+    """``quant_matmul`` for float32 x: x as three bf16 pieces (x0 + x1 +
+    x2 == x, ``split_bf16x3_plain``'s rule) times the exact bf16 weight,
+    the three products summed in float32 and scaled once, y float32. At
+    M >= 9 the split pass (``split_bf16x3_cuda``, counted there) writes the
+    pieces [3, M, K] first; at M <= 8 the decode kernel splits x as it
+    takes its fragments (one launch). Counts ``launches`` (this kernel's,
+    not the split pass's)."""
+    if x.device.type == "cpu":
+        return quant_matmul_plain(x, w_int8, w_scales)
+    m, n, k = _check_tc("quant_matmul_x3", x, w_int8, w_scales,
+                        torch.float32)
+    xk = x
+    if m > DEC_MAX_M:
+        from .flash_attention import split_bf16x3_cuda
+        xk = split_bf16x3_cuda(x.view(1, m, 1, k))
+    out = _launch_tc(x, xk, w_int8, w_scales, m, n, k, _TC_CODES[x.dtype])
+    if m:
+        quant_matmul_x3.launches += 1
+    return out
+
+
+quant_matmul_x3.launches = 0

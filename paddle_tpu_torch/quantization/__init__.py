@@ -249,9 +249,10 @@ class ConvertedInt8Linear(nn.Module):
     ``Linear`` layout; the JAX package stores [in, out]) and ``w_scales``
     [out] in the source weight's dtype, plus an optional static activation
     scale. The route is ``FLAGS_paged_kernel``, read once here, and, per
-    call, ``kernels.quant_matmul.int8_linear``: bf16 x with K a multiple
-    of 16 takes the tensor-core kernel on the card, any other x the CUDA
-    cores' ``quant_matmul_simt`` (each call counted in that module's
+    call, ``kernels.quant_matmul.int8_linear``: with K a multiple of 16
+    bf16, fp16 and float32 x take the tensor-core kernels on the card
+    (float32 as three bf16 pieces), any other x the CUDA cores'
+    ``quant_matmul_simt`` (each call counted in that module's
     ``ROUTE_COUNTS``); the
     float32 copy of the scales the kernel reads (``w_scales_f32``, not
     saved) is made here and remade from ``w_scales`` whenever those are

@@ -1119,6 +1119,34 @@ def test_dense_flash_outputs_are_bit_identical_to_the_recorded_ones(dev):
     assert tool.digests(fa) == _DENSE_DIGESTS
 
 
+# digests of the segment kernels' outputs (``tools/torch_flash_digest.py``
+# ``seg_digests``, NVIDIA H100 80GB HBM3): B1-seg's O and LSE, B2-seg's dQ
+# and B3-seg's dK, dV, as the tree before the float32 and fp16 forward
+# kernels gave them
+_SEG_DIGESTS = dict(
+    flash_fwd="c386e4ecc72cd8ca9d97a2a8cc4daf93"
+              "28f9bb91aa1ff096382f19994676a0f5",
+    flash_bwd_dq="686a92443e5906adf4c5d09391dd99f1"
+                 "e68280c0934f44325dad5f59b9abd650",
+    flash_bwd_dkv="851fbac636028bbfa1a3f7577336e1b1"
+                  "4a76ed7adc1f584f7c37cc1a157037ac")
+
+
+def test_segment_flash_outputs_are_bit_identical_to_the_recorded_ones(dev):
+    """The bf16 segment kernels give, bit for bit, the outputs recorded
+    above."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).parents[1] / "tools" / \
+        "torch_flash_digest.py"
+    spec = importlib.util.spec_from_file_location("torch_flash_digest",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    assert tool.seg_digests(fa) == _SEG_DIGESTS
+
+
 # -- fp8 training's product (amp.fp8): torch._scaled_mm, not a kernel of
 # this repository, held against its plain version the same way. The two
 # multiply the same fp8 operands and differ only in accumulation order:
@@ -1199,7 +1227,8 @@ def _flash_route_counts():
 
 
 # the flash wrappers' counts: B1-B3 (bf16), the CUDA cores' three, the
-# three-piece B2/B3 and the split pass (float32), B2/B3 in fp16
+# three-piece B2/B3 and the split pass (float32), B2/B3 in fp16, then the
+# three-piece B1 (float32) and B1 in fp16
 def _flash_launches():
     from paddle_tpu_torch.kernels import flash_attention as fa
     return [f.launches + f.seg_launches for f in (
@@ -1208,15 +1237,18 @@ def _flash_launches():
         fa.flash_simt_dkv_cuda, fa.flash_bwd_dq_x3_cuda,
         fa.flash_bwd_dkv_x3_cuda)] + [
         fa.split_bf16x3_cuda.launches, fa.flash_bwd_dq_cuda.f16_launches,
-        fa.flash_bwd_dkv_cuda.f16_launches]
+        fa.flash_bwd_dkv_cuda.f16_launches,
+        fa.flash_fwd_x3_cuda.launches + fa.flash_fwd_x3_cuda.seg_launches,
+        fa.flash_fwd_cuda.f16_launches]
 
 
-# launches of one forward + backward by the backward's route, in
-# _flash_launches' order
-_ROUTE_LAUNCHES = {"expanded": [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0],
-                   "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0],
-                   "split": [0, 0, 0, 1, 0, 0, 1, 1, 4, 0, 0],
-                   "f16": [0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 1]}
+# launches of one forward + backward by the route, in _flash_launches'
+# order: ``split`` splits q, k, v for the forward and q, k, v, dO again
+# for the backward
+_ROUTE_LAUNCHES = {"expanded": [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+                   "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
+                   "split": [0, 0, 0, 0, 0, 0, 1, 1, 7, 0, 0, 1, 0],
+                   "f16": [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 1]}
 
 
 # the CUDA cores' kernels against the plain versions, both in float32 (the
@@ -1242,17 +1274,20 @@ SIMT_BWD_RTOL = {torch.float32: 2e-4, torch.float16: 1e-2}
     (torch.bfloat16, 24, 8, 64, False, "expanded"),
     (torch.bfloat16, 96, 8, 64, True, "expanded"),    # G 12
     (torch.bfloat16, 96, 8, 64, False, "expanded"),
+    (torch.float32, 32, 4, 128, True, "split"),   # G 8, D 128
+    (torch.float16, 16, 16, 128, True, "f16"),    # G 1
+    (torch.float32, 96, 8, 48, False, "split"),   # G 12, D 48 padded
 ])
 def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
                                                         D, causal, bwd):
-    """``FlashAttention`` in float32 and fp16 (the forward on
-    ``flash_simt.cu``; the backward on the tensor-core B2/B3 up to head
-    dim 128, float32 as three bf16 pieces after four split passes, fp16
-    on f16 wgmma, on ``flash_simt.cu`` above 128) and at bf16 GQA groups
-    3 and 12 (B1-B3 once each on K and V expanded 3 times along the head
+    """``FlashAttention`` in float32 and fp16 (up to head dim 128 forward
+    and backward on the tensor cores: float32 as three bf16 pieces, the
+    forward after three split passes and the backward after four, fp16 on
+    f16 wgmma; on ``flash_simt.cu`` above 128) and at bf16 GQA groups 3
+    and 12 (B1-B3 once each on K and V expanded 3 times along the head
     axis, dK and dV summed over the copies), forward and backward: one
-    count of each route, exactly the launches they imply, and the result
-    against the plain pair on the same inputs."""
+    count of the route forward and one backward, exactly the launches it
+    implies, and the result against the plain pair on the same inputs."""
     b, s = 2, 300
     g = torch.Generator(device=dev).manual_seed(Hq + causal + D)
     mk = lambda h: torch.randn(b, s, h, D, generator=g, device=dev,
@@ -1265,8 +1300,7 @@ def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
     out.backward(do)
     torch.cuda.synchronize()
     after = _flash_route_counts()
-    fwd = "expanded" if bwd == "expanded" else "simt"
-    for c0, c1, want in zip(counts, after, (fwd, bwd)):
+    for c0, c1, want in zip(counts, after, (bwd, bwd)):
         assert {n: c1[n] - c0[n] for n in c1} == \
             {n: int(n == want) for n in c1}
     assert [x - y for x, y in zip(_flash_launches(), before)] == \
@@ -1335,6 +1369,128 @@ def test_flash_bwd_float32_and_fp16_match_plain(dev, dtype, B, Sq, Sk, Hq,
         assert _rel_err(t.grad, ref) <= SIMT_BWD_RTOL[dtype], name
     if Sq > Sk and causal:  # the first Sq - Sk rows see no key
         assert ts[0].grad[:, :Sq - Sk].abs().max().item() == 0.0
+
+
+# B1 on the tensor cores in float32 and fp16: _TC_CASES and two at G 8
+_FWD_TC_CASES = _TC_CASES + [
+    (1, 300, 300, 32, 4, 128, True, False),
+    (2, 150, 90, 16, 2, 64, False, False),
+]
+
+
+def _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse):
+    """O per row within SIMT_RTOL of the plain forward, LSE within 1e-3
+    of it, +1e30 and O = 0 exactly where a row sees no key."""
+    o_ref, lse_ref = flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True, **kw)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert bool(torch.isfinite(o.float()).all())
+    assert _row_rel_err(o, o_ref) <= SIMT_RTOL[dtype]
+    unseen = lse_ref >= 1e29
+    assert torch.equal(lse >= 1e29, unseen)
+    assert (lse - lse_ref)[~unseen].abs().max().item() <= 1e-3
+    if bool(unseen.any()):
+        assert o.float().permute(0, 2, 1, 3)[unseen].abs().max().item() == 0
+
+
+def _fwd_tc_call(dtype, q, k, v, causal, kw):
+    """``flash_attention`` forward alone (no gradient): one count of its
+    route (``split`` or ``f16``) and the launches that route implies:
+    float32's three split passes and one three-piece B1, fp16's one B1;
+    returns (O, LSE)."""
+    from paddle_tpu_torch.kernels.flash_attention import (ROUTE_COUNTS,
+                                                          flash_attention)
+    route = "split" if dtype == torch.float32 else "f16"
+    counts = dict(ROUTE_COUNTS)
+    before = _flash_launches()
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert {n: ROUTE_COUNTS[n] - c for n, c in counts.items()} == \
+        {n: int(n == route) for n in counts}
+    want = [0] * 13
+    want[8], want[11] = (3, 1) if route == "split" else (0, 0)
+    want[12] = int(route == "f16")
+    assert [x - y for x, y in zip(_flash_launches(), before)] == want
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hk,D,causal,seg", _FWD_TC_CASES)
+def test_flash_fwd_float32_and_fp16_match_plain(dev, dtype, B, Sq, Sk, Hq,
+                                                Hk, D, causal, seg):
+    """B1 on the tensor cores (``flash_fwd_tc_kernel``): float32 as three
+    bf16 pieces (six terms a product, P split in registers), fp16 on f16
+    wgmma, the head dim zero-padded to 64 or 128 and K, V expanded at G 3,
+    dense and segment branch: O and LSE against the plain forward."""
+    g = torch.Generator(device=dev).manual_seed(D + Sq + Hq + 1)
+    mk = lambda n, h: torch.randn(B, n, h, D, generator=g, device=dev,
+                                  dtype=dtype)
+    q, k, v = mk(Sq, Hq), mk(Sk, Hk), mk(Sk, Hk)
+    kw = dict(zip(_SEG_NAMES, _dense_seg(dev, B, Sq, True, run=40))) \
+        if seg else {}
+    o, lse = _fwd_tc_call(dtype, q, k, v, causal, kw)
+    _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("name", ["ragged-g4-d128", "cross-g4-d64",
+                                  "nokeys-g2-d64", "long-g8-d64",
+                                  "runs-g2-d64", "nonmono-g4-d128"])
+def test_flash_fwd_float32_and_fp16_segment_cases(dev, dtype, name):
+    """The segment branch (kSeg) of B1 in float32 and fp16 on the packed
+    and non-monotone cases of the bf16 kernels: ragged rows, 1-token
+    sequences, queries with no key, long sequences (skipped, full and
+    masked pairs)."""
+    q, k, v, _, causal, kw = _seg_inputs(dev, name)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    o, lse = _fwd_tc_call(dtype, q, k, v, causal, kw)
+    _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_float32_and_fp16_read_strided_views(dev, dtype, D):
+    """q, k and v as views of a fused [B, S, 3, H, D] projection (GPT's):
+    the fp16 kernel and the float32 split pass read them through their
+    strides, and the wrappers give what contiguous copies give, bit for
+    bit."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_split_fwd_cuda)
+    g = torch.Generator(device=dev).manual_seed(D + 3)
+    qkv = torch.randn(2, 333, 3, 8, D, generator=g, device=dev, dtype=dtype)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    if dtype == torch.float16:
+        call = lambda *t: flash_fwd_cuda(*t, True)
+    else:
+        call = lambda *t: flash_split_fwd_cuda(*t, True)
+    o, lse = call(q, k, v)
+    oc, lsec = call(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    _fwd_tc_check(dtype, q, k, v, True, {}, o, lse)
+
+
+def test_flash_fwd_float32_and_fp16_wrappers_refuse(dev):
+    """fp16 B1 only at D 64 and 128 and one dtype for q, k, v; the
+    three-piece B1 takes contiguous [3, B, S, H, D] bf16 pieces at D 64 or
+    128."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_fwd_x3_cuda, split_bf16x3_cuda)
+    h = torch.zeros(1, 64, 2, 256, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd_cuda(h, h, h, causal=True)
+    h = h[..., :64].contiguous()
+    with pytest.raises(ValueError, match="dtype"):
+        flash_fwd_cuda(h, h.bfloat16(), h, causal=True)
+    p = split_bf16x3_cuda(torch.zeros(1, 64, 2, 64, device=dev))
+    with pytest.raises(ValueError, match="pieces"):
+        flash_fwd_x3_cuda(p[:2], p, p, causal=True)
+    with pytest.raises(ValueError, match="pieces"):
+        flash_fwd_x3_cuda(p.transpose(3, 4), p, p, causal=True)
+    wide = split_bf16x3_cuda(torch.zeros(1, 64, 2, 256, device=dev))
+    with pytest.raises(ValueError, match="pieces"):
+        flash_fwd_x3_cuda(wide, wide, wide, causal=True)
 
 
 @pytest.mark.parametrize("D,dp", [(80, 128), (128, 128), (64, 64)])
@@ -1533,17 +1689,31 @@ def test_paged_decode_simt_rejects_what_it_does_not_take(dev):
         simt(q, kp, kp, tbl, sl, k_scale=torch.ones(4, 16, 8, device=dev))
 
 
-@pytest.mark.parametrize("dtype,K", [(torch.float32, 4096),
-                                     (torch.float16, 4096),
-                                     (torch.bfloat16, 4100),
-                                     (torch.float32, 4100)])
+# B7's wrappers by route, and the split pass's launches
+def _qmm_launches():
+    from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
+    return {"kernel": quant_matmul.launches,
+            "f16": _qm.quant_matmul_f16.launches,
+            "split": _qm.quant_matmul_x3.launches,
+            "simt": _qm.quant_matmul_simt.launches,
+            "split_pass": split_bf16x3_cuda.launches}
+
+
+@pytest.mark.parametrize("dtype,K,route", [(torch.float32, 4096, "split"),
+                                           (torch.float16, 4096, "f16"),
+                                           (torch.bfloat16, 4100, "simt"),
+                                           (torch.float32, 4100, "simt"),
+                                           (torch.float16, 4100, "simt")])
 @pytest.mark.parametrize("M", [4, 100])
-def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, M):
-    """``ConvertedInt8Linear`` with an x that is not bf16, or K 4100 (not a
-    multiple of 16): ``quant_matmul_simt`` (``simt`` + 1 in
-    ``quant_matmul.ROUTE_COUNTS``, one launch of it, none of B7), in x's
-    dtype, against ``quant_matmul_plain``; a bf16 x at K 4096 still
-    launches B7."""
+def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, route, M):
+    """``ConvertedInt8Linear`` with a float32 or fp16 x at K 4096: the
+    tensor-core kernels (``split``: float32 x as three bf16 pieces, split
+    by a pass before the prefill kernel at M 100 and inside the decode
+    kernel at M 4; ``f16``); with K 4100 (not a multiple of 16), whatever
+    x: ``quant_matmul_simt``. One count of the route in
+    ``quant_matmul.ROUTE_COUNTS``, one launch of its kernel and none of
+    the others, in x's dtype, against ``quant_matmul_plain``; a bf16 x at
+    K 4096 still launches B7's bf16 path."""
     from paddle_tpu_torch import quantization as TQ
     from paddle_tpu_torch.nn import Linear
     qat = lambda: TQ.QAT(TQ.QuantConfig(
@@ -1553,20 +1723,66 @@ def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, M):
     g = torch.Generator(device=dev).manual_seed(K + M)
     x = torch.randn(M, K, generator=g, device=dev).to(dtype)
     counts = dict(_qm.ROUTE_COUNTS)
-    before = (quant_matmul.launches, _qm.quant_matmul_simt.launches)
+    before = _qmm_launches()
     out = layer(x)
     torch.cuda.synchronize()
     assert {n: _qm.ROUTE_COUNTS[n] - counts[n] for n in counts} == \
-        {n: int(n == "simt") for n in counts}
-    assert (quant_matmul.launches, _qm.quant_matmul_simt.launches) == \
-        (before[0], before[1] + 1)
+        {n: int(n == route) for n in counts}
+    want = {n: int(n == route) for n in before}
+    want["split_pass"] = int(route == "split" and M > 8)
+    assert {n: c - before[n] for n, c in _qmm_launches().items()} == want
     assert out.dtype == dtype
     ref = quant_matmul_plain(x, layer.w_int8, layer.w_scales_f32)
     assert _rel_err(out, ref) <= SIMT_RTOL[dtype]
     if K % 16 == 0:
+        before = _qmm_launches()
         layer(x.bfloat16())
-        assert (quant_matmul.launches, _qm.quant_matmul_simt.launches) == \
-            (before[0] + 1, before[1] + 1)
+        assert {n: c - before[n] for n, c in _qmm_launches().items()} == \
+            {n: int(n == "kernel") for n in before}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 300])
+@pytest.mark.parametrize("N,K", [(300, 4096), (1024, 14336), (4100, 96)])
+def test_quant_matmul_float32_and_fp16_match_plain(dev, dtype, M, N, K):
+    """B7 for float32 x (three bf16 pieces, three products a weight
+    fragment: ``quant_matmul_x3``) and fp16 x (f16 products:
+    ``quant_matmul_f16``) at decode (M <= 8, split inside the kernel) and
+    prefill (M >= 9, after the split pass), N ragged against the 64- and
+    256-channel tiles, against ``quant_matmul_plain`` within float32's
+    1e-4 and fp16's 5e-3; two calls give the same bits."""
+    w, s = _qmm_weight(N, K)
+    w, s = w.to(dev), s.to(dev)
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    fn = _qm.quant_matmul_x3 if dtype == torch.float32 else \
+        _qm.quant_matmul_f16
+    before = fn.launches
+    out = fn(x, w, s)
+    again = fn(x, w, s)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_err(out, quant_matmul_plain(x, w, s)) <= SIMT_RTOL[dtype]
+    assert torch.equal(out, again)
+
+
+def test_quant_matmul_float32_and_fp16_refuse(dev):
+    """The tensor-core wrappers take their own dtype, contiguous, K a
+    multiple of 16; anything else raises (``int8_linear`` sends it to
+    ``quant_matmul_simt`` first)."""
+    w = torch.zeros(16, 40, dtype=torch.int8, device=dev)
+    s = torch.ones(16, device=dev)
+    x = torch.randn(4, 40, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _qm.quant_matmul_x3(x, w, s)
+    with pytest.raises(ValueError, match="float16"):
+        _qm.quant_matmul_f16(x[:, :32].contiguous(), w[:, :32].contiguous(),
+                             s)
+    with pytest.raises(ValueError, match="contiguous"):
+        _qm.quant_matmul_x3(torch.randn(32, 8, device=dev).T,
+                            w[:, :32].contiguous(), s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16,

@@ -160,34 +160,37 @@ def test_padded_head_dim_maps_up_to_256_and_raises_above():
     assert flash_attention_plain(q, q, q, causal=True).shape == q.shape
 
 
-@pytest.mark.parametrize("device,dtype,Hq,Hk,mode,route", [
-    ("cuda", torch.bfloat16, 32, 8, "auto", "kernel"),     # G 4
-    ("cuda", torch.bfloat16, 16, 16, "auto", "kernel"),    # G 1
-    ("cuda", torch.bfloat16, 64, 1, "auto", "kernel"),     # G 64
-    ("cuda", torch.bfloat16, 24, 8, "auto", "expanded"),   # G 3
-    ("cuda", torch.bfloat16, 96, 8, "auto", "expanded"),   # G 12
-    ("cuda", torch.bfloat16, 128, 1, "auto", "expanded"),  # G 128
-    ("cuda", torch.float32, 32, 8, "auto", "simt"),
-    ("cuda", torch.float16, 32, 8, "auto", "simt"),
-    ("cuda", torch.float32, 24, 8, "auto", "simt"),       # G 3
-    ("cuda", torch.float16, 96, 8, "auto", "simt"),       # G 12
-    ("cuda", torch.float64, 32, 8, "auto", "kernel"),     # refused there
-    ("cuda", torch.bfloat16, 32, 8, "plain", "forced"),
-    ("cuda", torch.float32, 32, 8, " Plain ", "forced"),
-    ("cpu", torch.bfloat16, 32, 8, "auto", "cpu"),
-    ("cpu", torch.float32, 24, 8, "plain", "cpu"),
+@pytest.mark.parametrize("device,dtype,Hq,Hk,D,mode,route", [
+    ("cuda", torch.bfloat16, 32, 8, 128, "auto", "kernel"),     # G 4
+    ("cuda", torch.bfloat16, 16, 16, 64, "auto", "kernel"),     # G 1
+    ("cuda", torch.bfloat16, 64, 1, 128, "auto", "kernel"),     # G 64
+    ("cuda", torch.bfloat16, 24, 8, 128, "auto", "expanded"),   # G 3
+    ("cuda", torch.bfloat16, 96, 8, 64, "auto", "expanded"),    # G 12
+    ("cuda", torch.bfloat16, 128, 1, 128, "auto", "expanded"),  # G 128
+    ("cuda", torch.float32, 32, 8, 128, "auto", "split"),
+    ("cuda", torch.float16, 32, 8, 128, "auto", "f16"),
+    ("cuda", torch.float32, 24, 8, 80, "auto", "split"),       # G 3
+    ("cuda", torch.float16, 96, 8, 64, "auto", "f16"),         # G 12
+    ("cuda", torch.float32, 32, 8, 160, "auto", "simt"),       # D > 128
+    ("cuda", torch.float16, 16, 4, 160, "auto", "simt"),
+    ("cuda", torch.float64, 32, 8, 128, "auto", "kernel"),     # refused there
+    ("cuda", torch.bfloat16, 32, 8, 128, "plain", "forced"),
+    ("cuda", torch.float32, 32, 8, 128, " Plain ", "forced"),
+    ("cpu", torch.bfloat16, 32, 8, 128, "auto", "cpu"),
+    ("cpu", torch.float32, 24, 8, 160, "plain", "cpu"),
 ])
 def test_flash_route_maps_dtype_and_group_to_a_route(device, dtype, Hq, Hk,
-                                                     mode, route):
-    """``FlashAttention``'s route from the device, dtype, group and
-    ``FLAGS_flash_kernel`` alone: bf16 takes the tensor-core kernels (K
-    and V expanded where G does not divide 64), float32 and fp16 the CUDA
-    cores' ``flash_simt.cu`` at any group; any other dtype goes to the
-    bf16 kernels' wrapper, which refuses it."""
+                                                     D, mode, route):
+    """``FlashAttention``'s route from the device, dtype, group, head dim
+    and ``FLAGS_flash_kernel`` alone: bf16 takes the tensor-core kernels
+    (K and V expanded where G does not divide 64), float32 and fp16 the
+    tensor-core kernels up to head dim 128 (``split``, ``f16``) and the
+    CUDA cores' ``flash_simt.cu`` above it, at any group; any other dtype
+    goes to the bf16 kernels' wrapper, which refuses it."""
     from paddle_tpu_torch.kernels.flash_attention import flash_route
-    assert flash_route(device, dtype, Hq, Hk, mode) == route
+    assert flash_route(device, dtype, Hq, Hk, D, mode) == route
     with pytest.raises(ValueError, match="FLAGS_flash_kernel"):
-        flash_route(device, dtype, Hq, Hk, "bogus")
+        flash_route(device, dtype, Hq, Hk, D, "bogus")
 
 
 def test_expand_factor_is_the_least_that_leaves_a_divisor_of_64():

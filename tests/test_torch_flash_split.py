@@ -9,7 +9,8 @@ held against float32: the pieces rebuild x exactly, the
 six-term backward matches the VJP of the Pallas kernels in interpret mode
 within 1e-5 of the largest gradient, and one piece (plain bf16) misses by
 more than the card's float32 gate (2e-4), so that gate tells the two
-apart. The backward's route map (``flash_bwd_route``) is checked too.
+apart. The route map (``flash_bwd_route``, the forward's ``flash_route``)
+is checked too.
 """
 
 import functools
@@ -199,11 +200,11 @@ def test_one_piece_backward_fails_the_float32_gate(name):
 def test_flash_bwd_route_maps_dtype_and_head_dim(device, dtype, Hq, Hk, D,
                                                  mode, route):
     """float32 and fp16 up to head dim 128 take the tensor-core B2/B3
-    (``split``, ``f16``), above it the CUDA cores' kernels; bf16 and the
-    CPU as the forward's ``flash_route``, which reads no head dim."""
+    (``split``, ``f16``), above it the CUDA cores' kernels; the forward's
+    route (``flash_route``) is the same function of the same arguments:
+    one table."""
     assert fa.flash_bwd_route(device, dtype, Hq, Hk, D, mode) == route
-    fwd = fa.flash_route(device, dtype, Hq, Hk, mode)
-    assert fwd == ("simt" if route in ("split", "f16") else route)
+    assert fa.flash_route(device, dtype, Hq, Hk, D, mode) == route
 
 
 def test_cpu_backward_counts_its_route_once():

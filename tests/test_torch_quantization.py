@@ -158,6 +158,9 @@ def test_decode_plan_covers_channels_and_k_and_fits(n, k):
             assert a1 == b0 and a0 % gk == 0
         assert all(k0 < k1 for k0, k1 in shares)  # no idle rank
         assert decode_smem_bytes(cluster) <= SMEM_PER_BLOCK
+        # four CTAs an SM (the kernel's launch bounds) fit its 228 KiB
+        # with bf16 and fp16 x and with float32 x (4 bytes an element)
+        assert 4 * decode_smem_bytes(cluster, 4) <= 228 * 1024
         if (n, k) in _LLAMA_DECODE:
             assert tiles * cluster >= 0.95 * SMS, (m, cluster)
 
@@ -313,10 +316,13 @@ def test_qat_convert_tiny_llama_names_match_jax():
 @pytest.mark.parametrize("mode,device,dtype,K,route", [
     ("auto", "cuda", torch.bfloat16, 4096, "kernel"),
     ("kernel", "cuda", torch.bfloat16, 14336, "kernel"),
-    ("auto", "cuda", torch.float32, 4096, "simt"),
-    ("auto", "cuda", torch.float16, 4096, "simt"),
+    ("auto", "cuda", torch.float32, 4096, "split"),
+    ("auto", "cuda", torch.float16, 4096, "f16"),
+    ("auto", "cuda", torch.float32, 14336, "split"),
     ("auto", "cuda", torch.bfloat16, 4100, "simt"),      # K % 16 != 0
     ("auto", "cuda", torch.float32, 4100, "simt"),
+    ("auto", "cuda", torch.float16, 4100, "simt"),
+    ("auto", "cuda", torch.float64, 4096, "simt"),       # refused there
     ("auto", "cpu", torch.float32, 4100, "cpu"),
     ("auto", "cpu", torch.bfloat16, 4096, "cpu"),
     ("dense", "cuda", torch.bfloat16, 4096, "dense"),
@@ -325,9 +331,10 @@ def test_qat_convert_tiny_llama_names_match_jax():
 def test_qmm_route_sends_what_the_kernel_refuses_to_simt(mode, device,
                                                          dtype, K, route):
     """An int8 layer's route from the mode, x's device and dtype and K
-    alone: the tensor-core kernel takes bf16 x and K a multiple of 16,
-    the CUDA cores' ``quant_matmul_simt`` the rest (the reference takes
-    any dtype and K)."""
+    alone: with K a multiple of 16 the tensor-core kernels take bf16
+    (``kernel``), fp16 (``f16``) and float32 x (``split``), the CUDA
+    cores' ``quant_matmul_simt`` the rest (the reference takes any dtype
+    and K)."""
     assert qmm_route(mode, device, dtype, K) == route
 
 

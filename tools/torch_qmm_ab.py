@@ -20,6 +20,7 @@ that checkout's ``quant_matmul`` source and, through this repository's
   build has it for CUDA;
 - one decode layer's seven launches as one graph (``layer``), and the
   step from it (32 layers and the LM head);
+- the prefill kernel at the gate/up shape and M 300 (events, graph);
 - SHA-256 digests of the outputs on fixed inputs (numpy, seeded):
   ``digests["decode"]`` at the five decode shapes and M 1, 4, 8,
   ``digests["prefill"]`` at the four layer shapes and M 112, 1008. The
@@ -53,6 +54,9 @@ DECODE_SHAPES = ((14336, 4096), (4096, 4096), (1024, 4096), (4096, 14336),
                  (128256, 4096))
 PREFILL_SHAPES = DECODE_SHAPES[:4]
 PREFILL_MS = (112, 1008)
+# the prefill lengths timed at the gate/up shape (the float32 Llama's
+# prompts: ``chip_smoke.py`` FAULT_PROMPTS)
+PREFILL_TIMED = (300,)
 
 
 def digests(qm, which=("decode", "prefill")):
@@ -120,6 +124,12 @@ def one(spec):
         layer = cs.qmm_layer_phase(torch, timer, M=m, library=m == 8)
         out[f"M{m}_layer"] = layer
         out[f"M{m}_step"] = cs.qmm_decode_step(recs, layer)
+    (n, k), _ = cs.QMM_DECODE[0]
+    for m in PREFILL_TIMED:
+        rec = cs.qmm_phase(torch, timer, m, n, k, seed=3100, plain=False,
+                           library=False)
+        out[f"M{m}_N{n}_K{k}"] = {key: rec[key] for key in KEYS
+                                  if key in rec}
     out["digests"] = digests(qm)
     tiny = torch.zeros(1, device="cuda")
     out["floor_graph_ms"] = timer.graph(lambda: tiny.add_(1), cold=True)
