@@ -226,7 +226,7 @@
    ``kernels.flash_attention.ROUTE_COUNTS`` and ``BWD_ROUTE_COUNTS``;
    ``paged_decode_attention`` at D 256 (G 2), D 80, G 16 and with float32
    and fp16 queries and pools, bf16 and int8 pools (``simt`` in the decode
-   ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cu``, against the
+   ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cuh``, against the
    dense version); ``ConvertedInt8Linear`` with float32 and fp16 x at K
    4096 (``split``: one split pass and B7 on three bf16 pieces of x;
    ``f16``: B7 on f16 products) and with bf16 and fp16 x at K 4100
@@ -338,7 +338,7 @@ DECODE_RTOL = 2e-2
 # backward kernels: max |kernel - plain| / max |plain| (dK and dV sum over
 # the sequence; P and dS round to bf16 at slightly different points)
 BWD_RTOL = 2e-2
-# the CUDA cores' kernels (flash_simt.cu, paged_decode_simt.cu,
+# the CUDA cores' kernels (flash_simt.cu, paged_decode_simt.cuh,
 # quant_matmul_simt.cu): max |kernel - plain| / max |plain| (per row for
 # flash O, per slot for decode). In float32 both sides make the same
 # float32 products, summed in another order; in fp16 both round at the
@@ -972,10 +972,10 @@ SIMT_KERNELS = (
     ("split_bf16x3", "paddle_tpu_torch/kernels/csrc/flash_bwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:358"),
     ("paged_decode_simt",
-     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cu",
+     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cuh",
      "paddle_tpu/kernels/pallas/paged_attention.py:133"),
     ("paged_decode_simt_q",
-     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cu",
+     "paddle_tpu_torch/kernels/csrc/paged_decode_simt.cuh",
      "paddle_tpu/kernels/pallas/paged_attention.py:156"),
     ("quant_matmul_simt",
      "paddle_tpu_torch/kernels/csrc/quant_matmul_simt.cu",
@@ -1072,7 +1072,7 @@ def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
 
 def fault_decode(torch, hq, hk, dh, dtype, quantized, mbps):
     """``paged_decode_attention`` at a shape or dtype B4-B6q do not take:
-    one ``simt`` count and one launch of ``paged_decode_simt.cu``, no
+    one ``simt`` count and one launch of ``paged_decode_simt.cuh``, no
     other, against the dense version within SIMT_RTOL a slot."""
     from paddle_tpu_torch.inference.paged import paged_decode_attention
     from paddle_tpu_torch.kernels.paged_attention import (
@@ -1529,8 +1529,56 @@ def simt_flash_phase(torch, timer, B=LT_B, S=LT_S, hq=HQ, hk=HK, dh=D):
     del q, k, v, do, h, bf, o, lse, delta, qt, kt, vt
     for name, rec in simt_bwd_wide(torch, timer).items():
         recs[name]["d160"] = rec
+    recs["flash_simt_fwd"]["d160"] = simt_fwd_wide(torch, timer)
     recs["whole"] = whole
     return recs
+
+
+def simt_fwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
+    """The CUDA cores' forward (``flash_simt_fwd_cuda``) in float32 and
+    fp16 at a head dim the tensor-core kernels do not take (the faults'
+    D 160, causal): per-row error against the plain forward, CUDA events
+    and graph replays, one SDPA forward in the same dtype, and the bound
+    at the CUDA cores' 67 TFLOP/s (both dtypes multiply in float32 there).
+    Returns {dtype: record}."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_plain, flash_simt_fwd_cuda)
+    g = torch.Generator(device=DEVICE).manual_seed(4961)
+    out = {}
+    for dtype in (torch.float32, torch.float16):
+        mk = lambda h: torch.randn(B, S, h, dh, generator=g,
+                                   device=DEVICE).to(dtype)
+        q, k, v = mk(hq), mk(hk), mk(hk)
+        run = lambda: flash_simt_fwd_cuda(q, k, v, causal=True)
+        o, _ = run()
+        o_ref = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        rel = row_rel_err(o, o_ref)
+        diff = (o.float() - o_ref.float()).abs().max().item()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = sdpa_library(torch, qt, kt, vt, is_causal=True)
+        es = q.element_size()
+        fl = 2 * dh * hq * (B * S * (S + 1) // 2)
+        bms, by = bound(2 * q.numel() * es + 2 * k.numel() * es
+                        + B * S * hq * 4, 2 * fl, F32_FLOPS_PER_S)
+        ms = timer(run, iters=10)
+        rec = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=True, dtype=_dt(dtype),
+                   rel_err=rel, max_abs_err=diff, ms=ms,
+                   graph_ms=timer.graph(run, iters=10),
+                   library_ms=timer(lib, iters=10),
+                   library=f"F.scaled_dot_product_attention, {_dt(dtype)}",
+                   bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+        out[_dt(dtype)] = rec
+        print(f"flash_simt_fwd {_dt(dtype)} D {dh} B={B} S={S} Hq={hq} "
+              f"Hk={hk} causal: err {diff:.3e} (row rel {rel:.3e}) | kernel "
+              f"{ms:.4f} ms (graph {rec['graph_ms']:.4f}) sdpa "
+              f"{rec['library_ms']:.4f} ms bound {bms:.4f} ms ({by}, float32 "
+              f"peak)", flush=True)
+        if rel > SIMT_RTOL[_dt(dtype)] or \
+                not bool(torch.isfinite(o.float()).all()):
+            fail(f"flash_simt_fwd at D {dh} disagrees with the plain "
+                 f"forward: {rec}")
+    return out
 
 
 def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
@@ -1588,17 +1636,24 @@ def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
     return out
 
 
-def simt_decode_phase(torch, timer, quantized, B=8, mbps=16, seed=4950):
-    """``paged_decode_simt.cu`` on float32 queries over float32 (or int8)
-    pools at Llama-3-8B's heads, B 8, 16-page tables, lengths 1 to 256,
-    against the dense version; library: SDPA over the gathered float32
-    rows (dequantized outside the timed call). Cold L2, as decode_phase."""
+def simt_decode_case(torch, timer, name, dtype, quantized, mbps, lens,
+                     seed):
+    """``paged_decode_simt.cuh`` at Llama-3-8B's heads (Hq 32, Hk 8, D
+    128), B 8, on ``mbps``-page tables with ``lens``: queries in
+    ``dtype`` over pools of it (or int8 rows with their scales), against
+    the dense version within SIMT_RTOL a slot. CUDA events and graph
+    replays with the L2 evicted, the plain version, SDPA over the gathered
+    rows (dequantized outside the timed call) and the bound: each live row
+    of K and V read once (an int8 row with its f32 scale), q read and the
+    output written once, 4 Hq D flops a key at the CUDA cores' 67
+    TFLOP/s."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.kernels.paged_attention import (
         paged_decode_attention_dense, paged_decode_attention_simt)
     from paddle_tpu_torch.quantization import quantize_rows
-    lens = np.linspace(1, 16 * mbps, B).astype(np.int64)
+    B = len(lens)
     q, kp, vp, tbl, sl = decode_inputs(torch, B, mbps, lens, seed)
-    q, kp, vp = q.float(), kp.float(), vp.float()
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     scales = {}
     if quantized:
         kp, ks = quantize_rows(kp)
@@ -1615,37 +1670,74 @@ def simt_decode_phase(torch, timer, quantized, B=8, mbps=16, seed=4950):
     idx = tbl.long()
 
     def gathered(pool, scale):
-        g = pool[idx].float()
+        g = pool[idx]
         if scale is not None:
-            g = g * scale[idx][..., None]
+            g = (g.float() * scale[idx][..., None]).to(dtype)
         return g.reshape(B, mbps * bs, HK, D).transpose(1, 2)
 
     kg = gathered(kp, scales.get("k_scale"))
     vg = gathered(vp, scales.get("v_scale"))
     mask = (torch.arange(mbps * bs, device=DEVICE)[None, :]
             < sl[:, None])[:, None, None, :]
-    name = "paged_decode_simt_q" if quantized else "paged_decode_simt"
-    ms = timer(run, cold=True)
-    plain_ms = timer(dense, cold=True)
-    library_ms = timer(sdpa_library(torch, q[:, :, None, :], kg, vg,
-                                    attn_mask=mask), cold=True)
+    lib = sdpa_library(torch, q[:, :, None, :], kg, vg, attn_mask=mask)
     total = int(np.sum(lens))
-    row_bytes = D + 4 if quantized else D * 4  # int8 row + its f32 scale
-    nbytes = 2 * q.numel() * 4 + total * HK * row_bytes * 2 \
+    es = q.element_size()
+    row_bytes = D + 4 if quantized else D * es  # int8 row + its f32 scale
+    nbytes = 2 * q.numel() * es + total * HK * row_bytes * 2 \
         + tbl.numel() * 4 + sl.numel() * 4
     bms, by = bound(nbytes, 4 * HQ * D * total, F32_FLOPS_PER_S)
-    rec = dict(dtype="float32", pools="int8" if quantized else "float32",
+    ms = timer(run, cold=True)
+    # the plan's sizes (a checkout timed by tools/torch_decode_ab.py before
+    # the kernel had a plan has none)
+    plan = pa.simt_decode_plan(B, HK, HQ // HK, mbps, bs, D, es, quantized,
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count) \
+        if hasattr(pa, "simt_decode_plan") else ()
+    rec = dict(dtype=_dt(dtype), pools="int8" if quantized else _dt(dtype),
                B=B, Hq=HQ, Hk=HK, D=D, mbps=mbps, lens=[int(x) for x in lens],
-               max_abs_err=diff, rel_err=rel, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
+               plan=list(plan), max_abs_err=diff, rel_err=rel, ms=ms,
+               graph_ms=timer.graph(run, cold=True),
+               plain_ms=timer(dense, cold=True), library_ms=timer(
+                   lib, cold=True), library_graph_ms=timer.graph(
+                   lib, cold=True),
                library="F.scaled_dot_product_attention over the gathered "
-                       "float32 rows", bound_ms=bms, bound_by=by,
+                       f"{_dt(dtype)} rows", bound_ms=bms, bound_by=by,
                share_of_bound=bms / ms)
-    print(f"{name} float32 B={B} pages={mbps}: err {diff:.3e} (slot rel "
-          f"{rel:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-          f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
-    if rel > SIMT_RTOL["float32"]:
+    print(f"{name} {_dt(dtype)} {rec['pools']} pools B={B} pages={mbps}: "
+          f"err {diff:.3e} (slot rel {rel:.3e}) | kernel {ms:.4f} ms (graph "
+          f"{rec['graph_ms']:.4f}) plain {rec['plain_ms']:.4f} ms sdpa "
+          f"{rec['library_ms']:.4f} ms (graph {rec['library_graph_ms']:.4f}) "
+          f"bound {bms:.4f} ms ({by}) plan {tuple(plan)}", flush=True)
+    if rel > SIMT_RTOL[_dt(dtype)] or \
+            not bool(torch.isfinite(out.float()).all()):
         fail(f"{name} disagrees with the dense version: {rec}")
+    return rec
+
+
+def simt_decode_phase(torch, timer, quantized, seed=4950):
+    """``paged_decode_simt.cuh`` on float32 queries over float32 (or int8)
+    pools at chip_smoke's shape (16-page tables, lens 1 to 256: the
+    record of the kernel) and, under ``engine_a``, at engine A's shape
+    (128-page tables, lens 1 to 2048) in float32 and fp16 pools (or int8
+    pools with float32 queries), beside bf16 B6 (or B6q) on the same
+    shape in this process (``beside``: its record from ``decode_phase``,
+    the yardstick the tensor cores set)."""
+    from paddle_tpu_torch.kernels.paged_attention import (
+        paged_decode_attention_chunked)
+    name = "paged_decode_simt_q" if quantized else "paged_decode_simt"
+    short = np.linspace(1, 256, 8).astype(np.int64)
+    rec = simt_decode_case(torch, timer, name, torch.float32, quantized,
+                           16, short, seed)
+    long = np.linspace(1, 2048, 8).astype(np.int64)
+    dtypes = (torch.float32,) if quantized else (torch.float32,
+                                                 torch.float16)
+    rec["engine_a"] = {
+        _dt(dt): simt_decode_case(torch, timer, name, dt, quantized, 128,
+                                  long, seed + 1) for dt in dtypes}
+    rec["engine_a"]["beside"] = decode_phase(
+        torch, timer, "paged_decode_split_q" if quantized else
+        "paged_decode_split", paged_decode_attention_chunked, 8, 128, long,
+        seed + 1, quantized=quantized)
     return rec
 
 
@@ -1661,7 +1753,8 @@ def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
     three bf16 products a float32 one) and 989 (fp16). Also
     ``quant_matmul_simt`` itself (float32 x, M 300: the record of the
     CUDA cores' kernel) and at K 4100 (the shapes it keeps) with fp16 and
-    bf16 x. Cold L2. Returns the records by kernel name."""
+    bf16 x, each beside ``F.linear`` on a copy of w * s in x's dtype. Cold
+    L2. Returns the records by kernel name."""
     from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
     from paddle_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_f16, quant_matmul_plain, quant_matmul_simt,
@@ -1755,12 +1848,19 @@ def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
         bms, by = bound(M * k2 * nb + N * k2 + N * 4 + M * N * nb,
                         2 * M * N * k2, F32_FLOPS_PER_S)
         ms = timer(run, cold=True, iters=10)
-        simt[f"k{k2}_{_dt(dtype)}"] = dict(M=M, N=N, K=k2, rel_err=rel,
-                                           max_abs_err=diff, ms=ms,
-                                           bound_ms=bms, bound_by=by)
+        # the library yardstick: F.linear on a copy of w * s in x's dtype,
+        # made outside the timed call
+        wd = (w2.float() * s2[:, None]).to(dtype)
+        library_ms = timer(lambda: F.linear(xd, wd), cold=True, iters=10)
+        del wd
+        simt[f"k{k2}_{_dt(dtype)}"] = dict(
+            M=M, N=N, K=k2, rel_err=rel, max_abs_err=diff, ms=ms,
+            library_ms=library_ms,
+            library=f"F.linear on a {_dt(dtype)} copy of w*s",
+            bound_ms=bms, bound_by=by)
         print(f"quant_matmul_simt {_dt(dtype)} M={M} N={N} K={k2}: err "
-              f"{diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+              f"{diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms F.linear "
+              f"{library_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
         if rel > SIMT_RTOL[_dt(dtype)]:
             fail(f"quant_matmul_simt at K {k2} disagrees with the plain "
                  f"version: {simt}")
@@ -1828,7 +1928,7 @@ def simt_records(faults, gpt32):
                 "bound_cuda_cores_ms", "cuda_cores_ms", "bf16_ms",
                 "bf16_graph_ms", "four_ms", "whole_call_ms", "split_ms",
                 "library_graph_ms", "fp16_ms", "sdpa_fp16_ms", "decode",
-                "d160") or k.startswith("k4100")}))
+                "d160", "engine_a", "plan") or k.startswith("k4100")}))
     return records
 
 

@@ -31,7 +31,8 @@ _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "paged_decode_split",
-           "quant_matmul", "flash_simt", "paged_decode_simt",
+           "quant_matmul", "flash_simt", "paged_decode_simt_f32",
+           "paged_decode_simt_f16", "paged_decode_simt_bf16",
            "quant_matmul_simt")
 
 _P = ctypes.c_void_p
@@ -109,12 +110,14 @@ SIGNATURES = {
         "flash_simt_dkv": [_I] + [_P] * 12 + [_I] * 7 + [_F] + [_L] * 12
         + [_P],
     },
-    "paged_decode_simt": {
-        # dtype (0 float32, 1 float16, 2 bfloat16), quantized, q, k_pool,
-        # v_pool, k_scale, v_scale (NULL for float pools), tables, lens,
-        # out, B, Hq, Hk, D, bs, mbps, scale, stream
-        "paged_decode_simt": [_I] * 2 + [_P] * 8 + [_I] * 6 + [_F, _P],
-    },
+    # the CUDA cores' decode, one source per query dtype: quantized, q,
+    # k_pool, v_pool, k_scale, v_scale (NULL for float pools), tables,
+    # lens, out, B, Hq, Hk, D, bs, mbps, the plan (cluster, group splits,
+    # heads, lanes a key, warps, stages, copy width, K and V row strides:
+    # ``simt_decode_plan``), scale, stream
+    **{f"paged_decode_simt_{t}": {
+        f"paged_decode_simt_{t}": [_I] + [_P] * 8 + [_I] * 15 + [_F, _P]}
+       for t in ("f32", "f16", "bf16")},
     "quant_matmul_simt": {
         # dtype (0 float32, 1 float16, 2 bfloat16), x, w_int8, w_scales,
         # y, M, N, K, stream

@@ -33,15 +33,19 @@ take bf16 queries over bf16 pools (int8 pools with their scales), head
 dims 64 and 128 and GQA groups 1, 2, 4 and 8 (``decode_kernel_takes``,
 which ``inference.paged.paged_decode_attention`` routes by).
 
-``paged_decode_attention_simt`` launches ``csrc/paged_decode_simt.cu``
+``paged_decode_attention_simt`` launches ``csrc/paged_decode_simt.cuh``
 (the CUDA cores, float32 logits and sums) for the rest: float32, fp16
 and bf16 queries over pools of their dtype or int8, any GQA group and
 head dims up to ``SIMT_MAX_HEAD_DIM`` (the JAX package's wrappers check
-none of these). It counts as the two wrappers above.
+none of these): one cluster per (slot, kv head) with the group's heads in
+each CTA, the live pages split over the cluster and streamed by each warp
+through its own ``cp.async`` ring (``simt_decode_plan`` picks every size).
+It counts as the two wrappers above.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 
@@ -120,10 +124,180 @@ def decode_kernel_takes(q, k_pool, v_pool, k_scale=None):
             and hk > 0 and hq % hk == 0 and hq // hk in KERNEL_GROUPS)
 
 
-# what ``paged_decode_attention_simt`` takes: query dtypes by their code
-# in its C entry point, and head dims up to this
-_SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# what ``paged_decode_attention_simt`` takes: query dtypes by the tag of
+# their source and C entry (``csrc/paged_decode_simt_<tag>.cu``), and head
+# dims up to this
+_SIMT_DTYPES = {torch.float32: "f32", torch.float16: "f16",
+                torch.bfloat16: "bf16"}
 SIMT_MAX_HEAD_DIM = 1024
+# the CUDA cores' decode kernel (``simt_decode_plan``): streaming warps a
+# CTA at most (the CTA runs that many), float32 accumulators a lane (heads
+# x columns of P V), heads a CTA, the K and V bytes a warp's block of rows
+# aims at, ring stages a warp
+_SIMT_WARPS = 4
+_SIMT_ACC = 64
+_SIMT_HEADS = 8
+_SIMT_BLOCK_BYTES = 8 * 1024
+_SIMT_STAGES = 3
+# the cluster grows until the grid holds _SIMT_GRID_PER_SM CTAs an SM; a
+# CTA's shared memory is planned for as many CTAs an SM as the grid puts
+# there, at most _SIMT_CTAS_PER_SM
+_SIMT_GRID_PER_SM = 2
+_SIMT_CTAS_PER_SM = 4
+
+
+def _pow2_at_least(n):
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def simt_smem_bytes(npages, d, elem_bytes, quantized, heads, rows,
+                    key_stride, value_stride, warps, stages, cluster):
+    """Dynamic shared memory of ``csrc/paged_decode_simt.cuh`` (its
+    ``layout``): the rank's share of block ids; Q as f32 [GC][dq] (GC the
+    heads rounded up to a power of two, dq the row's 16-byte chunks in
+    elements); P f32 [warps][GC][rows]; the merges' weights f32
+    [warps + cluster + 2][GC]; the streaming warps' rings, stages of K
+    rows [rows][key_stride] and V rows [rows][value_stride] bytes (int8
+    pools: and their two f32 scales a row), whose bytes the warps'
+    partials (m, l, O f32 [warps][GC][2 + D]) reuse; past them the
+    cluster's slots [cluster][GC][2 + D] f32."""
+    s = 1 if quantized else elem_bytes
+    dq = -(-d * s // 16) * (16 // s)
+    gc = _pow2_at_least(heads)
+    stage = rows * (key_stride + value_stride) + (8 * rows if quantized
+                                                  else 0)
+    rings = warps * stages * stage
+    partials = _align16(warps * gc * (2 + d) * 4)
+    return (_align16(-(-npages // cluster) * 4) + gc * dq * 4 +
+            warps * gc * rows * 4 + _align16((warps + cluster + 2) * gc * 4)
+            + max(rings, partials) + cluster * gc * (2 + d) * 4)
+
+
+SimtPlan = collections.namedtuple("SimtPlan", (
+    "cluster", "group_splits", "heads", "lanes_per_key", "warps", "stages",
+    "copy_width", "key_stride", "value_stride", "rows", "smem"))
+
+
+@functools.lru_cache(maxsize=256)
+def simt_decode_plan(b, hk, g, npages, bs, d, elem_bytes, quantized,
+                     num_sms, cluster=None):
+    """The CUDA cores' decode kernel's sizes (a ``SimtPlan``), from shapes
+    alone, before any launch; the first nine fields are its C entry's
+    plan arguments.
+
+    - Rows: a warp takes blocks of ``rows`` key rows (32, halved while its
+      K and V bytes pass ``_SIMT_BLOCK_BYTES``, at least 4), with
+      ``lanes_per_key`` = 32 / rows lanes on each key's 16-byte chunks.
+      K rows are padded to ``key_stride`` bytes, an odd multiple of 16
+      times the lanes a key (any multiple of 16 at 8 lanes), so that a
+      quarter-warp's 16-byte reads hit 8 bank groups; V rows to
+      ``value_stride``, the row's bytes rounded up to 16.
+    - Heads: a lane accumulates heads x ceil(D / 32) (columns rounded up
+      to a power of two, at least 2) float32 of P V, at most ``_SIMT_ACC``
+      and ``_SIMT_HEADS`` heads a CTA; ``group_splits`` CTAs share a kv
+      head where the group holds more.
+    - Copy width: 16 bytes where the row's bytes allow, else 8, 4, 2, 1
+      (the last two by loads, not cp.async).
+    - Cluster: the smallest of 1, 2, 4, 8, 16 whose grid (B x Hk x
+      ``group_splits`` x C) holds ``_SIMT_GRID_PER_SM`` CTAs an SM, never
+      more than the table's pages, and no larger than one whose CTA fits
+      the shared memory of an SM shared by as many CTAs as that grid puts
+      on it (1 to ``_SIMT_CTAS_PER_SM``). ``cluster`` forces C; it must fit
+      one CTA.
+    - Warps and stages: the CTA runs 4 warps; as many of them stream
+      (``warps``) as the largest share has blocks, each through a ring of
+      stages (up to 3) until every block of it is in flight at once;
+      fewer stages, then fewer streaming warps, until the CTA fits.
+
+    Raises ``ValueError`` where nothing fits a CTA's shared memory, or
+    for a forced cluster size outside those."""
+    s = 1 if quantized else elem_bytes
+    rowb = d * s
+    nchunk = -(-rowb // 16)
+    rows = 32
+    while rows > 4 and rows * 2 * nchunk * 16 > _SIMT_BLOCK_BYTES:
+        rows //= 2
+    lpk = 32 // rows
+    groups = nchunk
+    while lpk < 8 and groups % (2 * lpk) != lpk:
+        groups += 1
+    copy_width = next(w for w in (16, 8, 4, 2, 1) if rowb % w == 0)
+    nj = max(2, _pow2_at_least(-(-d // 32)))
+    most = min(_SIMT_HEADS, _SIMT_ACC // nj)
+    splits = -(-g // most)
+    heads = -(-g // splits)
+    splits = -(-g // heads)
+
+    def fit(c, room):
+        """(warps, stages, bytes) of the first layout that fits ``room``
+        at cluster size ``c``, or None."""
+        nblk = max(-(-(-(-npages // c) * bs) // rows), 1)
+        warps = min(_SIMT_WARPS, nblk)
+        stages = min(_SIMT_STAGES, -(-nblk // warps))
+        tries = [(warps, st) for st in range(stages, 0, -1)] + \
+            [(w, 1) for w in range(warps - 1, 0, -1)]
+        for w, st in tries:
+            n = simt_smem_bytes(npages, d, elem_bytes, quantized, heads,
+                                rows, groups * 16, nchunk * 16, w, st, c)
+            if n <= room:
+                return w, st, n
+        return None
+
+    if cluster is None:
+        choice = None
+        for c in _SPLIT_CLUSTER_SIZES:
+            if c > max(npages, 1):
+                break
+            ctas = b * hk * splits * c
+            per_sm = min(max(-(-ctas // num_sms), 1), _SIMT_CTAS_PER_SM)
+            f = fit(c, SMEM_PER_BLOCK // per_sm)
+            if f is None:
+                break
+            choice = c, f
+            if ctas >= _SIMT_GRID_PER_SM * num_sms:
+                break
+        if choice is None:
+            choice = 1, fit(1, SMEM_PER_BLOCK)
+    elif cluster not in _SPLIT_CLUSTER_SIZES:
+        raise ValueError(f"simt_decode_plan: cluster {cluster} not in "
+                         f"{_SPLIT_CLUSTER_SIZES}")
+    else:
+        choice = cluster, fit(cluster, SMEM_PER_BLOCK)
+    cluster, f = choice
+    if f is None:
+        raise ValueError(
+            f"paged_decode_simt: a {npages}-page table of head_dim {d} "
+            f"({'int8' if quantized else f'{elem_bytes}-byte'} pools, "
+            f"{heads} heads a CTA) does not fit {SMEM_PER_BLOCK} bytes of "
+            f"shared memory at cluster size {cluster}, even with one warp "
+            f"and one stage of {rows} rows")
+    warps, stages, smem = f
+    return SimtPlan(cluster, splits, heads, lpk, warps, stages, copy_width,
+                    groups * 16, nchunk * 16, rows, smem)
+
+
+def simt_decode_schedule(length, npages, bs, plan):
+    """Where the CUDA cores' decode kernel puts each live row of a slot of
+    ``length`` keys: a list of (rank, warp, stage, first row, rows) per
+    block, in the kernel's order. Rank r takes its pages of
+    ``decode_cluster_shares``; its live rows go in blocks of
+    ``plan.rows``, block j to warp j % warps as that warp's block
+    i = j // warps, in ring stage i % stages."""
+    out = []
+    for rank, (p0, p1) in enumerate(decode_cluster_shares(
+            length, bs, npages, plan.cluster)):
+        nrows = max(min(p1 * bs, min(int(length), npages * bs)) - p0 * bs,
+                    0)
+        for j in range(-(-nrows // plan.rows)):
+            first = j * plan.rows
+            out.append((rank, j % plan.warps,
+                        (j // plan.warps) % plan.stages, p0 * bs + first,
+                        min(plan.rows, nrows - first)))
+    return out
 
 
 def _check_cuda_args(what, q, k_pool, v_pool, block_tables, seq_lens,
@@ -368,12 +542,14 @@ paged_decode_attention_chunked.launches_q = 0
 
 def paged_decode_attention_simt(q, k_pool, v_pool, block_tables, seq_lens,
                                 k_scale=None, v_scale=None):
-    """Decode on the CUDA cores: grid (B, Hq), one CTA per slot and query
-    head, its warps taking 32 keys at a time. q [B, Hq, D] float32, fp16
-    or bf16; pools [NB, bs, Hk, D] of q's dtype, or int8 with
-    ``k_scale``/``v_scale`` [NB, bs, Hk] float32; any group Hq / Hk; D up
-    to ``SIMT_MAX_HEAD_DIM``. Raises on anything else; CPU tensors take
-    the plain version."""
+    """Decode on the CUDA cores: grid (B, Hk x group splits, C) in
+    clusters of C CTAs, one cluster per slot and kv head with the group's
+    query heads in each CTA, the slot's live pages split over the cluster
+    (``simt_decode_plan``). q [B, Hq, D] float32, fp16 or bf16; pools
+    [NB, bs, Hk, D] of q's dtype, or int8 with ``k_scale``/``v_scale``
+    [NB, bs, Hk] float32; any group Hq / Hk; D up to
+    ``SIMT_MAX_HEAD_DIM``; pools aligned to the plan's copy width. Raises
+    on anything else; CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return paged_decode_attention_dense(q, k_pool, v_pool, block_tables,
                                             seq_lens, k_scale, v_scale)
@@ -414,16 +590,26 @@ def paged_decode_attention_simt(q, k_pool, v_pool, block_tables, seq_lens,
     if block_tables.shape[0] != b or seq_lens.shape != (b,):
         raise ValueError(f"{what}: tables {tuple(block_tables.shape)} / "
                          f"lens {tuple(seq_lens.shape)} vs batch {b}")
+    mbps = block_tables.shape[1]
+    num_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = simt_decode_plan(b, hk, hq // hk, mbps, bs, d, q.element_size(),
+                            quantized, num_sms)
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % plan.copy_width:
+            raise ValueError(f"{what}: {name} must be aligned to "
+                             f"{plan.copy_width} bytes (its rows' copy "
+                             f"width)")
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode_simt")
+    name = f"paged_decode_simt_{_SIMT_DTYPES[q.dtype]}"
+    lib = _build.load(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized \
         else (None, None)
-    err = lib.paged_decode_simt(
-        _SIMT_DTYPES[q.dtype], int(quantized), q.data_ptr(),
+    err = getattr(lib, name)(
+        int(quantized), q.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), *scales,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, hq,
-        hk, d, bs, block_tables.shape[1], float(1.0 / math.sqrt(d)), stream)
+        hk, d, bs, mbps, *plan[:9], float(1.0 / math.sqrt(d)), stream)
     _build.check(err, what)
     if quantized:
         paged_decode_attention_simt.launches_q += 1

@@ -24,7 +24,7 @@ zeros where nothing is visible. The int8
 weight matmul too, at 1e-2: it multiplies the scale after the f32 sum,
 the plain version before, which moves the bf16 output by an ulp at most.
 
-The CUDA cores' kernels (``flash_simt.cu``, ``paged_decode_simt.cu``,
+The CUDA cores' kernels (``flash_simt.cu``, ``paged_decode_simt.cuh``,
 ``quant_matmul_simt.cu``) take float32 and fp16 operands (decode and the
 int8 matmul bf16 too): max |kernel - plain| / max |plain| (per row for
 flash O, per slot for decode) within 1e-4 in float32 (the same float32
@@ -1645,7 +1645,7 @@ def test_flash_simt_rejects_what_it_does_not_take(dev):
 def test_paged_decode_routes_what_the_kernels_refuse(dev, quantized, Hq, Hk,
                                                      D, dtype, mbps):
     """``paged_decode_attention`` at shapes and dtypes B4-B6q do not take
-    goes to ``paged_decode_simt.cu`` (``simt`` in ``ROUTE_COUNTS``, one
+    goes to ``paged_decode_simt.cuh`` (``simt`` in ``ROUTE_COUNTS``, one
     launch of it and none of B4-B6q), bf16 or int8 pools, against the
     dense version on the same inputs."""
     from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS,
@@ -1922,3 +1922,169 @@ def test_flash_fwd_256_reads_head_major_views(dev, causal):
     torch.cuda.synchronize()
     assert (lse - lse_ref).abs().max().item() <= 2e-3
     assert _row_rel_err(o, o_ref) <= ROW_RTOL
+
+
+# the CUDA cores' decode kernel (paged_decode_simt.cuh), redesigned: one
+# cluster per (slot, kv head) with the group's heads in each CTA, the
+# live pages split over the cluster; held to SIMT_RTOL per slot
+
+
+def _simt_case(dev, B, Hq, Hk, D, bs, mbps, lens, dtype, quantized, seed):
+    """Scattered-block pools of ``dtype`` (or int8 rows of the float32
+    values, with their scales), tables and lens; (q, kp, vp, tbl, sl,
+    scales)."""
+    rng = np.random.RandomState(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev)
+    kp, vp = mk(B * mbps + 1, bs, Hk, D), mk(B * mbps + 1, bs, Hk, D)
+    q = mk(B, Hq, D).to(dtype)
+    scales = {}
+    if quantized:
+        kp, ks = quantize_rows(kp)
+        vp, vs = quantize_rows(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    tbl = np.zeros((B, mbps), np.int32)
+    for i in range(B):
+        need = min(-(-int(lens[i]) // bs), mbps)
+        tbl[i, :need] = rng.permutation(np.arange(
+            1 + i * mbps, 1 + (i + 1) * mbps))[:need]
+    return (q, kp, vp, torch.as_tensor(tbl, device=dev),
+            torch.as_tensor(np.asarray(lens, np.int32), device=dev), scales)
+
+
+def _simt_check(out, ref, lens, dtype):
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert out[i].abs().max().item() == 0.0
+    err = ((out.float() - ref.float()).abs().flatten(1).amax(1) /
+           ref.float().abs().flatten(1).amax(1).clamp_min(1e-30))
+    err = err[[i for i, n in enumerate(lens) if n]]
+    assert err.max().item() <= SIMT_RTOL[dtype]
+
+
+def _simt_lens(bs, mbps):
+    """0, 1, a page edge, the whole table, past it."""
+    return [0, 1, bs * min(2, mbps), bs * mbps, bs * mbps + 5]
+
+
+@pytest.mark.parametrize("mbps", [1, 9, 128])
+@pytest.mark.parametrize("G", [1, 3, 16, 32])
+@pytest.mark.parametrize("D", [64, 80, 128, 256, 1024])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_paged_decode_simt_matches_plain(dev, dtype, quantized, D, G, mbps):
+    """``paged_decode_attention_simt`` against the plain version over
+    query dtypes, pools (their dtype or int8), head dims, groups and
+    tables of 1 to 128 16-row pages, lengths 0, 1, a page edge, the whole
+    table and past it: per slot within SIMT_RTOL, zeros for the empty
+    slot, one launch a call, the same bits from two calls."""
+    bs, Hk = 16, 2
+    lens = _simt_lens(bs, mbps)
+    q, kp, vp, tbl, sl, scales = _simt_case(
+        dev, len(lens), G * Hk, Hk, D, bs, mbps, lens, dtype, quantized,
+        seed=D + G + mbps)
+    simt = _pa.paged_decode_attention_simt
+    count = "launches_q" if quantized else "launches"
+    before = getattr(simt, count)
+    out = simt(q, kp, vp, tbl, sl, **scales)
+    again = simt(q, kp, vp, tbl, sl, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert getattr(simt, count) == before + 2
+    assert torch.equal(out, again)
+    _simt_check(out, ref, lens, dtype)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_paged_decode_simt_every_cluster_size(dev, monkeypatch, dtype,
+                                              quantized, cluster):
+    """Every cluster size ``simt_decode_plan`` may pick, forced, at engine
+    A's heads (Hq 32, Hk 8, D 128) on 24-page tables and at D 80, G 3 on
+    7-page ones: the ranks' shares (some empty) merge to the plain
+    version's answer."""
+    monkeypatch.setattr(_pa, "simt_decode_plan", functools.partial(
+        _pa.simt_decode_plan, cluster=cluster))
+    for Hq, Hk, D, mbps in ((32, 8, 128, 24), (12, 4, 80, 7)):
+        lens = _simt_lens(16, mbps)
+        q, kp, vp, tbl, sl, scales = _simt_case(
+            dev, len(lens), Hq, Hk, D, 16, mbps, lens, dtype, quantized,
+            seed=cluster + D)
+        out = _pa.paged_decode_attention_simt(q, kp, vp, tbl, sl, **scales)
+        ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+        torch.cuda.synchronize()
+        _simt_check(out, ref, lens, dtype)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_paged_decode_simt_never_reads_dead_rows(dev, dtype, quantized):
+    """NaN in the rows past seq_len of a slot's last live page and in
+    every page no table holds (int8 pools: NaN scales and 127 rows) never
+    reaches the output: it equals the plain version on the same pools
+    with those rows zeroed."""
+    bs, mbps = 16, 8
+    lens = [0, 5, 37, 100, 128]
+    for Hq, Hk, D in ((32, 8, 128), (12, 4, 72)):
+        q, kp, vp, tbl, sl, scales = _simt_case(
+            dev, len(lens), Hq, Hk, D, bs, mbps, lens, dtype, quantized,
+            seed=D)
+        clean = [kp.clone(), vp.clone(),
+                 *(s.clone() for s in scales.values())]
+        used = set(tbl.flatten().tolist())
+        dead = [(int(tbl[i, n // bs]), n % bs) for i, n in enumerate(lens)
+                if n % bs]
+        unused = [x for x in range(kp.shape[0]) if x not in used]
+        for t in (kp, vp, *scales.values()):
+            bad = float("nan") if t.dtype.is_floating_point else 127
+            for blk, pos in dead:
+                t[blk, pos:] = bad
+            t[unused] = bad
+        for t in clean:
+            for blk, pos in dead:
+                t[blk, pos:] = 0
+            t[unused] = 0
+        out = _pa.paged_decode_attention_simt(q, kp, vp, tbl, sl, **scales)
+        ref = paged_decode_attention_dense(
+            q, clean[0], clean[1], tbl, sl,
+            **dict(zip(scales, clean[2:])))
+        torch.cuda.synchronize()
+        _simt_check(out, ref, lens, dtype)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_paged_decode_simt_replays_in_a_cuda_graph(dev, dtype, quantized):
+    """The cluster launch captured in a CUDA graph at engine A's shape
+    (B 8, Hq 32, Hk 8, D 128, 128 16-row pages, lens 1..2048): the capture
+    counts one launch, and a replay after the query changes in place gives
+    the plain version's answer for the new query."""
+    B, Hq, Hk, D, bs, mbps = 8, 32, 8, 128, 16, 128
+    lens = np.linspace(1, 2048, 8).astype(np.int64)
+    q, kp, vp, tbl, sl, scales = _simt_case(dev, B, Hq, Hk, D, bs, mbps,
+                                            lens, dtype, quantized, seed=50)
+    simt = _pa.paged_decode_attention_simt
+    count = "launches_q" if quantized else "launches"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        simt(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = getattr(simt, count)
+    with torch.cuda.graph(graph):
+        out = simt(q, kp, vp, tbl, sl, **scales)
+    assert getattr(simt, count) == before + 1
+    q.copy_(torch.randn(B, Hq, D, device=dev).to(dtype))
+    graph.replay()
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    torch.cuda.synchronize()
+    assert getattr(simt, count) == before + 1
+    _simt_check(out, ref, list(lens), dtype)

@@ -24,10 +24,11 @@ from paddle_tpu.kernels.pallas.paged_attention import (
 from paddle_tpu_torch.inference.paged import (ROUTE_COUNTS, decode_route,
                                               paged_decode_attention)
 from paddle_tpu_torch.kernels.paged_attention import (
-    _SPLIT_CTAS_PER_SM, SMEM_PER_BLOCK, _gather_kv, decode_cluster_plan,
-    decode_cluster_shares, decode_smem_bytes, paged_decode_attention_chunked,
-    paged_decode_attention_dense, paged_decode_attention_kernel,
-    split_cluster_plan, split_smem_bytes)
+    _SIMT_ACC, _SIMT_HEADS, _SPLIT_CTAS_PER_SM, SMEM_PER_BLOCK, _gather_kv,
+    decode_cluster_plan, decode_cluster_shares, decode_smem_bytes,
+    paged_decode_attention_chunked, paged_decode_attention_dense,
+    paged_decode_attention_kernel, simt_decode_plan, simt_decode_schedule,
+    simt_smem_bytes, split_cluster_plan, split_smem_bytes)
 
 ATOL = 1e-5
 INT8_ATOL = 5e-5
@@ -35,6 +36,10 @@ INT8_ATOL = 5e-5
 # limit: P rounded to bf16 against each split's own max moves a slot by
 # a few ulps)
 DECODE_RTOL = 2e-2
+# the same per slot in fp16 and bf16 against the Pallas kernels, which
+# round P unnormalized, chunk by chunk, where the plain version rounds the
+# normalized P (a few ulps of each: 2^-11 in fp16, 2^-8 in bf16)
+HALF_RTOL = {torch.float16: 5e-3, torch.bfloat16: DECODE_RTOL}
 
 
 def _case(B, HQ, HK, D, BS, MBPS, lens, seed=0):
@@ -60,6 +65,11 @@ CASES = [
     (4, 8, 2, 64, 8, 4, [0, 1, 16, 32]),    # GQA 4: empty, one, multiple, full
     (3, 4, 4, 64, 8, 4, [9, 32, 0]),        # MHA
     (2, 8, 2, 64, 4, 16, [64, 37]),         # 16 pages: the split route
+    # the shapes the simt route (the CUDA cores' kernel) serves
+    (3, 16, 8, 256, 8, 4, [0, 1, 32]),      # D 256, G 2 (Gemma-2's widths)
+    (2, 32, 8, 80, 8, 4, [9, 32]),          # D 80
+    (2, 64, 4, 128, 4, 4, [16, 5]),         # G 16
+    (3, 12, 4, 64, 8, 4, [0, 17, 32]),      # G 3
 ]
 
 
@@ -421,3 +431,247 @@ def test_simt_wrapper_takes_plain_version_on_cpu(quantized):
                                                          **scales))
     assert (paged_decode_attention_simt.launches,
             paged_decode_attention_simt.launches_q) == n
+
+
+def _slot_rel(out, ref):
+    """Per slot, max |out - ref| / max |ref| (0 where both are 0)."""
+    diff = (out.float() - ref.float()).flatten(1).abs().amax(1)
+    scale = ref.float().flatten(1).abs().amax(1)
+    return (diff / scale).nan_to_num(nan=0.0).max().item()
+
+
+_SIMT_SHAPES = [
+    # B, HQ, HK, D, BS, MBPS, lens: what the simt route serves
+    (3, 16, 8, 256, 8, 4, [0, 1, 32]),      # D 256, G 2
+    (2, 32, 8, 80, 8, 4, [9, 32]),          # D 80
+    (2, 64, 4, 128, 4, 4, [16, 5]),         # G 16
+    (3, 12, 4, 64, 8, 4, [0, 17, 33]),      # G 3, a length past the table
+]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("B,HQ,HK,D,BS,MBPS,lens", _SIMT_SHAPES)
+def test_plain_decode_matches_pallas_in_half_dtypes(B, HQ, HK, D, BS, MBPS,
+                                                    lens, dtype, quantized,
+                                                    chunked):
+    """The simt route's dtypes: fp16 and bf16 queries over pools of their
+    dtype or int8 (``quantize_rows`` of the float32 rows), the plain
+    version against the Pallas ``_decode_kernel`` / ``_decode_kernel_q``
+    and the chunked kernel in interpret mode on the same values, per slot
+    within HALF_RTOL; empty slots give zeros on both."""
+    q, kp, vp, tbl, sl = _case(B, HQ, HK, D, BS, MBPS, lens, seed=2)
+    jdt = jnp.float16 if dtype == torch.float16 else jnp.bfloat16
+    scales = {}
+    if quantized:
+        kp, ks = (np.asarray(a) for a in JQ.quantize_rows(jnp.asarray(kp)))
+        vp, vs = (np.asarray(a) for a in JQ.quantize_rows(jnp.asarray(vp)))
+        scales = dict(k_scale=ks, v_scale=vs)
+        jk, jv = jnp.asarray(kp), jnp.asarray(vp)
+    else:
+        jk, jv = jnp.asarray(kp, jdt), jnp.asarray(vp, jdt)
+    jq = jnp.asarray(q, jdt)
+    kw = {k: jnp.asarray(v) for k, v in scales.items()}
+    if chunked:
+        ref = pallas_chunked(jq, jk, jv, jnp.asarray(tbl), jnp.asarray(sl),
+                             interpret=True, chunk_pages=2, **kw)
+    else:
+        ref = pallas_kernel(jq, jk, jv, jnp.asarray(tbl), jnp.asarray(sl),
+                            interpret=True, **kw)
+    tq = torch.from_numpy(q).to(dtype)
+    tk = torch.from_numpy(np.array(kp))
+    tv = torch.from_numpy(np.array(vp))
+    if not quantized:
+        tk, tv = tk.to(dtype), tv.to(dtype)
+    out = paged_decode_attention_dense(
+        tq, tk, tv, *_torch(tbl, sl),
+        **{k: torch.from_numpy(np.array(v)) for k, v in scales.items()})
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    assert out.dtype == dtype
+    assert _slot_rel(out, ref) <= HALF_RTOL[dtype]
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(out[i] == 0) and torch.all(ref[i] == 0)
+
+
+# the CUDA cores' decode plan at the widths the port may meet: pool
+# element bytes (float32, fp16/bf16, int8 pools)
+_SIMT_POOLS = [(4, False), (2, False), (4, True), (2, True)]
+
+
+@pytest.mark.parametrize("elem,quantized", _SIMT_POOLS)
+@pytest.mark.parametrize("d", [64, 72, 80, 128, 256, 512, 1024])
+def test_simt_decode_plan_fits_a_cta(elem, quantized, d):
+    """Every group 1-32 and table 1-128 pages: the plan fits one CTA's
+    shared memory (and the layout the kernel derives, ``simt_smem_bytes``),
+    covers the group exactly (``heads`` a CTA, the last split no empty),
+    keeps a lane's accumulators and a CTA's heads within their limits,
+    pads K rows so 16-byte reads are free of bank conflicts, and copies
+    with a width that divides the row."""
+    s = 1 if quantized else elem
+    for g in (1, 2, 3, 4, 8, 16, 32):
+        for npages in (1, 16, 128):
+            p = simt_decode_plan(8, 8, g, npages, 16, d, elem, quantized,
+                                 132)
+            assert p.smem <= SMEM_PER_BLOCK
+            assert p.smem == simt_smem_bytes(
+                npages, d, elem, quantized, p.heads, p.rows, p.key_stride,
+                p.value_stride, p.warps, p.stages, p.cluster)
+            assert p.heads * p.group_splits >= g
+            assert (p.group_splits - 1) * p.heads < g
+            nj = max(2, 1 << (-(-d // 32) - 1).bit_length())
+            heads_t = 1 << (p.heads - 1).bit_length()
+            assert p.heads <= _SIMT_HEADS and heads_t * nj <= _SIMT_ACC
+            assert p.rows * p.lanes_per_key == 32 and p.rows >= 4
+            assert 1 <= p.warps <= 4 and 1 <= p.stages <= 3
+            chunks = -(-d * s // 16)
+            assert p.value_stride == 16 * chunks
+            groups = p.key_stride // 16
+            assert groups >= chunks and p.key_stride % 16 == 0
+            if p.lanes_per_key < 8:
+                assert groups % (2 * p.lanes_per_key) == p.lanes_per_key
+            assert (d * s) % p.copy_width == 0
+            assert p.copy_width == 16 or (d * s) % (2 * p.copy_width)
+            assert p.cluster in (1, 2, 4, 8, 16)
+            assert p.cluster <= max(npages, 1)
+
+
+def test_simt_decode_plan_raises_where_nothing_fits():
+    """A table whose block ids alone pass a CTA's shared memory, and a
+    cluster size the kernel has not: refused before any launch."""
+    with pytest.raises(ValueError, match="does not fit"):
+        simt_decode_plan(1, 1, 4, 1 << 17, 16, 128, 4, False, 132)
+    with pytest.raises(ValueError, match="cluster"):
+        simt_decode_plan(8, 8, 4, 16, 16, 128, 4, False, 132, cluster=32)
+
+
+@pytest.mark.parametrize("elem,quantized", [(4, False), (2, False),
+                                            (4, True)])
+def test_simt_decode_plan_at_engine_a_shape(elem, quantized):
+    """Engine A's decode (B 8, Hk 8, G 4, 128-page tables of 16 rows, D
+    128): at least one CTA per SM of the H100's 132, the group in one CTA,
+    and a CTA that leaves room for the four an SM the grid puts there."""
+    p = simt_decode_plan(8, 8, 4, 128, 16, 128, elem, quantized, 132)
+    ctas = 8 * 8 * p.group_splits * p.cluster
+    assert ctas >= 132 and p.group_splits == 1
+    assert p.smem * min(-(-ctas // 132), 4) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("elem,quantized", [(4, False), (2, False),
+                                            (4, True)])
+def test_simt_decode_schedule_covers_every_live_row(elem, quantized, bs,
+                                                    cluster):
+    """The kernel's placement of a slot's rows (``simt_decode_schedule``):
+    for every length from 0 to the whole table and one past it, each live
+    row in exactly one block, blocks within ``rows``, each rank's rows
+    within its pages of ``decode_cluster_shares``, and each warp's blocks
+    cycling through its ring's stages in order."""
+    for b, hk, g, npages, d in ((8, 8, 4, 16, 128), (8, 8, 4, 128, 128),
+                                (2, 8, 2, 7, 256), (3, 4, 16, 33, 80)):
+        p = simt_decode_plan(b, hk, g, npages, bs, d, elem, quantized, 132,
+                             cluster=cluster)
+        for length in list(range(0, npages * bs + 2)):
+            live = min(length, npages * bs)
+            sched = simt_decode_schedule(length, npages, bs, p)
+            rows = [r for _, _, _, first, n in sched
+                    for r in range(first, first + n)]
+            assert sorted(rows) == list(range(live))
+            shares = decode_cluster_shares(length, bs, npages, p.cluster)
+            seen = {}
+            for rank, warp, stage, first, n in sched:
+                assert 0 < n <= p.rows and 0 <= warp < p.warps
+                p0, p1 = shares[rank]
+                assert p0 * bs <= first and first + n <= p1 * bs
+                i = seen.get((rank, warp), 0)
+                assert stage == i % p.stages
+                seen[(rank, warp)] = i + 1
+
+
+def _simt_merge(q, kp, vp, tbl, sl, plan, k_scale=None, v_scale=None):
+    """The CUDA cores' decode kernel's arithmetic in float32, along its
+    schedule: each (rank, warp) keeps an online softmax (m, l, O) per head
+    over its blocks, P rounded to q's dtype against the running max; the
+    warps merge by their max, then the ranks."""
+    b, hq, d = q.shape
+    _, bs, hk, _ = kp.shape
+    g = hq // hk
+    npages = tbl.shape[1]
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros(b, hk, g, d)
+    for i in range(b):
+        idx = tbl[i].long()
+        k = _gather_kv(kp, idx, k_scale, q.dtype).reshape(-1, hk, d).float()
+        v = _gather_kv(vp, idx, v_scale, q.dtype).reshape(-1, hk, d).float()
+        qi = q[i].reshape(hk, g, d).float()
+        parts = {}
+        for rank, warp, _, first, n in simt_decode_schedule(
+                int(sl[i]), npages, bs, plan):
+            s = torch.einsum("ngd,tnd->ngt", qi, k[first:first + n]) * scale
+            m, l, o = parts.get((rank, warp), (
+                torch.full((hk, g), -np.inf), torch.zeros(hk, g),
+                torch.zeros(hk, g, d)))
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mx)
+            pr = torch.exp(s - mx[..., None])
+            o = o * alpha[..., None] + torch.einsum(
+                "ngt,tnd->ngd", pr.to(q.dtype).float(), v[first:first + n])
+            parts[(rank, warp)] = (mx, l * alpha + pr.sum(-1), o)
+        if not parts:
+            continue
+        for level in ("warps", "ranks"):
+            groups = {}
+            for key, part in parts.items():
+                groups.setdefault(key[0] if level == "warps" else 0,
+                                  []).append(part)
+            parts = {}
+            for key, ps in groups.items():
+                big = torch.stack([m for m, _, _ in ps]).amax(0)
+                w = [torch.exp(m - big) for m, _, _ in ps]
+                parts[(key,)] = (big, sum(l * x for (_, l, _), x in
+                                          zip(ps, w)),
+                                 sum(o * x[..., None] for (_, _, o), x in
+                                     zip(ps, w)))
+        (_, l, o), = parts.values()
+        out[i] = o / l[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 4, 16])
+@pytest.mark.parametrize("pools", ["f32", "f16", "int8"])
+@pytest.mark.parametrize("B,HQ,HK,D,BS,MBPS,lens", [
+    (8, 8, 2, 32, 16, 15, [0, 1, 16, 17, 100, 161, 239, 240]),
+    (3, 12, 4, 80, 8, 7, [0, 56, 90]),     # G 3, past the table
+    (2, 16, 1, 64, 16, 9, [5, 144]),       # G 16 in two group splits
+])
+def test_simt_schedule_merge_matches_dense(B, HQ, HK, D, BS, MBPS, lens,
+                                           pools, cluster):
+    """The CUDA cores' kernel's split and merge, replayed in float32 along
+    its plan's schedule (forced cluster sizes too), matches the plain
+    version: float32 pools within ATOL, fp16 and int8 (dequantized to
+    fp16) pools per slot within HALF_RTOL; empty slots give zeros."""
+    q, kp, vp, tbl, sl = _torch(*_case(B, HQ, HK, D, BS, MBPS, lens))
+    scales = {}
+    if pools == "int8":
+        kq, ks = (torch.from_numpy(np.array(a)) for a in
+                  JQ.quantize_rows(jnp.asarray(kp.numpy())))
+        vq, vs = (torch.from_numpy(np.array(a)) for a in
+                  JQ.quantize_rows(jnp.asarray(vp.numpy())))
+        kp, vp, scales = kq, vq, dict(k_scale=ks, v_scale=vs)
+    if pools != "f32":
+        q = q.half()
+        if pools == "f16":
+            kp, vp = kp.half(), vp.half()
+    plan = simt_decode_plan(B, HK, HQ // HK, MBPS, BS, D, q.element_size(),
+                            pools == "int8", 132, cluster=cluster)
+    out = _simt_merge(q, kp, vp, tbl, sl, plan, **scales)
+    ref = paged_decode_attention_dense(q, kp, vp, tbl, sl, **scales)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(out[i] == 0) and torch.all(ref[i] == 0)
+    if pools == "f32":
+        assert (out - ref).abs().max().item() <= ATOL
+    else:
+        assert _slot_rel(out, ref) <= HALF_RTOL[torch.float16]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Compare the paged-decode kernels of several checkouts of the PyTorch
 port on one GPU, in one call: the per-page kernel (B4: bf16 pools, B5:
-int8 pools) and the split route for long tables (B6: bf16 pools, B6q:
-int8 pools).
+int8 pools), the split route for long tables (B6: bf16 pools, B6q:
+int8 pools) and, where a checkout has it, the CUDA cores' kernel for the
+dtypes and shapes those refuse (``paged_decode_attention_simt``).
 
     python3 tools/torch_decode_ab.py DIR[@C] [DIR[@C] ...]
 
@@ -11,9 +12,9 @@ runs in a process of its own, in the order given: give the older version
 first and last (old, new, new, old) so drift on the card shows. ``DIR@C``
 forces the split route's cluster size to C in place of
 ``split_cluster_plan``'s choice, where the checkout has that plan. A run
-builds that checkout's ``paged_decode`` and ``paged_decode_split``
-sources and times, through ``chip_smoke.decode_phase`` (the L2 evicted
-before each launch), CUDA events around the wrapper (``ms``), CUDA-graph
+builds that checkout's paged-decode sources and times, through
+``chip_smoke.decode_phase`` (the L2 evicted before each launch), CUDA
+events around the wrapper (``ms``), CUDA-graph
 replays (``graph_ms``), the wrapper's host time per call (``host_ms``)
 and SDPA over the pre-gathered KV as the yardstick (``library_ms``,
 ``library_graph_ms``), each kernel held per slot against the plain
@@ -25,11 +26,18 @@ version, at two shapes (Hq 32, Hk 8, D 128, 16-token pages, B 8):
   wrapper ``paged_decode_attention_chunked`` at its shape (128-page
   tables, lens ``linspace(1, 2048, 8)``, engine A's);
 - ``per_page_at_split``, ``per_page_at_split_q``: the per-page kernel's
-  wrapper at the split route's shape, the yardstick of the split route.
+  wrapper at the split route's shape, the yardstick of the split route;
+- ``simt_<dtype>_<shape>``: ``paged_decode_attention_simt`` (through
+  ``chip_smoke.simt_decode_case``: events, graph replays, SDPA over the
+  gathered rows, the bound) with float32 and fp16 queries over pools of
+  their dtype and float32 queries over int8 pools (``f32q``), at both
+  shapes (``short``: 16-page tables, lens 1-256, chip_smoke's; ``long``:
+  engine A's), held per slot to SIMT_RTOL.
 
-Each run also prints SHA-256 digests of the per-page kernel's outputs at
-both shapes (``digests``: equal code gives equal bits, the kernel has no
-atomics) and times the floor under any one-kernel call timed this way
+Each run also prints SHA-256 digests of the bf16 kernels' outputs (the
+per-page kernel at both shapes, the split route at its own;
+``digests``: equal code gives equal bits, the kernels have no atomics)
+and times the floor under any one-kernel call timed this way
 (``floor_graph_ms``: a graph replay of a one-element add). The measuring
 code is this repository's ``chip_smoke.py`` for every DIR; only the
 package comes from DIR. Prints the card's name and power limit, one
@@ -53,7 +61,7 @@ REPO = os.path.dirname(HERE)
 SHORT = [0, 1, 16, 17, 100, 161, 239, 240]   # chip_smoke.py's B4/B5 lens
 LONG = np.linspace(1, 2048, 8).astype(np.int64)  # its B6/B6q lens
 KEYS = ("ms", "graph_ms", "host_ms", "library_ms", "library_graph_ms",
-        "bound_ms", "slot_rel_err", "max_abs_err")
+        "bound_ms", "slot_rel_err", "rel_err", "max_abs_err")
 
 
 def _digest(torch, cs, wrapper, B, mbps, lens, seed, quantized):
@@ -91,7 +99,8 @@ def one(spec):
         pa.split_cluster_plan = functools.partial(pa.split_cluster_plan,
                                                   cluster=int(cluster))
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build_all(["paged_decode", "paged_decode_split"])
+    _build.build_all([n for n in _build.SOURCES
+                      if n.startswith("paged_decode")])
     timer = cs.Timer(torch)
     out = {"root": spec, "digests": {}}
     for suffix, quantized in (("", False), ("_q", True)):
@@ -104,10 +113,22 @@ def one(spec):
                  LONG, 2)):
             rec = cs.decode_phase(torch, timer, name + suffix, wrapper, 8,
                                   mbps, lens, seed=seed, quantized=quantized)
-            out[name + suffix] = {k: rec[k] for k in KEYS}
-            if wrapper is pa.paged_decode_attention_kernel:
+            out[name + suffix] = {k: rec[k] for k in KEYS if k in rec}
+            if name != "per_page_at_split":
                 out["digests"][name + suffix] = _digest(
                     torch, cs, wrapper, 8, mbps, lens, seed, quantized)
+    if hasattr(pa, "paged_decode_attention_simt"):
+        short = np.linspace(1, 256, 8).astype(np.int64)
+        for tag, dtype, quantized in (("f32", torch.float32, False),
+                                      ("f16", torch.float16, False),
+                                      ("f32q", torch.float32, True)):
+            for shape, mbps, lens, seed in (("short", 16, short, 4950),
+                                            ("long", 128, LONG, 4951)):
+                rec = cs.simt_decode_case(torch, timer, f"simt_{tag}",
+                                          dtype, quantized, mbps, lens,
+                                          seed)
+                out[f"simt_{tag}_{shape}"] = {k: rec[k] for k in KEYS
+                                              if k in rec}
     # the floor under any one-kernel call timed this way: a graph replay
     # of one trivial kernel (a one-element add), L2 evicted before it
     tiny = torch.zeros(1, device="cuda")
