@@ -218,9 +218,14 @@
    three bf16 pieces of q, k, v, then four split passes, B2 and B3 on
    the pieces; or ``f16``: B1-B3 on f16 wgmma), in float32 at G 3, D 80
    (``split`` on K, V expanded 3 times, D padded to 128), in float32 and
-   fp16 at D 160, B 1, S 1024, Hq 16, Hk 4 (``simt`` both ways:
-   ``flash_simt.cu``'s forward, dQ and dK/dV), all against the plain
-   pair within SIMT_RTOL / SIMT_BWD_RTOL, and in bf16 at Hq 24 / Hk 8,
+   fp16 at D 160 (B 1, S 1024, Hq 16, Hk 4), D 256 (B 1, S 2048, Hq 16,
+   Hk 8: Gemma-2 9B's widths) and D 288 (B 1, S 2048, Hq 16, Hk 4): the
+   forward ``split`` or ``f16`` on the tensor cores (float32: three
+   splits and B1 on the pieces, the tc kernel padded to 256 or the xl
+   kernel at 288; fp16: B1 at 256 or the xl kernel), the backward
+   ``simt`` (``flash_simt.cu``'s dQ and dK/dV),
+   all against the plain pair within SIMT_RTOL / SIMT_BWD_RTOL, and in
+   bf16 at Hq 24 / Hk 8,
    G 3 (route ``expanded``: B1-B3 once each on K and V expanded 3 times,
    within B1-B3's limits), read from
    ``kernels.flash_attention.ROUTE_COUNTS`` and ``BWD_ROUTE_COUNTS``;
@@ -229,16 +234,20 @@
    ``ROUTE_COUNTS``: one launch of ``paged_decode_simt.cuh``, against the
    dense version); ``ConvertedInt8Linear`` with float32 and fp16 x at K
    4096 (``split``: one split pass and B7 on three bf16 pieces of x;
-   ``f16``: B7 on f16 products) and with bf16 and fp16 x at K 4100
-   (``simt``: one launch of ``quant_matmul_simt.cu``), read from
-   ``kernels.quant_matmul.ROUTE_COUNTS``, against ``quant_matmul_plain``;
+   ``f16``: B7 on f16 products) and with bf16, fp16 and float32 x at K
+   4100, M 300 and 8 (``unaligned``, ``f16_unaligned``,
+   ``split_unaligned``: B7 through its ragged loader; float32 at M 300
+   after one split pass), read from ``kernels.quant_matmul.ROUTE_COUNTS``,
+   against ``quant_matmul_plain``;
    and a float32 Llama at Llama-3-8B width cut to 2 layers serving 2
    requests of 8 new tokens through ``ContinuousBatchingEngine``, with a
    float32 cache and again converted to int8 weights with an int8 cache:
    greedy tokens equal to the same model's with every route forced
    plain, and only the kernels of the float32 routes launched (B1 and B7
    on three pieces, the split pass, the CUDA cores' decode attention;
-   each at least once). Then each of those kernels is timed at one shape
+   each at least once); and the CUDA cores' forward and int8 matmul,
+   which no route takes now, launched directly against their plain
+   versions. Then each of those kernels is timed at one shape
    against its plain version, one PyTorch call and its bound (the CUDA
    cores' at the float32 peak outside the tensor cores, 67 TFLOP/s); the
    flash kernels at the llama_train shape: B1-B3 on three bf16 pieces
@@ -254,7 +263,14 @@
    for float32 x (bound at 330 TFLOP/s: three bf16 products a float32
    one) and fp16 x at M 300 and M 8, beside the CUDA cores' kernel,
    ``F.linear`` in x's dtype and bf16 B7 on the same shape; the CUDA
-   cores' kernel also at K 4100 with fp16 and bf16 x.
+   cores' kernel also at K 4100 with float32, fp16 and bf16 x, and its
+   dQ and dK/dV in fp16 at D 160 beside SDPA's fp16 backward. The new
+   tensor-core kernels: B1 above head dim 128 in float32 and fp16 at D
+   160 (the faults' shape), D 256 (Gemma-2 9B's widths) and D 384
+   (``wide_fwd_phase``) beside the CUDA cores' forward, SDPA and the
+   plain forward; B7 through its ragged loader at K 4100, M 300 and 8,
+   in bf16, fp16 and float32 (``unaligned_qmm_phase``) beside the CUDA
+   cores' kernel, ``F.linear`` and B7 at K 4096 in the same run.
 5h. ``gpt_f32`` (after ``faults``): GPT at the port's default float32,
    GPT-2 medium width cut to 2 layers, batch 8 x 1024, AdamW 3e-4, clip
    1.0, 2 + 3 ``TrainStep``s: finite, falling losses; per layer a step
@@ -274,12 +290,15 @@
    at V1, every case beside, and B1-xl, B2-xl, B3-xl: the kernels above
    head dim 256 at D 384, S 2048, every case and the D 288 path beside,
    and the kernels of the faults phase: flash_fwd_f32, flash_fwd_f16
-   (B1 on three bf16 pieces and on f16 wgmma), flash_simt_fwd,
-   flash_simt_dq, flash_simt_dkv, flash_bwd_dq_f32, flash_bwd_dkv_f32
-   (B2/B3 on three bf16 pieces), flash_bwd_dq_f16, flash_bwd_dkv_f16,
-   split_bf16x3, paged_decode_simt(_q), quant_matmul_simt,
-   quant_matmul_f32 and quant_matmul_f16 (B7 on three bf16 pieces of x
-   and on f16 products), their launches from the faults paths and
+   (B1 on three bf16 pieces and on f16 wgmma), flash_fwd_f32_xl,
+   flash_fwd_f16_256, flash_fwd_f16_xl (B1 above head dim 128),
+   flash_simt_fwd, flash_simt_dq, flash_simt_dkv, flash_bwd_dq_f32,
+   flash_bwd_dkv_f32 (B2/B3 on three bf16 pieces), flash_bwd_dq_f16,
+   flash_bwd_dkv_f16, split_bf16x3, paged_decode_simt(_q),
+   quant_matmul_simt, quant_matmul_f32 and quant_matmul_f16 (B7 on three
+   bf16 pieces of x and on f16 products), quant_matmul_unaligned,
+   quant_matmul_f16_unaligned, quant_matmul_f32_unaligned (B7 through
+   its ragged loader), their launches from the faults paths and
    ``gpt_f32``) and, last, the
    ``{"ok": true, "device": ...}`` line. Any failure exits non-zero before
    it. Without a GPU, or without the package beside this file, it exits 2.
@@ -945,13 +964,21 @@ def xl_path_phase(torch):
 # ---------------------------------------------------------------------------
 
 # the kernels of the dtypes and shapes the bf16 tensor-core kernels do
-# not take: the CUDA cores' and, for float32 and fp16 up to head dim 128
-# and for B7 with K a multiple of 16, B1-B3's and B7's other
-# instantiations (name, source, the Pallas kernel it replaces)
+# not take: B1-B3's and B7's other instantiations (float32 and fp16; B1
+# at every head dim, B2-B3 up to 128; B7 at any K, through the ragged
+# loader where K % 16 != 0) and the CUDA cores' (the backward above head
+# dim 128; the forward and the int8 matmul, on no route now, launched
+# directly) (name, source, the Pallas kernel it replaces)
 SIMT_KERNELS = (
     ("flash_fwd_f32", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
     ("flash_fwd_f16", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_fwd_f32_xl", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_fwd_f16_256", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
+     "paddle_tpu/kernels/pallas/flash_attention.py:281"),
+    ("flash_fwd_f16_xl", "paddle_tpu_torch/kernels/csrc/flash_fwd.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
     ("flash_simt_fwd", "paddle_tpu_torch/kernels/csrc/flash_simt.cu",
      "paddle_tpu/kernels/pallas/flash_attention.py:281"),
@@ -984,6 +1011,15 @@ SIMT_KERNELS = (
      "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
     ("quant_matmul_f16", "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
      "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+    ("quant_matmul_unaligned",
+     "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+    ("quant_matmul_f16_unaligned",
+     "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
+    ("quant_matmul_f32_unaligned",
+     "paddle_tpu_torch/kernels/csrc/quant_matmul.cu",
+     "paddle_tpu/kernels/pallas/quant_matmul.py:44"),
 )
 
 
@@ -1006,31 +1042,44 @@ def _dt(dtype):
     return str(dtype).split(".")[-1]
 
 
-# the launches of one FlashAttention forward + backward by its route:
-# float32 and fp16 up to head dim 128 on the tensor-core B1-B3 (float32's
-# q, k, v split for the forward, and q, k, v, dO again for the backward),
-# above it on the CUDA cores; bf16 at a group not dividing 64 on B1-B3
-# over expanded K and V
-FAULT_FLASH_LAUNCHES = {
-    "split": {"flash_fwd_f32": 1, "split_bf16x3": 7,
-              "flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1},
-    "f16": {"flash_fwd_f16": 1, "flash_bwd_dq_f16": 1,
-            "flash_bwd_dkv_f16": 1},
-    "simt": {"flash_simt_fwd": 1, "flash_simt_dq": 1, "flash_simt_dkv": 1},
-    "expanded": {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
-}
+def fault_flash_launches(route, bwd_route, dh):
+    """The launches of one FlashAttention forward on ``route`` and backward
+    on ``bwd_route`` at head dim ``dh``: float32 (``split``) splits q, k, v
+    for the forward (B1 on the pieces: the tc kernel up to head dim 256,
+    the xl kernel above) and q, k, v, dO again for its backward; fp16
+    (``f16``) runs B1 up to 128, at 256 (129-256 padded) or above; above
+    128 both backwards run the CUDA cores' pair (``simt``); bf16 at a group
+    not dividing 64 runs B1-B3 over expanded K and V."""
+    from paddle_tpu_torch.kernels.flash_attention import padded_head_dim
+    dp = padded_head_dim(dh)
+    fwd = {"expanded": {"flash_fwd": 1},
+           "f16": {"flash_fwd_f16" if dp <= 128 else "flash_fwd_f16_256"
+                   if dp == 256 else "flash_fwd_f16_xl": 1},
+           "split": {"flash_fwd_f32" if dp <= 256 else "flash_fwd_f32_xl":
+                     1, "split_bf16x3": 3}}[route]
+    bwd = {"expanded": {"flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+           "f16": {"flash_bwd_dq_f16": 1, "flash_bwd_dkv_f16": 1},
+           "split": {"flash_bwd_dq_f32": 1, "flash_bwd_dkv_f32": 1,
+                     "split_bf16x3": 4},
+           "simt": {"flash_simt_dq": 1, "flash_simt_dkv": 1}}[bwd_route]
+    out = dict(fwd)
+    for name, n in bwd.items():
+        out[name] = out.get(name, 0) + n
+    return out
 
 
-def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
+def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D,
+                bwd_route=None):
     """``FlashAttention`` forward + backward (at the llama_train shape
     unless given) in ``dtype`` over hq / hk heads: one count of ``route``
-    forward and one backward, and the kernels of
-    FAULT_FLASH_LAUNCHES[route] launched that many times, no other,
-    against the plain pair on the same inputs within those kernels'
-    limits."""
+    forward and one of ``bwd_route`` (default ``route``) backward, and
+    the kernels of ``fault_flash_launches`` launched that many times, no
+    other, against the plain pair on the same inputs within those
+    kernels' limits."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain,
         scaled_dot_product_attention)
+    bwd_route = bwd_route or route
     g = torch.Generator(device=DEVICE).manual_seed(4600 + hq + dh - D)
     mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE,
                                dtype=dtype)
@@ -1055,10 +1104,11 @@ def fault_flash(torch, dtype, hq, hk, route, B=LT_B, S=LT_S, dh=D):
                max_abs_err=err_o, row_rel_err=row_rel_err(out, o_ref),
                grad_rel_err=rel)
     print(f"fault flash {rec}", flush=True)
-    if routes != {route: 1} or bwd_routes != {route: 1} or \
-            launches != FAULT_FLASH_LAUNCHES[route]:
+    if routes != {route: 1} or bwd_routes != {bwd_route: 1} or \
+            launches != fault_flash_launches(route, bwd_route, dh):
         fail(f"FlashAttention in {dtype} at {hq}/{hk} heads, D {dh} did "
-             f"not take the {route} route once each way: {rec}")
+             f"not take the {route} route forward and the {bwd_route} "
+             f"route backward once each: {rec}")
     if route == "expanded":
         ok = err_o <= O_ATOL and rec["row_rel_err"] <= ROW_RTOL and \
             max(rel.values()) <= BWD_RTOL
@@ -1115,20 +1165,31 @@ def fault_decode(torch, hq, hk, dh, dtype, quantized, mbps):
     return rec
 
 
-# the launches of one int8 linear layer at M 64 by its route
-FAULT_LINEAR_LAUNCHES = {"split": {"quant_matmul_f32": 1, "split_bf16x3": 1},
-                         "f16": {"quant_matmul_f16": 1},
-                         "simt": {"quant_matmul_simt": 1}}
+# B7's kernel by the int8 linear layer's route
+FAULT_LINEAR_KERNELS = {"split": "quant_matmul_f32", "f16": "quant_matmul_f16",
+                        "unaligned": "quant_matmul_unaligned",
+                        "f16_unaligned": "quant_matmul_f16_unaligned",
+                        "split_unaligned": "quant_matmul_f32_unaligned"}
+
+
+def fault_linear_launches(route, M):
+    """One launch of the route's kernel and, for float32 x at M >= 9, one
+    split pass before it (at M <= 8 the decode kernel splits x itself)."""
+    out = {FAULT_LINEAR_KERNELS[route]: 1}
+    if route.startswith("split") and M > 8:
+        out["split_bf16x3"] = 1
+    return out
 
 
 def fault_int8_linear(torch, dtype, K, route, M=64, N=4096):
     """``ConvertedInt8Linear`` with an x the bf16 kernel does not take:
     float32 or fp16 x with K a multiple of 16 (``split``: B7 on three bf16
-    pieces of x after one split pass; ``f16``), or K not a multiple of 16
-    (``simt``: ``quant_matmul_simt.cu``). One count of ``route`` in
-    ``quant_matmul.ROUTE_COUNTS`` and FAULT_LINEAR_LAUNCHES[route], no
-    other launch, in x's dtype, against ``quant_matmul_plain`` within
-    SIMT_RTOL."""
+    pieces of x after one split pass at M >= 9; ``f16``), or any x with K
+    not a multiple of 16 (``unaligned``, ``f16_unaligned``,
+    ``split_unaligned``: the same kernels through the ragged loader). One
+    count of ``route`` in ``quant_matmul.ROUTE_COUNTS`` and the launches
+    of ``fault_linear_launches``, no other, in x's dtype, against
+    ``quant_matmul_plain`` within SIMT_RTOL."""
     from paddle_tpu_torch import quantization as TQ
     from paddle_tpu_torch.kernels.quant_matmul import quant_matmul_plain
     from paddle_tpu_torch.nn import Linear
@@ -1150,7 +1211,7 @@ def fault_int8_linear(torch, dtype, K, route, M=64, N=4096):
                out_dtype=_dt(out.dtype), rel_err=rel, max_abs_err=diff)
     print(f"fault int8 linear {rec}", flush=True)
     if rec["routes"] != {route: 1} or \
-            rec["launches"] != FAULT_LINEAR_LAUNCHES[route] or \
+            rec["launches"] != fault_linear_launches(route, M) or \
             out.dtype != dtype or rel > SIMT_RTOL[_dt(dtype)]:
         fail(f"ConvertedInt8Linear did not route {rec} to {route}, or "
              f"disagrees with the plain version")
@@ -1582,15 +1643,27 @@ def simt_fwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
 
 
 def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
-    """The CUDA cores' dQ and dK/dV in float32 at a head dim the
-    tensor-core kernels do not take (the faults' D 160, causal), on the
-    plain forward's O and LSE: errors against the plain backward, times,
-    SDPA's float32 backward at that shape, bounds at 67 TFLOP/s."""
+    """The CUDA cores' dQ and dK/dV in float32 and fp16 at a head dim the
+    tensor-core backward does not take (the faults' D 160, causal), on
+    the plain forward's O and LSE: errors against the plain backward,
+    times, SDPA's backward in the same dtype at that shape, bounds at 67
+    TFLOP/s (both dtypes multiply in float32 there). Returns {kernel:
+    {dtype: record}}."""
+    out = {}
+    for dtype in (torch.float32, torch.float16):
+        for name, rec in _simt_bwd_wide(torch, timer, B, S, hq, hk, dh,
+                                        dtype).items():
+            out.setdefault(name, {})[_dt(dtype)] = rec
+    return out
+
+
+def _simt_bwd_wide(torch, timer, B, S, hq, hk, dh, dtype):
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain, flash_delta,
         flash_simt_dkv_cuda, flash_simt_dq_cuda)
     g = torch.Generator(device=DEVICE).manual_seed(4960)
-    mk = lambda h: torch.randn(B, S, h, dh, generator=g, device=DEVICE)
+    mk = lambda h: torch.randn(B, S, h, dh, generator=g,
+                               device=DEVICE).to(dtype)
     q, k, v, do = mk(hq), mk(hk), mk(hk), mk(hq)
     o, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
     delta = flash_delta(o, do)
@@ -1610,7 +1683,8 @@ def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
     library = timer(sdpa_backward_library(torch, qt, kt, vt,
                                           do.transpose(1, 2), True), iters=10)
     fl = 2 * dh * hq * (B * S * (S + 1) // 2)
-    qb, kvb, rows = q.numel() * 4, k.numel() * 4, lse.numel() * 4
+    es = q.element_size()
+    qb, kvb, rows = q.numel() * es, k.numel() * es, lse.numel() * 4
     bounds = {"flash_simt_dq": bound(3 * qb + 2 * kvb + 2 * rows, 3 * fl,
                                      F32_FLOPS_PER_S),
               "flash_simt_dkv": bound(2 * qb + 4 * kvb + 2 * rows, 4 * fl,
@@ -1621,16 +1695,16 @@ def simt_bwd_wide(torch, timer, B=1, S=1024, hq=WIDE_HQ, hk=WIDE_HK, dh=160):
         ms = timer(call, iters=10)
         bms, by = bounds[name]
         out[name] = dict(B=B, S=S, Hq=hq, Hk=hk, D=dh, causal=True,
-                         dtype="float32", rel_err=rel, max_abs_err=diff,
+                         dtype=_dt(dtype), rel_err=rel, max_abs_err=diff,
                          ms=ms, library_ms=library,
                          library="F.scaled_dot_product_attention backward, "
-                                 "float32 (B2 + B3)",
+                                 f"{_dt(dtype)} (B2 + B3)",
                          bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
-        print(f"{name} float32 D {dh} B={B} S={S} Hq={hq} Hk={hk} causal: "
-              f"err {diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms sdpa "
-              f"backward {library:.4f} ms bound {bms:.4f} ms ({by}, float32 "
-              f"peak)", flush=True)
-        if rel > SIMT_BWD_RTOL["float32"]:
+        print(f"{name} {_dt(dtype)} D {dh} B={B} S={S} Hq={hq} Hk={hk} "
+              f"causal: err {diff:.3e} (rel {rel:.3e}) | kernel {ms:.4f} ms "
+              f"sdpa backward {library:.4f} ms bound {bms:.4f} ms ({by}, "
+              f"float32 peak)", flush=True)
+        if rel > SIMT_BWD_RTOL[_dt(dtype)]:
             fail(f"{name} at D {dh} disagrees with the plain pair: "
                  f"{out[name]}")
     return out
@@ -1752,9 +1826,9 @@ def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
     B7 at the same shape, in this run; bounds at 330 TFLOP/s (float32:
     three bf16 products a float32 one) and 989 (fp16). Also
     ``quant_matmul_simt`` itself (float32 x, M 300: the record of the
-    CUDA cores' kernel) and at K 4100 (the shapes it keeps) with fp16 and
-    bf16 x, each beside ``F.linear`` on a copy of w * s in x's dtype. Cold
-    L2. Returns the records by kernel name."""
+    CUDA cores' kernel) and at K 4100 with float32, fp16 and bf16 x, each
+    beside ``F.linear`` on a copy of w * s in x's dtype. Cold L2. Returns
+    the records by kernel name."""
     from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
     from paddle_tpu_torch.kernels.quant_matmul import (
         quant_matmul, quant_matmul_f16, quant_matmul_plain, quant_matmul_simt,
@@ -1837,10 +1911,11 @@ def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
         recs[name] = dict(cases[M], decode=cases[8])
         del wd
     del wf
-    # the CUDA cores' kernel at the K it keeps (not a multiple of 16)
+    # the CUDA cores' kernel at a K not a multiple of 16, which it served
+    # until the ragged loader (unaligned_qmm_phase times B7 there)
     k2 = K + 4
     x2, w2, s2 = qmm_inputs(torch, M, N, k2, seed + 1)
-    for dtype in (torch.float16, torch.bfloat16):
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
         xd = x2.to(dtype)
         run = lambda: quant_matmul_simt(xd, w2, s2)
         rel, diff = rel_err(run(), quant_matmul_plain(xd, w2, s2))
@@ -1867,42 +1942,289 @@ def simt_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4096,
     return recs
 
 
+# the forward above head dim 128, timed: (D, B, S, Hq, Hk) at the faults'
+# D 160, at Gemma-2 9B's attention widths (D 256, Hq 16, Hk 8) and at D 384
+# with the xl path's heads
+WIDE_FWD_CASES = ((160, 1, 1024, WIDE_HQ, WIDE_HK), (256, 1, 2048, 16, 8),
+                  (384, 1, XL_S, WIDE_HQ, WIDE_HK))
+
+
+def wide_fwd_phase(torch, timer):
+    """B1 in float32 (three bf16 pieces: the tc kernel's 16-key stages up
+    to 256, the xl kernel above) and fp16 (the D 256 kernel, or the xl
+    kernel above 256) above head dim 128, causal, at
+    WIDE_FWD_CASES: the kernel on its padded operands (CUDA events and
+    graph replays) and float32's whole call (three splits and B1), beside
+    the CUDA cores' forward (``flash_simt_fwd_cuda``) at the true D, one
+    SDPA forward in the same dtype and the plain forward; the per-row
+    error and LSE's against the plain forward; bounds on the tensor cores
+    at the true D (float32 at 165 TFLOP/s, six bf16 products a float32
+    one; fp16 at 989). Returns {kernel name: its record at the first case
+    it runs, the others under "cases"}."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_plain, flash_fwd_cuda, flash_fwd_x3_cuda,
+        flash_simt_fwd_cuda, flash_split_fwd_cuda, pad_head_dim,
+        padded_head_dim, split_bf16x3_cuda)
+    recs = {}
+    for dh, B, S, hq, hk in WIDE_FWD_CASES:
+        dp = padded_head_dim(dh)
+        sc = 1.0 / math.sqrt(dh)
+        g = torch.Generator(device=DEVICE).manual_seed(5000 + dh)
+        base = [torch.randn(B, S, h, dh, generator=g, device=DEVICE)
+                for h in (hq, hk, hk)]
+        fl = 2 * dh * hq * (B * S * (S + 1) // 2)
+        for dtype in (torch.float32, torch.float16):
+            q, k, v = (t.to(dtype) for t in base)
+            if dtype == torch.float32:
+                name = "flash_fwd_f32" if dp <= 256 else "flash_fwd_f32_xl"
+                peak = F32_SPLIT_FLOPS_PER_S
+                ops = [split_bf16x3_cuda(t, dp) for t in (q, k, v)]
+                run = lambda: flash_fwd_x3_cuda(*ops, True, scale=sc)
+                whole = lambda: flash_split_fwd_cuda(q, k, v, True, scale=sc,
+                                                     dp=dp)
+            else:
+                name = "flash_fwd_f16_256" if dp == 256 else \
+                    "flash_fwd_f16_xl"
+                peak = BF16_FLOPS_PER_S
+                ops = [pad_head_dim(t, dp) for t in (q, k, v)]
+                run = whole = lambda: flash_fwd_cuda(*ops, True, scale=sc)
+            o, lse = run()
+            o_ref, lse_ref = flash_attention_plain(q, k, v, causal=True,
+                                                   return_lse=True)
+            torch.cuda.synchronize()
+            o = o[..., :dh]
+            rel = row_rel_err(o, o_ref)
+            diff = (o.float() - o_ref.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            finite = bool(torch.isfinite(o.float()).all())
+            del o, lse, o_ref, lse_ref
+            es = q.element_size()
+            bms, by = bound(2 * q.numel() * es + 2 * k.numel() * es
+                            + B * S * hq * 4, 2 * fl, peak)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            ms = timer(run)
+            rec = dict(
+                B=B, S=S, Hq=hq, Hk=hk, D=dh, padded_to=dp, causal=True,
+                dtype=_dt(dtype), rel_err=rel, max_abs_err=diff,
+                lse_abs_err=lse_err, ms=ms, graph_ms=timer.graph(run),
+                whole_call_ms=timer(whole),
+                cuda_cores_ms=timer(lambda: flash_simt_fwd_cuda(
+                    q, k, v, True), iters=10),
+                plain_ms=timer(lambda: flash_attention_plain(
+                    q, k, v, causal=True, return_lse=True), iters=10),
+                library_ms=timer(sdpa_library(torch, qt, kt, vt,
+                                              is_causal=True), iters=10),
+                library=f"F.scaled_dot_product_attention, {_dt(dtype)}",
+                bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+            print(f"{name} D {dh} (run at {dp}) B={B} S={S} Hq={hq} Hk={hk} "
+                  f"causal: err {diff:.3e} (row rel {rel:.3e}, LSE "
+                  f"{lse_err:.3e}) | kernel {ms:.4f} ms (graph "
+                  f"{rec['graph_ms']:.4f}), whole call "
+                  f"{rec['whole_call_ms']:.4f} ms, CUDA cores "
+                  f"{rec['cuda_cores_ms']:.4f} ms, sdpa "
+                  f"{rec['library_ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                  f"ms, bound {bms:.4f} ms ({by})", flush=True)
+            if rel > SIMT_RTOL[_dt(dtype)] or lse_err > 1e-3 or not finite:
+                fail(f"{name} at D {dh} disagrees with the plain forward: "
+                     f"{rec}")
+            if name in recs:
+                recs[name].setdefault("cases", []).append(rec)
+            else:
+                recs[name] = rec
+            del ops, q, k, v, qt, kt, vt
+        del base
+    return recs
+
+
+def unaligned_qmm_phase(torch, timer, M=FAULT_PROMPTS[-1], N=14336, K=4100,
+                        seed=4990):
+    """B7 through the ragged loader at K 4100 (not a multiple of 16) for
+    bf16, fp16 and float32 x at prefill (M 300; float32 with its split
+    pass, which pads the pieces' K to 4112, also timed alone) and decode
+    (M 8), against ``quant_matmul_plain``: CUDA events and graph replays,
+    cold L2, beside the CUDA cores' ``quant_matmul_simt`` on the same x,
+    ``F.linear`` on a copy of w * s in x's dtype made outside the timed
+    call, and B7 at K 4096 (the aligned loaders) for the same M and x
+    dtype, in this run; bounds at 989 TFLOP/s (bf16, fp16) and 330
+    (float32: three bf16 products a float32 one). Returns the records by
+    kernel name, the decode case under "decode"."""
+    from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        K_ALIGN, quant_matmul, quant_matmul_f16, quant_matmul_plain,
+        quant_matmul_simt, quant_matmul_x3)
+    F = torch.nn.functional
+    ka = K - K % K_ALIGN
+    _, w, s = qmm_inputs(torch, M, N, K, seed)
+    _, wa, sa = qmm_inputs(torch, M, N, ka, seed + 1)
+    x = torch.randn(M, K, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(seed))
+    wf = w.float() * s[:, None]
+    recs = {}
+    for name, dtype, fn, peak in (
+            ("quant_matmul_unaligned", torch.bfloat16, quant_matmul,
+             BF16_FLOPS_PER_S),
+            ("quant_matmul_f16_unaligned", torch.float16, quant_matmul_f16,
+             BF16_FLOPS_PER_S),
+            ("quant_matmul_f32_unaligned", torch.float32, quant_matmul_x3,
+             F32_QMM_FLOPS_PER_S)):
+        wd = wf.to(dtype)
+        cases = {}
+        for m in (M, 8):
+            xm = x[:m].to(dtype)
+            xa = x[:m, :ka].to(dtype).contiguous()
+            run = lambda: fn(xm, w, s)
+            rel, diff = rel_err(run(), quant_matmul_plain(xm, w, s))
+            lib = lambda: F.linear(xm, wd)
+            aligned = lambda: fn(xa, wa, sa)
+            nb = xm.element_size()
+            bms, by = bound(m * K * nb + N * K + N * 4 + m * N * nb,
+                            2 * m * N * K, peak)
+            ms = timer(run, cold=True)
+            rec = dict(dtype=_dt(dtype), M=m, N=N, K=K, max_abs_err=diff,
+                       rel_err=rel, ms=ms,
+                       graph_ms=timer.graph(run, cold=True),
+                       plain_ms=timer(lambda: quant_matmul_plain(xm, w, s),
+                                      cold=True, iters=10),
+                       library_ms=timer(lib, cold=True),
+                       library_graph_ms=timer.graph(lib, cold=True),
+                       library=f"F.linear on a {_dt(dtype)} copy of w*s",
+                       aligned_k=ka, aligned_ms=timer(aligned, cold=True),
+                       aligned_graph_ms=timer.graph(aligned, cold=True),
+                       cuda_cores_ms=timer(lambda: quant_matmul_simt(
+                           xm, w, s), cold=True, iters=10),
+                       bound_ms=bms, bound_by=by, share_of_bound=bms / ms)
+            if m > 8 and dtype == torch.float32:
+                rec["split_ms"] = timer(lambda: split_bf16x3_cuda(
+                    xm.view(1, m, 1, K), -(-K // K_ALIGN) * K_ALIGN),
+                    cold=True)
+            print(f"{name} M={m} N={N} K={K}: err {diff:.3e} (rel "
+                  f"{rel:.3e}) | kernel {ms:.4f} ms (graph "
+                  f"{rec['graph_ms']:.4f}) at K {ka} "
+                  f"{rec['aligned_ms']:.4f} (graph "
+                  f"{rec['aligned_graph_ms']:.4f}) CUDA cores "
+                  f"{rec['cuda_cores_ms']:.4f} F.linear "
+                  f"{rec['library_ms']:.4f} (graph "
+                  f"{rec['library_graph_ms']:.4f}) bound {bms:.4f} ms ({by})"
+                  + (f" split {rec['split_ms']:.4f}" if "split_ms" in rec
+                     else ""), flush=True)
+            if rel > SIMT_RTOL[_dt(dtype)] or \
+                    not bool(torch.isfinite(run().float()).all()):
+                fail(f"{name} disagrees with the plain version: {rec}")
+            cases[m] = rec
+        recs[name] = dict(cases[M], decode=cases[8])
+        del wd
+    del wf
+    return recs
+
+
+def direct_simt(torch):
+    """The CUDA cores' forward and int8 matmul are on no route (the tensor
+    cores take float32 and fp16 at every head dim, and B7 every K): each
+    is launched here directly (the forward in float32 and fp16 at the
+    faults' D 160 over 256 positions; the matmul at K 4100, M 64, in
+    float32, fp16 and bf16) and held against its plain version within
+    SIMT_RTOL, so that every kernel of SIMT_KERNELS is launched; their
+    times come from simt_flash_phase, simt_fwd_wide and simt_qmm_phase."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_plain, flash_simt_fwd_cuda)
+    from paddle_tpu_torch.kernels.quant_matmul import (
+        quant_matmul_plain, quant_matmul_simt)
+    g = torch.Generator(device=DEVICE).manual_seed(4970)
+    _, w, s = qmm_inputs(torch, 64, 1024, 4100, 4971)
+    recs = []
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        if dtype != torch.bfloat16:
+            q, k, v = (torch.randn(1, 256, h, 160, generator=g,
+                                   device=DEVICE).to(dtype)
+                       for h in (WIDE_HQ, WIDE_HK, WIDE_HK))
+            o, _ = flash_simt_fwd_cuda(q, k, v, causal=True)
+            recs.append(dict(kernel="flash_simt_fwd", dtype=_dt(dtype),
+                             D=160, S=256, rel_err=row_rel_err(
+                                 o, flash_attention_plain(q, k, v,
+                                                          causal=True))))
+        x = torch.randn(64, 4100, generator=g, device=DEVICE).to(dtype)
+        recs.append(dict(kernel="quant_matmul_simt", dtype=_dt(dtype), M=64,
+                         K=4100, rel_err=rel_err(quant_matmul_simt(x, w, s),
+                                                 quant_matmul_plain(x, w,
+                                                                    s))[0]))
+    torch.cuda.synchronize()
+    for rec in recs:
+        print(f"direct {rec}", flush=True)
+        if not rec["rel_err"] <= SIMT_RTOL[rec["dtype"]]:
+            fail(f"{rec['kernel']} disagrees with its plain version: {rec}")
+    return recs
+
+
 def faults_phase(torch):
-    """The three route faults: calls the bf16 tensor-core kernels do not
-    take, each sent to its route before any launch and counted there. The
+    """The route faults: calls the bf16 tensor-core kernels do not take,
+    each sent to its route before any launch and counted there. The
     counts are zeroed before the calls and read after (``launches``: the
-    SIMT_KERNELS' launches on these paths); then each of those kernels is
-    timed at one shape (``timed``), launches not counted."""
+    SIMT_KERNELS' launches on these paths, and the direct launches of the
+    two CUDA-core kernels no route takes); then each of those kernels is
+    timed (``timed``), launches not counted. FlashAttention above head dim
+    128 runs at the faults' D 160 (B 1, S 1024, Hq 16, Hk 4), at Gemma-2
+    9B's widths (D 256, B 1, S 2048, Hq 16, Hk 8) and at the xl path's
+    D 288 (B 1, S 2048, Hq 16, Hk 4), in float32 and fp16: the forward on
+    the tensor cores, the backward on the CUDA cores."""
+    t0 = [time.perf_counter()]
+
+    def lap(part):  # the seconds of each part, for the run's budget
+        t = time.perf_counter()
+        print(f"faults {part}: {t - t0[0]:.1f} s", flush=True)
+        t0[0] = t
+
     zero_counts()
+    wide = ((160, 1024, WIDE_HQ, WIDE_HK), (256, 2048, 16, 8),
+            (XL_D, XL_S, WIDE_HQ, WIDE_HK))
     flash = [fault_flash(torch, torch.float32, HQ, HK, "split"),
              fault_flash(torch, torch.float16, HQ, HK, "f16"),
              fault_flash(torch, torch.float32, 24, HK, "split", dh=80),
-             fault_flash(torch, torch.float32, WIDE_HQ, WIDE_HK, "simt",
-                         B=1, S=1024, dh=160),
-             fault_flash(torch, torch.float16, WIDE_HQ, WIDE_HK, "simt",
-                         B=1, S=1024, dh=160),
+             *(fault_flash(torch, dtype, hq, hk, route, B=1, S=S, dh=dh,
+                           bwd_route="simt")
+               for dh, S, hq, hk in wide
+               for dtype, route in ((torch.float32, "split"),
+                                    (torch.float16, "f16"))),
              fault_flash(torch, torch.bfloat16, 24, HK, "expanded")]
+    lap("flash")
     decode = [fault_decode(torch, hq, hk, dh, getattr(torch, dt),
                            quantized, pages)
               for hq, hk, dh, dt, pages in FAULT_DECODE
               for quantized in (False, True)]
     linear = [fault_int8_linear(torch, torch.float32, 4096, "split"),
               fault_int8_linear(torch, torch.float16, 4096, "f16"),
-              fault_int8_linear(torch, torch.bfloat16, 4100, "simt"),
-              fault_int8_linear(torch, torch.float16, 4100, "simt")]
+              *(fault_int8_linear(torch, dtype, 4100, route, M=m)
+                for m in (FAULT_PROMPTS[-1], 8)
+                for dtype, route in ((torch.bfloat16, "unaligned"),
+                                     (torch.float16, "f16_unaligned"),
+                                     (torch.float32, "split_unaligned")))]
+    lap("decode, int8 linear")
     llama = fault_llama(torch)
+    direct = direct_simt(torch)
     launches, _ = read_counts()
+    lap("llama, direct")
     missing = [n for n, _, _ in SIMT_KERNELS if launches[n] < 1]
     if missing:
         fail(f"the faults paths never launched {missing}: {launches}")
     timer = Timer(torch)
     timed = simt_flash_phase(torch, timer)
+    lap("timed flash")
     timed["paged_decode_simt"] = simt_decode_phase(torch, timer, False)
     timed["paged_decode_simt_q"] = simt_decode_phase(torch, timer, True)
     timed.update(simt_qmm_phase(torch, timer))
+    lap("timed decode, int8 linear")
+    for name, rec in wide_fwd_phase(torch, timer).items():
+        if name in timed:  # beside the kernel's record at D 128
+            timed[name].setdefault("cases", []).extend(
+                [rec] + rec.pop("cases", []))
+        else:
+            timed[name] = rec
+    lap("timed wide forward")
+    timed.update(unaligned_qmm_phase(torch, timer))
+    lap("timed ragged B7")
     del timer
     torch.cuda.empty_cache()
     return dict(flash=flash, decode=decode, int8_linear=linear, llama=llama,
+                direct=direct,
                 launches={n: launches[n] for n, _, _ in SIMT_KERNELS},
                 timed=timed)
 
@@ -1928,7 +2250,9 @@ def simt_records(faults, gpt32):
                 "bound_cuda_cores_ms", "cuda_cores_ms", "bf16_ms",
                 "bf16_graph_ms", "four_ms", "whole_call_ms", "split_ms",
                 "library_graph_ms", "fp16_ms", "sdpa_fp16_ms", "decode",
-                "d160", "engine_a", "plan") or k.startswith("k4100")}))
+                "d160", "engine_a", "plan", "cases", "padded_to",
+                "aligned_k", "aligned_ms", "aligned_graph_ms",
+                "lse_abs_err") or k.startswith("k4100")}))
     return records
 
 
@@ -2683,8 +3007,16 @@ def _counters():
             "split_bf16x3": (split_bf16x3_cuda, "launches"),
             "flash_fwd_f32": (flash_fwd_x3_cuda, "launches"),
             "flash_fwd_f16": (flash_fwd_cuda, "f16_launches"),
+            "flash_fwd_f32_xl": (flash_fwd_x3_cuda, "xl_launches"),
+            "flash_fwd_f16_256": (flash_fwd_cuda, "f16_256_launches"),
+            "flash_fwd_f16_xl": (flash_fwd_cuda, "f16_xl_launches"),
             "quant_matmul_f32": (quant_matmul_x3, "launches"),
             "quant_matmul_f16": (quant_matmul_f16, "launches"),
+            "quant_matmul_unaligned": (quant_matmul, "unaligned_launches"),
+            "quant_matmul_f16_unaligned": (quant_matmul_f16,
+                                           "unaligned_launches"),
+            "quant_matmul_f32_unaligned": (quant_matmul_x3,
+                                           "unaligned_launches"),
             "paged_decode_simt": (paged_decode_attention_simt, "launches"),
             "paged_decode_simt_q": (paged_decode_attention_simt,
                                     "launches_q"),
@@ -5402,18 +5734,25 @@ def main():
             if "registers" in line or "spill" in line.lower():
                 print(f"  ptxas {name}: {line.strip()}")
 
-    phases = kernel_phases(torch)
-    xl_path = xl_path_phase(torch)
-    faults = faults_phase(torch)
-    gpt32 = gpt_f32_phase(torch)
-    varlen = varlen_phase(torch)
-    served, b_traffic = slice_phase(torch)
-    llama8 = llama_fp8_phase(torch, *b_traffic)
-    trained = train_phase(torch)
-    fp8_trained = fp8_train_phase(torch, trained)
-    vit = vit_train_phase(torch)
-    llama_train = llama_train_phase(torch)
-    optimizers = optimizers_phase(torch)
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(torch, *args)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+
+    phases = timed(kernel_phases)
+    xl_path = timed(xl_path_phase)
+    faults = timed(faults_phase)
+    gpt32 = timed(gpt_f32_phase)
+    varlen = timed(varlen_phase)
+    served, b_traffic = timed(slice_phase)
+    llama8 = timed(llama_fp8_phase, *b_traffic)
+    trained = timed(train_phase)
+    fp8_trained = timed(fp8_train_phase, trained)
+    vit = timed(vit_train_phase)
+    llama_train = timed(llama_train_phase)
+    optimizers = timed(optimizers_phase)
     print(f"fp8 vs bf16 training step (GPT-2 medium, 8 x 1024, same call): "
           f"{fp8_trained['step_ms']:.2f} vs {trained['step_ms']:.2f} ms, "
           f"{fp8_trained['tokens_per_s']:.0f} vs "

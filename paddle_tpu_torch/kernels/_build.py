@@ -49,7 +49,7 @@ SIGNATURES = {
         # stream
         "flash_fwd_bf16": [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9 + [_P],
         # dtype (1 float16, 2 float32 as three bf16 pieces), then as
-        # flash_fwd_bf16 (D 64 or 128)
+        # flash_fwd_bf16
         "flash_fwd_tc": [_I] + [_P] * 10 + [_I] * 7 + [_F] + [_L] * 9
         + [_P],
     },
@@ -94,6 +94,11 @@ SIGNATURES = {
         # quant_matmul_decode_bf16 (x: float32 itself)
         "quant_matmul_tc": [_I] + [_P] * 5 + [_I] * 4 + [_P],
         "quant_matmul_decode_tc": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+        # any K (the ragged loader), dtype 0 bf16, 1 float16, 2 float32:
+        # as quant_matmul_tc with x's row stride in elements before the k
+        # chunks per split, and as quant_matmul_decode_tc
+        "quant_matmul_unaligned": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+        "quant_matmul_decode_unaligned": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     },
     "flash_simt": {
         # dtype (0 float32, 1 float16), q, k, v, o, lse, q_seg, kv_seg,

@@ -41,6 +41,75 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 16 bytes global -> shared, of which the first n (0 to 16) are read and
+// the rest zero-filled (cp.async's source size; no bytes read at n 0, but
+// `src` must still be a valid address)
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// the 16 bytes of shared memory from any byte address p (as five 4-byte
+// reads from p rounded down to 4, funnel-shifted)
+__device__ __forceinline__ uint4 lds128_at(const unsigned char* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
+  const uint32_t sh = 8 * static_cast<uint32_t>(a & 3);
+  const uint32_t w0 = q[0], w1 = q[1], w2 = q[2], w3 = q[3], w4 = q[4];
+  return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                    __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+}
+
+// the 4 bytes of shared memory from any byte address p
+__device__ __forceinline__ uint32_t lds32_at(const unsigned char* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint32_t* q = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
+  return __funnelshift_r(q[0], q[1], 8 * static_cast<uint32_t>(a & 3));
+}
+
+// A row of int8 weights K bytes long has no 16-byte stride where K % 16 !=
+// 0: byte k of row r sits at w + r K + k. The ragged loaders copy, for
+// each row, the 16-byte-aligned span that holds the stage's kBytes of it
+// (kBytes / 16 + 1 chunks, from the row's first byte rounded down to 16),
+// by 16-byte cp.async as for aligned rows, and the products read the row
+// from its offset in the span, `span_offset`: the same for every stage, as
+// a stage starts at a multiple of 16. Chunks past the end of w are
+// zero-filled (a chunk is read only up to it); bytes past K in a row are
+// the next row's, which meet the zeros x holds there.
+__device__ __forceinline__ int span_offset(const void* w, long long at) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(w) + at) & 15);
+}
+
+// kRows rows' spans of kBytes bytes from byte k0 (a multiple of 16) of row
+// r0 of w [rows, K], copied by threads t = 0 .. kN - 1 into rows kStride
+// bytes apart at dst; rows from `rows` on zero-filled
+template <int kRows, int kBytes, int kStride, int kN>
+__device__ __forceinline__ void copy_spans(unsigned char* dst,
+                                           const int8_t* w, long long r0,
+                                           int rows, int K, int k0,
+                                           const int8_t* end, int t) {
+  constexpr int kChunks = kBytes / 16 + 1;
+  static_assert(kChunks * 16 <= kStride, "a span fits a staged row");
+  constexpr int kAll = kRows * kChunks;
+  #pragma unroll 6
+  for (int j = 0; j < (kAll + kN - 1) / kN; ++j) {
+    const int i = t + j * kN;
+    if (kAll % kN != 0 && i >= kAll) break;
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const uintptr_t a =
+        (reinterpret_cast<uintptr_t>(w + (r0 + r) * K + k0) & ~uintptr_t{15}) +
+        16 * c;
+    const long long left = reinterpret_cast<uintptr_t>(end) - a;
+    const int n = r >= rows || left <= 0 ? 0 : left < 16 ? int(left) : 16;
+    cp_async16_n(dst + r * kStride + 16 * c,
+                 n ? reinterpret_cast<const void*>(a) : w, n);
+  }
+}
+
 // 4 bytes global -> shared, asynchronously (through L1: .cg takes 16-byte
 // copies only); zero-fills when !ok, as cp_async16
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -49,6 +118,91 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
+}
+
+// 8 bytes global -> shared, as cp_async4
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+// G bytes (16, 8, 4 or 2; dst and src aligned to it) global -> shared,
+// zero-filled when !ok: 4 bytes and up asynchronously (cp.async), 2
+// through a register (the store waits for its load)
+template <int G>
+__device__ __forceinline__ void copy_granule(void* dst, const void* src,
+                                             bool ok) {
+  static_assert(G == 16 || G == 8 || G == 4 || G == 2, "a copy granule");
+  if constexpr (G == 16) {
+    cp_async16(dst, src, ok);
+  } else if constexpr (G == 8) {
+    cp_async8(dst, src, ok);
+  } else if constexpr (G == 4) {
+    cp_async4(dst, src, ok);
+  } else {
+    *static_cast<uint16_t*>(dst) =
+        ok ? *static_cast<const uint16_t*>(src) : uint16_t{0};
+  }
+}
+
+// kRows rows of kRowBytes bytes (row r at src + r ld) global -> shared in
+// granules of G bytes, copied by threads t = 0 .. kN - 1, granule (r, off)
+// to dst + at(r, off); zeros from row `rows` and from byte `bytes` of a
+// row on (G divides ld and bytes, so no granule straddles either). Trip
+// counts and shifts are compile-time: the ragged loaders' copies must cost
+// a few instructions each, as one warp issues a stage's thousands of them.
+template <int G, int kRows, int kRowBytes, int kN, typename At>
+__device__ __forceinline__ void copy_rows(unsigned char* dst,
+                                          const unsigned char* src,
+                                          long long ld, int rows, int bytes,
+                                          int t, At at) {
+  constexpr int kPer = kRowBytes / G;  // granules a row
+  constexpr int kAll = kRows * kPer;
+  #pragma unroll 8
+  for (int j = 0; j < (kAll + kN - 1) / kN; ++j) {
+    const int i = t + j * kN;
+    if (kAll % kN != 0 && i >= kAll) break;
+    const int r = i / kPer;
+    const int off = (i % kPer) * G;
+    const bool ok = r < rows && off < bytes;
+    copy_granule<G>(dst + at(r, off), ok ? src + r * ld + off : src, ok);
+  }
+}
+
+// copy_rows at the granule g (copy_granule_of of rows of 2-byte or wider
+// elements: 2 at least) known only at run time
+template <int kRows, int kRowBytes, int kN, typename At>
+__device__ __forceinline__ void copy_rows_by(int g, unsigned char* dst,
+                                             const unsigned char* src,
+                                             long long ld, int rows,
+                                             int bytes, int t, At at) {
+  switch (g) {
+    case 16:
+      copy_rows<16, kRows, kRowBytes, kN>(dst, src, ld, rows, bytes, t, at);
+      break;
+    case 8:
+      copy_rows<8, kRows, kRowBytes, kN>(dst, src, ld, rows, bytes, t, at);
+      break;
+    case 4:
+      copy_rows<4, kRows, kRowBytes, kN>(dst, src, ld, rows, bytes, t, at);
+      break;
+    default:
+      copy_rows<2, kRows, kRowBytes, kN>(dst, src, ld, rows, bytes, t, at);
+  }
+}
+
+// the widest granule (16 down to 2 bytes) that a row of `row_bytes` from
+// base `p` keeps aligned at every row (rows of 2-byte or wider elements)
+inline int copy_granule_of(const void* p, long long row_bytes) {
+  int g = 16;
+  while (g > 2 && ((reinterpret_cast<uintptr_t>(p) |
+                    static_cast<uintptr_t>(row_bytes)) &
+                   (g - 1)))
+    g >>= 1;
+  return g;
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -155,6 +309,13 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+// one arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 // wait until the phase of `bar` with this parity has completed

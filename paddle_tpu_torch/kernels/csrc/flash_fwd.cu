@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in (at D 64/128 also
-// fp16, and float32 as three bf16 pieces), f32 softmax.
+// Flash-attention forward for Hopper (sm_90a), bf16, fp16 and float32 (as
+// three bf16 pieces) in, f32 softmax.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (paddle_tpu/kernels/pallas/flash_attention.py:281, with its causal
@@ -140,7 +140,8 @@
 // float32 and fp16 at D 64/128 (`flash_fwd_tc_kernel<T, P, D, kSeg>`,
 // both branches; the same Pallas body for q's other dtypes). What bounds
 // them: the products, as in bf16; on the CUDA cores (flash_simt.cu,
-// which keeps D above 128) float32 could not pass 67 TFLOP/s.
+// which keeps the backward above D 128) float32 could not pass 67
+// TFLOP/s.
 // - fp16 (T __half, P 1): the segment kernel's layout above on the `.f16`
 //   forms of the wgmma helpers, dense and segment branch alike: Q's
 //   fragments in registers, 64-key stages, S in m64n32 halves, P rounded
@@ -161,6 +162,27 @@
 //   the drained ring. The dense walk skips tiles above the causal
 //   diagonal and masks only diagonal and ragged steps, as the dense
 //   kernel; the segment walk takes the segment kernel's pair list.
+//
+// float32 and fp16 above D 128 (padded as bf16 is: 129-256 to 256, above
+// to the next multiple of 128). Until these, both ran on the CUDA cores
+// (flash_simt.cu `fwd_kernel`, float32 FMAs at 67 TFLOP/s, Q re-staged a
+// scalar at a time for every key tile): 21.6x behind SDPA in fp16 at
+// D 160 on the H100.
+// - fp16 at D 256: `flash_fwd_256_kernel<__half, kSeg>`, the bf16 kernel
+//   with fp16 TMA maps and the `.f16` wgmma forms (192 KiB, unchanged).
+// - fp16 above 256: `flash_fwd_xl_kernel<__half, 1, kSeg>`, likewise.
+// - float32 at 256: `flash_fwd_tc_kernel<bf16, 3, 256, kSeg>`. Its D 128
+//   layout (Q's pieces resident, 32-key stages) would take 96 KiB of Q and
+//   192 KiB of ring, over a CTA's 227 KiB; with 16-key stages it takes 192
+//   KiB. S is m64n16 `wgmma` (96 products a step, in four independent
+//   accumulators), O (128 registers a thread) is rescaled before P V and
+//   accumulates in place: no second D-wide accumulator fits.
+// - float32 above 256: `flash_fwd_xl_kernel<bf16, 3, kSeg>`, the xl layout
+//   on three pieces: Q and K stream by 128-column chunks of three pieces
+//   with 32-key steps (192 KiB at every D), O's slice at 64 registers a
+//   thread, at the cost of S computed D / 128 times. It served D 256 too
+//   in a first version: 2.3x (D 160) and 2.8x (D 256) slower than the tc
+//   kernel there on the H100 (PERF.md).
 
 #include <mutex>
 
@@ -189,14 +211,15 @@ struct FwdSmem {
   static constexpr int kBytes = (kQ + 2 * kStages * kKV) * 2;
 };
 
-// mask (when kMask), scale and online softmax of one 64-key tile; s holds P
+// mask (when kMask), scale and online softmax of one tile of 8 kNT keys (a
+// 64-key tile, or a 32-key step of the three-piece kernel); s holds P
 // (unnormalized, f32) afterwards, acc and the running max/sum are rescaled.
 // The mask is the end of the keys and the bottom-right causal diagonal,
 // or with kSeg the tile's staged ids and positions (tseg, tpos) against
 // the rows' (qid, qp).
-template <bool kMask, bool kSeg, int kDT>
+template <bool kMask, bool kSeg, int kDT, int kNT>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[kBK / 8][4], float (&acc)[kDT][4], float (&m_run)[2],
+    float (&s)[kNT][4], float (&acc)[kDT][4], float (&m_run)[2],
     float (&l_run)[2], const int (&pos)[2], int t0, int Sk, int causal,
     int off, float scale_log2, int tig, const int* tseg, const int* tpos,
     const int (&qid)[2], const int (&qp)[2]) {
@@ -204,7 +227,7 @@ __device__ __forceinline__ void softmax_tile(
   for (int i = 0; i < 2; ++i) {
     float mx = m_run[i];
     #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
+    for (int nt = 0; nt < kNT; ++nt) {
       #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float x = s[nt][i * 2 + j] * scale_log2;
@@ -228,7 +251,7 @@ __device__ __forceinline__ void softmax_tile(
     const float alpha = exp2f(m_run[i] - mx);
     float rs = 0.f;
     #pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
+    for (int nt = 0; nt < kNT; ++nt) {
       #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const float x = s[nt][i * 2 + j];
@@ -485,15 +508,16 @@ struct Fwd256Smem {
 // the other's products; each releases a stage to the producer once its
 // products have read it. kSeg walks the compacted pair list
 // (flash_seg.cuh) and masks by the ids and positions that ride in each V
-// stage.
-template <bool kSeg>
+// stage. T is the element type: bf16, or fp16 on the `.f16` wgmma forms
+// with P rounded to fp16 before P V (the reference casts P to V's dtype).
+template <typename T, bool kSeg>
 __global__ void __launch_bounds__(kT3, 1)
 flash_fwd_256_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const __grid_constant__ CUtensorMap idmap,
                      const __grid_constant__ CUtensorMap posmap,
-                     const __nv_bfloat16* __restrict__ q,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     const T* __restrict__ q, T* __restrict__ o,
+                     float* __restrict__ lse,
                      int Sq, int Sk, int Hq, int Hk, int causal,
                      float scale_log2, Strides qs, Seg seg) {
   using L = Fwd256Smem;
@@ -635,8 +659,8 @@ flash_fwd_256_kernel(const __grid_constant__ CUtensorMap kmap,
     tiles::wgmma_fence();
     #pragma unroll
     for (int kc = 0; kc < kKC; ++kc)
-      wgmma_ss_n64(flat(s), kstep_desc<kRows2>(sQ, kFRows * c, kc),
-                   kstep_desc<kBK>(sK + st * L::kTile, 0, kc), kc > 0);
+      wgmma_ss_n64<T>(flat(s), kstep_desc<kRows2>(sQ, kFRows * c, kc),
+                      kstep_desc<kBK>(sK + st * L::kTile, 0, kc), kc > 0);
     tiles::wgmma_commit();
   };
   auto pv_product = [&](int g) {
@@ -644,17 +668,17 @@ flash_fwd_256_kernel(const __grid_constant__ CUtensorMap kmap,
     tiles::wgmma_fence();
     #pragma unroll
     for (int kc = 0; kc < kPC; ++kc)
-      wgmma_rs_t_n256(flat(acc), a_p[kc],
-                      desc_mn_sw128(sV + (g % kStages) * L::kTile +
-                                        16 * kc * 128,
-                                    kBK * 128),
-                      1);
+      wgmma_rs_t_n256<T>(flat(acc), a_p[kc],
+                         desc_mn_sw128(sV + (g % kStages) * L::kTile +
+                                           16 * kc * 128,
+                                       kBK * 128),
+                         1);
     tiles::wgmma_commit();
   };
   auto to_p = [&]() {
     #pragma unroll
     for (int kc = 0; kc < kPC; ++kc)
-      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+      acc_to_a<T>(a_p[kc], s[2 * kc], s[2 * kc + 1]);
   };
 
   if (c == 1) pass_turn();  // consumer 0 takes the first turn
@@ -810,7 +834,7 @@ flash_fwd_256_kernel(const __grid_constant__ CUtensorMap kmap,
         const int col = dt * 8 + tig * 2;
         *reinterpret_cast<uint32_t*>(sQ + swz<kRows2>(r, col >> 3) +
                                      (col & 7) * 2) =
-            pack_f32(acc[dt][i * 2] * inv, acc[dt][i * 2 + 1] * inv);
+            pack2<T>(acc[dt][i * 2] * inv, acc[dt][i * 2 + 1] * inv);
       }
       if (tig == 0 && pos[i] < Sq) {
         lse[(static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i]] =
@@ -1138,49 +1162,80 @@ flash_fwd_seg_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// head dims above 256
+// head dims above 256 (bf16, fp16, and float32 as three bf16 pieces)
 // ---------------------------------------------------------------------------
 
 constexpr int kXW = 128;  // O columns a CTA owns: one chunk of the head dim
 
-// a ring stage: one chunk of Q (the CTA's 64 folded rows) and of K (a key
-// tile), and V's chunk of the CTA's slice (filled on a tile's last item
-// only), each a swizzled [64][kXW]
-struct XlSmem {
-  static constexpr int kChunk = kBK * kXW * 2;
-  static constexpr int kStage = 3 * kChunk;
-  static constexpr int kBytes = kStages * kStage;
-  static constexpr int kInts = 2 * kStages * kBK + kSegScratch;
-  static constexpr int kSS = kXW + 8;  // O's padded staging rows
-  static_assert(kFRows == kBK, "one tile shape for Q and K chunks");
+// element strides between the pieces of q, k, v (0 at P 1): the pieces of a
+// float32 operand are [3, B, S, H, D] bf16, contiguous
+struct PieceStrides {
+  long long q, k, v;
 };
 
-// D a multiple of kXW above 256. Whole 64-row tiles do not fit at D 512,
-// so the contraction S = Q K^T streams through the ring one chunk of
-// kXW columns at a time (items: a key tile's chunks, the slice's own
-// last), summing in the wgmma accumulator; after the last chunk the
-// online softmax runs as in the dense kernel and O[:, slice] += P V_slice
-// (RS form, V MN-major). Every CTA of a row block computes the same S, m
-// and l; the first slice's writes LSE.
-template <bool kSeg>
-__global__ void __launch_bounds__(kFThreads, 2)
-flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int B, int Sq, int Sk, int Hq, int Hk, int D, int causal,
-                    float scale_log2, Strides qs, Strides ks, Strides vs,
-                    Seg seg) {
-  using L = XlSmem;
-  constexpr int kKC = kXW / 16;  // k steps of S in a chunk
-  constexpr int kNT = kBK / 8;   // 8-key n-tiles of S
-  constexpr int kDT = kXW / 8;   // n-tiles of the slice of O
-  constexpr int kPC = kBK / 16;  // k steps of P V
-  constexpr int kCP = kXW / 8;   // 16-byte pieces of a chunk's row
+// T: the element type of the staged operands (bf16, __half, or bf16
+// pieces); P: 1, or 3 when q, k, v are the three bf16 pieces of float32
+// operands (S and P V then the six terms of first_term(3) .. 5, P split in
+// registers, O float32)
+template <typename T, int P>
+using TcOut = std::conditional_t<P == 1, T, float>;
+
+// a ring stage: for each of the P pieces one chunk of Q (the CTA's 64
+// folded rows), one of K (a ring step's keys), and V's chunk of the CTA's
+// slice (filled on a step's last item only), each a swizzled [rows][kXW]:
+// P 1 steps 64 keys (48 KiB a stage), P 3 32 keys (96 KiB a stage, a
+// 192 KiB ring)
+template <int P>
+struct XlSmem {
+  static constexpr int kKeys = P == 1 ? kBK : kBK / 2;  // keys a ring step
+  static constexpr int kQChunk = kFRows * kXW * 2;  // a piece of Q's chunk
+  static constexpr int kKChunk = kKeys * kXW * 2;   // a piece of K's or V's
+  static constexpr int kK = P * kQChunk;            // K's pieces in a stage
+  static constexpr int kV = kK + P * kKChunk;       // V's pieces
+  static constexpr int kStage = kV + P * kKChunk;
+  static constexpr int kBytes = kStages * kStage;
+  // the segment branch's ints after the ring: each stage's kv ids and
+  // positions, scratch, then the list of live pairs (one per key tile)
+  static constexpr int kInts = 2 * kStages * kKeys + kSegScratch;
+  // O's staging rows over the drained ring: padded rows of T (P 1) or
+  // float32 rows (P 3)
+  static constexpr int kOS = P == 1 ? kXW + 8 : kXW + 4;
+  static_assert(kFRows * kOS * 4 <= kBytes, "O's rows fit the ring");
+};
+
+// D a multiple of kXW above 256.
+// Whole 64-row tiles do not fit at D 512, so the contraction S = Q K^T
+// streams through the ring one chunk of kXW columns at a time (items: a
+// ring step's chunks, the slice's own last), summing in the wgmma
+// accumulator; after the last chunk the online softmax runs as in the
+// dense kernel and O[:, slice] += P V_slice (RS form, V MN-major). Every
+// CTA of a row block computes the same S, m and l; the first slice's
+// writes LSE. At P 3 (float32: three bf16 pieces of q, k and v, the xl
+// layout on pieces) each product is the six terms of the pieces whose
+// indices sum to at most 2, P is split in registers and O is float32, as
+// in flash_fwd_tc_kernel; Q's and K's chunks of three pieces keep a step
+// at 32 keys, so S is recomputed D / kXW times a key as at P 1 (at D 256
+// float32 takes flash_fwd_tc_kernel's 16-key stages instead).
+template <typename T, int P, bool kSeg>
+__global__ void __launch_bounds__(kFThreads, P == 1 ? 2 : 1)
+flash_fwd_xl_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, TcOut<T, P>* __restrict__ o,
+                    float* __restrict__ lse, int B, int Sq, int Sk, int Hq,
+                    int Hk, int D, int causal, float scale_log2, Strides qs,
+                    Strides ks, Strides vs, PieceStrides pc, Seg seg) {
+  using L = XlSmem<P>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kHalves = kBK / kKeys;  // ring steps a key tile
+  constexpr int kKC = kXW / 16;         // k steps of S in a chunk
+  constexpr int kNT = kKeys / 8;        // 8-key n-tiles of S
+  constexpr int kDT = kXW / 8;          // n-tiles of the slice of O
+  constexpr int kPC = kKeys / 16;       // k steps of P V
+  constexpr int kCP = kXW / 8;          // 16-byte pieces of a chunk's row
+  constexpr int kT0 = first_term(P);
   extern __shared__ __align__(1024) unsigned char xl_smem[];
-  int* sKseg = reinterpret_cast<int*>(xl_smem + L::kBytes);  // [stage][kBK]
-  int* sKpos = sKseg + kStages * kBK;
-  int* sScratch = sKpos + kStages * kBK;
+  int* sKseg = reinterpret_cast<int*>(xl_smem + L::kBytes);  // [stage][kKeys]
+  int* sKpos = sKseg + kStages * kKeys;
+  int* sScratch = sKpos + kStages * kKeys;
   int* sList = sScratch + kSegScratch;
 
   const int nch = D / kXW;
@@ -1202,57 +1257,77 @@ flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
   const int tig = lane & 3;
   const int off = Sk - Sq;
 
+  // the ring steps: kHalves a key tile up to the diagonal of the block's
+  // last live row, or of each live pair of the list
   const int q_hi = min(q0 + bq, Sq) - 1;
-  int ntiles;
+  int nsteps;
   if constexpr (kSeg) {
     const int nkt = (Sk + kBK - 1) / kBK;
     const size_t at = static_cast<size_t>(b) * Sq + q0;
     const int4 mine = block_bounds(seg.qseg + at, seg.qpos + at,
                                    q_hi + 1 - q0, sScratch);
-    ntiles = live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt,
-                              nkt, mine, causal, sList, sScratch);
+    nsteps = kHalves *
+             live_pairs<true>(seg.kb + static_cast<size_t>(b) * 4 * nkt, nkt,
+                              mine, causal, sList, sScratch);
   } else {
     const int kend = max(causal ? min(Sk, q_hi + off + 1) : Sk, 0);
-    ntiles = (kend + kBK - 1) / kBK;
+    nsteps = (kend + kKeys - 1) / kKeys;
   }
+  // the list entry of the n-th key tile (flagged kFull) and the first key
+  // of ring step n
   auto entry_of = [&](int t) {
     if constexpr (kSeg) return sList[t];
     else return t;
   };
-  const int nitems = ntiles * nch;
+  auto key_of = [&](int n) {
+    return (entry_of(n / kHalves) & (kFull - 1)) * kBK +
+           (n % kHalves) * kKeys;
+  };
+  const int nitems = nsteps * nch;
 
-  // item n: chunk (sl + 1 + n % nch) % nch of key tile n / nch
+  // item n: chunk (sl + 1 + n % nch) % nch of ring step n / nch
   auto load = [&](int n, int st) {
-    const int t = entry_of(n / nch) & (kFull - 1);
+    const int kb0 = key_of(n / nch);
     const int j = n % nch;
     const int c0 = ((sl + 1 + j) % nch) * kXW;
     const bool last = j == nch - 1;
     unsigned char* base = xl_smem + st * L::kStage;
-    if (kSeg && last) {  // threads 0-63 copy the ids, 64-127 positions
-      const int i = tid % kBK;
-      const int key = t * kBK + i;
-      const bool ok = key < Sk;
-      const int* src = tid < kBK ? seg.kseg : seg.kpos;
-      int* dst = (tid < kBK ? sKseg : sKpos) + st * kBK;
-      cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
-                ok);
+    if constexpr (kSeg) {  // threads 0 .. kKeys - 1 copy the ids, the next
+      if (last && tid < 2 * kKeys) {  // kKeys the positions
+        const int i = tid % kKeys;
+        const int key = kb0 + i;
+        const bool ok = key < Sk;
+        const int* src = tid < kKeys ? seg.kseg : seg.kpos;
+        int* dst = (tid < kKeys ? sKseg : sKpos) + st * kKeys;
+        cp_async4(dst + i, ok ? src + static_cast<size_t>(b) * Sk + key : src,
+                  ok);
+      }
     }
-    for (int i = tid; i < kBK * kCP; i += kFThreads) {
-      const int r = i / kCP;
+    for (int i = tid; i < P * kFRows * kCP; i += kFThreads) {
+      const int p = i / (kFRows * kCP);
+      const int r = (i / kCP) % kFRows;
       const int c8 = i % kCP;
-      const int so = swz<kBK>(r, c8);
       const int pos = q0 + r % bq;
-      const bool okq = pos < Sq;
-      cp_async16(base + so,
-                 okq ? q + qs.at(b, pos, kvh * G + r / bq) + c0 + 8 * c8 : q,
-                 okq);
-      const int key = t * kBK + r;
-      const bool okk = key < Sk;
-      cp_async16(base + L::kChunk + so,
-                 okk ? k + ks.at(b, key, kvh) + c0 + 8 * c8 : k, okk);
+      const bool ok = pos < Sq;
+      cp_async16(base + p * L::kQChunk + swz<kFRows>(r, c8),
+                 ok ? q + p * pc.q + qs.at(b, pos, kvh * G + r / bq) + c0 +
+                          8 * c8
+                    : q,
+                 ok);
+    }
+    for (int i = tid; i < P * kKeys * kCP; i += kFThreads) {
+      const int p = i / (kKeys * kCP);
+      const int r = (i / kCP) % kKeys;
+      const int c8 = i % kCP;
+      const int so = p * L::kKChunk + swz<kKeys>(r, c8);
+      const int key = kb0 + r;
+      const bool ok = key < Sk;
+      cp_async16(base + L::kK + so,
+                 ok ? k + p * pc.k + ks.at(b, key, kvh) + c0 + 8 * c8 : k, ok);
       if (last)  // c0 is the slice's own chunk
-        cp_async16(base + 2 * L::kChunk + so,
-                   okk ? v + vs.at(b, key, kvh) + c0 + 8 * c8 : v, okk);
+        cp_async16(base + L::kV + so,
+                   ok ? v + p * pc.v + vs.at(b, key, kvh) + c0 + 8 * c8 : v,
+                   ok);
     }
   };
   if (nitems > 0) load(0, 0);
@@ -1282,8 +1357,8 @@ flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
   float m_run[2] = {kNeg, kNeg};
   float l_run[2] = {0.f, 0.f};
-  float s[kNT][4];       // S, summed over a tile's chunks by wgmma
-  uint32_t a_p[kPC][4];  // P's A fragments, live until P V retires
+  float s[kNT][4];          // S, summed over a step's chunks by wgmma
+  uint32_t a_p[P][kPC][4];  // P's A fragments, live until P V retires
 
   for (int n = 0; n < nitems; ++n) {
     cp_async_wait<kStages - 2>();  // item n has landed
@@ -1294,51 +1369,72 @@ flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = n % kStages;
     const int j = n % nch;
     const unsigned char* tQ = xl_smem + st * L::kStage;
-    const unsigned char* tK = tQ + L::kChunk;
-    const unsigned char* tV = tK + L::kChunk;
+    const unsigned char* tK = tQ + L::kK;
+    const unsigned char* tV = tQ + L::kV;
 
+    // S (+)= Q_chunk K_chunk^T: piece term_a(t) of Q against piece
+    // term_b(t) of K, both K-major from the swizzled stage
     tiles::fence_regs(flat(s));
     tiles::wgmma_fence();
     #pragma unroll
-    for (int kc = 0; kc < kKC; ++kc)
-      wgmma_ss_n64(flat(s), kstep_desc<kBK>(tQ, 0, kc),
-                   kstep_desc<kBK>(tK, 0, kc), j > 0 || kc > 0);
+    for (int t = kT0; t < 6; ++t)
+      #pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        const uint64_t da =
+            kstep_desc<kFRows>(tQ + term_a(t) * L::kQChunk, 0, kc);
+        const uint64_t db =
+            kstep_desc<kKeys>(tK + term_b(t) * L::kKChunk, 0, kc);
+        const int accumulate = j > 0 || t > kT0 || kc > 0;
+        if constexpr (kKeys == kBK)
+          wgmma_ss_n64<T>(flat(s), da, db, accumulate);
+        else
+          wgmma_ss_n32<T>(flat(s), da, db, accumulate);
+      }
     tiles::wgmma_commit();
     tiles::wgmma_wait<0>();
     tiles::fence_regs(flat(s));
     if (j != nch - 1) continue;
 
-    const int entry = entry_of(n / nch);
-    const int t0 = (entry & (kFull - 1)) * kBK;
+    const int step = n / nch;
+    const int entry = entry_of(step / kHalves);
+    const int kb0 = key_of(step);
     bool masked;
     if constexpr (kSeg)
-      masked = !(entry & kFull) || t0 + kBK > Sk;
+      masked = !(entry & kFull) || kb0 + kKeys > Sk;
     else
-      masked = t0 + kBK > Sk || (causal && t0 + kBK - 1 > q0 + off);
-    const int* tseg = sKseg + st * kBK;
-    const int* tpos = sKpos + st * kBK;
+      masked = kb0 + kKeys > Sk || (causal && kb0 + kKeys - 1 > q0 + off);
+    const int* tseg = sKseg + st * kKeys;
+    const int* tpos = sKpos + st * kKeys;
     // the dense kernel's softmax step; it rescales its accumulator by
     // alpha, here a [1][4] of ones that comes back as alpha of row gid
     // ([0][0]) and of row gid + 8 ([0][2])
     float alpha[1][4] = {{1.f, 1.f, 1.f, 1.f}};
     if (masked)
-      softmax_tile<true, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk, causal,
+      softmax_tile<true, kSeg>(s, alpha, m_run, l_run, pos, kb0, Sk, causal,
                                off, scale_log2, tig, tseg, tpos, qid, qp);
     else
-      softmax_tile<false, kSeg>(s, alpha, m_run, l_run, pos, t0, Sk, causal,
-                                off, scale_log2, tig, tseg, tpos, qid, qp);
+      softmax_tile<false, kSeg>(s, alpha, m_run, l_run, pos, kb0, Sk,
+                                causal, off, scale_log2, tig, tseg, tpos, qid,
+                                qp);
 
-    // PV = P(bf16) V_slice into a fresh accumulator, then O = O alpha + PV
+    // PV = P V_slice into a fresh accumulator (P rounded to T at P 1, as
+    // the reference casts P to V's dtype; split into three bf16 pieces at
+    // P 3), then O = O alpha + PV
     #pragma unroll
     for (int kc = 0; kc < kPC; ++kc)
-      acc_to_a(a_p[kc], s[2 * kc], s[2 * kc + 1]);
+      acc_to_pieces<T, P>(a_p, kc, s[2 * kc], s[2 * kc + 1]);
     float pv[kDT][4];
     tiles::fence_regs(flat(pv));
     tiles::wgmma_fence();
     #pragma unroll
-    for (int kc = 0; kc < kPC; ++kc)
-      wgmma_rs_t_n128(flat(pv), a_p[kc],
-                      desc_mn_sw128(tV + 16 * kc * 128, kBK * 128), kc > 0);
+    for (int t = kT0; t < 6; ++t)
+      #pragma unroll
+      for (int kc = 0; kc < kPC; ++kc)
+        wgmma_rs_t_n128<T>(flat(pv), a_p[term_a(t)][kc],
+                           desc_mn_sw128(tV + term_b(t) * L::kKChunk +
+                                             16 * kc * 128,
+                                         kKeys * 128),
+                           t > kT0 || kc > 0);
     tiles::wgmma_commit();
     tiles::wgmma_wait<0>();
     tiles::fence_regs(flat(pv));
@@ -1352,53 +1448,81 @@ flash_fwd_xl_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring
 
-  // normalize into the warp's own 16 padded rows over the ring; LSE from
-  // the first slice
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(xl_smem);
+  // normalize into the warp's own 16 rows over the ring (P 1: padded rows
+  // of T; P 3: float32 rows), LSE from the first slice, then the rows out
+  // 16 bytes a store
+  float inv[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* row = stage + (warp * 16 + gid + 8 * i) * L::kSS;
-    #pragma unroll
-    for (int dt = 0; dt < kDT; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
-          pack_f32(acc[dt][i * 2] * inv, acc[dt][i * 2 + 1] * inv);
+    inv[i] = l > 0.f ? 1.f / l : 0.f;
     if (sl == 0 && tig == 0 && pos[i] < Sq) {
       lse[(static_cast<size_t>(b) * Hq + head[i]) * Sq + pos[i]] =
           l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : kBig;
     }
   }
-  __syncwarp();
-  for (int i = lane; i < 16 * kCP; i += 32) {
-    const int r = warp * 16 + i / kCP;
-    const int c = (i % kCP) * 8;
-    const int p = q0 + r % bq;
-    if (p >= Sq) continue;
-    const size_t base =
-        ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D +
-        sl * kXW;
-    *reinterpret_cast<uint4*>(o + base + c) =
-        *reinterpret_cast<const uint4*>(stage + r * L::kSS + c);
+  if constexpr (P == 1) {
+    T* stage = reinterpret_cast<T*>(xl_smem);
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      T* row = stage + (warp * 16 + gid + 8 * i) * L::kOS;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<uint32_t*>(row + dt * 8 + tig * 2) =
+            pack2<T>(acc[dt][i * 2] * inv[i], acc[dt][i * 2 + 1] * inv[i]);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * kCP; i += 32) {
+      const int r = warp * 16 + i / kCP;
+      const int c = (i % kCP) * 8;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D +
+          sl * kXW;
+      *reinterpret_cast<uint4*>(o + base + c) =
+          *reinterpret_cast<const uint4*>(stage + r * L::kOS + c);
+    }
+  } else {
+    float* f = reinterpret_cast<float*>(xl_smem);
+    #pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = f + (warp * 16 + gid + 8 * i) * L::kOS;
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) = make_float2(
+            acc[dt][i * 2] * inv[i], acc[dt][i * 2 + 1] * inv[i]);
+    }
+    __syncwarp();
+    constexpr int kQuads = kXW / 4;
+    for (int i = lane; i < 16 * kQuads; i += 32) {
+      const int r = warp * 16 + i / kQuads;
+      const int c = (i % kQuads) * 4;
+      const int p = q0 + r % bq;
+      if (p >= Sq) continue;
+      const size_t base =
+          ((static_cast<size_t>(b) * Sq + p) * Hq + kvh * G + r / bq) * D +
+          sl * kXW;
+      *reinterpret_cast<float4*>(o + base + c) =
+          *reinterpret_cast<const float4*>(f + r * L::kOS + c);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// float32 (three bf16 pieces) and fp16 at D 64/128, both branches
+// float32 (three bf16 pieces) at D 64/128/256 and fp16 at D 64/128, both
+// branches
 // ---------------------------------------------------------------------------
 
-// element strides between the pieces of q, k, v (0 at P 1): the pieces of a
-// float32 operand are [3, B, S, H, D] bf16, contiguous
-struct PieceStrides {
-  long long q, k, v;
-};
-
+// P 3 at D 256: Q's pieces (96 KiB) and two stages of 16 keys (96 KiB)
+// fill 192 KiB; 32-key stages would take 288
 template <int D, int P>
 struct TcSmem {
   static constexpr int kStages = 2;
-  static constexpr int kKeys = P == 1 ? kBK : kBK / 2;  // keys a ring stage
+  static constexpr int kKeys =  // keys a ring stage
+      P == 1 ? kBK : D <= 128 ? kBK / 2 : kBK / 4;
   static constexpr int kPiece = kKeys * D * 2;  // a swizzled piece of K or V
   static constexpr int kTile = P * kPiece;      // a stage's K (or V) pieces
   static constexpr int kStage = 2 * kTile;      // K, then V
@@ -1418,13 +1542,6 @@ struct TcSmem {
   static constexpr int kInts = 2 * kStages * kKeys + kSegScratch;
 };
 
-// T: the element type of the staged operands (__half, or bf16 pieces);
-// P: 1, or 3 when q, k, v are the three bf16 pieces of float32 operands
-// (S and P V then the six terms of first_term(3) .. 5, P split in
-// registers, O float32)
-template <typename T, int P>
-using TcOut = std::conditional_t<P == 1, T, float>;
-
 template <typename T, int P, int D, bool kSeg>
 __global__ void __launch_bounds__(kFThreads, P == 1 || D == 64 ? 2 : 1)
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1443,6 +1560,9 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kPC = kKeys / 16;       // k steps of P V
   constexpr int kPieces = D / 8;        // 16-byte pieces per row
   constexpr int kT0 = first_term(P);
+  // at D 256 a second D-wide accumulator would not fit the registers: O
+  // is rescaled first and P V accumulates into it
+  constexpr bool kInPlace = D > 128;
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   unsigned char* smem_raw = tc_smem;
   // stage st: K's pieces at smem_raw + st kStage, V's after them
@@ -1624,6 +1744,42 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kNT][4];
     tiles::fence_regs(flat(s));
     tiles::wgmma_fence();
+    if constexpr (kKeys == 16) {
+      // P 3 at D 256: 96 m64n16 products a step. Into one accumulator they
+      // would be one dependent chain; four (k steps kc % 4) run side by
+      // side and are summed after. Q's 48 descriptors are rebuilt each
+      // step from an address the compiler cannot hoist (hoisted, they took
+      // 96 registers and spilled).
+      float sg[3][8];
+      int z = 0;
+      asm volatile("" : "+r"(z));
+      const unsigned char* pq = pQ + z;
+      #pragma unroll
+      for (int g = 0; g < 3; ++g) tiles::fence_regs(sg[g]);
+      auto ss = [&](float (&d)[8], int t, int kc) {
+        wgmma_ss_n16(d, kstep_desc<kFRows>(pq + term_a(t) * kFRows * D * 2,
+                                           0, kc),
+                     kstep_desc<kKeys>(tK + term_b(t) * L::kPiece, 0, kc),
+                     t > kT0 || kc >= 4);
+      };
+      #pragma unroll
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kKC; kc += 4) {
+          ss(flat(s), t, kc);
+          ss(sg[0], t, kc + 1);
+          ss(sg[1], t, kc + 2);
+          ss(sg[2], t, kc + 3);
+        }
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      #pragma unroll
+      for (int g = 0; g < 3; ++g) tiles::fence_regs(sg[g]);
+      tiles::fence_regs(flat(s));
+      #pragma unroll
+      for (int i = 0; i < 8; ++i)
+        flat(s)[i] = (flat(s)[i] + sg[0][i]) + (sg[1][i] + sg[2][i]);
+    }
     #pragma unroll
     for (int h = 0; h < kKeys / 32; ++h) {
       float (&sh)[4][4] = *reinterpret_cast<float(*)[4][4]>(&s[4 * h]);
@@ -1707,6 +1863,28 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     #pragma unroll
     for (int kc = 0; kc < kPC; ++kc)
       acc_to_pieces<T, P>(a_p, kc, s[2 * kc], s[2 * kc + 1]);
+    if constexpr (kInPlace) {
+      #pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        #pragma unroll
+        for (int c = 0; c < 4; ++c) acc[dt][c] *= alpha[c >> 1];
+      tiles::fence_regs(flat(acc));
+      tiles::wgmma_fence();
+      #pragma unroll
+      for (int t = kT0; t < 6; ++t)
+        #pragma unroll
+        for (int kc = 0; kc < kPC; ++kc)
+          wgmma_rs_t<D, T>(flat(acc), a_p[term_a(t)][kc],
+                           desc_mn_sw128(tV + term_b(t) * L::kPiece +
+                                             16 * kc * 128,
+                                         kKeys * 128),
+                           1);
+      tiles::wgmma_commit();
+      tiles::wgmma_wait<0>();
+      tiles::fence_regs(flat(acc));
+      fence_frags(a_p);
+      continue;
+    }
     float pv[kDT][4];
     tiles::fence_regs(flat(pv));
     tiles::wgmma_fence();
@@ -1836,7 +2014,7 @@ using tiles::encode_tiled;
 // training step's or a server's maps are found after the first call.
 struct MapKey {
   const void* base;
-  long long kind;  // 0: kv_map, 1: int_map
+  long long kind;  // 0: kv_map (bf16), 1: int_map, 2: kv_map (fp16)
   long long dims[4];
   long long strides[3];
   bool operator==(const MapKey& o) const {
@@ -1875,12 +2053,14 @@ bool cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
   return true;
 }
 
-// a [B, S, H, 256] bf16 operand read through its strides as 4-d boxes of
-// 64 columns x 1 head x 64 positions x 1 batch row, 128-byte swizzle, zeros
-// past S
+// a [B, S, H, 256] operand of T (bf16 or fp16) read through its strides as
+// 4-d boxes of 64 columns x 1 head x 64 positions x 1 batch row, 128-byte
+// swizzle, zeros past S
+template <typename T>
 bool kv_map(CUtensorMap* map, const void* base, int B, int S, int H,
             const Strides& st) {
-  const MapKey key = {base, 0, {256, H, S, B}, {st.h, st.s, st.b}};
+  const MapKey key = {base, kIsHalf<T> ? 2 : 0, {256, H, S, B},
+                      {st.h, st.s, st.b}};
   return cached_map(map, key, [&](CUtensorMap* m) {
     const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
     if (fn == nullptr) return false;
@@ -1892,8 +2072,10 @@ bool kv_map(CUtensorMap* map, const void* base, int B, int S, int H,
                                    static_cast<cuuint64_t>(st.b) * 2};
     const cuuint32_t box[4] = {64, 1, kBK, 1};
     const cuuint32_t estrides[4] = {1, 1, 1, 1};
-    return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-              const_cast<void*>(base), dims, strides, box, estrides,
+    return fn(m,
+              kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              4, const_cast<void*>(base), dims, strides, box, estrides,
               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1917,20 +2099,21 @@ bool int_map(CUtensorMap* map, const int* base, long long n) {
   });
 }
 
-// head dim 256, both branches (kSeg after one launch of the key tiles'
-// bounds): 128 folded rows a CTA, K and V through TMA tensor maps
-template <bool kSeg>
+// head dim 256 in T (bf16 or fp16), both branches (kSeg after one launch
+// of the key tiles' bounds): 128 folded rows a CTA, K and V through TMA
+// tensor maps
+template <typename T, bool kSeg>
 cudaError_t launch_256(const Args& a) {
   static int allowed = 0;
   using L = Fwd256Smem;
   const int nkt = (a.Sk + kBK - 1) / kBK;
   const int bytes = L::kBytes + (kSeg ? (L::kInts + nkt) * 4 : 0);
   cudaError_t e =
-      allow_dynamic_smem(flash_fwd_256_kernel<kSeg>, bytes, allowed);
+      allow_dynamic_smem(flash_fwd_256_kernel<T, kSeg>, bytes, allowed);
   if (e != cudaSuccess) return e;
   CUtensorMap kmap, vmap, idmap = {}, posmap = {};
-  if (!kv_map(&kmap, a.k, a.B, a.Sk, a.Hk, a.ks) ||
-      !kv_map(&vmap, a.v, a.B, a.Sk, a.Hk, a.vs))
+  if (!kv_map<T>(&kmap, a.k, a.B, a.Sk, a.Hk, a.ks) ||
+      !kv_map<T>(&vmap, a.v, a.B, a.Sk, a.Hk, a.vs))
     return cudaErrorInvalidValue;
   if (kSeg) {
     if (!int_map(&idmap, a.seg.kseg, static_cast<long long>(a.B) * a.Sk) ||
@@ -1944,9 +2127,10 @@ cudaError_t launch_256(const Args& a) {
   const int bq = kRows2 / (a.Hq / a.Hk);
   const int nqb = (a.Sq + bq - 1) / bq;
   const dim3 grid(!kSeg && a.causal ? (nqb + 1) / 2 : nqb, a.Hk, a.B);
-  flash_fwd_256_kernel<kSeg><<<grid, kT3, bytes, a.s>>>(
-      kmap, vmap, idmap, posmap, a.q, a.o, a.lse, a.Sq, a.Sk, a.Hq, a.Hk,
-      a.causal, a.sl2, a.qs, a.seg);
+  flash_fwd_256_kernel<T, kSeg><<<grid, kT3, bytes, a.s>>>(
+      kmap, vmap, idmap, posmap, reinterpret_cast<const T*>(a.q),
+      reinterpret_cast<T*>(a.o), a.lse, a.Sq, a.Sk, a.Hq, a.Hk, a.causal,
+      a.sl2, a.qs, a.seg);
   return cudaGetLastError();
 }
 
@@ -1972,15 +2156,16 @@ cudaError_t launch_seg(const Args& a) {
   return cudaGetLastError();
 }
 
-// above head dim 256: one launch of the key tiles' bounds (kSeg), then
-// one CTA a (row block, slice)
-template <bool kSeg>
-cudaError_t launch_xl(const Args& a) {
+// above head dim 256: one launch of the key
+// tiles' bounds (kSeg), then one CTA a (row block, slice)
+template <typename T, int P, bool kSeg>
+cudaError_t launch_xl(const Args& a, const PieceStrides& pc) {
   static int allowed = 0;
+  using L = XlSmem<P>;
   const int nkt = (a.Sk + kBK - 1) / kBK;
-  const int bytes = XlSmem::kBytes + (kSeg ? (XlSmem::kInts + nkt) * 4 : 0);
-  cudaError_t e = allow_dynamic_smem(flash_fwd_xl_kernel<kSeg>, bytes,
-                                     allowed);
+  const int bytes = L::kBytes + (kSeg ? (L::kInts + nkt) * 4 : 0);
+  auto kern = flash_fwd_xl_kernel<T, P, kSeg>;
+  cudaError_t e = allow_dynamic_smem(kern, bytes, allowed);
   if (e != cudaSuccess) return e;
   if (kSeg) {
     e = launch_bounds(Side{a.seg.kseg, a.seg.kpos, a.kv_bounds, a.Sk},
@@ -1991,14 +2176,16 @@ cudaError_t launch_xl(const Args& a) {
   const long long ctas = static_cast<long long>((a.Sq + bq - 1) / bq) *
                          a.Hk * a.B * (a.D / kXW);
   if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  flash_fwd_xl_kernel<kSeg><<<static_cast<unsigned>(ctas), kFThreads, bytes,
-                              a.s>>>(
-      a.q, a.k, a.v, a.o, a.lse, a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal,
-      a.sl2, a.qs, a.ks, a.vs, a.seg);
+  kern<<<static_cast<unsigned>(ctas), kFThreads, bytes, a.s>>>(
+      reinterpret_cast<const T*>(a.q), reinterpret_cast<const T*>(a.k),
+      reinterpret_cast<const T*>(a.v), reinterpret_cast<TcOut<T, P>*>(a.o),
+      a.lse, a.B, a.Sq, a.Sk, a.Hq, a.Hk, a.D, a.causal, a.sl2, a.qs, a.ks,
+      a.vs, pc, a.seg);
   return cudaGetLastError();
 }
 
-// the float32 (pieces) and fp16 kernel at D 64 / 128, dense or segment
+// the float32 (pieces) and fp16 kernel at D 64 / 128 (float32 also 256),
+// dense or segment
 // branch (kSeg after one launch of the key tiles' bounds)
 template <typename T, int P, int D, bool kSeg>
 cudaError_t launch_tc(const Args& a, const PieceStrides& pc) {
@@ -2027,6 +2214,11 @@ cudaError_t launch_tc(const Args& a, const PieceStrides& pc) {
 template <typename T, int P>
 cudaError_t launch_tc(const Args& a, const PieceStrides& pc) {
   const bool sg = a.seg.qseg != nullptr;
+  if constexpr (P == 3) {
+    if (a.D == 256)
+      return sg ? launch_tc<T, P, 256, true>(a, pc)
+                : launch_tc<T, P, 256, false>(a, pc);
+  }
   if (a.D == 128)
     return sg ? launch_tc<T, P, 128, true>(a, pc)
               : launch_tc<T, P, 128, false>(a, pc);
@@ -2099,10 +2291,12 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
   cudaError_t e;
+  using BF = __nv_bfloat16;
   if (D > 256)
-    e = segmented ? launch_xl<true>(a) : launch_xl<false>(a);
+    e = segmented ? launch_xl<BF, 1, true>(a, {})
+                  : launch_xl<BF, 1, false>(a, {});
   else if (D == 256)
-    e = segmented ? launch_256<true>(a) : launch_256<false>(a);
+    e = segmented ? launch_256<BF, true>(a) : launch_256<BF, false>(a);
   else if (D == 128)
     e = segmented ? launch_seg<128>(a) : launch_dense<128>(a);
   else
@@ -2112,8 +2306,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
 
 // dtype 1: fp16 q, k, v and O; dtype 2: q, k and v each point at three
 // bf16 pieces [3, B, S, H, D], contiguous (flash_split_bf16x3; the strides
-// are piece 0's), and O is float32. D 64 or 128; otherwise as
-// flash_fwd_bf16.
+// are piece 0's), and O is float32. D as flash_fwd_bf16 takes it: fp16 at
+// 64/128 on flash_fwd_tc_kernel, 256 on flash_fwd_256_kernel, above on
+// flash_fwd_xl_kernel; float32's pieces up to 256 on flash_fwd_tc_kernel,
+// above on flash_fwd_xl_kernel (P 3).
 extern "C" int flash_fwd_tc(int dtype, const void* q, const void* k,
                             const void* v, void* o, void* lse,
                             const void* q_seg, const void* kv_seg,
@@ -2128,10 +2324,27 @@ extern "C" int flash_fwd_tc(int dtype, const void* q, const void* k,
   if (!make_args(&a, q, k, v, o, lse, q_seg, kv_seg, q_pos, kv_pos,
                  kv_bounds, B, Sq, Sk, Hq, Hk, D, causal, scale, qsb, qss,
                  qsh, ksb, kss, ksh, vsb, vss, vsh, stream) ||
-      (dtype != 1 && dtype != 2) || (D != 64 && D != 128))
+      (dtype != 1 && dtype != 2) ||
+      !(D == 64 || D == 128 || D == 256 || (D > 256 && D % kXW == 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return static_cast<int>(cudaSuccess);
-  if (dtype == 1) return static_cast<int>(launch_tc<__half, 1>(a, {}));
+  const bool sg = a.seg.qseg != nullptr;
+  cudaError_t e;
+  if (dtype == 1) {
+    if (D <= 128)
+      e = launch_tc<__half, 1>(a, {});
+    else if (D == 256)
+      e = sg ? launch_256<__half, true>(a) : launch_256<__half, false>(a);
+    else
+      e = sg ? launch_xl<__half, 1, true>(a, {})
+             : launch_xl<__half, 1, false>(a, {});
+    return static_cast<int>(e);
+  }
   const PieceStrides pc = {qsb * B, ksb * B, vsb * B};
-  return static_cast<int>(launch_tc<__nv_bfloat16, 3>(a, pc));
+  using BF = __nv_bfloat16;
+  if (D <= 256)
+    e = launch_tc<BF, 3>(a, pc);
+  else
+    e = sg ? launch_xl<BF, 3, true>(a, pc) : launch_xl<BF, 3, false>(a, pc);
+  return static_cast<int>(e);
 }

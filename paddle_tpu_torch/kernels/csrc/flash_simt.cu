@@ -21,11 +21,16 @@
 // rounded to the operands' dtype before P V and P^T dO, dS before dS K and
 // dS^T Q, as the bf16 kernels round to bf16 (a no-op for float32).
 //
-// Which calls reach it: the forward at every head dim; dQ and dK/dV only
-// above head dim 128. Up to 128 the backward runs on the tensor cores
-// (flash_bwd.cu: fp16 on f16 wgmma, float32 as three bf16 pieces of every
-// operand, six products a product, at 165 TFLOP/s of float32 work); a
-// wrapper called directly still takes any head dim here.
+// Which calls reach it: dQ and dK/dV above head dim 128, and nothing else.
+// Up to 128 the backward runs on the tensor cores (flash_bwd.cu: fp16 on
+// f16 wgmma, float32 as three bf16 pieces of every operand, six products a
+// product, at 165 TFLOP/s of float32 work), and the forward runs there at
+// every head dim (flash_fwd.cu: fp16 at 256 and above on the bf16 layouts'
+// f16 forms, float32 as three pieces on 16-key stages at 256 and on the xl
+// layout above), so
+// `fwd_kernel` is on no route; a wrapper called directly still takes any
+// head dim here, and chip_smoke.py times it beside the kernels that
+// replaced it.
 //
 // What bounds it on this card: operations, on the CUDA cores' 67 TFLOP/s
 // of float32 (TF32 on the tensor cores would drop 13 bits of every

@@ -120,9 +120,8 @@
 // - Not yet: TMA with multicast across a cluster (would cut the L2
 //   re-reads), a producer warp, a persistent grid.
 //
-// fp16 and float32 x (K a multiple of 16; the CUDA cores'
-// quant_matmul_simt.cu keeps any other K): both paths are templated on
-// x's type XT, the bf16 instantiation being the code above.
+// fp16 and float32 x: both paths are templated on x's type XT, the bf16
+// instantiation being the code above.
 // - fp16: the products in fp16 (`mma.sync` / `wgmma` `.f16`), the weight
 //   converted by `i8x4_f16` (exact, below), y fp16.
 // - float32: x as three bf16 pieces (split_bf16x3's rule: x0 + x1 + x2 ==
@@ -139,6 +138,35 @@
 //   boxes a stage) and each lane splits what it reads into fragments: one
 //   more launch a layer for a split pass would cost about as much as the
 //   product itself at M <= 8.
+//
+// Any K (kRagged; until it, K % 16 != 0 ran on the CUDA cores,
+// quant_matmul_simt.cu, 7.2x behind F.linear at M 300, K 4100 in fp16 on
+// the H100): an int8 weight row of K bytes, and a 16-bit x row of 2 K, has
+// no 16-byte stride there, which TMA (decode) and the 16-byte cp.async
+// (prefill) need. The products do not care; only the loaders change.
+// - w: each row's stage span is copied as the 16-byte-aligned span that
+//   holds it (one 16-byte chunk more than the span), by 16-byte cp.async,
+//   into a staged row 16 bytes longer than the aligned one (unswizzled at
+//   decode: 144 bytes; prefill's padded 80-byte rows as they are), and the
+//   fragment reads start at the row's offset in its span
+//   (tiles::copy_spans, lds128_at / lds32_at: five or two 4-byte reads,
+//   funnel-shifted). A first version copied each row at the widest
+//   granule its stride allowed (4-byte cp.async at K 4100): on the H100
+//   M 8 read 14x the aligned decode and M 300 3.3x, still 2.6x and 2.4x
+//   with compile-time trip counts; the spans read 1.8x and 1.9x
+//   (PERF.md).
+// - x: its rows are copied at the widest granule their stride and base
+//   allow (cp.async of 16, 8 or 4 bytes; 2 through registers) into
+//   the same swizzled stages (wgmma and the decode's fragments read them
+//   in place); float32 x at prefill is split with its pieces' K padded to
+//   a multiple of 16, so its rows are aligned.
+// - The ragged last k chunk is zero-filled in x; w's bytes past K there
+//   are the next row's and meet those zeros. At decode the producer
+//   warp's 32 lanes copy (TMA's one lane cannot) and each arrives on the
+//   stage's full barrier when its copies land
+//   (cp.async.mbarrier.arrive.noinc).
+// No padded copy of w is made or kept: at K 4100, N 14336 that would be
+// 58.8 MB written and read again, as much as the bound.
 
 #include <cooperative_groups.h>
 
@@ -274,12 +302,14 @@ constexpr int kWarpRows = 16 * kBK;  // one warp's 16 weight rows of a stage
 constexpr int kW = 4;              // consumer warps a CTA (16 channels each)
 constexpr int kCh = 16 * kW;       // output channels a CTA
 constexpr int kBox = kTok * 128;   // one box of x: 8 rows of 128 bytes
+constexpr int kRS = kBK + 16;      // a ragged weight row's staged span
 static_assert(kBK == 128, "one 128-byte swizzle span a weight row");
 // x's 8 rows over a stage's 128 k in boxes of 128 bytes a row (two boxes
 // of 64 k for 16-bit x, four of 32 for float32 x), then 64 weight rows
+// (ragged: each row's 16-byte-aligned span of 144 bytes, unswizzled)
 __host__ __device__ constexpr int x_bytes(int elem) { return kTok * kBK * elem; }
-__host__ __device__ constexpr int stage_bytes(int elem) {
-  return x_bytes(elem) + kW * kWarpRows;
+__host__ __device__ constexpr int stage_bytes(int elem, bool ragged) {
+  return x_bytes(elem) + kCh * (ragged ? kRS : kBK);
 }
 
 // k per granule: K / 8 rounded up to a whole number of stages
@@ -295,9 +325,10 @@ __host__ __device__ __forceinline__ size_t slot_bytes(int S) {
                      sizeof(float4)
                : 0;
 }
-__host__ __device__ __forceinline__ size_t smem_bytes(int S, int elem) {
-  return static_cast<size_t>(kStages) * stage_bytes(elem) + slot_bytes(S) +
-         2 * kStages * sizeof(uint64_t);
+__host__ __device__ __forceinline__ size_t smem_bytes(int S, int elem,
+                                                      bool ragged) {
+  return static_cast<size_t>(kStages) * stage_bytes(elem, ragged) +
+         slot_bytes(S) + 2 * kStages * sizeof(uint64_t);
 }
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -328,6 +359,8 @@ using tiles::mbar_expect;
 using tiles::mbar_init;
 using tiles::mbar_wait;
 using tiles::tma_2d;
+using tiles::mbar_arrive_cp_async;
+using tiles::sw128_offset;
 
 // programmatic dependent launch: wait until the kernel before this one has
 // finished and its writes are visible (at once when it was not launched as
@@ -353,16 +386,24 @@ __device__ __forceinline__ int row_of(int g) { return ((g & 1) << 2) | (g >> 1);
 // (every warp splits the 8 rows it reads: no pass before the kernel, whose
 // launch would cost as much as the product at these sizes), and each
 // weight fragment meets the three, small pieces first.
-template <typename XT>
+// kRagged (K % 16 != 0: a row of x or w has no 16-byte stride, which TMA
+// needs) fills the ring with cp.async from all 32 lanes of the producer
+// warp: x's rows in the same swizzled layout at the widest granule they
+// allow (xg bytes: 16, 8 or 4 asynchronously, 2 through registers),
+// each weight row's 16-byte-aligned span by 16-byte copies (copy_spans;
+// the products read it from its offset), zeros past N, K and M; each lane
+// arrives on the full barrier once its copies have landed.
+template <typename XT, bool kRagged>
 __global__ void __launch_bounds__(32 * (kW + 1), 4)
 qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
                   const __grid_constant__ CUtensorMap xmap,
+                  const XT* __restrict__ x, const int8_t* __restrict__ w,
                   const float* __restrict__ s, XT* __restrict__ y,
-                  int M, int N, int K) {
+                  int M, int N, int K, int xg) {
   using T = ProdT<XT>;
   constexpr int P = kPiecesOf<XT>;
   constexpr int kX = x_bytes(sizeof(XT));
-  constexpr int kStage = stage_bytes(sizeof(XT));
+  constexpr int kStage = stage_bytes(sizeof(XT), kRagged);
   constexpr int kBoxK = 128 / sizeof(XT);  // k a box of x spans
   extern __shared__ __align__(1024) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -385,7 +426,7 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
   if (tid == 0) {
     #pragma unroll
     for (int i = 0; i < kStages; ++i) {
-      mbar_init(full + i, 1);
+      mbar_init(full + i, kRagged ? 32 : 1);
       mbar_init(empty + i, kW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -399,7 +440,38 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
     // (two boxes of 64), then the CTA's 64 weight rows of 128 bytes (one
     // box). A granule boundary never falls inside a stage, so a rank's
     // stages end at K or at the next rank's first k.
-    if (lane == 0) {
+    if constexpr (kRagged) {
+      grid_dependency_wait();  // every global read after the kernel before
+      const bool sync = xg < 4;  // some copies through registers
+      constexpr int es = sizeof(XT);
+      const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+      const int8_t* wend = w + static_cast<size_t>(N) * K;
+      for (int st = 0; st < nst; ++st) {
+        const int slot = st % kStages;
+        if (st >= kStages) mbar_wait(empty + slot, (st / kStages + 1) & 1);
+        unsigned char* xs = smem + slot * kStage;
+        const int kb = k0 + st * kBK;
+        // x's 8 rows: byte `off` of a row's stage span lies in box off /
+        // 128, chunk (off / 16) % 8 of the box's row, as TMA lays it
+        tiles::copy_rows_by<kTok, kBK * es, 32>(
+            xg, xs, xb + static_cast<size_t>(kb) * es,
+            static_cast<long long>(K) * es, M, (K - kb) * es, lane,
+            [](int r, int off) {
+              return (off >> 7) * kBox + sw128_offset(r, (off >> 4) & 7) +
+                     (off & 15);
+            });
+        tiles::copy_spans<kCh, kBK, kRS, 32>(xs + kX, w, c0, N - c0, K, kb,
+                                             wend, lane);
+        if (sync) {  // the register stores are in; the copies must land
+          tiles::cp_async_commit();
+          tiles::cp_async_wait<0>();
+          mbar_arrive(full + slot);
+        } else {
+          mbar_arrive_cp_async(full + slot);
+        }
+      }
+      launch_dependents();
+    } else if (lane == 0) {
       grid_dependency_wait();  // every global read after the kernel before
       for (int st = 0; st < nst; ++st) {
         const int slot = st % kStages;
@@ -433,6 +505,14 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
   const int n0 = c0 + 16 * warp;  // the warp's first channel
   const int wrow = row_of(gid);
   const bool live = n0 < N;
+  // kRagged: rows n0 + wrow and + 8 from their offsets in their spans
+  constexpr int kRow = kRagged ? kRS : kBK;  // bytes a staged weight row
+  const int d0 = kRagged ? tiles::span_offset(
+                               w, static_cast<long long>(n0 + wrow) * K)
+                         : 0;
+  const int d8 = kRagged ? tiles::span_offset(
+                               w, static_cast<long long>(n0 + wrow + 8) * K)
+                         : 0;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   float4 leaf[kGranules];
   #pragma unroll
@@ -443,14 +523,20 @@ qmm_decode_kernel(const __grid_constant__ CUtensorMap wmap,
     const int slot = st % kStages;
     mbar_wait(full + slot, (st / kStages) & 1);
     const unsigned char* xs = smem + slot * kStage;
-    const unsigned char* ws = xs + kX + (16 * warp + wrow) * kBK;
+    const unsigned char* ws = xs + kX + (16 * warp + wrow) * kRow;
     const unsigned char* xr = xs + gid * 128;
     if (live) {
       #pragma unroll
       for (int c = 0; c < kBK / 64; ++c) {
-        const int off = 16 * ((4 * c + tig) ^ wrow);
-        const uint4 wa = lds128(ws + off);
-        const uint4 wb = lds128(ws + 8 * kBK + off);
+        uint4 wa, wb;
+        if constexpr (kRagged) {
+          wa = tiles::lds128_at(ws + d0 + 16 * (4 * c + tig));
+          wb = tiles::lds128_at(ws + 8 * kRS + d8 + 16 * (4 * c + tig));
+        } else {
+          const int off = 16 * ((4 * c + tig) ^ wrow);
+          wa = lds128(ws + off);
+          wb = lds128(ws + 8 * kBK + off);
+        }
         const unsigned char* xc = xr + c * (kX / 2);  // the chunk's boxes
         // xb[p][i]: piece p of x's k 16 tig + 2 i, + 1 of the chunk
         uint32_t xb[P][8];
@@ -560,25 +646,30 @@ constexpr CUtensorMapDataType kXMapType =
     : std::is_same<XT, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-template <typename XT>
+template <typename XT, bool kRagged>
 int launch(const void* x, const void* w, const void* s, void* y, int M,
            int N, int K, int S, cudaStream_t st) {
-  const size_t smem = smem_bytes(S, sizeof(XT));
+  const size_t smem = smem_bytes(S, sizeof(XT), kRagged);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   static size_t opened = 0;  // dynamic shared memory allowed so far
   if (smem > opened) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_decode_kernel<XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        qmm_decode_kernel<XT, kRagged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opened = smem;
   }
-  CUtensorMap wmap, xmap;
-  if (!tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K, kBK,
-                  kCh) ||
-      !tensor_map(&xmap, kXMapType<XT>, sizeof(XT), x, M, K,
-                  128 / sizeof(XT), kTok))
+  // TMA's tensor maps, or (kRagged) the copy granule of x's rows
+  CUtensorMap wmap = {}, xmap = {};
+  int xg = 16;
+  if (kRagged) {
+    xg = tiles::copy_granule_of(x, static_cast<long long>(K) * sizeof(XT));
+  } else if (!tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K,
+                         kBK, kCh) ||
+             !tensor_map(&xmap, kXMapType<XT>, sizeof(XT), x, M, K,
+                         128 / sizeof(XT), kTok)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>((N + kCh - 1) / kCh * S));
   cfg.blockDim = dim3(32 * (kW + 1));
@@ -594,8 +685,9 @@ int launch(const void* x, const void* w, const void* s, void* y, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, qmm_decode_kernel<XT>, wmap, xmap, static_cast<const float*>(s),
-      static_cast<XT*>(y), M, N, K);
+      &cfg, qmm_decode_kernel<XT, kRagged>, wmap, xmap,
+      static_cast<const XT*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), static_cast<XT*>(y), M, N, K, xg);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -647,13 +739,19 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 // points at bf16 or fp16 [M, K], or for float32 x at its three bf16
 // pieces [3, M, K] (flash_split_bf16x3), and each weight fragment then
 // meets the three pieces' chunks, small pieces first, in one commit group
-// a k step.
-template <typename XT>
+// a k step. kRagged (K % 16 != 0) stages the same chunks from rows with no
+// 16-byte stride: x's rows ldx elements apart (float32 x's pieces padded
+// to a multiple of 16 by the split pass, so ldx > K there), copied at the
+// widest granule their stride and base allow (xg bytes), zero-filled past
+// ldx; each of w's rows K bytes apart as its 16-byte-aligned span of 80
+// bytes (copy_spans, in the 80-byte staged row), its fragments read from
+// its offset there.
+template <typename XT, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_prefill_kernel(const ProdT<XT>* __restrict__ x,
                    const int8_t* __restrict__ w, const float* __restrict__ s,
                    XT* __restrict__ y, float* __restrict__ ws, int M, int N,
-                   int K, int cps) {
+                   int K, int cps, int ldx, int xg) {
   using T = ProdT<XT>;
   constexpr int P = kPiecesOf<XT>;
   constexpr int kStages = Ring<P>::kStages;
@@ -679,23 +777,40 @@ qmm_prefill_kernel(const ProdT<XT>* __restrict__ x,
     unsigned char* xs = smem + st * kStage;
     unsigned char* w8 = xs + P * kX;
     const int k0 = c * kBK;
-    for (int i = tid; i < P * kTok * 8; i += kThreads) {
-      const int p = P == 1 ? 0 : i / (kTok * 8);
-      const int r = P == 1 ? i >> 3 : (i >> 3) % kTok;
-      const int q = i & 7;
-      const int k = k0 + 8 * q;
-      const bool ok = m0 + r < M && k < K;
-      const T* src = x + static_cast<size_t>(m0 + r) * K + k;
-      if constexpr (P > 1) src += static_cast<size_t>(p) * M * K;
-      tiles::cp_async16(xs + p * kX + sw128_offset(r, q), ok ? src : x, ok);
-    }
-    for (int i = tid; i < kCh * 4; i += kThreads) {
-      const int r = i >> 2;
-      const int q = i & 3;
-      const int k = k0 + 16 * q;
-      const bool ok = n0 + r < N && k < K;
-      tiles::cp_async16(w8 + r * kW8Stride + 16 * q,
-                        ok ? w + static_cast<size_t>(n0 + r) * K + k : w, ok);
+    if constexpr (kRagged) {
+      const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+      #pragma unroll
+      for (int p = 0; p < P; ++p)
+        tiles::copy_rows_by<kTok, kBK * 2, kThreads>(
+            xg, xs + p * kX,
+            xb + ((static_cast<size_t>(p) * M + m0) * ldx + k0) * 2,
+            2LL * ldx, M - m0, (ldx - k0) * 2, tid,
+            [](int r, int off) {
+              return sw128_offset(r, off >> 4) + (off & 15);
+            });
+      tiles::copy_spans<kCh, kBK, kW8Stride, kThreads>(
+          w8, w, n0, N - n0, K, k0, w + static_cast<size_t>(N) * K, tid);
+    } else {
+      for (int i = tid; i < P * kTok * 8; i += kThreads) {
+        const int p = P == 1 ? 0 : i / (kTok * 8);
+        const int r = P == 1 ? i >> 3 : (i >> 3) % kTok;
+        const int q = i & 7;
+        const int k = k0 + 8 * q;
+        const bool ok = m0 + r < M && k < K;
+        const T* src = x + static_cast<size_t>(m0 + r) * K + k;
+        if constexpr (P > 1) src += static_cast<size_t>(p) * M * K;
+        tiles::cp_async16(xs + p * kX + sw128_offset(r, q), ok ? src : x,
+                          ok);
+      }
+      for (int i = tid; i < kCh * 4; i += kThreads) {
+        const int r = i >> 2;
+        const int q = i & 3;
+        const int k = k0 + 16 * q;
+        const bool ok = n0 + r < N && k < K;
+        tiles::cp_async16(w8 + r * kW8Stride + 16 * q,
+                          ok ? w + static_cast<size_t>(n0 + r) * K + k : w,
+                          ok);
+      }
     }
   };
 
@@ -704,13 +819,30 @@ qmm_prefill_kernel(const ProdT<XT>* __restrict__ x,
   // in a0, a1 and k 2tig + 8, 2tig + 9 in a2, a3 -- two 4-byte reads per
   // row, one byte permutation picks the 4 bytes
   const uint32_t sel = (tig & 1) ? 0x7632u : 0x5410u;
+  // kRagged: rows n0 + crow + gid and + 8 from their offsets in their spans
+  const int d0 = kRagged ? tiles::span_offset(
+                               w, static_cast<long long>(n0 + crow + gid) * K)
+                         : 0;
+  const int d8 = kRagged ? tiles::span_offset(
+                               w, static_cast<long long>(n0 + crow + gid + 8) *
+                                      K)
+                         : 0;
   auto frag = [&](int st, int kk, uint32_t (&a)[4]) {
     const unsigned char* r0 = smem + st * kStage + P * kX +
                               (crow + gid) * kW8Stride + 4 * (tig >> 1) +
                               16 * kk;
     const unsigned char* r1 = r0 + 8 * kW8Stride;
-    i8x4<T>(__byte_perm(lds32(r0), lds32(r0 + 8), sel), a[0], a[2]);
-    i8x4<T>(__byte_perm(lds32(r1), lds32(r1 + 8), sel), a[1], a[3]);
+    if constexpr (kRagged) {
+      r0 += d0;
+      r1 += d8;
+      i8x4<T>(__byte_perm(tiles::lds32_at(r0), tiles::lds32_at(r0 + 8), sel),
+              a[0], a[2]);
+      i8x4<T>(__byte_perm(tiles::lds32_at(r1), tiles::lds32_at(r1 + 8), sel),
+              a[1], a[3]);
+    } else {
+      i8x4<T>(__byte_perm(lds32(r0), lds32(r0 + 8), sel), a[0], a[2]);
+      i8x4<T>(__byte_perm(lds32(r1), lds32(r1 + 8), sel), a[1], a[3]);
+    }
   };
 
   // no zero fill: the first product overwrites (a non-wgmma write to the
@@ -821,19 +953,24 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-template <typename XT>
+// ldx: x's row stride in elements (K, or float32 x's padded pieces'); with
+// kRagged x's copy granule follows from it and x's base
+template <typename XT, bool kRagged>
 int launch(const void* x, const void* w, const void* s, void* y, void* ws,
-           int M, int N, int K, int cps, cudaStream_t st) {
+           int M, int N, int K, int ldx, int cps, cudaStream_t st) {
   constexpr int kSmem = Ring<kPiecesOf<XT>>::kSmem;
   static bool smem_ok = false;
-  cudaError_t err = tiles::allow_smem(qmm_prefill_kernel<XT>, kSmem, smem_ok);
+  cudaError_t err =
+      tiles::allow_smem(qmm_prefill_kernel<XT, kRagged>, kSmem, smem_ok);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int xg = tiles::copy_granule_of(x, 2LL * ldx);
   const int splits = ((K + kBK - 1) / kBK + cps - 1) / cps;
   const dim3 grid((M + kTok - 1) / kTok, (N + kCh - 1) / kCh, splits);
   float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
-  qmm_prefill_kernel<XT><<<grid, kThreads, kSmem, st>>>(
+  qmm_prefill_kernel<XT, kRagged><<<grid, kThreads, kSmem, st>>>(
       static_cast<const ProdT<XT>*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<XT*>(y), part, M, N, K, cps);
+      static_cast<const float*>(s), static_cast<XT*>(y), part, M, N, K, cps,
+      ldx, xg);
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(M) * N;
@@ -851,15 +988,17 @@ int launch(const void* x, const void* w, const void* s, void* y, void* ws,
 namespace {
 
 // the checks of the C entry points: the decode kernel (M <= 8) and the
-// prefill kernel (M >= 9, `cps` chunks a split, a workspace when split)
-bool bad_decode(int M, int N, int K, int cluster) {
-  return M < 0 || M > dec::kTok || N <= 0 || K <= 0 || K % 16 != 0 ||
-         cluster <= 0 || cluster > dec::kMaxCluster ||
-         (cluster & (cluster - 1)) != 0;
+// prefill kernel (M >= 9, `cps` chunks a split, a workspace when split);
+// K a multiple of 16 unless `any_k` (the ragged loaders)
+bool bad_decode(int M, int N, int K, int cluster, bool any_k = false) {
+  return M < 0 || M > dec::kTok || N <= 0 || K <= 0 ||
+         (K % 16 != 0 && !any_k) || cluster <= 0 ||
+         cluster > dec::kMaxCluster || (cluster & (cluster - 1)) != 0;
 }
 
-bool bad_prefill(const void* ws, int M, int N, int K, int cps) {
-  if (M <= 8 || N <= 0 || K <= 0 || K % 16 != 0) return true;
+bool bad_prefill(const void* ws, int M, int N, int K, int cps,
+                 bool any_k = false) {
+  if (M <= 8 || N <= 0 || K <= 0 || (K % 16 != 0 && !any_k)) return true;
   const int nck = (K + pf::kBK - 1) / pf::kBK;
   return cps <= 0 || (cps < nck && ws == nullptr) ||
          (N + pf::kCh - 1) / pf::kCh > 65535 || (nck + cps - 1) / cps > 65535;
@@ -876,8 +1015,8 @@ extern "C" int quant_matmul_decode_bf16(const void* x, const void* w,
   if (bad_decode(M, N, K, cluster))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
-  return dec::launch<__nv_bfloat16>(x, w, s, y, M, N, K, cluster,
-                                    static_cast<cudaStream_t>(stream));
+  return dec::launch<__nv_bfloat16, false>(x, w, s, y, M, N, K, cluster,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // M >= 9: the prefill kernel with `cps` 64-wide k chunks per split; with
@@ -887,8 +1026,8 @@ extern "C" int quant_matmul_bf16(const void* x, const void* w, const void* s,
                                  int cps, void* stream) {
   if (bad_prefill(ws, M, N, K, cps))
     return static_cast<int>(cudaErrorInvalidValue);
-  return pf::launch<__nv_bfloat16>(x, w, s, y, ws, M, N, K, cps,
-                                   static_cast<cudaStream_t>(stream));
+  return pf::launch<__nv_bfloat16, false>(x, w, s, y, ws, M, N, K, K, cps,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // As quant_matmul_decode_bf16 for x of dtype 1 (fp16: y fp16, products in
@@ -902,8 +1041,9 @@ extern "C" int quant_matmul_decode_tc(int dtype, const void* x,
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? dec::launch<__half>(x, w, s, y, M, N, K, cluster, st)
-                    : dec::launch<float>(x, w, s, y, M, N, K, cluster, st);
+  return dtype == 1
+             ? dec::launch<__half, false>(x, w, s, y, M, N, K, cluster, st)
+             : dec::launch<float, false>(x, w, s, y, M, N, K, cluster, st);
 }
 
 // As quant_matmul_bf16 for dtype 1 (fp16 x and y) or 2 (x points at the
@@ -915,6 +1055,44 @@ extern "C" int quant_matmul_tc(int dtype, const void* x, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 1
-             ? pf::launch<__half>(x, w, s, y, ws, M, N, K, cps, st)
-             : pf::launch<float>(x, w, s, y, ws, M, N, K, cps, st);
+             ? pf::launch<__half, false>(x, w, s, y, ws, M, N, K, K, cps, st)
+             : pf::launch<float, false>(x, w, s, y, ws, M, N, K, K, cps, st);
+}
+
+// Any K, for x of dtype 0 (bf16), 1 (fp16) or 2 (float32: x itself, split
+// in the kernel): the decode kernel with the ragged loader (cp.async from
+// the producer warp in place of TMA), as quant_matmul_decode_bf16.
+extern "C" int quant_matmul_decode_unaligned(int dtype, const void* x,
+                                             const void* w, const void* s,
+                                             void* y, int M, int N, int K,
+                                             int cluster, void* stream) {
+  if (bad_decode(M, N, K, cluster, true) || dtype < 0 || dtype > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dec::launch<__nv_bfloat16, true>(x, w, s, y, M, N, K, cluster, st);
+  return dtype == 1
+             ? dec::launch<__half, true>(x, w, s, y, M, N, K, cluster, st)
+             : dec::launch<float, true>(x, w, s, y, M, N, K, cluster, st);
+}
+
+// Any K: the prefill kernel with the ragged loader, as quant_matmul_bf16
+// for dtype 0 (bf16 x and y) and quant_matmul_tc for 1 (fp16) and 2 (x
+// points at float32 x's pieces [3, M, ldx], contiguous); ldx >= K is x's
+// row stride in elements (K but for padded pieces).
+extern "C" int quant_matmul_unaligned(int dtype, const void* x, const void* w,
+                                      const void* s, void* y, void* ws, int M,
+                                      int N, int K, int ldx, int cps,
+                                      void* stream) {
+  if (bad_prefill(ws, M, N, K, cps, true) || dtype < 0 || dtype > 2 ||
+      ldx < K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return pf::launch<__nv_bfloat16, true>(x, w, s, y, ws, M, N, K, ldx, cps,
+                                           st);
+  return dtype == 1
+             ? pf::launch<__half, true>(x, w, s, y, ws, M, N, K, ldx, cps, st)
+             : pf::launch<float, true>(x, w, s, y, ws, M, N, K, ldx, cps, st);
 }

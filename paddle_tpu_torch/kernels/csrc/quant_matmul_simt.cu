@@ -2,11 +2,13 @@
 // K (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_qmm_kernel`
-// (paddle_tpu/kernels/pallas/quant_matmul.py:44) for the operands the
-// tensor-core kernel (quant_matmul.cu: bf16 x, K a multiple of 16 for its
-// 16-byte-aligned tiles) does not take: float32 and fp16 activations, and
-// bf16 ones whose K is not a multiple of 16. The JAX package's wrapper
-// takes any dtype and K and returns x's dtype.
+// (paddle_tpu/kernels/pallas/quant_matmul.py:44); written for the operands
+// the tensor-core kernels (quant_matmul.cu) did not take then: float32 and
+// fp16 activations, and any whose K is not a multiple of 16. The JAX
+// package's wrapper takes any dtype and K and returns x's dtype. Those
+// kernels now take every dtype and K (a ragged loader where an int8 row
+// has no 16-byte stride), so this one is on no route; a direct call still
+// takes anything, and chip_smoke.py times it beside them.
 //
 // y [M, N] = x [M, K] . (w [N, K] int8 * s [N] f32)^T in x's dtype: every
 // product a float32 fused multiply-add, s[n] applied to each channel's sum,

@@ -20,20 +20,22 @@ CPU tensors take the plain pair, ``flash_attention_plain`` and
 ``flash_attention_bwd_plain``: the same math in plain PyTorch.
 ``FLAGS_flash_kernel=plain`` (read at each call) sends CUDA tensors to the
 plain pair too. The route is decided before any launch, from the device,
-the dtype, the GQA group and the head dim alone (``flash_route``; the
-backward takes the same route, ``flash_bwd_route``), and counted in
+the dtype, the GQA group and the head dim alone (``flash_route`` for the
+forward, ``flash_bwd_route`` for the backward), and counted in
 ``ROUTE_COUNTS`` (the forward) and ``BWD_ROUTE_COUNTS`` (the backward,
 when it runs): bf16 takes the tensor-core kernels (K and V expanded along
-the head axis where the group does not divide 64); up to head dim 128
-float32 and fp16 take tensor-core kernels too, fp16 on f16 ``wgmma``
-(``f16``: ``flash_fwd_cuda``, ``flash_bwd_cuda``), float32 as three bf16
-pieces of every operand (``split``: ``split_bf16x3_cuda``, then
+the head axis where the group does not divide 64); float32 and fp16 take
+tensor-core kernels too, fp16 on f16 ``wgmma`` (``f16``:
+``flash_fwd_cuda``, ``flash_bwd_cuda``), float32 as three bf16 pieces of
+every operand (``split``: ``split_bf16x3_cuda``, then
 ``flash_fwd_x3_cuda``, and in the backward ``flash_bwd_dq_x3_cuda`` and
 ``flash_bwd_dkv_x3_cuda``, each product the six terms of the pieces that
-keep float32's precision); above 128 both take ``flash_simt.cu``
-(``flash_simt_fwd_cuda``, ``flash_simt_bwd_cuda``), every product a
-float32 FMA on the CUDA cores. There is no fallback: a kernel wrapper
-handed a tensor its kernel does not take raises.
+keep float32's precision), the forward at every head dim, the backward up
+to head dim 128; above it their backward takes ``flash_simt.cu``
+(``flash_simt_bwd_cuda``), every product a float32 FMA on the CUDA
+cores. The CUDA cores' forward (``flash_simt_fwd_cuda``) is on no route.
+There is no fallback: a kernel wrapper handed a tensor its kernel does
+not take raises.
 
 The kernels read q/k/v/dO through their strides (the innermost one must be
 1 and the others multiples of 8 elements), so the non-contiguous q/k/v
@@ -68,9 +70,12 @@ _BIG = 1e30
 # the head dims the kernels are built for up to 256; ``FlashAttention``
 # zero-pads any other D up to 256 to the next of these, and a D above 256
 # to the next multiple of 128, as the Pallas kernel pads it
-# (``padded_head_dim``). 64 and 128 run the wgmma kernels of one
-# warpgroup; at 256 B1 runs on mma.sync, B2 and B3 on two warpgroups;
-# above 256 each kernel streams the head dim through its ring in chunks
+# (``padded_head_dim``). At 64 and 128 bf16 B1 runs on mma.sync (its
+# segment branch, fp16 and float32 on one warpgroup's wgmma), B2 and B3 on
+# one warpgroup's wgmma; at 256 B1 runs a TMA producer and two wgmma
+# consumer warpgroups, B2 and B3 two warpgroups; above 256 each kernel
+# streams the head dim through its ring in chunks (B1 in float32 from
+# 256)
 _KERNEL_DIMS = (64, 128, 256)
 _WIDE_STEP = 128
 _MODES = ("auto", "plain")
@@ -78,14 +83,15 @@ _MODES = ("auto", "plain")
 _FOLD = 64
 # ``FlashAttention``'s routing decisions (``flash_route``), one a forward
 # call: ``kernel`` (B1-B3 as they are), ``expanded`` (B1-B3 on K and V
-# expanded along the head axis), ``f16`` (fp16 on the tensor cores up to
-# head dim 128), ``split`` (float32 there, as three bf16 pieces), ``simt``
-# (``flash_simt.cu`` for float32 and fp16 above head dim 128), ``forced``
+# expanded along the head axis), ``f16`` (fp16 on the tensor cores),
+# ``split`` (float32, as three bf16 pieces), ``forced``
 # (FLAGS_flash_kernel=plain: the plain pair) and ``cpu`` (CPU tensors take
 # the plain pair)
 ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "f16": 0, "split": 0,
-                "simt": 0, "forced": 0, "cpu": 0}
-# the same routes, one a backward call
+                "forced": 0, "cpu": 0}
+# the backward's (``flash_bwd_route``), one a backward call: the same, with
+# ``f16`` and ``split`` up to head dim 128 and ``simt`` above it
+# (``flash_simt.cu``)
 BWD_ROUTE_COUNTS = {"kernel": 0, "expanded": 0, "f16": 0, "split": 0,
                     "simt": 0, "forced": 0, "cpu": 0}
 # the dtypes ``flash_simt.cu`` takes, by their code in its C entry points
@@ -95,8 +101,9 @@ _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1}
 # three bf16 pieces ([3, B, S, H, D])
 _BWD_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 _BWD_PIECES = 2
-# the head dims B1-B3 take fp16 and float32 at (FlashAttention pads any D
-# up to 128 to one of them)
+# the head dims B2-B3 take fp16 and float32 at, and B1's tc kernel
+# (FlashAttention pads any D up to 128 to one of them; B1 takes both
+# dtypes at every kernel head dim)
 _TC_DIMS = (64, 128)
 # the plain pair takes its query rows in chunks so that one float32
 # [B, Hk, G, rows, Sk] tensor stays below this many elements (1 GiB): at
@@ -281,10 +288,11 @@ def split_bf16x3_plain(x, dp=None):
 
 # -- CUDA wrappers ----------------------------------------------------------
 
-def _check_qkv(what, q, k, v, extra=(), fp16=False):
+def _check_qkv(what, q, k, v, extra=(), fp16=False, fp16_dims=_TC_DIMS):
     """Shapes, dtype and layout the kernels take: bf16, or with ``fp16``
-    (B2, B3) also float16 at D 64 or 128, all of one dtype; returns (B,
-    Sq, Sk, Hq, Hk, D)."""
+    also float16 at D in ``fp16_dims`` (B2, B3: 64 or 128; None: every
+    kernel head dim, B1), all of one dtype; returns (B, Sq, Sk, Hq, Hk,
+    D)."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     dtypes = (torch.bfloat16, torch.float16) if fp16 else (torch.bfloat16,)
@@ -302,10 +310,11 @@ def _check_qkv(what, q, k, v, extra=(), fp16=False):
         if t.shape != q.shape:
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not "
                              f"shaped as q {tuple(q.shape)}")
-    if q.dtype == torch.float16 and D not in _TC_DIMS:
-        raise ValueError(f"{what}: float16 takes head_dim {_TC_DIMS}, got "
+    if q.dtype == torch.float16 and fp16_dims is not None and \
+            D not in fp16_dims:
+        raise ValueError(f"{what}: float16 takes head_dim {fp16_dims}, got "
                          f"{D} (FlashAttention pads any head dim up to "
-                         f"{_TC_DIMS[-1]} to one of these)")
+                         f"{fp16_dims[-1]} to one of these)")
     if not kernel_head_dim(D):
         raise ValueError(f"{what}: head_dim {D} not in {_KERNEL_DIMS} nor "
                          f"a multiple of {_WIDE_STEP} above "
@@ -439,9 +448,13 @@ def _seg_ptrs(seg, *bounds):
 def _count(fn, seg, D, dtype=torch.bfloat16):
     """One launch of ``fn``: dense or segment branch, and apart from
     either, the kernels above head dim 256 (``xl_launches``); a float16
-    launch (B1-B3) counts in ``f16_launches`` alone, dense or segment."""
+    launch counts in one count alone, dense or segment: ``f16_launches``
+    up to head dim 128 (B1-B3), ``f16_256_launches`` at 256 and
+    ``f16_xl_launches`` above (B1)."""
     if dtype == torch.float16:
-        fn.f16_launches += 1
+        attr = "f16_launches" if D <= _TC_DIMS[-1] else \
+            "f16_256_launches" if D == _KERNEL_DIMS[-1] else "f16_xl_launches"
+        setattr(fn, attr, getattr(fn, attr) + 1)
         return
     if seg is None:
         fn.launches += 1
@@ -455,14 +468,16 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_segment_ids=None,
                    kv_segment_ids=None, q_positions=None,
                    kv_positions=None):
     """Launch ``flash_fwd_bf16`` or, for fp16, ``flash_fwd_tc``. Returns
-    (O, LSE), both contiguous. Takes bf16 [B, S, H, D] tensors (strided as
-    ``_check_qkv`` says) with D in {64, 128, 256} or a multiple of 128
-    above 256 (``kernel_head_dim``), or fp16 ones at D 64 or 128, and a
-    GQA group G dividing 64, and for the segment branch all four id and
-    position tensors (``_check_seg``); raises on anything else. Counts as
+    (O, LSE), both contiguous. Takes bf16 or fp16 [B, S, H, D] tensors
+    (strided as ``_check_qkv`` says) with D in {64, 128, 256} or a
+    multiple of 128 above 256 (``kernel_head_dim``), and a GQA group G
+    dividing 64, and for the segment branch all four id and position
+    tensors (``_check_seg``); raises on anything else. Counts as
     ``_count`` says: bf16 ``launches`` (dense) and ``seg_launches`` apart,
-    above D 256 ``xl_launches`` too; fp16 ``f16_launches``."""
-    B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v, fp16=True)
+    above D 256 ``xl_launches`` too; fp16 ``f16_launches`` (D 64, 128),
+    ``f16_256_launches`` (D 256) or ``f16_xl_launches`` (above)."""
+    B, Sq, Sk, Hq, Hk, D = _check_qkv("flash_fwd", q, k, v, fp16=True,
+                                      fp16_dims=None)
     seg = _check_seg("flash_fwd", q, k, (q_segment_ids, kv_segment_ids,
                                         q_positions, kv_positions))
     if q.dtype == torch.float16:
@@ -489,6 +504,8 @@ flash_fwd_cuda.launches = 0
 flash_fwd_cuda.seg_launches = 0
 flash_fwd_cuda.xl_launches = 0
 flash_fwd_cuda.f16_launches = 0
+flash_fwd_cuda.f16_256_launches = 0
+flash_fwd_cuda.f16_xl_launches = 0
 
 
 def _fwd_tc(what, code, q, k, v, causal, scale, seg, out_dtype):
@@ -660,20 +677,29 @@ def split_bf16x3_cuda(x, dp=None):
 split_bf16x3_cuda.launches = 0
 
 
-def _check_pieces(what, q, k, v, do=None):
+def _piece_dim(D, wide):
+    """True for a head dim the three-piece kernels take: 64 or 128 (B1-B3)
+    and, with ``wide`` (B1), 256 and every multiple of 128 above it."""
+    return D in _TC_DIMS or (wide and D >= _KERNEL_DIMS[-1] and
+                             D % _WIDE_STEP == 0)
+
+
+def _check_pieces(what, q, k, v, do=None, wide=False):
     """The three-piece operands B1-B3 take: [3, B, S, H, D] bf16 CUDA
-    tensors, contiguous (``split_bf16x3_cuda``), D 64 or 128, q and dO
-    (B2, B3) alike, k and v alike, G = Hq / Hk dividing 64; returns (B, Sq,
-    Sk, Hq, Hk, D) of piece 0."""
+    tensors, contiguous (``split_bf16x3_cuda``), D 64 or 128 (and with
+    ``wide``, B1, 256 or a multiple of 128 above), q and dO (B2, B3)
+    alike, k and v alike, G = Hq / Hk dividing 64; returns (B, Sq, Sk, Hq,
+    Hk, D) of piece 0."""
     if do is None:
         do = q
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 5 or \
                 t.shape[0] != 3 or not t.is_contiguous() or \
-                t.shape[-1] not in _TC_DIMS:
+                not _piece_dim(t.shape[-1], wide):
             raise ValueError(
                 f"{what}: {name} must be three bf16 pieces [3, B, S, H, D] "
-                f"on the card, contiguous, D in {_TC_DIMS} "
+                f"on the card, contiguous, D in {_TC_DIMS}"
+                f"{' or a multiple of 128 from 256' if wide else ''} "
                 f"(split_bf16x3_cuda), got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
     B, Sq, Hq, D = q.shape[1:]
@@ -695,29 +721,36 @@ def flash_fwd_x3_cuda(qp, kp, vp, causal=False, scale=None,
     """Launch ``flash_fwd_tc`` (B1) on float32 operands as three bf16
     pieces each (``split_bf16x3_cuda``): (O [B, Sq, Hq, D] float32, LSE),
     contiguous; S = Q K^T and O += P V each the six terms of the pieces
-    whose indices sum to at most 2, P split in registers. Counts
-    ``launches`` (dense) and ``seg_launches``."""
-    _check_pieces("flash_fwd_x3", qp, kp, vp)
+    whose indices sum to at most 2, P split in registers. D 64, 128 or
+    256 (``flash_fwd_tc_kernel``; 16-key stages at 256: counts
+    ``launches`` (dense) and ``seg_launches``), or any multiple of 128
+    above (``flash_fwd_xl_kernel`` on pieces: counts ``xl_launches``,
+    dense or segment)."""
+    D = _check_pieces("flash_fwd_x3", qp, kp, vp, wide=True)[-1]
     seg = _check_seg("flash_fwd_x3", qp[0], kp[0],
                      (q_segment_ids, kv_segment_ids, q_positions,
                       kv_positions))
     out = _fwd_tc("flash_fwd_x3", _BWD_PIECES, qp, kp, vp, causal, scale,
                   seg, torch.float32)
-    _simt_count(flash_fwd_x3_cuda, seg)
+    if D <= _KERNEL_DIMS[-1]:
+        _simt_count(flash_fwd_x3_cuda, seg)
+    else:
+        flash_fwd_x3_cuda.xl_launches += 1
     return out
 
 
 flash_fwd_x3_cuda.launches = 0
 flash_fwd_x3_cuda.seg_launches = 0
+flash_fwd_x3_cuda.xl_launches = 0
 
 
 def flash_split_fwd_cuda(q, k, v, causal=False, scale=None,
                          q_segment_ids=None, kv_segment_ids=None,
                          q_positions=None, kv_positions=None, dp=None):
     """The float32 forward on the tensor cores: q, k and v split into three
-    bf16 pieces each with the head dim zero-padded to ``dp`` (64 or 128;
-    default D), then B1. Returns (O float32 at ``dp`` columns, LSE); give
-    ``scale`` for the true head dim."""
+    bf16 pieces each with the head dim zero-padded to ``dp`` (a kernel
+    head dim, ``padded_head_dim``; default D), then B1. Returns (O float32
+    at ``dp`` columns, LSE); give ``scale`` for the true head dim."""
     pieces = [split_bf16x3_cuda(t if t.stride(-1) == 1 else t.contiguous(),
                                 dp) for t in (q, k, v)]
     return flash_fwd_x3_cuda(*pieces, causal, scale=scale,
@@ -849,7 +882,9 @@ def flash_simt_fwd_cuda(q, k, v, causal=False, scale=None,
     """Launch ``flash_simt_fwd``: (O, LSE) as ``flash_fwd_cuda`` returns
     them, for float32 or fp16 q/k/v (``_check_simt``) and segments as
     ``_check_seg`` takes them. Counts ``launches`` (dense) and
-    ``seg_launches``."""
+    ``seg_launches``. On no route since the tensor-core forward takes
+    float32 and fp16 at every head dim; ``chip_smoke.py`` still times it
+    and holds it against the plain forward."""
     B, Sq, Sk, Hq, Hk, D = _check_simt("flash_simt_fwd", q, k, v)
     seg = _check_seg("flash_simt_fwd", q, k, (q_segment_ids, kv_segment_ids,
                                              q_positions, kv_positions))
@@ -994,15 +1029,13 @@ def expand_factor(G):
 
 
 def flash_route(device, dtype, Hq, Hk, D, mode):
-    """Where ``FlashAttention`` computes q [B, S, Hq, D] of ``dtype`` on
-    ``device`` over Hk kv heads under ``FLAGS_flash_kernel`` = ``mode``,
-    forward and backward alike: ``cpu`` (CPU tensors: the plain pair),
-    ``forced`` (mode ``plain``); float32 and fp16 up to head dim 128 on the
-    tensor-core B1-B3, fp16 as one f16 piece (``f16``), float32 as three
-    bf16 pieces (``split``), D zero-padded to 64 or 128 and K, V expanded
-    ``expand_factor(G)`` times where G does not divide 64; above 128
-    ``simt`` (``flash_simt.cu`` at the true D and group, which takes
-    float32 whole as the reference's Pallas path does); ``kernel`` (any
+    """Where ``FlashAttention``'s forward computes q [B, S, Hq, D] of
+    ``dtype`` on ``device`` over Hk kv heads under ``FLAGS_flash_kernel``
+    = ``mode``: ``cpu`` (CPU tensors: the plain pair), ``forced`` (mode
+    ``plain``); float32 and fp16 on the tensor-core B1 at every head dim,
+    fp16 as one f16 piece (``f16``), float32 as three bf16 pieces
+    (``split``), D zero-padded to ``padded_head_dim`` and K, V expanded
+    ``expand_factor(G)`` times where G does not divide 64; ``kernel`` (any
     other dtype, which the bf16 kernels refuse unless it is bf16, with G =
     Hq / Hk dividing 64 or Hq not a multiple of Hk) or ``expanded`` (bf16
     with any other G: K and V expanded ``expand_factor(G)`` times). Pure:
@@ -1013,8 +1046,6 @@ def flash_route(device, dtype, Hq, Hk, D, mode):
     if mode == "plain":
         return "forced"
     if dtype in _SIMT_DTYPES:
-        if D > _TC_DIMS[-1]:
-            return "simt"
         return "split" if dtype == torch.float32 else "f16"
     if dtype != torch.bfloat16 or Hk <= 0 or Hq % Hk or \
             _FOLD % (Hq // Hk) == 0:
@@ -1022,8 +1053,16 @@ def flash_route(device, dtype, Hq, Hk, D, mode):
     return "expanded"
 
 
-# the backward's route is the forward's: one table
-flash_bwd_route = flash_route
+def flash_bwd_route(device, dtype, Hq, Hk, D, mode):
+    """The backward's route, from the same arguments: the forward's
+    (``flash_route``) but for float32 and fp16 above head dim 128, which
+    B2 and B3 do not take: ``simt`` (``flash_simt.cu`` at the true D and
+    group, on the forward's sliced O and its LSE). Pure, as
+    ``flash_route``."""
+    route = flash_route(device, dtype, Hq, Hk, D, mode)
+    if route in ("f16", "split") and D > _TC_DIMS[-1]:
+        return "simt"
+    return route
 
 
 def expand_kv(t, r):
@@ -1055,10 +1094,11 @@ class FlashAttention(torch.autograd.Function):
     kernels). The forward runs B1 and saves (q, k, v, O, LSE) and the
     segment tensors; the backward computes Delta (less the LSE cotangent,
     when ``return_lse`` handed LSE out and it was used) and runs B2 and
-    B3. The route is chosen once, in the forward (``flash_route``,
-    counted in ``ROUTE_COUNTS`` there and in ``BWD_ROUTE_COUNTS`` when the
-    backward runs). On the kernel routes (``kernel``, ``expanded``,
-    ``f16``, ``split``) any head dim the kernels are not built for is
+    B3. Both routes are chosen in the forward, before any launch
+    (``flash_route``, counted in ``ROUTE_COUNTS`` there;
+    ``flash_bwd_route``, counted in ``BWD_ROUTE_COUNTS`` when the backward
+    runs). On the kernel routes (``kernel``, ``expanded``, ``f16``,
+    ``split``) any head dim the kernels are not built for is
     zero-padded to ``padded_head_dim`` (64, 128 or 256 up to 256, the next
     multiple of 128 above it) for each launch, at the true D's scale, and
     O, dQ, dK and dV are sliced back to D (``pad_head_dim``); on
@@ -1069,8 +1109,10 @@ class FlashAttention(torch.autograd.Function):
     (``reduce_expanded``). ``split`` splits q, k and v into three bf16
     pieces for the forward (``flash_split_fwd_cuda``) and splits them
     again, with dO, in the backward (``flash_split_bwd_cuda``): no pieces
-    are held between the two. On ``simt`` (float32, fp16 above head dim
-    128) both run ``flash_simt.cu`` at the true D and group. On ``cpu`` and
+    are held between the two. The backward's ``simt`` (float32 and fp16
+    above head dim 128) runs ``flash_simt.cu`` at the true D and group on
+    the unpadded q, k, v, the sliced O and LSE (computed at the true D's
+    scale, so the same). On ``cpu`` and
     ``forced`` the forward runs ``flash_attention_plain`` (with autograd
     off, as inside every ``Function.forward``) and the backward
     ``flash_attention_bwd_plain``. The integer tensors get no gradient."""
@@ -1080,8 +1122,9 @@ class FlashAttention(torch.autograd.Function):
                 kv_segment_ids=None, q_positions=None, kv_positions=None,
                 return_lse=False):
         mode = _flags.flag("FLAGS_flash_kernel")
-        route = flash_route(q.device, q.dtype, q.shape[2], k.shape[2],
-                            q.shape[-1], mode)
+        shape = (q.shape[2], k.shape[2], q.shape[-1])
+        route = flash_route(q.device, q.dtype, *shape, mode)
+        bwd_route = flash_bwd_route(q.device, q.dtype, *shape, mode)
         ROUTE_COUNTS[route] += 1
         r = expand_factor(q.shape[2] // k.shape[2]) \
             if route in ("expanded", "f16", "split") else 1
@@ -1101,8 +1144,6 @@ class FlashAttention(torch.autograd.Function):
                     **kw)
             if dp != D:
                 o = o[..., :D].contiguous()
-        elif route == "simt":
-            o, lse = flash_simt_fwd_cuda(q, k, v, causal, **kw)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            return_lse=True, **kw)
@@ -1110,7 +1151,7 @@ class FlashAttention(torch.autograd.Function):
                               kv_segment_ids, q_positions, kv_positions)
         ctx.causal = bool(causal)
         ctx.scale = scale
-        ctx.bwd_route = route
+        ctx.bwd_route = bwd_route
         ctx.expand = r
         ctx.set_materialize_grads(False)
         return (o, lse) if return_lse else o

@@ -16,11 +16,19 @@ y [..., N] = x [..., K] @ (w_int8 [N, K] * w_scales [N, 1]).T in
   products summed in float32: at M >= 9 after the split pass
   ``split_bf16x3_cuda``, at M <= 8 split inside the kernel); y in x's
   dtype.
+- All three take any K, as the reference's wrapper does (it pads M and N
+  and takes K whole). With K a multiple of 16 the kernels load by TMA
+  (decode) and 16-byte ``cp.async`` (prefill); otherwise an int8 weight
+  row of K bytes has no 16-byte stride, and the same kernels load through
+  a ragged loader (each weight row's 16-byte-aligned span by 16-byte
+  ``cp.async``, read from the row's offset in it; x's rows at the widest
+  granule they allow, zero-filled past K), counted apart in each
+  wrapper's ``unaligned_launches``. Float32 x's pieces are then split
+  with K padded to a multiple of 16.
 - ``quant_matmul_simt`` launches ``csrc/quant_matmul_simt.cu`` (the CUDA
-  cores, float32 sums) for the activations the tensor-core kernels do
-  not take: any x with K not a multiple of 16 (the reference's wrapper
-  takes any dtype and K: it pads M and N, takes K whole, and returns x's
-  dtype).
+  cores, float32 sums, any K): the first kernel for K % 16 != 0, now on
+  no route; ``chip_smoke.py`` still times it and holds it against the
+  plain version.
 - ``int8_linear`` is the routing point of ``quantization.
   ConvertedInt8Linear``: ``qmm_route`` decides from the mode, the device,
   x's dtype and K alone, before any launch, and ``ROUTE_COUNTS`` counts
@@ -120,10 +128,13 @@ def quant_matmul_plain(x, w_int8, w_scales):
 
 # ``int8_linear``'s routing decisions (``qmm_route``), one a call:
 # ``kernel`` (``quant_matmul``: bf16 x), ``f16`` (``quant_matmul_f16``),
-# ``split`` (``quant_matmul_x3``: float32 x), ``simt``
-# (``quant_matmul_simt``), ``cpu`` (CPU tensors: the plain version) and
-# ``dense`` (FLAGS_paged_kernel=dense forces the plain version)
-ROUTE_COUNTS = {"kernel": 0, "f16": 0, "split": 0, "simt": 0, "cpu": 0,
+# ``split`` (``quant_matmul_x3``: float32 x), each with K a multiple of 16,
+# and their ``unaligned``, ``f16_unaligned`` and ``split_unaligned`` forms
+# (the same wrappers through the ragged loader: any other K), ``cpu`` (CPU
+# tensors: the plain version) and ``dense`` (FLAGS_paged_kernel=dense
+# forces the plain version)
+ROUTE_COUNTS = {"kernel": 0, "f16": 0, "split": 0, "unaligned": 0,
+                "f16_unaligned": 0, "split_unaligned": 0, "cpu": 0,
                 "dense": 0}
 # x dtypes ``quant_matmul_simt`` takes, by their code in its C entry point
 _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -132,23 +143,28 @@ _SIMT_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _TC_ROUTES = {torch.bfloat16: "kernel", torch.float16: "f16",
               torch.float32: "split"}
 _TC_CODES = {torch.float16: 1, torch.float32: 2}
+# the k granule the tensor-core kernels' aligned loaders need
+K_ALIGN = 16
 
 
 def qmm_route(mode, device_type, x_dtype, k):
     """The route of an int8 linear layer's product from its resolved
     ``FLAGS_paged_kernel`` mode, x's device type and dtype and the
     contraction K: ``dense`` (forced: the plain version), ``cpu`` (the
-    plain version); on the card, with K a multiple of 16, ``kernel`` (bf16
-    x), ``f16`` (fp16 x) or ``split`` (float32 x), and ``simt`` for any
-    other x (an int8 weight row of K bytes has no 16-byte stride for TMA
-    or cp.async otherwise). Pure: decided before any launch."""
+    plain version); on the card ``kernel`` (bf16 x, and any x dtype the
+    kernels refuse), ``f16`` (fp16 x) or ``split`` (float32 x) with K a
+    multiple of 16, else their ``*unaligned`` forms (an int8 weight row of
+    K bytes then has no 16-byte stride for TMA or 16-byte cp.async: the
+    same kernels through the ragged loader). Pure: decided before any
+    launch."""
     if mode == "dense":
         return "dense"
     if device_type == "cpu":
         return "cpu"
-    if x_dtype in _TC_ROUTES and k % 16 == 0:
-        return _TC_ROUTES[x_dtype]
-    return "simt"
+    route = _TC_ROUTES.get(x_dtype, "kernel")
+    if k % K_ALIGN == 0:
+        return route
+    return "unaligned" if route == "kernel" else f"{route}_unaligned"
 
 
 def int8_linear(x, w_int8, w_scales, mode):
@@ -156,14 +172,12 @@ def int8_linear(x, w_int8, w_scales, mode):
     route ``qmm_route`` picks (counted in ``ROUTE_COUNTS``)."""
     route = qmm_route(mode, x.device.type, x.dtype, w_int8.shape[1])
     ROUTE_COUNTS[route] += 1
-    if route == "kernel":
+    if route in ("kernel", "unaligned"):
         return quant_matmul(x, w_int8, w_scales)
-    if route == "f16":
+    if route in ("f16", "f16_unaligned"):
         return quant_matmul_f16(x, w_int8, w_scales)
-    if route == "split":
+    if route in ("split", "split_unaligned"):
         return quant_matmul_x3(x, w_int8, w_scales)
-    if route == "simt":
-        return quant_matmul_simt(x, w_int8, w_scales)
     return quant_matmul_plain(x, w_int8, w_scales)
 
 
@@ -172,7 +186,8 @@ def quant_matmul_simt(x, w_int8, w_scales):
     float32, fp16 or bf16 (made contiguous here), any K; w_int8 int8
     [N, K] and w_scales float32 [N], contiguous. Returns [..., N] in x's
     dtype; raises on anything else. CPU tensors take the plain version.
-    Counts ``launches``."""
+    Counts ``launches``. On no route (``int8_linear`` sends every K to
+    the tensor-core kernels)."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int8, w_scales)
     n, k = w_int8.shape
@@ -208,37 +223,47 @@ quant_matmul_simt.launches = 0
 
 def _check_tc(what, x, w_int8, w_scales, dtype):
     """The operands the tensor-core kernels take: x ``dtype`` [..., K],
-    w_int8 int8 [N, K], w_scales float32 [N], all contiguous, on the card
-    and 16-byte aligned, K a multiple of 16. Returns (M, N, K)."""
+    w_int8 int8 [N, K], w_scales float32 [N], all contiguous and on the
+    card, w_scales 16-byte aligned; x and w_int8 too where K is a multiple
+    of 16 (any other K takes the ragged loader, which copies at the widest
+    granule the rows and bases allow). Returns (M, N, K)."""
     n, k = w_int8.shape
+    aligned = k % K_ALIGN == 0
     for name, t, dt in (("x", x, dtype), ("w_int8", w_int8, torch.int8),
                         ("w_scales", w_scales, torch.float32)):
         if not t.is_cuda or t.dtype != dt or not t.is_contiguous() or \
-                t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} must be a contiguous, "
-                             f"16-byte aligned {dt} CUDA tensor, got "
+                (t.data_ptr() % 16 and (aligned or name == "w_scales")):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{dt} CUDA tensor (16-byte aligned where K "
+                             f"is a multiple of 16, w_scales always), got "
                              f"{t.dtype} on {t.device}")
-    if x.shape[-1] != k or k % 16 or tuple(w_scales.shape) != (n,):
+    if x.shape[-1] != k or tuple(w_scales.shape) != (n,):
         raise ValueError(f"{what}: x {tuple(x.shape)}, w "
                          f"{(n, k)}, scales {tuple(w_scales.shape)}: K "
-                         f"must match and be a multiple of 16")
+                         f"must match")
     return x.numel() // k, n, k
 
 
-def _launch_tc(x, xk, w_int8, w_scales, m, n, k, code):
+def _launch_tc(x, xk, w_int8, w_scales, m, n, k, code, ldx=None):
     """One launch of the decode kernel (m <= 8, on ``x``) or the prefill
-    kernel (on ``xk``: x itself, or float32 x's pieces) for element code
-    ``code`` (None: bf16); the prefill's split sums go to a float32
-    workspace [splits, M, N] allocated here. Returns y in x's dtype."""
+    kernel (on ``xk``: x itself, or float32 x's pieces, ``ldx`` elements a
+    row: K unless padded) for element code ``code`` (None: bf16), through
+    the ragged loader where K is not a multiple of 16; the prefill's split
+    sums go to a float32 workspace [splits, M, N] allocated here. Returns
+    y in x's dtype."""
     out = torch.empty((*x.shape[:-1], n), device=x.device, dtype=x.dtype)
     if m == 0:
         return out
     lib = _build.load("quant_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    aligned = k % K_ALIGN == 0
     if m <= DEC_MAX_M:
         args = (x.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
                 out.data_ptr(), m, n, k, decode_plan(m, n, k), stream)
-        if code is None:
+        if not aligned:  # the ragged loader's entries take bf16 as code 0
+            err, what = lib.quant_matmul_decode_unaligned(
+                code or 0, *args), "quant_matmul_decode_unaligned"
+        elif code is None:
             err, what = lib.quant_matmul_decode_bf16(*args), \
                 "quant_matmul_decode_bf16"
         else:
@@ -251,7 +276,11 @@ def _launch_tc(x, xk, w_int8, w_scales, m, n, k, code):
         args = (xk.data_ptr(), w_int8.data_ptr(), w_scales.data_ptr(),
                 out.data_ptr(), None if ws is None else ws.data_ptr(), m, n,
                 k, cps, stream)
-        if code is None:
+        if not aligned:
+            err, what = lib.quant_matmul_unaligned(
+                code or 0, *args[:-2], k if ldx is None else ldx,
+                cps, stream), "quant_matmul_unaligned"
+        elif code is None:
             err, what = lib.quant_matmul_bf16(*args), "quant_matmul_bf16"
         else:
             err, what = lib.quant_matmul_tc(code, *args), "quant_matmul_tc"
@@ -259,24 +288,35 @@ def _launch_tc(x, xk, w_int8, w_scales, m, n, k, code):
     return out
 
 
+def _count(fn, m, k):
+    """One launch of ``fn`` (none at M 0): ``launches``, or with K not a
+    multiple of 16 (the ragged loader) ``unaligned_launches``."""
+    if m:
+        if k % K_ALIGN:
+            fn.unaligned_launches += 1
+        else:
+            fn.launches += 1
+
+
 def quant_matmul(x, w_int8, w_scales):
     """Launch ``csrc/quant_matmul.cu`` for CUDA tensors: x bf16 [..., K]
     (contiguous), w_int8 int8 [N, K], w_scales float32 [N], all contiguous
-    and 16-byte aligned, K a multiple of 16; returns bf16 [..., N]. Raises
-    on anything else. M = x's rows: up to 8, one launch of the decode
-    kernel as ``decode_plan`` says (no workspace); from 9, the prefill
-    kernel, and where ``prefill_plan`` splits K, the partial sums go to a
-    float32 workspace [splits, M, N] allocated here."""
+    (x and w_int8 16-byte aligned where K is a multiple of 16, w_scales
+    always), any K; returns bf16 [..., N]. Raises on anything else. M =
+    x's rows: up to 8, one launch of the decode kernel as ``decode_plan``
+    says (no workspace); from 9, the prefill kernel, and where
+    ``prefill_plan`` splits K, the partial sums go to a float32 workspace
+    [splits, M, N] allocated here. Counts as ``_count`` says."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int8, w_scales)
     m, n, k = _check_tc("quant_matmul", x, w_int8, w_scales, torch.bfloat16)
     out = _launch_tc(x, x, w_int8, w_scales, m, n, k, None)
-    if m:
-        quant_matmul.launches += 1
+    _count(quant_matmul, m, k)
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul.unaligned_launches = 0
 
 
 def quant_matmul_f16(x, w_int8, w_scales):
@@ -288,12 +328,12 @@ def quant_matmul_f16(x, w_int8, w_scales):
     m, n, k = _check_tc("quant_matmul_f16", x, w_int8, w_scales,
                         torch.float16)
     out = _launch_tc(x, x, w_int8, w_scales, m, n, k, _TC_CODES[x.dtype])
-    if m:
-        quant_matmul_f16.launches += 1
+    _count(quant_matmul_f16, m, k)
     return out
 
 
 quant_matmul_f16.launches = 0
+quant_matmul_f16.unaligned_launches = 0
 
 
 def quant_matmul_x3(x, w_int8, w_scales):
@@ -301,21 +341,24 @@ def quant_matmul_x3(x, w_int8, w_scales):
     x2 == x, ``split_bf16x3_plain``'s rule) times the exact bf16 weight,
     the three products summed in float32 and scaled once, y float32. At
     M >= 9 the split pass (``split_bf16x3_cuda``, counted there) writes the
-    pieces [3, M, K] first; at M <= 8 the decode kernel splits x as it
-    takes its fragments (one launch). Counts ``launches`` (this kernel's,
-    not the split pass's)."""
+    pieces [3, M, K] first (K zero-padded to a multiple of 16 where it is
+    not one, so that only w's rows are unaligned); at M <= 8 the decode
+    kernel splits x as it takes its fragments (one launch). Counts as
+    ``_count`` says (this kernel's launches, not the split pass's)."""
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_int8, w_scales)
     m, n, k = _check_tc("quant_matmul_x3", x, w_int8, w_scales,
                         torch.float32)
-    xk = x
+    xk, ldx = x, k
     if m > DEC_MAX_M:
         from .flash_attention import split_bf16x3_cuda
-        xk = split_bf16x3_cuda(x.view(1, m, 1, k))
-    out = _launch_tc(x, xk, w_int8, w_scales, m, n, k, _TC_CODES[x.dtype])
-    if m:
-        quant_matmul_x3.launches += 1
+        ldx = -(-k // K_ALIGN) * K_ALIGN
+        xk = split_bf16x3_cuda(x.view(1, m, 1, k), ldx)
+    out = _launch_tc(x, xk, w_int8, w_scales, m, n, k, _TC_CODES[x.dtype],
+                     ldx)
+    _count(quant_matmul_x3, m, k)
     return out
 
 
 quant_matmul_x3.launches = 0
+quant_matmul_x3.unaligned_launches = 0

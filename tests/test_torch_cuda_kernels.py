@@ -514,11 +514,12 @@ def test_quant_matmul_prefill_outputs_are_bit_identical_to_the_recorded_ones(
 
 
 def test_quant_matmul_rejects_bad_inputs(dev):
+    # K 40 itself is taken (the ragged loader); x's K must match w's
     x = _randn(dev, 4, 40)
     w = torch.zeros(16, 40, dtype=torch.int8, device=dev)
     s = torch.ones(16, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        quant_matmul(x, w, s)
+    with pytest.raises(ValueError, match="must match"):
+        quant_matmul(x, w[:, :32].contiguous(), s)
     with pytest.raises(ValueError, match="float32"):
         quant_matmul(x[:, :32].contiguous(), w[:, :32].contiguous(),
                      s.bfloat16())
@@ -1227,8 +1228,10 @@ def _flash_route_counts():
 
 
 # the flash wrappers' counts: B1-B3 (bf16), the CUDA cores' three, the
-# three-piece B2/B3 and the split pass (float32), B2/B3 in fp16, then the
-# three-piece B1 (float32) and B1 in fp16
+# three-piece B2/B3 and the split pass (float32), B2/B3 in fp16, the
+# three-piece B1 (float32; up to head dim 256) and B1 in fp16 up to 128,
+# then above those: the three-piece B1 on the xl layout, fp16 B1 at 256 and
+# above
 def _flash_launches():
     from paddle_tpu_torch.kernels import flash_attention as fa
     return [f.launches + f.seg_launches for f in (
@@ -1239,16 +1242,22 @@ def _flash_launches():
         fa.split_bf16x3_cuda.launches, fa.flash_bwd_dq_cuda.f16_launches,
         fa.flash_bwd_dkv_cuda.f16_launches,
         fa.flash_fwd_x3_cuda.launches + fa.flash_fwd_x3_cuda.seg_launches,
-        fa.flash_fwd_cuda.f16_launches]
+        fa.flash_fwd_cuda.f16_launches, fa.flash_fwd_x3_cuda.xl_launches,
+        fa.flash_fwd_cuda.f16_256_launches, fa.flash_fwd_cuda.f16_xl_launches]
 
 
-# launches of one forward + backward by the route, in _flash_launches'
-# order: ``split`` splits q, k, v for the forward and q, k, v, dO again
-# for the backward
-_ROUTE_LAUNCHES = {"expanded": [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
-                   "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
-                   "split": [0, 0, 0, 0, 0, 0, 1, 1, 7, 0, 0, 1, 0],
-                   "f16": [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 0, 1]}
+# launches of one forward + backward by the (forward, backward) routes, in
+# _flash_launches' order: ``split`` splits q, k, v for the forward and q,
+# k, v, dO again for the backward; above head dim 128 the forward stays on
+# the tensor cores (float32 padded to 256: three splits and the three-piece
+# B1; fp16 padded to 256: B1 at 256) and the backward takes the CUDA cores'
+# pair
+_ROUTE_LAUNCHES = {
+    ("expanded", "expanded"): [1, 1, 1] + [0] * 13,
+    ("split", "simt"): [0, 0, 0, 0, 1, 1, 0, 0, 3, 0, 0, 1] + [0] * 4,
+    ("f16", "simt"): [0, 0, 0, 0, 1, 1] + [0] * 8 + [1, 0],
+    ("split", "split"): [0, 0, 0, 0, 0, 0, 1, 1, 7, 0, 0, 1] + [0] * 4,
+    ("f16", "f16"): [0] * 9 + [1, 1, 0, 1] + [0] * 3}
 
 
 # the CUDA cores' kernels against the plain versions, both in float32 (the
@@ -1280,31 +1289,34 @@ SIMT_BWD_RTOL = {torch.float32: 2e-4, torch.float16: 1e-2}
 ])
 def test_flash_attention_routes_what_the_kernels_refuse(dev, dtype, Hq, Hk,
                                                         D, causal, bwd):
-    """``FlashAttention`` in float32 and fp16 (up to head dim 128 forward
-    and backward on the tensor cores: float32 as three bf16 pieces, the
-    forward after three split passes and the backward after four, fp16 on
-    f16 wgmma; on ``flash_simt.cu`` above 128) and at bf16 GQA groups 3
-    and 12 (B1-B3 once each on K and V expanded 3 times along the head
-    axis, dK and dV summed over the copies), forward and backward: one
-    count of the route forward and one backward, exactly the launches it
-    implies, and the result against the plain pair on the same inputs."""
+    """``FlashAttention`` in float32 and fp16 (forward on the tensor cores
+    at every head dim, the backward up to head dim 128: float32 as three
+    bf16 pieces, the forward after three split passes and the backward
+    after four, fp16 on f16 wgmma; above 128 the backward on
+    ``flash_simt.cu``) and at bf16 GQA groups 3 and 12 (B1-B3 once each on
+    K and V expanded 3 times along the head axis, dK and dV summed over
+    the copies), forward and backward: one count of the forward's route
+    and one of the backward's, exactly the launches they imply, and the
+    result against the plain pair on the same inputs."""
     b, s = 2, 300
     g = torch.Generator(device=dev).manual_seed(Hq + causal + D)
     mk = lambda h: torch.randn(b, s, h, D, generator=g, device=dev,
                                dtype=dtype)
     q, k, v, do = mk(Hq), mk(Hk), mk(Hk), mk(Hq)
     ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd = bwd if bwd != "simt" else \
+        "split" if dtype == torch.float32 else "f16"
     counts = _flash_route_counts()
     before = _flash_launches()
     out = scaled_dot_product_attention(*ts, is_causal=causal)
     out.backward(do)
     torch.cuda.synchronize()
     after = _flash_route_counts()
-    for c0, c1, want in zip(counts, after, (bwd, bwd)):
+    for c0, c1, want in zip(counts, after, (fwd, bwd)):
         assert {n: c1[n] - c0[n] for n in c1} == \
             {n: int(n == want) for n in c1}
     assert [x - y for x, y in zip(_flash_launches(), before)] == \
-        _ROUTE_LAUNCHES[bwd]
+        _ROUTE_LAUNCHES[fwd, bwd]
     o_ref, lse = flash_attention_plain(q, k, v, causal=causal,
                                        return_lse=True)
     refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, causal=causal)
@@ -1395,21 +1407,26 @@ def _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse):
 
 def _fwd_tc_call(dtype, q, k, v, causal, kw):
     """``flash_attention`` forward alone (no gradient): one count of its
-    route (``split`` or ``f16``) and the launches that route implies:
-    float32's three split passes and one three-piece B1, fp16's one B1;
-    returns (O, LSE)."""
-    from paddle_tpu_torch.kernels.flash_attention import (ROUTE_COUNTS,
-                                                          flash_attention)
+    route (``split`` or ``f16``) and the launches that route implies at
+    q's head dim: float32's three split passes and one three-piece B1
+    (``flash_fwd_tc_kernel`` up to 256, the xl kernel above), fp16's one
+    B1 (up to 128, at 256 after padding, or above); returns (O, LSE)."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        ROUTE_COUNTS, flash_attention, padded_head_dim)
     route = "split" if dtype == torch.float32 else "f16"
+    dp = padded_head_dim(q.shape[-1])
     counts = dict(ROUTE_COUNTS)
     before = _flash_launches()
     o, lse = flash_attention(q, k, v, causal=causal, return_lse=True, **kw)
     torch.cuda.synchronize()
     assert {n: ROUTE_COUNTS[n] - c for n, c in counts.items()} == \
         {n: int(n == route) for n in counts}
-    want = [0] * 13
-    want[8], want[11] = (3, 1) if route == "split" else (0, 0)
-    want[12] = int(route == "f16")
+    want = [0] * 16
+    if route == "split":
+        want[8] = 3
+        want[11 if dp <= 256 else 13] = 1
+    else:
+        want[12 if dp <= 128 else 14 if dp == 256 else 15] = 1
     assert [x - y for x, y in zip(_flash_launches(), before)] == want
     return o, lse
 
@@ -1472,12 +1489,13 @@ def test_flash_fwd_float32_and_fp16_read_strided_views(dev, dtype, D):
 
 
 def test_flash_fwd_float32_and_fp16_wrappers_refuse(dev):
-    """fp16 B1 only at D 64 and 128 and one dtype for q, k, v; the
-    three-piece B1 takes contiguous [3, B, S, H, D] bf16 pieces at D 64 or
-    128."""
+    """fp16 B1 only at the kernel head dims (64, 128, 256, multiples of
+    128 above) and one dtype for q, k, v; the three-piece B1 takes
+    contiguous [3, B, S, H, D] bf16 pieces at D 64, 128, 256 or a multiple
+    of 128 above."""
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_fwd_x3_cuda, split_bf16x3_cuda)
-    h = torch.zeros(1, 64, 2, 256, device=dev, dtype=torch.float16)
+    h = torch.zeros(1, 64, 2, 192, device=dev, dtype=torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd_cuda(h, h, h, causal=True)
     h = h[..., :64].contiguous()
@@ -1488,7 +1506,7 @@ def test_flash_fwd_float32_and_fp16_wrappers_refuse(dev):
         flash_fwd_x3_cuda(p[:2], p, p, causal=True)
     with pytest.raises(ValueError, match="pieces"):
         flash_fwd_x3_cuda(p.transpose(3, 4), p, p, causal=True)
-    wide = split_bf16x3_cuda(torch.zeros(1, 64, 2, 256, device=dev))
+    wide = split_bf16x3_cuda(torch.zeros(1, 64, 2, 192, device=dev))
     with pytest.raises(ValueError, match="pieces"):
         flash_fwd_x3_cuda(wide, wide, wide, causal=True)
 
@@ -1689,31 +1707,36 @@ def test_paged_decode_simt_rejects_what_it_does_not_take(dev):
         simt(q, kp, kp, tbl, sl, k_scale=torch.ones(4, 16, 8, device=dev))
 
 
-# B7's wrappers by route, and the split pass's launches
+# B7's wrappers by route (the ragged loader's launches apart), the CUDA
+# cores' kernel, and the split pass's launches
 def _qmm_launches():
     from paddle_tpu_torch.kernels.flash_attention import split_bf16x3_cuda
     return {"kernel": quant_matmul.launches,
             "f16": _qm.quant_matmul_f16.launches,
             "split": _qm.quant_matmul_x3.launches,
+            "unaligned": quant_matmul.unaligned_launches,
+            "f16_unaligned": _qm.quant_matmul_f16.unaligned_launches,
+            "split_unaligned": _qm.quant_matmul_x3.unaligned_launches,
             "simt": _qm.quant_matmul_simt.launches,
             "split_pass": split_bf16x3_cuda.launches}
 
 
-@pytest.mark.parametrize("dtype,K,route", [(torch.float32, 4096, "split"),
-                                           (torch.float16, 4096, "f16"),
-                                           (torch.bfloat16, 4100, "simt"),
-                                           (torch.float32, 4100, "simt"),
-                                           (torch.float16, 4100, "simt")])
+@pytest.mark.parametrize("dtype,K,route", [
+    (torch.float32, 4096, "split"), (torch.float16, 4096, "f16"),
+    (torch.bfloat16, 4100, "unaligned"),
+    (torch.float32, 4100, "split_unaligned"),
+    (torch.float16, 4100, "f16_unaligned")])
 @pytest.mark.parametrize("M", [4, 100])
 def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, route, M):
     """``ConvertedInt8Linear`` with a float32 or fp16 x at K 4096: the
     tensor-core kernels (``split``: float32 x as three bf16 pieces, split
     by a pass before the prefill kernel at M 100 and inside the decode
     kernel at M 4; ``f16``); with K 4100 (not a multiple of 16), whatever
-    x: ``quant_matmul_simt``. One count of the route in
-    ``quant_matmul.ROUTE_COUNTS``, one launch of its kernel and none of
-    the others, in x's dtype, against ``quant_matmul_plain``; a bf16 x at
-    K 4096 still launches B7's bf16 path."""
+    x: the same kernels through the ragged loader (``*unaligned``). One
+    count of the route in ``quant_matmul.ROUTE_COUNTS``, one launch of
+    its kernel and none of the others (``quant_matmul_simt`` none), in
+    x's dtype, against ``quant_matmul_plain``; a bf16 x at K 4096 still
+    launches B7's bf16 path."""
     from paddle_tpu_torch import quantization as TQ
     from paddle_tpu_torch.nn import Linear
     qat = lambda: TQ.QAT(TQ.QuantConfig(
@@ -1729,7 +1752,7 @@ def test_int8_linear_routes_what_the_kernel_refuses(dev, dtype, K, route, M):
     assert {n: _qm.ROUTE_COUNTS[n] - counts[n] for n in counts} == \
         {n: int(n == route) for n in counts}
     want = {n: int(n == route) for n in before}
-    want["split_pass"] = int(route == "split" and M > 8)
+    want["split_pass"] = int(route.startswith("split") and M > 8)
     assert {n: c - before[n] for n, c in _qmm_launches().items()} == want
     assert out.dtype == dtype
     ref = quant_matmul_plain(x, layer.w_int8, layer.w_scales_f32)
@@ -1769,14 +1792,18 @@ def test_quant_matmul_float32_and_fp16_match_plain(dev, dtype, M, N, K):
 
 
 def test_quant_matmul_float32_and_fp16_refuse(dev):
-    """The tensor-core wrappers take their own dtype, contiguous, K a
-    multiple of 16; anything else raises (``int8_linear`` sends it to
-    ``quant_matmul_simt`` first)."""
+    """The tensor-core wrappers take their own dtype, contiguous, any K
+    (K 40 through the ragged loader); anything else raises, as does a
+    K that does not match w's."""
     w = torch.zeros(16, 40, dtype=torch.int8, device=dev)
     s = torch.ones(16, device=dev)
     x = torch.randn(4, 40, device=dev)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        _qm.quant_matmul_x3(x, w, s)
+    before = _qm.quant_matmul_x3.unaligned_launches
+    assert torch.equal(_qm.quant_matmul_x3(x, w, s),
+                       torch.zeros(4, 16, device=dev))
+    assert _qm.quant_matmul_x3.unaligned_launches == before + 1
+    with pytest.raises(ValueError, match="K must match"):
+        _qm.quant_matmul_x3(x[:, :33].contiguous(), w, s)
     with pytest.raises(ValueError, match="float16"):
         _qm.quant_matmul_f16(x[:, :32].contiguous(), w[:, :32].contiguous(),
                              s)
@@ -1799,6 +1826,190 @@ def test_quant_matmul_simt_matches_plain(dev, dtype, M, N, K):
     ref = quant_matmul_plain(x, w, s)
     assert out.dtype == dtype and out.shape == (M, N)
     assert _rel_err(out, ref) <= SIMT_RTOL[dtype]
+
+
+# -- B7 at K % 16 != 0: the tensor-core kernels through the ragged loader
+# (the widest copy granule the rows and bases allow, registers below 4
+# bytes, the ragged last k chunk zero-filled)
+_QMM_ANY_FN = {torch.bfloat16: "quant_matmul", torch.float16:
+               "quant_matmul_f16", torch.float32: "quant_matmul_x3"}
+
+
+def _qmm_any_operands(dev, dtype, M, N, K, w_offset=0, x_offset=0):
+    """x [M, K] in ``dtype``, w int8 [N, K] and its scales, x and w placed
+    ``x_offset`` elements and ``w_offset`` bytes into their buffers (so
+    their bases lose their 16-byte alignment)."""
+    w, s = _qmm_weight(N, K)
+    wb = torch.empty(N * K + w_offset, dtype=torch.int8, device=dev)
+    w_dev = wb[w_offset:].view(N, K)
+    w_dev.copy_(w)
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    xb = torch.empty(M * K + x_offset, dtype=dtype, device=dev)
+    x = xb[x_offset:].view(M, K)
+    x.copy_(torch.randn(M, K, generator=g, device=dev).to(dtype))
+    return x, w_dev, s.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("M", [1, 8, 300])
+@pytest.mark.parametrize("K", [1, 33, 4100, 4104])
+def test_quant_matmul_any_k_matches_plain(dev, dtype, M, K):
+    """B7's decode (M <= 8) and prefill (M 300) kernels at K not a multiple
+    of 16, for bf16, fp16 and float32 x (float32's pieces split with K
+    padded to a multiple of 16), N ragged against the 64- and 256-channel
+    tiles: one ``unaligned_launches`` count a call, y against
+    ``quant_matmul_plain`` within SIMT_RTOL, and two calls give the same
+    bits."""
+    N = 300
+    x, w, s = _qmm_any_operands(dev, dtype, M, N, K)
+    fn = getattr(_qm, _QMM_ANY_FN[dtype])
+    before = (fn.launches, fn.unaligned_launches)
+    out = fn(x, w, s)
+    again = fn(x, w, s)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.unaligned_launches) == (before[0], before[1] + 2)
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel_err(out, quant_matmul_plain(x, w, s)) <= SIMT_RTOL[dtype]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("M", [8, 300])
+@pytest.mark.parametrize("w_offset,x_offset", [(1, 0), (4, 1), (2, 3)])
+def test_quant_matmul_any_k_takes_unaligned_bases(dev, dtype, M, w_offset,
+                                                  x_offset):
+    """w and x whose bases are not 16-byte aligned (the granule drops to
+    what they allow: bytes through registers at an odd w base), at K 4104
+    and 4100: the same y as aligned copies of the same operands, bit for
+    bit, within SIMT_RTOL of the plain version."""
+    for K in (4104, 4100):
+        x, w, s = _qmm_any_operands(dev, dtype, M, 200, K, w_offset,
+                                    x_offset)
+        fn = getattr(_qm, _QMM_ANY_FN[dtype])
+        out = fn(x, w, s)
+        ref = fn(x.clone(), w.clone(), s)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), K
+        assert _rel_err(out, quant_matmul_plain(x, w, s)) <= SIMT_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("M", [8, 300])
+def test_quant_matmul_any_k_replays_in_a_cuda_graph(dev, dtype, M):
+    """The ragged loader's decode and prefill (float32: with its split
+    pass) captured in a CUDA graph and replayed on a new x give what a
+    direct call gives on it, bit for bit."""
+    x, w, s = _qmm_any_operands(dev, dtype, M, 1024, 4100)
+    fn = getattr(_qm, _QMM_ANY_FN[dtype])
+    fn(x, w, s)  # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, w, s)
+    x.copy_(torch.randn_like(x.float()).to(dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn(x, w, s))
+
+
+# -- float32 and fp16 B1 above head dim 128 on the tensor cores: fp16 on
+# ``flash_fwd_256_kernel`` (D 129-256) and ``flash_fwd_xl_kernel`` (above),
+# float32 as three bf16 pieces on ``flash_fwd_tc_kernel`` (16-key stages)
+# at 256 and ``flash_fwd_xl_kernel`` above
+@pytest.mark.parametrize("seg", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [160, 256, 288, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_flash_fwd_float32_and_fp16_above_128_match_plain(dev, dtype, D,
+                                                          causal, seg):
+    """``flash_attention`` forward in float32 and fp16 above head dim 128
+    (padded to ``padded_head_dim``), dense and segment branch, G 4 with
+    ragged last tiles: one count of its route, the launches it implies,
+    O per row and LSE against the plain forward at the true D."""
+    B, S, Hq, Hk = 1, 333, 8, 2
+    g = torch.Generator(device=dev).manual_seed(D + causal + 2 * seg)
+    mk = lambda h: torch.randn(B, S, h, D, generator=g, device=dev,
+                               dtype=dtype)
+    q, k, v = mk(Hq), mk(Hk), mk(Hk)
+    kw = dict(zip(_SEG_NAMES, _dense_seg(dev, B, S, True, run=40))) \
+        if seg else {}
+    o, lse = _fwd_tc_call(dtype, q, k, v, causal, kw)
+    _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("name", ["ragged-g4-d128", "cross-g4-d64",
+                                  "nokeys-g2-d64", "runs-g2-d64"])
+def test_flash_fwd_float32_and_fp16_above_128_segment_cases(dev, dtype,
+                                                            name):
+    """The segment cases of the bf16 kernels at head dim 200 (their
+    inputs zero-padded: the same scores at the true D) in float32 and
+    fp16: ragged rows, 1-token sequences, queries with no key."""
+    q, k, v, _, causal, kw = _seg_inputs(dev, name)
+    wide = lambda t: torch.nn.functional.pad(t, (0, 200 - t.shape[-1]))
+    q, k, v = (wide(t).to(dtype) for t in (q, k, v))
+    o, lse = _fwd_tc_call(dtype, q, k, v, causal, kw)
+    _fwd_tc_check(dtype, q, k, v, causal, kw, o, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("D", [160, 288])
+def test_flash_fwd_above_128_replays_in_a_cuda_graph(dev, dtype, D):
+    """The forward above head dim 128 (float32: three splits and B1 on
+    pieces, the tc kernel at 256 or the xl kernel; fp16: B1 at 256 or the
+    xl kernel) captured in a CUDA
+    graph and replayed on new q give what a direct call gives, bit for
+    bit."""
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=dev).manual_seed(D)
+    mk = lambda h: torch.randn(1, 300, h, D, generator=g, device=dev,
+                               dtype=dtype)
+    q, k, v = mk(16), mk(4), mk(4)
+    call = lambda: flash_attention(q, k, v, causal=True, return_lse=True)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = call()
+    q.copy_(torch.randn(q.shape, generator=g, device=dev, dtype=dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    o2, lse2 = call()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_attention_above_128_grads_through_the_simt_backward(dev):
+    """Forward on the tensor cores, backward on ``flash_simt.cu`` above
+    head dim 128: in float32 and fp16 at D 160, 256 and 288 the forward
+    launches no ``flash_simt_fwd`` and the backward reads the sliced O and
+    its LSE; the gradients are within SIMT_BWD_RTOL of the plain pair."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.float16):
+        for D in (160, 256, 288):
+            g = torch.Generator(device=dev).manual_seed(D)
+            mk = lambda h: torch.randn(1, 200, h, D, generator=g,
+                                       device=dev, dtype=dtype)
+            q, k, v, do = mk(8), mk(2), mk(2), mk(8)
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            fwd0 = fa.flash_simt_fwd_cuda.launches
+            bwd0 = dict(fa.BWD_ROUTE_COUNTS)
+            out = fa.scaled_dot_product_attention(*ts, is_causal=True)
+            out.backward(do)
+            torch.cuda.synchronize()
+            assert fa.flash_simt_fwd_cuda.launches == fwd0
+            assert {n: fa.BWD_ROUTE_COUNTS[n] - bwd0[n] for n in bwd0} == \
+                {n: int(n == "simt") for n in bwd0}
+            o_ref, lse = flash_attention_plain(q, k, v, causal=True,
+                                               return_lse=True)
+            refs = flash_attention_bwd_plain(q, k, v, o_ref, lse, do, True)
+            assert _row_rel_err(out, o_ref) <= SIMT_RTOL[dtype]
+            for t, ref in zip(ts, refs):
+                assert _rel_err(t.grad, ref) <= SIMT_BWD_RTOL[dtype], \
+                    (dtype, D)
 
 
 # -- B1 at D 160-256 (``flash_fwd_256_kernel``, two warpgroups on wgmma)

@@ -171,8 +171,8 @@ def test_padded_head_dim_maps_up_to_256_and_raises_above():
     ("cuda", torch.float16, 32, 8, 128, "auto", "f16"),
     ("cuda", torch.float32, 24, 8, 80, "auto", "split"),       # G 3
     ("cuda", torch.float16, 96, 8, 64, "auto", "f16"),         # G 12
-    ("cuda", torch.float32, 32, 8, 160, "auto", "simt"),       # D > 128
-    ("cuda", torch.float16, 16, 4, 160, "auto", "simt"),
+    ("cuda", torch.float32, 32, 8, 160, "auto", "split"),      # D > 128
+    ("cuda", torch.float16, 16, 4, 160, "auto", "f16"),
     ("cuda", torch.float64, 32, 8, 128, "auto", "kernel"),     # refused there
     ("cuda", torch.bfloat16, 32, 8, 128, "plain", "forced"),
     ("cuda", torch.float32, 32, 8, 128, " Plain ", "forced"),
@@ -181,12 +181,12 @@ def test_padded_head_dim_maps_up_to_256_and_raises_above():
 ])
 def test_flash_route_maps_dtype_and_group_to_a_route(device, dtype, Hq, Hk,
                                                      D, mode, route):
-    """``FlashAttention``'s route from the device, dtype, group, head dim
-    and ``FLAGS_flash_kernel`` alone: bf16 takes the tensor-core kernels
-    (K and V expanded where G does not divide 64), float32 and fp16 the
-    tensor-core kernels up to head dim 128 (``split``, ``f16``) and the
-    CUDA cores' ``flash_simt.cu`` above it, at any group; any other dtype
-    goes to the bf16 kernels' wrapper, which refuses it."""
+    """``FlashAttention``'s forward route from the device, dtype, group,
+    head dim and ``FLAGS_flash_kernel`` alone: bf16 takes the tensor-core
+    kernels (K and V expanded where G does not divide 64), float32 and
+    fp16 the tensor-core kernels at every head dim (``split``, ``f16``)
+    and any group; any other dtype goes to the bf16 kernels' wrapper,
+    which refuses it."""
     from paddle_tpu_torch.kernels.flash_attention import flash_route
     assert flash_route(device, dtype, Hq, Hk, D, mode) == route
     with pytest.raises(ValueError, match="FLAGS_flash_kernel"):

@@ -180,31 +180,31 @@ def test_one_piece_backward_fails_the_float32_gate(name):
     assert worst > F32_BWD_RTOL
 
 
-@pytest.mark.parametrize("device,dtype,Hq,Hk,D,mode,route", [
-    ("cuda", torch.float32, 32, 8, 128, "auto", "split"),
-    ("cuda", torch.float32, 16, 16, 64, "auto", "split"),
-    ("cuda", torch.float32, 24, 8, 80, "auto", "split"),   # G 3, padded
-    ("cuda", torch.float32, 32, 8, 1, "auto", "split"),
-    ("cuda", torch.float16, 32, 8, 128, "auto", "f16"),
-    ("cuda", torch.float16, 96, 8, 64, "auto", "f16"),     # G 12
-    ("cuda", torch.float32, 32, 8, 129, "auto", "simt"),
-    ("cuda", torch.float32, 16, 4, 256, "auto", "simt"),
-    ("cuda", torch.float16, 16, 4, 160, "auto", "simt"),
-    ("cuda", torch.bfloat16, 32, 8, 128, "auto", "kernel"),
-    ("cuda", torch.bfloat16, 32, 8, 512, "auto", "kernel"),
-    ("cuda", torch.bfloat16, 24, 8, 64, "auto", "expanded"),
-    ("cuda", torch.float32, 32, 8, 128, "plain", "forced"),
-    ("cpu", torch.float32, 32, 8, 128, "auto", "cpu"),
-    ("cpu", torch.float16, 32, 8, 64, "plain", "cpu"),
+@pytest.mark.parametrize("device,dtype,Hq,Hk,D,mode,route,fwd", [
+    ("cuda", torch.float32, 32, 8, 128, "auto", "split", "split"),
+    ("cuda", torch.float32, 16, 16, 64, "auto", "split", "split"),
+    ("cuda", torch.float32, 24, 8, 80, "auto", "split", "split"),  # G 3
+    ("cuda", torch.float32, 32, 8, 1, "auto", "split", "split"),
+    ("cuda", torch.float16, 32, 8, 128, "auto", "f16", "f16"),
+    ("cuda", torch.float16, 96, 8, 64, "auto", "f16", "f16"),     # G 12
+    ("cuda", torch.float32, 32, 8, 129, "auto", "simt", "split"),
+    ("cuda", torch.float32, 16, 4, 256, "auto", "simt", "split"),
+    ("cuda", torch.float16, 16, 4, 160, "auto", "simt", "f16"),
+    ("cuda", torch.bfloat16, 32, 8, 128, "auto", "kernel", "kernel"),
+    ("cuda", torch.bfloat16, 32, 8, 512, "auto", "kernel", "kernel"),
+    ("cuda", torch.bfloat16, 24, 8, 64, "auto", "expanded", "expanded"),
+    ("cuda", torch.float32, 32, 8, 128, "plain", "forced", "forced"),
+    ("cpu", torch.float32, 32, 8, 128, "auto", "cpu", "cpu"),
+    ("cpu", torch.float16, 32, 8, 64, "plain", "cpu", "cpu"),
 ])
 def test_flash_bwd_route_maps_dtype_and_head_dim(device, dtype, Hq, Hk, D,
-                                                 mode, route):
+                                                 mode, route, fwd):
     """float32 and fp16 up to head dim 128 take the tensor-core B2/B3
-    (``split``, ``f16``), above it the CUDA cores' kernels; the forward's
-    route (``flash_route``) is the same function of the same arguments:
-    one table."""
+    (``split``, ``f16``), above it the CUDA cores' kernels; their forward
+    (``flash_route``) takes the tensor-core B1 at every head dim. Every
+    other route is the forward's."""
     assert fa.flash_bwd_route(device, dtype, Hq, Hk, D, mode) == route
-    assert fa.flash_route(device, dtype, Hq, Hk, D, mode) == route
+    assert fa.flash_route(device, dtype, Hq, Hk, D, mode) == fwd
 
 
 def test_cpu_backward_counts_its_route_once():

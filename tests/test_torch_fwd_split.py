@@ -48,17 +48,19 @@ def _prod(eq, a, b, pieces):
     return out
 
 
-def _fwd_pieces(q, k, v, causal, pieces, q_segment_ids=None):
-    """B1's float32 forward at ``pieces``: S of split q and k, the
-    softmax in float32 (unnormalized P, its row sum l), P V of split P and
-    split V, O = P V / l (0 where no key is visible), LSE = m + log l
-    (+1e30 there). Returns float32 (O [B, Sq, Hq, D], LSE [B, Hq, Sq])."""
+def _fwd_pieces(q, k, v, causal, pieces, q_segment_ids=None, scale=None):
+    """B1's float32 forward at ``pieces``: S of split q and k (times
+    ``scale``, default 1 / sqrt(D)), the softmax in float32 (unnormalized
+    P, its row sum l), P V of split P and split V, O = P V / l (0 where no
+    key is visible), LSE = m + log l (+1e30 there). Returns float32 (O [B,
+    Sq, Hq, D], LSE [B, Hq, Sq])."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     G = Hq // Hk
     segs = fa._segments(q, k, q_segment_ids, None, None, None)
     qg = q.reshape(B, Sq, Hk, G, D)
-    s = _prod("bsngd,btnd->bngst", qg, k, pieces) / np.sqrt(D)
+    scale = 1.0 / np.sqrt(D) if scale is None else scale
+    s = _prod("bsngd,btnd->bngst", qg, k, pieces) * scale
     valid = fa._row_mask(Sq, Sk, causal, q.device, segs, 0, Sq)
     s = s.masked_fill(~valid, -1e30)
     m = s.amax(-1, keepdim=True)
@@ -96,8 +98,19 @@ FWD_CASES = {
 }
 
 
+# head dims above 128, which the kernels run zero-padded to
+# ``padded_head_dim`` (160 -> 256, 288 -> 384) on the three-piece B1
+# (flash_fwd_tc_kernel at 256, flash_fwd_xl_kernel above)
+WIDE_FWD_CASES = {
+    "causal-g4-d160": (1, 96, 96, 8, 2, 160, True, False),
+    "full-g2-d288": (1, 40, 72, 4, 2, 288, False, False),
+    "seg-causal-g4-d160": (1, 128, 128, 4, 1, 160, True, True),
+    "sq-lt-sk-g1-d288": (1, 33, 100, 2, 2, 288, True, False),
+}
+
+
 def _fwd_case(name, seed=11):
-    B, Sq, Sk, Hq, Hk, D, causal, seg = FWD_CASES[name]
+    B, Sq, Sk, Hq, Hk, D, causal, seg = {**FWD_CASES, **WIDE_FWD_CASES}[name]
     rng = np.random.default_rng(seed + Sq + D)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
     q, k, v = f(B, Sq, Hq, D), f(B, Sk, Hk, D), f(B, Sk, Hk, D)
@@ -109,15 +122,21 @@ def _fwd_case(name, seed=11):
     return q, k, v, causal, kw
 
 
-def _fwd_both(name, pieces):
+def _fwd_both(name, pieces, dp=None):
+    """(O, LSE) of the ``pieces`` arithmetic, with the head dim
+    zero-padded to ``dp`` (at the true D's scale) and O sliced back as
+    ``FlashAttention`` does, and the Pallas forward's on the same
+    inputs."""
     q, k, v, causal, kw = _fwd_case(name)
+    D = q.shape[-1]
     o_ref, lse_ref = pallas_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         return_lse=True, **{n: jnp.asarray(a) for n, a in kw.items()})
-    o, lse = _fwd_pieces(*(torch.from_numpy(a) for a in (q, k, v)), causal,
-                         pieces, **{n: torch.from_numpy(a)
-                                    for n, a in kw.items()})
-    return o, lse, np.asarray(o_ref), np.asarray(lse_ref)
+    o, lse = _fwd_pieces(*(fa.pad_head_dim(torch.from_numpy(a), dp or D)
+                           for a in (q, k, v)), causal, pieces,
+                         scale=1.0 / np.sqrt(D),
+                         **{n: torch.from_numpy(a) for n, a in kw.items()})
+    return o[..., :D], lse, np.asarray(o_ref), np.asarray(lse_ref)
 
 
 @pytest.mark.parametrize("name", list(FWD_CASES))
@@ -136,6 +155,28 @@ def test_six_term_forward_matches_pallas(name):
         dead = FWD_CASES[name][1] - FWD_CASES[name][2]  # rows before keys
         assert np.all(o.numpy()[:, :dead] == 0)
         assert np.all(lse[:, :, :dead] == np.float32(1e30))
+
+
+@pytest.mark.parametrize("name", list(WIDE_FWD_CASES))
+def test_six_term_forward_padded_above_128_matches_pallas(name):
+    """Above head dim 128 (the three-piece B1: the tc kernel at 256, the
+    xl kernel above): q, k and v zero-padded to ``padded_head_dim`` (160
+    -> 256, 288 -> 384) before the split, S at the true D's scale, O
+    sliced back to D: O within float32's
+    gate (1e-4 of each row's largest entry) and LSE within 1e-4 relative
+    of the Pallas forward, which pads D to a multiple of 128 itself."""
+    D = WIDE_FWD_CASES[name][5]
+    dp = fa.padded_head_dim(D)
+    assert dp in (256, 384) and dp % 128 == 0
+    o, lse, o_ref, lse_ref = _fwd_both(name, 3, dp)
+    assert o.shape[-1] == D
+    assert _row_rel(o.numpy(), o_ref) <= F32_RTOL
+    lse, lse_ref = lse.numpy().astype(np.float64), lse_ref.astype(np.float64)
+    assert np.all(np.abs(lse - lse_ref) <= F32_RTOL * np.maximum(
+        1.0, np.abs(lse_ref)))
+    # one piece (plain bf16) at the same padding misses the gate
+    o1, _, _, _ = _fwd_both(name, 1, dp)
+    assert _row_rel(o1.numpy(), o_ref) > F32_RTOL
 
 
 @pytest.mark.parametrize("name", ["causal-g4-d64", "full-g1-d128",
@@ -191,6 +232,25 @@ def test_three_term_int8_matmul_matches_pallas(M, N, K):
     plain = qm.quant_matmul_plain(torch.from_numpy(x), torch.from_numpy(w),
                                   torch.from_numpy(s))
     assert _rel(plain.numpy(), ref) <= QMM_RTOL
+
+
+@pytest.mark.parametrize("M,N,K", [(8, 72, 33), (37, 100, 100),
+                                   (9, 40, 4100), (1, 64, 4100)])
+def test_int8_matmul_at_ragged_k_matches_pallas(M, N, K):
+    """At K not a multiple of 16 (the ragged loaders' shapes: decode and
+    prefill): the plain version the card holds the kernels to, and float32
+    x's three-term product with x's pieces zero-padded to a multiple of
+    16 (the split pass's padding; the kernels zero-fill w past K), both
+    within 1e-6 of the largest |y| of the Pallas kernel, which takes K
+    whole."""
+    x, w, s, ref = _qmm_case(M, N, K)
+    plain = qm.quant_matmul_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(s))
+    assert _rel(plain.numpy(), ref) <= QMM_RTOL
+    kp = -(-K // qm.K_ALIGN) * qm.K_ALIGN
+    pad = lambda a: torch.nn.functional.pad(torch.from_numpy(a), (0, kp - K))
+    got = _qmm_pieces(pad(x), pad(w), torch.from_numpy(s), 3)
+    assert got.shape == (M, N) and _rel(got.numpy(), ref) <= QMM_RTOL
 
 
 @pytest.mark.parametrize("M,N,K", [(8, 72, 256), (37, 100, 512)])

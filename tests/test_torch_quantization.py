@@ -165,6 +165,43 @@ def test_decode_plan_covers_channels_and_k_and_fits(n, k):
             assert tiles * cluster >= 0.95 * SMS, (m, cluster)
 
 
+# K not a multiple of 16 (the kernels' ragged loader): 1, odd, even, a
+# multiple of 4 and of 8 past Llama's widths, and one past 14336
+_RAGGED_K = (1, 33, 100, 4100, 4104, 14337)
+
+
+@pytest.mark.parametrize("k", _RAGGED_K)
+def test_plans_cover_ragged_k_once(k):
+    """With K no multiple of 16 (nor of the plans' chunks), the k the
+    kernels walk cover [0, K) exactly once: the prefill's splits by
+    64-wide chunks, each split holding one at least (the ragged last chunk
+    ends at K: zero-filled past it), at prompt lengths and layer widths of
+    the serving path; the decode ranks by 128-wide stages from their
+    share's start (a stage's copies stop at K only, so a stage may not
+    reach into the next rank's share), at the planned cluster and at
+    every forced one."""
+    seen = np.zeros(k, np.int64)
+    nck = -(-k // K_CHUNK)
+    for m in (9, 112, 300, 1008):
+        for n in (72, 1024, 14336):
+            cps, splits = prefill_plan(m, n, k)
+            seen[:] = 0
+            for z in range(splits):
+                c0, c1 = z * cps, min(nck, (z + 1) * cps)
+                assert c1 > c0, (m, n, cps, splits)
+                for c in range(c0, c1):
+                    seen[c * K_CHUNK:min((c + 1) * K_CHUNK, k)] += 1
+            assert (seen == 1).all(), (m, n)
+    for n in (72, 1024, 14336):
+        for cluster in {decode_plan(8, n, k), *DEC_CLUSTERS}:
+            seen[:] = 0
+            for k0, k1 in decode_shares(k, cluster):
+                for st in range(-(-(k1 - k0) // DEC_BK) if k1 > k0 else 0):
+                    a = k0 + st * DEC_BK
+                    seen[a:min(a + DEC_BK, k)] += 1
+            assert (seen == 1).all(), (n, cluster)
+
+
 def test_decode_plan_forced_values():
     assert decode_plan(8, 4096, 4096, cluster=2) == 2
     # a forced cluster may leave ranks with no K (the kernel zero-fills)
@@ -319,10 +356,10 @@ def test_qat_convert_tiny_llama_names_match_jax():
     ("auto", "cuda", torch.float32, 4096, "split"),
     ("auto", "cuda", torch.float16, 4096, "f16"),
     ("auto", "cuda", torch.float32, 14336, "split"),
-    ("auto", "cuda", torch.bfloat16, 4100, "simt"),      # K % 16 != 0
-    ("auto", "cuda", torch.float32, 4100, "simt"),
-    ("auto", "cuda", torch.float16, 4100, "simt"),
-    ("auto", "cuda", torch.float64, 4096, "simt"),       # refused there
+    ("auto", "cuda", torch.bfloat16, 4100, "unaligned"),  # K % 16 != 0
+    ("auto", "cuda", torch.float32, 4100, "split_unaligned"),
+    ("auto", "cuda", torch.float16, 4100, "f16_unaligned"),
+    ("auto", "cuda", torch.float64, 4096, "kernel"),     # refused there
     ("auto", "cpu", torch.float32, 4100, "cpu"),
     ("auto", "cpu", torch.bfloat16, 4096, "cpu"),
     ("dense", "cuda", torch.bfloat16, 4096, "dense"),
@@ -331,10 +368,11 @@ def test_qat_convert_tiny_llama_names_match_jax():
 def test_qmm_route_sends_what_the_kernel_refuses_to_simt(mode, device,
                                                          dtype, K, route):
     """An int8 layer's route from the mode, x's device and dtype and K
-    alone: with K a multiple of 16 the tensor-core kernels take bf16
-    (``kernel``), fp16 (``f16``) and float32 x (``split``), the CUDA
-    cores' ``quant_matmul_simt`` the rest (the reference takes any dtype
-    and K)."""
+    alone: the tensor-core kernels take bf16 (``kernel``), fp16 (``f16``)
+    and float32 x (``split``) with K a multiple of 16, and at any other K
+    through their ragged loader (the ``*unaligned`` routes; the reference
+    takes any K); any other dtype goes to the bf16 wrapper, which refuses
+    it. The CUDA cores' ``quant_matmul_simt`` is on no route."""
     assert qmm_route(mode, device, dtype, K) == route
 
 

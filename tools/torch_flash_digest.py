@@ -21,6 +21,10 @@ B 2, S 300, Hq 16, Hk 4, D 64, causal, ids (pos // 40) % 3 with 20 orphan
 queries: O and LSE of B1-seg, and dQ of B2-seg and dK, dV of B3-seg on O
 and LSE from ``flash_attention_plain`` (the same inputs for every
 checkout, whatever its forward gives).
+
+And ``wide_digests``: O and LSE of bf16 B1 at head dims 256
+(``flash_fwd_256_kernel``) and 384 (``flash_fwd_xl_kernel``), B 1, S 300,
+Hq 16, Hk 4, causal, dense and with the segment ids above.
 """
 
 from __future__ import annotations
@@ -103,6 +107,38 @@ def seg_digests(fa):
                 flash_bwd_dkv=sha(dk, dv))
 
 
+def wide_digests(fa):
+    """Digests of bf16 B1's outputs at D 256 and 384, dense and segment
+    branch, on fixed inputs."""
+    import numpy as np
+    import torch
+
+    def sha(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    out = {}
+    B, S, hq, hk = 1, 300, 16, 4
+    pos = torch.arange(S, device="cuda", dtype=torch.int32)
+    ids = ((pos // 40) % 3).expand(B, S).contiguous()
+    p = pos.expand(B, S).contiguous()
+    seg = dict(q_segment_ids=ids, kv_segment_ids=ids.clone(), q_positions=p,
+               kv_positions=p.clone())
+    for dh in (256, 384):
+        rng = np.random.default_rng(dh)
+        mk = lambda h: torch.from_numpy(rng.standard_normal(
+            (B, S, h, dh)).astype(np.float32)).to("cuda", torch.bfloat16)
+        q, k, v = mk(hq), mk(hk), mk(hk)
+        for name, kw in (("dense", {}), ("seg", seg)):
+            o, lse = fa.flash_fwd_cuda(q, k, v, True, **kw)
+            torch.cuda.synchronize()
+            out[f"D{dh}_{name}"] = sha(o, lse)
+    return out
+
+
 def one(root):
     import torch
     sys.path.insert(0, os.path.abspath(root))
@@ -111,7 +147,8 @@ def one(root):
     _build.build_all(["flash_fwd", "flash_bwd"])
     print("digest " + json.dumps(dict(
         card=torch.cuda.get_device_name(0), root=root,
-        digests=digests(fa), seg_digests=seg_digests(fa))), flush=True)
+        digests=digests(fa), seg_digests=seg_digests(fa),
+        wide_digests=wide_digests(fa))), flush=True)
 
 
 def main(argv):

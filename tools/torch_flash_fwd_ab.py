@@ -19,7 +19,12 @@ back to back (``host_ms``):
 - D256, D256-S197: ``chip_smoke.py``'s head-dim-256 cases, B 1, Hq 16,
   Hk 4, D 256, S 2048 causal and S 197 non-causal (Gemma's head width);
 - V1, V2, V3, V4: ``chip_smoke.py``'s packed varlen cases (segment
-  branch; V4 at Gemma-2 9B's Hq 16, Hk 8, D 256).
+  branch; V4 at Gemma-2 9B's Hq 16, Hk 8, D 256);
+- F32-D160, F32-D256: float32 B1 on three bf16 pieces
+  (``flash_fwd_x3_cuda`` on ``split_bf16x3_cuda``'s pieces, the head dim
+  padded to 256) at ``chip_smoke.py``'s ``WIDE_FWD_CASES`` D 160 (B 1,
+  S 1024, Hq 16, Hk 4) and D 256 (Gemma-2 9B's Hq 16, Hk 8, S 2048),
+  causal; skipped by a checkout whose B1 takes no float32 pieces there.
 
 Each shape also gets the forward's error against
 ``flash_attention_plain`` (per query row: max |kernel - plain| / max
@@ -69,7 +74,17 @@ def cases(torch, cs):
         lib = cs.sdpa_library(torch, *(t.transpose(1, 2) for t in (q, k, v)),
                               is_causal=causal)
         pairs = B * (S * (S + 1) // 2 if causal else S * S)
-        yield name, causal, q, k, v, {}, pairs, 0, lib, None
+        yield name, causal, q, k, v, {}, pairs, 0, lib, None, None
+    for dh, B, S, hq, hk in cs.WIDE_FWD_CASES:
+        if dh > 256:
+            continue
+        g = torch.Generator(device=cs.DEVICE).manual_seed(5000 + dh)
+        q, k, v = (torch.randn(B, S, h, dh, generator=g, device=cs.DEVICE)
+                   for h in (hq, hk, hk))
+        lib = cs.sdpa_library(torch, *(t.transpose(1, 2) for t in (q, k, v)),
+                              is_causal=True)
+        yield (f"F32-D{dh}", True, q, k, v, {"scale": dh ** -0.5},
+               B * S * (S + 1) // 2, 0, lib, None, 256)
     for name, case in cs.varlen_cases(torch):
         seg = case["seg"]
         kw = dict(zip(("q_segment_ids", "kv_segment_ids", "q_positions",
@@ -78,7 +93,7 @@ def cases(torch, cs):
                                       case["v"], case["do"])
         yield (name, True, case["q"], case["k"], case["v"], kw,
                cs.visible_pairs(torch, seg, True),
-               sum(x.numel() for x in seg) * 4, lib, seg)
+               sum(x.numel() for x in seg) * 4, lib, seg, None)
 
 
 def one(root):
@@ -92,19 +107,30 @@ def one(root):
             os.path.abspath(root)):
         raise RuntimeError(f"imported {_build.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build_all(["flash_fwd"])
+    _build.build_all(["flash_fwd", "flash_bwd"])
     timer = cs.Timer(torch)
     out = {"root": root}
-    for name, causal, q, k, v, kw, pairs, idb, lib, seg in cases(torch,
-                                                                   cs):
+    for name, causal, q, k, v, kw, pairs, idb, lib, seg, dp in cases(
+            torch, cs):
         fwd = lambda: fa.flash_fwd_cuda(q, k, v, causal, **kw)
+        if dp is not None:  # float32 as three pieces at head dim dp
+            pieces = [fa.split_bf16x3_cuda(t, dp) for t in (q, k, v)]
+            fwd = lambda: fa.flash_fwd_x3_cuda(*pieces, causal, **kw)
+            try:
+                fwd()
+            except ValueError:
+                continue
         o, lse = fwd()
+        o = o[..., :q.shape[-1]]
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal,
                                                   return_lse=True, **kw)
         torch.cuda.synchronize()
         B, Sq, Hq, dh = q.shape
-        qb, kvb = q.numel() * 2, k.numel() * 2
-        bms, by = cs.bound(2 * qb + 2 * kvb + idb, 4 * dh * Hq * pairs)
+        es = q.element_size()
+        qb, kvb = q.numel() * es, k.numel() * es
+        bms, by = cs.bound(2 * qb + 2 * kvb + idb, 4 * dh * Hq * pairs,
+                           cs.F32_SPLIT_FLOPS_PER_S if dp else
+                           cs.BF16_FLOPS_PER_S)
         rec = dict(row_rel_err=cs.row_rel_err(o, o_ref),
                    lse_err=(lse - lse_ref).abs().max().item(),
                    finite=bool(torch.isfinite(o.float()).all()),

@@ -21,6 +21,10 @@ that checkout's ``quant_matmul`` source and, through this repository's
 - one decode layer's seven launches as one graph (``layer``), and the
   step from it (32 layers and the LM head);
 - the prefill kernel at the gate/up shape and M 300 (events, graph);
+- where the checkout takes any K (``K_ALIGN``), the ragged loader at
+  ``chip_smoke.py``'s ``unaligned_qmm_phase`` shape (N 14336, K 4100) for
+  bf16, fp16 and float32 x at M 300 and 8 (events, graph, cold L2; the
+  error against the plain version);
 - SHA-256 digests of the outputs on fixed inputs (numpy, seeded):
   ``digests["decode"]`` at the five decode shapes and M 1, 4, 8,
   ``digests["prefill"]`` at the four layer shapes and M 112, 1008. The
@@ -57,6 +61,9 @@ PREFILL_MS = (112, 1008)
 # the prefill lengths timed at the gate/up shape (the float32 Llama's
 # prompts: ``chip_smoke.py`` FAULT_PROMPTS)
 PREFILL_TIMED = (300,)
+# the ragged loader's shape (K % 16 != 0) and its M
+RAGGED_NK = (14336, 4100)
+RAGGED_MS = (300, 8)
 
 
 def digests(qm, which=("decode", "prefill")):
@@ -88,6 +95,26 @@ def digests(qm, which=("decode", "prefill")):
                     np.float32)).cuda().bfloat16()
                 out[kind][f"M{m}_N{n}_K{k}"] = sha(qm.quant_matmul(x, w, s))
             del w
+    return out
+
+
+def ragged(torch, cs, qm, timer):
+    """Records of the ragged loader at RAGGED_NK for each x dtype and M."""
+    n, k = RAGGED_NK
+    _, w, s = cs.qmm_inputs(torch, RAGGED_MS[0], n, k, 4990)
+    x = torch.randn(RAGGED_MS[0], k, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4990))
+    out = {}
+    for dtype, fn in ((torch.bfloat16, qm.quant_matmul),
+                      (torch.float16, qm.quant_matmul_f16),
+                      (torch.float32, qm.quant_matmul_x3)):
+        for m in RAGGED_MS:
+            xm = x[:m].to(dtype)
+            run = lambda: fn(xm, w, s)
+            rel, _ = cs.rel_err(run(), qm.quant_matmul_plain(xm, w, s))
+            out[f"M{m}_N{n}_K{k}_{cs._dt(dtype)}"] = dict(
+                ms=timer(run, cold=True), graph_ms=timer.graph(run, cold=True),
+                rel_err=rel)
     return out
 
 
@@ -130,6 +157,8 @@ def one(spec):
                            library=False)
         out[f"M{m}_N{n}_K{k}"] = {key: rec[key] for key in KEYS
                                   if key in rec}
+    if hasattr(qm, "K_ALIGN"):
+        out.update(ragged(torch, cs, qm, timer))
     out["digests"] = digests(qm)
     tiny = torch.zeros(1, device="cuda")
     out["floor_graph_ms"] = timer.graph(lambda: tiny.add_(1), cold=True)
